@@ -1,0 +1,24 @@
+"""Architecture registry of the port: ``vdit-paper`` only so far."""
+
+from __future__ import annotations
+
+from typing import List
+
+from repro_torch.config.base import ArchConfig
+from repro_torch.configs import vdit_paper
+
+_MODULES = {"vdit-paper": vdit_paper}
+
+ALL_ARCHS: List[str] = list(_MODULES)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {ALL_ARCHS}")
+    return _MODULES[name].make_config()
+
+
+def get_smoke_config(name: str) -> ArchConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {ALL_ARCHS}")
+    return _MODULES[name].make_smoke_config()
