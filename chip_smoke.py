@@ -11,11 +11,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 3. holds the pair-collapse attention kernel against f32 dense softmax on
    the same snapped operands, on constructed operands with collapse
    fractions 0, 0.6 and 1.0, an unaligned N and the serving shape;
-4. times both kernels, their plain versions and (attention only)
-   ``scaled_dot_product_attention`` with CUDA events;
-5. serves 3 requests of vdit-paper at full width through the port's
-   DiffusionEngine, counting kernel launches, then checks the output and
-   a small trajectory on the card against the same trajectory on the CPU.
+4. holds the block-sparse attention kernel against its plain semantics
+   (f32, rounding where the kernel rounds) on all-FULL maps (and against
+   ``scaled_dot_product_attention``), all-SKIP maps (exact zeros), mixed
+   maps with -inf and finite PARTIAL biases, fully skipped rows, ragged
+   and clamped N, an SVG map at the serving shape, and a constructed
+   all-temporal map at batch 2 whose batch rows carry different biases;
+5. times the first two kernels, their plain versions and (attention
+   only) ``scaled_dot_product_attention`` with CUDA events;
+6. serves 3 requests of vdit-paper at full width through the port's
+   DiffusionEngine three times - the ripple policy, ``--policy svg`` and
+   ripple with ``svg_mask`` - each with the launch counters set to 0 just
+   before and read just after, profiles one forward of the ripple and
+   the SVG paths, then holds the sparse kernel against its plain
+   semantics on one served SVG call at its full batch (operands and map
+   kept on the host during the run, the bias rebuilt from q and k
+   afterwards) and times it;
+7. checks a small trajectory of each of the three paths on the card
+   against the same trajectory on the CPU.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -26,6 +39,7 @@ mismatch or error exits non-zero.  It needs one card and no network.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -224,21 +238,288 @@ def check_ripple(results, q, k, v, label):
 
 
 # ---------------------------------------------------------------------------
-# Serving phase
+# Kernel 3: block-sparse masked attention
+# ---------------------------------------------------------------------------
+
+# Per-head (FULL, PARTIAL, SKIP) tiles of the SVG map at the serving grid
+# (8, 32, 32) with 256 text tokens, 128x128 tiles: worked out from
+# spatial_mask and temporal_mask, and checked against them below.
+SVG_SPATIAL_TILES = (1220, 0, 3136)
+SVG_TEMPORAL_TILES = (260, 1408, 2688)
+
+
+def tile_counts(bmap):
+    """(..., 3) int64 counts of FULL, PARTIAL, SKIP tiles per map."""
+    import torch
+    from repro_torch.kernels.sparse.ops import FULL, PARTIAL, SKIP
+
+    return torch.stack([(bmap == st).sum((-1, -2)) for st in (FULL, PARTIAL, SKIP)], -1)
+
+
+def tile_shares(bmap) -> str:
+    c = tile_counts(bmap).reshape(-1, 3).sum(0).double()
+    c = c / c.sum()
+    return f"full {c[0].item():.3f} partial {c[1].item():.3f} skip {c[2].item():.3f}"
+
+
+def sparse_oracle(q, k, v, bias, bmap, blk, round_p):
+    """f32 block-sparse softmax attention with the kernel's conventions
+    (FULL tiles ignore the bias, SKIP tiles drop out, the running max is
+    floored at -1e30, a row with no live key emits 0), one head at a time.
+    ``round_p`` rounds the probabilities to bf16 before the PV product,
+    where the bf16 kernel rounds them (the row sum stays f32)."""
+    import torch
+    from repro_torch.kernels.sparse.ref import PARTIAL, SKIP, expand_block_map
+
+    B, H, Nq, d = q.shape
+    Nk = k.shape[2]
+    scale = float(1.0 / (d ** 0.5))
+    out = torch.empty((B, H, Nq, v.shape[-1]), dtype=torch.float32, device=q.device)
+    bm = bmap.expand(B, H, *bmap.shape[-2:])
+    be = None if bias is None else bias.float().expand(B, H, Nq, Nk)
+    for b in range(B):
+        for h in range(H):
+            s = torch.matmul(q[b, h].float(), k[b, h].float().T) * scale
+            st = expand_block_map(bm[b, h], Nq, Nk, blk, blk)
+            if be is not None:
+                s = torch.where(st == PARTIAL, s + be[b, h], s)
+            s = s.masked_fill(st == SKIP, float("-inf"))
+            p = torch.exp(s - s.amax(-1, keepdim=True).clamp(min=-1e30))
+            l = p.sum(-1, keepdim=True)
+            if round_p:
+                p = p.bfloat16().float()
+            out[b, h] = torch.matmul(p, v[b, h].float()) / torch.where(
+                l > 0, l, torch.ones_like(l))
+            del s, st, p
+    return out
+
+
+def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False):
+    """The kernel against :func:`sparse_oracle` at ``attn_tol`` (bf16
+    rounds probabilities where the kernel does); an all-SKIP map must give
+    exact zeros; ``sdpa`` also holds an all-FULL call against
+    ``scaled_dot_product_attention``.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.sparse import ops as sparse_ops
+    from repro_torch.kernels.sparse.ref import SKIP
+
+    out = sparse_ops.sparse_attention(q, k, v, bias=bias, block_map=bmap,
+                                      block_q=blk, block_k=blk)
+    tc = sparse_ops.uses_tensor_cores(q, v)
+    ref = sparse_oracle(q, k, v, bias, bmap, blk, round_p=q.dtype == torch.bfloat16)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    name = str(q.dtype).replace("torch.", "")
+    tol = attn_tol(name, ref)
+    ok = err <= tol and bool(torch.isfinite(out).all())
+    extra = ""
+    if bool((bmap == SKIP).all()):
+        zeros = bool((out == 0).all())
+        ok = ok and zeros
+        extra += f"; exact zeros={zeros}"
+    if sdpa:
+        # Two implementations each within attn_tol of the oracle: twice
+        # its tolerance between them.  SDPA's f32 kernels keep about f32
+        # accuracy (their products are split TF32 or full f32).
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=float(1.0 / (q.shape[-1] ** 0.5)))
+        torch.cuda.synchronize()
+        lib_err = (out.float() - lib.float()).abs().max().item()
+        ok = ok and lib_err <= 2 * tol
+        extra += f"; vs sdpa {lib_err:.3e} (tol {2 * tol:.3g})"
+    path = "tensor cores" if tc else "CUDA cores"
+    log(f"kernel sparse_attention {name:8s} {label} x{tuple(q.shape)} block {blk} "
+        f"[{path}]: tiles {tile_shares(bmap)}; max abs err vs oracle {err:.3e} "
+        f"(tol {tol:.3g}){extra} {'ok' if ok else 'FAIL'}")
+    results.append(ok)
+    if not ok:
+        raise SystemExit("sparse kernel disagrees with its plain version")
+    return err
+
+
+def svg_serving_tiles(grid, n_txt, blk):
+    """Per-head (FULL, PARTIAL, SKIP) tiles of a spatial and a temporal
+    head's SVG map: spatial_mask / temporal_mask over the grid tokens,
+    text rows and columns dense, tiled by block_map_from_keep."""
+    import torch
+    from repro_torch.core.svg_mask import spatial_mask, temporal_mask
+    from repro_torch.kernels.sparse.ops import block_map_from_keep
+
+    n = grid[0] * grid[1] * grid[2]
+    out = []
+    for mask in (spatial_mask(grid), temporal_mask(grid)):
+        keep = torch.ones((n_txt + n,) * 2, dtype=torch.bool, device="cuda")
+        keep[n_txt:, n_txt:] = torch.from_numpy(mask).cuda()
+        out.append(tuple(int(c) for c in tile_counts(block_map_from_keep(keep, blk, blk))))
+    return tuple(out)
+
+
+def temporal_serving_call(grid, n_txt, heads=24, batch=1):
+    """Serving-shape bf16 operands with every head's map the temporal SVG
+    map (text rows and columns dense) and its -inf bias, one (N, N) f32
+    slab per head as the served path holds it.  Batch rows after the
+    first add a finite random term per head to that bias, so a kernel
+    that reads another row's or head's bias disagrees."""
+    import torch
+    from repro_torch.core.svg_mask import temporal_mask
+    from repro_torch.kernels.sparse.ops import block_map_from_keep
+
+    n = grid[0] * grid[1] * grid[2]
+    N = n_txt + n
+    keep = torch.ones((N, N), dtype=torch.bool, device="cuda")
+    keep[n_txt:, n_txt:] = torch.from_numpy(temporal_mask(grid)).cuda()
+    bmap = block_map_from_keep(keep, 128, 128)
+    bias = torch.where(keep, 0.0, float("-inf")).float().expand(
+        batch, heads, N, N).contiguous()
+    del keep
+    g = torch.Generator(device="cuda")
+    g.manual_seed(37)
+    for b in range(1, batch):
+        bias[b].add_(torch.randn((heads, N, N), generator=g, device="cuda"))
+    q, k, v = (correlated((batch, heads, N, 128), torch.bfloat16, seed)
+               for seed in (34, 35, 36))
+    return q, k, v, bias, bmap
+
+
+def sparse_checks(serve_grid, n_txt):
+    """Every case of the sparse kernel against its plain semantics."""
+    import torch
+    from repro_torch.core.svg_mask import svg_logit_bias
+    from repro_torch.kernels.sparse.ops import (FULL, PARTIAL, SKIP,
+                                                block_map_from_keep, sparse_grid)
+
+    res = []
+    g = torch.Generator(device="cuda")
+    g.manual_seed(30)
+
+    def qkv(N, d, dt, H=2):
+        return tuple(torch.randn((1, H, N, d), generator=g, device="cuda").to(dt)
+                     for _ in range(3))
+
+    def mixed_keep(N, H=2, blk=64):
+        keep = torch.rand((1, H, N, N), generator=g, device="cuda") < 0.5
+        keep[..., :blk, :blk] = True             # a FULL tile
+        keep[..., blk:2 * blk, :blk] = False     # a SKIP tile
+        return keep
+
+    def neg_inf_bias(keep):
+        return torch.where(keep, 0.0, float("-inf")).float()
+
+    for dt in (torch.float32, torch.bfloat16):
+        N, blk = 256, 64
+        nb = sparse_grid(N, N, blk, blk)[2]
+        q, k, v = qkv(N, 128, dt)
+        check_sparse(res, "all FULL", q, k, v, None,
+                     torch.full((nb, nb), FULL, dtype=torch.int32, device="cuda"), blk,
+                     sdpa=True)
+        check_sparse(res, "all SKIP", q, k, v, None,
+                     torch.full((nb, nb), SKIP, dtype=torch.int32, device="cuda"), blk)
+        keep = mixed_keep(N)
+        check_sparse(res, "mixed, -inf bias", q, k, v, neg_inf_bias(keep),
+                     block_map_from_keep(keep, blk, blk), blk)
+        states = torch.randint(0, 3, (1, 2, nb, nb), generator=g, device="cuda",
+                               dtype=torch.int32)
+        bias = torch.randn((1, 2, N, N), generator=g, device="cuda")
+        check_sparse(res, "random states, finite PARTIAL bias", q, k, v, bias,
+                     states, blk)
+        keep[..., 2 * blk:3 * blk, :] = False
+        bmap = block_map_from_keep(keep, blk, blk)
+        check_sparse(res, "a query row all SKIP", q, k, v, neg_inf_bias(keep), bmap, blk)
+        for d in (64, 32, 16):
+            q, k, v = qkv(N, d, dt)
+            keep = mixed_keep(N)
+            check_sparse(res, f"mixed, d={d}", q, k, v, neg_inf_bias(keep),
+                         block_map_from_keep(keep, blk, blk), blk)
+        for N, blk in ((130, 64), (8448 + 7, 128), (100, 128)):
+            q, k, v = qkv(N, 128, dt)
+            keep = mixed_keep(N, blk=min(blk, N // 2))
+            check_sparse(res, f"mixed, N={N} ({'clamped' if N < blk else 'ragged'})",
+                         q, k, v, neg_inf_bias(keep), block_map_from_keep(keep, blk, blk),
+                         blk)
+            del keep
+    # Serving shape with an SVG map: correlated operands, heads classified
+    # online, text tokens dense.
+    n_grid = serve_grid[0] * serve_grid[1] * serve_grid[2]
+    shape = (1, 24, n_txt + n_grid, 128)
+    q, k, v = (correlated(shape, torch.bfloat16, seed) for seed in (31, 32, 33))
+    keep, bias = svg_logit_bias(q, k, serve_grid, (n_txt, n_grid))
+    bmap = block_map_from_keep(keep, 128, 128)
+    del keep
+    check_sparse(res, "serving shape, SVG map", q, k, v, bias, bmap, 128)
+    del q, k, v, bias, bmap
+    # Heads may all classify one way (random weights make every served
+    # head spatial, with no PARTIAL tile); a constructed all-temporal map
+    # covers the PARTIAL tiles and their dense bias at the serving shape,
+    # at batch 2 with a different bias per batch row and head, so the
+    # batch and head offsets into the bias are read on PARTIAL tiles.
+    check_sparse(res, "serving shape, batch 2, temporal SVG map (constructed)",
+                 *temporal_serving_call(serve_grid, n_txt, batch=2), 128)
+    torch.cuda.empty_cache()
+
+    sp, tm = svg_serving_tiles(serve_grid, n_txt, 128)
+    ok = (sp, tm) == (SVG_SPATIAL_TILES, SVG_TEMPORAL_TILES)
+    log(f"kernel sparse_attention: SVG map per head at grid {serve_grid} + {n_txt} text "
+        f"tokens, (FULL, PARTIAL, SKIP) tiles: spatial {sp}, temporal {tm} "
+        f"(expected {SVG_SPATIAL_TILES}, {SVG_TEMPORAL_TILES}) {'ok' if ok else 'FAIL'}")
+    res.append(ok)
+    if not ok:
+        raise SystemExit("SVG serving maps do not have the expected tiles")
+    log(f"kernel sparse_attention: {sum(res)}/{len(res)} cases within tolerance")
+
+
+def sparse_bound(q, v, bias, bmap, blk):
+    """(bound ms, 'bytes' or 'operations', flops, bytes) of one call: the
+    products of the non-SKIP tiles (2*(d + dv) flops per score) at the
+    bf16 peak against q, k, v and the output once, the map, and the f32
+    bias of the PARTIAL tiles at the memory rate."""
+    import torch
+    from repro_torch.kernels.sparse.ops import PARTIAL, SKIP, sparse_grid
+
+    B, H, Nq, d = q.shape
+    Nk, dv = v.shape[2], v.shape[3]
+    bq, bk, nq, nk = sparse_grid(Nq, Nk, blk, blk)
+    rows = torch.tensor([min(bq, Nq - i * bq) for i in range(nq)], dtype=torch.float64)
+    keys = torch.tensor([min(bk, Nk - j * bk) for j in range(nk)], dtype=torch.float64)
+    area = rows[:, None] * keys[None, :]
+    bm = bmap.expand(B, H, nq, nk).cpu()
+    live = ((bm != SKIP).double() * area).sum().item()
+    partial = ((bm == PARTIAL).double() * area).sum().item()
+    elt = q.element_size()
+    flops = 2.0 * (d + dv) * live
+    nbytes = (elt * (B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)) + 4 * bm.numel()
+              + (4 * partial if bias is not None else 0))
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        flops, nbytes
+
+
+# ---------------------------------------------------------------------------
+# Serving phases
 # ---------------------------------------------------------------------------
 
 
-def serve(layers: int):
-    import numpy as np
+@contextlib.contextmanager
+def wrapped(obj, name, make):
+    """Shadow ``obj.name`` with ``make(original)`` for the duration."""
+    had = name in vars(obj)
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        if had:
+            setattr(obj, name, orig)
+        else:
+            delattr(obj, name)
+
+
+def load_served_model(layers: int):
     import torch
     from repro_torch.config.base import apply_overrides
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import get_policy
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import build_sampler, serving_shape
-    from repro_torch.launch.workloads import mixed_request_stream
+    from repro_torch.launch.serve import serving_shape
     from repro_torch.models.params import init_vdit
-    from repro_torch.serving.engine import DiffusionEngine
 
     arch = apply_overrides(get_config("vdit-paper"),
                            SERVE_OVERRIDES + (f"model.num_layers={layers}",))
@@ -249,40 +530,41 @@ def serve(layers: int):
         f"{m.num_heads}x{m.d_model // m.num_heads} mlp={int(m.d_model * m.mlp_ratio)} "
         f"text={m.txt_tokens}x{m.txt_dim} axes={m.axes_dim}; cuts: frames "
         f"128->{m.frames} (grid {grid}, {grid[0] * grid[1] * grid[2] + m.txt_tokens} "
-        f"tokens), layers 40->{m.num_layers}, {SERVE_STEPS} DDIM steps; "
-        f"ripple {arch.ripple}")
+        f"tokens), layers 40->{m.num_layers}, {SERVE_STEPS} DDIM steps")
     t0 = time.perf_counter()
-    model = init_vdit(m, seed=0, device="cuda", dtype=torch.bfloat16,
-                      zero_init=False)
+    model = init_vdit(m, seed=0, device="cuda", dtype=torch.bfloat16, zero_init=False)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"serve: {n_params / 1e9:.3f} B params (bf16, every leaf drawn from "
         f"a seeded generator at fan-in scale) in {time.perf_counter() - t0:.1f}s")
-    sample_fn, lat_shape = build_sampler(arch, shape, model)
+    return arch, shape, model
 
-    # The policy's snap masks at step 10, read by shadowing the registered
-    # policy's methods on its instance for this run only.
-    pol = get_policy(arch.ripple.policy)
-    snaps = {"q": [], "k": []}
-    current = {"step": None}
 
-    def thetas_for(cfg, step, total_steps, thetas=None):
-        current["step"] = step
-        return type(pol).thetas_for(pol, cfg, step, total_steps, thetas)
+def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=()):
+    """Serve SERVE_REQUESTS requests through the port's DiffusionEngine
+    with the launch counters set to 0 just before and read just after;
+    each kernel in ``launched`` must have run, none in ``absent``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dispatch as dispatch_lib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_sampler
+    from repro_torch.launch.workloads import mixed_request_stream
+    from repro_torch.serving.engine import DiffusionEngine
 
-    def decide(q, k, **kw):
-        d = type(pol).decide(pol, q, k, **kw)
-        if current["step"] == 10:
-            s, n = kw["grid_slice"]
-            snaps["q"].append(d.q_mask.narrow(-2, s, n).float().mean())
-            snaps["k"].append(d.k_mask.narrow(-2, s, n).float().mean())
-        return d
-
+    m = arch.model
+    sample_fn, lat_shape = build_sampler(arch, shape, model, policy=policy)
+    hd = m.d_model // m.num_heads
+    n_tok = m.txt_tokens + int(np.prod(m.grid(img_res=shape.img_res)))
+    plan = dispatch_lib.resolve_plan((1, m.num_heads, n_tok, hd), (1, m.num_heads, n_tok, hd),
+                                     arch.ripple, on_cuda=True, policy=policy)
+    log(f"serve[{label}]: plan {plan.summary()}; ripple {arch.ripple}"
+        f"{'' if policy is None else f', policy {policy}'}")
     engine = DiffusionEngine(lambda shp, steps: sample_fn, device="cuda",
                              max_batch=SERVE_REQUESTS)
     traffic = mixed_request_stream(arch, (shape,), SERVE_REQUESTS, seed=0)
-    pol.thetas_for, pol.decide = thetas_for, decide
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     engine.start()
     try:
@@ -291,38 +573,133 @@ def serve(layers: int):
         results = [engine.result(req.request_id) for _, req in traffic]
     finally:
         engine.stop()
-        del pol.thetas_for, pol.decide
     torch.cuda.synchronize()
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     for r in results:
-        log(f"serve: request {r.request_id} latency {r.latency_s:.3f}s "
+        log(f"serve[{label}]: request {r.request_id} latency {r.latency_s:.3f}s "
             f"(batch {r.batch_index} of {SERVE_REQUESTS} served in "
             f"{r.walltime_s:.3f}s); latents {r.latents.shape}")
         if r.latents.shape != lat_shape:
             raise SystemExit(f"latents {r.latents.shape} != {lat_shape}")
         if not np.isfinite(r.latents).all():
             raise SystemExit("served latents are not finite")
+    log(f"serve[{label}]: launches {counts}; peak device memory {peak:.2f} GiB")
+    if any(counts[n] <= 0 for n in launched):
+        raise SystemExit(f"serve[{label}]: a kernel of the path never launched: {counts}")
+    if any(counts[n] != 0 for n in absent):
+        raise SystemExit(f"serve[{label}]: a kernel off the path launched: {counts}")
+    return counts, results, lat_shape
+
+
+def serve_ripple(arch, shape, model):
+    """The ripple policy (PR 11's path): fused Δ-check + pair collapse.
+    Reads the policy's snap masks at step 10 by shadowing its methods on
+    the registered instance for this run only."""
+    import torch
+    from repro_torch.core.policy import get_policy
+
+    pol = get_policy("ripple")
+    snaps = {"q": [], "k": []}
+    current = {"step": None}
+
+    def thetas_for(orig):
+        def f(cfg, step, total_steps, thetas=None):
+            current["step"] = step
+            return orig(cfg, step, total_steps, thetas)
+        return f
+
+    def decide(orig):
+        def f(q, k, **kw):
+            d = orig(q, k, **kw)
+            if current["step"] == 10:
+                s, n = kw["grid_slice"]
+                snaps["q"].append(d.q_mask.narrow(-2, s, n).float().mean())
+                snaps["k"].append(d.k_mask.narrow(-2, s, n).float().mean())
+            return d
+        return f
+
+    with wrapped(pol, "thetas_for", thetas_for), wrapped(pol, "decide", decide):
+        counts, results, lat_shape = serve_phase(
+            "ripple", arch, shape, model, launched=("fused_reuse", "ripple_attention"),
+            absent=("sparse_attention",))
     q_snap = torch.stack(snaps["q"]).mean().item() if snaps["q"] else 0.0
     k_snap = torch.stack(snaps["k"]).mean().item() if snaps["k"] else 0.0
-    log(f"serve: launches {counts}; snap fraction at step 10: Q {q_snap:.4f} "
-        f"K {k_snap:.4f}")
-    if min(counts.values()) <= 0:
-        raise SystemExit(f"a kernel of the main path never launched: {counts}")
+    log(f"serve[ripple]: snap fraction at step 10: Q {q_snap:.4f} K {k_snap:.4f}")
     if q_snap <= 0 or k_snap <= 0:
         raise SystemExit("no snapping at step 10")
-    profile_forward(arch, model, lat_shape)
-    del model
-    torch.cuda.empty_cache()
-    return counts, results
+    return counts, lat_shape
 
 
-def profile_forward(arch, model, lat_shape):
+def serve_svg(label, arch, shape, model, *, policy, launched, absent, capture=None):
+    """A path under the SVG block mask.  Records each call's per-head
+    verdict and per-head tile counts (shadowing the policy's decide and
+    ``svg_mask.classify_heads`` for this run only) and holds every head's
+    map to the tiles its verdict implies.  ``capture`` receives host
+    copies of the first sparse call's operands and map at its full batch
+    (nothing of it stays on the card, so it adds nothing to a measured
+    peak; the bias is rebuilt from q and k later)."""
+    import torch
+    from repro_torch.core import svg_mask
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels.sparse import ops as sparse_ops
+
+    pol = get_policy(policy or arch.ripple.policy)
+    tiles, verdicts = [], []
+
+    def decide(orig):
+        def f(q, k, **kw):
+            d = orig(q, k, **kw)
+            tiles.append(tile_counts(d.block_map))
+            return d
+        return f
+
+    def classify(orig):
+        def f(*a, **kw):
+            v = orig(*a, **kw)
+            verdicts.append(v)
+            return v
+        return f
+
+    def grab(orig):
+        def f(q, k, v, **kw):
+            if capture is not None and not capture:
+                capture.update(q=q.cpu(), k=k.cpu(), v=v.cpu(),
+                               block_map=kw["block_map"].cpu(),
+                               block=kw["block_q"])
+            return orig(q, k, v, **kw)
+        return f
+
+    with wrapped(pol, "decide", decide), wrapped(svg_mask, "classify_heads", classify), \
+            wrapped(sparse_ops, "sparse_attention", grab):
+        counts, results, _ = serve_phase(label, arch, shape, model, policy=policy,
+                                         launched=launched, absent=absent)
+    t = torch.stack(tiles).cpu()        # (calls, B, H, 3)
+    v = torch.stack(verdicts).cpu()     # (calls, B, H)
+    want = torch.where(v[..., None], torch.tensor(SVG_SPATIAL_TILES),
+                       torch.tensor(SVG_TEMPORAL_TILES))
+    ok = t.shape == want.shape and torch.equal(t, want)
+    tot = t.reshape(-1, 3).sum(0).double()
+    tot = tot / tot.sum()
+    log(f"serve[{label}]: {v.numel()} head maps over {t.shape[0]} calls; share of "
+        f"heads classified spatial {v.float().mean().item():.4f}; tile shares full "
+        f"{tot[0].item():.4f} partial {tot[1].item():.4f} skip {tot[2].item():.4f}; every "
+        f"head's map has its verdict's tiles: {ok}")
+    if not ok:
+        raise SystemExit(f"serve[{label}]: a served map disagrees with its head's verdict")
+    return counts
+
+
+def profile_forward(label, arch, model, lat_shape, families, annotate=None):
     """Device time by kernel family over one served-size denoiser forward
-    (batch of 3, step 10 of 12: snapping on), from torch.profiler, and the
-    device's idle share of that forward's wall time."""
+    (batch of 3, step 10 of 12: snapping on), from torch.profiler, the
+    device's idle share of that forward's wall time, and its peak device
+    memory.  ``families`` maps a family to a kernel-name substring;
+    ``annotate = (obj, attr, family)`` wraps ``obj.attr`` in a profiler
+    range and counts every kernel launched inside it as ``family``."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.launch.workloads import _denoise_call
 
@@ -336,31 +713,64 @@ def profile_forward(arch, model, lat_shape):
     def fwd():
         return _denoise_call(arch, model, x, t, {"txt": txt}, 10, SERVE_STEPS)
 
+    def family(name):
+        name = name.lower()
+        for fam, key in families.items():
+            if key in name:
+                return fam
+        if "gemm" in name or "cutlass" in name or "xmma" in name or "nvjet" in name:
+            return "gemm"
+        return "other"
+
     fwd()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    torch.cuda.reset_peak_memory_stats()
+    ctx = contextlib.nullcontext()
+    if annotate is not None:
+        obj, attr, ann = annotate
+
+        def ranged(orig):
+            def f(*a, **kw):
+                with record_function(ann):
+                    return orig(*a, **kw)
+            return f
+
+        ctx = wrapped(obj, attr, ranged)
+    with ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fwd()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fam = {"ripple_attention": 0.0, "fused_reuse": 0.0, "gemm": 0.0,
-           "other": 0.0}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fam = {k: 0.0 for k in families}
+    fam.update(gemm=0.0, other=0.0)
     spans = []
-    for ev in prof.events():  # device-side activities only (kernels, copies)
+    events = prof.events()
+    for ev in events:  # device-side activities only (kernels, copies)
         if ev.device_type != DeviceType.CUDA:
             continue
+        if annotate is not None and ev.name == annotate[2]:
+            continue  # the range's own span on the device timeline
         spans.append((ev.time_range.start, ev.time_range.end))
-        us = ev.time_range.elapsed_us()
-        name = ev.name.lower()
-        if "ripple" in name:
-            fam["ripple_attention"] += us
-        elif "fused_reuse" in name:
-            fam["fused_reuse"] += us
-        elif "gemm" in name or "cutlass" in name or "xmma" in name \
-                or "nvjet" in name:
-            fam["gemm"] += us
-        else:
-            fam["other"] += us
+        fam[family(ev.name)] += ev.time_range.elapsed_us()
+    by_name = {}
+    if annotate is not None:
+        # Kernels launched by host ops inside the range move to its family.
+        ann = annotate[2]
+        fam[ann] = 0.0
+        for ev in events:
+            if ev.device_type != DeviceType.CPU or not ev.kernels:
+                continue
+            p = ev.cpu_parent
+            while p is not None and p.name != ann:
+                p = p.cpu_parent
+            if p is None:
+                continue
+            for kern in ev.kernels:
+                fam[family(kern.name)] -= kern.duration
+                fam[ann] += kern.duration
+                key = f"{ev.name}: {kern.name[:48]}"
+                by_name[key] = by_name.get(key, 0.0) + kern.duration
     # Busy time is the union of the device intervals; on one stream it
     # equals their sum, so a sum above the union means an event was
     # counted twice, and either above the wall time is a broken reading.
@@ -371,36 +781,43 @@ def profile_forward(arch, model, lat_shape):
             end = b
     busy_ms, sum_ms = busy_us / 1e3, sum(fam.values()) / 1e3
     if busy_ms <= 0:
-        log("profile: the profiler reported no device time")
-        return
+        raise SystemExit(f"profile[{label}]: the profiler reported no device time")
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items())
-    log(f"profile: one forward, batch {SERVE_REQUESTS}, "
+    log(f"profile[{label}]: one forward, batch {SERVE_REQUESTS}, "
         f"{arch.model.num_layers} layers, step 10: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
-        f"share {1 - busy_ms / wall_ms:.4f}); {parts}")
-    if sum_ms > 1.01 * busy_ms or busy_ms > wall_ms:
-        raise SystemExit("profile: device time exceeds its span or the wall "
+        f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
+        f"{peak:.2f} GiB")
+    if by_name:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"profile[{label}]: {annotate[2]} by host op and kernel: " + "; ".join(
+            f"{k} {v / 1e3:.3f} ms" for k, v in top))
+    if sum_ms > 1.01 * busy_ms or busy_ms > wall_ms or min(fam.values()) < 0:
+        raise SystemExit(f"profile[{label}]: device time exceeds its span or the wall "
                          "time; the reading is not usable")
+    if annotate is not None and fam[annotate[2]] <= 0:
+        raise SystemExit(f"profile[{label}]: no kernel attributed to {annotate[2]}")
 
 
-def small_reference_check():
+def small_reference_check(label, policy=None, overrides=()):
     """The smoke config's 12-step trajectory in f32 through the kernels on
     the card against the same trajectory through the plain versions on
     the CPU, same params and noise."""
     import numpy as np
     import torch
+    from repro_torch.config.base import apply_overrides
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import build_sampler, serving_shape
     from repro_torch.models.params import init_vdit
     from repro_torch.serving.engine import request_noise
 
-    arch = get_smoke_config("vdit-paper")
+    arch = apply_overrides(get_smoke_config("vdit-paper"), overrides)
     shape = serving_shape(arch, "gen_512", smoke=True, steps=SERVE_STEPS)
     outs = {}
     for dev in ("cuda", "cpu"):
         model = init_vdit(arch.model, seed=1, device="cpu", zero_init=False)
         model = model.to(dev)
-        fn, lat_shape = build_sampler(arch, shape, model,
+        fn, lat_shape = build_sampler(arch, shape, model, policy=policy,
                                       compute_dtype=torch.float32)
         noise = request_noise(5, lat_shape, "cpu")[None].to(dev)
         txt = torch.from_numpy(0.05 * np.random.default_rng(5).standard_normal(
@@ -409,8 +826,8 @@ def small_reference_check():
         outs[dev] = fn(noise, txt).float().cpu()
     diff = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
     ok = bool(torch.isfinite(outs["cuda"]).all()) and diff.item() < 1e-3
-    log(f"reference: smoke 12-step f32 trajectory, card kernels vs CPU plain "
-        f"versions: relative L2 {diff.item():.3e} (tol 1e-3) "
+    log(f"reference[{label}]: smoke 12-step f32 trajectory, card kernels vs CPU "
+        f"plain versions: relative L2 {diff.item():.3e} (tol 1e-3) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("card trajectory disagrees with the CPU reference")
@@ -519,7 +936,10 @@ def main() -> int:
     log(f"kernel ripple_attention: {sum(res2)}/{len(res2)} cases within "
         f"tolerance")
 
-    # 4. times at the serving shape (bf16) ----------------------------------
+    # 4. kernel 3 vs its plain semantics -------------------------------------
+    sparse_checks(serve_grid, 256)
+
+    # 5. times at the serving shape (bf16) ----------------------------------
     from repro_torch.core.reuse import compute_reuse
 
     x1 = correlated(serve_qk, bf16, 20)
@@ -553,23 +973,117 @@ def main() -> int:
     del x1, q, k, v, qk
     torch.cuda.empty_cache()
 
-    # 5. serving phase --------------------------------------------------------
-    counts, _ = serve(args.layers)
-    small_reference_check()
+    # 6. serving phases: each path with the launch counters set to 0 just
+    # before it and read just after -------------------------------------------
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.svg_mask import svg_logit_bias
+    from repro_torch.kernels.sparse import ops as sparse_ops
+    from repro_torch.kernels.sparse.ops import block_map_from_keep
+    from repro_torch.kernels.sparse.ref import FULL, sparse_attention_ref
+
+    arch, shape, model = load_served_model(args.layers)
+    counts_r, lat_shape = serve_ripple(arch, shape, model)
+    profile_forward("ripple", arch, model, lat_shape,
+                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"})
+    served = {}
+    counts_s = serve_svg("svg", arch, shape, model, policy="svg",
+                         launched=("sparse_attention",),
+                         absent=("ripple_attention", "fused_reuse"), capture=served)
+    profile_forward("svg", apply_overrides(arch, ("ripple.policy=svg",)), model,
+                    lat_shape, {"sparse_attention": "sparse"},
+                    annotate=(get_policy("svg"), "decide", "svg_mask"))
+    serve_svg("ripple+svg", apply_overrides(arch, ("ripple.svg_mask=true",)), shape,
+              model, policy=None, launched=("fused_reuse", "sparse_attention"),
+              absent=("ripple_attention",))
+    del model
+    torch.cuda.empty_cache()
+
+    # 7. kernel 3 on a served SVG call: check and times ---------------------
+    # The call's operands and map at its full batch, back on the card; its
+    # keep mask and bias rebuilt from q and k as the policy built them
+    # (the rebuilt map must be the served one).
+    q, k, v = (served[n].cuda() for n in "qkv")
+    bmap, blk = served["block_map"].cuda(), served["block"]
+    del served
+    keep, bias = svg_logit_bias(q, k, serve_grid, (256, n_grid))
+    same = torch.equal(block_map_from_keep(keep, blk, blk), bmap)
+    del keep
+    log(f"kernel sparse_attention: served SVG call {tuple(q.shape)}: map rebuilt "
+        f"from its q and k equals the served map: {same}")
+    if not same:
+        raise SystemExit("the rebuilt SVG map differs from the served one")
+    serve_err3 = check_sparse([], "main-path operands (a served SVG call)", q, k, v,
+                              bias, bmap, blk)
+    b_ms = cuda_time_ms(lambda: sparse_ops.sparse_attention(
+        q, k, v, bias=bias, block_map=bmap, block_q=blk, block_k=blk), iters=5)
+    b_bound, b_by, _, _ = sparse_bound(q, v, bias, bmap, blk)
+    log(f"time sparse_attention bf16 {tuple(q.shape)} block {blk}, the served SVG "
+        f"call: kernel {b_ms:.4f} ms, bound {b_bound:.4f} ms ({b_by})")
+    # The plain version and SDPA hold whole (B, H, N, N) score matrices:
+    # the three are timed on batch row 0 of the call.
+    q, k, v, bias, bmap = (t[:1].clone() for t in (q, k, v, bias, bmap))
+    torch.cuda.empty_cache()
+    scale = float(1.0 / (q.shape[-1] ** 0.5))
+    k3_ms = cuda_time_ms(lambda: sparse_ops.sparse_attention(
+        q, k, v, bias=bias, block_map=bmap, block_q=blk, block_k=blk))
+    k3_plain = cuda_time_ms(lambda: sparse_attention_ref(
+        q, k, v, bias=bias, block_map=bmap, block_q=blk, block_k=blk, scale=scale),
+        iters=3)
+    k3_lib = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale), iters=5)
+    k3_bound, k3_by, flops3, bytes3 = sparse_bound(q, v, bias, bmap, blk)
+    log(f"time sparse_attention bf16 {tuple(q.shape)} block {blk}, served SVG map "
+        f"({tile_shares(bmap)}): kernel {k3_ms:.4f} ms ({flops3 / k3_ms / 1e9:.2f} "
+        f"TFLOP/s, {bytes3 / k3_ms / 1e6:.1f} GB/s), plain {k3_plain:.4f} ms, sdpa with "
+        f"the f32 mask {k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}: "
+        f"{flops3 / 1e12:.4f} TFLOP, {bytes3 / 1e9:.3f} GB)")
+    del q, k, v, bias, bmap
+    torch.cuda.empty_cache()
+    q, k, v, bias, bmap = temporal_serving_call(serve_grid, 256)
+    t_ms = cuda_time_ms(lambda: sparse_ops.sparse_attention(
+        q, k, v, bias=bias, block_map=bmap, block_q=128, block_k=128))
+    t_lib = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias, scale=scale), iters=5)
+    t_bound, t_by, t_flops, t_bytes = sparse_bound(q, v, bias, bmap, 128)
+    log(f"time sparse_attention bf16 {tuple(q.shape)} block 128, constructed "
+        f"all-temporal map ({tile_shares(bmap)}): kernel {t_ms:.4f} ms "
+        f"({t_flops / t_ms / 1e9:.2f} TFLOP/s, {t_bytes / t_ms / 1e6:.1f} GB/s), sdpa "
+        f"with the f32 mask {t_lib:.4f} ms, bound {t_bound:.4f} ms ({t_by}: "
+        f"{t_flops / 1e12:.4f} TFLOP, {t_bytes / 1e9:.3f} GB)")
+    full = torch.full_like(bmap, FULL)
+    f_ms = cuda_time_ms(lambda: sparse_ops.sparse_attention(
+        q, k, v, block_map=full, block_q=128, block_k=128))
+    f_lib = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale))
+    f_bound, f_by, f_flops, _ = sparse_bound(q, v, None, full, 128)
+    log(f"time sparse_attention bf16 {tuple(q.shape)} block 128, all-FULL map: "
+        f"kernel {f_ms:.4f} ms ({f_flops / f_ms / 1e9:.2f} TFLOP/s), sdpa {f_lib:.4f} "
+        f"ms, bound {f_bound:.4f} ms ({f_by})")
+    del q, k, v, bias, bmap, full
+    torch.cuda.empty_cache()
+
+    # 8. small trajectories, card vs CPU ------------------------------------
+    small_reference_check("ripple")
+    small_reference_check("svg", policy="svg")
+    small_reference_check("ripple+svg", overrides=("ripple.svg_mask=true",))
 
     kernels = [
         {"name": "fused_reuse", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_reuse.cu",
          "replaces": "src/repro/kernels/reuse_mask/kernel.py:170",
-         "launches": counts["fused_reuse"], "max_abs_err": serve_err1,
+         "launches": counts_r["fused_reuse"], "max_abs_err": serve_err1,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",
-         "launches": counts["ripple_attention"], "max_abs_err": serve_err,
+         "launches": counts_r["ripple_attention"], "max_abs_err": serve_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib},
+        {"name": "sparse_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/sparse_attention.cu",
+         "replaces": "src/repro/kernels/sparse/kernel.py:120",
+         "launches": counts_s["sparse_attention"], "max_abs_err": serve_err3,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,10 +19,12 @@ class RippleConfig:
 
     Snapping spatio-temporally similar (token, channel) entries of Q and
     K to their window representative is exactly equivalent to reusing
-    their partial attention scores (DESIGN.md §2).  Fields the port does
-    not act on yet (the SVG combination, the decision cache, sentinels,
-    1-D reuse) keep their defaults so configs stay interchangeable;
-    setting ``svg_mask`` raises in the dispatcher.
+    their partial attention scores (DESIGN.md §2).  ``svg_mask`` composes
+    the SVG block mask with the snapping (the block-sparse backend runs
+    it).  Fields the port does not act on yet (the decision cache's
+    ``reuse_every`` / ``drift_tol``, sentinels, 1-D reuse) keep their
+    defaults so configs stay interchangeable; the serving launcher
+    refuses decision-cache settings it cannot honour.
     """
 
     enabled: bool = False
@@ -49,8 +51,9 @@ class RippleConfig:
     svg_keep_ratio: float = 0.3
     execution: str = "reference"  # 'reference' | 'collapse'
     policy: str = "ripple"
-    # 'auto' | 'dense' | 'reference' | 'collapse' | 'pallas'.  In the port
-    # 'pallas' names the hand-written CUDA ripple kernel.
+    # 'auto' | 'dense' | 'reference' | 'collapse' | 'pallas' | 'sparse'.
+    # In the port 'pallas' names the hand-written CUDA ripple kernel and
+    # 'sparse' the hand-written CUDA block-sparse kernel.
     backend: str = "auto"
     # 'auto' uses the fused CUDA Δ-check kernel on CUDA operands; 'on'
     # forces the fused wrapper (its plain version on CPU tensors); 'off'

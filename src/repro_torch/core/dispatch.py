@@ -9,9 +9,13 @@ model targets (DESIGN.md §8).
      argument, the operands' device, the policy's needs and the shape.
      The names are the JAX package's, so a config means the same in both:
      ``dense`` (plain attention, no reuse), ``reference`` (dense attention
-     on the snapped operands), ``collapse`` (not ported yet: raises), and
+     on the snapped operands), ``collapse`` (not ported yet: raises),
      ``pallas``, which in the port names the hand-written CUDA ripple
-     kernel (``kernels/ripple``).  ``auto`` picks ``pallas`` for CUDA
+     kernel (``kernels/ripple``), and ``sparse``, the hand-written CUDA
+     block-sparse kernel (``kernels/sparse``) for policies that tile
+     their masks into a skip/full/partial block map.  ``auto`` picks
+     ``sparse`` for such policies on any device (the plain version on
+     the CPU), as the reference does, and otherwise ``pallas`` for CUDA
      operands where the reference picks it on TPU.
   3. **Mask pipeline placement** — the Δ-checks run in the fused CUDA
      kernel (``kernels/reuse_mask``) or on the host path
@@ -39,7 +43,9 @@ __all__ = [
     "resolve_backend", "resolve_plan", "shape_bucket",
 ]
 
-BACKENDS = ("auto", "dense", "reference", "collapse", "pallas")
+BACKENDS = ("auto", "dense", "reference", "collapse", "pallas", "sparse")
+# The sparse kernel's (block_q, block_k) map tile.
+_SPARSE_BLOCKS = (128, 128)
 _PLAN_CACHE: "OrderedDict[Tuple, DispatchPlan]" = OrderedDict()
 _PLAN_CACHE_CAP = 256
 
@@ -47,7 +53,8 @@ _PLAN_CACHE_CAP = 256
 @dataclasses.dataclass(frozen=True)
 class DispatchPlan:
     """Resolved execution plan for one (policy, shape-bucket, backend)
-    cell.  ``block_q`` / ``block_k`` are the ripple kernel's tile (pairs)."""
+    cell.  ``block_q`` / ``block_k`` are the ripple kernel's tile (pairs)
+    or the sparse kernel's map tile (tokens)."""
 
     backend: str
     policy: str = "ripple"
@@ -58,7 +65,7 @@ class DispatchPlan:
 
     def summary(self) -> str:
         blk = (f" block={self.block_q}x{self.block_k}"
-               if self.backend == "pallas" else "")
+               if self.backend in ("pallas", "sparse") else "")
         mask = " fused-mask" if self.fused_mask else ""
         return (f"attention[{self.policy}/{self.backend}{blk}{mask} "
                 f"bucket={self.bucket}]")
@@ -86,18 +93,23 @@ def resolve_backend(cfg: RippleConfig, backend: Optional[str], *,
     """Collapse 'auto' onto a concrete backend for this call."""
     pol = policy if policy is not None else get_policy(cfg.policy)
     b = backend or cfg.backend or "auto"
-    if b == "sparse":
-        raise NotImplementedError("the block-sparse backend waits for the "
-                                  "block-sparse slice of the port")
     if b not in BACKENDS:
         raise ValueError(f"unknown backend {b!r}; expected one of {BACKENDS}")
     if not cfg.active() or pol.is_dense:
         return "dense"
     emits_bias = pol.will_emit_bias(cfg)
+    # The sparse backend realizes a policy's mask as skipped tiles only
+    # when the policy's own bias is the whole story: its FULL tiles never
+    # read the bias, so an external caller bias would be dropped there.
+    sparse_ok = pol.will_emit_block_map(cfg) and not has_bias
     if b != "auto":
         if emits_bias and b in ("pallas", "collapse"):
+            return "sparse" if sparse_ok else "reference"
+        if b == "sparse" and has_bias and pol.will_emit_block_map(cfg):
             return "reference"
         return b
+    if sparse_ok:
+        return "sparse"
     if (on_cuda and not has_bias and not emits_bias and cfg.window == 2
             and n_tokens % 2 == 0):
         return "pallas"
@@ -129,13 +141,24 @@ def resolve_plan(q_shape, v_shape, cfg: RippleConfig, *, on_cuda: bool,
     if plan is not None:
         _PLAN_CACHE.move_to_end(key)
         return plan
+    blocks = _SPARSE_BLOCKS if resolved == "sparse" else (TILE_PAIRS,) * 2
     plan = DispatchPlan(backend=resolved, policy=pol.name,
+                        block_q=blocks[0], block_k=blocks[1],
                         fused_mask=_fused_requested(cfg, on_cuda),
                         bucket=key[1:3])
     _PLAN_CACHE[key] = plan
     while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
         _PLAN_CACHE.popitem(last=False)
     return plan
+
+
+def _decide_extra(plan: DispatchPlan, policy: ReusePolicy,
+                  cfg: RippleConfig) -> dict:
+    """Only sparse plans for map-emitting policies pass ``block_shape``;
+    a mapless decision under a forced 'sparse' runs all tiles."""
+    if plan.backend == "sparse" and policy.will_emit_block_map(cfg):
+        return {"block_shape": (plan.block_q, plan.block_k)}
+    return {}
 
 
 def _execute_backend(d: ReuseDecision, v, scale: float, *,
@@ -146,6 +169,13 @@ def _execute_backend(d: ReuseDecision, v, scale: float, *,
 
         return ripple_attention(d.q, d.k, v, bias=d.bias, window=cfg.window,
                                 scale=scale)
+    if plan.backend == "sparse":
+        # The kernel takes its scale from the head dim, as the JAX wrapper.
+        from repro_torch.kernels.sparse.ops import sparse_attention
+
+        return sparse_attention(d.q, d.k, v, bias=d.bias,
+                                block_map=d.block_map, block_q=plan.block_q,
+                                block_k=plan.block_k)
     if plan.backend == "collapse":
         raise NotImplementedError("the collapse backend (core/collapse.py) "
                                   "is not ported yet")
@@ -181,5 +211,6 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return dense_attention(q, k, v, scale, bias)
     thetas = pol.thetas_for(cfg, step, total_steps, thetas)
     d = pol.decide(q, k, grid=grid, cfg=cfg, thetas=thetas, bias=bias,
-                   grid_slice=grid_slice, fused=plan.fused_mask)
+                   grid_slice=grid_slice, fused=plan.fused_mask,
+                   **_decide_extra(plan, pol, cfg))
     return _execute_backend(d, v, scale, plan=plan, cfg=cfg)

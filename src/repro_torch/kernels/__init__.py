@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the port and their launch counters.
 
-``reuse_mask`` holds the fused three-axis Δ-check + snap kernel and
-``ripple`` the pair-collapse flash attention kernel; each wrapper counts
-the launches of its kernel in a plain module-level integer.
+``reuse_mask`` holds the fused three-axis Δ-check + snap kernel,
+``ripple`` the pair-collapse flash attention kernel and ``sparse`` the
+block-sparse masked attention kernel; each wrapper counts the launches
+of its kernel in a plain module-level integer.
 """
 
 from __future__ import annotations
@@ -10,17 +11,19 @@ from __future__ import annotations
 from typing import Dict
 
 
-def launch_counts() -> Dict[str, int]:
+def _ops():
     from repro_torch.kernels.reuse_mask import ops as reuse_ops
     from repro_torch.kernels.ripple import ops as ripple_ops
+    from repro_torch.kernels.sparse import ops as sparse_ops
 
-    return {"fused_reuse": reuse_ops.launches,
-            "ripple_attention": ripple_ops.launches}
+    return {"fused_reuse": reuse_ops, "ripple_attention": ripple_ops,
+            "sparse_attention": sparse_ops}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: mod.launches for name, mod in _ops().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.reuse_mask import ops as reuse_ops
-    from repro_torch.kernels.ripple import ops as ripple_ops
-
-    reuse_ops.launches = 0
-    ripple_ops.launches = 0
+    for mod in _ops().values():
+        mod.launches = 0

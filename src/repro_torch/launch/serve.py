@@ -5,7 +5,10 @@ generation with TimeRipple on.
 ``--device cpu`` runs it on the CPU (kernel wrappers then take their
 plain PyTorch versions).  ``--smoke`` serves the smoke config at a 64²
 resolution for 3 steps; ``--override key=value`` edits the config
-(e.g. ``model.num_layers=8``, ``ripple.backend=dense``).
+(e.g. ``model.num_layers=8``, ``ripple.backend=dense``); ``--policy svg``
+serves under the SVG block mask and ``--override ripple.svg_mask=true``
+composes it with TimeRipple's snapping, both through the block-sparse
+backend.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from repro_torch.config.base import apply_overrides
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.core import dispatch as dispatch_lib
+from repro_torch.core.policy import get_policy
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
 from repro_torch.launch.workloads import (_denoise_call, latent_shape_for,
@@ -32,12 +36,30 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 
 def build_sampler(arch, shape, model, *, use_ripple: bool = True,
-                  compute_dtype: torch.dtype = torch.bfloat16):
+                  policy=None, compute_dtype: torch.dtype = torch.bfloat16):
     """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt) ->
     latents`` runs the whole DDIM trajectory (vdit is not ``mmdit``, so
-    the server samples with DDIM) on the model's device."""
+    the server samples with DDIM) on the model's device.  ``policy``
+    overrides the arch config's reuse policy for this sampler.
+
+    A decision-cache setting (``reuse_every > 1`` or ``drift_tol > 0``)
+    on a policy that can cache its decisions raises: the JAX launcher
+    threads its cross-step decision cache there, which the port does not
+    have yet, so serving on would give a different trajectory."""
     if arch.family != "vdit":
         raise ValueError(f"family {arch.family!r} is not ported yet")
+    if policy:
+        arch = dataclasses.replace(
+            arch, ripple=dataclasses.replace(arch.ripple, policy=policy))
+    rip = arch.ripple
+    pol = get_policy(rip.policy)
+    if (use_ripple and rip.active() and pol.caches_decisions
+            and (rip.reuse_every > 1 or rip.drift_tol > 0)):
+        raise NotImplementedError(
+            f"ripple.reuse_every={rip.reuse_every}, ripple.drift_tol="
+            f"{rip.drift_tol} under policy {pol.name!r} ask for the "
+            f"cross-step decision cache, which the port does not have yet "
+            f"(ROADMAP item 7)")
     steps = shape.steps or 50
     ddpm = DDPMSchedule()
 
@@ -79,6 +101,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--no-ripple", action="store_true")
+    ap.add_argument("--policy", default=None,
+                    help="reuse-policy name for every request (ripple, "
+                         "svg, dense); default: the arch config's "
+                         "ripple.policy")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--override", action="append", default=[],
                     metavar="KEY=VALUE",
@@ -94,14 +120,15 @@ def main(argv=None):
                           steps=args.steps)
     model = init_vdit(arch.model, seed=args.seed, device=device)
     sample_fn, lat_shape = build_sampler(arch, shape, model,
-                                         use_ripple=not args.no_ripple)
+                                         use_ripple=not args.no_ripple,
+                                         policy=args.policy)
     m = arch.model
     grid = m.grid(img_res=shape.img_res)
     n_tok = grid[0] * grid[1] * grid[2] + m.txt_tokens
     plan = dispatch_lib.resolve_plan(
         (1, m.num_heads, n_tok, m.d_model // m.num_heads),
         (1, m.num_heads, n_tok, m.d_model // m.num_heads), arch.ripple,
-        on_cuda=device.type == "cuda")
+        on_cuda=device.type == "cuda", policy=args.policy)
     log.info("device %s; %s (%d layers) at %s, %d steps, latents %s; "
              "plan %s", device, arch.name, m.num_layers, shape.name,
              shape.steps, lat_shape, plan.summary())

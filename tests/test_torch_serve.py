@@ -72,6 +72,32 @@ def test_main_serves_on_cpu():
         assert np.isfinite(r.latents).all()
 
 
+@pytest.mark.parametrize("args,plan", [
+    (["--policy", "svg"], "attention[svg/sparse block=128x128"),
+    (["--override", "ripple.svg_mask=true"],
+     "attention[ripple/sparse block=128x128"),
+])
+def test_main_serves_the_svg_paths_on_cpu(args, plan, caplog):
+    caplog.set_level("INFO", logger="repro_torch.launch.serve")
+    done = serve_lib.main(["--device", "cpu", "--smoke", "--requests", "1",
+                           "--override", "model.num_layers=1", *args])
+    assert len(done) == 1 and np.isfinite(done[0].latents).all()
+    assert plan in caplog.text
+
+
+@pytest.mark.parametrize("args", [
+    ["--override", "ripple.reuse_every=2"],
+    ["--policy", "svg", "--override", "ripple.drift_tol=0.1"],
+])
+def test_main_refuses_decision_cache_settings(args):
+    """The JAX launcher threads its cross-step decision cache for these
+    settings; the port has none yet, so it refuses rather than serving a
+    different trajectory."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        serve_lib.main(["--device", "cpu", "--smoke", "--requests", "1",
+                        *args])
+
+
 def test_main_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
