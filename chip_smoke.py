@@ -7,19 +7,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    nvcc for sm_90a (one nvcc per source, started together);
 2. holds the fused Δ-check + snap kernel bit for bit against its plain
    version (``core.reuse.compute_reuse``), bf16 and f32, channel and
-   token gates, at the serving shape, a small shape and T = 1;
+   token gates, at the vDiT serving shape, a small shape, T = 1, and the
+   DiT's T = 1 x/y case at head dim 72;
 3. holds the pair-collapse attention kernel against f32 dense softmax on
    the same snapped operands, on constructed operands with collapse
-   fractions 0, 0.6 and 1.0, an unaligned N and the serving shape;
-4. holds the block-sparse attention kernel against its plain semantics
+   fractions 0, 0.6 and 1.0, an unaligned N, head dims 16 to 128 (72 on
+   tensor cores, asserted) and both serving shapes;
+4. holds the fused adaLN modulation kernel against its plain version,
+   bf16 and f32, d 72 and 1152, ragged N, B > 1 with a different shift
+   and scale per sample, and shift/scale read in place from chunks of the
+   adaLN projection;
+5. holds the block-sparse attention kernel against its plain semantics
    (f32, rounding where the kernel rounds) on all-FULL maps (and against
    ``scaled_dot_product_attention``), all-SKIP maps (exact zeros), mixed
    maps with -inf and finite PARTIAL biases, fully skipped rows, ragged
    and clamped N, an SVG map at the serving shape, and a constructed
    all-temporal map at batch 2 whose batch rows carry different biases;
-5. times the first two kernels, their plain versions and (attention
-   only) ``scaled_dot_product_attention`` with CUDA events;
-6. serves 3 requests of vdit-paper at full width through the port's
+6. times the kernels at the shapes their serving paths give them, their
+   plain versions and, for attention, ``scaled_dot_product_attention``
+   (for adaLN, ``F.layer_norm`` and its two elementwise ops: no single
+   PyTorch call computes it) with CUDA events;
+7. serves 3 requests of vdit-paper at full width through the port's
    DiffusionEngine three times - the ripple policy, ``--policy svg`` and
    ripple with ``svg_mask`` - each with the launch counters set to 0 just
    before and read just after, profiles one forward of the ripple and
@@ -27,13 +35,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    semantics on one served SVG call at its full batch (operands and map
    kept on the host during the run, the bias rebuilt from q and k
    afterwards) and times it;
-7. checks a small trajectory of each of the three paths on the card
+8. serves 4 requests of dit-xl2 at full width and depth (28 layers,
+   gen_1024: 4096 tokens of head dim 72, 50 DDIM steps) in one batch,
+   with the counters set to 0 just before and read just after: the
+   adaLN, fused_reuse and ripple kernels must launch, the ripple kernel
+   on tensor cores; then profiles one DiT forward at step 10;
+9. checks a small trajectory of each of the four paths on the card
    against the same trajectory on the CPU.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
 mismatch or error exits non-zero.  It needs one card and no network.
-``--layers N`` cuts the served depth (default: all 40 layers).
+``--layers N`` cuts the vDiT's served depth (default: all 40 layers);
+the DiT always runs all 28.
 """
 
 from __future__ import annotations
@@ -58,6 +72,9 @@ REUSE_OPS_PER_ELEM = 3 * 9 / 2 + 3 + 3
 SERVE_OVERRIDES = ("model.frames=32",)  # 128 frames cut to 32: grid (8, 32, 32)
 SERVE_STEPS = 12                        # step 10 snaps at θ=0.2, step 11 dense
 SERVE_REQUESTS = 3
+DIT_SHAPE = "gen_1024"  # (128, 128, 4) latents: a (1, 64, 64) grid, 50 steps
+DIT_REQUESTS = 4         # the shape's batch
+CARD = ""                # nvidia-smi's name and power limit, set in main()
 
 
 def log(msg: str) -> None:
@@ -214,11 +231,15 @@ def attn_tol(dtype_name, ref) -> float:
 
 
 def check_ripple(results, q, k, v, label):
+    """The kernel against :func:`attention_oracle`; every bf16 case with a
+    head dim of 32, 64, 72 or 128 must take the tensor cores."""
     import torch
     from repro_torch.kernels.ripple import ops as ripple_ops
 
     out = ripple_ops.ripple_attention(q, k, v)
     tc = ripple_ops.uses_tensor_cores(q, v)
+    want_tc = (q.dtype == torch.bfloat16 and q.shape[-1] == v.shape[-1]
+               and q.shape[-1] in (32, 64, 72, 128))
     ref = attention_oracle(q, k, v, ripple_ops.attention_scale(q.shape[-1]),
                            tc)
     torch.cuda.synchronize()
@@ -226,15 +247,93 @@ def check_ripple(results, q, k, v, label):
     name = str(q.dtype).replace("torch.", "")
     qf, kf, _ = ripple_ops.ripple_tile_stats(q, k, v.shape[-1])
     tol = attn_tol(name, ref)
-    ok = err <= tol and bool(torch.isfinite(out).all())
+    ok = err <= tol and bool(torch.isfinite(out).all()) and tc == want_tc
     path = "tensor cores" if tc else "CUDA cores"
     log(f"kernel ripple_attention {name:8s} {label} [{path}]: q tiles collapsed "
         f"{qf:.3f}, k tiles collapsed {kf:.3f}, max abs err vs f32 dense "
         f"{err:.3e} (tol {tol:.3g}) {'ok' if ok else 'FAIL'}")
     results.append(ok)
     if not ok:
-        raise SystemExit("ripple kernel disagrees with dense attention")
+        raise SystemExit("ripple kernel disagrees with dense attention, or "
+                         "took the wrong path")
     return err
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: fused adaLN modulation
+# ---------------------------------------------------------------------------
+
+
+def adaln_excess(out, ref, x, shift, scale) -> float:
+    """Largest error in units of its element's tolerance (pass at <= 1):
+    one ulp of the output in its dtype (both sides round one float32
+    value once), plus 2^-18 (32 float32 ulps) of the magnitudes the
+    output is computed from, (|x| + |mean|) * rsqrt(var + eps) *
+    |1 + scale| + |shift|.  Two float32 computations differ by a few
+    float32 ulps of those (the mean's reduction order, rsqrt against
+    1/sqrt), which shows only where x - mean or the final sum cancel to
+    an output far smaller than its inputs.  A wrong sample's shift or
+    scale, or a wrong row statistic, moves outputs by O(1)."""
+    import torch
+
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    r = torch.rsqrt(x32.var(-1, keepdim=True, correction=0) + 1e-6)
+    terms = ((x32.abs() + mu.abs()) * r * (1 + scale.float()[:, None]).abs()
+             + shift.float()[:, None].abs())
+    mag = ref.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    mant = 7 if out.dtype == torch.bfloat16 else 23
+    tol = torch.exp2(torch.floor(torch.log2(mag)) - mant) + 2.0 ** -18 * terms
+    return ((out.float() - ref.float()).abs() / tol).max().item()
+
+
+def check_adaln(results, B, N, d, dtype, seed, views=False):
+    """One case against the plain version on the same card tensors; with
+    ``views`` shift and scale are chunks of a (B, 6d) projection, as the
+    DiT passes them.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.adaln.ops import adaln_modulate
+    from repro_torch.kernels.adaln.ref import adaln_modulate_ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = (3.0 + 2.0 * torch.randn((B, N, d), generator=g, device="cuda")).to(dtype)
+    if views:
+        ada = torch.randn((B, 6 * d), generator=g, device="cuda").to(dtype)
+        _, scale, _, shift, _, _ = torch.chunk(ada, 6, dim=-1)
+    else:
+        shift, scale = (torch.randn((B, d), generator=g, device="cuda").to(dtype)
+                        for _ in range(2))
+    out = adaln_modulate(x, shift, scale)
+    ref = adaln_modulate_ref(x, shift, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    excess = adaln_excess(out, ref, x, shift, scale)
+    ok = excess <= 1.0 and out.dtype == dtype and bool(torch.isfinite(out).all())
+    name = str(dtype).replace("torch.", "")
+    log(f"kernel adaln {name:8s} x({B}, {N}, {d}){' shift/scale views' if views else ''}: "
+        f"max abs err {err:.3e}, {excess:.3f} of tolerance (one {name} ulp of the "
+        f"output + 2^-18 of its inputs' scale) {'ok' if ok else 'FAIL'}")
+    results.append(ok)
+    if not ok:
+        raise SystemExit("adaln kernel disagrees with its plain version")
+    return err
+
+
+def adaln_checks():
+    """Every adaLN case; returns the main path's (bf16, (4, 4096, 1152),
+    views) max abs error."""
+    import torch
+
+    res = []
+    serve_err = check_adaln(res, 4, 4096, 1152, torch.bfloat16, 40, views=True)
+    for dt in (torch.bfloat16, torch.float32):
+        for B, N, d in ((4, 4096, 1152), (2, 1000, 1152), (3, 37, 72), (1, 4096, 72),
+                        (2, 256, 64)):
+            check_adaln(res, B, N, d, dt, 41 + len(res))
+        check_adaln(res, 2, 333, 72, dt, 60, views=True)
+    log(f"kernel adaln: {sum(res)}/{len(res)} cases within tolerance")
+    return serve_err
 
 
 # ---------------------------------------------------------------------------
@@ -540,36 +639,36 @@ def load_served_model(layers: int):
     return arch, shape, model
 
 
-def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=()):
-    """Serve SERVE_REQUESTS requests through the port's DiffusionEngine
-    with the launch counters set to 0 just before and read just after;
-    each kernel in ``launched`` must have run, none in ``absent``."""
+def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(),
+                requests=SERVE_REQUESTS):
+    """Serve ``requests`` requests in one batch through the port's
+    DiffusionEngine with the launch counters set to 0 just before and
+    read just after; each kernel in ``launched`` must have run, none in
+    ``absent``."""
     import numpy as np
     import torch
     from repro_torch.core import dispatch as dispatch_lib
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import build_sampler
-    from repro_torch.launch.workloads import mixed_request_stream
+    from repro_torch.launch.workloads import attention_tokens, mixed_request_stream
     from repro_torch.serving.engine import DiffusionEngine
 
     m = arch.model
     sample_fn, lat_shape = build_sampler(arch, shape, model, policy=policy)
-    hd = m.d_model // m.num_heads
-    n_tok = m.txt_tokens + int(np.prod(m.grid(img_res=shape.img_res)))
-    plan = dispatch_lib.resolve_plan((1, m.num_heads, n_tok, hd), (1, m.num_heads, n_tok, hd),
-                                     arch.ripple, on_cuda=True, policy=policy)
+    qk = (1, m.num_heads, attention_tokens(arch, shape), m.d_model // m.num_heads)
+    plan = dispatch_lib.resolve_plan(qk, qk, arch.ripple, on_cuda=True, policy=policy)
     log(f"serve[{label}]: plan {plan.summary()}; ripple {arch.ripple}"
         f"{'' if policy is None else f', policy {policy}'}")
     engine = DiffusionEngine(lambda shp, steps: sample_fn, device="cuda",
-                             max_batch=SERVE_REQUESTS)
-    traffic = mixed_request_stream(arch, (shape,), SERVE_REQUESTS, seed=0)
+                             max_batch=requests)
+    traffic = mixed_request_stream(arch, (shape,), requests, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    for _, req in traffic:  # all queued before the worker starts: one batch
+        engine.submit(req)
     engine.start()
     try:
-        for _, req in traffic:
-            engine.submit(req)
         results = [engine.result(req.request_id) for _, req in traffic]
     finally:
         engine.stop()
@@ -578,13 +677,15 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     peak = torch.cuda.max_memory_allocated() / 2**30
     for r in results:
         log(f"serve[{label}]: request {r.request_id} latency {r.latency_s:.3f}s "
-            f"(batch {r.batch_index} of {SERVE_REQUESTS} served in "
-            f"{r.walltime_s:.3f}s); latents {r.latents.shape}")
+            f"(batch {r.batch_index} of {requests} served in "
+            f"{r.walltime_s:.3f}s); latents {r.latents.shape}; {CARD}")
         if r.latents.shape != lat_shape:
             raise SystemExit(f"latents {r.latents.shape} != {lat_shape}")
         if not np.isfinite(r.latents).all():
             raise SystemExit("served latents are not finite")
-    log(f"serve[{label}]: launches {counts}; peak device memory {peak:.2f} GiB")
+    log(f"serve[{label}]: launches {counts}; peak device memory {peak:.2f} GiB; {CARD}")
+    if len({r.batch_index for r in results}) != 1:
+        raise SystemExit(f"serve[{label}]: the requests did not share one batch")
     if any(counts[n] <= 0 for n in launched):
         raise SystemExit(f"serve[{label}]: a kernel of the path never launched: {counts}")
     if any(counts[n] != 0 for n in absent):
@@ -592,16 +693,21 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     return counts, results, lat_shape
 
 
-def serve_ripple(arch, shape, model):
+def serve_ripple(arch, shape, model, label="ripple", **phase):
     """The ripple policy (PR 11's path): fused Δ-check + pair collapse.
-    Reads the policy's snap masks at step 10 by shadowing its methods on
-    the registered instance for this run only."""
+    Reads the policy's snap masks at step 10 (grid tokens only) and the
+    share of ripple-kernel tiles that collapse there, by shadowing the
+    policy's methods on the registered instance and the kernel wrapper
+    for this run only; every ripple call's (dtype, d, dv, tensor cores)
+    is recorded.  ``phase`` goes to :func:`serve_phase`."""
     import torch
     from repro_torch.core.policy import get_policy
+    from repro_torch.kernels.ripple import ops as ripple_ops
 
     pol = get_policy("ripple")
-    snaps = {"q": [], "k": []}
+    snaps = {"q": [], "k": [], "qt": [], "kt": []}
     current = {"step": None}
+    paths = set()
 
     def thetas_for(orig):
         def f(cfg, step, total_steps, thetas=None):
@@ -613,22 +719,38 @@ def serve_ripple(arch, shape, model):
         def f(q, k, **kw):
             d = orig(q, k, **kw)
             if current["step"] == 10:
-                s, n = kw["grid_slice"]
+                s, n = kw["grid_slice"] or (0, q.shape[-2])
                 snaps["q"].append(d.q_mask.narrow(-2, s, n).float().mean())
                 snaps["k"].append(d.k_mask.narrow(-2, s, n).float().mean())
             return d
         return f
 
-    with wrapped(pol, "thetas_for", thetas_for), wrapped(pol, "decide", decide):
-        counts, results, lat_shape = serve_phase(
-            "ripple", arch, shape, model, launched=("fused_reuse", "ripple_attention"),
-            absent=("sparse_attention",))
+    def kernel(orig):
+        def f(q, k, v, **kw):
+            paths.add((str(q.dtype).replace("torch.", ""), q.shape[-1], v.shape[-1],
+                       ripple_ops.uses_tensor_cores(q, v)))
+            if current["step"] == 10:
+                qt, kt, _ = ripple_ops.ripple_tile_stats(q, k, v.shape[-1])
+                snaps["qt"].append(qt)
+                snaps["kt"].append(kt)
+            return orig(q, k, v, **kw)
+        return f
+
+    phase = {"launched": ("fused_reuse", "ripple_attention"),
+             "absent": ("sparse_attention",), **phase}
+    with wrapped(pol, "thetas_for", thetas_for), wrapped(pol, "decide", decide), \
+            wrapped(ripple_ops, "ripple_attention", kernel):
+        counts, results, lat_shape = serve_phase(label, arch, shape, model, **phase)
     q_snap = torch.stack(snaps["q"]).mean().item() if snaps["q"] else 0.0
     k_snap = torch.stack(snaps["k"]).mean().item() if snaps["k"] else 0.0
-    log(f"serve[ripple]: snap fraction at step 10: Q {q_snap:.4f} K {k_snap:.4f}")
+    qt = sum(snaps["qt"]) / max(len(snaps["qt"]), 1)
+    kt = sum(snaps["kt"]) / max(len(snaps["kt"]), 1)
+    log(f"serve[{label}]: snap fraction at step 10: Q {q_snap:.4f} K {k_snap:.4f}; "
+        f"ripple tiles collapsed there: Q {qt:.4f} K {kt:.4f}; ripple calls (dtype, d, "
+        f"dv, tensor cores): {sorted(paths)}")
     if q_snap <= 0 or k_snap <= 0:
         raise SystemExit("no snapping at step 10")
-    return counts, lat_shape
+    return counts, lat_shape, paths
 
 
 def serve_svg(label, arch, shape, model, *, policy, launched, absent, capture=None):
@@ -690,11 +812,52 @@ def serve_svg(label, arch, shape, model, *, policy, launched, absent, capture=No
     return counts
 
 
-def profile_forward(label, arch, model, lat_shape, families, annotate=None):
+def serve_dit():
+    """dit-xl2 at full width and depth (28 layers, d_model 1152, 16 heads
+    of 72) on gen_1024: 4 requests in one batch through the ripple
+    policy.  The adaLN, fused_reuse and ripple kernels must launch, the
+    sparse kernel must not, and every ripple call must take the tensor
+    cores; then one forward at step 10 is profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_shape
+    from repro_torch.models.params import init_dit
+
+    arch = get_config("dit-xl2")
+    shape = serving_shape(arch, DIT_SHAPE, smoke=False)
+    m = arch.model
+    hw = m.latent_res(shape.img_res) // m.patch
+    log(f"serve: dit-xl2 full width and depth d_model={m.d_model} heads="
+        f"{m.num_heads}x{m.d_model // m.num_heads} layers={m.num_layers} "
+        f"mlp={int(m.d_model * m.mlp_ratio)}; {shape.name}: img_res {shape.img_res}, "
+        f"grid (1, {hw}, {hw}) = {hw * hw} tokens, {shape.steps} DDIM steps, "
+        f"{DIT_REQUESTS} requests; no cuts")
+    t0 = time.perf_counter()
+    model = init_dit(m, seed=0, device="cuda", dtype=torch.bfloat16, zero_init=False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: {n_params / 1e9:.3f} B params (bf16, every leaf drawn from a seeded "
+        f"generator, the adaLN-zero and final leaves too) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    counts, lat_shape, paths = serve_ripple(
+        arch, shape, model, "dit-xl2", requests=DIT_REQUESTS,
+        launched=("adaln", "fused_reuse", "ripple_attention"))
+    if not paths or not all(tc for *_, tc in paths):
+        raise SystemExit("serve[dit-xl2]: the ripple kernel left the tensor cores")
+    profile_forward("dit-xl2", arch, model, lat_shape,
+                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse",
+                     "adaln": "adaln"}, batch=DIT_REQUESTS, total=shape.steps)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_forward(label, arch, model, lat_shape, families, annotate=None,
+                    batch=SERVE_REQUESTS, total=SERVE_STEPS):
     """Device time by kernel family over one served-size denoiser forward
-    (batch of 3, step 10 of 12: snapping on), from torch.profiler, the
-    device's idle share of that forward's wall time, and its peak device
-    memory.  ``families`` maps a family to a kernel-name substring;
+    (step 10 of ``total``: snapping on), from torch.profiler, the device's
+    idle share of that forward's wall time, and its peak device memory.
+    ``families`` maps a family to a kernel-name substring;
     ``annotate = (obj, attr, family)`` wraps ``obj.attr`` in a profiler
     range and counts every kernel launched inside it as ``family``."""
     import torch
@@ -705,13 +868,18 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=None):
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    x = torch.randn((SERVE_REQUESTS, *lat_shape), generator=g, device="cuda")
-    txt = 0.05 * torch.randn((SERVE_REQUESTS, arch.model.txt_tokens,
-                              arch.model.txt_dim), generator=g, device="cuda")
-    t = torch.full((SERVE_REQUESTS,), 200.0, device="cuda")
+    x = torch.randn((batch, *lat_shape), generator=g, device="cuda")
+    m = arch.model
+    if arch.family == "dit":
+        cond = {"labels": torch.randint(0, m.num_classes, (batch,), generator=g,
+                                        device="cuda")}
+    else:
+        cond = {"txt": 0.05 * torch.randn((batch, m.txt_tokens, m.txt_dim),
+                                          generator=g, device="cuda")}
+    t = torch.full((batch,), 200.0, device="cuda")
 
     def fwd():
-        return _denoise_call(arch, model, x, t, {"txt": txt}, 10, SERVE_STEPS)
+        return _denoise_call(arch, model, x, t, cond, 10, total)
 
     def family(name):
         name = name.lower()
@@ -783,8 +951,8 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=None):
     if busy_ms <= 0:
         raise SystemExit(f"profile[{label}]: the profiler reported no device time")
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items())
-    log(f"profile[{label}]: one forward, batch {SERVE_REQUESTS}, "
-        f"{arch.model.num_layers} layers, step 10: wall {wall_ms:.3f} ms, "
+    log(f"profile[{label}]: one forward, batch {batch}, "
+        f"{arch.model.num_layers} layers, step 10 of {total}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
         f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
         f"{peak:.2f} GiB")
@@ -799,34 +967,39 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=None):
         raise SystemExit(f"profile[{label}]: no kernel attributed to {annotate[2]}")
 
 
-def small_reference_check(label, policy=None, overrides=()):
+def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
     """The smoke config's 12-step trajectory in f32 through the kernels on
     the card against the same trajectory through the plain versions on
-    the CPU, same params and noise."""
+    the CPU, same params, noise and conditioning (the DiT's class label
+    comes from the request seed on the CPU)."""
     import numpy as np
     import torch
     from repro_torch.config.base import apply_overrides
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import build_sampler, serving_shape
-    from repro_torch.models.params import init_vdit
+    from repro_torch.models.params import init_dit, init_vdit
     from repro_torch.serving.engine import request_noise
 
-    arch = apply_overrides(get_smoke_config("vdit-paper"), overrides)
-    shape = serving_shape(arch, "gen_512", smoke=True, steps=SERVE_STEPS)
+    arch = apply_overrides(get_smoke_config(name), overrides)
+    init = init_dit if arch.family == "dit" else init_vdit
+    shape_name = next(sp.name for sp in arch.shapes if sp.kind == "generate")
+    shape = serving_shape(arch, shape_name, smoke=True, steps=SERVE_STEPS)
+    txt_shape = (1, getattr(arch.model, "txt_tokens", 8),
+                 getattr(arch.model, "txt_dim", 64))
     outs = {}
     for dev in ("cuda", "cpu"):
-        model = init_vdit(arch.model, seed=1, device="cpu", zero_init=False)
+        model = init(arch.model, seed=1, device="cpu", zero_init=False)
         model = model.to(dev)
         fn, lat_shape = build_sampler(arch, shape, model, policy=policy,
                                       compute_dtype=torch.float32)
         noise = request_noise(5, lat_shape, "cpu")[None].to(dev)
         txt = torch.from_numpy(0.05 * np.random.default_rng(5).standard_normal(
-            (1, arch.model.txt_tokens, arch.model.txt_dim)).astype(
-                np.float32)).to(dev)
-        outs[dev] = fn(noise, txt).float().cpu()
+            txt_shape).astype(np.float32)).to(dev)
+        outs[dev] = fn(noise, txt, [5]).float().cpu()
     diff = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
     ok = bool(torch.isfinite(outs["cuda"]).all()) and diff.item() < 1e-3
-    log(f"reference[{label}]: smoke 12-step f32 trajectory, card kernels vs CPU "
+    log(f"reference[{label}]: {arch.name} {shape.img_res}² 12-step f32 trajectory, "
+        f"card kernels vs CPU "
         f"plain versions: relative L2 {diff.item():.3e} (tol 1e-3) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -859,7 +1032,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 1. build --------------------------------------------------------------
@@ -898,6 +1072,13 @@ def main() -> int:
             check_reuse(res1, (1, 2, 8 * 8, 32), (1, 8, 8), dt, gran, th)
     check_reuse(res1, (1, 2, 4 * 6 * 8, 64), (4, 6, 8), bf16, "channel", th,
                 axes=("y", "t", "x"))
+    # The DiT's case: T = 1 (the one-frame instance), x/y axes, head dim 72
+    # at dit-xl2's gen_1024 shape.
+    dit_grid = (1, 64, 64)
+    dit_qk = (DIT_REQUESTS, 16, 64 * 64, 72)
+    for dt in (bf16, f32):
+        for gran in ("channel", "token"):
+            check_reuse(res1, dit_qk, dit_grid, dt, gran, th, axes=("x", "y"))
     log(f"kernel fused_reuse: {sum(res1)}/{len(res1)} cases bit-equal")
 
     # 3. kernel 2 vs f32 dense attention on the snapped operands ------------
@@ -909,7 +1090,12 @@ def main() -> int:
             k = snapped_operand((1, 2, 256, 64), frac, 2, dt, tile)
             v = snapped_operand((1, 2, 256, 64), 0.0, 3, dt, tile)
             check_ripple(res2, q, k, v, f"N=256 d=64 frac={frac}")
-        for d in (16, 32):
+        for frac in (0.0, 0.6, 1.0):
+            q = snapped_operand((1, 2, 256, 72), frac, 13, dt, tile)
+            k = snapped_operand((1, 2, 256, 72), frac, 14, dt, tile)
+            v = snapped_operand((1, 2, 256, 72), 0.0, 15, dt, tile)
+            check_ripple(res2, q, k, v, f"N=256 d=72 frac={frac}")
+        for d in (16, 32, 72):
             for frac in (0.6, 1.0):
                 q = snapped_operand((1, 2, 130, d), frac, 4, dt, tile)
                 k = snapped_operand((1, 2, 130, d), frac, 5, dt, tile)
@@ -933,13 +1119,27 @@ def main() -> int:
     v = correlated(serve_qkv, bf16, 12)
     serve_err = check_ripple(res2, qk[0], qk[1], v,
                              f"N={n_tok} d=128 main-path snapped operands")
+    # dit-xl2 at gen_1024: (4, 16, 4096, 72), constructed and as the DiT's
+    # path makes them (all tokens grid tokens, snapped on x/y at θ = 0.2).
+    check_ripple(res2, *(snapped_operand(dit_qk, frac, seed, bf16, tile)
+                         for frac, seed in ((0.6, 16), (0.6, 17), (0.0, 18))),
+                 f"{dit_qk} frac=0.6 (dit-xl2 serving shape)")
+    dit_q, dit_k = (reuse_ops.fused_compute_reuse(
+        correlated(dit_qk, bf16, seed), dit_grid, dict(zip("txy", (0.2,) * 3)),
+        axes=("x", "y"))[0] for seed in (19, 20))
+    dit_v = correlated(dit_qk, bf16, 21)
+    check_ripple(res2, dit_q, dit_k, dit_v,
+                 f"{dit_qk} dit-xl2 main-path snapped operands")
     log(f"kernel ripple_attention: {sum(res2)}/{len(res2)} cases within "
         f"tolerance")
 
-    # 4. kernel 3 vs its plain semantics -------------------------------------
+    # 4. kernel 4 (adaLN) vs its plain version -------------------------------
+    adaln_err = adaln_checks()
+
+    # 5. kernel 3 vs its plain semantics -------------------------------------
     sparse_checks(serve_grid, 256)
 
-    # 5. times at the serving shape (bf16) ----------------------------------
+    # 6. times at the serving shapes (bf16) ---------------------------------
     from repro_torch.core.reuse import compute_reuse
 
     x1 = correlated(serve_qk, bf16, 20)
@@ -971,9 +1171,62 @@ def main() -> int:
         f"{k2_lib:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}: {flops / 1e12:.4f} "
         f"TFLOP)")
     del x1, q, k, v, qk
+
+    xd = correlated(dit_qk, bf16, 22)
+    thd = dict(zip("txy", (0.2,) * 3))
+    kd_ms = cuda_time_ms(lambda: reuse_ops.fused_compute_reuse(
+        xd, dit_grid, thd, axes=("x", "y")))
+    kd_plain = cuda_time_ms(lambda: compute_reuse(xd, dit_grid, thd, axes=("x", "y")),
+                            iters=3)
+    kd_bytes = xd.numel() * (2 + 2 + 1)
+    log(f"time fused_reuse bf16 {dit_qk} grid {dit_grid} axes xy (dit-xl2): kernel "
+        f"{kd_ms:.4f} ms, plain {kd_plain:.4f} ms, bound "
+        f"{kd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: {kd_bytes / 1e6:.1f} MB)")
+    del xd
+
+    q, k, v = dit_q, dit_k, dit_v
+    r_ms = cuda_time_ms(lambda: ripple_ops.ripple_attention(q, k, v), iters=5)
+    scale = ripple_ops.attention_scale(72)
+    r_plain = cuda_time_ms(lambda: ripple_attention_ref(q, k, v, scale), iters=3)
+    r_lib = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale), iters=10)
+    _, _, r_flops = ripple_ops.ripple_tile_stats(q, k, 72)
+    r_bytes = 4 * q.numel() * 2
+    r_bound = max(r_bytes / HBM_BYTES_PER_S, r_flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    log(f"time ripple_attention bf16 {dit_qk} (dit-xl2, tensor cores "
+        f"{ripple_ops.uses_tensor_cores(q, v)}): kernel {r_ms:.4f} ms "
+        f"({r_flops / r_ms / 1e9:.2f} TFLOP/s), plain {r_plain:.4f} ms, sdpa "
+        f"{r_lib:.4f} ms, bound {r_bound:.4f} ms (operations: {r_flops / 1e12:.4f} "
+        f"TFLOP)")
+    del q, k, v, dit_q, dit_k, dit_v
+
+    # adaLN at the DiT's main-path shape, shift/scale chunks of the
+    # projection as the model passes them.
+    from repro_torch.kernels.adaln.ops import adaln_modulate
+    from repro_torch.kernels.adaln.ref import adaln_modulate_ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    xa = torch.randn((DIT_REQUESTS, 4096, 1152), generator=g, device="cuda").to(bf16)
+    ada = torch.randn((DIT_REQUESTS, 6 * 1152), generator=g, device="cuda").to(bf16)
+    sha, sca = torch.chunk(ada, 6, dim=-1)[:2]
+    a_ms = cuda_time_ms(lambda: adaln_modulate(xa, sha, sca), iters=20)
+    a_plain = cuda_time_ms(lambda: adaln_modulate_ref(xa, sha, sca), iters=10)
+    layer_norm = torch.nn.functional.layer_norm
+    a_lib = cuda_time_ms(lambda: layer_norm(xa, (1152,), eps=1e-6)
+                         * (1 + sca[:, None]) + sha[:, None], iters=20)
+    a_bytes = 2 * xa.numel() * 2 + 2 * sha.numel() * 2
+    a_ops = 10 * xa.numel()
+    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_ops / PEAK_FLOPS["float32"]) * 1e3
+    a_by = "bytes" if a_bytes / HBM_BYTES_PER_S >= a_ops / PEAK_FLOPS["float32"] \
+        else "operations"
+    log(f"time adaln bf16 {tuple(xa.shape)}: kernel {a_ms:.4f} ms "
+        f"({a_bytes / a_ms / 1e6:.1f} GB/s), plain {a_plain:.4f} ms, F.layer_norm "
+        f"and two elementwise ops {a_lib:.4f} ms (no single PyTorch call), bound "
+        f"{a_bound:.4f} ms ({a_by}: {a_bytes / 1e6:.1f} MB)")
+    del xa, ada, sha, sca
     torch.cuda.empty_cache()
 
-    # 6. serving phases: each path with the launch counters set to 0 just
+    # 7. serving phases: each path with the launch counters set to 0 just
     # before it and read just after -------------------------------------------
     from repro_torch.config.base import apply_overrides
     from repro_torch.core.policy import get_policy
@@ -983,7 +1236,7 @@ def main() -> int:
     from repro_torch.kernels.sparse.ref import FULL, sparse_attention_ref
 
     arch, shape, model = load_served_model(args.layers)
-    counts_r, lat_shape = serve_ripple(arch, shape, model)
+    counts_r, lat_shape, _ = serve_ripple(arch, shape, model)
     profile_forward("ripple", arch, model, lat_shape,
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"})
     served = {}
@@ -999,7 +1252,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # 7. kernel 3 on a served SVG call: check and times ---------------------
+    # 7b. kernel 3 on a served SVG call: check and times --------------------
     # The call's operands and map at its full batch, back on the card; its
     # keep mask and bias rebuilt from q and k as the policy built them
     # (the rebuilt map must be the served one).
@@ -1060,10 +1313,17 @@ def main() -> int:
     del q, k, v, bias, bmap, full
     torch.cuda.empty_cache()
 
-    # 8. small trajectories, card vs CPU ------------------------------------
+    # 8. dit-xl2 at full width and depth, with the counters set to 0 just
+    # before it and read just after ----------------------------------------
+    counts_d = serve_dit()
+
+    # 9. small trajectories, card vs CPU ------------------------------------
     small_reference_check("ripple")
     small_reference_check("svg", policy="svg")
     small_reference_check("ripple+svg", overrides=("ripple.svg_mask=true",))
+    # The DiT at head dim 72 (d_model 144, 2 heads), 2 layers, grid (1, 4, 4).
+    small_reference_check("dit-xl2", name="dit-xl2",
+                          overrides=("model.d_model=144", "model.num_heads=2"))
 
     kernels = [
         {"name": "fused_reuse", "route": "cuda",
@@ -1084,6 +1344,14 @@ def main() -> int:
          "launches": counts_s["sparse_attention"], "max_abs_err": serve_err3,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib},
+        # No single PyTorch call computes LayerNorm-and-modulate: the time
+        # of F.layer_norm with its two elementwise ops is in the log line.
+        {"name": "adaln", "route": "cuda",
+         "source": "src/repro_torch/csrc/adaln.cu",
+         "replaces": "src/repro/kernels/adaln/kernel.py:38",
+         "launches": counts_d["adaln"], "max_abs_err": adaln_err,
+         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+         "bound_by": a_by, "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, with the same
 field names and defaults as the JAX package's ``repro.config.base``, so
 that one config (and one ``key=value`` override string) means the same
-thing in both packages.  Only the vDiT family is carried over so far.
+thing in both packages.  The vDiT and DiT families are carried over so
+far.
 """
 
 from __future__ import annotations
@@ -94,6 +95,29 @@ class VDiTConfig:
         t = (frames or self.frames) // self.t_vae_factor // self.t_patch
         s = (img_res or self.img_res) // self.vae_factor // self.patch
         return (max(t, 1), s, s)
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """Image diffusion transformer (DiT, arXiv:2212.09748)."""
+
+    img_res: int
+    patch: int
+    num_layers: int
+    d_model: int
+    num_heads: int
+    in_channels: int = 4  # VAE latent channels
+    vae_factor: int = 8
+    num_classes: int = 1000
+    mlp_ratio: float = 4.0
+    learn_sigma: bool = True
+
+    def latent_res(self, img_res: Optional[int] = None) -> int:
+        return (img_res or self.img_res) // self.vae_factor
+
+    def num_tokens(self, img_res: Optional[int] = None) -> int:
+        side = self.latent_res(img_res) // self.patch
+        return side * side
 
 
 @dataclass(frozen=True)

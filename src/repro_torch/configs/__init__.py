@@ -1,13 +1,14 @@
-"""Architecture registry of the port: ``vdit-paper`` only so far."""
+"""Architecture registry of the port: ``vdit-paper``, ``dit-xl2`` and
+``dit-b2`` so far."""
 
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.config.base import ArchConfig
-from repro_torch.configs import vdit_paper
+from repro_torch.configs import dit_b2, dit_xl2, vdit_paper
 
-_MODULES = {"vdit-paper": vdit_paper}
+_MODULES = {"vdit-paper": vdit_paper, "dit-xl2": dit_xl2, "dit-b2": dit_b2}
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

@@ -25,14 +25,21 @@
 // Design (simple first versions: blocks own query tiles of kTile pairs
 // and loop over tiles of kTile key pairs; both halves of a query tile -
 // representative and follower rows - share each K/V tile):
-//   * bf16 with head dims 32/64/128: tensor cores through
+//   * bf16 with head dims 32/64/72/128: tensor cores through
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate), two query tiles per
 //     block, four warps of 16 query rows per tile, the flash-attention-2
 //     register layout (scores stay in
 //     the accumulator registers and are re-packed as the A operand of the
 //     PV product), K and V row-major in shared memory with rows padded by
 //     16 B, B fragments loaded with ldmatrix (.trans for V) free of bank
-//     conflicts.  The
+//     conflicts.  A head dim that is not a multiple of 32 (DiT-XL/2's 72)
+//     is zero-padded in shared memory only: Q and K tiles to the next
+//     multiple of 32 channels (ldmatrix loads the score product's k-steps
+//     in pairs), the V tile to the next multiple of 16 (output n-tiles
+//     come in pairs); only the real channels are read from device memory
+//     and only the real output columns are stored.  Zero channels add
+//     exact zeros to the scores, so the result is that of the unpadded
+//     product.  The
 //     collapsed V tile is v_even + v_odd summed in f32 and rounded once to
 //     bf16, as the JAX kernel rounds it to the operand dtype.
 //   * float32 (and other head dims): CUDA-core FMAs in f32, 4x4 scores and
@@ -61,6 +68,17 @@ constexpr int kMaxDim = 128;
 constexpr int kQTiles = 2;
 constexpr int kMmaThreads = 128 * kQTiles;
 
+// Channels of the shared-memory tiles: the score product's k-steps are
+// loaded in pairs (32 channels), the output's n-tiles in pairs (16).
+__host__ __device__ constexpr int pad_qk(int d) { return (d + 31) / 32 * 32; }
+__host__ __device__ constexpr int pad_v(int dv) { return (dv + 15) / 16 * 16; }
+
+template <int D, int DV>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * kRows *
+         ((size_t)(kQTiles + 1) * (pad_qk(D) + 8) + (pad_v(DV) + 8));
+}
+
 template <int D, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
     ripple_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -70,11 +88,13 @@ __global__ void __launch_bounds__(kMmaThreads)
                       const int* __restrict__ qflags,
                       const int* __restrict__ kflags, int N, int nqb,
                       float scale_log2) {
-  static_assert(D % 32 == 0 && DV % 16 == 0, "ldmatrix pairs k-steps");
-  constexpr int QS = D + 8;       // row stride of Q and K tiles (bf16)
-  constexpr int VS = DV + 8;      // row stride of the V tile
-  constexpr int KSTEPS = D / 16;  // k-steps of the score product
-  constexpr int NT_O = DV / 8;    // n-tiles of the output
+  static_assert(D % 8 == 0 && DV % 8 == 0, "rows load in 16-byte chunks");
+  constexpr int DP = pad_qk(D);    // channels of the Q and K tiles
+  constexpr int DVP = pad_v(DV);   // channels of the V tile
+  constexpr int QS = DP + 8;       // row stride of Q and K tiles (bf16)
+  constexpr int VS = DVP + 8;      // row stride of the V tile
+  constexpr int KSTEPS = DP / 16;  // k-steps of the score product
+  constexpr int NT_O = DVP / 8;    // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [QT*64][QS]
   __nv_bfloat16* Ks = Qs + kQTiles * kRows * QS;                    // [64][QS]
@@ -95,15 +115,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int qf = qb < nqb ? qflags[bh * nqb + qb] : 1;
 
   // Q tiles: local row r of tile t is pair (first + t)*kTile + r % kTile,
-  // the follower if r >= kTile.
-  constexpr int QCH = D / 8;  // 16-byte chunks per row
+  // the follower if r >= kTile.  Chunks past the real channels are zero.
+  constexpr int QCH = DP / 8;  // 16-byte chunks per tile row
   for (int i = tid; i < kQTiles * kRows * QCH; i += kMmaThreads) {
     const int row = i / QCH, ch = i % QCH;
     const int r = row % kRows;
     const int tb = blockIdx.x * kQTiles + row / kRows;
     const int p = tb * kTile + (r % kTile);
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (tb < nqb && p < P)
+    if (tb < nqb && p < P && ch < D / 8)
       val = *reinterpret_cast<const uint4*>(
           qh + (long)(2 * p + (r >= kTile)) * D + ch * 8);
     *reinterpret_cast<uint4*>(Qs + row * QS + ch * 8) = val;
@@ -138,19 +158,19 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int j = i / QCH, ch = i % QCH;
       const int p = kb * kTile + (j % kTile);
       uint4 val = make_uint4(0, 0, 0, 0);
-      if (p < P)
+      if (p < P && ch < D / 8)
         val = *reinterpret_cast<const uint4*>(
             kh + (long)(2 * p + (j >= kTile)) * D + ch * 8);
       *reinterpret_cast<uint4*>(Ks + j * QS + ch * 8) = val;
     }
-    constexpr int VCH = DV / 8;
+    constexpr int VCH = DVP / 8;
     for (int i = tid; i < nkeys * VCH; i += kMmaThreads) {
       const int j = i / VCH, ch = i % VCH;
       const int p = kb * kTile + (j % kTile);
       __align__(16) __nv_bfloat16 vals[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16_rn(0.f);
-      if (p < P) {
+      if (p < P && ch < DV / 8) {
         const uint4 a = *reinterpret_cast<const uint4*>(
             vh + (long)(2 * p + (kf ? 0 : (j >= kTile))) * DV + ch * 8);
         const __nv_bfloat16* av = reinterpret_cast<const __nv_bfloat16*>(&a);
@@ -274,6 +294,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     const float inv_l = 1.f / l_r[h];
 #pragma unroll
     for (int n = 0; n < NT_O; ++n) {
+      if (n * 8 >= DV) continue;  // padding columns
       const uint32_t val =
           pack_bf16(o[n][2 * h] * inv_l, o[n][2 * h + 1] * inv_l);
       const int col = n * 8 + 2 * tq;
@@ -480,8 +501,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
   const int P = N / 2;
   const int nqb = (P + kTile - 1) / kTile;
   const dim3 grid((nqb + kQTiles - 1) / kQTiles, BH);
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (size_t)(kQTiles + 2) * kRows * (D + 8);
+  constexpr size_t smem = mma_smem_bytes<D, D>();
   cudaError_t err = cudaFuncSetAttribute(
       ripple_mma_kernel<D, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -519,7 +539,7 @@ extern "C" int ripple_tile_pairs() { return kTile; }
 
 // q, k: (BH, N, d); v, out: (BH, N, dv), contiguous, float32 (is_bf16 = 0)
 // or bfloat16; qflags, kflags: (BH, ceil(N/2 / kTile)) int32.  bf16 with
-// d == dv in {32, 64, 128} takes the tensor-core path.  Returns the
+// d == dv in {32, 64, 72, 128} takes the tensor-core path.  Returns the
 // CUDA error of the launch (0 on success).
 extern "C" int ripple_attention_launch(const void* q, const void* k,
                                        const void* v, void* out,
@@ -536,6 +556,7 @@ extern "C" int ripple_attention_launch(const void* q, const void* k,
     switch (d) {
       case 32: return (int)launch_mma<32>(q, k, v, out, qf, kf, BH, N, scale, s);
       case 64: return (int)launch_mma<64>(q, k, v, out, qf, kf, BH, N, scale, s);
+      case 72: return (int)launch_mma<72>(q, k, v, out, qf, kf, BH, N, scale, s);
       case 128: return (int)launch_mma<128>(q, k, v, out, qf, kf, BH, N, scale, s);
       default: break;
     }
@@ -548,5 +569,5 @@ extern "C" int ripple_attention_launch(const void* q, const void* k,
 
 // Which path a call takes: 1 for the tensor-core kernel, 0 for CUDA cores.
 extern "C" int ripple_uses_tensor_cores(int is_bf16, int d, int dv) {
-  return is_bf16 && d == dv && (d == 32 || d == 64 || d == 128);
+  return is_bf16 && d == dv && (d == 32 || d == 64 || d == 72 || d == 128);
 }

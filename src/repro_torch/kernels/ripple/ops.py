@@ -79,7 +79,8 @@ def _launch(q, k, v, scale: float):
 
 def uses_tensor_cores(q: torch.Tensor, v: torch.Tensor) -> bool:
     """Does a CUDA call on these operands take the kernel's tensor-core
-    path?  The library decides (bf16, equal head dims of 32, 64 or 128)."""
+    path?  The library decides (bf16, equal head dims of 32, 64, 72 or
+    128)."""
     lib = _build.load("ripple_attention")
     return bool(lib.ripple_uses_tensor_cores(int(q.dtype == torch.bfloat16),
                                              q.shape[-1], v.shape[-1]))

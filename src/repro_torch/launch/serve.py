@@ -1,9 +1,11 @@
-"""Serving launcher of the port: bucketed continuous-batching video
-generation with TimeRipple on.
+"""Serving launcher of the port: bucketed continuous-batching video and
+image generation with TimeRipple on.
 
 ``python -m repro_torch.launch.serve`` runs on the CUDA card;
 ``--device cpu`` runs it on the CPU (kernel wrappers then take their
-plain PyTorch versions).  ``--smoke`` serves the smoke config at a 64²
+plain PyTorch versions).  ``--arch`` picks the model (``vdit-paper``,
+the default, or the image DiTs ``dit-xl2`` / ``dit-b2``, served at
+``--shape gen_1024``).  ``--smoke`` serves the smoke config at a 64²
 resolution for 3 steps; ``--override key=value`` edits the config
 (e.g. ``model.num_layers=8``, ``ripple.backend=dense``); ``--policy svg``
 serves under the SVG block mask and ``--override ripple.svg_mask=true``
@@ -26,9 +28,11 @@ from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core.policy import get_policy
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
-from repro_torch.launch.workloads import (_denoise_call, latent_shape_for,
-                                          mixed_request_stream)
-from repro_torch.models.params import init_vdit
+from repro_torch.launch.workloads import (_denoise_call, attention_tokens,
+                                          latent_shape_for,
+                                          mixed_request_stream,
+                                          request_label)
+from repro_torch.models.params import init_dit, init_vdit
 from repro_torch.serving.engine import DiffusionEngine
 from repro_torch.utils.device import resolve_device
 
@@ -37,16 +41,19 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 def build_sampler(arch, shape, model, *, use_ripple: bool = True,
                   policy=None, compute_dtype: torch.dtype = torch.bfloat16):
-    """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt) ->
-    latents`` runs the whole DDIM trajectory (vdit is not ``mmdit``, so
-    the server samples with DDIM) on the model's device.  ``policy``
-    overrides the arch config's reuse policy for this sampler.
+    """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt,
+    seeds=None) -> latents`` runs the whole DDIM trajectory (neither
+    vdit nor dit is ``mmdit``, so the server samples with DDIM) on the
+    model's device.  The dit family ignores ``txt`` and conditions each
+    request on a class label drawn from its seed (``seeds``, one per
+    row, required there).  ``policy`` overrides the arch config's reuse
+    policy for this sampler.
 
     A decision-cache setting (``reuse_every > 1`` or ``drift_tol > 0``)
     on a policy that can cache its decisions raises: the JAX launcher
     threads its cross-step decision cache there, which the port does not
     have yet, so serving on would give a different trajectory."""
-    if arch.family != "vdit":
+    if arch.family not in ("vdit", "dit"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
     if policy:
         arch = dataclasses.replace(
@@ -63,8 +70,16 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     steps = shape.steps or 50
     ddpm = DDPMSchedule()
 
-    def sample_fn(noise, txt):
-        cond = {"txt": txt}
+    def sample_fn(noise, txt, seeds=None):
+        if arch.family == "dit":
+            if seeds is None or len(seeds) != noise.shape[0]:
+                raise ValueError("the dit sampler needs one seed per "
+                                 "request for its class labels")
+            labels = [request_label(s, arch.model.num_classes)
+                      for s in seeds]
+            cond = {"labels": torch.tensor(labels, device=noise.device)}
+        else:
+            cond = {"txt": txt}
 
         def denoise(x, t, step):
             return _denoise_call(arch, model, x, t, cond, step, steps,
@@ -90,8 +105,10 @@ def serving_shape(arch, name, *, smoke: bool, steps=None):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vdit-paper", choices=ALL_ARCHS)
-    ap.add_argument("--shape", default="gen_512",
-                    help="the generate shape every request uses")
+    ap.add_argument("--shape", default=None,
+                    help="the generate shape every request uses (default: "
+                         "the arch's first, gen_512 for vdit-paper and "
+                         "gen_1024 for the DiTs)")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke config, 64x64, 3 steps")
     ap.add_argument("--requests", type=int, default=3)
@@ -116,19 +133,21 @@ def main(argv=None):
     device = resolve_device(args.device)
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.override)
-    shape = serving_shape(arch, args.shape, smoke=args.smoke,
+    shape_name = args.shape or next(
+        sp.name for sp in arch.shapes if sp.kind == "generate")
+    shape = serving_shape(arch, shape_name, smoke=args.smoke,
                           steps=args.steps)
-    model = init_vdit(arch.model, seed=args.seed, device=device)
+    init = init_dit if arch.family == "dit" else init_vdit
+    model = init(arch.model, seed=args.seed, device=device)
     sample_fn, lat_shape = build_sampler(arch, shape, model,
                                          use_ripple=not args.no_ripple,
                                          policy=args.policy)
     m = arch.model
-    grid = m.grid(img_res=shape.img_res)
-    n_tok = grid[0] * grid[1] * grid[2] + m.txt_tokens
-    plan = dispatch_lib.resolve_plan(
-        (1, m.num_heads, n_tok, m.d_model // m.num_heads),
-        (1, m.num_heads, n_tok, m.d_model // m.num_heads), arch.ripple,
-        on_cuda=device.type == "cuda", policy=args.policy)
+    qk = (1, m.num_heads, attention_tokens(arch, shape),
+          m.d_model // m.num_heads)
+    plan = dispatch_lib.resolve_plan(qk, qk, arch.ripple,
+                                     on_cuda=device.type == "cuda",
+                                     policy=args.policy)
     log.info("device %s; %s (%d layers) at %s, %d steps, latents %s; "
              "plan %s", device, arch.name, m.num_layers, shape.name,
              shape.steps, lat_shape, plan.summary())

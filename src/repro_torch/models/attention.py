@@ -1,7 +1,8 @@
 """Bidirectional multi-head attention through the dispatch layer.
 
-:func:`mha_attention` projects Q/K/V, applies qk-RMSNorm, then the
-precomputed factorized RoPE, and hands the (B, H, N, hd) operands to
+:func:`mha_attention` projects Q/K/V, applies qk-RMSNorm where the
+weights have it (the vDiT; not the DiT), then the precomputed factorized
+RoPE where given, and hands the (B, H, N, hd) operands to
 ``core.dispatch.attention_dispatch``, where an active
 :class:`RippleConfig` routes Q/K through the reuse pipeline.
 """
@@ -28,11 +29,12 @@ class Scale(nn.Module):
 
 
 class Attention(nn.Module):
-    """Self-attention weights with qk-norm: leaves wq, wk, wv, wo,
-    q_norm.scale, k_norm.scale in (d_in, d_out) layout."""
+    """Self-attention weights: leaves wq, wk, wv, wo in (d_in, d_out)
+    layout, and q_norm.scale, k_norm.scale with ``qk_norm`` (as the JAX
+    ``attention_defs(qk_norm=...)``); without it both norms are None."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
-                 device=None, dtype=None):
+                 device=None, dtype=None, qk_norm: bool = True):
         super().__init__()
 
         def w(a, b):
@@ -43,8 +45,8 @@ class Attention(nn.Module):
         self.wq, self.wk, self.wv = w(d_model, inner), w(d_model, inner), \
             w(d_model, inner)
         self.wo = w(inner, d_model)
-        self.q_norm = Scale(head_dim, device, dtype)
-        self.k_norm = Scale(head_dim, device, dtype)
+        self.q_norm = Scale(head_dim, device, dtype) if qk_norm else None
+        self.k_norm = Scale(head_dim, device, dtype) if qk_norm else None
 
 
 def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
@@ -61,8 +63,9 @@ def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     q = torch.matmul(x, p.wq.to(dt)).reshape(B, N, n_heads, head_dim)
     k = torch.matmul(x, p.wk.to(dt)).reshape(B, N, n_heads, head_dim)
     v = torch.matmul(x, p.wv.to(dt)).reshape(B, N, n_heads, head_dim)
-    q = rmsnorm(p.q_norm.scale, q)
-    k = rmsnorm(p.k_norm.scale, k)
+    if p.q_norm is not None:
+        q = rmsnorm(p.q_norm.scale, q)
+        k = rmsnorm(p.k_norm.scale, k)
     if rope_cos is not None:
         q = apply_rope_precomputed(q, rope_cos, rope_sin)
         k = apply_rope_precomputed(k, rope_cos, rope_sin)

@@ -1,6 +1,7 @@
-"""Shared layers: norms, linear, gated MLP, RoPE (factorized 3-D) and the
-sinusoidal timestep embedding.  Functions on tensors; weights are kept
-in the JAX package's (d_in, d_out) layout."""
+"""Shared layers: norms, linear, gated and plain MLPs, RoPE (factorized
+3-D), patch embedding and the sinusoidal timestep and 2-D position
+embeddings.  Functions on tensors, and the ``Linear`` module the models
+share; weights are kept in the JAX package's (d_in, d_out) layout."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
@@ -36,12 +38,43 @@ def linear(w: torch.Tensor, b: Optional[torch.Tensor], x: torch.Tensor):
     return out
 
 
+def param(*shape, device=None, dtype=None) -> nn.Parameter:
+    """An uninitialised, frozen parameter (the port serves; it does not
+    train)."""
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class Linear(nn.Module):
+    """Weight ``w`` (d_in, d_out) and bias ``b`` — the JAX leaf names."""
+
+    def __init__(self, d_in: int, d_out: int, device=None, dtype=None):
+        super().__init__()
+        self.w = param(d_in, d_out, device=device, dtype=dtype)
+        self.b = param(d_out, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return linear(self.w, self.b, x)
+
+
 def mlp(wi_gate, wi_up, wo, x: torch.Tensor):
     """Gated (SwiGLU-style) MLP with SiLU."""
     dt = x.dtype
     g = torch.matmul(x, wi_gate.to(dt))
     u = torch.matmul(x, wi_up.to(dt))
     return torch.matmul(F.silu(g) * u, wo.to(dt))
+
+
+def mlp_bias(wi, bi, wo, bo, x: torch.Tensor, act=F.silu):
+    """Non-gated MLP with biases: act(x @ wi + bi) @ wo + bo."""
+    dt = x.dtype
+    h = act(torch.matmul(x, wi.to(dt)) + bi.to(dt))
+    return torch.matmul(h, wo.to(dt)) + bo.to(dt)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def rope_freqs(dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
@@ -89,3 +122,40 @@ def sincos_timestep_embed(t: torch.Tensor, dim: int,
     if dim % 2:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+def patch_embed(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                patch: int):
+    """x: (B, H, W, C) -> (B, H/p * W/p, d), patches in (y, x) order."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // patch, patch, W // patch, patch, C)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(
+        B, (H // patch) * (W // patch), patch * patch * C)
+    return linear(w, b, x)
+
+
+def unpatchify(x: torch.Tensor, patch: int, h: int, w: int, out_ch: int):
+    """(B, h*w, p*p*C) -> (B, h*p, w*p, C)."""
+    B = x.shape[0]
+    x = x.reshape(B, h, w, patch, patch, out_ch)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, h * patch, w * patch, out_ch)
+
+
+def sincos_pos_embed_2d(h: int, w: int, dim: int, device=None):
+    """Fixed 2-D sin-cos position embedding (DiT/ViT style): (h*w, dim)
+    float32.  The division of the frequency exponents by their count is a
+    multiplication by its float32 reciprocal, as XLA computes it under
+    ``jit``."""
+    def _1d(n, d):
+        pos = torch.arange(n, dtype=torch.float32, device=device)
+        exps = torch.arange(d // 2, dtype=torch.float32, device=device) \
+            * float(np.float32(1.0) / np.float32(d // 2))
+        omega = 1.0 / (10000.0 ** exps)
+        out = pos[:, None] * omega[None]
+        return torch.cat([torch.sin(out), torch.cos(out)], dim=1)
+
+    eh = _1d(h, dim // 2)  # (h, dim/2)
+    ew = _1d(w, dim // 2)
+    return torch.cat([eh.repeat_interleave(w, dim=0), ew.repeat(h, 1)],
+                     dim=1)

@@ -18,35 +18,18 @@ from torch import nn
 
 from repro_torch.config.base import RippleConfig, VDiTConfig
 from repro_torch.models.attention import Attention, mha_attention
-from repro_torch.models.common import (layernorm, linear, mlp,
+from repro_torch.models.common import (Linear, layernorm, mlp, param,
                                        rope_3d_angles, sincos_timestep_embed)
 
 _RIPPLE_OFF = RippleConfig()
 
 
-def _param(*shape, device=None, dtype=None):
-    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
-                        requires_grad=False)
-
-
-class Linear(nn.Module):
-    """Weight ``w`` (d_in, d_out) and bias ``b`` — the JAX leaf names."""
-
-    def __init__(self, d_in: int, d_out: int, device=None, dtype=None):
-        super().__init__()
-        self.w = _param(d_in, d_out, device=device, dtype=dtype)
-        self.b = _param(d_out, device=device, dtype=dtype)
-
-    def forward(self, x):
-        return linear(self.w, self.b, x)
-
-
 class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, device=None, dtype=None):
         super().__init__()
-        self.wi_gate = _param(d, d_ff, device=device, dtype=dtype)
-        self.wi_up = _param(d, d_ff, device=device, dtype=dtype)
-        self.wo = _param(d_ff, d, device=device, dtype=dtype)
+        self.wi_gate = param(d, d_ff, device=device, dtype=dtype)
+        self.wi_up = param(d, d_ff, device=device, dtype=dtype)
+        self.wo = param(d_ff, d, device=device, dtype=dtype)
 
     def forward(self, x):
         return mlp(self.wi_gate, self.wi_up, self.wo, x)

@@ -9,9 +9,10 @@ lingers ``max_wait_s`` for batch-mates from the same bucket up to
 ``sampler_factory(latent_shape, steps)`` results.
 
 Per-request initial noise comes from a ``torch.Generator`` on the engine's
-device seeded with ``GenRequest.seed``, so a request's result does not
-depend on its batch-mates.  (The JAX engine draws it from
-``jax.random.PRNGKey``; the two streams differ by design.)
+device seeded with ``GenRequest.seed``, and the sampler gets every
+request's seed for its own draws (a DiT's class label), so a request's
+result does not depend on its batch-mates.  (The JAX engine draws both
+from ``jax.random.PRNGKey``; the two streams differ by design.)
 """
 
 from __future__ import annotations
@@ -66,9 +67,10 @@ class DiffusionEngine:
     """Continuous-batching engine over bucketed samplers.
 
     ``sampler_factory(latent_shape, steps) -> sample_fn`` builds the
-    sampler of one bucket; ``sample_fn(noise, txt)`` takes the batch's
-    initial noise (B, *latent_shape) and text embeddings (B, L, txt_dim)
-    on ``device`` (default CUDA) and returns the final latents.
+    sampler of one bucket; ``sample_fn(noise, txt, seeds)`` takes the
+    batch's initial noise (B, *latent_shape) and text embeddings
+    (B, L, txt_dim) on ``device`` (default CUDA) and the requests' seeds
+    (a list of B ints), and returns the final latents.
     """
 
     def __init__(self, sampler_factory: Callable, *, device=None,
@@ -183,7 +185,8 @@ class DiffusionEngine:
                                  for _, r in batch])
             txt = torch.from_numpy(np.stack([np.asarray(r.txt, np.float32)
                                              for _, r in batch]))
-            out = fn(noise, txt.to(self.device))
+            seeds = [r.seed for _, r in batch]
+            out = fn(noise, txt.to(self.device), seeds)
             lat = out.float().cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail the batch, not the engine
             log.exception("bucket %s batch failed", key)
