@@ -23,10 +23,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    maps with -inf and finite PARTIAL biases, fully skipped rows, ragged
    and clamped N, an SVG map at the serving shape, and a constructed
    all-temporal map at batch 2 whose batch rows carry different biases;
-6. times the kernels at the shapes their serving paths give them, their
-   plain versions and, for attention, ``scaled_dot_product_attention``
-   (for adaLN, ``F.layer_norm`` and its two elementwise ops: no single
-   PyTorch call computes it) with CUDA events;
+5b. holds the dense flash attention kernel against f32 dense softmax
+   (rounding p where the bf16 kernel rounds it) on the reference tests'
+   four shapes (d != dv, Nq != Nk, unaligned), odd head dims, extreme
+   logits and both serving shapes, f32 on CUDA cores and bf16 on tensor
+   cores, and the single-axis pair-snap kernel bit for bit against its
+   plain version (the reference tests' cases, bf16 and f32, and the vDiT
+   serving shape);
+6. times the kernels at the shapes their paths give them, their plain
+   versions and, for attention, ``scaled_dot_product_attention`` (for
+   adaLN, ``F.layer_norm`` and its two elementwise ops, and for the pair
+   snap an eager composite: no single PyTorch call computes them) with
+   CUDA events;
 7. serves 3 requests of vdit-paper at full width through the port's
    DiffusionEngine three times - the ripple policy, ``--policy svg`` and
    ripple with ``svg_mask`` - each with the launch counters set to 0 just
@@ -40,6 +48,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    with the counters set to 0 just before and read just after: the
    adaLN, fused_reuse and ripple kernels must launch, the ripple kernel
    on tensor cores; then profiles one DiT forward at step 10;
+8b. runs the port's kernel micro-bench (``repro_torch.launch.kernel_bench``)
+   at the reference's defaults and its sparse sweep at the vDiT's serving
+   width (the flash, sparse and fused_reuse kernels must launch), then
+   holds the flash and sparse calls of both sweeps on their own f32
+   operands against an f64 oracle and times f32 flash on the wide ones;
+   and runs the public ``reuse_snap`` wrapper at that width; each with
+   the counters set to 0 just before and read just after;
 9. checks a small trajectory of each of the four paths on the card
    against the same trajectory on the CPU.
 
@@ -230,6 +245,31 @@ def attn_tol(dtype_name, ref) -> float:
     return 4 * 2.0 ** -8 * ref.abs().max().item()
 
 
+def f32_logit_slack(q, k, v) -> float:
+    """What f32 logits far from O(1) add to the f32 bar, for a kernel held
+    against an exact (f64) oracle.  The kernel_bench sweep's operands
+    (correlated latents through 0.4-scaled random projections) reach
+    |logits| ~ 130, where f32 logits are off by ~1e-4.  Each output is a
+    p-weighted mean of v, so logits off by at most δ move it by at most
+    2·δ·max|v|.  δ is twice E, the largest gap between the f32 and the
+    f64 scaled logits of the same q, k (the kernel sums each product in
+    another order), plus 2^-22 of max|logit| for the f32 roundings of the
+    scale, of the scale in log2 units and of each scaled logit."""
+    import torch
+
+    B, H, _, d = q.shape
+    scale = 1.0 / d ** 0.5
+    gap = top = 0.0
+    for b in range(B):
+        for h in range(H):
+            s64 = torch.matmul(q[b, h].double(), k[b, h].double().T) * scale
+            s32 = torch.matmul(q[b, h].float(), k[b, h].float().T) * scale
+            gap = max(gap, (s32.double() - s64).abs().max().item())
+            top = max(top, s64.abs().max().item())
+            del s64, s32
+    return 2 * v.float().abs().max().item() * (2 * gap + 2.0 ** -22 * top)
+
+
 def check_ripple(results, q, k, v, label):
     """The kernel against :func:`attention_oracle`; every bf16 case with a
     head dim of 32, 64, 72 or 128 must take the tensor cores."""
@@ -361,43 +401,48 @@ def tile_shares(bmap) -> str:
     return f"full {c[0].item():.3f} partial {c[1].item():.3f} skip {c[2].item():.3f}"
 
 
-def sparse_oracle(q, k, v, bias, bmap, blk, round_p):
+def sparse_oracle(q, k, v, bias, bmap, blk, round_p, exact=False):
     """f32 block-sparse softmax attention with the kernel's conventions
     (FULL tiles ignore the bias, SKIP tiles drop out, the running max is
     floored at -1e30, a row with no live key emits 0), one head at a time.
     ``round_p`` rounds the probabilities to bf16 before the PV product,
-    where the bf16 kernel rounds them (the row sum stays f32)."""
+    where the bf16 kernel rounds them (the row sum stays f32); ``exact``
+    computes in f64 instead of f32."""
     import torch
     from repro_torch.kernels.sparse.ref import PARTIAL, SKIP, expand_block_map
 
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     scale = float(1.0 / (d ** 0.5))
-    out = torch.empty((B, H, Nq, v.shape[-1]), dtype=torch.float32, device=q.device)
+    wt = torch.float64 if exact else torch.float32
+    out = torch.empty((B, H, Nq, v.shape[-1]), dtype=wt, device=q.device)
     bm = bmap.expand(B, H, *bmap.shape[-2:])
-    be = None if bias is None else bias.float().expand(B, H, Nq, Nk)
+    be = None if bias is None else bias.expand(B, H, Nq, Nk)
     for b in range(B):
         for h in range(H):
-            s = torch.matmul(q[b, h].float(), k[b, h].float().T) * scale
+            s = torch.matmul(q[b, h].to(wt), k[b, h].to(wt).T) * scale
             st = expand_block_map(bm[b, h], Nq, Nk, blk, blk)
             if be is not None:
-                s = torch.where(st == PARTIAL, s + be[b, h], s)
+                s = torch.where(st == PARTIAL, s + be[b, h].to(wt), s)
             s = s.masked_fill(st == SKIP, float("-inf"))
             p = torch.exp(s - s.amax(-1, keepdim=True).clamp(min=-1e30))
             l = p.sum(-1, keepdim=True)
             if round_p:
-                p = p.bfloat16().float()
-            out[b, h] = torch.matmul(p, v[b, h].float()) / torch.where(
+                p = p.bfloat16().to(wt)
+            out[b, h] = torch.matmul(p, v[b, h].to(wt)) / torch.where(
                 l > 0, l, torch.ones_like(l))
             del s, st, p
     return out
 
 
-def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False):
+def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False, slack=None):
     """The kernel against :func:`sparse_oracle` at ``attn_tol`` (bf16
     rounds probabilities where the kernel does); an all-SKIP map must give
     exact zeros; ``sdpa`` also holds an all-FULL call against
-    ``scaled_dot_product_attention``.  Returns the max abs error."""
+    ``scaled_dot_product_attention``.  With ``slack`` (f32 operands whose
+    logits are far from O(1), :func:`f32_logit_slack`) the oracle is
+    exact and the bar is ``attn_tol`` plus the slack.  Returns the max abs
+    error."""
     import torch
     from repro_torch.kernels.sparse import ops as sparse_ops
     from repro_torch.kernels.sparse.ref import SKIP
@@ -405,13 +450,14 @@ def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False):
     out = sparse_ops.sparse_attention(q, k, v, bias=bias, block_map=bmap,
                                       block_q=blk, block_k=blk)
     tc = sparse_ops.uses_tensor_cores(q, v)
-    ref = sparse_oracle(q, k, v, bias, bmap, blk, round_p=q.dtype == torch.bfloat16)
+    ref = sparse_oracle(q, k, v, bias, bmap, blk, round_p=q.dtype == torch.bfloat16,
+                        exact=slack is not None)
     torch.cuda.synchronize()
-    err = (out.float() - ref).abs().max().item()
+    err = (out.to(ref.dtype) - ref).abs().max().item()
     name = str(q.dtype).replace("torch.", "")
-    tol = attn_tol(name, ref)
+    tol = attn_tol(name, ref) + (slack or 0.0)
     ok = err <= tol and bool(torch.isfinite(out).all())
-    extra = ""
+    extra = "" if slack is None else f"; vs f64, logit slack {slack:.3g}"
     if bool((bmap == SKIP).all()):
         zeros = bool((out == 0).all())
         ok = ok and zeros
@@ -591,6 +637,357 @@ def sparse_bound(q, v, bias, bmap, blk):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
         flops, nbytes
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: dense flash attention
+# ---------------------------------------------------------------------------
+
+# The four shapes of tests/test_kernels.py::TestFlashKernel (B, H, Nq, Nk,
+# d, dv) and the two serving shapes (the vDiT's, the DiT's).
+FLASH_TEST_SHAPES = ((1, 1, 128, 128, 64, 64), (2, 3, 256, 256, 32, 32),
+                     (1, 2, 200, 333, 16, 48), (1, 1, 64, 512, 128, 128))
+FLASH_SERVE_SHAPES = ((1, 24, 8448, 8448, 128, 128), (4, 16, 4096, 4096, 72, 72))
+
+
+def flash_oracle(q, k, v, round_p, exact=False):
+    """f32 dense softmax attention, one head at a time; ``round_p`` rounds
+    the probabilities to bf16 before the PV product, where the bf16
+    kernel rounds them (the row sum stays f32); ``exact`` computes in f64
+    instead of f32."""
+    import torch
+
+    B, H, Nq, d = q.shape
+    scale = float(1.0 / (d ** 0.5))
+    wt = torch.float64 if exact else torch.float32
+    out = torch.empty((B, H, Nq, v.shape[-1]), dtype=wt, device=q.device)
+    for b in range(B):
+        for h in range(H):
+            s = torch.matmul(q[b, h].to(wt), k[b, h].to(wt).T) * scale
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            l = p.sum(-1, keepdim=True)
+            if round_p:
+                p = p.bfloat16().to(wt)
+            out[b, h] = torch.matmul(p, v[b, h].to(wt)) / l
+            del s, p
+    return out
+
+
+def check_flash(results, shape, dtype, seed, label="", amp=1.0):
+    """The kernel on seeded operands of ``shape`` (B, H, Nq, Nk, d, dv);
+    ``amp`` scales q and k (the extreme-logits case: logits in the
+    hundreds).  Returns the max abs error."""
+    import torch
+
+    B, H, Nq, Nk, d, dv = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q = (amp * torch.randn((B, H, Nq, d), generator=g, device="cuda")).to(dtype)
+    k = (amp * torch.randn((B, H, Nk, d), generator=g, device="cuda")).to(dtype)
+    v = torch.randn((B, H, Nk, dv), generator=g, device="cuda").to(dtype)
+    return check_flash_operands(results, q, k, v, label)
+
+
+def check_flash_operands(results, q, k, v, label="", slack=None, **kw):
+    """The kernel against :func:`flash_oracle` at ``attn_tol`` (bf16
+    rounds p where the kernel does), on the tensor cores for bf16 and the
+    CUDA cores for f32; with ``slack`` (:func:`f32_logit_slack`) the
+    oracle is exact and the bar is ``attn_tol`` plus the slack.  Returns
+    the max abs error."""
+    import torch
+    from repro_torch.kernels.flash import ops as flash_ops
+
+    (B, H, Nq, d), Nk, dv, dtype = q.shape, k.shape[2], v.shape[3], q.dtype
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    tc = flash_ops.uses_tensor_cores(q)
+    ref = flash_oracle(q, k, v, round_p=dtype == torch.bfloat16, exact=slack is not None)
+    torch.cuda.synchronize()
+    err = (out.to(ref.dtype) - ref).abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    tol = attn_tol(name, ref) + (slack or 0.0)
+    ok = (err <= tol and bool(torch.isfinite(out).all()) and out.shape == (B, H, Nq, dv)
+          and out.dtype == dtype and tc == (dtype == torch.bfloat16))
+    path = "tensor cores" if tc else "CUDA cores"
+    oracle = "f32 dense" if slack is None else f"f64 dense, logit slack {slack:.3g}"
+    log(f"kernel flash_attention {name:8s} q{(B, H, Nq, d)} k{(B, H, Nk, d)} "
+        f"v{(B, H, Nk, dv)}{label} [{path}]: max abs err vs {oracle} {err:.3e} "
+        f"(tol {tol:.3g}) {'ok' if ok else 'FAIL'}")
+    results.append(ok)
+    if not ok:
+        raise SystemExit("flash kernel disagrees with dense attention, or took the "
+                         "wrong path")
+    del out, ref
+    return err
+
+
+def flash_checks():
+    """Every flash case on seeded operands (the kernel_bench phase holds
+    the kernel on its own operands too)."""
+    import torch
+
+    res = []
+    for dt in (torch.float32, torch.bfloat16):
+        for i, shape in enumerate(FLASH_TEST_SHAPES):
+            check_flash(res, shape, dt, 50 + i)
+        check_flash(res, (1, 1, 128, 128, 32, 32), dt, 55, " extreme logits (q, k x30)",
+                    amp=30.0)
+        check_flash(res, (2, 2, 77, 130, 20, 7), dt, 56, " odd head dims")
+    check_flash(res, FLASH_SERVE_SHAPES[0], torch.bfloat16, 57, " (vDiT serving shape)")
+    check_flash(res, FLASH_SERVE_SHAPES[1], torch.bfloat16, 58, " (dit-xl2 serving shape)")
+    torch.cuda.empty_cache()
+    log(f"kernel flash_attention: {sum(res)}/{len(res)} cases within tolerance")
+
+
+def flash_bound(B, H, Nq, Nk, d, dv, dtype_name):
+    """(bound ms, 'bytes' or 'operations', flops, bytes) of one call."""
+    flops = 2.0 * B * H * Nq * Nk * (d + dv)
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elt * B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            flops, nbytes)
+
+
+def time_flash(shape, label):
+    """:func:`time_flash_operands` on seeded bf16 operands of ``shape``."""
+    import torch
+
+    B, H, Nq, Nk, d, dv = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(59)
+    q = torch.randn((B, H, Nq, d), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, H, Nk, d), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, H, Nk, dv), generator=g, device="cuda").bfloat16()
+    out = time_flash_operands(q, k, v, label)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_operands(q, k, v, label, iters=(5, 3, 10), **kw):
+    """Kernel, plain version and ``scaled_dot_product_attention`` (the
+    library yardstick; the port never calls it) on the same operands;
+    ``iters`` for each of the three."""
+    import torch
+    from repro_torch.kernels.flash.ops import flash_attention
+    from repro_torch.kernels.flash.ref import attention_ref
+
+    (B, H, Nq, d), Nk, dv = q.shape, k.shape[2], v.shape[3]
+    name = str(q.dtype).replace("torch.", "")
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, **kw), iters=iters[0], warmup=1)
+    plain = cuda_time_ms(lambda: attention_ref(q, k, v), iters=iters[1], warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_time_ms(lambda: sdpa(q, k, v, scale=float(1.0 / d ** 0.5)),
+                       iters=iters[2], warmup=1)
+    bound, by, flops, nbytes = flash_bound(B, H, Nq, Nk, d, dv, name)
+    log(f"time flash_attention {name} {(B, H, Nq, d)} ({label}): kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}: {flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB)")
+    torch.cuda.empty_cache()
+    return ms, plain, lib, bound, by
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: single-axis pair snap
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py::TestReuseSnapKernel's cases (B, H, N, d), plus
+# head dims that take the element-wise variant (bf16 d 20, f32 d 6).
+SNAP_SHAPES = ((2, 2, 256, 16), (2, 2, 300, 32), (2, 2, 64, 128), (2, 2, 64, 20),
+               (2, 2, 66, 6))
+SNAP_SERVE_SHAPE = (1, 24, 8448, 128)
+
+
+def check_snap(results, shape, dtype, theta, seed):
+    """The kernel bit for bit against its plain version on the same card
+    tensors; the even half untouched and never masked."""
+    import torch
+    from repro_torch.kernels.reuse_mask.ops import reuse_snap
+    from repro_torch.kernels.reuse_mask.ref import reuse_snap_plain
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    snapped, mask = reuse_snap(x, theta)
+    ref_s, ref_m = reuse_snap_plain(x, theta)
+    torch.cuda.synchronize()
+    ok = (bits_equal(snapped, ref_s) and torch.equal(mask, ref_m)
+          and bits_equal(snapped[..., 0::2, :].contiguous(), x[..., 0::2, :].contiguous())
+          and not bool(mask[..., 0::2, :].any()))
+    frac = mask[..., 1::2, :].float().mean().item()
+    name = str(dtype).replace("torch.", "")
+    log(f"kernel reuse_snap {name:8s} x{tuple(shape)} theta={theta}: bit-equal={ok} "
+        f"snapped share of the odd half {frac:.4f}")
+    results.append(ok)
+    if not ok:
+        raise SystemExit("reuse_snap kernel disagrees with its plain version")
+    return (snapped.float() - ref_s.float()).abs().max().item()
+
+
+def snap_checks():
+    """Every reuse_snap case; returns the serving shape's max abs error."""
+    import torch
+
+    res = []
+    for dt in (torch.bfloat16, torch.float32):
+        for i, shape in enumerate(SNAP_SHAPES):
+            for theta in (0.0, 0.3, 10.0):
+                check_snap(res, shape, dt, theta, 70 + i)
+    serve_err = check_snap(res, SNAP_SERVE_SHAPE, torch.bfloat16, 0.3, 76)
+    log(f"kernel reuse_snap: {sum(res)}/{len(res)} cases bit-equal")
+    return serve_err
+
+
+def snap_composite(x, th):
+    """The pair snap as a short chain of eager PyTorch ops (no single
+    library call computes it): the odd half's Δ, compare and select
+    written into a copy of x, and the mask."""
+    import torch
+
+    e, o = x[..., 0::2, :], x[..., 1::2, :]
+    m = (o - e).abs_().mul_(0.5) < th
+    out = x.clone()
+    out[..., 1::2, :] = torch.where(m, e, o)
+    mask = torch.zeros(x.shape, dtype=torch.int8, device=x.device)
+    mask[..., 1::2, :] = m
+    return out, mask
+
+
+def time_snap():
+    import torch
+    from repro_torch.kernels.reuse_mask.ops import reuse_snap
+    from repro_torch.kernels.reuse_mask.ref import reuse_snap_plain
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(77)
+    x = torch.randn(SNAP_SERVE_SHAPE, generator=g, device="cuda").bfloat16()
+    th = torch.tensor(0.3, device="cuda").bfloat16()
+    ms = cuda_time_ms(lambda: reuse_snap(x, 0.3), iters=20)
+    plain = cuda_time_ms(lambda: reuse_snap_plain(x, 0.3), iters=10)
+    comp = cuda_time_ms(lambda: snap_composite(x, th), iters=10)
+    nbytes = x.numel() * (2 + 2 + 1)
+    ops = 4 * x.numel() / 2  # per pair-channel: sub, abs, mul, compare
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_FLOPS["float32"] \
+        else "operations"
+    log(f"time reuse_snap bf16 {SNAP_SERVE_SHAPE}: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, eager composite "
+        f"{comp:.4f} ms (no single PyTorch call), bound {bound:.4f} ms ({by}: "
+        f"{nbytes / 1e6:.1f} MB)")
+    del x
+    return ms, plain, bound, by
+
+
+# ---------------------------------------------------------------------------
+# Entry points without a serving path: the kernel micro-bench and the
+# public pair-snap wrapper
+# ---------------------------------------------------------------------------
+
+
+KB_WIDE = (1, 24, 8192, 128)  # the sparse sweep at the vDiT's width: (8, 32, 32) x 24 x 128
+
+
+def kernel_bench_phase():
+    """The port's kernel micro-bench (``python -m
+    repro_torch.launch.kernel_bench``) at the reference's defaults, then
+    its sparse sweep at the vDiT's serving width (grid (8, 32, 32), 24
+    heads of 128), with the launch counters set to 0 just before and read
+    just after: the flash, sparse and fused_reuse kernels must launch.
+    The first flash call and the first sparse call on each map of each
+    sweep keep their operands; afterwards each is held against its exact
+    oracle (f32, as the sweep launches them, on the CUDA cores), and the
+    flash kernel is timed on the wide sweep's operands.  Returns the
+    counts and (max abs err, ms, plain ms, library ms, bound ms, bound by)
+    of flash at that width."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.sparse.ops import PARTIAL
+    from repro_torch.launch import kernel_bench
+
+    flash_calls, sparse_calls = {}, {}
+
+    def keep(store, key):
+        def make(orig):
+            def f(q, k, v, **kw):
+                store.setdefault(key(q, kw), (q, k, v, kw))
+                return orig(q, k, v, **kw)
+            return f
+        return make
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with wrapped(kernel_bench, "flash_attention",
+                 keep(flash_calls, lambda q, kw: tuple(q.shape))), \
+            wrapped(kernel_bench, "sparse_attention",
+                    keep(sparse_calls, lambda q, kw: (tuple(q.shape),
+                                                      kw["block_map"].data_ptr()))):
+        kernel_bench.main([])
+        wide = kernel_bench.sparse_backend_sweep(grid=(8, 32, 32), d=128, heads=24)
+        log(kernel_bench.sparse_row(wide))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"kernel_bench: launches {counts}; {time.perf_counter() - t0:.1f}s; {CARD}")
+    if any(counts[n] <= 0 for n in ("flash_attention", "sparse_attention",
+                                    "fused_reuse")):
+        raise SystemExit(f"kernel_bench: a kernel of the path never launched: {counts}")
+    if KB_WIDE not in flash_calls or len(sparse_calls) != 4:
+        raise SystemExit(f"kernel_bench: calls kept {list(flash_calls)}, "
+                         f"{len(sparse_calls)} sparse")
+
+    res = []
+    for q, k, v, kw in sparse_calls.values():
+        bmap, blk = kw["block_map"], kw["block_q"]
+        which = "all-PARTIAL map" if bool((bmap == PARTIAL).all()) else "svg map"
+        check_sparse(res, f"kernel_bench operands, {which}", q, k, v, kw["bias"], bmap,
+                     blk, slack=f32_logit_slack(q, k, v))
+    sparse_calls.clear()
+    torch.cuda.empty_cache()
+    errs = {}
+    for shape, (q, k, v, kw) in flash_calls.items():
+        errs[shape] = check_flash_operands(res, q, k, v, " (kernel_bench operands)",
+                                           slack=f32_logit_slack(q, k, v), **kw)
+    log(f"kernel_bench: {sum(res)}/{len(res)} kernel calls on the sweeps' own operands "
+        f"within tolerance")
+    q, k, v, kw = flash_calls.pop(KB_WIDE)
+    flash_calls.clear()
+    timed = time_flash_operands(q, k, v, "kernel_bench operands, the sweep's dense "
+                                "anchor", iters=(3, 2, 3), **kw)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return counts, (errs[KB_WIDE],) + timed
+
+
+def snap_phase(calls=4):
+    """The public ``reuse_snap`` wrapper, called as its only callers in
+    the reference (its kernel tests) call it, on an operand of the vDiT's
+    serving width in t-major pair order (``pair_major_order``), so that
+    each pair is a token and its partner in the next frame, at the Eq. 4
+    thresholds 0.2 .. 0.5; the counters set to 0 just before and read
+    just after."""
+    import torch
+    from repro_torch.core.collapse import pair_major_order
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.reuse_mask.ops import reuse_snap
+
+    grid = (8, 32, 32)
+    x = correlated((1, 24, 8 * 32 * 32, 128), torch.bfloat16, 78, noise=0.3)
+    x = x[:, :, torch.as_tensor(pair_major_order(grid, "t"), device="cuda")].contiguous()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fracs = []
+    for theta in torch.linspace(0.2, 0.5, calls).tolist():
+        _, mask = reuse_snap(x, theta)
+        fracs.append(mask[..., 1::2, :].float().mean().item())
+    counts = launch_counts()
+    log(f"snap[reuse_snap]: x{tuple(x.shape)} t-major, thetas 0.2..0.5: snapped share of "
+        f"the odd half {[round(f, 4) for f in fracs]}; launches {counts}")
+    if counts["reuse_snap"] != calls or any(
+            n != "reuse_snap" and c for n, c in counts.items()):
+        raise SystemExit(f"snap[reuse_snap]: unexpected launches {counts}")
+    del x
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1139,6 +1536,10 @@ def main() -> int:
     # 5. kernel 3 vs its plain semantics -------------------------------------
     sparse_checks(serve_grid, 256)
 
+    # 5b. kernels 5 (flash) and 6 (reuse_snap) vs their plain versions ------
+    flash_checks()
+    snap_err = snap_checks()
+
     # 6. times at the serving shapes (bf16) ---------------------------------
     from repro_torch.core.reuse import compute_reuse
 
@@ -1225,6 +1626,9 @@ def main() -> int:
         f"{a_bound:.4f} ms ({a_by}: {a_bytes / 1e6:.1f} MB)")
     del xa, ada, sha, sca
     torch.cuda.empty_cache()
+    time_flash(FLASH_SERVE_SHAPES[0], "vDiT serving shape")
+    time_flash(FLASH_SERVE_SHAPES[1], "dit-xl2 serving shape")
+    sn_ms, sn_plain, sn_bound, sn_by = time_snap()
 
     # 7. serving phases: each path with the launch counters set to 0 just
     # before it and read just after -------------------------------------------
@@ -1317,6 +1721,11 @@ def main() -> int:
     # before it and read just after ----------------------------------------
     counts_d = serve_dit()
 
+    # 8b. the kernel micro-bench and the public pair-snap wrapper, each
+    # with the counters set to 0 just before and read just after ----------
+    counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
+    counts_sn = snap_phase()
+
     # 9. small trajectories, card vs CPU ------------------------------------
     small_reference_check("ripple")
     small_reference_check("svg", policy="svg")
@@ -1352,6 +1761,22 @@ def main() -> int:
          "launches": counts_d["adaln"], "max_abs_err": adaln_err,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
          "bound_by": a_by, "library_ms": None},
+        # f32 at (1, 24, 8192, 128), as its path (the kernel_bench sweep)
+        # launches it; the bf16 times at the serving shapes are log lines.
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash/kernel.py:61",
+         "launches": counts_kb["flash_attention"], "max_abs_err": fl_err,
+         "ms": fl_ms, "plain_ms": fl_plain, "bound_ms": fl_bound,
+         "bound_by": fl_by, "library_ms": fl_lib},
+        # No single PyTorch call computes the pair snap: the time of an
+        # eager composite is in the log line.
+        {"name": "reuse_snap", "route": "cuda",
+         "source": "src/repro_torch/csrc/reuse_snap.cu",
+         "replaces": "src/repro/kernels/reuse_mask/kernel.py:52",
+         "launches": counts_sn["reuse_snap"], "max_abs_err": snap_err,
+         "ms": sn_ms, "plain_ms": sn_plain, "bound_ms": sn_bound,
+         "bound_by": sn_by, "library_ms": None},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

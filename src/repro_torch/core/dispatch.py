@@ -9,9 +9,10 @@ model targets (DESIGN.md §8).
      argument, the operands' device, the policy's needs and the shape.
      The names are the JAX package's, so a config means the same in both:
      ``dense`` (plain attention, no reuse), ``reference`` (dense attention
-     on the snapped operands), ``collapse`` (not ported yet: raises),
-     ``pallas``, which in the port names the hand-written CUDA ripple
-     kernel (``kernels/ripple``), and ``sparse``, the hand-written CUDA
+     on the snapped operands), ``collapse`` (the exact pair-collapse
+     identities in plain PyTorch, ``core/collapse.py``), ``pallas``,
+     which in the port names the hand-written CUDA ripple kernel
+     (``kernels/ripple``), and ``sparse``, the hand-written CUDA
      block-sparse kernel (``kernels/sparse``) for policies that tile
      their masks into a skip/full/partial block map.  ``auto`` picks
      ``sparse`` for such policies on any device (the plain version on
@@ -27,12 +28,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config.base import RippleConfig
+from repro_torch.core.collapse import collapsed_attention
 from repro_torch.core.policy import (ReuseDecision, ReusePolicy, get_policy,
                                      list_policies, register_policy)
 from repro_torch.kernels.ripple.ops import TILE_PAIRS, attention_scale
@@ -40,7 +43,7 @@ from repro_torch.kernels.ripple.ops import TILE_PAIRS, attention_scale
 __all__ = [
     "attention_dispatch", "DispatchPlan", "ReuseDecision", "ReusePolicy",
     "dense_attention", "get_policy", "list_policies", "register_policy",
-    "resolve_backend", "resolve_plan", "shape_bucket",
+    "resolve_backend", "resolve_plan", "shape_bucket", "time_best",
 ]
 
 BACKENDS = ("auto", "dense", "reference", "collapse", "pallas", "sparse")
@@ -80,6 +83,38 @@ def dense_attention(q, k, v, scale: float, bias=None):
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def _cuda_devices(out) -> set:
+    """The CUDA devices of the tensors in ``out`` (a tensor, or a nest of
+    tuples and lists of them)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device} if out.is_cuda else set()
+    if isinstance(out, (tuple, list)):
+        return set().union(*(_cuda_devices(o) for o in out))
+    return set()
+
+
+def time_best(fn, repeats: int = 3) -> float:
+    """Warm once, then the best wall time of ``repeats`` calls, in
+    seconds — the one timing idiom of the kernel benchmarks.  When
+    ``fn`` returns CUDA tensors, their devices are synchronised before
+    and after each timed call, so the time is the device's and not the
+    enqueue's."""
+    devices = _cuda_devices(fn())
+
+    def sync():
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+
+    best = float("inf")
+    for _ in range(max(repeats, 1)):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def shape_bucket(n: int) -> int:
@@ -177,8 +212,8 @@ def _execute_backend(d: ReuseDecision, v, scale: float, *,
                                 block_map=d.block_map, block_q=plan.block_q,
                                 block_k=plan.block_k)
     if plan.backend == "collapse":
-        raise NotImplementedError("the collapse backend (core/collapse.py) "
-                                  "is not ported yet")
+        return collapsed_attention(d.q, d.k, v, bias=d.bias,
+                                   window=cfg.window, scale=scale)
     return dense_attention(d.q, d.k, v, scale, d.bias)
 
 

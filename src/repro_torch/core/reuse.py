@@ -26,7 +26,7 @@ sequence, so the two agree bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -174,8 +174,8 @@ def axis_reuse_mask(x_grid: torch.Tensor, axis: str, theta, window: int,
 def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
                   thetas: Dict[str, float], axes: Sequence[str] = AXES,
                   window: int = 2, granularity: str = "channel",
-                  channel_groups: Sequence[float] = (0.125, 0.4375, 0.4375)
-                  ) -> ReuseResult:
+                  channel_groups: Sequence[float] = (0.125, 0.4375, 0.4375),
+                  protect_axis: Optional[str] = None) -> ReuseResult:
     """Full TimeRipple reuse for one operand (Q or K).
 
     x: (..., N, d) with N == T*H*W tokens in (t, y, x) row-major order.
@@ -183,18 +183,34 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
     Aggregation is a logical OR across axes (paper step ②); where several
     axes pass, the first axis in ``axes`` wins the copy source.  Every
     axis mask is computed from the *original* operand.
+
+    ``protect_axis`` is the collapse-aware refinement (DESIGN.md §4):
+    window *representatives* along that axis are never snapped by the
+    other axes, so the value-identity of that axis's pairs survives high
+    thresholds and the pair-collapse kernel keeps its tile skips.
     """
     T, H, W = grid
     *lead, N, d = x.shape
     if N != T * H * W:
         raise ValueError(f"token count {N} != grid {grid}")
     x_grid = x.reshape(*lead, T, H, W, d)
+    protected = None
+    if protect_axis is not None:
+        dim = _AXIS_DIM[protect_axis] % x_grid.ndim
+        length = x_grid.shape[dim]
+        pos = torch.arange(length, device=x.device)
+        is_rep = (pos % window == 0) & (pos < (length // window) * window)
+        shape = [1] * x_grid.ndim
+        shape[dim] = length
+        protected = is_rep.reshape(shape)
     snapped = x_grid
     claimed = torch.zeros(x_grid.shape, dtype=torch.bool, device=x.device)
     axis_masks: Dict[str, torch.Tensor] = {}
     for axis in axes:
         mask, rep = axis_reuse_mask(x_grid, axis, thetas[axis], window,
                                     granularity, channel_groups)
+        if protected is not None and axis != protect_axis:
+            mask = mask & ~protected
         axis_masks[axis] = mask
         take = mask & ~claimed  # first-wins priority
         snapped = torch.where(take, rep, snapped)

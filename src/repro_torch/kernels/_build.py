@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 _ROOT = _PKG.parents[1]
 BUILD_ROOT = _ROOT / "build" / "kernels"
 
-SOURCES = ("fused_reuse", "ripple_attention", "sparse_attention", "adaln")
+SOURCES = ("fused_reuse", "ripple_attention", "sparse_attention", "adaln",
+           "flash_attention", "reuse_snap")
 # --fmad=false keeps every mul+add pair rounded separately (the Δ-check
 # is held to bit-equality with its plain version).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

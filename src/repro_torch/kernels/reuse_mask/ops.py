@@ -1,10 +1,16 @@
-"""Wrapper of the fused three-axis Δ-check + snap kernel
-(``csrc/fused_reuse.cu``), the on-device replacement for the host-side
-``core.reuse.compute_reuse`` on its eligible shapes.
+"""Wrappers of the reuse-snap kernels:
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+* :func:`reuse_snap` — the single-axis adjacent-pair snap on (B, H, N, d)
+  operands (``csrc/reuse_snap.cu``; permute with
+  ``core.collapse.pair_major_order`` for the t and y axes first);
+  ``snap_launches`` counts its launches;
+* :func:`fused_reuse_snap` / :func:`fused_compute_reuse` — the fused
+  three-axis Δ-check + snap kernel (``csrc/fused_reuse.cu``), the
+  on-device replacement for the host-side ``core.reuse.compute_reuse``
+  on its eligible shapes; ``launches`` counts its launches.
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor, and only there, it runs the plain version (``ref.py``).
-``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -16,12 +22,56 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.reuse_mask.ref import fused_reuse_ref
+from repro_torch.kernels.reuse_mask.ref import fused_reuse_ref, reuse_snap_plain
 
 launches = 0
+snap_launches = 0
 
 _AXIS_ID = {"t": 0, "x": 1, "y": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _snap_launch(x: torch.Tensor, theta: float):
+    global snap_launches
+    B, H, N, d = x.shape
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"reuse snap kernel takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("reuse snap kernel needs a contiguous, 16-byte "
+                         "aligned operand")
+    out = torch.empty_like(x)
+    mask = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    lib = _build.load("reuse_snap")
+    fn = lib.reuse_snap_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(x.device):  # launch on the operand's card
+        rc = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(),
+                _DTYPES[x.dtype], B * H * (N // 2), d, theta,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"reuse snap kernel launch failed: CUDA error "
+                           f"{rc}")
+    snap_launches += 1
+    return out, mask
+
+
+def reuse_snap(x: torch.Tensor, theta: float):
+    """x: (B, H, N, d) with N even, theta: scalar -> (snapped x, mask int8),
+    both shaped like x.  Each odd token whose Δ = |x_odd − x_even| · 0.5 is
+    below θ (rounded to x's dtype) takes its even partner's value; the
+    even (representative) tokens are untouched and never masked."""
+    if x.dim() != 4 or x.shape[2] % 2:
+        raise ValueError(f"reuse_snap takes (B, H, N, d) with N even, not "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return reuse_snap_plain(x, theta)
+    if x.device.type != "cuda":
+        raise ValueError(f"reuse snap kernel runs on CUDA, not {x.device}")
+    th = torch.tensor(float(theta), dtype=torch.float32).to(x.dtype)
+    return _snap_launch(x, float(th))
 
 
 def fused_reuse_eligible(grid: Tuple[int, int, int], *, window: int = 2,

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ripple.ref import block_flags, ripple_attention_ref
+from repro_torch.kernels.ripple.ref import (block_flags, full_block_flags,
+                                            ripple_attention_ref, split_pairs)
 
 launches = 0
 
@@ -119,3 +120,24 @@ def ripple_tile_stats(q: torch.Tensor, k: torch.Tensor, dv: int):
     keys = pairs * (2.0 - kf)  # (BH, nb) keys per key tile
     flops = 2.0 * rows.sum(1) * keys.sum(1) * (d + dv)
     return qf.mean().item(), kf.mean().item(), flops.sum().item()
+
+
+def ripple_block_stats(q: torch.Tensor, k: torch.Tensor, *,
+                       block_q: int = 128, block_k: int = 128
+                       ) -> torch.Tensor:
+    """Fraction of the reference's block matmul work that its pair-collapse
+    kernel skips for these operands, at its block size (pairs): per (q, k)
+    block pair the dense cost is 8 block products; the row halves computed
+    are 2 − qc and each costs 2 products when the key block collapsed, 4
+    otherwise.  Only whole blocks count, as in the JAX package; the port's
+    own kernel tiles by ``TILE_PAIRS`` (see :func:`ripple_tile_stats`)."""
+    B, H, N, d = q.shape
+    q_e, q_o = split_pairs(q.reshape(B * H, N, d))
+    k_e, k_o = split_pairs(k.reshape(B * H, N, d))
+    P = N // 2
+    bq, bk = min(block_q, P), min(block_k, P)
+    qc = full_block_flags(q_e, q_o, bq).float()
+    kc = full_block_flags(k_e, k_o, bk).float()
+    halves = (2.0 - qc)[:, :, None]                            # (BH, nq, 1)
+    per_half = torch.where(kc[:, None, :] > 0, 2.0, 4.0)       # (BH, 1, nk)
+    return 1.0 - (halves * per_half).mean() / 8.0

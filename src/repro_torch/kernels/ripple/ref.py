@@ -40,3 +40,15 @@ def block_flags(x: torch.Tensor, block: int) -> torch.Tensor:
     if pad:
         eq = torch.cat([eq, eq.new_ones((BH, pad))], dim=1)
     return eq.reshape(BH, nb, block).all(dim=-1).to(torch.int32)
+
+
+def full_block_flags(x_even: torch.Tensor, x_odd: torch.Tensor,
+                     block: int) -> torch.Tensor:
+    """(BH, P, d) pair-split values -> (BH, P // block) int32, the JAX
+    package's ``block_flags``: 1 where every pair of a *whole* block is
+    value-identical; a partial last block is dropped."""
+    eq = (x_even == x_odd).all(dim=-1)  # (BH, P)
+    BH, P = eq.shape
+    nb = P // block
+    return eq[:, : nb * block].reshape(BH, nb, block).all(dim=-1).to(
+        torch.int32)

@@ -10,7 +10,8 @@ resolution for 3 steps; ``--override key=value`` edits the config
 (e.g. ``model.num_layers=8``, ``ripple.backend=dense``); ``--policy svg``
 serves under the SVG block mask and ``--override ripple.svg_mask=true``
 composes it with TimeRipple's snapping, both through the block-sparse
-backend.
+backend; ``--attn-backend`` picks the dispatch backend (``collapse``
+runs the exact pair-collapse identities in plain PyTorch).
 """
 
 from __future__ import annotations
@@ -122,6 +123,10 @@ def main(argv=None):
                     help="reuse-policy name for every request (ripple, "
                          "svg, dense); default: the arch config's "
                          "ripple.policy")
+    ap.add_argument("--attn-backend", default=None,
+                    choices=dispatch_lib.BACKENDS,
+                    help="override RippleConfig.backend for the dispatch "
+                         "layer (default: the arch config's setting)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--override", action="append", default=[],
                     metavar="KEY=VALUE",
@@ -133,6 +138,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.override)
+    if args.attn_backend is not None:
+        arch = dataclasses.replace(
+            arch, ripple=dataclasses.replace(arch.ripple,
+                                             backend=args.attn_backend))
     shape_name = args.shape or next(
         sp.name for sp in arch.shapes if sp.kind == "generate")
     shape = serving_shape(arch, shape_name, smoke=args.smoke,

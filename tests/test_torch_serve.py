@@ -85,6 +85,17 @@ def test_main_serves_the_svg_paths_on_cpu(args, plan, caplog):
     assert plan in caplog.text
 
 
+def test_main_serves_through_the_collapse_backend_on_cpu(caplog):
+    """``--attn-backend collapse`` (the reference launcher's flag) serves
+    through the exact pair-collapse backend."""
+    caplog.set_level("INFO", logger="repro_torch.launch.serve")
+    done = serve_lib.main(["--device", "cpu", "--smoke", "--requests", "1",
+                           "--override", "model.num_layers=1",
+                           "--attn-backend", "collapse"])
+    assert len(done) == 1 and np.isfinite(done[0].latents).all()
+    assert "attention[ripple/collapse " in caplog.text
+
+
 @pytest.mark.parametrize("args", [
     ["--override", "ripple.reuse_every=2"],
     ["--policy", "svg", "--override", "ripple.drift_tol=0.1"],
