@@ -12,7 +12,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 3. holds the pair-collapse attention kernel against f32 dense softmax on
    the same snapped operands, on constructed operands with collapse
    fractions 0, 0.6 and 1.0, an unaligned N, head dims 16 to 128 (72 on
-   tensor cores, asserted) and both serving shapes;
+   tensor cores, asserted), B*H > 1 with a ragged last tile at d 128 and
+   72, all-collapsed keys under dense queries and the other way round,
+   and both serving shapes;
 4. holds the fused adaLN modulation kernel against its plain version,
    bf16 and f32, d 72 and 1152, ragged N, B > 1 with a different shift
    and scale per sample, and shift/scale read in place from chunks of the
@@ -30,7 +32,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    cores, and the single-axis pair-snap kernel bit for bit against its
    plain version (the reference tests' cases, bf16 and f32, and the vDiT
    serving shape);
-6. times the kernels at the shapes their paths give them, their plain
+6. times the kernels at the shapes their paths give them (ripple also
+   as a factor of SDPA's time and a share of its bound), their plain
    versions and, for attention, ``scaled_dot_product_attention`` (for
    adaLN, ``F.layer_norm`` and its two elementwise ops, and for the pair
    snap an eager composite: no single PyTorch call computes them) with
@@ -39,10 +42,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    DiffusionEngine three times - the ripple policy, ``--policy svg`` and
    ripple with ``svg_mask`` - each with the launch counters set to 0 just
    before and read just after, profiles one forward of the ripple and
-   the SVG paths, then holds the sparse kernel against its plain
-   semantics on one served SVG call at its full batch (operands and map
-   kept on the host during the run, the bias rebuilt from q and k
-   afterwards) and times it;
+   the SVG paths (the ripple wrapper's collapse-flag pass and the SVG
+   mask building as families of their own), then holds the sparse
+   kernel against its plain semantics on one served SVG call at its
+   full batch (operands and map kept on the host during the run, the
+   bias rebuilt from q and k afterwards) and times it;
 8. serves 4 requests of dit-xl2 at full width and depth (28 layers,
    gen_1024: 4096 tokens of head dim 72, 50 DDIM steps) in one batch,
    with the counters set to 0 just before and read just after: the
@@ -203,26 +207,18 @@ def attention_oracle(q, k, v, scale, tensor_cores):
     """f32 dense softmax attention on the snapped (B, H, N, d) operands,
     one head at a time (bounded memory at 8448 tokens).  For the
     tensor-core path it rounds where that kernel rounds: the
-    probabilities to bf16 before the PV product (the row sum stays f32),
-    and v_even + v_odd of a collapsed key tile to bf16, that tile's two
-    equal keys then carrying half of the rounded sum each (halving is
-    exact).  The CUDA-core path rounds neither."""
+    probabilities to bf16 before the PV product (the row sum stays f32).
+    A collapsed key tile rounds nothing more there: the kernel multiplies
+    both halves of V by the same rounded probability, as dense attention
+    on the snapped keys does.  The CUDA-core path rounds neither (it sums
+    v_even + v_odd of a collapsed tile in f32)."""
     import torch
-    from repro_torch.kernels.ripple.ops import TILE_PAIRS
-    from repro_torch.kernels.ripple.ref import block_flags
 
     B, H, N, _ = q.shape
     out = torch.empty((B, H, N, v.shape[-1]), dtype=torch.float32,
                       device=q.device)
     for h in range(H):
         qh, kh, vh = q[:, h].float(), k[:, h].float(), v[:, h].float()
-        if tensor_cores:
-            flags = block_flags(k[:, h], TILE_PAIRS).bool()  # (B, tiles)
-            coll = flags.repeat_interleave(TILE_PAIRS, dim=1)[:, :N // 2]
-            half = (vh[:, 0::2] + vh[:, 1::2]).bfloat16().float() * 0.5
-            ve = torch.where(coll[..., None], half, vh[:, 0::2])
-            vo = torch.where(coll[..., None], half, vh[:, 1::2])
-            vh = torch.stack([ve, vo], 2).reshape(vh.shape)
         s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
         p = torch.exp(s - s.amax(-1, keepdim=True))
         l = p.sum(-1, keepdim=True)
@@ -1243,20 +1239,30 @@ def serve_dit():
         raise SystemExit("serve[dit-xl2]: the ripple kernel left the tensor cores")
     profile_forward("dit-xl2", arch, model, lat_shape,
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse",
-                     "adaln": "adaln"}, batch=DIT_REQUESTS, total=shape.steps)
+                     "adaln": "adaln"}, annotate=ripple_flags_range(),
+                    batch=DIT_REQUESTS, total=shape.steps)
     del model
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_forward(label, arch, model, lat_shape, families, annotate=None,
+def ripple_flags_range():
+    """The ripple wrapper's collapse-flag pass (plain PyTorch, on the key
+    operand) as a profiler family of its own."""
+    from repro_torch.kernels.ripple import ops as ripple_ops
+
+    return [(ripple_ops, "block_flags", "ripple_flags")]
+
+
+def profile_forward(label, arch, model, lat_shape, families, annotate=(),
                     batch=SERVE_REQUESTS, total=SERVE_STEPS):
     """Device time by kernel family over one served-size denoiser forward
     (step 10 of ``total``: snapping on), from torch.profiler, the device's
     idle share of that forward's wall time, and its peak device memory.
-    ``families`` maps a family to a kernel-name substring;
-    ``annotate = (obj, attr, family)`` wraps ``obj.attr`` in a profiler
-    range and counts every kernel launched inside it as ``family``."""
+    ``families`` maps a family to a kernel-name substring; each
+    ``(obj, attr, family)`` of ``annotate`` wraps ``obj.attr`` in a
+    profiler range and counts every kernel launched inside it as
+    ``family`` (the innermost range wins)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1290,18 +1296,21 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=None,
     fwd()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ctx = contextlib.nullcontext()
-    if annotate is not None:
-        obj, attr, ann = annotate
+    ranges = [fam for *_, fam in annotate]
 
-        def ranged(orig):
+    def ranged(ann):
+        def wrap(orig):
             def f(*a, **kw):
                 with record_function(ann):
                     return orig(*a, **kw)
             return f
+        return wrap
 
-        ctx = wrapped(obj, attr, ranged)
-    with ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as ctx:
+        for obj, attr, ann in annotate:
+            ctx.enter_context(wrapped(obj, attr, ranged(ann)))
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        ctx.enter_context(prof)
         t0 = time.perf_counter()
         fwd()
         torch.cuda.synchronize()
@@ -1314,28 +1323,27 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=None,
     for ev in events:  # device-side activities only (kernels, copies)
         if ev.device_type != DeviceType.CUDA:
             continue
-        if annotate is not None and ev.name == annotate[2]:
-            continue  # the range's own span on the device timeline
+        if ev.name in ranges:
+            continue  # a range's own span on the device timeline
         spans.append((ev.time_range.start, ev.time_range.end))
         fam[family(ev.name)] += ev.time_range.elapsed_us()
-    by_name = {}
-    if annotate is not None:
-        # Kernels launched by host ops inside the range move to its family.
-        ann = annotate[2]
+    by_name = {ann: {} for ann in ranges}
+    # Kernels launched by host ops inside a range move to its family.
+    for ann in ranges:
         fam[ann] = 0.0
-        for ev in events:
-            if ev.device_type != DeviceType.CPU or not ev.kernels:
-                continue
-            p = ev.cpu_parent
-            while p is not None and p.name != ann:
-                p = p.cpu_parent
-            if p is None:
-                continue
-            for kern in ev.kernels:
-                fam[family(kern.name)] -= kern.duration
-                fam[ann] += kern.duration
-                key = f"{ev.name}: {kern.name[:48]}"
-                by_name[key] = by_name.get(key, 0.0) + kern.duration
+    for ev in events if ranges else ():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        p = ev.cpu_parent
+        while p is not None and p.name not in ranges:
+            p = p.cpu_parent
+        if p is None:
+            continue
+        for kern in ev.kernels:
+            fam[family(kern.name)] -= kern.duration
+            fam[p.name] += kern.duration
+            key = f"{ev.name}: {kern.name[:48]}"
+            by_name[p.name][key] = by_name[p.name].get(key, 0.0) + kern.duration
     # Busy time is the union of the device intervals; on one stream it
     # equals their sum, so a sum above the union means an event was
     # counted twice, and either above the wall time is a broken reading.
@@ -1353,15 +1361,16 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=None,
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
         f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
         f"{peak:.2f} GiB")
-    if by_name:
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        log(f"profile[{label}]: {annotate[2]} by host op and kernel: " + "; ".join(
+    for ann, kernels in by_name.items():
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        log(f"profile[{label}]: {ann} by host op and kernel: " + "; ".join(
             f"{k} {v / 1e3:.3f} ms" for k, v in top))
     if sum_ms > 1.01 * busy_ms or busy_ms > wall_ms or min(fam.values()) < 0:
         raise SystemExit(f"profile[{label}]: device time exceeds its span or the wall "
                          "time; the reading is not usable")
-    if annotate is not None and fam[annotate[2]] <= 0:
-        raise SystemExit(f"profile[{label}]: no kernel attributed to {annotate[2]}")
+    for ann in ranges:
+        if fam[ann] <= 0:
+            raise SystemExit(f"profile[{label}]: no kernel attributed to {ann}")
 
 
 def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
@@ -1442,9 +1451,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s wall for {len(built)} sources")
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"build: {name}: {info['path']} ({info['seconds']:.1f}s) "
-            f"{' | '.join(regs)}")
+                if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
+        own = " ".join(_build.SOURCE_FLAGS.get(name, ())) or "none"
+        log(f"build: {name} (own flags: {own}): {info['path']} "
+            f"({info['seconds']:.1f}s) {' | '.join(regs)}")
 
     from repro_torch.kernels.reuse_mask import ops as reuse_ops
     from repro_torch.kernels.ripple import ops as ripple_ops
@@ -1499,6 +1509,16 @@ def main() -> int:
                 v = snapped_operand((1, 2, 130, d), 0.0, 6, dt, tile)
                 check_ripple(res2, q, k, v,
                              f"N=130 d={d} frac={frac} (unaligned)")
+    # B*H > 1 at a pair count (209) that is a multiple of neither 32 nor
+    # the 64-pair key stage: a ragged tile must not read the next head.
+    # Then all-collapsed keys under dense queries, and the other way round.
+    for d in (128, 72):
+        for fq, fk in ((0.6, 0.6), (1.0, 1.0), (0.0, 1.0), (1.0, 0.0)):
+            q = snapped_operand((2, 3, 418, d), fq, 24, bf16, tile)
+            k = snapped_operand((2, 3, 418, d), fk, 25, bf16, tile)
+            v = snapped_operand((2, 3, 418, d), 0.0, 26, bf16, tile)
+            check_ripple(res2, q, k, v, f"(2, 3, 418, {d}) q frac={fq} k frac={fk} "
+                         f"(ragged, B*H > 1)")
     n_tok = n_grid + 256
     serve_qkv = (1, 24, n_tok, 128)
     q = snapped_operand(serve_qkv, 0.6, 7, bf16, tile)
@@ -1570,7 +1590,7 @@ def main() -> int:
     log(f"time ripple_attention bf16 {tuple(serve_qkv)}: kernel {k2_ms:.4f} ms "
         f"({flops / k2_ms / 1e9:.2f} TFLOP/s), plain {k2_plain:.4f} ms, sdpa "
         f"{k2_lib:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}: {flops / 1e12:.4f} "
-        f"TFLOP)")
+        f"TFLOP); kernel/sdpa {k2_ms / k2_lib:.3f}, bound/kernel {k2_bound / k2_ms:.3f}")
     del x1, q, k, v, qk
 
     xd = correlated(dit_qk, bf16, 22)
@@ -1597,7 +1617,7 @@ def main() -> int:
         f"{ripple_ops.uses_tensor_cores(q, v)}): kernel {r_ms:.4f} ms "
         f"({r_flops / r_ms / 1e9:.2f} TFLOP/s), plain {r_plain:.4f} ms, sdpa "
         f"{r_lib:.4f} ms, bound {r_bound:.4f} ms (operations: {r_flops / 1e12:.4f} "
-        f"TFLOP)")
+        f"TFLOP); kernel/sdpa {r_ms / r_lib:.3f}, bound/kernel {r_bound / r_ms:.3f}")
     del q, k, v, dit_q, dit_k, dit_v
 
     # adaLN at the DiT's main-path shape, shift/scale chunks of the
@@ -1642,14 +1662,15 @@ def main() -> int:
     arch, shape, model = load_served_model(args.layers)
     counts_r, lat_shape, _ = serve_ripple(arch, shape, model)
     profile_forward("ripple", arch, model, lat_shape,
-                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"})
+                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
+                    annotate=ripple_flags_range())
     served = {}
     counts_s = serve_svg("svg", arch, shape, model, policy="svg",
                          launched=("sparse_attention",),
                          absent=("ripple_attention", "fused_reuse"), capture=served)
     profile_forward("svg", apply_overrides(arch, ("ripple.policy=svg",)), model,
                     lat_shape, {"sparse_attention": "sparse"},
-                    annotate=(get_policy("svg"), "decide", "svg_mask"))
+                    annotate=[(get_policy("svg"), "decide", "svg_mask")])
     serve_svg("ripple+svg", apply_overrides(arch, ("ripple.svg_mask=true",)), shape,
               model, policy=None, launched=("fused_reuse", "sparse_attention"),
               absent=("ripple_attention",))

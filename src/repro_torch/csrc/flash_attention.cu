@@ -19,8 +19,8 @@
 // at serving lengths thousands of flops per byte, far above the card's
 // ~295 flops/B bf16 ridge.
 //
-// Design (a simple first version, the template of ripple_attention.cu
-// without the pair structure):
+// Design (a simple first version, the pair-collapse kernel's former
+// mma.sync design without the pair structure):
 //   * bf16, any head dims up to 128: tensor cores through
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate).  A block owns 128
 //     query rows (eight warps of 16) and loops over key tiles of 64; the

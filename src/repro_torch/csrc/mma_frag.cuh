@@ -1,7 +1,8 @@
-// Device helpers shared by the attention kernels (ripple_attention.cu,
-// sparse_attention.cu): element conversions for the f32 CUDA-core paths,
-// and the bf16 tensor-core fragment code - mma.sync.m16n8k16 with f32
-// accumulators and ldmatrix loads of 8x8 bf16 matrices from shared memory.
+// Device helpers shared by the mma.sync attention kernels
+// (sparse_attention.cu, flash_attention.cu): element conversions for the
+// f32 CUDA-core paths, and the bf16 tensor-core fragment code -
+// mma.sync.m16n8k16 with f32 accumulators and ldmatrix loads of 8x8 bf16
+// matrices from shared memory.
 // Everything sits in an anonymous namespace: each source that includes
 // this header gets its own copy, so the plain C libraries stay
 // self-contained.

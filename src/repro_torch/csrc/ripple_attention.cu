@@ -6,301 +6,635 @@
 //
 // Operands are the snapped (BH, N, d) Q, K and V with N even; token 2p is
 // the representative of pair p and token 2p+1 its follower.  Per tile of
-// kTile pairs the wrapper passes an int32 flag, 1 when every pair of the
-// tile is value-identical (the follower fully snapped).  With f32
-// running (m, l, acc) states per query row:
-//   * a collapsed K tile does one score product against the representative
-//     keys, counts each probability twice in the row sum, and one PV product
-//     against v_even + v_odd - the exact collapse identity;
-//   * a collapsed Q tile computes only the representative rows and copies
-//     their output to the followers;
+// kFlagTile key pairs the wrapper passes an int32 flag, 1 when every pair
+// of the tile is value-identical (the follower fully snapped).  Dense
+// attention on the snapped operands is the exact answer; the collapse
+// identities only skip work:
+//   * a collapsed key tile needs one score product against the
+//     representative keys, each probability counted twice;
+//   * a collapsed query tile needs only the representative rows;
 //   * a mixed tile runs dense on the snapped values.
-// Pairs past N/2 in the last tile are masked by index (score -inf), so
-// no padding channel is needed.
+// Pairs past N/2 in the last tile are masked by index (score -inf).
 //
 // Bound on the H100: arithmetic.  4*N^2*d flops per head for dense
 // attention against 4*N*d*2 bytes of bf16 operands: hundreds of flops per
-// byte at serving length, above the card's ~295 flops/B bf16 ridge.
-//
-// Design (simple first versions: blocks own query tiles of kTile pairs
-// and loop over tiles of kTile key pairs; both halves of a query tile -
-// representative and follower rows - share each K/V tile):
-//   * bf16 with head dims 32/64/72/128: tensor cores through
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate), two query tiles per
-//     block, four warps of 16 query rows per tile, the flash-attention-2
-//     register layout (scores stay in
-//     the accumulator registers and are re-packed as the A operand of the
-//     PV product), K and V row-major in shared memory with rows padded by
-//     16 B, B fragments loaded with ldmatrix (.trans for V) free of bank
-//     conflicts.  A head dim that is not a multiple of 32 (DiT-XL/2's 72)
-//     is zero-padded in shared memory only: Q and K tiles to the next
-//     multiple of 32 channels (ldmatrix loads the score product's k-steps
-//     in pairs), the V tile to the next multiple of 16 (output n-tiles
-//     come in pairs); only the real channels are read from device memory
-//     and only the real output columns are stored.  Zero channels add
-//     exact zeros to the scores, so the result is that of the unpadded
-//     product.  The
-//     collapsed V tile is v_even + v_odd summed in f32 and rounded once to
-//     bf16, as the JAX kernel rounds it to the operand dtype.
+// byte at serving length, above the card's ~295 flops/B bf16 ridge.  So
+// the design feeds the tensor cores at their Hopper rate and keeps the
+// loads off the critical path:
+//   * bf16 with d == dv in {32, 64, 72, 128}: wgmma.mma_async (sm_90a).
+//     A block owns a query tile of 64 pairs: consumer warpgroup 0 the 64
+//     representative rows, warpgroup 1 the 64 follower rows (a collapsed
+//     query tile computes its followers anyway: snapped followers equal
+//     their representatives bit for bit, so the result is the same, and no
+//     query flags are needed).  A third, producer warpgroup (one thread
+//     issues; setmaxnreg hands its registers to the consumers, though
+//     ptxas compiles every path within the launch bound, below) streams key stages of 64 pairs through a ring of as many stages as
+//     227 KB of shared memory holds (3 at d 128, 5 at d 72) with TMA;
+//     mbarriers say when a stage's K and V are full (transaction bytes)
+//     and when both consumers have released it.  The ring's depth matters:
+//     the stages come from L2 with a latency of several stages' compute.
+//   * Each operand is seen by TMA as a 4-D tensor (d, 2, P, BH), head dim
+//     innermost: a box at parity 0 brings the representatives of 64 pairs
+//     as contiguous shared rows, a box at parity 1 the followers, with no
+//     gather pass.  P and BH stay separate dimensions, so the ragged last
+//     tile of a head is zero-filled by TMA instead of reading the next
+//     head.  A key stage holds 128 rows, representatives first.
+//   * Shared tiles are stored in swizzled channel boxes, written by TMA
+//     with a swizzle and read by wgmma through descriptors of the same
+//     mode: 128 B rows of 64 channels (d 64, 128; d 32: 64 B rows of 32).
+//     d 72 pads to 80 channels: one 64-channel box plus a 16-channel tail
+//     box in 32 B rows, whose map's innermost extent is 72, so TMA
+//     zero-fills channels 72-79; the score product adds exact zeros and the
+//     PV product's tail (N = 16) columns 72-79 are never stored.  (Five
+//     16-channel boxes load the same tile at half the rate.)
+//   * S = Q K^T is wgmma SS (Q and K both K-major); O += P V is wgmma RS:
+//     P is re-packed from the f32 score accumulators into bf16 A
+//     registers, V is the MN-major B operand (row-major keys x dv,
+//     transposed by the instruction).  Softmax runs online in f32 in log2
+//     units: the running max of the raw scores, each exponent one FFMA
+//     into ex2.approx.ftz (built without --fmad=false), O rescaled by
+//     alpha.  Each consumer runs its stages in order (S, softmax, PV):
+//     ptxas keeps the kernel at the 168 registers a thread of the launch
+//     bound, and holding the next stage's scores while the PV product
+//     runs does not fit there (it spills and serialises the wgmmas).
+//   * A collapsed key tile loads its 64 representative keys only and runs
+//     the score product at N = 64; the PV product runs over both halves of
+//     V with the probabilities duplicated (p * v_even + p * v_odd, exact
+//     up to rounding, no V sum in shared memory), and the row sum counts
+//     each probability twice.
 //   * float32 (and other head dims): CUDA-core FMAs in f32, 4x4 scores and
-//     8x4 outputs per thread from f32 tiles in shared memory.
-// Neither uses TMA, wgmma, cp.async pipelining or warp specialisation yet.
+//     8x4 outputs per thread from f32 tiles in shared memory, 32-pair
+//     tiles reading the 64-pair flags (a collapsed flag covers both of its
+//     halves).
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked
+                   // up at run time, nothing links -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_frag.cuh"
-
 namespace {
 
-constexpr int kTile = 32;         // pairs per query tile and per key tile
-constexpr int kRows = 2 * kTile;  // rows (even + odd) of a full tile
+constexpr int kFlagTile = 64;     // pairs per flag = the wgmma path's tile
+constexpr int kTile = 32;         // pairs per tile of the CUDA-core path
+constexpr int kSubTiles = kFlagTile / kTile;
+constexpr int kRows = 2 * kTile;  // rows (even + odd) of a CUDA-core tile
 constexpr int kMaxDim = 128;
 
-// ---------------------------------------------------------------------------
-// Tensor-core path (bf16)
-// ---------------------------------------------------------------------------
-
-// A block holds kQTiles query tiles (4 warps of 16 rows each), which share
-// every K/V tile it loads.
-constexpr int kQTiles = 2;
-constexpr int kMmaThreads = 128 * kQTiles;
-
-// Channels of the shared-memory tiles: the score product's k-steps are
-// loaded in pairs (32 channels), the output's n-tiles in pairs (16).
-__host__ __device__ constexpr int pad_qk(int d) { return (d + 31) / 32 * 32; }
-__host__ __device__ constexpr int pad_v(int dv) { return (dv + 15) / 16 * 16; }
-
-template <int D, int DV>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * kRows *
-         ((size_t)(kQTiles + 1) * (pad_qk(D) + 8) + (pad_v(DV) + 8));
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-template <int D, int DV>
-__global__ void __launch_bounds__(kMmaThreads)
-    ripple_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out,
-                      const int* __restrict__ qflags,
-                      const int* __restrict__ kflags, int N, int nqb,
-                      float scale_log2) {
-  static_assert(D % 8 == 0 && DV % 8 == 0, "rows load in 16-byte chunks");
-  constexpr int DP = pad_qk(D);    // channels of the Q and K tiles
-  constexpr int DVP = pad_v(DV);   // channels of the V tile
-  constexpr int QS = DP + 8;       // row stride of Q and K tiles (bf16)
-  constexpr int VS = DVP + 8;      // row stride of the V tile
-  constexpr int KSTEPS = DP / 16;  // k-steps of the score product
-  constexpr int NT_O = DVP / 8;    // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [QT*64][QS]
-  __nv_bfloat16* Ks = Qs + kQTiles * kRows * QS;                    // [64][QS]
-  __nv_bfloat16* Vs = Ks + kRows * QS;                              // [64][VS]
+// ---------------------------------------------------------------------------
+// Tensor-core path (bf16): TMA ring, producer warpgroup, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kPairs = kFlagTile;        // pairs per query tile and key stage
+constexpr int kStageKeys = 2 * kPairs;   // rows of a dense key stage
+constexpr int kConsumers = 2;            // representative and follower rows
+constexpr int kWgmmaThreads = 128 * (kConsumers + 1);  // + the producer
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
+constexpr int kMaxStages = 6;
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// How a head dim's channels lie in shared memory.  Main boxes: rows of
+// MAIN_SW bytes (MAIN_SW / 2 channels, swizzled over MAIN_SW bytes) over
+// the first MAIN_C channels; d 72 adds a tail box of 16 channels in 32 B
+// rows (32 B swizzle) over channels 64-79, 72-79 zero-filled by TMA.  A
+// tile of R rows stores main box b at b * R * MAIN_SW, then the tail.
+template <int D>
+struct Tiles {
+  static constexpr int DP = (D + 15) / 16 * 16;  // channels multiplied
+  static constexpr int MAIN_SW = D % 64 == 0 || D > 64 ? 128 : 64;
+  static constexpr int MAIN_BOXC = MAIN_SW / 2;
+  static constexpr int NMAIN = D / MAIN_BOXC;
+  static constexpr int MAIN_C = NMAIN * MAIN_BOXC;
+  static constexpr int TAIL_C = DP - MAIN_C;
+  static constexpr int TAIL_SW = 32;
+  static constexpr int KSTEPS = DP / 16;  // score-product k-steps
+  // As many K/V stages as a block's 227 KB of shared memory holds (up to
+  // 6): the loads come from L2 with a latency of several stages' compute.
+  // At d 64, 5 or 6 stages make ptxas serialise the wgmmas for want of
+  // registers (its C7511 "Potential Performance Loss" note), 4 do not.
+  static constexpr int STAGES =
+      cmin(D == 64 ? 4 : kMaxStages,
+           (kSmemLimit - 1024 - 8 * (1 + 3 * kMaxStages) -
+            kConsumers * kPairs * DP * 2) /
+               (2 * kStageKeys * DP * 2));
+  static constexpr int Q_BYTES = kPairs * DP * 2;  // one warpgroup's rows
+  static constexpr int KV_BYTES = kStageKeys * DP * 2;
+  static constexpr int TILE_BYTES = kConsumers * Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  static constexpr int SMEM = 1024 + TILE_BYTES + 8 * BARRIERS;  // + alignment
+  // wgmma descriptor layout codes: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B.
+  static constexpr uint64_t MAIN_MODE = MAIN_SW == 128 ? 1 : 2;
+  static constexpr uint64_t TAIL_MODE = 3;
+  static_assert(TAIL_C == 0 || TAIL_C == 16, "at most one 16-channel tail");
+  static_assert(MAIN_C % MAIN_BOXC == 0 && DP % 16 == 0, "whole boxes");
+  static_assert(STAGES >= 2 && SMEM <= kSmemLimit, "a ring of 2+ stages fits");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that
+// lasts seconds is a protocol fault: trap, so the launch fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((tries & 1023) == 1023) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 5000000000ull) __trap();
+    }
+  }
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode in bits 62-63.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Accumulators are read only after the wgmma wait: pinning them there
+// keeps the compiler from moving a use above it.
+template <int R>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) = or += A (64 x 16, shared, K-major) * B (16 x N, shared,
+// K-major): the score product.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+// D (64 x N, f32) += A (64 x 16, bf16 registers) * B (16 x N, shared,
+// MN-major): the PV product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (probabilities below 2^-126 of the row maximum).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Descriptor of the 16 channels of k-step kk in a K-major tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  using T = Tiles<D>;
+  const int ch = 16 * kk;
+  if (ch < T::MAIN_C)
+    return make_desc(tile + (2 * ch / T::MAIN_SW) * R * T::MAIN_SW +
+                         2 * ch % T::MAIN_SW,
+                     16, 8 * T::MAIN_SW, T::MAIN_MODE);
+  return make_desc(tile + T::NMAIN * R * T::MAIN_SW + 2 * (ch - T::MAIN_C),
+                   16, 8 * T::TAIL_SW, T::TAIL_MODE);
+}
+
+// The online-softmax state of one consumer thread: rows r and r + 8 of its
+// warp's 16 (wgmma accumulator layout).  s holds a stage's scores, then
+// their exponentials; pk the probabilities in bf16 for the PV product; o
+// the output over DP columns.
+template <int D>
+struct RowState {
+  float s[kStageKeys / 2];
+  uint32_t pk[kStageKeys / 16][4];
+  float o[Tiles<D>::DP / 2];
+  float m[2], l[2];
+};
+
+// Issue S = Q K^T for one stage (N = 64 representative keys when the
+// stage is collapsed, else 128) and commit it as one wgmma group.
+template <int D, bool COLLAPSED>
+__device__ __forceinline__ void issue_scores(RowState<D>& st, uint32_t q_tile,
+                                             uint32_t k_tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Tiles<D>::KSTEPS; ++kk)
+    wgmma_ss<COLLAPSED ? kPairs : kStageKeys>(
+        st.s, kmajor_desc<D, kPairs>(q_tile, kk),
+        kmajor_desc<D, kStageKeys>(k_tile, kk), kk > 0);
+  wgmma_commit();
+}
+
+// Issue O += P V over a stage's 128 V rows (representatives, then
+// followers; V is the MN-major operand) from the probabilities in pk; a
+// collapsed stage feeds each probability to both halves.  d 72's tail
+// columns are a second product of N = 16.  Commits one wgmma group.
+template <int D, bool COLLAPSED>
+__device__ __forceinline__ void issue_pv(RowState<D>& st, uint32_t v_tile) {
+  using T = Tiles<D>;
+  constexpr int KP = (COLLAPSED ? kPairs : kStageKeys) / 16;  // k-steps of P
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kStageKeys / 16; ++kk) {
+    wgmma_rs<T::MAIN_C>(
+        st.o, st.pk[kk % KP],
+        make_desc(v_tile + kk * 16 * T::MAIN_SW, kStageKeys * T::MAIN_SW,
+                  8 * T::MAIN_SW, T::MAIN_MODE));
+    if constexpr (T::TAIL_C > 0)
+      wgmma_rs<T::TAIL_C>(
+          st.o + T::MAIN_C / 2, st.pk[kk % KP],
+          make_desc(v_tile + T::NMAIN * kStageKeys * T::MAIN_SW +
+                        kk * 16 * T::TAIL_SW,
+                    kStageKeys * T::TAIL_SW, 8 * T::TAIL_SW, T::TAIL_MODE));
+  }
+  wgmma_commit();
+}
+
+// Online softmax of the raw scores in s: mask pairs past P in the last
+// tile, update the running max (log2 units: the scale is positive, so the
+// max of the raw scores scales to it and each exponent is one FFMA) and
+// the row sum, leave the f32 exponentials in s and return O's rescale
+// factors.
+template <int D, bool COLLAPSED>
+__device__ __forceinline__ float2 softmax_scores(RowState<D>& st, int pair0,
+                                                 int P, float scale_log2) {
+  constexpr int NS = COLLAPSED ? kPairs : kStageKeys;
+  if (pair0 + kPairs > P) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      const int col = (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+      if (pair0 + col % kPairs >= P) st.s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], st.s[i]);
+  float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(st.m[h], mx[h] * scale_log2);
+    alpha[h] = exp2_ftz(st.m[h] - m_new);
+    st.m[h] = m_new;
+    neg_m[h] = -m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) {
+    st.s[i] = exp2_ftz(fmaf(st.s[i], scale_log2, neg_m[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += st.s[i];
+  }
+  const float w = COLLAPSED ? 2.f : 1.f;  // each probability stands for two keys
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    st.l[h] = alpha[h] * st.l[h] + w * sum[h];
+  }
+  return make_float2(alpha[0], alpha[1]);
+}
+
+// O *= alpha, then the exponentials in s become the bf16 A operand of the
+// next PV product: k-step kk is score columns 16kk..16kk+15 (accumulator
+// chunks 2kk and 2kk + 1, the row-major A fragment of m64k16).
+template <int D, bool COLLAPSED>
+__device__ __forceinline__ void rescale_and_pack(RowState<D>& st,
+                                                 float2 alpha) {
+#pragma unroll
+  for (int c = 0; c < Tiles<D>::DP / 8; ++c) {
+    st.o[c * 4 + 0] *= alpha.x;
+    st.o[c * 4 + 1] *= alpha.x;
+    st.o[c * 4 + 2] *= alpha.y;
+    st.o[c * 4 + 3] *= alpha.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < (COLLAPSED ? kPairs : kStageKeys) / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      st.pk[kk][j] = pack_bf16(st.s[kk * 8 + 2 * j], st.s[kk * 8 + 2 * j + 1]);
+}
+
+// One key stage for one consumer warpgroup: S = Q K^T, online softmax,
+// O += P V once the stage's V has arrived on v_bar (phase `parity`).
+template <int D, bool COLLAPSED>
+__device__ __forceinline__ void consume_stage(RowState<D>& st, uint32_t q_tile,
+                                              uint32_t k_tile, uint32_t v_tile,
+                                              uint32_t v_bar, uint32_t parity,
+                                              int pair0, int P,
+                                              float scale_log2) {
+  issue_scores<D, COLLAPSED>(st, q_tile, k_tile);
+  wgmma_wait_all();
+  pin<kStageKeys / 2>(st.s);
+  rescale_and_pack<D, COLLAPSED>(
+      st, softmax_scores<D, COLLAPSED>(st, pair0, P, scale_log2));
+  mbar_wait(v_bar, parity);
+  issue_pv<D, COLLAPSED>(st, v_tile);
+  wgmma_wait_all();
+  pin<Tiles<D>::DP / 2>(st.o);
+}
+
+// The three operands' tensor maps: main boxes, then d 72's tail boxes.
+struct Maps {
+  CUtensorMap main[3];  // q, k, v
+  CUtensorMap tail[3];
+};
+
+// The 64 pairs from pair0 at one parity of operand op (0 q, 1 k, 2 v)
+// into rows row0.. of a tile of `rows` rows, completing on bar.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t tile, int rows, int row0,
+                                          const Maps& maps, int op,
+                                          uint32_t bar, int parity, int pair0,
+                                          int bh) {
+  using T = Tiles<D>;
+  for (int b = 0; b < T::NMAIN; ++b)
+    tma_load(tile + (b * rows + row0) * T::MAIN_SW, &maps.main[op], bar,
+             b * T::MAIN_BOXC, parity, pair0, bh);
+  if constexpr (T::TAIL_C > 0)
+    tma_load(tile + T::NMAIN * rows * T::MAIN_SW + row0 * T::TAIL_SW,
+             &maps.tail[op], bar, T::MAIN_C, parity, pair0, bh);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    ripple_wgmma_kernel(const __grid_constant__ Maps maps,
+                        __nv_bfloat16* __restrict__ out,
+                        const int* __restrict__ kflags, int N,
+                        float scale_log2) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte alignment (the 128 B pattern's period).
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_tiles = base;  // [kConsumers][kPairs rows]
+  const uint32_t k_tiles = q_tiles + kConsumers * T::Q_BYTES;  // [STAGES][128 rows]
+  const uint32_t v_tiles = k_tiles + T::STAGES * T::KV_BYTES;
+  const uint32_t bars = base + T::TILE_BYTES;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + T::STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * T::STAGES + s); };
+  // Ring position of the current key stage: its slot and the parity of
+  // the slot's current round, advanced in step by producer and consumers.
+  struct Ring {
+    int slot = 0;
+    uint32_t phase = 0;
+    __device__ void advance() {
+      if (++slot == T::STAGES) slot = 0, phase ^= 1;
+    }
+  };
 
   const int P = N / 2;
-  const int nkb = (P + kTile - 1) / kTile;
-  const long bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gq = lane >> 2, tq = lane & 3;  // mma group / thread in group
-  const int wl = warp % 4;                   // warp within its query tile
-  const int qb = blockIdx.x * kQTiles + warp / 4;  // this warp's query tile
+  const int nkb = (P + kPairs - 1) / kPairs;
+  const int qb = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* qh = q + bh * N * D;
-  const __nv_bfloat16* kh = k + bh * N * D;
-  const __nv_bfloat16* vh = v + bh * N * DV;
-  const int qf = qb < nqb ? qflags[bh * nqb + qb] : 1;
-
-  // Q tiles: local row r of tile t is pair (first + t)*kTile + r % kTile,
-  // the follower if r >= kTile.  Chunks past the real channels are zero.
-  constexpr int QCH = DP / 8;  // 16-byte chunks per tile row
-  for (int i = tid; i < kQTiles * kRows * QCH; i += kMmaThreads) {
-    const int row = i / QCH, ch = i % QCH;
-    const int r = row % kRows;
-    const int tb = blockIdx.x * kQTiles + row / kRows;
-    const int p = tb * kTile + (r % kTile);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (tb < nqb && p < P && ch < D / 8)
-      val = *reinterpret_cast<const uint4*>(
-          qh + (long)(2 * p + (r >= kTile)) * D + ch * 8);
-    *reinterpret_cast<uint4*>(Qs + row * QS + ch * 8) = val;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // In each query tile warps 0-1 own the representative rows, 2-3 the
-  // followers; a collapsed query tile leaves its follower warps idle.
-  const bool active = qb < nqb && !(qf && wl >= 2);
-  const int r0 = warp * 16;
-  uint32_t qa[KSTEPS][4];
+  if (wg == kConsumers) {
+    // Producer: one thread issues every load; the warpgroup gives its
+    // registers to the consumers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != kConsumers * 128) return;
+    mbar_expect_tx(q_full, kConsumers * T::Q_BYTES);
+    for (int h = 0; h < kConsumers; ++h)
+      load_rows<D>(q_tiles + h * T::Q_BYTES, kPairs, 0, maps, 0, q_full, h,
+                   qb * kPairs, bh);
+    Ring ring;
+    for (int kb = 0; kb < nkb; ++kb, ring.advance()) {
+      const int s = ring.slot;
+      const int kf = kflags[(long)bh * nkb + kb];
+      mbar_wait(empty(s), ring.phase ^ 1);
+      // A collapsed stage loads the representative keys only.
+      mbar_expect_tx(k_full(s), (kf ? 1 : 2) * kPairs * T::DP * 2);
+      for (int par = 0; par < (kf ? 1 : 2); ++par)
+        load_rows<D>(k_tiles + s * T::KV_BYTES, kStageKeys, par * kPairs, maps,
+                     1, k_full(s), par, kb * kPairs, bh);
+      mbar_expect_tx(v_full(s), T::KV_BYTES);
+      for (int par = 0; par < 2; ++par)
+        load_rows<D>(v_tiles + s * T::KV_BYTES, kStageKeys, par * kPairs, maps,
+                     2, v_full(s), par, kb * kPairs, bh);
+    }
+  } else {
+    // Consumers: warpgroup wg owns the rows of parity wg.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    RowState<D> st;
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int col = ks * 16 + 2 * tq;
-    qa[ks][0] = ld32(Qs + (r0 + gq) * QS + col);
-    qa[ks][1] = ld32(Qs + (r0 + gq + 8) * QS + col);
-    qa[ks][2] = ld32(Qs + (r0 + gq) * QS + col + 8);
-    qa[ks][3] = ld32(Qs + (r0 + gq + 8) * QS + col + 8);
-  }
+    for (int i = 0; i < T::DP / 2; ++i) st.o[i] = 0.f;
+    st.m[0] = st.m[1] = -INFINITY;
+    st.l[0] = st.l[1] = 0.f;
+    const uint32_t q_tile = q_tiles + wg * T::Q_BYTES;
+    mbar_wait(q_full, 0);
+    Ring ring;
+#pragma unroll 1
+    for (int kb = 0; kb < nkb; ++kb, ring.advance()) {
+      const int s = ring.slot;
+      const uint32_t kt = k_tiles + s * T::KV_BYTES;
+      const uint32_t vt = v_tiles + s * T::KV_BYTES;
+      const int kf = kflags[(long)bh * nkb + kb];
+      mbar_wait(k_full(s), ring.phase);
+      if (kf)
+        consume_stage<D, true>(st, q_tile, kt, vt, v_full(s), ring.phase,
+                               kb * kPairs, P, scale_log2);
+      else
+        consume_stage<D, false>(st, q_tile, kt, vt, v_full(s), ring.phase,
+                                kb * kPairs, P, scale_log2);
+      mbar_arrive(empty(s));
+    }
 
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // rows gq and gq + 8
-  float l_r[2] = {0.f, 0.f};
-
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int kf = kflags[bh * nkb + kb];
-    const int nkeys = kf ? kTile : kRows;  // key j: pair j % kTile, odd if j >= kTile
-    __syncthreads();  // the previous tile's K and V are consumed
-    for (int i = tid; i < nkeys * QCH; i += kMmaThreads) {
-      const int j = i / QCH, ch = i % QCH;
-      const int p = kb * kTile + (j % kTile);
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (p < P && ch < D / 8)
-        val = *reinterpret_cast<const uint4*>(
-            kh + (long)(2 * p + (j >= kTile)) * D + ch * 8);
-      *reinterpret_cast<uint4*>(Ks + j * QS + ch * 8) = val;
-    }
-    constexpr int VCH = DVP / 8;
-    for (int i = tid; i < nkeys * VCH; i += kMmaThreads) {
-      const int j = i / VCH, ch = i % VCH;
-      const int p = kb * kTile + (j % kTile);
-      __align__(16) __nv_bfloat16 vals[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = __float2bfloat16_rn(0.f);
-      if (p < P && ch < DV / 8) {
-        const uint4 a = *reinterpret_cast<const uint4*>(
-            vh + (long)(2 * p + (kf ? 0 : (j >= kTile))) * DV + ch * 8);
-        const __nv_bfloat16* av = reinterpret_cast<const __nv_bfloat16*>(&a);
-        if (kf) {
-          const uint4 b = *reinterpret_cast<const uint4*>(
-              vh + (long)(2 * p + 1) * DV + ch * 8);
-          const __nv_bfloat16* bv = reinterpret_cast<const __nv_bfloat16*>(&b);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            vals[e] = __float2bfloat16_rn(
-                __fadd_rn(__bfloat162float(av[e]), __bfloat162float(bv[e])));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) vals[e] = av[e];
-        }
-      }
-      *reinterpret_cast<uint4*>(Vs + j * VS + ch * 8) =
-          *reinterpret_cast<const uint4*>(vals);
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    // S = Q K^T for this warp's 16 rows: up to 8 n-tiles of 8 keys.  One
-    // ldmatrix.x4 brings the B fragments of two k-steps: lane l addresses
-    // key row l % 8, channel block (l / 16) * 16 + ((l / 8) % 2) * 8.
-    const int ntiles = nkeys / 8;
-    const int lrow = lane & 7, lhalf = (lane >> 3) & 1, lpair = lane >> 4;
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      if (nt >= ntiles) continue;
-      const __nv_bfloat16* kr =
-          Ks + (nt * 8 + lrow) * QS + lpair * 16 + lhalf * 8;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ks += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, kr + ks * 16);
-        mma_bf16(s[nt], qa[ks], b[0], b[1]);
-        mma_bf16(s[nt], qa[ks + 1], b[2], b[3]);
-      }
-    }
-    // Scale into log2 units, mask pairs past N/2, online softmax.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (nt >= ntiles) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + 2 * tq + (e & 1);
-        const int p = kb * kTile + (j % kTile);
-        s[nt][e] = p < P ? s[nt][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
+    // Rows r and r + 8 of this warp: pairs qb*64 + r, tokens 2p + wg.
+    const int t = threadIdx.x % 128;
+    const int r0 = (t / 32) * 16 + (t % 32) / 4;
+    const int col0 = (t % 4) * 2;
+    __nv_bfloat16* oh = out + (long)bh * N * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_r[h], mx[h]);
-      alpha[h] = exp2f(m_r[h] - m_new);
-      m_r[h] = m_new;
-    }
+      const int p = qb * kPairs + r0 + 8 * h;
+      if (p >= P) continue;
+      const float inv_l = 1.f / st.l[h];
+      __nv_bfloat16* row = oh + (long)(2 * p + wg) * D;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (nt >= ntiles) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m_r[e >> 1]);
-        sum[e >> 1] += s[nt][e];
+      for (int c = 0; c < T::DP / 8; ++c) {
+        if (c * 8 >= D) continue;  // padding columns
+        *reinterpret_cast<uint32_t*>(row + c * 8 + col0) = pack_bf16(
+            st.o[c * 4 + 2 * h] * inv_l, st.o[c * 4 + 2 * h + 1] * inv_l);
       }
-    }
-    const float w = kf ? 2.f : 1.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l_r[h] = alpha[h] * l_r[h] + w * sum[h];
-    }
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are the A
-    // fragment of k-step kk.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (2 * kk >= ntiles) continue;
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // ldmatrix.x4.trans of row-major V: lane l addresses key row
-      // kk*16 + ((l / 8) % 2) * 8 + l % 8 of column block n + l / 16, giving
-      // the B fragments of output n-tiles n and n + 1.
-      const __nv_bfloat16* vr =
-          Vs + (kk * 16 + lhalf * 8 + lrow) * VS + lpair * 8;
-#pragma unroll
-      for (int n = 0; n < NT_O; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, vr + n * 8);
-        mma_bf16(o[n], pa, b[0], b[1]);
-        mma_bf16(o[n + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
-  if (!active) return;
-  __nv_bfloat16* oh = out + bh * N * DV;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wl * 16 + gq + 8 * h;  // row within the query tile
-    const int p = qb * kTile + (r % kTile);
-    if (p >= P) continue;
-    const int tok = 2 * p + (r >= kTile);
-    const float inv_l = 1.f / l_r[h];
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      if (n * 8 >= DV) continue;  // padding columns
-      const uint32_t val =
-          pack_bf16(o[n][2 * h] * inv_l, o[n][2 * h + 1] * inv_l);
-      const int col = n * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(oh + (long)tok * DV + col) = val;
-      if (qf)  // follower copy
-        *reinterpret_cast<uint32_t*>(oh + (long)(tok + 1) * DV + col) = val;
     }
   }
 }
@@ -320,8 +654,8 @@ __global__ void __launch_bounds__(kFmaThreads)
                       float scale) {
   extern __shared__ float sm[];
   const int P = N / 2;
-  const int nqb = gridDim.x;
   const int nkb = (P + kTile - 1) / kTile;
+  const int nf = (P + kFlagTile - 1) / kFlagTile;  // flags per head
   const int qb = blockIdx.x;
   const long bh = blockIdx.y;
   const int tid = threadIdx.x;
@@ -340,7 +674,7 @@ __global__ void __launch_bounds__(kFmaThreads)
   const T* kh = k + bh * N * d;
   const T* vh = v + bh * N * dv;
 
-  const int qf = qflags[bh * nqb + qb];
+  const int qf = qflags[bh * nf + qb / kSubTiles];
   const int nrows = qf ? kTile : kRows;  // row r: pair r % kTile, odd if r >= kTile
 
   for (int i = tid; i < kRows * d; i += kFmaThreads) {
@@ -366,7 +700,7 @@ __global__ void __launch_bounds__(kFmaThreads)
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int kb = 0; kb < nkb; ++kb) {
-    const int kf = kflags[bh * nkb + kb];
+    const int kf = kflags[bh * nf + kb / kSubTiles];
     const int nkeys = kf ? kTile : kRows;  // key j: pair j % kTile, odd if j >= kTile
     __syncthreads();  // the previous tile's K, V and S are consumed
     for (int i = tid; i < kRows * d; i += kFmaThreads) {
@@ -494,25 +828,6 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       const int* qf, const int* kf, int BH, int N,
-                       float scale, cudaStream_t s) {
-  const int P = N / 2;
-  const int nqb = (P + kTile - 1) / kTile;
-  const dim3 grid((nqb + kQTiles - 1) / kQTiles, BH);
-  constexpr size_t smem = mma_smem_bytes<D, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ripple_mma_kernel<D, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  ripple_mma_kernel<D, D><<<grid, kMmaThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      qf, kf, N, nqb, scale * 1.4426950408889634f);
-  return cudaGetLastError();
-}
 
 template <typename T>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
@@ -533,14 +848,102 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+
+
+// cuTensorMapEncodeTiled lives in libcuda: looked up at run time through
+// the runtime's entry-point query, so the library links nothing more.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// A failed tensor-map encode returns kEncodeError + its CUresult.
+constexpr int kEncodeError = 10000;
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The (BH, N, d) bf16 operand as a 4-D map (d, 2, P, BH) whose box is
+// `channels` channels of 64 pairs at one parity, swizzled over `sw` bytes
+// as the wgmma descriptors read it; out-of-range pairs and channels fill
+// with zeros.
+int encode_operand(CUtensorMap* map, const void* ptr, int d, int BH, int N,
+                   int channels, int sw) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, 2, (cuuint64_t)(N / 2),
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)d * 4,
+                                 (cuuint64_t)N * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)channels, 1, (cuuint32_t)kPairs, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(ptr), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 const int* kf, int BH, int N, float scale, cudaStream_t s) {
+  using T = Tiles<D>;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorMisalignedAddress;  // TMA needs 16-byte bases
+  Maps maps = {};
+  const void* ops[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    int rc = encode_operand(&maps.main[i], ops[i], D, BH, N, T::MAIN_BOXC,
+                            T::MAIN_SW);
+    if (rc == 0 && T::TAIL_C > 0)
+      rc = encode_operand(&maps.tail[i], ops[i], D, BH, N, T::TAIL_C,
+                          T::TAIL_SW);
+    if (rc != 0) return rc;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      ripple_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N / 2 + kPairs - 1) / kPairs, BH);
+  ripple_wgmma_kernel<D><<<grid, kWgmmaThreads, T::SMEM, s>>>(
+      maps, static_cast<__nv_bfloat16*>(out), kf, N,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int ripple_tile_pairs() { return kTile; }
+extern "C" int ripple_tile_pairs() { return kFlagTile; }
 
 // q, k: (BH, N, d); v, out: (BH, N, dv), contiguous, float32 (is_bf16 = 0)
-// or bfloat16; qflags, kflags: (BH, ceil(N/2 / kTile)) int32.  bf16 with
-// d == dv in {32, 64, 72, 128} takes the tensor-core path.  Returns the
-// CUDA error of the launch (0 on success).
+// or bfloat16; kflags: (BH, ceil(N/2 / kFlagTile)) int32; qflags, the same
+// shape, is read by the CUDA-core path only (the tensor-core path computes
+// follower rows in any case) and may be null there.  bf16 with d == dv in
+// {32, 64, 72, 128} takes the tensor-core path.  Returns the CUDA error of
+// the launch (0 on success), or kEncodeError + the CUresult of a failed
+// tensor-map encode.
 extern "C" int ripple_attention_launch(const void* q, const void* k,
                                        const void* v, void* out,
                                        const void* qflags, const void* kflags,
@@ -554,13 +957,14 @@ extern "C" int ripple_attention_launch(const void* q, const void* k,
   const int* kf = static_cast<const int*>(kflags);
   if (is_bf16 && d == dv) {
     switch (d) {
-      case 32: return (int)launch_mma<32>(q, k, v, out, qf, kf, BH, N, scale, s);
-      case 64: return (int)launch_mma<64>(q, k, v, out, qf, kf, BH, N, scale, s);
-      case 72: return (int)launch_mma<72>(q, k, v, out, qf, kf, BH, N, scale, s);
-      case 128: return (int)launch_mma<128>(q, k, v, out, qf, kf, BH, N, scale, s);
+      case 32: return launch_wgmma<32>(q, k, v, out, kf, BH, N, scale, s);
+      case 64: return launch_wgmma<64>(q, k, v, out, kf, BH, N, scale, s);
+      case 72: return launch_wgmma<72>(q, k, v, out, kf, BH, N, scale, s);
+      case 128: return launch_wgmma<128>(q, k, v, out, kf, BH, N, scale, s);
       default: break;
     }
   }
+  if (qf == nullptr) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_fma<__nv_bfloat16>(q, k, v, out, qf, kf, BH, N, d, dv,
                                           scale, s);

@@ -37,7 +37,7 @@
 //     memory;
 //   * bf16 with d == dv in {32, 64, 128}: tensor cores through
 //     mma.sync.m16n8k16 with ldmatrix fragments (mma_frag.cuh, shared
-//     with ripple_attention.cu); eight warps of 16 query rows;
+//     with flash_attention.cu); eight warps of 16 query rows;
 //   * float32 (and other head dims): CUDA-core FMAs in f32, the tile code
 //     of ripple_attention.cu's CUDA-core path.
 

@@ -4,10 +4,10 @@ Each source ``src/repro_torch/csrc/<name>.cu`` has a plain C interface
 and is compiled with ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, loaded with ``ctypes``.  Libraries land in ``build/kernels/``
 at the root of the checkout (git-ignored), in a directory named by a
-hash of the sources and flags, so a changed source is rebuilt and an
-unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
-source, all at once, and waits for them; :func:`load` builds on first
-use.  Nothing here runs at import time.
+hash of the sources and of its own flags, so a changed source or flag
+is rebuilt and an unchanged one is reused.  :func:`build_all` starts
+one ``nvcc`` per source, all at once, and waits for them; :func:`load`
+builds on first use.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,11 +29,18 @@ BUILD_ROOT = _ROOT / "build" / "kernels"
 
 SOURCES = ("fused_reuse", "ripple_attention", "sparse_attention", "adaln",
            "flash_attention", "reuse_snap")
-# --fmad=false keeps every mul+add pair rounded separately (the Δ-check
-# is held to bit-equality with its plain version).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# --fmad=false keeps every mul+add pair rounded separately.  fused_reuse
+# and reuse_snap are held bit for bit to their plain versions and adaln to
+# one output ulp, so they need it; sparse and flash keep it because their
+# checks were last run with it.  ripple_attention builds without it: its
+# softmax scale and exponent arguments fuse into FFMAs, within its bar.
+# No source links a library: the ripple kernel looks up the tensor-map
+# encoder (cuTensorMapEncodeTiled) at run time, not through -lcuda.
+SOURCE_FLAGS = {name: ("--fmad=false",) for name in
+                ("fused_reuse", "reuse_snap", "adaln", "sparse_attention",
+                 "flash_attention")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,9 +56,14 @@ def nvcc_path() -> str:
                        "put the CUDA toolkit's bin/ on PATH or set CUDA_HOME")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu``: the common ones and its own."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         if p.stem == name or p.suffix == ".cuh":
             h.update(p.name.encode())
@@ -67,7 +79,8 @@ def _start(name: str):
     out = library_path(name)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -3,8 +3,10 @@
 
 Takes standard (B, H, N, d) snapped operands, derives the per-tile
 collapse flags from value equality (plain PyTorch, as the JAX package
-does outside its Pallas call), and launches the kernel, which reads the
-even/odd tokens in place and masks the ragged last tile by index.  On a
+does outside its Pallas call: key flags always, query flags only for the
+CUDA-core path, since the tensor-core path computes follower rows in any
+case), and launches the kernel, which reads the even/odd tokens in place
+and masks the ragged last tile by index.  On a
 CUDA tensor it launches the kernel or raises; on a CPU tensor, and only
 there, it runs the plain version (``ref.py``).  ``launches`` counts
 kernel launches.
@@ -23,9 +25,12 @@ from repro_torch.kernels.ripple.ref import (block_flags, full_block_flags,
 
 launches = 0
 
-# Pairs per query tile and per key tile: the kernel's compile-time tile
-# (``kTile`` in ripple_attention.cu), also the granularity of the flags.
-TILE_PAIRS = 32
+# Pairs per flag: the tensor-core path's query tile and key stage
+# (``kFlagTile`` in ripple_attention.cu; the CUDA-core path runs 32-pair
+# halves of it).
+TILE_PAIRS = 64
+# A failed tensor-map encode returns this plus its CUresult.
+_ENCODE_ERROR = 10000
 _MAX_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,8 +65,10 @@ def _launch(q, k, v, scale: float):
     if lib.ripple_tile_pairs() != TILE_PAIRS:
         raise RuntimeError("ripple kernel tile does not match TILE_PAIRS")
     BH = B * H
-    qflags = block_flags(q.reshape(BH, N, d), TILE_PAIRS).contiguous()
     kflags = block_flags(k.reshape(BH, N, d), TILE_PAIRS).contiguous()
+    qflags = None
+    if not lib.ripple_uses_tensor_cores(_DTYPES[q.dtype], d, dv):
+        qflags = block_flags(q.reshape(BH, N, d), TILE_PAIRS).contiguous()
     out = torch.empty((B, H, N, dv), dtype=q.dtype, device=q.device)
     fn = lib.ripple_attention_launch
     fn.restype = ctypes.c_int
@@ -69,8 +76,12 @@ def _launch(q, k, v, scale: float):
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):  # launch on the operands' card
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                qflags.data_ptr(), kflags.data_ptr(), _DTYPES[q.dtype], BH,
-                N, d, dv, scale, torch.cuda.current_stream().cuda_stream)
+                0 if qflags is None else qflags.data_ptr(),
+                kflags.data_ptr(), _DTYPES[q.dtype], BH, N, d, dv, scale,
+                torch.cuda.current_stream().cuda_stream)
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"ripple attention kernel: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {rc - _ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"ripple attention kernel launch failed: CUDA "
                            f"error {rc}")

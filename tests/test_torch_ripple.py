@@ -12,7 +12,7 @@ from repro.kernels.ripple.ops import ripple_attention_pallas  # noqa: E402
 from repro.kernels.ripple.ref import block_flags as j_block_flags  # noqa: E402
 from repro.kernels.ripple.ref import ripple_attention_ref as j_ref  # noqa: E402
 from repro_torch.kernels.ripple.ops import (  # noqa: E402
-    attention_scale, ripple_attention, ripple_tile_stats)
+    TILE_PAIRS, attention_scale, ripple_attention, ripple_tile_stats)
 from repro_torch.kernels.ripple.ref import block_flags  # noqa: E402
 
 torch.set_num_threads(2)
@@ -35,7 +35,7 @@ _TOL = 3e-5
 
 @pytest.mark.parametrize("N,d,frac", [
     (256, 32, 0.0), (256, 32, 0.6), (256, 32, 1.0), (130, 16, 1.0),
-    (130, 16, 0.6),
+    (130, 16, 0.6), (418, 16, 0.6),
 ])
 def test_matches_jax_kernel_and_oracle(N, d, frac):
     q = _snapped_operand(1, 1, 2, N, d, frac)
@@ -103,3 +103,43 @@ def test_wrapper_refuses_devices_it_has_no_kernel_for():
     x = torch.empty((1, 1, 64, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ripple_attention(x, x, x)
+
+
+def test_kernel_tile_is_the_wgmma_key_stage():
+    # 64 pairs: one 128-row key stage of the tensor-core path; the
+    # CUDA-core path runs it as two 32-pair halves.
+    assert TILE_PAIRS == 64
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+def test_block_flags_match_jax_at_kernel_tile(frac):
+    x = _snapped_operand(12, 1, 3, 512, 16, frac).reshape(3, 512, 16)
+    want = j_block_flags(jnp.asarray(x[:, 0::2]), jnp.asarray(x[:, 1::2]),
+                         TILE_PAIRS)
+    np.testing.assert_array_equal(
+        block_flags(torch.from_numpy(x), TILE_PAIRS).numpy(), np.asarray(want))
+
+
+def test_ragged_kernel_tile_flags_each_head_alone():
+    """209 pairs a head (a multiple of neither 32 nor 64): the whole tiles
+    match JAX's; the partial last tile counts only that head's pairs."""
+    x = torch.from_numpy(_snapped_operand(13, 2, 3, 418, 8, 1.0)).reshape(
+        6, 418, 8)
+    x[1, 2 * 100 + 1, 0] += 1.0  # break pair 100 of head 1 (tile 1)
+    x[4, 2 * 200 + 1, 0] += 1.0  # break pair 200 of head 4 (the last tile)
+    got = block_flags(x, TILE_PAIRS)
+    want = np.ones((6, 4), np.int32)
+    want[1, 1] = want[4, 3] = 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    j = j_block_flags(jnp.asarray(x[:, 0::2].numpy()),
+                      jnp.asarray(x[:, 1::2].numpy()), TILE_PAIRS)
+    np.testing.assert_array_equal(got[:, :3].numpy(), np.asarray(j))
+
+
+def test_tile_stats_count_collapsed_work_on_ragged_tiles():
+    q = torch.from_numpy(_snapped_operand(14, 2, 3, 418, 8, 1.0))
+    k = torch.from_numpy(_snapped_operand(15, 2, 3, 418, 8, 0.0))
+    qf, kf, flops = ripple_tile_stats(q, k, 8)
+    assert (qf, kf) == (1.0, 0.0)
+    # Per head: 209 representative rows against 418 dense keys.
+    assert flops == 6 * 2.0 * 209 * 418 * 16
