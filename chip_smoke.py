@@ -23,11 +23,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (f32, rounding where the kernel rounds) on all-FULL maps (and against
    ``scaled_dot_product_attention``), all-SKIP maps (exact zeros), mixed
    maps with -inf and finite PARTIAL biases, fully skipped rows, ragged
-   and clamped N, an SVG map at the serving shape, and a constructed
-   all-temporal map at batch 2 whose batch rows carry different biases;
+   and clamped N, a PARTIAL-heavy map under a bias broadcast over batch
+   and heads, map rows live only at their two ends (the ring wraps, with
+   and without a bias), an SVG map at the serving shape, and a
+   constructed all-temporal map at batch 2 whose batch rows carry
+   different biases; each case logs the path it took;
 5b. holds the dense flash attention kernel against f32 dense softmax
    (rounding p where the bf16 kernel rounds it) on the reference tests'
-   four shapes (d != dv, Nq != Nk, unaligned), odd head dims, extreme
+   four shapes (d != dv, Nq != Nk, unaligned), odd head dims, a ragged
+   Nq != Nk with d != dv, extreme
    logits and both serving shapes, f32 on CUDA cores and bf16 on tensor
    cores, and the single-axis pair-snap kernel bit for bit against its
    plain version (the reference tests' cases, bf16 and f32, and the vDiT
@@ -468,7 +472,9 @@ def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False, slack=Non
         lib_err = (out.float() - lib.float()).abs().max().item()
         ok = ok and lib_err <= 2 * tol
         extra += f"; vs sdpa {lib_err:.3e} (tol {2 * tol:.3g})"
-    path = "tensor cores" if tc else "CUDA cores"
+    path = "CUDA cores"
+    if tc:  # with a bias, a PARTIAL tile's stage also takes a ring slot for it
+        path = f"tensor cores, {'bias ring' if bias is not None else 'no-bias ring'}"
     log(f"kernel sparse_attention {name:8s} {label} x{tuple(q.shape)} block {blk} "
         f"[{path}]: tiles {tile_shares(bmap)}; max abs err vs oracle {err:.3e} "
         f"(tol {tol:.3g}){extra} {'ok' if ok else 'FAIL'}")
@@ -578,6 +584,33 @@ def sparse_checks(serve_grid, n_txt):
                          q, k, v, neg_inf_bias(keep), block_map_from_keep(keep, blk, blk),
                          blk)
             del keep
+        # One (N, N) bias slab read through zero batch and head strides, on
+        # a map that is mostly PARTIAL.
+        N, blk = 512, 64
+        nb = N // blk
+        q, k, v = (torch.randn((2, 3, N, 128), generator=g, device="cuda").to(dt)
+                   for _ in range(3))
+        states = torch.randint(0, 2, (2, 3, nb, nb), generator=g, device="cuda",
+                               dtype=torch.int32)
+        heavy = torch.rand((2, 3, nb, nb), generator=g, device="cuda") < 0.7
+        states = torch.where(heavy, torch.full_like(states, PARTIAL), states)
+        bias = torch.randn((1, 1, N, N), generator=g, device="cuda")
+        check_sparse(res, "PARTIAL-heavy map, bias broadcast over batch and heads",
+                     q, k, v, bias, states, blk)
+        # Every map row live at its two ends only: the producer skips the
+        # tiles between, and the ring wraps within a row (4 slots a row
+        # against 3 at d 128: two PARTIAL stages of K/V and bias, or two
+        # 256-key tiles of two stages each).
+        N = 2048
+        q, k, v = qkv(N, 128, dt)
+        bias = torch.randn((1, 2, N, N), generator=g, device="cuda")
+        for blk, b, ends in ((128, bias, (PARTIAL, PARTIAL)), (256, None, (FULL, FULL))):
+            nb = N // blk
+            bmap = torch.full((1, 2, nb, nb), SKIP, dtype=torch.int32, device="cuda")
+            bmap[..., 0], bmap[..., -1] = ends
+            check_sparse(res, f"live tiles at both ends of each map row, block {blk}, "
+                         f"{'bias' if b is not None else 'no bias'}", q, k, v, b, bmap, blk)
+        del q, k, v, bias, bmap
     # Serving shape with an SVG map: correlated operands, heads classified
     # online, text tokens dense.
     n_grid = serve_grid[0] * serve_grid[1] * serve_grid[2]
@@ -728,6 +761,7 @@ def flash_checks():
         check_flash(res, (1, 1, 128, 128, 32, 32), dt, 55, " extreme logits (q, k x30)",
                     amp=30.0)
         check_flash(res, (2, 2, 77, 130, 20, 7), dt, 56, " odd head dims")
+        check_flash(res, (1, 3, 200, 333, 72, 40), dt, 60, " ragged Nq != Nk, d != dv")
     check_flash(res, FLASH_SERVE_SHAPES[0], torch.bfloat16, 57, " (vDiT serving shape)")
     check_flash(res, FLASH_SERVE_SHAPES[1], torch.bfloat16, 58, " (dit-xl2 serving shape)")
     torch.cuda.empty_cache()

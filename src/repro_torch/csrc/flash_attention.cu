@@ -17,33 +17,60 @@
 // Bound on the H100: arithmetic.  4 * Nq * Nk * d flops per head (d ==
 // dv) against 2 * (Nq + Nk) * d * 2 bytes of bf16 operands and output:
 // at serving lengths thousands of flops per byte, far above the card's
-// ~295 flops/B bf16 ridge.
+// ~295 flops/B bf16 ridge; in f32 on CUDA cores (67 TFLOP/s) further
+// still.
 //
-// Design (a simple first version, the pair-collapse kernel's former
-// mma.sync design without the pair structure):
-//   * bf16, any head dims up to 128: tensor cores through
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate).  A block owns 128
-//     query rows (eight warps of 16) and loops over key tiles of 64; the
-//     scores stay in the accumulator registers and are re-packed as the A
-//     operand of the PV product (the flash-attention-2 layout); K and V
-//     are row-major in shared memory with rows padded by 16 B and read
-//     with ldmatrix (.trans for V).  Shared-memory tiles are zero-padded:
-//     Q and K to the next multiple of 32 channels (ldmatrix loads the
-//     score product's k-steps in pairs), V to the next multiple of 16
-//     (output n-tiles come in pairs).  Only the real channels are read
-//     from device memory (16-byte loads when a row is a whole number of
-//     16-byte chunks, element loads otherwise) and only the real output
-//     columns are stored; zero channels add exact zeros.
-//   * float32: CUDA-core FMAs in f32, 64 query rows by 64 keys a tile,
-//     4x4 scores and 8x4 outputs per thread from shared memory.
-// Neither uses TMA, wgmma, cp.async pipelining or warp specialisation yet.
+// Design:
+//   * bf16, any head dims up to 128 (on no serving path; a simple first
+//     version, the pair-collapse kernel's former mma.sync design without
+//     the pair structure): tensor cores through mma.sync.m16n8k16 (bf16
+//     in, f32 accumulate).  A block owns 128 query rows (eight warps of
+//     16) and loops over key tiles of 64; the scores stay in the
+//     accumulator registers and are re-packed as the A operand of the PV
+//     product (the flash-attention-2 layout); K and V are row-major in
+//     shared memory with rows padded by 16 B and read with ldmatrix
+//     (.trans for V).  Shared-memory tiles are zero-padded: Q and K to the
+//     next multiple of 32 channels (ldmatrix loads the score product's
+//     k-steps in pairs), V to the next multiple of 16 (output n-tiles come
+//     in pairs).  Only the real channels are read from device memory
+//     (16-byte loads when a row is a whole number of 16-byte chunks,
+//     element loads otherwise) and only the real output columns are
+//     stored; zero channels add exact zeros.  No TMA, wgmma, cp.async
+//     pipelining or warp specialisation yet.
+//   * float32 (the kernel_bench sweep's dense anchor): CUDA-core FMAs,
+//     no TF32.  The FMA pipes are the bound, so every other instruction
+//     and every shared-memory wavefront is kept off them:
+//       - a block owns 128 query rows, eight warps of 16, and loops over
+//         key tiles of 64; a lane holds 8 rows x 4 keys of scores and the
+//         same 8 rows x 8 columns of output, so per channel three float4
+//         reads of shared memory feed 32 FMAs (per 4 keys of P V, 16
+//         reads feed 256);
+//       - Q is stored transposed in shared memory (channel-major, rows
+//         contiguous): a lane's 8 rows are two float4s.  K stays row-major
+//         with rows padded to 132 floats, and a lane's keys are kg + 16j,
+//         so the float4s of four channels that the lanes of a wavefront
+//         read lie in eight different rows and distinct banks.  Every
+//         read is at a base plus a constant in the unrolled channel loop,
+//         with no index arithmetic;
+//       - softmax in registers: a row's max and sum are reduced over the
+//         16 lanes that hold it with shuffles, in log2 units (log2 e
+//         folded into the scale, each exponent one FFMA into
+//         ex2.approx.ftz); P goes once through shared memory, row-major
+//         for the P V product and read only by the warp that wrote it, so
+//         a tile needs one block barrier, not three;
+//       - K and V tiles are double-buffered with cp.async (16-byte copies,
+//         4-byte ones when a row is not whole 16-byte chunks), so the next
+//         tile's 64 KB at d 128 loads while the current one computes;
+//         226 KB of shared memory, one block of 8 warps an SM, up to 255
+//         registers a thread; dv > 64 and dv <= 64 are two
+//         instantiations, so the P V loop has no branch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_frag.cuh"
+#include "hopper.cuh"  // cp.async, smem_u32; mma.sync fragments (mma_frag.cuh)
 
 namespace {
 
@@ -261,149 +288,224 @@ __global__ void __launch_bounds__(kMmaThreads)
 // CUDA-core path (f32)
 // ---------------------------------------------------------------------------
 
-constexpr int kFT = 64;  // query rows a block and keys a tile
-constexpr int kFmaThreads = 256;
+constexpr int kFWarps = 8;
+constexpr int kFThreads = 32 * kFWarps;
+constexpr int kFRows = 8;                  // query rows a lane holds
+constexpr int kFQ = 2 * kFRows * kFWarps;  // query rows a block: 16 a warp
+constexpr int kFK = 64;                    // keys a tile
+constexpr int kKRow = kMaxDim + 4;  // floats a K row takes in shared memory
+// Q^T, two K and two V tiles, and the block's probabilities: 226 KB.
+constexpr size_t kFSmem =
+    sizeof(float) * ((size_t)kMaxDim * kFQ + 2 * (size_t)kFK * kKRow +
+                     2 * (size_t)kFK * kMaxDim + (size_t)kFQ * kFK);
 
-__global__ void __launch_bounds__(kFmaThreads)
+// Rows row0 .. row0 + kFK - 1 of a (rows, width) f32 matrix into a shared
+// tile of `stride`-float rows by cp.async, a warp a row and a lane a
+// chunk: 16-byte copies when the rows are whole 16-byte chunks, 4-byte
+// copies otherwise.  Rows past `rows` and columns from width up to the
+// next multiple of 4 are written as zeros.
+__device__ __forceinline__ void fetch_rows(float* tile, int stride,
+                                           const float* src, int row0,
+                                           int rows, int width) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = (width + 3) >> 2;
+  for (int r = warp; r < kFK; r += kFWarps) {
+    const bool ok = row0 + r < rows;
+    const float* row = src + (long)(ok ? row0 + r : 0) * width;
+    float* dst = tile + r * stride;
+    if ((width & 3) == 0) {
+      if (lane < chunks) cp_async16(smem_u32(dst + 4 * lane), row + 4 * lane, ok ? 16 : 0);
+    } else {
+      for (int c = lane; c < 4 * chunks; c += 32)
+        cp_async4(smem_u32(dst + c), c < width ? row + c : row,
+                  ok && c < width ? 4 : 0);
+    }
+  }
+}
+
+// A warp owns 16 query rows.  Lane (rg, kg) = (lane / 16, lane % 16) holds
+// the scores of rows 8rg..8rg+7 against keys kg + 16j (j < 4), 32 of
+// them, and the outputs of the same rows at columns 4kg..4kg+3 and
+// 64+4kg..64+4kg+3, 64 of them.
+template <bool HI>
+__global__ void __launch_bounds__(kFThreads, 1)
     flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int Nq, int Nk, int d, int dv, float scale) {
-  extern __shared__ float sm[];
-  const int q0 = blockIdx.x * kFT;
+                     int Nq, int Nk, int d, int dv, float scale_log2) {
+  extern __shared__ __align__(16) float fsm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* Qt = fsm;                      // [kMaxDim][kFQ]: Q transposed
+  float* Ks = Qt + kMaxDim * kFQ;       // [2][kFK][kKRow]
+  float* Vs = Ks + 2 * kFK * kKRow;     // [2][kFK][kMaxDim]
+  float* Ps = Vs + 2 * kFK * kMaxDim;   // [kFQ][kFK]
+  const int q0 = blockIdx.x * kFQ;
   const long bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int dp = d + 1;
-  const int sp = kFT + 1;
-
-  float* Qs = sm;                  // [kFT][d + 1]
-  float* Ks = Qs + kFT * dp;       // [kFT][d + 1]
-  float* Vs = Ks + kFT * dp;       // [kFT][kMaxDim]
-  float* Ss = Vs + kFT * kMaxDim;  // [kFT][kFT + 1]
-  float* m_s = Ss + kFT * sp;      // [kFT]
-  float* l_s = m_s + kFT;          // [kFT]
-  float* a_s = l_s + kFT;          // [kFT]
-
   const float* qh = q + bh * Nq * d;
   const float* kh = k + bh * Nk * d;
   const float* vh = v + bh * Nk * dv;
+  const int rg = lane >> 4, kg = lane & 15;
+  const int qr = warp * 2 * kFRows + rg * kFRows;  // this lane's first row
+  const int nkb = (Nk + kFK - 1) / kFK;
+  const int groups = (d + 3) >> 2;  // 4-channel steps of the score product
 
-  for (int i = tid; i < kFT * d; i += kFmaThreads) {
-    const int r = i / d, c = i % d;
-    Qs[r * dp + c] = q0 + r < Nq ? qh[(long)(q0 + r) * d + c] : 0.f;
+  fetch_rows(Ks, kKRow, kh, 0, Nk, d);
+  fetch_rows(Vs, kMaxDim, vh, 0, Nk, dv);
+  cp_async_commit();
+  // Q^T once, through registers (lanes on consecutive rows); channels from
+  // d up to the next multiple of 4 are zeros.
+  for (int i = threadIdx.x; i < kFQ * groups; i += kFThreads) {
+    const int r = i % kFQ, ch = i / kFQ;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Nq) {
+      const float* p = qh + (long)(q0 + r) * d + 4 * ch;
+      if ((d & 3) == 0) {
+        x = *reinterpret_cast<const float4*>(p);
+      } else {
+        if (4 * ch + 0 < d) x.x = p[0];
+        if (4 * ch + 1 < d) x.y = p[1];
+        if (4 * ch + 2 < d) x.z = p[2];
+        if (4 * ch + 3 < d) x.w = p[3];
+      }
+    }
+    Qt[(4 * ch + 0) * kFQ + r] = x.x;
+    Qt[(4 * ch + 1) * kFQ + r] = x.y;
+    Qt[(4 * ch + 2) * kFQ + r] = x.z;
+    Qt[(4 * ch + 3) * kFQ + r] = x.w;
   }
-  for (int r = tid; r < kFT; r += kFmaThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
+
+  float o[kFRows][8], m[kFRows], l[kFRows];
+#pragma unroll
+  for (int i = 0; i < kFRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
   }
 
-  // Score micro-tile: rows ty + 16*i, keys tx + 16*j.
-  const int ty = tid / 16, tx = tid % 16;
-  // PV micro-tile: rows warp + 8*i, output columns lane + 32*j.
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int nkb = (Nk + kFT - 1) / kFT;
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kFT;
-    __syncthreads();  // the previous tile's K, V and S are consumed
-    for (int i = tid; i < kFT * d; i += kFmaThreads) {
-      const int j = i / d, c = i % d;
-      Ks[j * dp + c] = k0 + j < Nk ? kh[(long)(k0 + j) * d + c] : 0.f;
-    }
-    for (int i = tid; i < kFT * kMaxDim; i += kFmaThreads) {
-      const int j = i / kMaxDim, c = i % kMaxDim;
-      Vs[i] = (k0 + j < Nk && c < dv) ? vh[(long)(k0 + j) * dv + c] : 0.f;
-    }
+    const int buf = kb & 1;
+    // Tile kb has landed for every thread, and every warp is done with
+    // tile kb - 1, whose buffers the next copies overwrite.
+    cp_async_wait_all();
     __syncthreads();
+    if (kb + 1 < nkb) {
+      fetch_rows(Ks + (buf ^ 1) * kFK * kKRow, kKRow, kh, (kb + 1) * kFK, Nk, d);
+      fetch_rows(Vs + (buf ^ 1) * kFK * kMaxDim, kMaxDim, vh, (kb + 1) * kFK, Nk, dv);
+      cp_async_commit();
+    }
+    const float* Kt = Ks + buf * kFK * kKRow;
+    const float* Vt = Vs + buf * kFK * kMaxDim;
 
-    // S = scale * Q K^T; keys past Nk -> -inf.
-    float sc[4][4];
+    // S = Q K^T: per 4 channels, 12 float4 reads feed 128 FMAs.
+    float s[kFRows][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kFRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qv[4], kv[4];
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    const float* qc = Qt + qr;
+    const float* kc = Kt + kg * kKRow;
+#pragma unroll 4
+    for (int g = 0; g < groups; ++g) {
+      float4 kf[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * dp + c];
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(kc + 16 * j * kKRow + 4 * g);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * dp + c];
+      for (int u = 0; u < 4; ++u) {
+        const float* qu = qc + (4 * g + u) * kFQ;
+        const float4 qa = *reinterpret_cast<const float4*>(qu);
+        const float4 qb = *reinterpret_cast<const float4*>(qu + 4);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+          const float kv = u == 0 ? kf[j].x : u == 1 ? kf[j].y : u == 2 ? kf[j].z : kf[j].w;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+          for (int i = 0; i < kFRows; ++i) s[i][j] = fmaf(qv[i], kv, s[i][j]);
+        }
+      }
+    }
+
+    // Online softmax in log2 units (log2 e folded into the scale), each
+    // row reduced over the 16 lanes that hold it; keys past Nk -> -inf.
+    const int key0 = kb * kFK;
+    if (key0 + kFK > Nk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (key0 + kg + 16 * j >= Nk) {
+#pragma unroll
+          for (int i = 0; i < kFRows; ++i) s[i][j] = -INFINITY;
+        }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kFRows; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int x = 1; x < 16; x <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      // The scale is positive: the max of the raw scores scales to it.
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      const float base = m_new == -INFINITY ? 0.f : m_new;  // no -inf - -inf
+      const float alpha = exp2_ftz(m[i] - base);
+      m[i] = m_new;
+      float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int key = tx + 16 * j;
-        Ss[(ty + 16 * i) * sp + key] =
-            k0 + key < Nk ? sc[i][j] * scale : -INFINITY;
+        s[i][j] = exp2_ftz(fmaf(s[i][j], scale_log2, -base));
+        sum += s[i][j];
       }
-    __syncthreads();
-
-    // Online softmax: four threads per row.
-    {
-      const int r = tid / 4, part = tid % 4;
-      float mx = -INFINITY;
-      for (int kk = part; kk < kFT; kk += 4) mx = fmaxf(mx, Ss[r * sp + kk]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float base = m_new == -INFINITY ? 0.f : m_new;  // no -inf - -inf
-      float sum = 0.f;
-      for (int kk = part; kk < kFT; kk += 4) {
-        const float p = expf(Ss[r * sp + kk] - base);
-        Ss[r * sp + kk] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_prev - base);
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
+#pragma unroll
+      for (int x = 1; x < 16; x <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, x);
+      l[i] = alpha * l[i] + sum;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(qr + i) * kFK + kg + 16 * j] = s[i][j];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
     }
-    __syncthreads();
+    __syncwarp();  // the warp's probabilities are written
 
-    // acc = alpha * acc + P V.
+    // O += P V, four keys a step: per step 8 float4 reads of P (one a row)
+    // and 8 of V feed 256 FMAs.
+    const float* pr = Ps + qr * kFK;
+#pragma unroll 4
+    for (int kk = 0; kk < kFK; kk += 4) {
+      float4 pf[kFRows];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float alpha = a_s[warp + 8 * i];
+      for (int i = 0; i < kFRows; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(pr + i * kFK + kk);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-    for (int kk = 0; kk < kFT; ++kk) {
-      float vv[4], pv[8];
+      for (int t = 0; t < 4; ++t) {
+        const float* vr = Vt + (kk + t) * kMaxDim;
+        const float4 va = *reinterpret_cast<const float4*>(vr + 4 * kg);
+        float4 vb = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (HI) vb = *reinterpret_cast<const float4*>(vr + 64 + 4 * kg);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kMaxDim + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) pv[i] = Ss[(warp + 8 * i) * sp + kk];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int i = 0; i < kFRows; ++i) {
+          const float p = t == 0 ? pf[i].x : t == 1 ? pf[i].y : t == 2 ? pf[i].z : pf[i].w;
+          o[i][0] = fmaf(p, va.x, o[i][0]);
+          o[i][1] = fmaf(p, va.y, o[i][1]);
+          o[i][2] = fmaf(p, va.z, o[i][2]);
+          o[i][3] = fmaf(p, va.w, o[i][3]);
+          if (HI) {
+            o[i][4] = fmaf(p, vb.x, o[i][4]);
+            o[i][5] = fmaf(p, vb.y, o[i][5]);
+            o[i][6] = fmaf(p, vb.z, o[i][6]);
+            o[i][7] = fmaf(p, vb.w, o[i][7]);
+          }
+        }
+      }
     }
   }
 
   float* oh = out + bh * Nq * dv;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = warp + 8 * i;
-    if (q0 + r >= Nq) continue;
-    const float l = l_s[r];
+  for (int i = 0; i < kFRows; ++i) {
+    const int row = q0 + qr + i;
+    if (row >= Nq) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = lane + 32 * j;
-      if (col < dv) oh[(long)(q0 + r) * dv + col] = acc[i][j] / l;
+    for (int c = 0; c < 8; ++c) {
+      const int col = (c < 4 ? 0 : 64) + 4 * kg + (c & 3);
+      if (col < dv) oh[(long)row * dv + col] = o[i][c] / l[i];
     }
   }
 }
@@ -445,18 +547,15 @@ cudaError_t launch_mma_dv(const void* q, const void* k, const void* v,
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
                        int BH, int Nq, int Nk, int d, int dv, float scale,
                        cudaStream_t s) {
-  const dim3 grid((Nq + kFT - 1) / kFT, BH);
-  const size_t smem =
-      sizeof(float) * ((size_t)kFT * (d + 1) * 2 + (size_t)kFT * kMaxDim +
-                       (size_t)kFT * (kFT + 1) + 3 * kFT);
+  const dim3 grid((Nq + kFQ - 1) / kFQ, BH);
+  auto kernel = dv > 64 ? flash_fma_kernel<true> : flash_fma_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFSmem);
   if (err != cudaSuccess) return err;
-  flash_fma_kernel<<<grid, kFmaThreads, smem, s>>>(
+  kernel<<<grid, kFThreads, kFSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Nq, Nk, d, dv,
-      scale);
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 

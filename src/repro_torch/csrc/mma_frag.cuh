@@ -1,6 +1,6 @@
-// Device helpers shared by the mma.sync attention kernels
-// (sparse_attention.cu, flash_attention.cu): element conversions for the
-// f32 CUDA-core paths, and the bf16 tensor-core fragment code -
+// Device helpers of the attention kernels (included through hopper.cuh):
+// element conversions for the CUDA-core paths, bf16 packing, and the
+// mma.sync tensor-core fragment code of flash_attention.cu's bf16 path -
 // mma.sync.m16n8k16 with f32 accumulators and ldmatrix loads of 8x8 bf16
 // matrices from shared memory.
 // Everything sits in an anonymous namespace: each source that includes

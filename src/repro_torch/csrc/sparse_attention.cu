@@ -16,8 +16,9 @@
 // f32 and are then multiplied by the scale; probabilities are rounded to
 // v's dtype before the PV product, as the JAX kernel rounds them.  A
 // block walks its map row in ascending key-tile order, the JAX kernel's
-// summation order.  Keys past Nk and query rows past Nq are masked by
-// index (the JAX wrapper pads with a flag channel instead).
+// summation order.  Keys past Nk or past their map tile and query rows
+// past Nq are masked by index (the JAX wrapper pads with a flag channel
+// instead).
 //
 // Bound on the H100: per non-SKIP tile 4*bq*bk*d flops, per PARTIAL tile
 // bq*bk*4 bytes of bias (64 KB at 128x128) on top of q, k, v and the
@@ -25,28 +26,45 @@
 // is a third PARTIAL, so the dense bias makes such a call bound by bytes;
 // a spatial head's map has no PARTIAL tile and is bound by its flops.
 //
-// Design (simple first version; no TMA, wgmma, cp.async pipelining or
-// warp specialisation yet):
-//   * one block per (bh, query rows of one map tile); the kernel's own
-//     row block (128 rows on tensor cores, 64 on CUDA cores) may be
-//     smaller than the map tile, and a map tile of fewer rows leaves the
-//     block's tail rows idle;
-//   * the block reads each state of its map row from global memory (one
-//     broadcast load); a SKIP tile costs that load only;
-//   * keys of a live tile are consumed in chunks of 64 through shared
-//     memory;
-//   * bf16 with d == dv in {32, 64, 128}: tensor cores through
-//     mma.sync.m16n8k16 with ldmatrix fragments (mma_frag.cuh, shared
-//     with flash_attention.cu); eight warps of 16 query rows;
+// Design:
+//   * bf16 with d == dv in {32, 64, 128}: wgmma.mma_async (sm_90a), the
+//     ripple kernel's machinery (hopper.cuh).  A block owns 128 query rows
+//     of one map row (a map tile taller than 128 rows takes several
+//     blocks; rows past the tile are computed and never stored): consumer
+//     warpgroups 0 and 1 hold 64 rows each, a third, producer warpgroup
+//     streams key stages through a ring in shared memory.  The producer
+//     walks the block's map row and issues nothing for a SKIP tile (the
+//     CUDA form of the JAX kernel's k_fetch / bias_fetch copy elision);
+//     the consumers walk the same row and do no math there.  A live tile
+//     is cut into stages from its first key; keys of a stage past the
+//     tile's end or past Nk are masked by index, rows past Nk arrive as
+//     zeros (TMA fills them).
+//   * Q, K and V arrive by TMA in 128 B (d 32: 64 B) swizzled channel
+//     boxes that the wgmma descriptors read; S = Q K^T is wgmma SS, O +=
+//     P V wgmma RS with P re-packed from the f32 score accumulators into
+//     bf16 registers.  mbarriers say when a stage's K, V and bias are full
+//     and when both consumers have released it.  Softmax runs online in
+//     log2 units, each exponent one FFMA into ex2.approx.ftz.
+//   * The ring has slots of 64 KB (3 at d 128, beside 32 KB of Q).  Every
+//     stage has 128 keys, as the ripple kernel's: its K and V take one
+//     slot.  A PARTIAL tile's stage in a call with a bias also takes the
+//     next slot for its 128 x 128 f32 bias, which the whole producer
+//     warpgroup copies with cp.async (16-byte copies when every row starts
+//     on a 16-byte boundary, 4-byte copies otherwise) into a swizzled
+//     layout that the consumers read as float2 without bank conflicts; it
+//     arrives on the slot's bias barrier when its copies land.  So FULL and
+//     PARTIAL stages run the same wgmma code, with one branch for the bias
+//     add; a call without a bias runs an instantiation with no bias code
+//     (PARTIAL tiles run as FULL ones there).  Each consumer runs a stage in order (S, softmax, PV) within the
+//     168 registers a thread of the launch bound; the two consumers
+//     overlap one another.
 //   * float32 (and other head dims): CUDA-core FMAs in f32, the tile code
 //     of ripple_attention.cu's CUDA-core path.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_frag.cuh"
+#include "hopper.cuh"  // TMA, mbarrier, wgmma helpers; pack_bf16, to_f, from_f
 
 namespace {
 
@@ -55,7 +73,7 @@ constexpr int kPartial = 2;
 constexpr float kMInit = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDim = 128;
-constexpr int kChunk = 64;  // keys per shared-memory chunk
+constexpr int kChunk = 64;  // keys per shared-memory chunk (CUDA cores)
 
 struct Args {
   const void* q;      // (BH, Nq, d)
@@ -76,202 +94,325 @@ __device__ __forceinline__ float round_as(float p, __nv_bfloat16) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path (bf16)
+// Tensor-core path (bf16): TMA ring, producer warpgroup, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 8;
-constexpr int kMmaRows = 16 * kMmaWarps;  // query rows per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kWgRows = 64;                   // query rows a consumer owns
+constexpr int kConsumers = 2;
+constexpr int kBlockRows = kConsumers * kWgRows;
+constexpr int kWgmmaThreads = 128 * (kConsumers + 1);  // + the producer
+constexpr int kKeys = 128;                          // keys a stage
+constexpr int kSlotBytes = kBlockRows * kKeys * 4;  // one stage's f32 bias
 
+// The ring of key stages at head dim D: STAGES slots of 64 KB.  A stage
+// takes one slot for its K and V (128 keys each); a PARTIAL tile's stage
+// in a call with a bias also takes the next slot for its 128 x 128 f32
+// bias.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) sparse_mma_kernel(Args a) {
-  static_assert(D % 32 == 0, "ldmatrix pairs k-steps");
-  constexpr int S = D + 8;        // row stride of the Q, K and V tiles (bf16)
-  constexpr int KSTEPS = D / 16;  // k-steps of the score product
-  constexpr int NT_O = D / 8;     // n-tiles of the output
-  constexpr int CH = D / 8;       // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [128][S]
-  __nv_bfloat16* Ks = Qs + kMmaRows * S;                            // [64][S]
-  __nv_bfloat16* Vs = Ks + kChunk * S;                              // [64][S]
+struct Ring : Boxes<D> {
+  using B = Boxes<D>;
+  static constexpr int Q_BYTES = kWgRows * B::DP * 2;  // one consumer's rows
+  static constexpr int KV_BYTES = kKeys * B::DP * 2;
+  // As many slots as 227 KB holds beside Q, the alignment slack and
+  // 512 bytes of barriers.
+  static constexpr int STAGES =
+      (kSmemLimit - 1024 - 512 - kConsumers * Q_BYTES) / kSlotBytes;
+  static constexpr int TILE_BYTES = kConsumers * Q_BYTES + STAGES * kSlotBytes;
+  static constexpr int BARRIERS = 1 + 4 * STAGES;
+  static constexpr int SMEM = 1024 + TILE_BYTES + 8 * BARRIERS;  // + alignment
+  static_assert(B::TAIL_C == 0, "whole channel boxes only");
+  static_assert(2 * KV_BYTES <= kSlotBytes, "a stage's K and V fit a slot");
+  static_assert(STAGES >= 2 && 8 * BARRIERS <= 512 && SMEM <= kSmemLimit,
+                "a ring of 2+ slots fits");
+};
+
+// Where bias element (row, key) of a bias slot lies, in floats: rows of
+// 128 floats whose 16-byte chunks are XOR-ed with 2 * (row % 4), so the
+// float2 reads of one accumulator column pair by a warp's 8 rows fall in
+// distinct banks.
+__device__ __forceinline__ int bias_at(int row, int key) {
+  return row * kKeys + ((((key >> 2) ^ ((row & 3) << 1))) << 2) + (key & 3);
+}
+
+// The online-softmax state of one consumer thread: rows r and r + 8 of its
+// warp's 16 (wgmma accumulator layout).
+template <int D>
+struct RowState {
+  float s[kKeys / 2];
+  uint32_t pk[kKeys / 16][4];
+  float o[D / 2];
+  float m[2], l[2];
+};
+
+// One key stage for one consumer warpgroup: S = Q K^T, the bias of a
+// PARTIAL tile's stage (BIAS and `bias` non-null, waited on b_bar at
+// b_parity), the key mask past key_end (keys of the stage from key0),
+// online softmax, then O += P V once V has arrived.
+template <int D, bool BIAS>
+__device__ __forceinline__ void consume_stage(
+    RowState<D>& st, uint32_t q_tile, uint32_t k_tile, uint32_t v_tile,
+    const float* bias, int slot_row, uint32_t v_bar, uint32_t parity,
+    uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale_log2) {
+  using R = Ring<D>;
+  constexpr int NS = kKeys / 2;
+  const int lane = threadIdx.x % 32;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < R::KSTEPS; ++kk)
+    wgmma_ss<kKeys>(st.s, kmajor_desc<D, kWgRows>(q_tile, kk),
+                    kmajor_desc<D, kKeys>(k_tile, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  pin<NS>(st.s);
+
+  // Entry i is column (i / 4) * 8 + (lane % 4) * 2 + (i & 1) of row
+  // slot_row + 8 * ((i >> 1) & 1).
+  float sc = scale_log2;
+  if (BIAS && bias != nullptr) {
+    mbar_wait(b_bar, b_parity);
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const int row = slot_row + 8 * ((i >> 1) & 1);
+      const int col = (i / 4) * 8 + (lane % 4) * 2;
+      const float2 b = *reinterpret_cast<const float2*>(bias + bias_at(row, col));
+      st.s[i] = fmaf(st.s[i], scale_log2, b.x * kLog2e);
+      st.s[i + 1] = fmaf(st.s[i + 1], scale_log2, b.y * kLog2e);
+    }
+    sc = 1.f;
+  }
+  if (key0 + kKeys > key_end) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+      if (key0 + col >= key_end) st.s[i] = -INFINITY;
+    }
+  }
+  // The running max in log2 units: the scale is positive, so the max of
+  // the raw scores scales to it.
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], st.s[i]);
+  float alpha[2], neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(st.m[h], mx[h] * sc);
+    alpha[h] = exp2_ftz(st.m[h] - m_new);
+    st.m[h] = m_new;
+    neg_m[h] = -m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    st.s[i] = exp2_ftz(fmaf(st.s[i], sc, neg_m[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += st.s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    st.l[h] = alpha[h] * st.l[h] + sum[h];
+  }
+  // O *= alpha; the exponentials become the bf16 A operand: k-step kk is
+  // score columns 16kk..16kk+15 (accumulator chunks 2kk and 2kk + 1).
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    st.o[c * 4 + 0] *= alpha[0];
+    st.o[c * 4 + 1] *= alpha[0];
+    st.o[c * 4 + 2] *= alpha[1];
+    st.o[c * 4 + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      st.pk[kk][j] = pack_bf16(st.s[kk * 8 + 2 * j], st.s[kk * 8 + 2 * j + 1]);
+
+  mbar_wait(v_bar, parity);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    wgmma_rs<D>(st.o, st.pk[kk],
+                make_desc(v_tile + kk * 16 * R::MAIN_SW, kKeys * R::MAIN_SW,
+                          8 * R::MAIN_SW, R::MAIN_MODE));
+  wgmma_commit();
+  wgmma_wait_all();
+  pin<D / 2>(st.o);
+}
+
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// BIAS: the call has a bias (PARTIAL tiles add it); without one, PARTIAL
+// tiles run as FULL ones and the kernel has no bias code.
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    sparse_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int vec,
+                        float scale_log2) {
+  using R = Ring<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles need 1024-byte alignment (the 128 B pattern's period).
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_tiles = base;  // [kConsumers][kWgRows rows]
+  const uint32_t slots = q_tiles + kConsumers * R::Q_BYTES;
+  auto slot = [&](int s) { return slots + s * kSlotBytes; };  // K, then V
+  const uint32_t bars = base + R::TILE_BYTES;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + R::STAGES + s); };
+  auto b_full = [&](int s) { return bars + 8 * (1 + 2 * R::STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 3 * R::STAGES + s); };
+  // Ring position: a slot and the parity of its current round, advanced in
+  // step by producer and consumers.  Every round of a slot completes each
+  // of its four barriers once, whichever use the slot has in the round.
+  struct Pos {
+    int slot = 0;
+    uint32_t phase = 0;
+    __device__ void advance() {
+      if (++slot == R::STAGES) slot = 0, phase ^= 1;
+    }
+  };
 
   const int qi = blockIdx.x / a.sub;
-  const long bh = blockIdx.y;
-  const int row_lo = qi * a.bq + (blockIdx.x % a.sub) * kMmaRows;
+  const int bh = blockIdx.y;
+  const int row_lo = qi * a.bq + (blockIdx.x % a.sub) * kBlockRows;
   const int row_hi = min(qi * a.bq + a.bq, a.Nq);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gq = lane >> 2, tq = lane & 3;  // mma group / thread in group
+  const int* mrow = a.bmap + ((long)bh * a.nq + qi) * a.nk;
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* qh =
-      static_cast<const __nv_bfloat16*>(a.q) + bh * a.Nq * D;
-  const __nv_bfloat16* kh =
-      static_cast<const __nv_bfloat16*>(a.k) + bh * a.Nk * D;
-  const __nv_bfloat16* vh =
-      static_cast<const __nv_bfloat16*>(a.v) + bh * a.Nk * D;
-  const int* mrow = a.bmap + (bh * a.nq + qi) * a.nk;
-  const float* bh_bias =
-      a.bias == nullptr
-          ? nullptr
-          : a.bias + (bh / a.H) * a.bias_sb + (bh % a.H) * a.bias_sh;
-
-  for (int i = tid; i < kMmaRows * CH; i += kMmaThreads) {
-    const int r = i / CH, ch = i % CH;
-    const int row = row_lo + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < row_hi)
-      val = *reinterpret_cast<const uint4*>(qh + (long)row * D + ch * 8);
-    *reinterpret_cast<uint4*>(Qs + r * S + ch * 8) = val;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(b_full(s), 128);  // every producer thread arrives
+      mbar_init(empty(s), kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int r0 = warp * 16;
-  const bool active = row_lo + r0 < row_hi;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int col = ks * 16 + 2 * tq;
-    qa[ks][0] = ld32(Qs + (r0 + gq) * S + col);
-    qa[ks][1] = ld32(Qs + (r0 + gq + 8) * S + col);
-    qa[ks][2] = ld32(Qs + (r0 + gq) * S + col + 8);
-    qa[ks][3] = ld32(Qs + (r0 + gq + 8) * S + col + 8);
-  }
-  // This thread's two query rows (gq and gq + 8 of the warp's 16).
-  int rows[2];
-  rows[0] = row_lo + r0 + gq;
-  rows[1] = rows[0] + 8;
-
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_r[2] = {kMInit, kMInit};
-  float l_r[2] = {0.f, 0.f};
-  const int lrow = lane & 7, lhalf = (lane >> 3) & 1, lpair = lane >> 4;
-
-  for (int kj = 0; kj < a.nk; ++kj) {
-    const int state = mrow[kj];  // uniform over the block
-    if (state == kSkip) continue;
-    const bool add_bias = state == kPartial && bh_bias != nullptr;
-    const int key_hi = min((kj + 1) * a.bk, a.Nk);
-    for (int c0 = kj * a.bk; c0 < key_hi; c0 += kChunk) {
-      const int nkeys = min(kChunk, key_hi - c0);
-      __syncthreads();  // the previous chunk's K and V are consumed
-      for (int i = tid; i < kChunk * CH; i += kMmaThreads) {
-        const int j = i / CH, ch = i % CH;
-        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (j < nkeys) {
-          kv = *reinterpret_cast<const uint4*>(kh + (long)(c0 + j) * D + ch * 8);
-          vv = *reinterpret_cast<const uint4*>(vh + (long)(c0 + j) * D + ch * 8);
+  if (wg == kConsumers) {
+    // Producer: thread 0 issues the TMA loads; with a bias, the whole
+    // warpgroup copies the bias slots and arrives on every slot's bias
+    // barrier.
+    const int pt = threadIdx.x - kConsumers * 128;
+    if (!BIAS && pt != 0) return;
+    if (pt == 0) {
+      mbar_expect_tx(q_full, kConsumers * R::Q_BYTES);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int b = 0; b < R::NMAIN; ++b)
+          tma_load(q_tiles + c * R::Q_BYTES + b * kWgRows * R::MAIN_SW, &maps.q,
+                   q_full, b * R::MAIN_BOXC, row_lo + c * kWgRows, bh);
+    }
+    const float* bias_rows =
+        BIAS ? a.bias + (long long)(bh / a.H) * a.bias_sb +
+                       (long long)(bh % a.H) * a.bias_sh + (long long)row_lo * a.Nk
+                 : nullptr;
+    const int nrows = min(kBlockRows, row_hi - row_lo);
+    Pos pos;
+    for (int kj = 0; kj < a.nk; ++kj) {
+      const int state = mrow[kj];
+      if (state == kSkip) continue;
+      const bool partial = BIAS && state == kPartial;
+      const int key_end = min((kj + 1) * a.bk, a.Nk);
+      for (int key0 = kj * a.bk; key0 < key_end; key0 += kKeys, pos.advance()) {
+        const int s = pos.slot;
+        mbar_wait(empty(s), pos.phase ^ 1);
+        if (pt == 0) {
+          mbar_expect_tx(k_full(s), R::KV_BYTES);
+          for (int b = 0; b < R::NMAIN; ++b)
+            tma_load(slot(s) + b * kKeys * R::MAIN_SW, &maps.k, k_full(s),
+                     b * R::MAIN_BOXC, key0, bh);
+          mbar_expect_tx(v_full(s), R::KV_BYTES);
+          for (int b = 0; b < R::NMAIN; ++b)
+            tma_load(slot(s) + R::KV_BYTES + b * kKeys * R::MAIN_SW, &maps.v,
+                     v_full(s), b * R::MAIN_BOXC, key0, bh);
         }
-        *reinterpret_cast<uint4*>(Ks + j * S + ch * 8) = kv;
-        *reinterpret_cast<uint4*>(Vs + j * S + ch * 8) = vv;
-      }
-      __syncthreads();
-      if (!active) continue;
-
-      // S = Q K^T for this warp's 16 rows, n-tiles of 8 keys.  One
-      // ldmatrix.x4 brings the B fragments of two k-steps: lane l addresses
-      // key row l % 8, channel block (l / 16) * 16 + ((l / 8) % 2) * 8.
-      const int ntiles = (nkeys + 7) / 8;
-      float s[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        if (nt >= ntiles) continue;
-        const __nv_bfloat16* kr = Ks + (nt * 8 + lrow) * S + lpair * 16 + lhalf * 8;
-#pragma unroll
-        for (int ks = 0; ks < KSTEPS; ks += 2) {
-          uint32_t b[4];
-          ldsm_x4(b, kr + ks * 16);
-          mma_bf16(s[nt], qa[ks], b[0], b[1]);
-          mma_bf16(s[nt], qa[ks + 1], b[2], b[3]);
+        if (!BIAS) continue;
+        mbar_arrive(b_full(s));
+        if (!partial) continue;
+        // The bias takes the next slot, whose K and V barriers complete
+        // empty-handed this round.
+        pos.advance();
+        const int sb = pos.slot;
+        mbar_wait(empty(sb), pos.phase ^ 1);
+        if (pt == 0) {
+          mbar_arrive(k_full(sb));
+          mbar_arrive(v_full(sb));
         }
-      }
-      // Scale, bias (PARTIAL tiles), mask keys past the tile, online softmax.
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = nt * 8 + 2 * tq + (e & 1);
-          const int row = rows[e >> 1];
-          float x = -INFINITY;
-          if (j < nkeys) {
-            x = s[nt][e] * a.scale;
-            if (add_bias && row < row_hi)
-              x = x + bh_bias[(long long)row * a.Nk + c0 + j];
+        const float* src = bias_rows + key0;
+        const int nkeys = min(kKeys, key_end - key0);
+        if (vec) {  // rows, key0 and nkeys are whole 16-byte chunks
+          for (int i = pt; i < kBlockRows * (kKeys / 4); i += 128) {
+            const int r = i / (kKeys / 4), ch = i % (kKeys / 4);
+            if (r < nrows && 4 * ch < nkeys)
+              cp_async16(slot(sb) + 4 * bias_at(r, 4 * ch),
+                         src + (long long)r * a.Nk + 4 * ch);
           }
-          s[nt][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        } else {
+          for (int i = pt; i < kBlockRows * kKeys; i += 128) {
+            const int r = i / kKeys, j = i % kKeys;
+            if (r < nrows && j < nkeys)
+              cp_async4(slot(sb) + 4 * bias_at(r, j), src + (long long)r * a.Nk + j);
+          }
         }
-      }
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m_r[h], mx[h]);
-        alpha[h] = exp2f((m_r[h] - m_new) * kLog2e);
-        m_r[h] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = exp2f((s[nt][e] - m_r[e >> 1]) * kLog2e);
-          sum[e >> 1] += s[nt][e];
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        l_r[h] = alpha[h] * l_r[h] + sum[h];
-      }
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
-      // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are the A
-      // fragment of k-step kk (probabilities rounded to bf16 here).
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (2 * kk >= ntiles) continue;
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        // ldmatrix.x4.trans of row-major V: lane l addresses key row
-        // kk*16 + ((l / 8) % 2) * 8 + l % 8 of column block n + l / 16,
-        // giving the B fragments of output n-tiles n and n + 1.
-        const __nv_bfloat16* vr = Vs + (kk * 16 + lhalf * 8 + lrow) * S + lpair * 8;
-#pragma unroll
-        for (int n = 0; n < NT_O; n += 2) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, vr + n * 8);
-          mma_bf16(o[n], pa, b[0], b[1]);
-          mma_bf16(o[n + 1], pa, b[2], b[3]);
-        }
+        cp_async_arrive(b_full(sb));
       }
     }
-  }
+  } else {
+    // Consumers: warpgroup wg owns block rows wg*64 .. wg*64 + 63.
+    RowState<D> st;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+    st.m[0] = st.m[1] = kMInit * kLog2e;
+    st.l[0] = st.l[1] = 0.f;
+    const uint32_t q_tile = q_tiles + wg * R::Q_BYTES;
+    const int t = threadIdx.x % 128;
+    // This thread's rows r0 and r0 + 8 of the block (accumulator layout).
+    const int r0 = wg * kWgRows + (t / 32) * 16 + (t % 32) / 4;
+    const unsigned char* slot_mem = smem_raw + (slots - raw);
+    mbar_wait(q_full, 0);
+    Pos pos;
+#pragma unroll 1
+    for (int kj = 0; kj < a.nk; ++kj) {
+      const int state = mrow[kj];
+      if (state == kSkip) continue;
+      const bool partial = BIAS && state == kPartial;
+      const int key_end = min((kj + 1) * a.bk, a.Nk);
+#pragma unroll 1
+      for (int key0 = kj * a.bk; key0 < key_end; key0 += kKeys, pos.advance()) {
+        const Pos kv = pos;
+        mbar_wait(k_full(kv.slot), kv.phase);
+        const float* bias = nullptr;
+        if (partial) {
+          pos.advance();
+          bias = reinterpret_cast<const float*>(slot_mem + pos.slot * kSlotBytes);
+        }
+        consume_stage<D, BIAS>(st, q_tile, slot(kv.slot), slot(kv.slot) + R::KV_BYTES,
+                         bias, r0, v_full(kv.slot), kv.phase, b_full(pos.slot),
+                         pos.phase, key0, key_end, scale_log2);
+        mbar_arrive(empty(kv.slot));
+        if (partial) mbar_arrive(empty(pos.slot));
+      }
+    }
 
-  if (!active) return;
-  __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(a.out) + bh * a.Nq * D;
+    __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(a.out) + (long)bh * a.Nq * D;
+    const int col0 = (t % 4) * 2;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = rows[h];
-    if (row >= row_hi) continue;
-    // l == 0: every tile of the row was skipped or fully masked.
-    const float inv_l = l_r[h] > 0.f ? 1.f / l_r[h] : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + r0 + 8 * h;
+      if (row >= row_hi) continue;
+      // l == 0: every tile of the row was skipped or fully masked.
+      const float inv_l = st.l[h] > 0.f ? 1.f / st.l[h] : 0.f;
+      __nv_bfloat16* dst = oh + (long)row * D + col0;
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      const uint32_t val = pack_bf16(o[n][2 * h] * inv_l, o[n][2 * h + 1] * inv_l);
-      *reinterpret_cast<uint32_t*>(oh + (long)row * D + n * 8 + 2 * tq) = val;
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(dst + c * 8) = pack_bf16(
+            st.o[c * 4 + 2 * h] * inv_l, st.o[c * 4 + 2 * h + 1] * inv_l);
     }
   }
 }
@@ -448,16 +589,58 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
   }
 }
 
-template <int D>
-cudaError_t launch_mma(Args a, int BH, cudaStream_t s) {
-  a.sub = (a.bq + kMmaRows - 1) / kMmaRows;
-  const dim3 grid(a.nq * a.sub, BH);
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kMmaRows + 2 * kChunk) * (D + 8);
+// The (BH, N, d) bf16 operand as a 3-D map (d, N, BH) whose box is
+// `box_c` channels of `box_rows` rows of one head, swizzled over `sw`
+// bytes as the wgmma descriptors read it.  Rows past N fill with zeros,
+// and a box never reads into the next head.
+int encode_rows(CUtensorMap* map, const void* ptr, int d, int N, int BH,
+                int box_c, int box_rows, int sw) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)N, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)N * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_c, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                          const_cast<void*>(ptr), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, tma_swizzle(sw),
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
+}
+
+template <int D, bool BIAS>
+int launch_wgmma(Args a, int BH, cudaStream_t s) {
+  using R = Ring<D>;
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.out)) % 16)
+    return (int)cudaErrorMisalignedAddress;  // TMA needs 16-byte bases
+  Maps maps = {};
+  int rc = encode_rows(&maps.q, a.q, D, a.Nq, BH, R::MAIN_BOXC, kWgRows, R::MAIN_SW);
+  if (rc == 0) rc = encode_rows(&maps.k, a.k, D, a.Nk, BH, R::MAIN_BOXC, kKeys, R::MAIN_SW);
+  if (rc == 0) rc = encode_rows(&maps.v, a.v, D, a.Nk, BH, R::MAIN_BOXC, kKeys, R::MAIN_SW);
+  if (rc != 0) return rc;
+  // 16-byte bias copies need every copied row to start on a 16-byte
+  // boundary: the base, both head strides, the row length and the first
+  // key of every stage (a multiple of bk or of 128 past it).
+  const int vec = BIAS && reinterpret_cast<uintptr_t>(a.bias) % 16 == 0 &&
+                  a.bias_sb % 4 == 0 && a.bias_sh % 4 == 0 && a.Nk % 4 == 0 &&
+                  a.bk % 4 == 0;
+  a.sub = (a.bq + kBlockRows - 1) / kBlockRows;
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  sparse_mma_kernel<D><<<grid, kMmaThreads, smem, s>>>(a);
-  return cudaGetLastError();
+      sparse_wgmma_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      R::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.nq * a.sub, BH);
+  sparse_wgmma_kernel<D, BIAS><<<grid, kWgmmaThreads, R::SMEM, s>>>(
+      maps, a, vec, a.scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_wgmma_d(Args a, int BH, cudaStream_t s) {
+  return a.bias != nullptr ? launch_wgmma<D, true>(a, BH, s)
+                           : launch_wgmma<D, false>(a, BH, s);
 }
 
 template <typename T>
@@ -474,6 +657,7 @@ cudaError_t launch_fma(Args a, int BH, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+
 bool tensor_cores(int is_bf16, int d, int dv) {
   return is_bf16 && d == dv && (d == 32 || d == 64 || d == 128);
 }
@@ -485,7 +669,8 @@ bool tensor_cores(int is_bf16, int d, int dv) {
 // bmap: (BH, ceil(Nq/bq), ceil(Nk/bk)) int32 states.  bias: null, or f32
 // rows of Nk floats, row `row` of head (b, h) = bh / H, bh % H at
 // bias + b*bias_sb + h*bias_sh + row*Nk.  Returns the CUDA error of the
-// launch (0 on success).
+// launch (0 on success), or kEncodeError + the CUresult of a failed
+// tensor-map encode.
 extern "C" int sparse_attention_launch(const void* q, const void* k, const void* v,
                                        void* out, const void* bias, const void* bmap,
                                        int is_bf16, int BH, int H, int Nq, int Nk,
@@ -518,16 +703,17 @@ extern "C" int sparse_attention_launch(const void* q, const void* k, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_cores(is_bf16, d, dv)) {
     switch (d) {
-      case 32: return (int)launch_mma<32>(a, BH, s);
-      case 64: return (int)launch_mma<64>(a, BH, s);
-      default: return (int)launch_mma<128>(a, BH, s);
+      case 32: return launch_wgmma_d<32>(a, BH, s);
+      case 64: return launch_wgmma_d<64>(a, BH, s);
+      default: return launch_wgmma_d<128>(a, BH, s);
     }
   }
   if (is_bf16) return (int)launch_fma<__nv_bfloat16>(a, BH, s);
   return (int)launch_fma<float>(a, BH, s);
 }
 
-// Which path a call takes: 1 for the tensor-core kernel, 0 for CUDA cores.
+// Which path a call takes: 1 for the tensor-core kernel (bf16 with d == dv
+// in {32, 64, 128}), 0 for CUDA cores.
 extern "C" int sparse_uses_tensor_cores(int is_bf16, int d, int dv) {
   return tensor_cores(is_bf16, d, dv);
 }

@@ -33,14 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # --fmad=false keeps every mul+add pair rounded separately.  fused_reuse
 # and reuse_snap are held bit for bit to their plain versions and adaln to
-# one output ulp, so they need it; sparse and flash keep it because their
-# checks were last run with it.  ripple_attention builds without it: its
-# softmax scale and exponent arguments fuse into FFMAs, within its bar.
-# No source links a library: the ripple kernel looks up the tensor-map
-# encoder (cuTensorMapEncodeTiled) at run time, not through -lcuda.
+# one output ulp, so they need it; sparse keeps it because its CUDA-core
+# path's checks were last run with it (its tensor-core path writes its
+# FMAs out).  ripple_attention and flash_attention build without it: their
+# softmax scale and exponent arguments fuse into FFMAs, within their bars.
+# The attention sources include csrc/hopper.cuh (and through it
+# mma_frag.cuh); every header goes into every library's build key.  No source links a
+# library: the TMA kernels (ripple, sparse) look up the tensor-map encoder
+# (cuTensorMapEncodeTiled) at run time, not through -lcuda.
 SOURCE_FLAGS = {name: ("--fmad=false",) for name in
-                ("fused_reuse", "reuse_snap", "adaln", "sparse_attention",
-                 "flash_attention")}
+                ("fused_reuse", "reuse_snap", "adaln", "sparse_attention")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

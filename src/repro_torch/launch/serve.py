@@ -51,9 +51,12 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     policy for this sampler.
 
     A decision-cache setting (``reuse_every > 1`` or ``drift_tol > 0``)
-    on a policy that can cache its decisions raises: the JAX launcher
-    threads its cross-step decision cache there, which the port does not
-    have yet, so serving on would give a different trajectory."""
+    on a vdit whose policy can cache its decisions raises: the JAX
+    launcher threads its cross-step decision cache there, which the port
+    does not have yet, so serving on would give a different trajectory.
+    The JAX launcher threads the cache for the vdit family only, so a
+    dit under those settings serves here as there, recomputing its
+    decision on every step."""
     if arch.family not in ("vdit", "dit"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
     if policy:
@@ -61,7 +64,8 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
             arch, ripple=dataclasses.replace(arch.ripple, policy=policy))
     rip = arch.ripple
     pol = get_policy(rip.policy)
-    if (use_ripple and rip.active() and pol.caches_decisions
+    if (use_ripple and arch.family == "vdit" and rip.active()
+            and pol.caches_decisions
             and (rip.reuse_every > 1 or rip.drift_tol > 0)):
         raise NotImplementedError(
             f"ripple.reuse_every={rip.reuse_every}, ripple.drift_tol="

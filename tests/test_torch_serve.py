@@ -109,6 +109,27 @@ def test_main_refuses_decision_cache_settings(args):
                         *args])
 
 
+def _dit_latents(*override):
+    argv = ["--arch", "dit-xl2", "--smoke", "--device", "cpu",
+            "--requests", "1", "--override", "model.num_layers=1"]
+    for o in override:
+        argv += ["--override", o]
+    done = serve_lib.main(argv)
+    assert len(done) == 1 and np.isfinite(done[0].latents).all()
+    return done[0].latents
+
+
+@pytest.mark.parametrize("setting", ["ripple.reuse_every=2",
+                                     "ripple.drift_tol=0.1"])
+def test_dit_serves_under_decision_cache_settings(setting):
+    """The JAX launcher threads its decision cache for the vdit family
+    only: a dit under these settings serves there, recomputing its
+    decision on every step, so the port serves it too, with the latents
+    of ``reuse_every=1`` bit for bit."""
+    np.testing.assert_array_equal(_dit_latents(setting),
+                                  _dit_latents("ripple.reuse_every=1"))
+
+
 def test_main_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
