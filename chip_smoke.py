@@ -6,9 +6,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 1. builds the port's CUDA kernels from ``src/repro_torch/csrc`` with
    nvcc for sm_90a (one nvcc per source, started together);
 2. holds the fused Δ-check + snap kernel bit for bit against its plain
-   version (``core.reuse.compute_reuse``), bf16 and f32, channel and
-   token gates, at the vDiT serving shape, a small shape, T = 1, and the
-   DiT's T = 1 x/y case at head dim 72;
+   version (``core.reuse.compute_reuse`` on the grid tokens, text tokens
+   passed through), bf16 and f32, channel and token gates, at the vDiT
+   serving shape, small shapes, T = 1, the DiT's T = 1 x/y case at head
+   dim 72, views read in place (transposed, channel windows, unaligned)
+   with text tokens around the grid, d 72 and 128 and the scalar
+   instance (bf16 d 36, f32 d 6); the channel gate at every θ the
+   served schedules give (each bf16 value from 0.2 to 0.5, the schedules'
+   float32 values) and at 0, denormals, 1.0 and inf; then
+   ``core.policy.snap_operand`` at the vDiT's served call through the
+   kernel against the host pipeline;
 3. holds the pair-collapse attention kernel against f32 dense softmax on
    the same snapped operands, on constructed operands with collapse
    fractions 0, 0.6 and 1.0, an unaligned N, head dims 16 to 128 (72 on
@@ -41,13 +48,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    versions and, for attention, ``scaled_dot_product_attention`` (for
    adaLN, ``F.layer_norm`` and its two elementwise ops, and for the pair
    snap an eager composite: no single PyTorch call computes them) with
-   CUDA events;
+   CUDA events; the three small kernels (fused_reuse, adaLN, the pair
+   snap) by device time instead, the sum of their own durations in
+   torch.profiler over 20 calls with the L2 cache flushed before each,
+   beside the host time of a wrapper call (the host clock over 20 calls
+   without a synchronise) and the back-to-back wrapper time;
 7. serves 3 requests of vdit-paper at full width through the port's
    DiffusionEngine three times - the ripple policy, ``--policy svg`` and
    ripple with ``svg_mask`` - each with the launch counters set to 0 just
    before and read just after, profiles one forward of the ripple and
-   the SVG paths (the ripple wrapper's collapse-flag pass and the SVG
-   mask building as families of their own), then holds the sparse
+   the SVG paths (the ripple wrapper's collapse-flag pass, the policy's
+   snap step and the SVG mask building as families of their own), then
+   holds the sparse
    kernel against its plain semantics on one served SVG call at its
    full batch (operands and map kept on the host during the run, the
    bias rebuilt from q and k afterwards) and times it;
@@ -60,7 +72,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    at the reference's defaults and its sparse sweep at the vDiT's serving
    width (the flash, sparse and fused_reuse kernels must launch), then
    holds the flash and sparse calls of both sweeps on their own f32
-   operands against an f64 oracle and times f32 flash on the wide ones;
+   operands against an f64 oracle, times the sparse kernel's f32 path on
+   the wide svg-map call (against its bound at the f32 peak and SDPA in
+   f32 with the same mask) and f32 flash on the wide operands;
    and runs the public ``reuse_snap`` wrapper at that width; each with
    the counters set to 0 just before and read just after;
 9. checks a small trajectory of each of the four paths on the card
@@ -70,13 +84,17 @@ It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
 mismatch or error exits non-zero.  It needs one card and no network.
 ``--layers N`` cuts the vDiT's served depth (default: all 40 layers);
-the DiT always runs all 28.
+the DiT always runs all 28.  ``--baseline DIR`` runs none of the above:
+it times the snap step of the checkout at DIR (for example an earlier
+commit unpacked by ``git archive``) against this checkout's, in turns,
+each in a process of its own (:func:`snap_ab`).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -156,30 +174,280 @@ def correlated(shape, dtype, seed, noise=0.6):
     return (base + noise * torch.randn((B, H, N, d), generator=g, device="cuda")).to(dtype).contiguous()
 
 
-def check_reuse(results, shape, grid, dtype, gran, thetas, axes=("t", "x", "y")):
+def reuse_operand(shape, dtype, seed, noise, view="contiguous", text=(0, 0)):
+    """A correlated (B, H, text[0] + N + text[1], d) operand (``shape`` =
+    (B, H, N, d) counts grid tokens only) behind ``view``: "contiguous";
+    "transposed" (stored (B, N', H, d), as q is before its copy);
+    "narrowed" (a channel window of a wider row, 16-byte aligned);
+    "unaligned" (the same, shifted by 2 channels off 16 bytes)."""
     import torch
-    from repro_torch.core.reuse import compute_reuse
+
+    B, H, N, d = shape
+    full = (B, H, text[0] + N + text[1], d)
+    x = correlated(full, dtype, seed, noise)
+    if view == "transposed":
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+    if view in ("narrowed", "unaligned"):
+        off = 8 if view == "narrowed" else 2
+        big = torch.zeros((*full[:3], d + 16), dtype=dtype, device="cuda")
+        big[..., off:off + d] = x
+        return big[..., off:off + d]
+    return x
+
+
+def check_reuse(results, shape, grid, dtype, gran, thetas, axes=("t", "x", "y"),
+                view="contiguous", text=(0, 0)):
+    """The kernel bit for bit against its plain version (the host pipeline
+    on the grid tokens, text tokens passed through) on the same card
+    tensors; logs whether the 16-byte or the scalar instance ran."""
+    import torch
+    from repro_torch.core.reuse import snap_grid_tokens
+    from repro_torch.kernels import _build
     from repro_torch.kernels.reuse_mask import ops as reuse_ops
 
     # The token gate averages Δ over channels: less noise, so it fires.
-    x = correlated(shape, dtype, seed=len(results),
-                   noise=0.6 if gran == "channel" else 0.3)
+    x = reuse_operand(shape, dtype, len(results), 0.6 if gran == "channel" else 0.3,
+                      view, text)
+    gs = (text[0], shape[2]) if text != (0, 0) else None
     th = dict(zip("txy", thetas))
-    s_k, m_k = reuse_ops.fused_compute_reuse(x, grid, th, axes=axes,
-                                             granularity=gran)
-    ref = compute_reuse(x, grid, th, axes=axes, granularity=gran)
+    s_k, m_k = reuse_ops.fused_compute_reuse(x, grid, th, axes=axes, granularity=gran,
+                                             grid_slice=gs)
+    ref_s, ref_m = snap_grid_tokens(x, grid, th, gs, axes=axes, granularity=gran)
     torch.cuda.synchronize()
-    ok = bits_equal(s_k, ref.snapped) and bits_equal(m_k, ref.mask)
-    err = (s_k.float() - ref.snapped.float()).abs().max().item()
-    fr = {a: round(ref.axis_masks[a].float().mean().item(), 4) for a in axes}
+    ok = bits_equal(s_k, ref_s) and bits_equal(m_k, ref_m)
+    err = (s_k.float() - ref_s.float()).abs().max().item()
+    n0, n1, s0, s1 = reuse_ops._lead_dims(x)
+    vec = _build.function("fused_reuse", "fused_reuse_vector_path",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                          + [ctypes.c_longlong] * 5)(
+        int(dtype == torch.bfloat16), shape[3], x.data_ptr(), n0, s0, n1, s1,
+        x.stride(-2))
     name = str(dtype).replace("torch.", "")
-    log(f"kernel fused_reuse {name:8s} {gran:7s} x{tuple(shape)} grid{grid} "
-        f"axes={''.join(axes)}: bit-equal={ok} snapped={m_k.float().mean().item():.4f} "
-        f"per-axis={fr}")
+    log(f"kernel fused_reuse {name:8s} {gran:7s} x{tuple(x.shape)} grid{grid} "
+        f"axes={''.join(axes)} {view} text {text} ({'16-byte' if vec else 'scalar'} "
+        f"instance): bit-equal={ok} snapped={m_k.float().mean().item():.4f}")
     results.append(ok)
     if not ok:
         raise SystemExit("fused_reuse kernel disagrees with its plain version")
     return err
+
+
+SERVE_SNAP = (3, 24, 8192, 128)  # the vDiT's served Q/K grid tokens at batch 3
+SERVE_TEXT = (256, 0)            # 256 text tokens before them
+
+
+def reuse_checks(serve_grid, dit_qk, dit_grid):
+    """Every fused_reuse case, then the served-shape ``snap_operand`` check;
+    returns the main-path case's max abs error."""
+    import torch
+    from repro_torch.config.base import RippleConfig
+    from repro_torch.core.policy import snap_operand
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = []
+    th = (0.2, 0.25, 0.3)
+    serve_qk = (1, 24, serve_grid[0] * serve_grid[1] * serve_grid[2], 128)
+    for dt in (bf16, f32):
+        for gran in ("channel", "token"):
+            check_reuse(res, serve_qk, serve_grid, dt, gran, th)
+            check_reuse(res, (2, 3, 4 * 6 * 8, 64), (4, 6, 8), dt, gran, th)
+            check_reuse(res, (1, 2, 8 * 8, 32), (1, 8, 8), dt, gran, th)
+    check_reuse(res, (1, 2, 4 * 6 * 8, 64), (4, 6, 8), bf16, "channel", th,
+                axes=("y", "t", "x"))
+    # The DiT's case: T = 1 (the one-frame instance), x/y axes, head dim 72
+    # at dit-xl2's gen_1024 shape.
+    for dt in (bf16, f32):
+        for gran in ("channel", "token"):
+            check_reuse(res, dit_qk, dit_grid, dt, gran, th, axes=("x", "y"))
+    # Views read in place, text tokens copied through, TT 1 and 2, d 72 and
+    # 128, both gates and dtypes, and the scalar instance (bf16 d 36, f32 d
+    # 6, and an unaligned view).
+    small = {128: (2, 3, 4 * 8 * 8, 128), 72: (2, 3, 4 * 8 * 8, 72)}
+    for dt in (bf16, f32):
+        for d, shp in small.items():
+            for gran in ("channel", "token"):
+                for view, text, axes in (("transposed", (0, 0), ("t", "x", "y")),
+                                         ("narrowed", (5, 3), ("x", "t", "y")),
+                                         ("transposed", (16, 0), ("x", "y")),
+                                         ("unaligned", (3, 0), ("t", "x", "y"))):
+                    check_reuse(res, shp, (4, 8, 8), dt, gran, th, axes=axes,
+                                view=view, text=text)
+        for d in ((36,) if dt == bf16 else (6, 36)):
+            for gran in ("channel", "token"):
+                check_reuse(res, (2, 2, 2 * 4 * 6, d), (2, 4, 6), dt, gran, th,
+                            view="transposed", text=(7, 2))
+    check_reuse(res, (1, 24, 8192, 128), serve_grid, bf16, "channel", th,
+                view="transposed", text=SERVE_TEXT)
+    # The served call: snap_operand at batch 3 through the kernel (one
+    # launch on the whole operand) and through the host pipeline.
+    x = reuse_operand(SERVE_SNAP, bf16, 30, 0.6, text=SERVE_TEXT)
+    cfg = RippleConfig(enabled=True)
+    args = (x, True, serve_grid, dict(zip("txy", (0.2,) * 3)), cfg, ("t", "x", "y"),
+            (SERVE_TEXT[0], SERVE_SNAP[2]))
+    s_k, m_k = snap_operand(*args, use_fused=True)
+    s_h, m_h = snap_operand(*args, use_fused=False)
+    torch.cuda.synchronize()
+    ok = bits_equal(s_k, s_h) and bits_equal(m_k, m_h)
+    err = (s_k.float() - s_h.float()).abs().max().item()
+    log(f"kernel fused_reuse: snap_operand at the served shape {tuple(x.shape)} grid "
+        f"slice {args[-1]}, kernel vs host pipeline: bit-equal={ok} snapped="
+        f"{m_k.float().mean().item():.4f}")
+    res.append(ok)
+    if not ok:
+        raise SystemExit("snap_operand through the kernel differs from the host pipeline")
+    theta_sweep_checks(res)
+    log(f"kernel fused_reuse: {sum(res)}/{len(res)} cases bit-equal")
+    return err
+
+
+def theta_sweep_checks(res):
+    """The kernel's square-root-free channel gate at every θ a served
+    schedule gives: each bf16 value from 0.2 to 0.5, the schedules' own
+    float32 values (vdit-paper over its served steps, dit-xl2 over 50),
+    and 0, denormals, 1.0 and inf; bf16 and f32, the 16-byte and the
+    scalar instance, each held bit for bit against the plain version.
+    The token gate (no s*) at the edge values."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.reuse import snap_grid_tokens
+    from repro_torch.core.schedule import threshold_schedule
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+
+    bf16_vals = torch.arange(0x3E40, 0x3F01, dtype=torch.int16).view(torch.bfloat16)
+    sweep = [v for v in bf16_vals.float().tolist() if 0.2 <= v <= 0.5]
+    for name, steps in (("vdit-paper", SERVE_STEPS), ("dit-xl2", 50)):
+        sweep += threshold_schedule(get_config(name).ripple, steps)
+    edges = [0.0, 2.0 ** -149, 2.0 ** -133, 2.0 ** -130, 1.0, float("inf")]
+    grid = (4, 8, 8)
+    for dt in (torch.bfloat16, torch.float32):
+        for d, view in ((64, "contiguous"), (36 if dt == torch.bfloat16 else 6, "transposed")):
+            x = reuse_operand((1, 2, 256, d), dt, 40 + d, 0.6, view)
+            n0, n1, s0, s1 = reuse_ops._lead_dims(x)
+            vec = _build.function("fused_reuse", "fused_reuse_vector_path",
+                                  [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                  + [ctypes.c_longlong] * 5)(
+                int(dt == torch.bfloat16), d, x.data_ptr(), n0, s0, n1, s1, x.stride(-2))
+            cases = [(th, "channel") for th in sorted(set(sweep + edges))]
+            cases += [(th, "token") for th in edges]
+            fracs, ok = [], True
+            for th, gran in cases:
+                th3 = dict(zip("txy", (th,) * 3))
+                s_k, m_k = reuse_ops.fused_compute_reuse(x, grid, th3, granularity=gran)
+                s_h, m_h = snap_grid_tokens(x, grid, th3, None, granularity=gran)
+                same = bits_equal(s_k, s_h) and bits_equal(m_k, m_h)
+                if not same:
+                    log(f"kernel fused_reuse: θ {th!r} ({gran}) differs")
+                ok &= same
+                fracs.append(m_k.float().mean().item())
+            log(f"kernel fused_reuse {str(dt)[6:]:8s} θ sweep x{tuple(x.shape)} {view} "
+                f"({'16-byte' if vec else 'scalar'} instance): {len(cases)} θ from "
+                f"{min(sweep):.6g} to {max(sweep):.6g} plus {edges}; bit-equal={ok}; "
+                f"snapped fraction {min(fracs):.4f} to {max(fracs):.4f}")
+            res.append(ok)
+            if not ok:
+                raise SystemExit("fused_reuse kernel disagrees with its plain version "
+                                 "in the θ sweep")
+
+
+def device_time_ms(fn, kernel=None, iters=20, flush=None):
+    """Device time a call of ``fn`` and host time a call.  Device: the
+    durations of the kernels whose name holds ``kernel`` (each call must
+    launch exactly one; None: every kernel of the call, each name a whole
+    number of times a call) over ``iters`` calls recorded by
+    torch.profiler after a warm-up round outside it, with the L2 cache
+    evicted before each call when ``flush`` (from :func:`l2_flush`) is
+    given.  Host: the host clock over ``iters`` calls with no synchronise
+    between them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+
+    def record(body):
+        body()  # warm-up, not recorded
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+    skip = set()
+    if flush is not None:
+        skip = {ev.name for ev in record(lambda: flush.max())}
+
+    def calls():
+        for _ in range(iters):
+            if flush is not None:
+                flush.max()
+            fn()
+
+    durs = {}
+    for ev in record(calls):
+        if ev.name not in skip and (kernel is None or kernel in ev.name):
+            durs.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    counts = {name: len(v) for name, v in durs.items()}
+    if (not durs or (kernel is not None and sum(counts.values()) != iters)
+            or any(n % iters for n in counts.values())):
+        raise SystemExit(f"profiler saw {counts} launches of {kernel or 'the call'}, "
+                         f"not {iters} calls' worth")
+    return sum(sum(v) for v in durs.values()) / iters / 1e3, host_ms
+
+
+def reuse_bound(x, grid):
+    """(bound ms, bound by, bytes) of one fused_reuse call on x: every
+    element read once and written once with its mask byte, over the whole
+    sequence; the Δ arithmetic on the grid elements at the float32 peak."""
+    nbytes = x.numel() * (2 * x.element_size() + 1)
+    n_grid = x.numel() // x.shape[-2] * grid[0] * grid[1] * grid[2]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = n_grid * REUSE_OPS_PER_ELEM / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes)
+
+
+def time_fused_reuse(x, grid, axes, grid_slice, label, flush):
+    """fused_reuse on x as its path calls it (channel gate, θ 0.2): device
+    time with the L2 flushed and back to back, host time a wrapper call,
+    the old back-to-back wrapper time, the plain version's time, and the
+    bound.  Returns them as a dict."""
+    from repro_torch.core.reuse import snap_grid_tokens
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+
+    th = dict(zip("txy", (0.2,) * 3))
+
+    def call():
+        return reuse_ops.fused_compute_reuse(x, grid, th, axes=axes, grid_slice=grid_slice)
+
+    ms, host = device_time_ms(call, "fused_reuse_kernel", flush=flush)
+    warm, _ = device_time_ms(call, "fused_reuse_kernel")
+    wrap = cuda_time_ms(call, iters=20)
+    plain = cuda_time_ms(lambda: snap_grid_tokens(x, grid, th, grid_slice, axes=axes),
+                         iters=3, warmup=1)
+    bound, by, nbytes = reuse_bound(x, grid)
+    log(f"time fused_reuse {str(x.dtype)[6:]} {tuple(x.shape)} grid {grid} slice {grid_slice} axes "
+        f"{''.join(axes)} ({label}): device {ms:.4f} ms a call (L2 flushed; {bound / ms:.3f} "
+        f"of the bound), {warm:.4f} ms back to back; host {host:.4f} ms a wrapper call, "
+        f"wrapper time back to back {wrap:.4f} ms; plain {plain:.4f} ms; bound "
+        f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB); {CARD}")
+    return {"ms": ms, "host_ms": host, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by}
+
+
+def l2_flush():
+    """A 256 MB buffer: reading it (``max``, whose kernels are left out of
+    the measured time) evicts the card's 50 MB L2 and leaves it clean, so
+    no write-back of the flush lands in a measured call."""
+    import torch
+
+    return torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -884,7 +1152,7 @@ def snap_composite(x, th):
     return out, mask
 
 
-def time_snap():
+def time_snap(flush):
     import torch
     from repro_torch.kernels.reuse_mask.ops import reuse_snap
     from repro_torch.kernels.reuse_mask.ref import reuse_snap_plain
@@ -893,7 +1161,8 @@ def time_snap():
     g.manual_seed(77)
     x = torch.randn(SNAP_SERVE_SHAPE, generator=g, device="cuda").bfloat16()
     th = torch.tensor(0.3, device="cuda").bfloat16()
-    ms = cuda_time_ms(lambda: reuse_snap(x, 0.3), iters=20)
+    ms, host = device_time_ms(lambda: reuse_snap(x, 0.3), "snap_vec_kernel", flush=flush)
+    wrap = cuda_time_ms(lambda: reuse_snap(x, 0.3), iters=20)
     plain = cuda_time_ms(lambda: reuse_snap_plain(x, 0.3), iters=10)
     comp = cuda_time_ms(lambda: snap_composite(x, th), iters=10)
     nbytes = x.numel() * (2 + 2 + 1)
@@ -901,12 +1170,13 @@ def time_snap():
     bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_FLOPS["float32"] \
         else "operations"
-    log(f"time reuse_snap bf16 {SNAP_SERVE_SHAPE}: kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, eager composite "
-        f"{comp:.4f} ms (no single PyTorch call), bound {bound:.4f} ms ({by}: "
-        f"{nbytes / 1e6:.1f} MB)")
+    log(f"time reuse_snap bf16 {SNAP_SERVE_SHAPE}: device {ms:.4f} ms a call (L2 "
+        f"flushed; {nbytes / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bound), host "
+        f"{host:.4f} ms a wrapper call, wrapper time back to back {wrap:.4f} ms; plain "
+        f"{plain:.4f} ms, eager composite {comp:.4f} ms (no single PyTorch call), bound "
+        f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB); {CARD}")
     del x
-    return ms, plain, bound, by
+    return ms, host, plain, bound, by
 
 
 # ---------------------------------------------------------------------------
@@ -972,6 +1242,10 @@ def kernel_bench_phase():
         which = "all-PARTIAL map" if bool((bmap == PARTIAL).all()) else "svg map"
         check_sparse(res, f"kernel_bench operands, {which}", q, k, v, kw["bias"], bmap,
                      blk, slack=f32_logit_slack(q, k, v))
+    q, k, v, kw = next(c for c in sparse_calls.values() if tuple(c[0].shape) == KB_WIDE
+                       and not bool((c[3]["block_map"] == PARTIAL).all()))
+    time_sparse_f32(q, k, v, kw)
+    del q, k, v, kw
     sparse_calls.clear()
     torch.cuda.empty_cache()
     errs = {}
@@ -987,6 +1261,29 @@ def kernel_bench_phase():
     del q, k, v
     torch.cuda.empty_cache()
     return counts, (errs[KB_WIDE],) + timed
+
+
+def time_sparse_f32(q, k, v, kw):
+    """The sparse kernel's f32 CUDA-core path on the wide sweep's svg-map
+    call (its own operands, bias and map), its bound at the f32 peak, and
+    ``scaled_dot_product_attention`` in f32 with the same additive mask
+    (the library yardstick; the port never calls it)."""
+    import torch
+    from repro_torch.kernels.sparse.ops import sparse_attention
+
+    ms = cuda_time_ms(lambda: sparse_attention(q, k, v, **kw), iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=kw["bias"],
+                                    scale=float(1.0 / q.shape[-1] ** 0.5)),
+                       iters=3, warmup=1)
+    bound, by, flops, nbytes = sparse_bound(q, v, kw["bias"], kw["block_map"],
+                                            kw["block_q"])
+    log(f"time sparse_attention float32 {tuple(q.shape)} block {kw['block_q']} "
+        f"(kernel_bench operands, svg map, {tile_shares(kw['block_map'])}; CUDA cores): "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), sdpa f32 with the same "
+        f"mask {lib:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e12:.4f} TFLOP at "
+        f"the f32 peak, {nbytes / 1e9:.3f} GB); {CARD}")
+    torch.cuda.empty_cache()
 
 
 def snap_phase(calls=4):
@@ -1273,30 +1570,35 @@ def serve_dit():
         raise SystemExit("serve[dit-xl2]: the ripple kernel left the tensor cores")
     profile_forward("dit-xl2", arch, model, lat_shape,
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse",
-                     "adaln": "adaln"}, annotate=ripple_flags_range(),
+                     "adaln": "adaln"}, annotate=ripple_ranges(),
                     batch=DIT_REQUESTS, total=shape.steps)
     del model
     torch.cuda.empty_cache()
     return counts
 
 
-def ripple_flags_range():
+def ripple_ranges():
     """The ripple wrapper's collapse-flag pass (plain PyTorch, on the key
-    operand) as a profiler family of its own."""
+    operand) and the policy's snap step (the fused_reuse kernel and any
+    glue around it) as profiler families of their own."""
+    from repro_torch.core import policy
     from repro_torch.kernels.ripple import ops as ripple_ops
 
-    return [(ripple_ops, "block_flags", "ripple_flags")]
+    return [(ripple_ops, "block_flags", "ripple_flags"),
+            (policy, "snap_operand", "snap")]
 
 
 def profile_forward(label, arch, model, lat_shape, families, annotate=(),
                     batch=SERVE_REQUESTS, total=SERVE_STEPS):
     """Device time by kernel family over one served-size denoiser forward
     (step 10 of ``total``: snapping on), from torch.profiler, the device's
-    idle share of that forward's wall time, and its peak device memory.
+    idle share of that forward's wall time, and its peak device memory;
+    returns the wall, busy and family times in ms.
     ``families`` maps a family to a kernel-name substring; each
     ``(obj, attr, family)`` of ``annotate`` wraps ``obj.attr`` in a
     profiler range and counts every kernel launched inside it as
-    ``family`` (the innermost range wins)."""
+    ``family`` (the innermost range wins), a kernel family of
+    ``families`` included."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1353,31 +1655,35 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     fam = {k: 0.0 for k in families}
     fam.update(gemm=0.0, other=0.0)
     spans = []
-    events = prof.events()
-    for ev in events:  # device-side activities only (kernels, copies)
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        if ev.name in ranges:
-            continue  # a range's own span on the device timeline
-        spans.append((ev.time_range.start, ev.time_range.end))
-        fam[family(ev.name)] += ev.time_range.elapsed_us()
+    kin = prof.profiler.kineto_results.events()
+    for e in kin:  # device-side activities only (kernels, copies), in µs
+        if e.device_type() != DeviceType.CUDA or e.name() in ranges:
+            continue  # (a range's own span on the device timeline)
+        spans.append((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
+        fam[family(e.name())] += e.duration_ns() / 1e3
     by_name = {ann: {} for ann in ranges}
-    # Kernels launched by host ops inside a range move to its family.
+    # A kernel whose launch (the runtime call with its correlation id) lies
+    # inside a range's host interval moves to that range's family, the
+    # innermost range winning; kernels launched outside any aten op (the
+    # ctypes launches of the port's kernels) are found the same way.
     for ann in ranges:
         fam[ann] = 0.0
-    for ev in events if ranges else ():
-        if ev.device_type != DeviceType.CPU or not ev.kernels:
+    spans_h = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                     for e in kin if e.device_type() == DeviceType.CPU
+                     and e.name() in ranges)
+    launch_at = {e.correlation_id(): e.start_ns() for e in kin
+                 if e.device_type() == DeviceType.CPU and e.name().startswith("cu")}
+    for e in kin:
+        if e.device_type() != DeviceType.CUDA or e.name() in ranges:
             continue
-        p = ev.cpu_parent
-        while p is not None and p.name not in ranges:
-            p = p.cpu_parent
-        if p is None:
+        t = launch_at.get(e.correlation_id())
+        inner = [r for r in spans_h if t is not None and r[0] <= t <= r[1]]
+        if not inner:
             continue
-        for kern in ev.kernels:
-            fam[family(kern.name)] -= kern.duration
-            fam[p.name] += kern.duration
-            key = f"{ev.name}: {kern.name[:48]}"
-            by_name[p.name][key] = by_name[p.name].get(key, 0.0) + kern.duration
+        ann, us = max(inner)[2], e.duration_ns() / 1e3
+        fam[family(e.name())] -= us
+        fam[ann] += us
+        by_name[ann][e.name()[:60]] = by_name[ann].get(e.name()[:60], 0.0) + us
     # Busy time is the union of the device intervals; on one stream it
     # equals their sum, so a sum above the union means an event was
     # counted twice, and either above the wall time is a broken reading.
@@ -1397,14 +1703,135 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
         f"{peak:.2f} GiB")
     for ann, kernels in by_name.items():
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        log(f"profile[{label}]: {ann} by host op and kernel: " + "; ".join(
+        log(f"profile[{label}]: {ann} by kernel: " + "; ".join(
             f"{k} {v / 1e3:.3f} ms" for k, v in top))
-    if sum_ms > 1.01 * busy_ms or busy_ms > wall_ms or min(fam.values()) < 0:
+    if sum_ms > 1.01 * busy_ms or busy_ms > wall_ms or min(fam.values()) < -1e-3:
         raise SystemExit(f"profile[{label}]: device time exceeds its span or the wall "
                          "time; the reading is not usable")
     for ann in ranges:
         if fam[ann] <= 0:
             raise SystemExit(f"profile[{label}]: no kernel attributed to {ann}")
+    return {"wall": wall_ms, "busy": busy_ms, **{k: v / 1e3 for k, v in fam.items()}}
+
+
+def snap_times(layers):
+    """The snap step of the ``repro_torch`` first on ``sys.path``, through
+    its public calls only (``fused_compute_reuse``, ``snap_operand``):
+    device time a call of the fused_reuse kernel on the vDiT's contiguous
+    grid segment (3, 24, 8192, 128) and at dit-xl2's (4, 16, 4096, 72),
+    T = 1, axes xy; of the whole snap step (every kernel) at the vDiT's
+    served call (3, 24, 8448, 128) with 256 text tokens; and one vDiT
+    forward (``layers`` deep, batch 3) profiled without and with the snap
+    step as a range of its own.  Prints one ``snap-ab: {...}`` JSON line
+    with the times and a digest of the three calls' outputs."""
+    import hashlib
+
+    import torch
+    from repro_torch.config.base import RippleConfig
+    from repro_torch.core import policy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+    from repro_torch.launch.serve import build_sampler
+
+    info = _build.build_all(["fused_reuse"])["fused_reuse"]
+    log(f"snap-ab: built {info['path']}")
+    bf16 = torch.bfloat16
+    th = dict(zip("txy", (0.2,) * 3))
+    vgrid, dgrid = (8, 32, 32), (1, 64, 64)
+    gs = (SERVE_TEXT[0], SERVE_SNAP[2])
+    xv = reuse_operand(SERVE_SNAP, bf16, 20, 0.6, text=SERVE_TEXT)
+    flush = l2_flush()
+    digest = hashlib.sha256()
+    out = {}
+
+    def hold(snapped, mask):
+        digest.update(snapped.view(torch.int16).cpu().numpy().tobytes())
+        digest.update(mask.cpu().numpy().tobytes())
+
+    calls = {
+        "segment": (xv.narrow(-2, *gs).contiguous(), vgrid, ("t", "x", "y")),
+        "dit": (correlated((DIT_REQUESTS, 16, 4096, 72), bf16, 22), dgrid, ("x", "y")),
+    }
+    for key, (x, grid, axes) in calls.items():
+        def call(x=x, grid=grid, axes=axes):
+            return reuse_ops.fused_compute_reuse(x, grid, th, axes=axes)
+        hold(*call())
+        out[key], out[f"{key}_host"] = device_time_ms(call, "fused_reuse_kernel",
+                                                      flush=flush)
+    del calls
+    cfg = RippleConfig(enabled=True)
+    args = (xv, True, vgrid, th, cfg, ("t", "x", "y"), gs)
+    hold(*policy.snap_operand(*args, use_fused=True))
+    out["snap"], out["snap_host"] = device_time_ms(
+        lambda: policy.snap_operand(*args, use_fused=True), None, flush=flush)
+    del xv, args, flush
+    torch.cuda.empty_cache()
+
+    arch, shape, model = load_served_model(layers)
+    _, lat_shape = build_sampler(arch, shape, model)
+    fams = {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"}
+    flat = profile_forward("snap-ab", arch, model, lat_shape, fams,
+                           annotate=ripple_ranges()[:1])
+    ranged = profile_forward("snap-ab with the snap range", arch, model, lat_shape,
+                             fams, annotate=ripple_ranges())
+    out.update(wall=flat["wall"], other=flat["other"], fused_reuse=flat["fused_reuse"],
+               ripple=flat["ripple_attention"], snap_forward=ranged["snap"],
+               other_ranged=ranged["other"], wall_ranged=ranged["wall"],
+               digest=digest.hexdigest())
+    print("snap-ab: " + json.dumps(out), flush=True)
+
+
+def snap_ab(baseline, layers):
+    """The snap step of the checkout at ``baseline`` (for example the
+    parent commit, unpacked by ``git archive``) against this checkout's,
+    by :func:`snap_times` in a process of its own for each, in turns:
+    baseline, current, current, baseline.  The outputs must agree bit
+    for bit.  Returns 0, or exits non-zero."""
+    trees = {"baseline": os.path.join(os.path.abspath(baseline), "src"),
+             "current": os.path.join(ROOT, "src")}
+    if not os.path.isdir(os.path.join(trees["baseline"], "repro_torch")):
+        raise SystemExit(f"chip_smoke: no src/repro_torch under {baseline}")
+    runs = {}
+    for who in ("baseline", "current", "current", "baseline"):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--snap-times",
+                            trees[who], "--layers", str(layers)],
+                           capture_output=True, text=True, timeout=900)
+        for line in p.stdout.splitlines():
+            log(f"[{who}] {line}")
+        if p.returncode != 0:
+            log(p.stderr[-4000:])
+            raise SystemExit(f"snap-ab: the {who} run failed (rc {p.returncode})")
+        got = [ln for ln in p.stdout.splitlines() if ln.startswith("snap-ab: {")]
+        runs.setdefault(who, []).append(json.loads(got[-1][len("snap-ab: "):]))
+        log(f"snap-ab: {who} run in {time.perf_counter() - t0:.1f}s")
+    digests = {r["digest"] for rs in runs.values() for r in rs}
+    log(f"snap-ab: baseline and current outputs bit-equal: {len(digests) == 1}")
+    if len(digests) != 1:
+        raise SystemExit("snap-ab: the two checkouts' snap steps disagree")
+    def turns(who, key):
+        return " / ".join(f"{r[key]:.4f}" for r in runs[who])
+
+    for key, what in (("segment", "fused_reuse kernel, vDiT grid segment (3, 24, 8192, "
+                                  "128), contiguous: device"),
+                      ("dit", "fused_reuse kernel, dit-xl2 (4, 16, 4096, 72), T = 1: "
+                              "device"),
+                      ("snap", "snap step (every kernel), vDiT served call (3, 24, "
+                               "8448, 128), 256 text tokens: device"),
+                      ("snap_forward", f"snap step a vDiT forward ({layers} layers, "
+                                       "batch 3): device"),
+                      ("other", "other family a vDiT forward without the snap range: "
+                                "device"),
+                      ("wall", "a vDiT forward: host wall")):
+        b = sum(r[key] for r in runs["baseline"])
+        c = sum(r[key] for r in runs["current"])
+        host = ""
+        if f"{key}_host" in runs["current"][0]:
+            host = (f"; host a call baseline {turns('baseline', key + '_host')}, "
+                    f"current {turns('current', key + '_host')} ms")
+        log(f"snap-ab: {what} baseline {turns('baseline', key)} ms, current "
+            f"{turns('current', key)} ms ({b / c:.3f}x){host}; {CARD}")
+    return 0
 
 
 def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
@@ -1453,6 +1880,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=40,
                     help="served depth (the full model has 40)")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="only time the snap step of the checkout at DIR against "
+                         "this one's, in turns (see snap_ab)")
+    ap.add_argument("--snap-times", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     try:
@@ -1463,7 +1894,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    src = os.path.join(ROOT, "src")
+    src = args.snap_times or os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
               file=sys.stderr)
@@ -1475,6 +1906,13 @@ def main() -> int:
     global CARD
     card = CARD = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.snap_times:
+        snap_times(args.layers)
+        return 0
+    if args.baseline:
+        snap_ab(args.baseline, args.layers)
+        print(card, flush=True)
+        return 0
 
     # 1. build --------------------------------------------------------------
     from repro_torch.kernels import _build
@@ -1497,30 +1935,11 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     serve_grid = (8, 32, 32)
     n_grid = 8 * 32 * 32
-    serve_qk = (1, 24, n_grid, 128)
 
     # 2. kernel 1 vs its plain version --------------------------------------
-    res1 = []
-    th = (0.2, 0.25, 0.3)
-    # The main path's case (bf16, channel gate, serving shape) first: its
-    # max abs error goes into the JSON line.
-    serve_err1 = check_reuse(res1, serve_qk, serve_grid, bf16, "channel", th)
-    for dt in (bf16, f32):
-        for gran in ("channel", "token"):
-            if (dt, gran) != (bf16, "channel"):
-                check_reuse(res1, serve_qk, serve_grid, dt, gran, th)
-            check_reuse(res1, (2, 3, 4 * 6 * 8, 64), (4, 6, 8), dt, gran, th)
-            check_reuse(res1, (1, 2, 8 * 8, 32), (1, 8, 8), dt, gran, th)
-    check_reuse(res1, (1, 2, 4 * 6 * 8, 64), (4, 6, 8), bf16, "channel", th,
-                axes=("y", "t", "x"))
-    # The DiT's case: T = 1 (the one-frame instance), x/y axes, head dim 72
-    # at dit-xl2's gen_1024 shape.
     dit_grid = (1, 64, 64)
     dit_qk = (DIT_REQUESTS, 16, 64 * 64, 72)
-    for dt in (bf16, f32):
-        for gran in ("channel", "token"):
-            check_reuse(res1, dit_qk, dit_grid, dt, gran, th, axes=("x", "y"))
-    log(f"kernel fused_reuse: {sum(res1)}/{len(res1)} cases bit-equal")
+    serve_err1 = reuse_checks(serve_grid, dit_qk, dit_grid)
 
     # 3. kernel 2 vs f32 dense attention on the snapped operands ------------
     res2 = []
@@ -1561,12 +1980,9 @@ def main() -> int:
     check_ripple(res2, q, k, v, f"N={n_tok} d=128 frac=0.6 (serving shape)")
     # Serving-shape operands as the main path makes them: text tokens
     # first, then grid tokens snapped by kernel 1 at θ = 0.2.
-    qk = []
-    for seed in (10, 11):
-        x = correlated(serve_qkv, bf16, seed)
-        seg, _ = reuse_ops.fused_compute_reuse(
-            x[:, :, 256:].contiguous(), serve_grid, dict(zip("txy", (0.2,) * 3)))
-        qk.append(torch.cat([x[:, :, :256], seg], dim=2).contiguous())
+    qk = [reuse_ops.fused_compute_reuse(
+        correlated(serve_qkv, bf16, seed), serve_grid, dict(zip("txy", (0.2,) * 3)),
+        grid_slice=(256, n_grid))[0] for seed in (10, 11)]
     v = correlated(serve_qkv, bf16, 12)
     serve_err = check_ripple(res2, qk[0], qk[1], v,
                              f"N={n_tok} d=128 main-path snapped operands")
@@ -1595,20 +2011,11 @@ def main() -> int:
     snap_err = snap_checks()
 
     # 6. times at the serving shapes (bf16) ---------------------------------
-    from repro_torch.core.reuse import compute_reuse
-
-    x1 = correlated(serve_qk, bf16, 20)
-    th1 = dict(zip("txy", (0.2,) * 3))
-    k1_ms = cuda_time_ms(lambda: reuse_ops.fused_compute_reuse(x1, serve_grid, th1))
-    k1_plain = cuda_time_ms(lambda: compute_reuse(x1, serve_grid, th1), iters=3)
-    n1 = x1.numel()
-    k1_bytes = n1 * (2 + 2 + 1)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
-                   n1 * REUSE_OPS_PER_ELEM / PEAK_FLOPS["float32"]) * 1e3
-    k1_by = ("bytes" if k1_bytes / HBM_BYTES_PER_S
-             >= n1 * REUSE_OPS_PER_ELEM / PEAK_FLOPS["float32"] else "operations")
-    log(f"time fused_reuse bf16 {tuple(serve_qk)}: kernel {k1_ms:.4f} ms, plain "
-        f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes / 1e6:.1f} MB)")
+    flush = l2_flush()
+    x1 = reuse_operand(SERVE_SNAP, bf16, 20, 0.6, text=SERVE_TEXT)
+    t1 = time_fused_reuse(x1, serve_grid, ("t", "x", "y"), (SERVE_TEXT[0], SERVE_SNAP[2]),
+                          "vDiT served call", flush)
+    del x1
 
     q, k = qk
     k2_ms = cuda_time_ms(lambda: ripple_ops.ripple_attention(q, k, v), iters=5)
@@ -1625,18 +2032,10 @@ def main() -> int:
         f"({flops / k2_ms / 1e9:.2f} TFLOP/s), plain {k2_plain:.4f} ms, sdpa "
         f"{k2_lib:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}: {flops / 1e12:.4f} "
         f"TFLOP); kernel/sdpa {k2_ms / k2_lib:.3f}, bound/kernel {k2_bound / k2_ms:.3f}")
-    del x1, q, k, v, qk
+    del q, k, v, qk
 
     xd = correlated(dit_qk, bf16, 22)
-    thd = dict(zip("txy", (0.2,) * 3))
-    kd_ms = cuda_time_ms(lambda: reuse_ops.fused_compute_reuse(
-        xd, dit_grid, thd, axes=("x", "y")))
-    kd_plain = cuda_time_ms(lambda: compute_reuse(xd, dit_grid, thd, axes=("x", "y")),
-                            iters=3)
-    kd_bytes = xd.numel() * (2 + 2 + 1)
-    log(f"time fused_reuse bf16 {dit_qk} grid {dit_grid} axes xy (dit-xl2): kernel "
-        f"{kd_ms:.4f} ms, plain {kd_plain:.4f} ms, bound "
-        f"{kd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: {kd_bytes / 1e6:.1f} MB)")
+    time_fused_reuse(xd, dit_grid, ("x", "y"), None, "dit-xl2 served call", flush)
     del xd
 
     q, k, v = dit_q, dit_k, dit_v
@@ -1664,7 +2063,9 @@ def main() -> int:
     xa = torch.randn((DIT_REQUESTS, 4096, 1152), generator=g, device="cuda").to(bf16)
     ada = torch.randn((DIT_REQUESTS, 6 * 1152), generator=g, device="cuda").to(bf16)
     sha, sca = torch.chunk(ada, 6, dim=-1)[:2]
-    a_ms = cuda_time_ms(lambda: adaln_modulate(xa, sha, sca), iters=20)
+    a_ms, a_host = device_time_ms(lambda: adaln_modulate(xa, sha, sca), "adaln_kernel",
+                                  flush=flush)
+    a_wrap = cuda_time_ms(lambda: adaln_modulate(xa, sha, sca), iters=20)
     a_plain = cuda_time_ms(lambda: adaln_modulate_ref(xa, sha, sca), iters=10)
     layer_norm = torch.nn.functional.layer_norm
     a_lib = cuda_time_ms(lambda: layer_norm(xa, (1152,), eps=1e-6)
@@ -1674,15 +2075,18 @@ def main() -> int:
     a_bound = max(a_bytes / HBM_BYTES_PER_S, a_ops / PEAK_FLOPS["float32"]) * 1e3
     a_by = "bytes" if a_bytes / HBM_BYTES_PER_S >= a_ops / PEAK_FLOPS["float32"] \
         else "operations"
-    log(f"time adaln bf16 {tuple(xa.shape)}: kernel {a_ms:.4f} ms "
-        f"({a_bytes / a_ms / 1e6:.1f} GB/s), plain {a_plain:.4f} ms, F.layer_norm "
-        f"and two elementwise ops {a_lib:.4f} ms (no single PyTorch call), bound "
-        f"{a_bound:.4f} ms ({a_by}: {a_bytes / 1e6:.1f} MB)")
+    log(f"time adaln bf16 {tuple(xa.shape)}: device {a_ms:.4f} ms a call (L2 flushed; "
+        f"{a_bytes / a_ms / 1e6:.1f} GB/s, {a_bound / a_ms:.3f} of the bound), host "
+        f"{a_host:.4f} ms a wrapper call, wrapper time back to back {a_wrap:.4f} ms; "
+        f"plain {a_plain:.4f} ms, F.layer_norm and two elementwise ops {a_lib:.4f} ms "
+        f"(no single PyTorch call), bound {a_bound:.4f} ms ({a_by}: "
+        f"{a_bytes / 1e6:.1f} MB); {CARD}")
     del xa, ada, sha, sca
     torch.cuda.empty_cache()
     time_flash(FLASH_SERVE_SHAPES[0], "vDiT serving shape")
     time_flash(FLASH_SERVE_SHAPES[1], "dit-xl2 serving shape")
-    sn_ms, sn_plain, sn_bound, sn_by = time_snap()
+    sn_ms, sn_host, sn_plain, sn_bound, sn_by = time_snap(flush)
+    del flush
 
     # 7. serving phases: each path with the launch counters set to 0 just
     # before it and read just after -------------------------------------------
@@ -1697,7 +2101,7 @@ def main() -> int:
     counts_r, lat_shape, _ = serve_ripple(arch, shape, model)
     profile_forward("ripple", arch, model, lat_shape,
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
-                    annotate=ripple_flags_range())
+                    annotate=ripple_ranges())
     served = {}
     counts_s = serve_svg("svg", arch, shape, model, policy="svg",
                          launched=("sparse_attention",),
@@ -1790,12 +2194,13 @@ def main() -> int:
                           overrides=("model.d_model=144", "model.num_heads=2"))
 
     kernels = [
+        # Device times (torch.profiler, L2 flushed before each call) for
+        # the three small kernels, with the host time of a wrapper call.
         {"name": "fused_reuse", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_reuse.cu",
          "replaces": "src/repro/kernels/reuse_mask/kernel.py:170",
          "launches": counts_r["fused_reuse"], "max_abs_err": serve_err1,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         **t1, "library_ms": None},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",
@@ -1814,7 +2219,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/adaln.cu",
          "replaces": "src/repro/kernels/adaln/kernel.py:38",
          "launches": counts_d["adaln"], "max_abs_err": adaln_err,
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+         "ms": a_ms, "host_ms": a_host, "plain_ms": a_plain, "bound_ms": a_bound,
          "bound_by": a_by, "library_ms": None},
         # f32 at (1, 24, 8192, 128), as its path (the kernel_bench sweep)
         # launches it; the bf16 times at the serving shapes are log lines.
@@ -1830,7 +2235,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/reuse_snap.cu",
          "replaces": "src/repro/kernels/reuse_mask/kernel.py:52",
          "launches": counts_sn["reuse_snap"], "max_abs_err": snap_err,
-         "ms": sn_ms, "plain_ms": sn_plain, "bound_ms": sn_bound,
+         "ms": sn_ms, "host_ms": sn_host, "plain_ms": sn_plain, "bound_ms": sn_bound,
          "bound_by": sn_by, "library_ms": None},
     ]
     print(card, flush=True)

@@ -137,44 +137,29 @@ def _keep_block_map(keep: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _snap_segment(seg, grid, thetas, cfg: RippleConfig, active_axes,
-                  use_fused: bool):
-    """Step ①-② on one contiguous grid segment: the fused kernel when the
-    plan asks for it and the shape qualifies, the host pipeline
-    otherwise — bit-equal outputs either way."""
+def snap_operand(x, do: bool, grid, thetas, cfg: RippleConfig, active_axes,
+                 grid_slice, use_fused: bool):
+    """Snap one operand (or pass it through with an all-False mask when
+    ``do`` is off).  ``grid_slice = (start, n)`` restricts snapping to the
+    grid tokens of a mixed text+grid sequence.  The fused kernel runs
+    when the plan asks for it and the shape qualifies: one launch on the
+    whole operand, text tokens copied through.  Otherwise the host
+    pipeline runs on the grid tokens; the outputs are bit-equal either
+    way.  Returns (snapped, mask)."""
+    if not do:
+        return x, torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     if use_fused:
         from repro_torch.kernels.reuse_mask.ops import (fused_compute_reuse,
                                                         fused_reuse_eligible)
         if fused_reuse_eligible(grid, window=cfg.window,
                                 granularity=cfg.granularity,
                                 axes=active_axes):
-            return fused_compute_reuse(seg.contiguous(), grid, thetas,
-                                       axes=active_axes,
-                                       granularity=cfg.granularity)
-    r = reuse_lib.compute_reuse(
-        seg, grid, thetas, axes=active_axes, window=cfg.window,
+            return fused_compute_reuse(x, grid, thetas, axes=active_axes,
+                                       granularity=cfg.granularity,
+                                       grid_slice=grid_slice)
+    return reuse_lib.snap_grid_tokens(
+        x, grid, thetas, grid_slice, axes=active_axes, window=cfg.window,
         granularity=cfg.granularity, channel_groups=cfg.channel_groups)
-    return r.snapped, r.mask
-
-
-def snap_operand(x, do: bool, grid, thetas, cfg: RippleConfig, active_axes,
-                 grid_slice, use_fused: bool):
-    """Snap one operand (or pass it through with an all-False mask when
-    ``do`` is off).  ``grid_slice = (start, n)`` restricts snapping to the
-    grid tokens of a mixed text+grid sequence.  Returns (snapped, mask)."""
-    if not do:
-        return x, torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    if grid_slice is None:
-        return _snap_segment(x, grid, thetas, cfg, active_axes, use_fused)
-    s, n = grid_slice
-    seg = x.narrow(-2, s, n)
-    snapped_seg, mask_seg = _snap_segment(seg, grid, thetas, cfg,
-                                          active_axes, use_fused)
-    snapped = torch.cat([x.narrow(-2, 0, s), snapped_seg,
-                         x.narrow(-2, s + n, x.shape[-2] - s - n)], dim=-2)
-    mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    mask.narrow(-2, s, n).copy_(mask_seg)
-    return snapped, mask
 
 
 # ---------------------------------------------------------------------------

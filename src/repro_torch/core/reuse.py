@@ -221,3 +221,24 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
         axis_masks={a: m.reshape(*lead, N, d) for a, m in axis_masks.items()},
     )
 
+
+
+def snap_grid_tokens(x: torch.Tensor, grid: Tuple[int, int, int],
+                     thetas: Dict[str, float],
+                     grid_slice: Optional[Tuple[int, int]] = None,
+                     **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compute_reuse` on the grid tokens ``[s, s + n)`` of a mixed
+    text + grid sequence (``grid_slice = (s, n)``; None: every token is a
+    grid token).  The other tokens pass through unchanged with mask
+    False.  ``kw`` goes to :func:`compute_reuse`.  Returns (snapped,
+    mask), both shaped like x."""
+    if grid_slice is None:
+        r = compute_reuse(x, grid, thetas, **kw)
+        return r.snapped, r.mask
+    s, n = grid_slice
+    r = compute_reuse(x.narrow(-2, s, n), grid, thetas, **kw)
+    snapped = torch.cat([x.narrow(-2, 0, s), r.snapped,
+                         x.narrow(-2, s + n, x.shape[-2] - s - n)], dim=-2)
+    mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    mask.narrow(-2, s, n).copy_(r.mask)
+    return snapped, mask

@@ -12,6 +12,7 @@ builds on first use.  Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -45,6 +46,7 @@ SOURCE_FLAGS = {name: ("--fmad=false",) for name in
                 ("fused_reuse", "reuse_snap", "adaln", "sparse_attention")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], object] = {}
 _LOCK = threading.Lock()
 
 
@@ -125,3 +127,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int):
+    """``symbol`` of ``csrc/<name>.cu``'s library with its ctypes
+    prototype, set when it is first looked up and kept after."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        _FUNCS[(name, symbol)] = fn
+    return fn
+
+
+def on_device(t):
+    """A context that makes ``t``'s card current for a launch: nothing to
+    do when it already is."""
+    import torch
+
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

@@ -57,11 +57,11 @@ def _launch(x, shift, scale, eps: float):
                          f"{lib.adaln_max_dim()}, not {d}")
     (shift, sh_stride), (scale, sc_stride) = _cond(shift, x), _cond(scale, x)
     out = torch.empty_like(x)
-    fn = lib.adaln_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_long] * 2 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):  # launch on the operand's card
+    fn = _build.function("adaln", "adaln_launch",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                         + [ctypes.c_long] * 2
+                         + [ctypes.c_float, ctypes.c_void_p])
+    with _build.on_device(x):  # launch on the operand's card
         rc = fn(x.data_ptr(), shift.data_ptr(), scale.data_ptr(),
                 out.data_ptr(), _DTYPES[x.dtype], B, N, d, sh_stride,
                 sc_stride, eps, torch.cuda.current_stream().cuda_stream)

@@ -41,13 +41,11 @@ def _launch(q, k, v):
         raise ValueError("flash kernel needs at least one query and key")
     if d > _MAX_DIM or dv > _MAX_DIM:
         raise ValueError(f"flash kernel takes head dims <= {_MAX_DIM}")
-    lib = _build.load("flash_attention")
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
-    fn = lib.flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):  # launch on the operands' card
+    fn = _build.function("flash_attention", "flash_attention_launch",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_void_p])
+    with _build.on_device(q):  # launch on the operands' card
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _DTYPES[q.dtype], B * H, Nq, Nk, d, dv, default_scale(d),
                 torch.cuda.current_stream().cuda_stream)

@@ -7,7 +7,10 @@
 * :func:`fused_reuse_snap` / :func:`fused_compute_reuse` — the fused
   three-axis Δ-check + snap kernel (``csrc/fused_reuse.cu``), the
   on-device replacement for the host-side ``core.reuse.compute_reuse``
-  on its eligible shapes; ``launches`` counts its launches.
+  on its eligible shapes; it reads the operand in place through its
+  strides and, given a ``grid_slice``, snaps the grid tokens of a mixed
+  text + grid sequence and copies the text tokens through;
+  ``launches`` counts its launches.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor, and only there, it runs the plain version (``ref.py``).
@@ -16,9 +19,9 @@ tensor, and only there, it runs the plain version (``ref.py``).
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -29,6 +32,25 @@ snap_launches = 0
 
 _AXIS_ID = {"t": 0, "x": 1, "y": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Priority permutations of the axis ids, indexed as the kernel's
+# order_axis() indexes them.
+_ORDERS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_FUSED_ARGS = [_P] * 3 + [_I] * 3 + [_L] * 3 + [_I] * 7 + [_F] * 3 \
+    + [_I] * 2 + [_P]
+_SNAP_ARGS = [_P] * 3 + [_I] * 3 + [_F, _P]
+
+
+def round_to(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to float32 and then, for bfloat16, to nearest-even
+    bfloat16, as ``torch.tensor(v, dtype=torch.float32).to(dtype)`` rounds
+    it; returned as a Python float."""
+    f = np.float32(v)
+    if dtype == torch.bfloat16 and np.isfinite(f):
+        b = int(f.view(np.uint32))
+        b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+        f = np.uint32(b).view(np.float32)
+    return float(f)
 
 
 def _snap_launch(x: torch.Tensor, theta: float):
@@ -42,12 +64,8 @@ def _snap_launch(x: torch.Tensor, theta: float):
                          "aligned operand")
     out = torch.empty_like(x)
     mask = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    lib = _build.load("reuse_snap")
-    fn = lib.reuse_snap_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):  # launch on the operand's card
+    fn = _build.function("reuse_snap", "reuse_snap_launch", _SNAP_ARGS)
+    with _build.on_device(x):  # launch on the operand's card
         rc = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(),
                 _DTYPES[x.dtype], B * H * (N // 2), d, theta,
                 torch.cuda.current_stream().cuda_stream)
@@ -70,8 +88,7 @@ def reuse_snap(x: torch.Tensor, theta: float):
         return reuse_snap_plain(x, theta)
     if x.device.type != "cuda":
         raise ValueError(f"reuse snap kernel runs on CUDA, not {x.device}")
-    th = torch.tensor(float(theta), dtype=torch.float32).to(x.dtype)
-    return _snap_launch(x, float(th))
+    return _snap_launch(x, round_to(theta, x.dtype))
 
 
 def fused_reuse_eligible(grid: Tuple[int, int, int], *, window: int = 2,
@@ -93,41 +110,57 @@ def fused_reuse_eligible(grid: Tuple[int, int, int], *, window: int = 2,
     return set(axes) <= {"t", "x", "y"}
 
 
+def _lead_dims(x: torch.Tensor):
+    """x's lead dims as two strided dims ``(n0, n1, s0, s1)`` (size-1 dims
+    dropped, neighbours merged where their strides chain), or None when
+    they do not fit in two."""
+    dims = []
+    for n, st in zip(x.shape[:-2], x.stride()[:-2]):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == st * n:
+            dims[-1] = (dims[-1][0] * n, st)
+        else:
+            dims.append((n, st))
+    if len(dims) > 2:
+        return None
+    (n0, s0), (n1, s1) = [(1, 0)] * (2 - len(dims)) + dims
+    return n0, n1, s0, s1
+
+
 def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
-            granularity: str):
+            granularity: str, grid_slice: Tuple[int, int]):
     global launches
     T, H, W = grid
-    *lead, N, d = x.shape
+    *_, N, d = x.shape
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused reuse kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fused reuse kernel needs a contiguous operand")
     if not fused_reuse_eligible(grid, granularity=granularity, axes=axes):
         raise ValueError(f"grid {grid} / granularity {granularity!r} / "
                          f"axes {axes} not eligible for the fused kernel")
     if d > 256:
         raise ValueError(f"fused reuse kernel takes head_dim <= 256, not {d}")
-    with_t = "t" in axes and T >= 2
-    TT = 2 if with_t else 1
-    G = (math.prod(lead) if lead else 1) * (T // TT)
-    th = torch.tensor([float(t) for t in thetas], dtype=torch.float32)
-    th = th.to(x.dtype).float().tolist()  # θ in the working type
-    code = 0
-    for i, a in enumerate(axes):
-        code |= _AXIS_ID[a] << (2 * i)
-    out = torch.empty_like(x)
+    lead = _lead_dims(x)
+    if lead is None or (d > 1 and x.stride(-1) != 1):
+        # Only a view the kernel cannot address (more than two lead dims
+        # that do not merge, or strided channels) is copied first.
+        x = x.contiguous()
+        lead = _lead_dims(x)
+    n0, n1, s0, s1 = lead
+    TT = 2 if "t" in axes and T >= 2 else 1
+    order = [_AXIS_ID[a] for a in axes]
+    order += [i for i in range(3) if i not in order]
+    th = [round_to(thetas[i], x.dtype) if a in axes else 0.0
+          for i, a in enumerate("txy")]
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
-    lib = _build.load("fused_reuse")
-    fn = lib.fused_reuse_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):  # launch on the operand's card
+    fn = _build.function("fused_reuse", "fused_reuse_launch", _FUSED_ARGS)
+    with _build.on_device(x):  # launch on the operand's card
         rc = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(),
-                _DTYPES[x.dtype], G, TT, H, W, d, th[0], th[1], th[2], code,
-                len(axes), int(granularity == "token"),
+                _DTYPES[x.dtype], n0, n1, s0, s1, x.stride(-2), N,
+                grid_slice[0], T, TT, H, W, d, *th,
+                _ORDERS.index(tuple(order)), int(granularity == "token"),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_reuse kernel launch failed: CUDA error "
@@ -139,26 +172,34 @@ def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
 def fused_reuse_snap(x: torch.Tensor, thetas: Sequence[float], *,
                      grid: Tuple[int, int, int],
                      axes: Tuple[str, ...] = ("t", "x", "y"),
-                     granularity: str = "channel"):
-    """x: (..., N, d) grid tokens in (t, y, x) row-major order; thetas:
-    (θt, θx, θy).  Returns (snapped, mask: bool) shaped like x."""
+                     granularity: str = "channel",
+                     grid_slice: Optional[Tuple[int, int]] = None):
+    """x: (..., N, d), any strides; its tokens ``[s, s + T*H*W)`` are grid
+    tokens in (t, y, x) row-major order (``grid_slice = (s, T*H*W)``;
+    None: all N tokens are); thetas: (θt, θx, θy).  Returns (snapped,
+    mask: bool) shaped like x: the grid tokens snapped, the others
+    unchanged with mask False."""
     T, H, W = grid
-    if x.shape[-2] != T * H * W:
-        raise ValueError(f"token count {x.shape[-2]} != grid {grid}")
+    N = x.shape[-2]
+    s, n = grid_slice if grid_slice is not None else (0, N)
+    if n != T * H * W or s < 0 or s + n > N:
+        raise ValueError(f"grid slice {(s, n)} of {N} tokens does not hold "
+                         f"grid {grid}")
     if x.device.type == "cpu":
-        return fused_reuse_ref(x, grid, dict(zip("txy", thetas)),
-                               axes=axes, granularity=granularity)
+        return fused_reuse_ref(x, grid, dict(zip("txy", thetas)), axes=axes,
+                               granularity=granularity, grid_slice=grid_slice)
     if x.device.type != "cuda":
         raise ValueError(f"fused reuse kernel runs on CUDA, not {x.device}")
-    return _launch(x, thetas, grid, tuple(axes), granularity)
+    return _launch(x, thetas, grid, tuple(axes), granularity, (s, n))
 
 
 def fused_compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
                         thetas: Dict[str, float], *,
                         axes: Sequence[str] = ("t", "x", "y"),
-                        granularity: str = "channel"):
+                        granularity: str = "channel",
+                        grid_slice: Optional[Tuple[int, int]] = None):
     """Dict-θ convenience mirroring ``compute_reuse``'s signature; returns
     (snapped, mask).  Callers check :func:`fused_reuse_eligible` first."""
     th = [float(thetas.get(a, 0.0)) for a in ("t", "x", "y")]
     return fused_reuse_snap(x, th, grid=grid, axes=tuple(axes),
-                            granularity=granularity)
+                            granularity=granularity, grid_slice=grid_slice)

@@ -4,15 +4,16 @@
   pair snap on the pair-split halves / on the whole operand
   (``csrc/reuse_snap.cu``);
 * :func:`fused_reuse_ref` — the fused Δ-check + snap: the host pipeline
-  ``core.reuse.compute_reuse`` *is* the semantics the fused kernel
-  reproduces bit for bit on its eligible shapes.
+  ``core.reuse.compute_reuse`` on the grid tokens, the other tokens
+  passed through (``core.reuse.snap_grid_tokens``), *is* the semantics
+  the fused kernel reproduces bit for bit on its eligible shapes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.reuse import compute_reuse
+from repro_torch.core.reuse import snap_grid_tokens
 
 
 def reuse_snap_ref(x_even, x_odd, theta):
@@ -38,7 +39,6 @@ def reuse_snap_plain(x: torch.Tensor, theta: float):
 
 
 def fused_reuse_ref(x, grid, thetas, axes=("t", "x", "y"),
-                    granularity="channel"):
-    r = compute_reuse(x, grid, thetas, axes=axes, window=2,
-                      granularity=granularity)
-    return r.snapped, r.mask
+                    granularity="channel", grid_slice=None):
+    return snap_grid_tokens(x, grid, thetas, grid_slice, axes=axes,
+                            window=2, granularity=granularity)

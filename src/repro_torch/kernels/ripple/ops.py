@@ -70,11 +70,10 @@ def _launch(q, k, v, scale: float):
     if not lib.ripple_uses_tensor_cores(_DTYPES[q.dtype], d, dv):
         qflags = block_flags(q.reshape(BH, N, d), TILE_PAIRS).contiguous()
     out = torch.empty((B, H, N, dv), dtype=q.dtype, device=q.device)
-    fn = lib.ripple_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):  # launch on the operands' card
+    fn = _build.function("ripple_attention", "ripple_attention_launch",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_void_p])
+    with _build.on_device(q):  # launch on the operands' card
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 0 if qflags is None else qflags.data_ptr(),
                 kflags.data_ptr(), _DTYPES[q.dtype], BH, N, d, dv, scale,

@@ -103,13 +103,11 @@ def _launch(q, k, v, bias, block_map, block_q: int, block_k: int):
             bias = bias.contiguous()
         sb, sh = bias.stride(0), bias.stride(1)
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
-    lib = _build.load("sparse_attention")
-    fn = lib.sparse_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_longlong] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):  # launch on the operands' card
+    fn = _build.function("sparse_attention", "sparse_attention_launch",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                         + [ctypes.c_longlong] * 2
+                         + [ctypes.c_float, ctypes.c_void_p])
+    with _build.on_device(q):  # launch on the operands' card
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
                 bmap.data_ptr(), _DTYPES[q.dtype], B * H, H, Nq, Nk, d, dv,
