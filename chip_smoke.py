@@ -15,7 +15,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    served schedules give (each bf16 value from 0.2 to 0.5, the schedules'
    float32 values) and at 0, denormals, 1.0 and inf; then
    ``core.policy.snap_operand`` at the vDiT's served call through the
-   kernel against the host pipeline;
+   kernel against the host pipeline; and the kernel's snap-source map
+   (``want_src``, the decision cache's refresh step) bit for bit against
+   ``compute_reuse(want_src=True)``, gathering by it equal to the
+   snapped values (served call, the DiT's, the token gate, the scalar
+   instance, f32 and bf16);
 3. holds the pair-collapse attention kernel against f32 dense softmax on
    the same snapped operands, on constructed operands with collapse
    fractions 0, 0.6 and 1.0, an unaligned N, head dims 16 to 128 (72 on
@@ -59,7 +63,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    before and read just after, profiles one forward of the ripple and
    the SVG paths (the ripple wrapper's collapse-flag pass, the policy's
    snap step and the SVG mask building as families of their own), then
-   holds the sparse
+   serves the ripple path under the decision cache (``reuse_every`` 4,
+   24 steps: fused_reuse with its source map on the 7 refresh steps
+   only, the plain snap never on the card, the hit steps replaying
+   snaps) and profiles one refresh and one hit forward, serves ``svg``
+   under the cache at 2 layers (mask building on refresh steps only),
+   then holds the sparse
    kernel against its plain semantics on one served SVG call at its
    full batch (operands and map kept on the host during the run, the
    bias rebuilt from q and k afterwards) and times it;
@@ -77,8 +86,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    f32 with the same mask) and f32 flash on the wide operands;
    and runs the public ``reuse_snap`` wrapper at that width; each with
    the counters set to 0 just before and read just after;
-9. checks a small trajectory of each of the four paths on the card
-   against the same trajectory on the CPU.
+9. checks a small trajectory of each of the four paths, and of the
+   ripple path under the decision cache with its drift guard, on the
+   card against the same trajectory on the CPU.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -95,6 +105,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -300,6 +311,72 @@ def reuse_checks(serve_grid, dit_qk, dit_grid):
     return err
 
 
+def check_source_map(results, shape, grid, dtype, gran, thetas, axes=("t", "x", "y"),
+                     view="contiguous", text=(0, 0)):
+    """The kernel's snap-source map (``want_src``) on the card: bit-equal
+    to the plain ``compute_reuse(want_src=True).src_idx`` on the grid
+    tokens, the snapped values and mask bit-equal to the call without the
+    map, and gathering the grid tokens by the map bit-equal to their
+    snapped values.  Returns the largest |snapped - x| of the call."""
+    import torch
+    from repro_torch.core.reuse import compute_reuse
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+
+    x = reuse_operand(shape, dtype, 100 + len(results),
+                      0.6 if gran == "channel" else 0.3, view, text)
+    gs = (text[0], shape[2])
+    th = dict(zip("txy", thetas))
+    kw = dict(axes=axes, granularity=gran, grid_slice=gs)
+    s_k, m_k, src = reuse_ops.fused_compute_reuse(x, grid, th, want_src=True, **kw)
+    s_0, m_0 = reuse_ops.fused_compute_reuse(x, grid, th, **kw)
+    seg = x.narrow(-2, *gs)
+    ref = compute_reuse(seg, grid, th, axes=axes, granularity=gran, want_src=True)
+    gathered = torch.gather(seg, -2, src)
+    torch.cuda.synchronize()
+    ok = (src.dtype == torch.int32 and torch.equal(src, ref.src_idx)
+          and bits_equal(s_k, s_0) and bits_equal(m_k, m_0)
+          and bits_equal(gathered, s_k.narrow(-2, *gs)))
+    frac = m_k.narrow(-2, *gs).float().mean().item()
+    name = str(dtype).replace("torch.", "")
+    log(f"kernel fused_reuse source map {name:8s} {gran:7s} x{tuple(x.shape)} grid{grid} "
+        f"axes={''.join(axes)} {view} text {text}: map bit-equal to compute_reuse("
+        f"want_src=True), outputs equal to the call without it, gather by it equals "
+        f"snapped: {ok}; snapped {frac:.4f}")
+    results.append(ok and frac > 0)
+    if not results[-1]:
+        raise SystemExit("fused_reuse kernel's source map disagrees with its plain version")
+    del ref, gathered, src
+    return (s_k.float() - x.float()).abs().max().item()
+
+
+def source_map_checks(serve_grid, dit_qk, dit_grid):
+    """The source map at the served vDiT call (batch 3, 256 text
+    tokens), the DiT's call (T = 1, axes xy, d 72), the scalar instance
+    (bf16 d 36 and f32 d 6, unaligned and transposed views), the token
+    gate, and f32 and bf16."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = []
+    th = (0.2, 0.25, 0.3)
+    check_source_map(res, SERVE_SNAP, serve_grid, bf16, "channel", (0.2,) * 3,
+                     text=SERVE_TEXT)
+    check_source_map(res, dit_qk, dit_grid, bf16, "channel", (0.2,) * 3, axes=("x", "y"))
+    for dt in (bf16, f32):
+        for gran in ("channel", "token"):
+            check_source_map(res, (2, 3, 4 * 8 * 8, 128), (4, 8, 8), dt, gran, th,
+                             axes=("x", "t", "y"), view="narrowed", text=(5, 3))
+            check_source_map(res, dit_qk, dit_grid, dt, gran, th, axes=("x", "y"),
+                             view="transposed")
+        for d, view in ((36 if dt == bf16 else 6, "transposed"), (36, "unaligned")):
+            check_source_map(res, (2, 2, 2 * 4 * 6, d), (2, 4, 6), dt, "channel", th,
+                             view=view, text=(7, 2))
+    check_source_map(res, SERVE_SNAP, serve_grid, f32, "channel", (0.2,) * 3,
+                     text=SERVE_TEXT)
+    log(f"kernel fused_reuse source map: {sum(res)}/{len(res)} cases bit-equal")
+    torch.cuda.empty_cache()
+
+
 def theta_sweep_checks(res):
     """The kernel's square-root-free channel gate at every θ a served
     schedule gives: each bf16 value from 0.2 to 0.5, the schedules' own
@@ -380,8 +457,12 @@ def device_time_ms(fn, kernel=None, iters=20, flush=None):
         return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
 
     skip = set()
-    if flush is not None:
+    for _ in range(3 if flush is not None else 0):
         skip = {ev.name for ev in record(lambda: flush.max())}
+        if skip:
+            break
+    if flush is not None and not skip:
+        raise SystemExit("profiler saw no kernel of the L2 flush")
 
     def calls():
         for _ in range(iters):
@@ -389,51 +470,61 @@ def device_time_ms(fn, kernel=None, iters=20, flush=None):
                 flush.max()
             fn()
 
-    durs = {}
-    for ev in record(calls):
-        if ev.name not in skip and (kernel is None or kernel in ev.name):
-            durs.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
-    counts = {name: len(v) for name, v in durs.items()}
-    if (not durs or (kernel is not None and sum(counts.values()) != iters)
-            or any(n % iters for n in counts.values())):
-        raise SystemExit(f"profiler saw {counts} launches of {kernel or 'the call'}, "
-                         f"not {iters} calls' worth")
-    return sum(sum(v) for v in durs.values()) / iters / 1e3, host_ms
+    # The profiler has dropped a kernel record now and then (19 of 20): a
+    # reading with another count is taken again, at most three times.
+    for _ in range(3):
+        durs = {}
+        for ev in record(calls):
+            if ev.name not in skip and (kernel is None or kernel in ev.name):
+                durs.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+        counts = {name: len(v) for name, v in durs.items()}
+        if (durs and (kernel is None or sum(counts.values()) == iters)
+                and not any(n % iters for n in counts.values())):
+            return sum(sum(v) for v in durs.values()) / iters / 1e3, host_ms
+        log(f"profiler saw {counts} launches of {kernel or 'the call'}, not {iters} "
+            f"calls' worth; reading again")
+    raise SystemExit(f"profiler saw {counts} launches of {kernel or 'the call'}, "
+                     f"not {iters} calls' worth, three times")
 
 
-def reuse_bound(x, grid):
+def reuse_bound(x, grid, want_src=False):
     """(bound ms, bound by, bytes) of one fused_reuse call on x: every
     element read once and written once with its mask byte, over the whole
-    sequence; the Δ arithmetic on the grid elements at the float32 peak."""
-    nbytes = x.numel() * (2 * x.element_size() + 1)
+    sequence, plus 4 bytes of source map a grid element with
+    ``want_src``; the Δ arithmetic on the grid elements at the float32
+    peak."""
     n_grid = x.numel() // x.shape[-2] * grid[0] * grid[1] * grid[2]
+    nbytes = x.numel() * (2 * x.element_size() + 1) + (4 * n_grid if want_src else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = n_grid * REUSE_OPS_PER_ELEM / PEAK_FLOPS["float32"]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
 
 
-def time_fused_reuse(x, grid, axes, grid_slice, label, flush):
-    """fused_reuse on x as its path calls it (channel gate, θ 0.2): device
-    time with the L2 flushed and back to back, host time a wrapper call,
-    the old back-to-back wrapper time, the plain version's time, and the
-    bound.  Returns them as a dict."""
+def time_fused_reuse(x, grid, axes, grid_slice, label, flush, want_src=False):
+    """fused_reuse on x as its path calls it (channel gate, θ 0.2; with
+    ``want_src`` as a refresh step of the decision cache calls it, the
+    source map written too): device time with the L2 flushed and back to
+    back, host time a wrapper call, the old back-to-back wrapper time,
+    the plain version's time, and the bound.  Returns them as a dict."""
     from repro_torch.core.reuse import snap_grid_tokens
     from repro_torch.kernels.reuse_mask import ops as reuse_ops
 
     th = dict(zip("txy", (0.2,) * 3))
 
     def call():
-        return reuse_ops.fused_compute_reuse(x, grid, th, axes=axes, grid_slice=grid_slice)
+        return reuse_ops.fused_compute_reuse(x, grid, th, axes=axes, grid_slice=grid_slice,
+                                             want_src=want_src)
 
     ms, host = device_time_ms(call, "fused_reuse_kernel", flush=flush)
     warm, _ = device_time_ms(call, "fused_reuse_kernel")
     wrap = cuda_time_ms(call, iters=20)
-    plain = cuda_time_ms(lambda: snap_grid_tokens(x, grid, th, grid_slice, axes=axes),
+    plain = cuda_time_ms(lambda: snap_grid_tokens(x, grid, th, grid_slice, axes=axes,
+                                                  want_src=want_src),
                          iters=3, warmup=1)
-    bound, by, nbytes = reuse_bound(x, grid)
+    bound, by, nbytes = reuse_bound(x, grid, want_src)
     log(f"time fused_reuse {str(x.dtype)[6:]} {tuple(x.shape)} grid {grid} slice {grid_slice} axes "
-        f"{''.join(axes)} ({label}): device {ms:.4f} ms a call (L2 flushed; {bound / ms:.3f} "
+        f"{''.join(axes)} ({label}{', with the source map' if want_src else ''}): device {ms:.4f} ms a call (L2 flushed; {bound / ms:.3f} "
         f"of the bound), {warm:.4f} ms back to back; host {host:.4f} ms a wrapper call, "
         f"wrapper time back to back {wrap:.4f} ms; plain {plain:.4f} ms; bound "
         f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB); {CARD}")
@@ -1364,11 +1455,13 @@ def load_served_model(layers: int):
 
 
 def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(),
-                requests=SERVE_REQUESTS):
+                requests=SERVE_REQUESTS, plain_absent=(), aux=None):
     """Serve ``requests`` requests in one batch through the port's
     DiffusionEngine with the launch counters set to 0 just before and
     read just after; each kernel in ``launched`` must have run, none in
-    ``absent``."""
+    ``absent``, and no function ``(module, name)`` of ``plain_absent``
+    (a kernel's plain version) may run on a CUDA tensor.  A cache-aware
+    sampler's counters (its ``(latents, aux)`` return) go into ``aux``."""
     import numpy as np
     import torch
     from repro_torch.core import dispatch as dispatch_lib
@@ -1383,7 +1476,24 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     plan = dispatch_lib.resolve_plan(qk, qk, arch.ripple, on_cuda=True, policy=policy)
     log(f"serve[{label}]: plan {plan.summary()}; ripple {arch.ripple}"
         f"{'' if policy is None else f', policy {policy}'}")
-    engine = DiffusionEngine(lambda shp, steps: sample_fn, device="cuda",
+    def sampler(noise, txt, seeds):
+        out = sample_fn(noise, txt, seeds)
+        if isinstance(out, tuple) and aux is not None:
+            aux.update({k: int(v) for k, v in out[1].items()})
+        return out
+
+    plain = {f"{mod.__name__}.{name}": 0 for mod, name in plain_absent}
+
+    def counting(key):
+        def make(orig):
+            def f(*a, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    plain[key] += 1
+                return orig(*a, **kw)
+            return f
+        return make
+
+    engine = DiffusionEngine(lambda shp, steps: sampler, device="cuda",
                              max_batch=requests)
     traffic = mixed_request_stream(arch, (shape,), requests, seed=0)
     torch.cuda.synchronize()
@@ -1391,11 +1501,14 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     reset_launch_counts()
     for _, req in traffic:  # all queued before the worker starts: one batch
         engine.submit(req)
-    engine.start()
-    try:
-        results = [engine.result(req.request_id) for _, req in traffic]
-    finally:
-        engine.stop()
+    with contextlib.ExitStack() as ctx:
+        for mod, name in plain_absent:
+            ctx.enter_context(wrapped(mod, name, counting(f"{mod.__name__}.{name}")))
+        engine.start()
+        try:
+            results = [engine.result(req.request_id) for _, req in traffic]
+        finally:
+            engine.stop()
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1414,6 +1527,10 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
         raise SystemExit(f"serve[{label}]: a kernel of the path never launched: {counts}")
     if any(counts[n] != 0 for n in absent):
         raise SystemExit(f"serve[{label}]: a kernel off the path launched: {counts}")
+    if plain:
+        log(f"serve[{label}]: plain versions called on the card: {plain}")
+        if any(plain.values()):
+            raise SystemExit(f"serve[{label}]: a plain version ran on the card: {plain}")
     return counts, results, lat_shape
 
 
@@ -1475,6 +1592,163 @@ def serve_ripple(arch, shape, model, label="ripple", **phase):
     if q_snap <= 0 or k_snap <= 0:
         raise SystemExit("no snapping at step 10")
     return counts, lat_shape, paths
+
+
+CACHE_EVERY = 4   # serve[ripple-cache] / serve[svg-cache]: reuse_every
+CACHE_STEPS = 24  # refreshes on steps 0, 4, ..., 20 and 23; hits after 12 snap
+
+
+def cache_schedule(arch, steps):
+    """(refresh steps, hit steps, hit steps whose plan snaps) of a
+    ``steps``-step trajectory under the arch's cadence (no drift guard):
+    a hit replays the plan of the refresh before it, which snaps where
+    that step's θ is above 0."""
+    from repro_torch.core.schedule import threshold_schedule
+
+    every = arch.ripple.reuse_every
+    refresh = [s for s in range(steps) if s % every == 0 or s == steps - 1]
+    hits = [s for s in range(steps) if s not in refresh]
+    theta = threshold_schedule(arch.ripple, steps)
+    snapping = [s for s in hits if theta[max(r for r in refresh if r < s)] > 0]
+    return refresh, hits, snapping
+
+
+def check_cache_counters(label, arch, refresh, hits, aux, layers, batch):
+    """The sampler's hit and refresh counters against the cadence: per
+    (layer, batch, head) cell, one a step."""
+    cells = layers * batch * arch.model.num_heads
+    want = {"cache_hits": len(hits) * cells, "cache_refreshes": len(refresh) * cells}
+    log(f"serve[{label}]: decision cache: {aux.get('cache_hits')} hits / "
+        f"{aux.get('cache_refreshes')} refreshes (want {want['cache_hits']} / "
+        f"{want['cache_refreshes']}: {len(hits)} hits and {len(refresh)} refreshes per "
+        f"(layer, batch, head) cell; refresh steps {refresh})")
+    if any(aux.get(k) != v for k, v in want.items()):
+        raise SystemExit(f"serve[{label}]: decision-cache counters {aux} != {want}")
+
+
+def serve_ripple_cache(arch, shape, model):
+    """The ripple policy under the decision cache (``reuse_every``
+    ``CACHE_EVERY``, no drift guard) over ``CACHE_STEPS`` steps: the
+    fused_reuse kernel (with its source map) launches on refresh steps
+    only, 2 a layer, the ripple kernel every step; neither the kernel's
+    plain version nor the host pipeline runs on the card.  Records the
+    replayed Q snap fraction (grid tokens) on every hit step by shadowing
+    the policy's ``apply_decision`` for this run only."""
+    import torch
+    from repro_torch.core import reuse as reuse_lib
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+
+    pol = get_policy("ripple")
+    current = {"step": None}
+    replayed = {}
+
+    def thetas_for(orig):
+        def f(cfg, step, total_steps, thetas=None):
+            current["step"] = step
+            return orig(cfg, step, total_steps, thetas)
+        return f
+
+    def apply_decision(orig):
+        def f(q, k, cached, **kw):
+            d = orig(q, k, cached, **kw)
+            s, n = kw["grid_slice"]
+            replayed.setdefault(current["step"], []).append(
+                d.q_mask.narrow(-2, s, n).float().mean())
+            return d
+        return f
+
+    layers, steps = arch.model.num_layers, shape.steps
+    refresh, hits, snapping = cache_schedule(arch, steps)
+    aux = {}
+    with wrapped(pol, "thetas_for", thetas_for), \
+            wrapped(pol, "apply_decision", apply_decision):
+        counts, results, lat_shape = serve_phase(
+            "ripple-cache", arch, shape, model, launched=("fused_reuse", "ripple_attention"),
+            absent=("sparse_attention",), aux=aux,
+            plain_absent=((reuse_ops, "fused_reuse_ref"), (reuse_lib, "compute_reuse")))
+    want = {"fused_reuse": len(refresh) * layers * 2, "ripple_attention": steps * layers}
+    if any(counts[n] != c for n, c in want.items()):
+        raise SystemExit(f"serve[ripple-cache]: launches {counts}, want {want}")
+    check_cache_counters("ripple-cache", arch, refresh, hits, aux, layers, SERVE_REQUESTS)
+    fracs = {s: torch.stack(v).mean().item() for s, v in sorted(replayed.items())}
+    log(f"serve[ripple-cache]: replayed Q snap fraction on the hit steps "
+        f"{ {s: round(f, 4) for s, f in fracs.items()} }; the plans of steps "
+        f"{snapping} snap")
+    if sorted(fracs) != hits or any(fracs[s] <= 0 for s in snapping):
+        raise SystemExit("serve[ripple-cache]: the hit steps did not replay the snaps")
+    return counts, lat_shape
+
+
+def serve_svg_cache(arch, shape, model):
+    """The svg policy under the decision cache: the head classification
+    and mask building (``svg_logit_bias``) run on the refresh steps only,
+    the sparse kernel on every step; 1 request."""
+    import torch
+    from repro_torch.core import policy as policy_lib
+
+    pol = policy_lib.get_policy("svg")
+    current = {"step": None}
+    built = []
+
+    def thetas_for(orig):
+        def f(cfg, step, total_steps, thetas=None):
+            current["step"] = step
+            return orig(cfg, step, total_steps, thetas)
+        return f
+
+    def bias(orig):
+        def f(*a, **kw):
+            built.append(current["step"])
+            return orig(*a, **kw)
+        return f
+
+    layers, steps = arch.model.num_layers, shape.steps
+    refresh, hits, _ = cache_schedule(arch, steps)
+    aux = {}
+    with wrapped(pol, "thetas_for", thetas_for), \
+            wrapped(policy_lib, "svg_logit_bias", bias):
+        counts, results, _ = serve_phase(
+            "svg-cache", arch, shape, model, policy="svg", launched=("sparse_attention",),
+            absent=("ripple_attention", "fused_reuse"), requests=1, aux=aux)
+    log(f"serve[svg-cache]: mask building on steps {sorted(set(built))} "
+        f"({len(built)} calls); sparse_attention launches {counts['sparse_attention']}")
+    if sorted(set(built)) != refresh or len(built) != len(refresh) * layers \
+            or counts["sparse_attention"] != steps * layers:
+        raise SystemExit(f"serve[svg-cache]: mask building {built} or sparse launches "
+                         f"{counts} off the cadence {refresh}")
+    check_cache_counters("svg-cache", arch, refresh, hits, aux, layers, 1)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_cache(arch, model, lat_shape, refresh_step, hit_step, total):
+    """One forward at a refresh step (no plan yet: the layers decide, the
+    fused kernel writing its source map) and one at a hit step (the plans
+    of that refresh replayed), with the snap step (``snap_operand`` on the
+    refresh, ``replay_snap`` on the hit) as the family ``snap``."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.kernels.ripple import ops as ripple_ops
+
+    fams = {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"}
+    ann = [(ripple_ops, "block_flags", "ripple_flags"),
+           (policy_lib, "snap_operand", "snap"), (policy_lib, "replay_snap", "snap")]
+    layers = arch.model.num_layers
+    primed = [None] * layers
+    out = {"refresh": profile_forward(
+        "ripple-cache refresh", arch, model, lat_shape, fams, annotate=ann,
+        total=total, step=refresh_step, make_state=lambda: [None] * layers,
+        keep_state=primed)}
+    out["hit"] = profile_forward("ripple-cache hit", arch, model, lat_shape, fams,
+                                 annotate=ann, total=total, step=hit_step,
+                                 make_state=lambda: primed)
+    if out["hit"]["fused_reuse"] != 0:
+        raise SystemExit("profile[ripple-cache hit]: the hit step launched fused_reuse")
+    log(f"profile[ripple-cache]: snap step a forward, refresh (step {refresh_step}) "
+        f"{out['refresh']['snap']:.3f} ms, hit (step {hit_step}) {out['hit']['snap']:.3f} "
+        f"ms (hit/refresh {out['hit']['snap'] / out['refresh']['snap']:.3f}); the forward "
+        f"{out['refresh']['wall']:.3f} / {out['hit']['wall']:.3f} ms; {CARD}")
+    return out
 
 
 def serve_svg(label, arch, shape, model, *, policy, launched, absent, capture=None):
@@ -1589,11 +1863,15 @@ def ripple_ranges():
 
 
 def profile_forward(label, arch, model, lat_shape, families, annotate=(),
-                    batch=SERVE_REQUESTS, total=SERVE_STEPS):
+                    batch=SERVE_REQUESTS, total=SERVE_STEPS, step=10, make_state=None,
+                    keep_state=None):
     """Device time by kernel family over one served-size denoiser forward
-    (step 10 of ``total``: snapping on), from torch.profiler, the device's
-    idle share of that forward's wall time, and its peak device memory;
-    returns the wall, busy and family times in ms.
+    (``step`` of ``total``, default 10: snapping on), from torch.profiler,
+    the device's idle share of that forward's wall time, and its peak
+    device memory; returns the wall, busy and family times in ms.  With
+    ``make_state`` each forward threads the decision-cache state it
+    returns; the profiled forward's final state goes into the list
+    ``keep_state``.
     ``families`` maps a family to a kernel-name substring; each
     ``(obj, attr, family)`` of ``annotate`` wraps ``obj.attr`` in a
     profiler range and counts every kernel launched inside it as
@@ -1618,7 +1896,12 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     t = torch.full((batch,), 200.0, device="cuda")
 
     def fwd():
-        return _denoise_call(arch, model, x, t, cond, 10, total)
+        if make_state is None:
+            return _denoise_call(arch, model, x, t, cond, step, total)
+        out, st = _denoise_call(arch, model, x, t, cond, step, total, dstate=make_state())
+        if keep_state is not None:
+            keep_state[:] = st
+        return out
 
     def family(name):
         name = name.lower()
@@ -1631,6 +1914,8 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
 
     fwd()
     torch.cuda.synchronize()
+    if keep_state is not None:
+        keep_state.clear()  # the warm-up's plans go before the profiled forward
     torch.cuda.reset_peak_memory_stats()
     ranges = [fam for *_, fam in annotate]
 
@@ -1697,7 +1982,7 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
         raise SystemExit(f"profile[{label}]: the profiler reported no device time")
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items())
     log(f"profile[{label}]: one forward, batch {batch}, "
-        f"{arch.model.num_layers} layers, step 10 of {total}: wall {wall_ms:.3f} ms, "
+        f"{arch.model.num_layers} layers, step {step} of {total}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
         f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
         f"{peak:.2f} GiB")
@@ -1853,7 +2138,7 @@ def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
     shape = serving_shape(arch, shape_name, smoke=True, steps=SERVE_STEPS)
     txt_shape = (1, getattr(arch.model, "txt_tokens", 8),
                  getattr(arch.model, "txt_dim", 64))
-    outs = {}
+    outs, aux = {}, {}
     for dev in ("cuda", "cpu"):
         model = init(arch.model, seed=1, device="cpu", zero_init=False)
         model = model.to(dev)
@@ -1862,12 +2147,18 @@ def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
         noise = request_noise(5, lat_shape, "cpu")[None].to(dev)
         txt = torch.from_numpy(0.05 * np.random.default_rng(5).standard_normal(
             txt_shape).astype(np.float32)).to(dev)
-        outs[dev] = fn(noise, txt, [5]).float().cpu()
+        out = fn(noise, txt, [5])
+        if isinstance(out, tuple):  # a cache-aware sampler: (latents, counters)
+            out, aux[dev] = out[0], {k: int(v) for k, v in out[1].items()}
+        outs[dev] = out.float().cpu()
     diff = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
-    ok = bool(torch.isfinite(outs["cuda"]).all()) and diff.item() < 1e-3
+    ok = bool(torch.isfinite(outs["cuda"]).all()) and diff.item() < 1e-3 \
+        and aux.get("cuda") == aux.get("cpu")
+    counters = (f"; decision cache card {aux['cuda']}, CPU {aux['cpu']}"
+                if aux else "")
     log(f"reference[{label}]: {arch.name} {shape.img_res}² 12-step f32 trajectory, "
         f"card kernels vs CPU "
-        f"plain versions: relative L2 {diff.item():.3e} (tol 1e-3) "
+        f"plain versions: relative L2 {diff.item():.3e} (tol 1e-3){counters} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("card trajectory disagrees with the CPU reference")
@@ -1940,6 +2231,7 @@ def main() -> int:
     dit_grid = (1, 64, 64)
     dit_qk = (DIT_REQUESTS, 16, 64 * 64, 72)
     serve_err1 = reuse_checks(serve_grid, dit_qk, dit_grid)
+    source_map_checks(serve_grid, dit_qk, dit_grid)
 
     # 3. kernel 2 vs f32 dense attention on the snapped operands ------------
     res2 = []
@@ -2015,6 +2307,8 @@ def main() -> int:
     x1 = reuse_operand(SERVE_SNAP, bf16, 20, 0.6, text=SERVE_TEXT)
     t1 = time_fused_reuse(x1, serve_grid, ("t", "x", "y"), (SERVE_TEXT[0], SERVE_SNAP[2]),
                           "vDiT served call", flush)
+    t1s = time_fused_reuse(x1, serve_grid, ("t", "x", "y"), (SERVE_TEXT[0], SERVE_SNAP[2]),
+                           "vDiT served call, a refresh step", flush, want_src=True)
     del x1
 
     q, k = qk
@@ -2112,7 +2406,19 @@ def main() -> int:
     serve_svg("ripple+svg", apply_overrides(arch, ("ripple.svg_mask=true",)), shape,
               model, policy=None, launched=("fused_reuse", "sparse_attention"),
               absent=("ripple_attention",))
+    # The decision cache: ripple at full depth, then svg at 2 layers (its
+    # dense per-layer bias does not fit 40 layers on one card).
+    cache_cut = (f"ripple.reuse_every={CACHE_EVERY}",)
+    arch_c = apply_overrides(arch, cache_cut)
+    counts_c, _ = serve_ripple_cache(arch_c, dataclasses.replace(shape, steps=CACHE_STEPS),
+                                     model)
+    profile_cache(arch_c, model, lat_shape, 12, 13, CACHE_STEPS)
     del model
+    torch.cuda.empty_cache()
+    arch2, shape2, model2 = load_served_model(2)
+    serve_svg_cache(apply_overrides(arch2, cache_cut),
+                    dataclasses.replace(shape2, steps=CACHE_STEPS), model2)
+    del model2
     torch.cuda.empty_cache()
 
     # 7b. kernel 3 on a served SVG call: check and times --------------------
@@ -2189,6 +2495,10 @@ def main() -> int:
     small_reference_check("ripple")
     small_reference_check("svg", policy="svg")
     small_reference_check("ripple+svg", overrides=("ripple.svg_mask=true",))
+    # The decision cache with the drift guard on; steps from 1 snap, so the
+    # hit steps after a refresh at 2, 4, ... replay snaps.
+    small_reference_check("cache", overrides=("ripple.reuse_every=2", "ripple.drift_tol=0.1",
+                                              "ripple.i_min=1", "ripple.i_max=6"))
     # The DiT at head dim 72 (d_model 144, 2 heads), 2 layers, grid (1, 4, 4).
     small_reference_check("dit-xl2", name="dit-xl2",
                           overrides=("model.d_model=144", "model.num_heads=2"))
@@ -2200,7 +2510,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fused_reuse.cu",
          "replaces": "src/repro/kernels/reuse_mask/kernel.py:170",
          "launches": counts_r["fused_reuse"], "max_abs_err": serve_err1,
-         **t1, "library_ms": None},
+         **t1, "library_ms": None,
+         # The same call writing its source map, as a decision-cache
+         # refresh step launches it, and its launches in serve[ripple-cache].
+         "src_ms": t1s["ms"], "src_host_ms": t1s["host_ms"],
+         "src_plain_ms": t1s["plain_ms"], "src_bound_ms": t1s["bound_ms"],
+         "launches_ripple_cache": counts_c["fused_reuse"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",

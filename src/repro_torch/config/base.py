@@ -22,10 +22,10 @@ class RippleConfig:
     K to their window representative is exactly equivalent to reusing
     their partial attention scores (DESIGN.md §2).  ``svg_mask`` composes
     the SVG block mask with the snapping (the block-sparse backend runs
-    it).  Fields the port does not act on yet (the decision cache's
-    ``reuse_every`` / ``drift_tol``, sentinels, 1-D reuse) keep their
-    defaults so configs stay interchangeable; the serving launcher
-    refuses decision-cache settings it cannot honour.
+    it).  ``reuse_every`` / ``drift_tol`` / ``drift_channels`` drive the
+    cross-step decision cache (``core.decision_cache``).  Fields the port
+    does not act on yet (sentinels, 1-D reuse) keep their defaults so
+    configs stay interchangeable.
     """
 
     enabled: bool = False

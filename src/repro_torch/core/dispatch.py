@@ -22,6 +22,10 @@ model targets (DESIGN.md §8).
      kernel (``kernels/reuse_mask``) or on the host path
      (``core.reuse``), per ``cfg.fused_mask``; ``auto`` fuses on CUDA.
   4. **A small plan cache** keyed on power-of-two shape buckets.
+  5. **The cross-step decision cache** (``core.decision_cache``): with a
+     ``cached_decision`` or ``return_decision``, the policy decides anew
+     only on refresh steps and otherwise re-applies the carried plan to
+     the fresh operands (:func:`_run_pipeline_cached`).
 """
 
 from __future__ import annotations
@@ -217,6 +221,47 @@ def _execute_backend(d: ReuseDecision, v, scale: float, *,
     return dense_attention(d.q, d.k, v, scale, d.bias)
 
 
+def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
+                         plan: DispatchPlan, grid, cfg: RippleConfig,
+                         grid_slice, policy: ReusePolicy, step: int, cached,
+                         total_steps: Optional[int] = None):
+    """The cross-step decision-cache pipeline (DESIGN.md §13): decide
+    anew when the cadence or the drift guard says the cached plan is
+    stale (or there is none yet), otherwise re-apply the carried plan to
+    the fresh operands; then the backend runs once on the chosen
+    decision.  Refresh or reuse is chosen on the host: the step and the
+    cadence are Python ints, and only the drift guard reads the device
+    (one bool a call, in ``refresh_due``).  Returns (out, new_cache)."""
+    from repro_torch.core import decision_cache as dc
+
+    plan_once = getattr(policy, "plan_once", False)
+    # The drift statistic is worth its pass only when the guard can act
+    # on it; otherwise the cache keeps a zero stat of the same shape.
+    if cfg.drift_tol > 0 and not plan_once:
+        stat = dc.drift_stat(q, k, cfg)
+    else:
+        stat = torch.zeros(q.shape[:-2], dtype=torch.float32,
+                           device=q.device)
+    if cached is None:
+        refresh = True
+    elif plan_once:
+        refresh = int(step) == 0
+    else:
+        refresh = dc.refresh_due(step, cfg, stat, cached.ref_stat,
+                                 total_steps)
+    if refresh:
+        d = policy.decide(q, k, grid=grid, cfg=cfg, thetas=thetas,
+                          bias=None, grid_slice=grid_slice,
+                          fused=plan.fused_mask, want_plan=True,
+                          **_decide_extra(plan, policy, cfg))
+        new_cache = dc.cache_from_decision(d, stat, prev=cached)
+    else:
+        d = policy.apply_decision(q, k, cached, grid=grid, cfg=cfg,
+                                  thetas=thetas, grid_slice=grid_slice)
+        new_cache = dc.bump_hit(cached)
+    return _execute_backend(d, v, scale, plan=plan, cfg=cfg), new_cache
+
+
 def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        grid: Tuple[int, int, int], cfg: RippleConfig,
                        step: Optional[int] = None,
@@ -225,7 +270,8 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        bias: Optional[torch.Tensor] = None,
                        grid_slice: Optional[Tuple[int, int]] = None,
                        backend: Optional[str] = None,
-                       policy=None) -> torch.Tensor:
+                       policy=None, cached_decision=None,
+                       return_decision: bool = False):
     """Attention with TimeRipple reuse behind one dispatch seam.
 
     q, k, v: (..., N, head_dim), post-RoPE.  ``policy`` overrides
@@ -234,6 +280,15 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     per-step schedule (otherwise derived from ``step``/``total_steps``);
     ``grid_slice = (start, n)`` marks the grid tokens of a text+grid
     sequence.
+
+    Cross-step decision cache (DESIGN.md §13): ``cached_decision`` is a
+    :class:`~repro_torch.core.decision_cache.CachedDecision` from an
+    earlier call on operands of the same shapes; the decision is then
+    made anew only on refresh steps and re-applied to the fresh operands
+    otherwise.  ``return_decision=True`` (implied by a
+    ``cached_decision``) returns ``(out, new CachedDecision)``.  Caching
+    needs an active cache-capable policy, a concrete ``step`` and no
+    external ``bias``.
     """
     if grid_slice is not None and tuple(grid_slice) == (0, q.shape[-2]):
         grid_slice = None
@@ -242,9 +297,29 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plan = resolve_plan(q.shape, v.shape, cfg, on_cuda=q.is_cuda,
                         backend=backend, has_bias=bias is not None,
                         policy=pol)
+    want_cache = return_decision or cached_decision is not None
+    if want_cache:
+        if plan.backend == "dense" or not pol.will_cache_decisions(cfg):
+            raise ValueError(
+                f"decision caching requested but policy {pol.name!r} "
+                f"under this config resolves to {plan.backend!r}/"
+                f"caches_decisions={pol.will_cache_decisions(cfg)} — gate "
+                f"on decision_cache.supports_cache(cfg, policy) first")
+        if bias is not None:
+            raise ValueError("decision caching requires bias=None (the "
+                             "cached plan could not account for a fresh "
+                             "external bias)")
+        if step is None:
+            raise ValueError("decision caching needs a concrete step for "
+                             "the reuse_every cadence")
     if plan.backend == "dense":
         return dense_attention(q, k, v, scale, bias)
     thetas = pol.thetas_for(cfg, step, total_steps, thetas)
+    if want_cache:
+        return _run_pipeline_cached(
+            q, k, v, thetas, scale, plan=plan, grid=grid, cfg=cfg,
+            grid_slice=grid_slice, policy=pol, step=step,
+            cached=cached_decision, total_steps=total_steps)
     d = pol.decide(q, k, grid=grid, cfg=cfg, thetas=thetas, bias=bias,
                    grid_slice=grid_slice, fused=plan.fused_mask,
                    **_decide_extra(plan, pol, cfg))

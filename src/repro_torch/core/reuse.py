@@ -44,11 +44,15 @@ class ReuseResult:
     snapped:    x with reusable entries overwritten by their representative.
     mask:       bool, same shape as x; True where the value was snapped.
     axis_masks: per-axis bool masks (before priority resolution).
+    src_idx:    int32 snap-source token map, same shape as x (only with
+                ``want_src``): each entry's source token, its own where
+                it did not snap.
     """
 
     snapped: torch.Tensor
     mask: torch.Tensor
     axis_masks: Dict[str, torch.Tensor]
+    src_idx: Optional[torch.Tensor] = None
 
 
 def _inv(n: int) -> float:
@@ -171,11 +175,30 @@ def axis_reuse_mask(x_grid: torch.Tensor, axis: str, theta, window: int,
     return mask, rep_full
 
 
+def axis_source_tokens(grid: Tuple[int, int, int], axis: str, window: int,
+                       device=None) -> torch.Tensor:
+    """(N,) int32 map: each token's window-representative token index
+    along ``axis`` (identity on the remainder tail that never snaps), in
+    the module's row-major (t, y, x) token order."""
+    T, H, W = grid
+    t, y, x = torch.meshgrid(torch.arange(T, device=device),
+                             torch.arange(H, device=device),
+                             torch.arange(W, device=device), indexing="ij")
+    coords = {"t": t, "y": y, "x": x}
+    length = {"t": T, "y": H, "x": W}[axis]
+    n = (length // window) * window
+    c = coords[axis]
+    coords[axis] = torch.where(c < n, (c // window) * window, c)
+    flat = (coords["t"] * H + coords["y"]) * W + coords["x"]
+    return flat.reshape(-1).to(torch.int32)
+
+
 def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
                   thetas: Dict[str, float], axes: Sequence[str] = AXES,
                   window: int = 2, granularity: str = "channel",
                   channel_groups: Sequence[float] = (0.125, 0.4375, 0.4375),
-                  protect_axis: Optional[str] = None) -> ReuseResult:
+                  protect_axis: Optional[str] = None,
+                  want_src: bool = False) -> ReuseResult:
     """Full TimeRipple reuse for one operand (Q or K).
 
     x: (..., N, d) with N == T*H*W tokens in (t, y, x) row-major order.
@@ -188,6 +211,12 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
     window *representatives* along that axis are never snapped by the
     other axes, so the value-identity of that axis's pairs survives high
     thresholds and the pair-collapse kernel keeps its tile skips.
+
+    ``want_src`` also returns ``ReuseResult.src_idx``, the per-entry
+    snap-source map the decision cache replays with one gather:
+    ``torch.gather(x, -2, src_idx)`` equals ``snapped`` bit for bit (both
+    copy the representative's entries).  ``t_valid`` (ring attention)
+    is not ported.
     """
     T, H, W = grid
     *lead, N, d = x.shape
@@ -206,6 +235,10 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
     snapped = x_grid
     claimed = torch.zeros(x_grid.shape, dtype=torch.bool, device=x.device)
     axis_masks: Dict[str, torch.Tensor] = {}
+    src = None
+    if want_src:
+        src = torch.arange(N, dtype=torch.int32, device=x.device)[:, None] \
+            .expand(*lead, N, d)
     for axis in axes:
         mask, rep = axis_reuse_mask(x_grid, axis, thetas[axis], window,
                                     granularity, channel_groups)
@@ -214,11 +247,15 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
         axis_masks[axis] = mask
         take = mask & ~claimed  # first-wins priority
         snapped = torch.where(take, rep, snapped)
+        if want_src:
+            ax_src = axis_source_tokens(grid, axis, window, x.device)
+            src = torch.where(take.reshape(*lead, N, d), ax_src[:, None], src)
         claimed = claimed | mask
     return ReuseResult(
         snapped=snapped.reshape(*lead, N, d),
         mask=claimed.reshape(*lead, N, d),
         axis_masks={a: m.reshape(*lead, N, d) for a, m in axis_masks.items()},
+        src_idx=None if src is None else src.contiguous(),
     )
 
 
@@ -226,19 +263,21 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
 def snap_grid_tokens(x: torch.Tensor, grid: Tuple[int, int, int],
                      thetas: Dict[str, float],
                      grid_slice: Optional[Tuple[int, int]] = None,
-                     **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+                     want_src: bool = False, **kw):
     """:func:`compute_reuse` on the grid tokens ``[s, s + n)`` of a mixed
     text + grid sequence (``grid_slice = (s, n)``; None: every token is a
     grid token).  The other tokens pass through unchanged with mask
     False.  ``kw`` goes to :func:`compute_reuse`.  Returns (snapped,
-    mask), both shaped like x."""
+    mask), both shaped like x, and with ``want_src`` the grid segment's
+    (..., n, d) snap-source map in grid-local token indices."""
     if grid_slice is None:
-        r = compute_reuse(x, grid, thetas, **kw)
-        return r.snapped, r.mask
+        r = compute_reuse(x, grid, thetas, want_src=want_src, **kw)
+        return (r.snapped, r.mask) + ((r.src_idx,) if want_src else ())
     s, n = grid_slice
-    r = compute_reuse(x.narrow(-2, s, n), grid, thetas, **kw)
+    r = compute_reuse(x.narrow(-2, s, n), grid, thetas, want_src=want_src,
+                      **kw)
     snapped = torch.cat([x.narrow(-2, 0, s), r.snapped,
                          x.narrow(-2, s + n, x.shape[-2] - s - n)], dim=-2)
     mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     mask.narrow(-2, s, n).copy_(r.mask)
-    return snapped, mask
+    return (snapped, mask) + ((r.src_idx,) if want_src else ())

@@ -12,9 +12,16 @@
 // source in priority order, always from the original operand.  Writes the
 // full snapped (n0, n1, N, d) operand and a one-byte mask, contiguous:
 // grid tokens snapped, the other (text) tokens copied through with mask 0.
+// Given a source-map pointer, the same launch also writes the grid
+// segment's (n0, n1, T*H*W, d) int32 snap-source map: for each entry the
+// grid-local token of the representative of the axis that claimed it
+// first, or its own token.  Gathering the segment by it gives the snapped
+// segment (the decision cache replays it; the reference's host pipeline
+// compute_reuse(want_src=True) is its plain version).
 //
 // Bound on the H100: device memory.  Each element is read once (2 or 4 B)
-// and written twice (value + 1 B mask).  The bf16 arithmetic that the
+// and written twice (value + 1 B mask), plus 4 B of source map a grid
+// element when it is asked for.  The bf16 arithmetic that the
 // plain version rounds after every op costs some twenty instructions an
 // element even so, so the design keeps the instruction count down too:
 //
@@ -201,6 +208,8 @@ struct Args {
   const void* x;
   void* out;
   uint8_t* mask;
+  int32_t* src;          // grid segment's source map, or null
+  int n_grid;            // T * H * W
   long long s0, s1, sN;  // element strides: lead dims, token
   int n1, N, start;      // inner lead size; tokens; first grid token
   int nG, H, W, d, C;    // frame groups a lead; rows; columns; d; chunks
@@ -268,6 +277,67 @@ __device__ __forceinline__ void snap_store(
       }
 }
 
+// The source-map counterpart of take(): s becomes the representative's
+// grid-local token where lane `shift` of axis A's mask is set.
+template <int A, int NW>
+__device__ __forceinline__ void src_take(int& s, const uint32_t (&ok)[3][4][NW],
+                                         int tt, int yy, int xx, int w,
+                                         int shift, int own, int HW, int W) {
+  uint32_t m;
+  int rep;
+  if (A == 0) {
+    if (tt != 1) return;
+    m = ok[0][yy * 2 + xx][w], rep = own - HW;
+  } else if (A == 1) {
+    if (xx != 1) return;
+    m = ok[1][tt * 2 + yy][w], rep = own - 1;
+  } else {
+    if (yy != 1) return;
+    m = ok[2][tt * 2 + xx][w], rep = own - W;
+  }
+  if ((m >> shift) & 1u) s = rep;
+}
+
+// Writes the cube's source map: int32 per element, 16-byte stores in the
+// vector instance.  own0 is the cube origin's grid-local token, sb its
+// element offset in the map.
+template <class Ch, int TT, int P0, int P1, int P2>
+__device__ __forceinline__ void src_store(const uint32_t (&ok)[3][4][Ch::kWords],
+                                          int32_t* src, long long sb, int own0,
+                                          int HW, int W, int d) {
+  constexpr int NW = Ch::kWords, L = Ch::kLanes, V = Ch::kElems;
+#pragma unroll
+  for (int tt = 0; tt < TT; ++tt)
+#pragma unroll
+    for (int yy = 0; yy < 2; ++yy)
+#pragma unroll
+      for (int xx = 0; xx < 2; ++xx) {
+        const int pos = tt * HW + yy * W + xx;
+        const int own = own0 + pos;
+        int s[V];
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+#pragma unroll
+          for (int i = 0; i < L; ++i) {
+            int& e = s[w * L + i];
+            const int shift = 16 * i;  // bf16 lanes: low half, then high
+            e = own;
+            src_take<P2, NW>(e, ok, tt, yy, xx, w, shift, own, HW, W);
+            src_take<P1, NW>(e, ok, tt, yy, xx, w, shift, own, HW, W);
+            src_take<P0, NW>(e, ok, tt, yy, xx, w, shift, own, HW, W);
+          }
+        int32_t* p = src + sb + (long long)pos * d;
+        if constexpr (V % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < V / 4; ++j)
+            reinterpret_cast<int4*>(p)[j] =
+                make_int4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+        } else {
+          p[0] = s[0];
+        }
+      }
+}
+
 // The mean squared deviation s of each Δ slot's window, per lane: t slot
 // k = yy*2+xx; x slot k = tt*2+yy; y slot k = tt*2+xx.  Slots of a
 // missing frame (TT = 1) are 0 and unused.
@@ -316,6 +386,22 @@ __device__ __forceinline__ void snap_store_order(
   }
 }
 
+// Writes the cube's source map in the priority order `order` (uniform).
+template <class Ch, int TT>
+__device__ __forceinline__ void src_store_order(
+    int order, const uint32_t (&ok)[3][4][Ch::kWords], int32_t* src,
+    long long sb, int own0, int HW, int W, int d) {
+  switch (order) {
+#define SRC_CASE(o)                                                          \
+  case o:                                                                    \
+    src_store<Ch, TT, order_axis(o, 0), order_axis(o, 1), order_axis(o, 2)>( \
+        ok, src, sb, own0, HW, W, d);                                        \
+    break;
+    SRC_CASE(0) SRC_CASE(1) SRC_CASE(2) SRC_CASE(3) SRC_CASE(4) SRC_CASE(5)
+#undef SRC_CASE
+  }
+}
+
 // Text tokens: copied through with mask 0, one chunk an item.
 template <class Ch>
 __device__ __forceinline__ void copy_text(const Args& a, unsigned first,
@@ -339,11 +425,12 @@ __device__ __forceinline__ void copy_text(const Args& a, unsigned first,
   }
 }
 
-// TT (frames a cube: 2 with the t check, else 1) and the gate are
-// template parameters so every loop unrolls and the cube stays in
-// registers.  blockDim.x = k * C: thread i owns chunk i % C of cube (or
-// text token) i / C of each pass.
-template <class W, bool VEC, int TT, bool TOKEN>
+// TT (frames a cube: 2 with the t check, else 1), the gate and whether
+// the source map is written are template parameters so every loop
+// unrolls, the cube stays in registers, and a call without a map runs
+// the code it ran before the map existed.  blockDim.x = k * C: thread i
+// owns chunk i % C of cube (or text token) i / C of each pass.
+template <class W, bool VEC, int TT, bool TOKEN, bool SRC>
 __global__ void __launch_bounds__(kThreads)
     fused_reuse_kernel(const Args a) {
   using Ch = Chunk<W, VEC>;
@@ -425,6 +512,11 @@ __global__ void __launch_bounds__(kThreads)
     if (!live) continue;
 
     snap_store_order<Ch, TT>(a.order, v, ok, out, a.mask, ob, oT, oY, a.d);
+    if constexpr (SRC) {
+      const int own0 = (int)(tok0 - a.start);
+      const long long sb = ((long long)l * a.n_grid + own0) * a.d + chunk * V;
+      src_store_order<Ch, TT>(a.order, ok, a.src, sb, own0, a.H * a.W, a.W, a.d);
+    }
   }
 
   copy_text<Ch>(a, blockIdx.x * blockDim.x + threadIdx.x,
@@ -433,9 +525,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // Blocks of one launch: enough to fill every SM once at the kernel's
 // occupancy, and every block the same number of passes.
-template <class W, bool VEC, int TT, bool TOKEN>
+template <class W, bool VEC, int TT, bool TOKEN, bool SRC>
 int launch(Args a, int threads, cudaStream_t s) {
-  auto kern = fused_reuse_kernel<W, VEC, TT, TOKEN>;
+  auto kern = fused_reuse_kernel<W, VEC, TT, TOKEN, SRC>;
   static int cached_threads = -1, per_sm = 1;  // per instantiation
   static size_t cached_smem = 0;
   const size_t smem = TOKEN ? (size_t)a.k * kSlots * sizeof(float) : 0;
@@ -461,21 +553,28 @@ int launch(Args a, int threads, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <class W, bool SRC>
+int dispatch_src(Args a, bool vec, int TT, bool token, int threads,
+                 cudaStream_t s) {
+  if (vec) {
+    if (TT == 2)
+      return token ? launch<W, true, 2, true, SRC>(a, threads, s)
+                   : launch<W, true, 2, false, SRC>(a, threads, s);
+    return token ? launch<W, true, 1, true, SRC>(a, threads, s)
+                 : launch<W, true, 1, false, SRC>(a, threads, s);
+  }
+  if (TT == 2)
+    return token ? launch<W, false, 2, true, SRC>(a, threads, s)
+                 : launch<W, false, 2, false, SRC>(a, threads, s);
+  return token ? launch<W, false, 1, true, SRC>(a, threads, s)
+               : launch<W, false, 1, false, SRC>(a, threads, s);
+}
+
 template <class W>
 int dispatch(Args a, bool vec, int TT, bool token, int threads,
              cudaStream_t s) {
-  if (vec) {
-    if (TT == 2)
-      return token ? launch<W, true, 2, true>(a, threads, s)
-                   : launch<W, true, 2, false>(a, threads, s);
-    return token ? launch<W, true, 1, true>(a, threads, s)
-                 : launch<W, true, 1, false>(a, threads, s);
-  }
-  if (TT == 2)
-    return token ? launch<W, false, 2, true>(a, threads, s)
-                 : launch<W, false, 2, false>(a, threads, s);
-  return token ? launch<W, false, 1, true>(a, threads, s)
-               : launch<W, false, 1, false>(a, threads, s);
+  return a.src ? dispatch_src<W, true>(a, vec, TT, token, threads, s)
+               : dispatch_src<W, false>(a, vec, TT, token, threads, s);
 }
 
 bool aligned(long long v, long long q) { return v % q == 0; }
@@ -483,7 +582,7 @@ bool aligned(long long v, long long q) { return v % q == 0; }
 // Checks a call and fills `a`; returns a CUDA error (0 on success).
 // `vec`: the 16-byte instance applies.
 int make_args(Args& a, bool& vec, const void* x, void* out, void* mask,
-              int is_bf16, int n0, int n1, long long s0, long long s1,
+              void* src, int is_bf16, int n0, int n1, long long s0, long long s1,
               long long sN, int N, int start, int T, int TT, int H, int W,
               int d, float th_t, float th_x, float th_y, int order) {
   if (n0 < 1 || n1 < 1 || d < 1 || d > 256 || H < 2 || W < 2 || H % 2 ||
@@ -500,9 +599,11 @@ int make_args(Args& a, bool& vec, const void* x, void* out, void* mask,
     return (int)cudaErrorInvalidValue;
   vec = fused_reuse_vector_path(is_bf16, d, x, n0, s0, n1, s1, sN) &&
         reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(mask) % 8 == 0;
+        reinterpret_cast<uintptr_t>(mask) % 8 == 0 &&
+        reinterpret_cast<uintptr_t>(src) % 16 == 0;
   const int V = vec ? (is_bf16 ? 8 : 4) : 1;
   a.x = x, a.out = out, a.mask = static_cast<uint8_t*>(mask);
+  a.src = static_cast<int32_t*>(src), a.n_grid = (int)n_grid;
   a.s0 = s0, a.s1 = s1, a.sN = sN;
   a.n1 = n1, a.N = N, a.start = start;
   a.nG = T / TT, a.H = H, a.W = W, a.d = d, a.C = d / V;
@@ -532,20 +633,21 @@ extern "C" int fused_reuse_vector_path(int is_bf16, int d, const void* x,
 // x: (n0, n1, N, d), element strides (s0, s1, sN, 1), float32 (is_bf16 =
 // 0) or bfloat16; tokens [start, start + T*H*W) are the grid.  out:
 // (n0, n1, N, d) contiguous, same dtype; mask: the same shape, one byte
-// per element.  TT = 2 runs the t check on frame pairs (T even), 1 runs
+// per element; src: null, or the (n0, n1, T*H*W, d) contiguous int32
+// source map of the grid tokens (grid-local token indices).  TT = 2 runs the t check on frame pairs (T even), 1 runs
 // frames alone.  order is the priority permutation of (t, x, y) (0..5,
 // see order_axis); an absent axis comes last with θ 0.  The thresholds
 // are already rounded to the working type.  Returns the CUDA error of
 // the launch (0 on success).
 extern "C" int fused_reuse_launch(const void* x, void* out, void* mask,
-                                  int is_bf16, int n0, int n1, long long s0,
+                                  void* src, int is_bf16, int n0, int n1, long long s0,
                                   long long s1, long long sN, int N,
                                   int start, int T, int TT, int H, int W,
                                   int d, float th_t, float th_x, float th_y,
                                   int order, int token, void* stream) {
   Args a;
   bool vec = false;
-  const int rc = make_args(a, vec, x, out, mask, is_bf16, n0, n1, s0, s1, sN,
+  const int rc = make_args(a, vec, x, out, mask, src, is_bf16, n0, n1, s0, s1, sN,
                            N, start, T, TT, H, W, d, th_t, th_x, th_y, order);
   if (rc) return rc;
   const int threads = a.k * a.C;

@@ -6,6 +6,12 @@ threshold schedule, so the model function receives (x_t, t, step).
 text conditioning and the RippleConfig; samplers stay model-agnostic.
 The loops are plain Python; ``step_offset`` / ``total_steps`` slice a
 trajectory into chunks whose chaining repeats the single run exactly.
+
+Cross-step decision cache (DESIGN.md §13): pass ``decision_state`` (the
+model's per-layer state, e.g. from ``launch.workloads.vdit_decision_state``)
+and the contract becomes ``denoise_fn(x, t, step, state) -> (eps, state)``;
+the sampler then returns ``(x, final_state)``, and a chunk's final state
+is the next chunk's ``decision_state``.
 """
 
 from __future__ import annotations
@@ -30,13 +36,16 @@ def ddim_timesteps(schedule: DDPMSchedule, total: int) -> np.ndarray:
 def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor,
                 schedule: DDPMSchedule, num_steps: int, *, eta: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                step_offset: int = 0, total_steps: Optional[int] = None):
+                step_offset: int = 0, total_steps: Optional[int] = None,
+                decision_state=None):
     """DDIM sampler. denoise_fn(x, t (B,) float, step_idx) -> eps.
 
     ``total_steps`` is the full schedule length and ``step_offset`` the
     steps already done: the timestep table is built from the total and
     indexed by absolute step.  With ``eta > 0`` fresh noise comes from
-    ``generator``."""
+    ``generator``.  With ``decision_state`` the denoiser carries it
+    (``denoise_fn(x, t, step, state) -> (eps, state)``) and the sampler
+    returns ``(x, final_state)``."""
     total = num_steps if total_steps is None else total_steps
     ts = ddim_timesteps(schedule, total)
     alpha_bars = schedule.alpha_bars(x_T.device)
@@ -48,7 +57,11 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor,
         t_prev = int(ts[si + 1]) if si + 1 < total else -1
         ab_t = alpha_bars[t]
         ab_prev = alpha_bars[t_prev] if t_prev >= 0 else one
-        eps = denoise_fn(x, torch.full((B,), float(t), device=x.device), si)
+        t_b = torch.full((B,), float(t), device=x.device)
+        if decision_state is None:
+            eps = denoise_fn(x, t_b, si)
+        else:
+            eps, decision_state = denoise_fn(x, t_b, si, decision_state)
         x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
         sigma = eta * torch.sqrt((1 - ab_prev) / (1 - ab_t)) * \
             torch.sqrt(1 - ab_t / ab_prev)
@@ -60,7 +73,7 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor,
                 raise ValueError("eta > 0 needs a generator")
             x = x + sigma * torch.randn(x.shape, generator=generator,
                                         device=x.device, dtype=x.dtype)
-    return x
+    return x if decision_state is None else (x, decision_state)
 
 
 @torch.no_grad()
@@ -68,15 +81,22 @@ def euler_flow_sample(denoise_fn: Callable, x_T: torch.Tensor,
                       num_steps: int, *,
                       schedule: Optional[RectifiedFlowSchedule] = None,
                       step_offset: int = 0,
-                      total_steps: Optional[int] = None):
+                      total_steps: Optional[int] = None,
+                      decision_state=None):
     """Euler ODE integration of rectified flow from t=1 (noise) to t=0.
-    denoise_fn(x, t (B,), step_idx) -> velocity (noise - x0)."""
+    denoise_fn(x, t (B,), step_idx) -> velocity (noise - x0); with
+    ``decision_state`` as in :func:`ddim_sample`, returning
+    ``(x, final_state)``."""
     total = num_steps if total_steps is None else total_steps
     ts = linspace_f32(1.0, 0.0, total + 1)
     B = x_T.shape[0]
     x = x_T
     for si in range(step_offset, step_offset + num_steps):
         t, t_next = ts[si], ts[si + 1]
-        v = denoise_fn(x, torch.full((B,), float(t), device=x.device), si)
+        t_b = torch.full((B,), float(t), device=x.device)
+        if decision_state is None:
+            v = denoise_fn(x, t_b, si)
+        else:
+            v, decision_state = denoise_fn(x, t_b, si, decision_state)
         x = x + float(np.float32(t_next - t)) * v
-    return x
+    return x if decision_state is None else (x, decision_state)

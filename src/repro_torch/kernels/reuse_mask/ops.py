@@ -9,8 +9,10 @@
   on-device replacement for the host-side ``core.reuse.compute_reuse``
   on its eligible shapes; it reads the operand in place through its
   strides and, given a ``grid_slice``, snaps the grid tokens of a mixed
-  text + grid sequence and copies the text tokens through;
-  ``launches`` counts its launches.
+  text + grid sequence and copies the text tokens through; with
+  ``want_src`` the same launch writes the grid tokens' int32 snap-source
+  map (``compute_reuse(want_src=True).src_idx``); ``launches`` counts
+  its launches.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor, and only there, it runs the plain version (``ref.py``).
@@ -36,7 +38,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # order_axis() indexes them.
 _ORDERS = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_FUSED_ARGS = [_P] * 3 + [_I] * 3 + [_L] * 3 + [_I] * 7 + [_F] * 3 \
+_FUSED_ARGS = [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I] * 7 + [_F] * 3 \
     + [_I] * 2 + [_P]
 _SNAP_ARGS = [_P] * 3 + [_I] * 3 + [_F, _P]
 
@@ -129,7 +131,7 @@ def _lead_dims(x: torch.Tensor):
 
 
 def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
-            granularity: str, grid_slice: Tuple[int, int]):
+            granularity: str, grid_slice: Tuple[int, int], want_src: bool):
     global launches
     T, H, W = grid
     *_, N, d = x.shape
@@ -155,10 +157,12 @@ def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
           for i, a in enumerate("txy")]
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    src = (torch.empty((*x.shape[:-2], grid_slice[1], d), dtype=torch.int32,
+                       device=x.device) if want_src else None)
     fn = _build.function("fused_reuse", "fused_reuse_launch", _FUSED_ARGS)
     with _build.on_device(x):  # launch on the operand's card
         rc = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(),
-                _DTYPES[x.dtype], n0, n1, s0, s1, x.stride(-2), N,
+                None if src is None else src.data_ptr(), _DTYPES[x.dtype], n0, n1, s0, s1, x.stride(-2), N,
                 grid_slice[0], T, TT, H, W, d, *th,
                 _ORDERS.index(tuple(order)), int(granularity == "token"),
                 torch.cuda.current_stream().cuda_stream)
@@ -166,19 +170,22 @@ def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
         raise RuntimeError(f"fused_reuse kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
-    return out, mask
+    return (out, mask) + ((src,) if want_src else ())
 
 
 def fused_reuse_snap(x: torch.Tensor, thetas: Sequence[float], *,
                      grid: Tuple[int, int, int],
                      axes: Tuple[str, ...] = ("t", "x", "y"),
                      granularity: str = "channel",
-                     grid_slice: Optional[Tuple[int, int]] = None):
+                     grid_slice: Optional[Tuple[int, int]] = None,
+                     want_src: bool = False):
     """x: (..., N, d), any strides; its tokens ``[s, s + T*H*W)`` are grid
     tokens in (t, y, x) row-major order (``grid_slice = (s, T*H*W)``;
     None: all N tokens are); thetas: (θt, θx, θy).  Returns (snapped,
     mask: bool) shaped like x: the grid tokens snapped, the others
-    unchanged with mask False."""
+    unchanged with mask False; with ``want_src`` also the grid tokens'
+    (..., T*H*W, d) int32 snap-source map in grid-local token indices,
+    by which gathering the grid segment gives its snapped values."""
     T, H, W = grid
     N = x.shape[-2]
     s, n = grid_slice if grid_slice is not None else (0, N)
@@ -187,19 +194,24 @@ def fused_reuse_snap(x: torch.Tensor, thetas: Sequence[float], *,
                          f"grid {grid}")
     if x.device.type == "cpu":
         return fused_reuse_ref(x, grid, dict(zip("txy", thetas)), axes=axes,
-                               granularity=granularity, grid_slice=grid_slice)
+                               granularity=granularity, grid_slice=grid_slice,
+                               want_src=want_src)
     if x.device.type != "cuda":
         raise ValueError(f"fused reuse kernel runs on CUDA, not {x.device}")
-    return _launch(x, thetas, grid, tuple(axes), granularity, (s, n))
+    return _launch(x, thetas, grid, tuple(axes), granularity, (s, n),
+                   want_src)
 
 
 def fused_compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
                         thetas: Dict[str, float], *,
                         axes: Sequence[str] = ("t", "x", "y"),
                         granularity: str = "channel",
-                        grid_slice: Optional[Tuple[int, int]] = None):
+                        grid_slice: Optional[Tuple[int, int]] = None,
+                        want_src: bool = False):
     """Dict-θ convenience mirroring ``compute_reuse``'s signature; returns
-    (snapped, mask).  Callers check :func:`fused_reuse_eligible` first."""
+    (snapped, mask), and the source map with ``want_src``.  Callers check
+    :func:`fused_reuse_eligible` first."""
     th = [float(thetas.get(a, 0.0)) for a in ("t", "x", "y")]
     return fused_reuse_snap(x, th, grid=grid, axes=tuple(axes),
-                            granularity=granularity, grid_slice=grid_slice)
+                            granularity=granularity, grid_slice=grid_slice,
+                            want_src=want_src)

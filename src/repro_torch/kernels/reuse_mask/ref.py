@@ -6,7 +6,8 @@
 * :func:`fused_reuse_ref` — the fused Δ-check + snap: the host pipeline
   ``core.reuse.compute_reuse`` on the grid tokens, the other tokens
   passed through (``core.reuse.snap_grid_tokens``), *is* the semantics
-  the fused kernel reproduces bit for bit on its eligible shapes.
+  the fused kernel reproduces bit for bit on its eligible shapes, the
+  source map of ``want_src`` included.
 """
 
 from __future__ import annotations
@@ -39,6 +40,6 @@ def reuse_snap_plain(x: torch.Tensor, theta: float):
 
 
 def fused_reuse_ref(x, grid, thetas, axes=("t", "x", "y"),
-                    granularity="channel", grid_slice=None):
-    return snap_grid_tokens(x, grid, thetas, grid_slice, axes=axes,
-                            window=2, granularity=granularity)
+                    granularity="channel", grid_slice=None, want_src=False):
+    return snap_grid_tokens(x, grid, thetas, grid_slice, want_src=want_src,
+                            axes=axes, window=2, granularity=granularity)

@@ -20,12 +20,15 @@ Sections:
   modelled byte count and measured wall time;
 * :func:`sparse_backend_sweep` — the svg policy's block map through the
   block-sparse kernel, the same kernel on an all-PARTIAL map, and the
-  dense flash kernel (``dense_flash_us``) as the anchor.
+  dense flash kernel (``dense_flash_us``) as the anchor;
+* :func:`decision_amortization` — the cross-step decision cache: one
+  decision against one re-application of a cached plan, per
+  cache-capable policy, and the per-step decision overhead at cadences
+  R = 1, 2, 4, 8.
 
 The reference's other sections wait for their modules: the dispatch
-autotune cache (``autotune_sweep``), the decision cache
-(``decision_amortization``), offline patterns (``static_pattern_sweep``)
-and ring attention (``ring_sweep``).
+autotune cache (``autotune_sweep``), offline patterns
+(``static_pattern_sweep``) and ring attention (``ring_sweep``).
 """
 
 from __future__ import annotations
@@ -247,6 +250,80 @@ def sparse_backend_sweep(grid=None, d=64, heads=2, block=128, *,
     }
 
 
+def _decision_tensors(d):
+    """The tensors of a ReuseDecision an attention backend would read."""
+    return tuple(t for t in (d.q, d.k, d.bias, d.block_map) if t is not None)
+
+
+def _consume(d):
+    """Each tensor the backend would read, reduced to a scalar."""
+    return tuple(t.sum() for t in _decision_tensors(d))
+
+
+def decision_amortization(grid=None, d=64, heads=2, cadences=(1, 2, 4, 8),
+                          *, device="cuda"):
+    """Per-step decision overhead of the cross-step decision cache at a
+    ``vdit_paper``-style latent grid, for each cache-capable policy:
+
+      * ``decide_us`` — one ``decide(want_plan=True)`` (the Δ-checks and
+        their source maps, or the head classification and mask building),
+      * ``apply_us`` — one ``apply_decision`` on fresh operands (a gather
+        for ripple, the cached bias and map attached for svg),
+
+    each followed by a sum over every tensor the backend would read, less
+    the time of those sums alone on a decision made beforehand (the
+    consumer floor).  The per-step overhead at cadence R is
+    ``(decide + (R-1)·apply) / R`` and ``reduction`` its gain over R=1.
+    """
+    from repro_torch.core import decision_cache as dc
+
+    if grid is None:
+        grid = make_config().model.grid(frames=32, img_res=256)  # (8,16,16)
+    n = math.prod(grid)
+    lat = correlated_video_latents(_generator(21, device), heads, grid, d,
+                                   temporal_rho=0.95, spatial_smooth=2)
+    x = lat.reshape(1, heads, n, d)
+    wq = 0.4 * torch.randn((d, d), generator=_generator(22, device),
+                           device=device)
+    wk = 0.4 * torch.randn((d, d), generator=_generator(23, device),
+                           device=device)
+    q, k = x @ wq, x @ wk
+    rows = []
+    for name in ("ripple", "svg"):
+        pol = get_policy(name)
+        cfg = RippleConfig(enabled=True, policy=name, theta_min=0.2,
+                           theta_max=0.5, i_min=2, i_max=8)
+        thetas = pol.thetas_for(cfg, 5, 10)
+        extra = {"block_shape": (128, 128)} if name == "svg" else {}
+
+        def decide():
+            return _consume(pol.decide(q, k, grid=grid, cfg=cfg,
+                                       thetas=thetas, fused=q.is_cuda,
+                                       want_plan=True, **extra))
+
+        d0 = pol.decide(q, k, grid=grid, cfg=cfg, thetas=thetas,
+                        fused=q.is_cuda, want_plan=True, **extra)
+        cache = dc.cache_from_decision(d0, dc.drift_stat(q, k, cfg))
+
+        def apply():
+            return _consume(pol.apply_decision(q, k, cache, grid=grid,
+                                               cfg=cfg, thetas=thetas))
+
+        floor_us = time_best(lambda: _consume(d0), repeats=5) * 1e6
+        decide_us = max(time_best(decide, repeats=5) * 1e6 - floor_us, 0.0)
+        apply_us = max(time_best(apply, repeats=5) * 1e6 - floor_us, 0.0)
+        per_step = {R: (decide_us + (R - 1) * apply_us) / R for R in cadences}
+        rows.append({
+            "policy": name, "grid": tuple(grid), "d": d, "heads": heads,
+            "decide_us": round(decide_us, 1),
+            "apply_us": round(apply_us, 1),
+            "per_step_us": {R: round(us, 1) for R, us in per_step.items()},
+            "reduction": {R: round(per_step[1] / max(us, 1e-9), 2)
+                          for R, us in per_step.items()},
+        })
+    return rows
+
+
 # --- entry point -------------------------------------------------------------
 
 
@@ -264,6 +341,16 @@ def sparse_row(s) -> str:
             f"sparse_us={s['sparse_us']};dense_map_us={s['dense_map_us']};"
             f"dense_flash_us={s['dense_flash_us']};"
             f"walltime_speedup={s['walltime_speedup']}")
+
+
+def amortization_row(r) -> str:
+    per = ";".join(f"R{R}={us}" for R, us in r["per_step_us"].items())
+    red = ";".join(f"red_R{R}={x}" for R, x in r["reduction"].items())
+    return (f"kernel_bench[decision_amortization@vdit_paper"
+            f"{_gname(r['grid'])}xd{r['d']}/{r['policy']}],"
+            f"{r['decide_us']:.0f},"
+            f"decide_us={r['decide_us']};apply_us={r['apply_us']};"
+            f"{per};{red}")
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -298,7 +385,11 @@ def main(argv: Optional[Sequence[str]] = None):
 
     s = sparse_backend_sweep(device=device)
     print(sparse_row(s), flush=True)
-    return rows + [m, s]
+
+    amort = decision_amortization(device=device)
+    for r in amort:
+        print(amortization_row(r), flush=True)
+    return rows + [m, s] + amort
 
 
 if __name__ == "__main__":

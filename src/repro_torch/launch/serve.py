@@ -11,7 +11,10 @@ resolution for 3 steps; ``--override key=value`` edits the config
 serves under the SVG block mask and ``--override ripple.svg_mask=true``
 composes it with TimeRipple's snapping, both through the block-sparse
 backend; ``--attn-backend`` picks the dispatch backend (``collapse``
-runs the exact pair-collapse identities in plain PyTorch).
+runs the exact pair-collapse identities in plain PyTorch);
+``--reuse-every R`` (or ``--override ripple.drift_tol=...``) serves the
+vdit under the cross-step decision cache, and each served batch logs
+``decision cache: N hits / M refreshes``.
 """
 
 from __future__ import annotations
@@ -25,14 +28,15 @@ import torch
 
 from repro_torch.config.base import apply_overrides
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
+from repro_torch.core import decision_cache
 from repro_torch.core import dispatch as dispatch_lib
-from repro_torch.core.policy import get_policy
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
 from repro_torch.launch.workloads import (_denoise_call, attention_tokens,
                                           latent_shape_for,
                                           mixed_request_stream,
-                                          request_label)
+                                          request_label,
+                                          vdit_decision_state)
 from repro_torch.models.params import init_dit, init_vdit
 from repro_torch.serving.engine import DiffusionEngine
 from repro_torch.utils.device import resolve_device
@@ -41,37 +45,36 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 
 def build_sampler(arch, shape, model, *, use_ripple: bool = True,
-                  policy=None, compute_dtype: torch.dtype = torch.bfloat16):
+                  policy=None, reuse_every=None,
+                  compute_dtype: torch.dtype = torch.bfloat16):
     """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt,
     seeds=None) -> latents`` runs the whole DDIM trajectory (neither
     vdit nor dit is ``mmdit``, so the server samples with DDIM) on the
     model's device.  The dit family ignores ``txt`` and conditions each
     request on a class label drawn from its seed (``seeds``, one per
     row, required there).  ``policy`` overrides the arch config's reuse
-    policy for this sampler.
+    policy for this sampler, ``reuse_every`` its decision-cache cadence.
 
-    A decision-cache setting (``reuse_every > 1`` or ``drift_tol > 0``)
-    on a vdit whose policy can cache its decisions raises: the JAX
-    launcher threads its cross-step decision cache there, which the port
-    does not have yet, so serving on would give a different trajectory.
-    The JAX launcher threads the cache for the vdit family only, so a
-    dit under those settings serves here as there, recomputing its
-    decision on every step."""
+    With a cadence above 1 (or the drift guard on) on a cache-capable
+    vdit config, the per-layer decision state is threaded through the
+    sampler, the reuse decision is made anew only on refresh steps, and
+    ``sample_fn`` returns ``(latents, aux)`` with the summed
+    ``cache_hits`` / ``cache_refreshes`` counters.  As in the JAX
+    launcher the cache is threaded for the vdit family only: a dit under
+    those settings decides on every step."""
     if arch.family not in ("vdit", "dit"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
     if policy:
         arch = dataclasses.replace(
             arch, ripple=dataclasses.replace(arch.ripple, policy=policy))
+    if reuse_every is not None:
+        arch = dataclasses.replace(
+            arch, ripple=dataclasses.replace(arch.ripple,
+                                             reuse_every=int(reuse_every)))
     rip = arch.ripple
-    pol = get_policy(rip.policy)
-    if (use_ripple and arch.family == "vdit" and rip.active()
-            and pol.caches_decisions
-            and (rip.reuse_every > 1 or rip.drift_tol > 0)):
-        raise NotImplementedError(
-            f"ripple.reuse_every={rip.reuse_every}, ripple.drift_tol="
-            f"{rip.drift_tol} under policy {pol.name!r} ask for the "
-            f"cross-step decision cache, which the port does not have yet "
-            f"(ROADMAP item 7)")
+    thread_cache = (use_ripple and arch.family == "vdit"
+                    and (rip.reuse_every > 1 or rip.drift_tol > 0)
+                    and decision_cache.supports_cache(rip))
     steps = shape.steps or 50
     ddpm = DDPMSchedule()
 
@@ -85,6 +88,22 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
             cond = {"labels": torch.tensor(labels, device=noise.device)}
         else:
             cond = {"txt": txt}
+
+        if thread_cache:
+            def denoise(x, t, step, dstate):
+                out, dstate = _denoise_call(
+                    arch, model, x, t, cond, step, steps,
+                    use_ripple=use_ripple, compute_dtype=compute_dtype,
+                    dstate=dstate)
+                return out.to(x.dtype), dstate
+
+            dstate = vdit_decision_state(arch, shape.img_res,
+                                         noise.shape[0])
+            lat, final = ddim_sample(denoise, noise, ddpm, steps,
+                                     decision_state=dstate)
+            return lat, {
+                "cache_hits": sum(st.hits.sum() for st in final),
+                "cache_refreshes": sum(st.refreshes.sum() for st in final)}
 
         def denoise(x, t, step):
             return _denoise_call(arch, model, x, t, cond, step, steps,
@@ -127,6 +146,12 @@ def main(argv=None):
                     help="reuse-policy name for every request (ripple, "
                          "svg, dense); default: the arch config's "
                          "ripple.policy")
+    ap.add_argument("--reuse-every", type=int, default=None, metavar="R",
+                    help="decision-cache cadence: make the reuse decision "
+                         "every R denoising steps and re-apply it in "
+                         "between; part of the engine's bucket key.  "
+                         "Default: the arch config's ripple.reuse_every "
+                         "(1 = a decision every step)")
     ap.add_argument("--attn-backend", default=None,
                     choices=dispatch_lib.BACKENDS,
                     help="override RippleConfig.backend for the dispatch "
@@ -152,9 +177,7 @@ def main(argv=None):
                           steps=args.steps)
     init = init_dit if arch.family == "dit" else init_vdit
     model = init(arch.model, seed=args.seed, device=device)
-    sample_fn, lat_shape = build_sampler(arch, shape, model,
-                                         use_ripple=not args.no_ripple,
-                                         policy=args.policy)
+    lat_shape = latent_shape_for(arch, shape)
     m = arch.model
     qk = (1, m.num_heads, attention_tokens(arch, shape),
           m.d_model // m.num_heads)
@@ -165,12 +188,16 @@ def main(argv=None):
              "plan %s", device, arch.name, m.num_layers, shape.name,
              shape.steps, lat_shape, plan.summary())
 
-    def factory(shp, steps):
+    def factory(shp, steps, policy=None, reuse_every=None):
         if (tuple(shp), steps) != (tuple(lat_shape), shape.steps):
             raise ValueError(f"no sampler for bucket {shp}, {steps} steps")
-        return sample_fn
+        return build_sampler(arch, shape, model,
+                             use_ripple=not args.no_ripple,
+                             policy=policy or args.policy,
+                             reuse_every=reuse_every)[0]
 
-    engine = DiffusionEngine(factory, device=device, max_batch=args.max_batch)
+    engine = DiffusionEngine(factory, device=device, max_batch=args.max_batch,
+                             default_reuse_every=args.reuse_every)
     engine.start()
     t0 = time.time()
     done = []

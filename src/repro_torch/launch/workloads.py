@@ -1,11 +1,12 @@
 """Serving helpers of the port: per-request latent shapes, attention
 token counts, a deterministic request stream, per-request class labels,
-and one denoiser forward (vdit and dit families)."""
+one denoiser forward (vdit and dit families) and the vdit's per-layer
+decision-cache state."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +51,13 @@ def request_label(seed: int, num_classes: int) -> int:
 
 
 def mixed_request_stream(arch: ArchConfig, shapes, num_requests: int,
-                         seed: int = 0):
+                         seed: int = 0, reuse_every: Optional[int] = None):
     """Round-robin (ShapeSpec, GenRequest) traffic over ``shapes`` with
     deterministic per-request text embeddings (numpy, seeded per
     request; a family without text gets the JAX package's (8, 64)
-    stand-in, which its sampler ignores) and seeds."""
+    stand-in, which its sampler ignores) and seeds; every request asks
+    for the decision-cache cadence ``reuse_every`` (None: the engine's
+    default)."""
     from repro_torch.serving.engine import GenRequest
 
     m = arch.model
@@ -67,24 +70,47 @@ def mixed_request_stream(arch: ArchConfig, shapes, num_requests: int,
             (txt_tokens, txt_dim)).astype(np.float32)
         out.append((sp, GenRequest(
             request_id=i, txt=txt, steps=sp.steps, seed=seed + i,
-            latent_shape=latent_shape_for(arch, sp))))
+            latent_shape=latent_shape_for(arch, sp),
+            reuse_every=reuse_every)))
     return out
+
+
+def vdit_decision_state(arch: ArchConfig, img_res: int, batch: int,
+                        policy: Optional[str] = None) -> Optional[List]:
+    """Per-layer decision-cache state for one vdit sampler invocation
+    (DESIGN.md §13): one entry per layer, each None until the layer's
+    first refresh (step 0 always refreshes, and the plan is then built
+    from the layer's operands, so ``img_res`` and ``batch`` fix nothing
+    ahead).  None when the config cannot cache (inactive ripple, or a
+    policy without the capability): callers take the per-step path."""
+    from repro_torch.core import decision_cache
+
+    pol = policy or arch.ripple.policy
+    if not decision_cache.supports_cache(arch.ripple, pol):
+        return None
+    return [None] * arch.model.num_layers
 
 
 def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
                   cond: dict, step: Optional[int], total: Optional[int],
                   use_ripple: bool = True,
-                  compute_dtype: torch.dtype = torch.bfloat16):
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  dstate: Optional[List] = None):
     """One denoiser forward: ``cond`` holds ``txt`` for the vdit and
     ``labels`` for the dit, whose sigma channels are dropped (the DDIM
-    path uses the noise prediction only)."""
+    path uses the noise prediction only).  ``dstate`` threads the
+    per-layer decision cache (vdit only); the call then returns
+    ``(out, new_dstate)``."""
     rip = arch.ripple if use_ripple else dataclasses.replace(
         arch.ripple, enabled=False)
     kw = dict(ripple=rip, step=step, total_steps=total,
               compute_dtype=compute_dtype)
+    if dstate is not None and arch.family != "vdit":
+        raise ValueError(f"decision-cache state is only threaded through "
+                         f"the vdit family, not {arch.family!r}")
     if arch.family == "dit":
         out = model(x, t, cond["labels"], **kw)
         return out[..., :arch.model.in_channels]
     if arch.family == "vdit":
-        return model(x, t, cond["txt"], **kw)
+        return model(x, t, cond["txt"], decision_state=dstate, **kw)
     raise ValueError(f"family {arch.family!r} is not ported yet")

@@ -56,8 +56,22 @@ def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
                   rope_cos: Optional[torch.Tensor] = None,
                   rope_sin: Optional[torch.Tensor] = None,
                   grid_slice: Optional[Tuple[int, int]] = None,
-                  backend: Optional[str] = None) -> torch.Tensor:
-    """Bidirectional MHA through the dispatch layer. x: (B, N, d)."""
+                  backend: Optional[str] = None,
+                  encoder_out: Optional[torch.Tensor] = None,
+                  cached_decision=None, return_decision: bool = False):
+    """Bidirectional MHA through the dispatch layer. x: (B, N, d).
+
+    ``cached_decision`` / ``return_decision`` thread the cross-step
+    decision cache through to ``attention_dispatch``; with either set
+    the layer returns ``(out, CachedDecision)``.  Self-attention on the
+    grid only: with ``encoder_out`` (cross-attention, not ported) they
+    raise, as in the JAX package."""
+    want_cache = cached_decision is not None or return_decision
+    if encoder_out is not None:
+        if want_cache:
+            raise ValueError("decision caching applies to grid "
+                             "self-attention only, not cross-attention")
+        raise NotImplementedError("cross-attention is not ported")
     dt = x.dtype
     B, N, _ = x.shape
     q = torch.matmul(x, p.wq.to(dt)).reshape(B, N, n_heads, head_dim)
@@ -75,6 +89,11 @@ def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     v = v.transpose(1, 2).contiguous()
     out = attention_dispatch(q, k, v, grid=grid, cfg=ripple, step=step,
                              total_steps=total_steps, grid_slice=grid_slice,
-                             backend=backend)
+                             backend=backend, cached_decision=cached_decision,
+                             return_decision=want_cache)
+    new_cache = None
+    if want_cache:
+        out, new_cache = out
     out = out.transpose(1, 2).reshape(B, N, n_heads * head_dim)
-    return torch.matmul(out, p.wo.to(dt))
+    out = torch.matmul(out, p.wo.to(dt))
+    return (out, new_cache) if want_cache else out

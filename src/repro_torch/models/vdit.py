@@ -10,7 +10,7 @@ schedule, text tokens kept out of snapping by ``grid_slice``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -99,10 +99,20 @@ class VDiT(nn.Module):
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 txt: torch.Tensor, *, ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                decision_state: Optional[List] = None):
         """latents (B, T, H, W, C); t (B,) diffusion time; txt (B, L, txt_dim)
         precomputed text embeddings.  Returns (B, T, H, W, C) in
-        ``compute_dtype``."""
+        ``compute_dtype``.
+
+        ``decision_state`` is the per-layer cross-step decision-cache state
+        (DESIGN.md §13): a list with one entry per layer, each a
+        :class:`~repro_torch.core.decision_cache.CachedDecision` or None
+        before the layer's first refresh
+        (``launch.workloads.vdit_decision_state`` builds it).  Given one,
+        the forward returns ``(out, decision_state)``, the list updated in
+        place layer by layer: a layer's old plan is freed as its new one
+        lands, so a refresh step holds one plan a layer, not two."""
         cfg = self.cfg
         dt = compute_dtype
         B, T, H, W, C = latents.shape
@@ -123,14 +133,22 @@ class VDiT(nn.Module):
         rope_cos = torch.cat([cos_t, cos_g], dim=0)
         rope_sin = torch.cat([sin_t, sin_g], dim=0)
 
-        for blk in self.blocks:
+        threads = decision_state is not None
+        if threads and len(decision_state) != len(self.blocks):
+            raise ValueError(f"decision_state has {len(decision_state)} "
+                             f"layers, the model {len(self.blocks)}")
+        for i, blk in enumerate(self.blocks):
             sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(blk.ada(c), 6, dim=-1)
             h = layernorm(x) * (1 + sc1[:, None]) + sh1[:, None]
             attn = mha_attention(
                 blk.attn, h, n_heads=cfg.num_heads, head_dim=hd, grid=grid,
                 ripple=ripple, step=step, total_steps=total_steps,
                 rope_cos=rope_cos, rope_sin=rope_sin,
-                grid_slice=(L_txt, n_img))
+                grid_slice=(L_txt, n_img),
+                cached_decision=decision_state[i] if threads else None,
+                return_decision=threads)
+            if threads:
+                attn, decision_state[i] = attn
             x = x + g1[:, None] * attn
             h = layernorm(x) * (1 + sc2[:, None]) + sh2[:, None]
             x = x + g2[:, None] * blk.mlp(h)
@@ -138,16 +156,19 @@ class VDiT(nn.Module):
         sh, sc = torch.chunk(self.final_ada(c), 2, dim=-1)
         x = layernorm(x[:, L_txt:]) * (1 + sc[:, None]) + sh[:, None]
         x = self.final(x)
-        return unpatchify_3d(x, cfg.t_patch, cfg.patch, tg, hg, wg, C)
+        out = unpatchify_3d(x, cfg.t_patch, cfg.patch, tg, hg, wg, C)
+        return (out, decision_state) if threads else out
 
 
 def vdit_apply(model: VDiT, latents: torch.Tensor, t: torch.Tensor,
                txt: torch.Tensor, cfg: Optional[VDiTConfig] = None, *,
                ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
                total_steps: Optional[int] = None,
-               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+               compute_dtype: torch.dtype = torch.bfloat16,
+               decision_state: Optional[List] = None):
     """Functional form mirroring the JAX ``vdit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, txt, ripple=ripple, step=step,
-                 total_steps=total_steps, compute_dtype=compute_dtype)
+                 total_steps=total_steps, compute_dtype=compute_dtype,
+                 decision_state=decision_state)

@@ -2,11 +2,12 @@
 generation.
 
 Requests are keyed into a **bucket** by ``(latent_shape, steps,
-txt_shape)``, so one sampler invocation never pads or mixes shapes.  A
-worker thread drains the deepest bucket first (ties to the oldest head),
-lingers ``max_wait_s`` for batch-mates from the same bucket up to
-``max_batch``, and runs that bucket's sampler, held in a bounded LRU of
-``sampler_factory(latent_shape, steps)`` results.
+reuse_every, txt_shape)``, so one sampler invocation never pads or mixes
+shapes or decision-cache cadences.  A worker thread drains the deepest
+bucket first (ties to the oldest head), lingers ``max_wait_s`` for
+batch-mates from the same bucket up to ``max_batch``, and runs that
+bucket's sampler, held in a bounded LRU of ``sampler_factory(latent_shape,
+steps[, policy, reuse_every])`` results.
 
 Per-request initial noise comes from a ``torch.Generator`` on the engine's
 device seeded with ``GenRequest.seed``, and the sampler gets every
@@ -18,6 +19,7 @@ from ``jax.random.PRNGKey``; the two streams differ by design.)
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import logging
 import threading
 import time
@@ -34,6 +36,24 @@ log = logging.getLogger("repro_torch.serve")
 BucketKey = Tuple
 
 
+def _positional_arity(fn: Optional[Callable]) -> int:
+    """How many positional arguments ``fn`` accepts: two-argument
+    factories take (latent_shape, steps); a third is the reuse policy
+    (the engine's default, None, until per-request policies are
+    ported); a fourth the decision-cache cadence.  A ``*args`` factory
+    counts as 3, as in the JAX engine."""
+    if fn is None:
+        return 0
+    try:
+        params = list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):
+        return 2
+    if any(p.kind == p.VAR_POSITIONAL for p in params):
+        return 3
+    return len([p for p in params
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)])
+
+
 @dataclasses.dataclass
 class GenRequest:
     request_id: int
@@ -41,6 +61,9 @@ class GenRequest:
     latent_shape: Tuple[int, ...]
     steps: int = 50
     seed: int = 0
+    # Decision-cache cadence for this request (RippleConfig.reuse_every);
+    # None -> the engine default.  Part of the bucket identity.
+    reuse_every: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -67,16 +90,30 @@ class DiffusionEngine:
     """Continuous-batching engine over bucketed samplers.
 
     ``sampler_factory(latent_shape, steps) -> sample_fn`` builds the
-    sampler of one bucket; ``sample_fn(noise, txt, seeds)`` takes the
+    sampler of one bucket; a factory with a third and a fourth positional
+    parameter also gets the bucket's policy (None: the config's) and its
+    decision-cache cadence (``GenRequest.reuse_every`` or
+    ``default_reuse_every``).  ``sample_fn(noise, txt, seeds)`` takes the
     batch's initial noise (B, *latent_shape) and text embeddings
     (B, L, txt_dim) on ``device`` (default CUDA) and the requests' seeds
-    (a list of B ints), and returns the final latents.
+    (a list of B ints), and returns the final latents, or ``(latents,
+    aux)`` where a cache-aware sampler reports its decision-cache
+    counters (``cache_hits`` / ``cache_refreshes``), which the engine
+    logs.  A cadence that the factory cannot take is refused.
     """
 
     def __init__(self, sampler_factory: Callable, *, device=None,
                  max_batch: int = 8, max_wait_s: float = 0.05,
-                 max_compiled: int = 8):
+                 max_compiled: int = 8,
+                 default_reuse_every: Optional[int] = None):
         self._factory = sampler_factory
+        self._factory_arity = _positional_arity(sampler_factory)
+        self._factory_takes_reuse = self._factory_arity >= 4
+        if default_reuse_every is not None and not self._factory_takes_reuse:
+            raise ValueError(
+                "default_reuse_every is set but the sampler factory does "
+                "not take a reuse_every argument — it could not honour it")
+        self.default_reuse_every = default_reuse_every
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
@@ -117,6 +154,14 @@ class DiffusionEngine:
         if not isinstance(req.steps, (int, np.integer)) or req.steps <= 0:
             raise ValueError(f"request {req.request_id}: steps must be a "
                              f"positive int, got {req.steps!r}")
+        if req.reuse_every is not None and req.reuse_every <= 0:
+            raise ValueError(f"request {req.request_id}: reuse_every must "
+                             f"be positive, got {req.reuse_every!r}")
+        if req.reuse_every is not None and not self._factory_takes_reuse:
+            raise ValueError(
+                f"request {req.request_id} sets "
+                f"reuse_every={req.reuse_every!r} but this engine's "
+                "sampler factory does not take a reuse_every argument")
         key = self._bucket_key(req)
         with self._lock:
             if self._stop:
@@ -140,7 +185,9 @@ class DiffusionEngine:
     # -- batching loop ----------------------------------------------------------
 
     def _bucket_key(self, req: GenRequest) -> BucketKey:
-        return (tuple(req.latent_shape), int(req.steps),
+        reuse = (req.reuse_every if req.reuse_every is not None
+                 else self.default_reuse_every)
+        return (tuple(req.latent_shape), int(req.steps), reuse,
                 tuple(np.shape(req.txt)))
 
     def _take_batch(self):
@@ -169,7 +216,9 @@ class DiffusionEngine:
     def _sampler(self, key: BucketKey) -> Callable:
         fn = self._compiled.get(key)
         if fn is None:
-            fn = self._factory(key[0], key[1])
+            shape, steps, reuse = key[:3]
+            fn = self._factory(*(shape, steps, None,
+                                 reuse)[:min(self._factory_arity, 4)])
             self._compiled[key] = fn
             while len(self._compiled) > self.max_compiled:
                 self._compiled.popitem(last=False)
@@ -187,7 +236,11 @@ class DiffusionEngine:
                                              for _, r in batch]))
             seeds = [r.seed for _, r in batch]
             out = fn(noise, txt.to(self.device), seeds)
+            aux = None
+            if isinstance(out, (tuple, list)) and len(out) == 2:
+                out, aux = out
             lat = out.float().cpu().numpy()
+            self._log_aux(key, aux)
         except Exception as e:  # noqa: BLE001 — fail the batch, not the engine
             log.exception("bucket %s batch failed", key)
             err = repr(e)
@@ -202,6 +255,19 @@ class DiffusionEngine:
             self._lock.notify_all()
         log.info("served bucket %s batch of %d in %.2fs", key, len(batch),
                  now - t0)
+
+    @staticmethod
+    def _log_aux(key: BucketKey, aux: Optional[dict]):
+        """Log a cache-aware sampler's decision-cache hit rate, so the
+        amortization shows in serving."""
+        if not aux:
+            return
+        hits = int(aux.get("cache_hits", 0))
+        refr = int(aux.get("cache_refreshes", 0))
+        if hits + refr:
+            log.info("bucket %s decision cache: %d hits / %d refreshes "
+                     "(hit rate %.2f)", key, hits, refr,
+                     hits / max(hits + refr, 1))
 
     def _loop(self):
         while True:

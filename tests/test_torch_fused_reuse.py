@@ -22,7 +22,7 @@ from repro.kernels.reuse_mask.ops import (  # noqa: E402
     fused_compute_reuse as j_fused_compute_reuse)
 from repro_torch.config.base import RippleConfig  # noqa: E402
 from repro_torch.core.policy import snap_operand  # noqa: E402
-from repro_torch.core.reuse import snap_grid_tokens  # noqa: E402
+from repro_torch.core.reuse import compute_reuse, snap_grid_tokens  # noqa: E402
 from repro_torch.kernels.reuse_mask import ops as reuse_ops  # noqa: E402
 
 torch.set_num_threads(2)
@@ -128,6 +128,63 @@ def test_grid_slice_bit_equal_to_jax_interpret(dtype):
     np.testing.assert_array_equal(m_t[:, :, N_TXT:].numpy(), np.asarray(m_j))
     np.testing.assert_array_equal(_bits(s_t[:, :, N_TXT:].float().numpy()),
                                   _bits(np.asarray(s_j.astype(jnp.float32))))
+
+
+@pytest.mark.parametrize("grid,axes,granularity", [
+    ((4, 4, 4), ("t", "x", "y"), "channel"),
+    ((2, 6, 4), ("y", "t", "x"), "token"),
+    ((1, 4, 6), ("x", "y"), "channel"),
+    ((3, 4, 5), ("x", "t", "y"), "channel"),  # remainders on t and x
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_source_map_bit_equal_to_jax(grid, axes, granularity, dtype):
+    """``compute_reuse(want_src=True)`` against JAX's on the same values:
+    the map is bit-equal, and gathering x by it gives ``snapped``."""
+    N = grid[0] * grid[1] * grid[2]
+    x = _mixed(20 + N, 2, 3, grid, 16, n_txt=0)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    th = {a: jnp.float32(v) for a, v in THETAS.items()}
+    r_j = j_compute_reuse(xj, grid, th, axes=axes, granularity=granularity,
+                          want_src=True)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    r_t = compute_reuse(xt, grid, THETAS, axes=axes,
+                        granularity=granularity, want_src=True)
+    assert r_t.src_idx.dtype == torch.int32
+    np.testing.assert_array_equal(r_t.src_idx.numpy(), np.asarray(r_j.src_idx))
+    assert 0.05 < float(r_t.mask.float().mean()) < 0.95
+    gathered = torch.gather(xt, -2, r_t.src_idx)
+    assert torch.equal(gathered, r_t.snapped)
+    assert torch.equal(r_t.src_idx != torch.arange(N, dtype=torch.int32)[:, None],
+                       r_t.mask)
+
+
+@pytest.mark.parametrize("view", ["contiguous", "transposed", "narrowed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_source_map_equals_plain(view, dtype):
+    """The wrapper's plain path with ``want_src`` on a text + grid operand
+    read in place: the grid segment's map is the host pipeline's
+    ``compute_reuse(want_src=True).src_idx`` and JAX's, and the snapped
+    values and mask are the ones without the map."""
+    grid = (2, 4, 4)
+    x = _mixed(21, 2, 3, grid, 16)
+    xt = _view(torch.from_numpy(x).to(getattr(torch, dtype)), view)
+    s, m, src = reuse_ops.fused_compute_reuse(xt, grid, THETAS,
+                                              grid_slice=(N_TXT, 32),
+                                              want_src=True)
+    s0, m0 = reuse_ops.fused_compute_reuse(xt, grid, THETAS,
+                                           grid_slice=(N_TXT, 32))
+    assert torch.equal(m, m0) and torch.equal(s, s0)
+    assert src.shape == (2, 3, 32, 16)
+    want = compute_reuse(xt[:, :, N_TXT:].contiguous(), grid, THETAS,
+                         want_src=True).src_idx
+    assert torch.equal(src, want)
+    xj = jnp.asarray(x[:, :, N_TXT:]).astype(getattr(jnp, dtype))
+    r_j = j_compute_reuse(xj, grid, {a: jnp.float32(v)
+                                     for a, v in THETAS.items()},
+                          want_src=True)
+    np.testing.assert_array_equal(src.numpy(), np.asarray(r_j.src_idx))
+    assert torch.equal(torch.gather(xt[:, :, N_TXT:], -2, src),
+                       s[:, :, N_TXT:])
 
 
 @pytest.mark.parametrize("view", ["contiguous", "transposed", "narrowed"])

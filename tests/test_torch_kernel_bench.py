@@ -93,6 +93,8 @@ MASK_FIELDS = ["fused_bytes", "host_bytes", "bytes_ratio", "fused_us",
 SPARSE_FIELDS = ["skip_rate", "mask_savings", "modeled_attn_speedup",
                  "sparse_us", "dense_map_us", "dense_flash_us",
                  "walltime_speedup"]
+AMORT_FIELDS = ["decide_us", "apply_us", "R1", "R2", "R4", "R8", "red_R1",
+                "red_R2", "red_R4", "red_R8"]
 
 
 def _fields(line):
@@ -110,10 +112,29 @@ def test_main_prints_the_reference_rows_on_cpu(capsys):
                     "kernel_bench[mask_fusion@vdit_paper32x32x32xd128]":
                         MASK_FIELDS,
                     "kernel_bench[sparse@vdit_paper8x16x16xd64]":
-                        SPARSE_FIELDS}
+                        SPARSE_FIELDS,
+                    "kernel_bench[decision_amortization@vdit_paper8x16x16"
+                    "xd64/ripple]": AMORT_FIELDS,
+                    "kernel_bench[decision_amortization@vdit_paper8x16x16"
+                    "xd64/svg]": AMORT_FIELDS}
     mask, sparse = out[2], out[3]
     assert mask["fused_le_host"] and 0 < mask["bytes_ratio"] < 1
     assert 0 < sparse["skip_rate"] < 1 and sparse["dense_flash_us"] > 0
+    assert [r["policy"] for r in out[4:]] == ["ripple", "svg"]
+
+
+def test_decision_amortization_rows_on_cpu():
+    """The section at a small grid: both policies, the reference's row
+    fields, and the cadence arithmetic (R=1 is one decision a step)."""
+    rows = kernel_bench.decision_amortization(grid=SMALL, d=16,
+                                              device="cpu")
+    assert [r["policy"] for r in rows] == ["ripple", "svg"]
+    for r in rows:
+        assert r["grid"] == SMALL and r["decide_us"] > 0
+        assert set(r["per_step_us"]) == {1, 2, 4, 8}
+        assert r["per_step_us"][1] == r["decide_us"]
+        assert r["reduction"][1] == 1.0
+        assert _fields(kernel_bench.amortization_row(r))[1] == AMORT_FIELDS
 
 
 def test_main_refuses_to_run_without_a_card(monkeypatch):

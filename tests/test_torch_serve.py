@@ -17,7 +17,7 @@ from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch.workloads import mixed_request_stream  # noqa: E402
 from repro_torch.models.params import init_vdit  # noqa: E402
 from repro_torch.serving.engine import (DiffusionEngine,  # noqa: E402
-                                        request_noise)
+                                        GenRequest, request_noise)
 
 torch.set_num_threads(2)
 
@@ -96,17 +96,129 @@ def test_main_serves_through_the_collapse_backend_on_cpu(caplog):
     assert "attention[ripple/collapse " in caplog.text
 
 
-@pytest.mark.parametrize("args", [
-    ["--override", "ripple.reuse_every=2"],
-    ["--policy", "svg", "--override", "ripple.drift_tol=0.1"],
-])
-def test_main_refuses_decision_cache_settings(args):
-    """The JAX launcher threads its cross-step decision cache for these
-    settings; the port has none yet, so it refuses rather than serving a
-    different trajectory."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        serve_lib.main(["--device", "cpu", "--smoke", "--requests", "1",
-                        *args])
+# The two decision-cache settings the launcher serves on the vdit: the
+# ripple policy at a cadence of 2, and svg under the drift guard.  The
+# schedule snaps from step 0 (i_min 0) so that hit steps replay snaps.
+CACHE_SETTINGS = {
+    "ripple-reuse_every": (None, ("ripple.reuse_every=2",)),
+    "svg-drift_tol": ("svg", ("ripple.drift_tol=0.1",)),
+}
+CACHE_SCHEDULE = ("ripple.i_min=0", "ripple.i_max=1")
+
+
+@pytest.mark.parametrize("setting", sorted(CACHE_SETTINGS))
+def test_main_serves_decision_cache_settings(setting, caplog):
+    """The launcher serves the vdit under the cache and logs its
+    counters: per (layer, batch, head) cell, 3 steps at R=2 make 2
+    refreshes (step 0 and the final step) and 1 hit; under the drift
+    guard alone (R=1) every step refreshes."""
+    policy, overrides = CACHE_SETTINGS[setting]
+    caplog.set_level("INFO", logger="repro_torch.serve")
+    argv = ["--device", "cpu", "--smoke", "--requests", "2"]
+    argv += ["--policy", policy] if policy else []
+    for o in overrides + CACHE_SCHEDULE:
+        argv += ["--override", o]
+    done = serve_lib.main(argv)
+    assert [r.request_id for r in done] == [0, 1]
+    assert all(np.isfinite(r.latents).all() for r in done)
+    cells = 2 * 2 * 2  # layers x batch x heads of the smoke vdit
+    hits, refr = (1, 2) if setting == "ripple-reuse_every" else (0, 3)
+    assert (f"decision cache: {hits * cells} hits / {refr * cells} "
+            f"refreshes") in caplog.text
+
+
+@pytest.mark.parametrize("setting", sorted(CACHE_SETTINGS))
+def test_cached_sampler_matches_the_jax_launcher(setting, monkeypatch):
+    """The port's and the JAX launcher's samplers under the same cache
+    setting, on the same params, noise and text, in float32: the latents
+    agree within the f32 summation-order gap (relative L2 < 1e-3) and the
+    decision-cache counters are equal."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config as j_smoke_config
+    from repro.config.base import apply_overrides as j_apply_overrides
+    from repro.launch import serve as j_serve
+    from repro.launch import workloads as j_workloads
+    from repro.models.params import init_params
+    from repro.models.vdit import vdit_defs
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.models.params import params_from_numpy
+
+    policy, overrides = CACHE_SETTINGS[setting]
+    j_arch = j_apply_overrides(j_smoke_config("vdit-paper"),
+                               overrides + CACHE_SCHEDULE)
+    arch = apply_overrides(get_smoke_config("vdit-paper"),
+                           overrides + CACHE_SCHEDULE)
+    rng = np.random.default_rng(5)
+    tree = jax.tree_util.tree_map(
+        lambda a: (rng.standard_normal(a.shape) / np.sqrt(
+            a.shape[-2] if a.ndim > 1 else 1) + (a.ndim == 1)).astype(
+                np.float32),
+        init_params(vdit_defs(j_arch.model), jax.random.PRNGKey(0)))
+    shape = serve_lib.serving_shape(arch, "gen_512", smoke=True)
+    j_shape = serve_lib.serving_shape(j_arch, "gen_512", smoke=True)
+    # The JAX launcher computes in its model's default bf16; pin f32 on
+    # both sides so the comparison measures the cache, not bf16 rounding.
+    orig = j_workloads.vdit_lib.vdit_apply
+    monkeypatch.setattr(j_workloads.vdit_lib, "vdit_apply",
+                        lambda *a, **kw: orig(*a, compute_dtype=jnp.float32,
+                                              **kw))
+    j_fn, lat_shape = j_serve.build_sampler(j_arch, j_shape,
+                                            jax.tree_util.tree_map(
+                                                jnp.asarray, tree),
+                                            policy=policy)
+    fn, t_lat_shape = serve_lib.build_sampler(
+        arch, shape, params_from_numpy(tree, arch.model, device="cpu"),
+        policy=policy, compute_dtype=torch.float32)
+    assert tuple(lat_shape) == tuple(t_lat_shape)
+    m = arch.model
+    noise = rng.standard_normal((2, *lat_shape)).astype(np.float32)
+    txt = (0.05 * rng.standard_normal((2, m.txt_tokens, m.txt_dim))).astype(
+        np.float32)
+    rngs = jnp.stack([jax.random.PRNGKey(i) for i in range(2)])
+    want, j_aux = j_fn(jnp.asarray(noise), jnp.asarray(txt), rngs)
+    got, aux = fn(torch.from_numpy(noise), torch.from_numpy(txt))
+    want = np.asarray(want)
+    rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert rel < 1e-3, rel
+    for key in ("cache_hits", "cache_refreshes"):
+        assert int(aux[key]) == int(j_aux[key]), key
+
+
+def test_engine_buckets_on_reuse_every():
+    built = []
+
+    def factory(shape, steps, policy=None, reuse_every=None):
+        built.append((policy, reuse_every))
+        return lambda n, t, r: n
+
+    eng = DiffusionEngine(factory, device="cpu", max_batch=2,
+                          max_wait_s=0.01)
+    eng.start()
+    for rid, r in enumerate((None, 4, 4, 1)):
+        eng.submit(GenRequest(request_id=rid, txt=np.zeros((1, 1), np.float32),
+                              steps=2, latent_shape=(4, 4), reuse_every=r))
+    for rid in range(4):
+        eng.result(rid, timeout=60)
+    eng.stop()
+    assert len(built) == 3
+    assert set(built) == {(None, None), (None, 1), (None, 4)}
+
+
+def test_engine_refuses_cadence_it_cannot_honour():
+    eng = DiffusionEngine(lambda shape, steps: (lambda n, t, r: n),
+                          device="cpu")
+    with pytest.raises(ValueError, match="reuse_every"):
+        eng.submit(GenRequest(request_id=0, txt=np.zeros((1, 1), np.float32),
+                              latent_shape=(2,), reuse_every=4))
+    with pytest.raises(ValueError, match="default_reuse_every"):
+        DiffusionEngine(lambda shape, steps: (lambda n, t, r: n),
+                        device="cpu", default_reuse_every=4)
+    eng2 = DiffusionEngine(lambda shape, steps, policy=None, reuse_every=None:
+                           (lambda n, t, r: n), device="cpu")
+    with pytest.raises(ValueError, match="positive"):
+        eng2.submit(GenRequest(request_id=1, txt=np.zeros((1, 1), np.float32),
+                               latent_shape=(2,), reuse_every=0))
 
 
 def _dit_latents(*override):
