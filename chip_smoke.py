@@ -11,7 +11,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    serving shape, small shapes, T = 1, the DiT's T = 1 x/y case at head
    dim 72, views read in place (transposed, channel windows, unaligned)
    with text tokens around the grid, d 72 and 128 and the scalar
-   instance (bf16 d 36, f32 d 6); the channel gate at every θ the
+   instance (bf16 d 36, f32 d 6), unet-sd15's four self-attention calls
+   (d 40, 80, 160, T = 1); the channel gate at every θ the
    served schedules give (each bf16 value from 0.2 to 0.5, the schedules'
    float32 values) and at 0, denormals, 1.0 and inf; then
    ``core.policy.snap_operand`` at the vDiT's served call through the
@@ -25,7 +26,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    fractions 0, 0.6 and 1.0, an unaligned N, head dims 16 to 128 (72 on
    tensor cores, asserted), B*H > 1 with a ragged last tile at d 128 and
    72, all-collapsed keys under dense queries and the other way round,
-   and both serving shapes;
+   and both serving shapes; the same cases at unet-sd15's head dims 40,
+   80 and 160 (tensor cores, asserted) and its four served shapes, and
+   the CUDA cores at d 160 and 256;
 4. holds the fused adaLN modulation kernel against its plain version,
    bf16 and f32, d 72 and 1152, ragged N, B > 1 with a different shift
    and scale per sample, and shift/scale read in place from chunks of the
@@ -77,6 +80,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    with the counters set to 0 just before and read just after: the
    adaLN, fused_reuse and ripple kernels must launch, the ripple kernel
    on tensor cores; then profiles one DiT forward at step 10;
+8a. serves 4 requests of unet-sd15 at full width and depth (ch 320,
+   ch_mult 1-2-4-4, 8 heads, gen_1024: latents 128 x 128 x 4, 50 DDIM
+   steps) in one batch, with the counters set to 0 just before and read
+   just after: every one of the 16 self-attention calls a forward goes
+   through fused_reuse (twice) and the ripple kernel, on the tensor cores
+   at each level's head dim (40, 80, 160); then profiles one forward at
+   step 10 (convolutions and GroupNorm as families of their own);
 8b. runs the port's kernel micro-bench (``repro_torch.launch.kernel_bench``)
    at the reference's defaults and its sparse sweep at the vDiT's serving
    width (the flash, sparse and fused_reuse kernels must launch), then
@@ -86,9 +96,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    f32 with the same mask) and f32 flash on the wide operands;
    and runs the public ``reuse_snap`` wrapper at that width; each with
    the counters set to 0 just before and read just after;
-9. checks a small trajectory of each of the four paths, and of the
-   ripple path under the decision cache with its drift guard, on the
-   card against the same trajectory on the CPU.
+9. checks a small trajectory of each of the four paths, of the ripple
+   path under the decision cache with its drift guard, and of the smoke
+   DiT and UNet, on the card against the same trajectory on the CPU.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -117,6 +127,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data-sheet peaks (dense): device memory and arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Exponentials: 16 ex2 results a clock per SM on the special-function
+# units, at the clock that gives the data-sheet bf16 peak (4096 dense
+# FLOP a clock per SM on 132 SMs: 1.83 GHz), 3.86e12 a second.  It counts
+# neither exponentials evaluated as polynomials on the FMA pipes nor
+# boost clocks above 1.83 GHz, so it is an estimate, not a strict floor.
+SM_COUNT = 132
+CLOCK_HZ = PEAK_FLOPS["bfloat16"] / (SM_COUNT * 4096)
+EXP2_PER_S = SM_COUNT * 16 * CLOCK_HZ
 # Float ops per element of the Δ-check: three window-2 Δ (9 ops each,
 # shared by 2 elements), three compares, the first-wins select chain.
 REUSE_OPS_PER_ELEM = 3 * 9 / 2 + 3 + 3
@@ -126,6 +144,13 @@ SERVE_STEPS = 12                        # step 10 snaps at θ=0.2, step 11 dense
 SERVE_REQUESTS = 3
 DIT_SHAPE = "gen_1024"  # (128, 128, 4) latents: a (1, 64, 64) grid, 50 steps
 DIT_REQUESTS = 4         # the shape's batch
+UNET_SHAPE = "gen_1024"  # (128, 128, 4) latents, 50 DDIM steps
+UNET_REQUESTS = 4        # the shape's batch
+# unet-sd15's self-attention calls at gen_1024, batch 4, 8 heads: (B, H,
+# N, d) and the (1, h, w) grid of each attention level, the mid block's
+# last.
+UNET_QK = (((4, 8, 16384, 40), (1, 128, 128)), ((4, 8, 4096, 80), (1, 64, 64)),
+           ((4, 8, 1024, 160), (1, 32, 32)), ((4, 8, 256, 160), (1, 16, 16)))
 CARD = ""                # nvidia-smi's name and power limit, set in main()
 
 
@@ -270,6 +295,10 @@ def reuse_checks(serve_grid, dit_qk, dit_grid):
     for dt in (bf16, f32):
         for gran in ("channel", "token"):
             check_reuse(res, dit_qk, dit_grid, dt, gran, th, axes=("x", "y"))
+    # unet-sd15's four self-attention calls at gen_1024 (T = 1, x/y, head
+    # dims 40, 80, 160; d 40 is 5 sixteen-byte chunks a bf16 row).
+    for qk, grid in UNET_QK:
+        check_reuse(res, qk, grid, bf16, "channel", th, axes=("x", "y"))
     # Views read in place, text tokens copied through, TT 1 and 2, d 72 and
     # 128, both gates and dtypes, and the scalar instance (bf16 d 36, f32 d
     # 6, and an unaligned view).
@@ -546,6 +575,10 @@ def l2_flush():
 # ---------------------------------------------------------------------------
 
 
+# Head dims of the ripple kernel's tensor-core path (bf16, d == dv).
+TC_DIMS = (32, 40, 64, 72, 80, 128, 160)
+
+
 def snapped_operand(shape, frac, seed, dtype, tile):
     """Pair-split operand with collapsed pairs: whole tiles of ``tile``
     pairs collapse with probability ``frac``, and so does every other
@@ -629,16 +662,133 @@ def f32_logit_slack(q, k, v) -> float:
     return 2 * v.float().abs().max().item() * (2 * gap + 2.0 ** -22 * top)
 
 
+def unet_ripple_checks(results):
+    """The ripple kernel at unet-sd15's head dims: bf16 at d 40, 80 and 160
+    on the tensor cores (collapse fractions 0, 0.6 and 1; B*H > 1 with a
+    ragged last tile; all-collapsed keys under dense queries and the other
+    way round; the four served shapes, constructed and as the path makes
+    them: snapped by fused_reuse on x/y at θ 0.2), then the CUDA cores at d
+    160 and 256 in f32 and d 256 in bf16.  Returns the main-path snapped
+    operands of the three timed shapes."""
+    import torch
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+    from repro_torch.kernels.ripple import ops as ripple_ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tile = ripple_ops.TILE_PAIRS
+
+    def case(shape, fq, fk, dt, label, seed):
+        q = snapped_operand(shape, fq, seed, dt, tile)
+        k = snapped_operand(shape, fk, seed + 1, dt, tile)
+        v = snapped_operand(shape, 0.0, seed + 2, dt, tile)
+        check_ripple(results, q, k, v, label)
+
+    for d in (40, 80, 160):
+        for frac in (0.0, 0.6, 1.0):
+            case((1, 2, 256, d), frac, frac, bf16, f"N=256 d={d} frac={frac}", 40 + d)
+        for fq, fk in ((0.6, 0.6), (1.0, 1.0), (0.0, 1.0), (1.0, 0.0)):
+            case((2, 3, 418, d), fq, fk, bf16, f"(2, 3, 418, {d}) q frac={fq} "
+                 f"k frac={fk} (ragged, B*H > 1)", 50 + d)
+    for d, dt in ((160, f32), (256, f32), (256, bf16)):
+        for frac in (0.6, 1.0):
+            case((1, 2, 130, d), frac, frac, dt, f"N=130 d={d} frac={frac} "
+                 f"(unaligned)", 60 + d)
+    served = {}
+    for i, (qk, grid) in enumerate(UNET_QK):
+        case(qk, 0.6, 0.6, bf16, f"{qk} frac=0.6 (unet-sd15 serving shape)", 70 + i)
+        q, k = (reuse_ops.fused_compute_reuse(
+            correlated(qk, bf16, seed), grid, dict(zip("txy", (0.2,) * 3)),
+            axes=("x", "y"))[0] for seed in (80 + i, 90 + i))
+        v = correlated(qk, bf16, 100 + i)
+        err = check_ripple(results, q, k, v, f"{qk} unet-sd15 main-path snapped operands")
+        if i < 3:
+            served[qk] = (q, k, v, err)
+        else:
+            del q, k, v
+    torch.cuda.empty_cache()
+    return served
+
+
+def ripple_bound(q, k, dv):
+    """(bound ms, bound by, flops, exponentials, bytes) of one ripple call
+    on these operands: the score and PV products these operands need (the
+    rows and keys a collapsed tile leaves, :func:`ripple_tile_stats`) at
+    the bf16 tensor peak, one exponential per score at the SFU rate, and
+    q, k, v read and the output written once; the largest of the three
+    (an exponential bound is one of operations, on the SFU)."""
+    from repro_torch.kernels.ripple import ops as ripple_ops
+
+    _, _, flops = ripple_ops.ripple_tile_stats(q, k, dv)
+    exps = flops / (2 * (q.shape[-1] + dv))
+    nbytes = (3 * q.numel() + q.numel() // q.shape[-1] * dv) * q.element_size()
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "operations": flops / PEAK_FLOPS["bfloat16"],
+         "exponentials": exps / EXP2_PER_S}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by, flops, exps, nbytes
+
+
+def time_unet_ripple(served):
+    """The ripple kernel at unet-sd15's three head dims, on the main
+    path's snapped operands (batch 4, 8 heads): the kernel's device time
+    (torch.profiler, back to back: at d 160 a call is tens of µs, below
+    the wrapper's host time) beside the wrapper's CUDA-event time, the
+    plain version (a loop over the batch rows: the full batch's dense
+    scores at 16384 tokens would take 34 GB), SDPA's device and
+    CUDA-event times, and the bound.  Returns one dict an instance."""
+    import torch
+    from repro_torch.kernels.ripple import ops as ripple_ops
+    from repro_torch.kernels.ripple.ref import ripple_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for qk, (q, k, v, err) in served.items():
+        d = qk[-1]
+        scale = ripple_ops.attention_scale(d)
+        ms, host = device_time_ms(lambda: ripple_ops.ripple_attention(q, k, v),
+                                  "ripple_wgmma_kernel")
+        wrap = cuda_time_ms(lambda: ripple_ops.ripple_attention(q, k, v), iters=10)
+        plain = cuda_time_ms(lambda: [ripple_attention_ref(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], scale) for b in range(q.shape[0])],
+            iters=2, warmup=1)
+        lib, _ = device_time_ms(lambda: sdpa(q, k, v, scale=scale))
+        lib_wrap = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale), iters=10)
+        bound, by, flops, exps, nbytes = ripple_bound(q, k, d)
+        parts = {"operations": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                 "exponentials": exps / EXP2_PER_S * 1e3,
+                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        qf, kf, _ = ripple_ops.ripple_tile_stats(q, k, d)
+        log(f"time ripple_attention bf16 {qk} (unet-sd15, d {d}, tensor cores "
+            f"{ripple_ops.uses_tensor_cores(q, v)}; tiles collapsed q {qf:.3f} k "
+            f"{kf:.3f}): kernel device {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{exps / ms / 1e9:.3f} T exp/s), wrapper back to back {wrap:.4f} ms, host "
+            f"{host:.4f} ms a wrapper call; plain {plain:.4f} ms; sdpa device "
+            f"{lib:.4f} ms, back to back {lib_wrap:.4f} ms; "
+            f"bound {bound:.4f} ms ({by}: {flops / 1e12:.4f} TFLOP, {exps / 1e9:.3f} G "
+            f"exponentials, {nbytes / 1e6:.1f} MB); each bound: " + ", ".join(
+                f"{n} {t:.4f} ms (bound/kernel {t / ms:.3f})" for n, t in parts.items())
+            + f"; kernel/sdpa {ms / lib:.3f}; {CARD}")
+        out.append({"shape": list(qk), "ms": ms, "wrapper_ms": wrap, "host_ms": host,
+                    "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": "bytes" if by == "bytes" else "operations",
+                    "bound_detail": by, "bound_parts_ms": parts,
+                    "library_ms": lib, "library_wrapper_ms": lib_wrap,
+                    "max_abs_err": err})
+    served.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_ripple(results, q, k, v, label):
     """The kernel against :func:`attention_oracle`; every bf16 case with a
-    head dim of 32, 64, 72 or 128 must take the tensor cores."""
+    head dim in ``TC_DIMS`` must take the tensor cores, no other case."""
     import torch
     from repro_torch.kernels.ripple import ops as ripple_ops
 
     out = ripple_ops.ripple_attention(q, k, v)
     tc = ripple_ops.uses_tensor_cores(q, v)
     want_tc = (q.dtype == torch.bfloat16 and q.shape[-1] == v.shape[-1]
-               and q.shape[-1] in (32, 64, 72, 128))
+               and q.shape[-1] in TC_DIMS)
     ref = attention_oracle(q, k, v, ripple_ops.attention_scale(q.shape[-1]),
                            tc)
     torch.cuda.synchronize()
@@ -1464,17 +1614,15 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     sampler's counters (its ``(latents, aux)`` return) go into ``aux``."""
     import numpy as np
     import torch
-    from repro_torch.core import dispatch as dispatch_lib
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import build_sampler
-    from repro_torch.launch.workloads import attention_tokens, mixed_request_stream
+    from repro_torch.launch.serve import attention_plans, build_sampler
+    from repro_torch.launch.workloads import mixed_request_stream
     from repro_torch.serving.engine import DiffusionEngine
 
-    m = arch.model
     sample_fn, lat_shape = build_sampler(arch, shape, model, policy=policy)
-    qk = (1, m.num_heads, attention_tokens(arch, shape), m.d_model // m.num_heads)
-    plan = dispatch_lib.resolve_plan(qk, qk, arch.ripple, on_cuda=True, policy=policy)
-    log(f"serve[{label}]: plan {plan.summary()}; ripple {arch.ripple}"
+    plans = "; ".join(f"{n} tokens x d {hd}: {plan.summary()}" for n, hd, plan in
+                      attention_plans(arch, shape, on_cuda=True, policy=policy))
+    log(f"serve[{label}]: plan {plans}; ripple {arch.ripple}"
         f"{'' if policy is None else f', policy {policy}'}")
     def sampler(noise, txt, seeds):
         out = sample_fn(noise, txt, seeds)
@@ -1540,7 +1688,7 @@ def serve_ripple(arch, shape, model, label="ripple", **phase):
     share of ripple-kernel tiles that collapse there, by shadowing the
     policy's methods on the registered instance and the kernel wrapper
     for this run only; every ripple call's (dtype, d, dv, tensor cores)
-    is recorded.  ``phase`` goes to :func:`serve_phase`."""
+    is counted.  ``phase`` goes to :func:`serve_phase`."""
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels.ripple import ops as ripple_ops
@@ -1548,7 +1696,7 @@ def serve_ripple(arch, shape, model, label="ripple", **phase):
     pol = get_policy("ripple")
     snaps = {"q": [], "k": [], "qt": [], "kt": []}
     current = {"step": None}
-    paths = set()
+    paths = {}  # (dtype, N, d, dv, tensor cores) -> ripple calls
 
     def thetas_for(orig):
         def f(cfg, step, total_steps, thetas=None):
@@ -1568,8 +1716,9 @@ def serve_ripple(arch, shape, model, label="ripple", **phase):
 
     def kernel(orig):
         def f(q, k, v, **kw):
-            paths.add((str(q.dtype).replace("torch.", ""), q.shape[-1], v.shape[-1],
-                       ripple_ops.uses_tensor_cores(q, v)))
+            key = (str(q.dtype).replace("torch.", ""), q.shape[-2], q.shape[-1],
+                   v.shape[-1], ripple_ops.uses_tensor_cores(q, v))
+            paths[key] = paths.get(key, 0) + 1
             if current["step"] == 10:
                 qt, kt, _ = ripple_ops.ripple_tile_stats(q, k, v.shape[-1])
                 snaps["qt"].append(qt)
@@ -1587,8 +1736,8 @@ def serve_ripple(arch, shape, model, label="ripple", **phase):
     qt = sum(snaps["qt"]) / max(len(snaps["qt"]), 1)
     kt = sum(snaps["kt"]) / max(len(snaps["kt"]), 1)
     log(f"serve[{label}]: snap fraction at step 10: Q {q_snap:.4f} K {k_snap:.4f}; "
-        f"ripple tiles collapsed there: Q {qt:.4f} K {kt:.4f}; ripple calls (dtype, d, "
-        f"dv, tensor cores): {sorted(paths)}")
+        f"ripple tiles collapsed there: Q {qt:.4f} K {kt:.4f}; ripple calls (dtype, N, "
+        f"d, dv, tensor cores): calls {sorted(paths.items())}")
     if q_snap <= 0 or k_snap <= 0:
         raise SystemExit("no snapping at step 10")
     return counts, lat_shape, paths
@@ -1851,6 +2000,68 @@ def serve_dit():
     return counts
 
 
+def serve_unet():
+    """unet-sd15 at full width and depth (ch 320, ch_mult 1-2-4-4, 2 res
+    blocks a level, 8 heads, text context 77 x 768) on gen_1024: 4
+    requests in one batch, 50 DDIM steps, through the ripple policy.  The
+    fused_reuse and ripple kernels must launch on every self-attention
+    call (16 a forward), the ripple kernel on the tensor cores at each
+    level's head dim (40, 80, 160), and the sparse kernel not at all; then
+    one forward at step 10 is profiled with the convolutions and the
+    GroupNorms as families of their own.  Returns the launch counts and
+    the ripple kernel's launches by (tokens, head dim), both from the
+    wrappers' counters."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ripple import ops as ripple_ops
+    from repro_torch.launch.serve import serving_shape
+    from repro_torch.launch.workloads import attention_shapes
+    from repro_torch.models import conv as conv_lib
+    from repro_torch.models.params import init_unet
+
+    arch = get_config("unet-sd15")
+    shape = serving_shape(arch, UNET_SHAPE, smoke=False)
+    m = arch.model
+    log(f"serve: unet-sd15 full width and depth ch={m.ch} ch_mult={m.ch_mult} "
+        f"n_res_blocks={m.n_res_blocks} attn_res={m.attn_res} heads={m.num_heads} "
+        f"context={m.ctx_tokens}x{m.ctx_dim}; {shape.name}: img_res {shape.img_res}, "
+        f"latents {shape.img_res // 8}x{shape.img_res // 8}x{m.in_channels}, "
+        f"self-attention (tokens, head dim) {attention_shapes(arch, shape)}, "
+        f"{shape.steps} DDIM steps, {UNET_REQUESTS} requests; no cuts")
+    t0 = time.perf_counter()
+    model = init_unet(m, seed=0, device="cuda", dtype=torch.bfloat16, zero_init=False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: {n_params / 1e9:.3f} B params (bf16, every leaf drawn from a seeded "
+        f"generator, the zero-initialised biases too) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    calls = 1 + sum(len(level.attn) for level in (*model.down, *model.up))
+    counts, lat_shape, paths = serve_ripple(
+        arch, shape, model, "unet-sd15", requests=UNET_REQUESTS,
+        launched=("fused_reuse", "ripple_attention"))
+    by_shape = dict(ripple_ops.launches_by_shape)  # read with ``counts``
+    want = {"ripple_attention": calls * shape.steps, "fused_reuse": 2 * calls * shape.steps}
+    dims = sorted({d for _, _, d, _, _ in paths})
+    log(f"serve[unet-sd15]: {calls} self-attention calls a forward; launches "
+        f"{ {n: counts[n] for n in want} } (expected {want}); ripple head dims {dims}")
+    if any(counts[n] != c for n, c in want.items()):
+        raise SystemExit("serve[unet-sd15]: a self-attention call missed a kernel")
+    if dims != [40, 80, 160] or not all(tc for *_, tc in paths):
+        raise SystemExit("serve[unet-sd15]: the ripple kernel left the tensor cores "
+                         "or missed a level")
+    log(f"serve[unet-sd15]: ripple launches by (tokens, head dim) {sorted(by_shape.items())}")
+    if sum(by_shape.values()) != counts["ripple_attention"]:
+        raise SystemExit("serve[unet-sd15]: ripple launches by shape do not add up")
+    profile_forward("unet-sd15", arch, model, lat_shape,
+                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
+                    annotate=ripple_ranges() + [(conv_lib, "conv2d", "conv"),
+                                                (conv_lib, "groupnorm", "groupnorm")],
+                    batch=UNET_REQUESTS, total=shape.steps)
+    del model
+    torch.cuda.empty_cache()
+    return counts, by_shape
+
+
 def ripple_ranges():
     """The ripple wrapper's collapse-flag pass (plain PyTorch, on the key
     operand) and the policy's snap step (the fused_reuse kernel and any
@@ -1881,6 +2092,7 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.launch.serve import model_summary
     from repro_torch.launch.workloads import _denoise_call
 
     g = torch.Generator(device="cuda")
@@ -1890,6 +2102,9 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     if arch.family == "dit":
         cond = {"labels": torch.randint(0, m.num_classes, (batch,), generator=g,
                                         device="cuda")}
+    elif arch.family == "unet":
+        cond = {"ctx": 0.05 * torch.randn((batch, m.ctx_tokens, m.ctx_dim),
+                                          generator=g, device="cuda")}
     else:
         cond = {"txt": 0.05 * torch.randn((batch, m.txt_tokens, m.txt_dim),
                                           generator=g, device="cuda")}
@@ -1982,7 +2197,7 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
         raise SystemExit(f"profile[{label}]: the profiler reported no device time")
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items())
     log(f"profile[{label}]: one forward, batch {batch}, "
-        f"{arch.model.num_layers} layers, step {step} of {total}: wall {wall_ms:.3f} ms, "
+        f"{model_summary(arch)}, step {step} of {total}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
         f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
         f"{peak:.2f} GiB")
@@ -2128,16 +2343,16 @@ def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
     import torch
     from repro_torch.config.base import apply_overrides
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch.serve import build_sampler, serving_shape
-    from repro_torch.models.params import init_dit, init_vdit
+    from repro_torch.launch.serve import MODEL_INIT, build_sampler, serving_shape
+    from repro_torch.launch.workloads import mixed_request_stream
     from repro_torch.serving.engine import request_noise
 
     arch = apply_overrides(get_smoke_config(name), overrides)
-    init = init_dit if arch.family == "dit" else init_vdit
+    init = MODEL_INIT[arch.family]
     shape_name = next(sp.name for sp in arch.shapes if sp.kind == "generate")
     shape = serving_shape(arch, shape_name, smoke=True, steps=SERVE_STEPS)
-    txt_shape = (1, getattr(arch.model, "txt_tokens", 8),
-                 getattr(arch.model, "txt_dim", 64))
+    # The text shape a request of this model carries (the unet's context).
+    txt_shape = (1,) + mixed_request_stream(arch, (shape,), 1)[0][1].txt.shape
     outs, aux = {}, {}
     for dev in ("cuda", "cpu"):
         model = init(arch.model, seed=1, device="cpu", zero_init=False)
@@ -2289,6 +2504,7 @@ def main() -> int:
     dit_v = correlated(dit_qk, bf16, 21)
     check_ripple(res2, dit_q, dit_k, dit_v,
                  f"{dit_qk} dit-xl2 main-path snapped operands")
+    unet_served = unet_ripple_checks(res2)
     log(f"kernel ripple_attention: {sum(res2)}/{len(res2)} cases within "
         f"tolerance")
 
@@ -2317,11 +2533,8 @@ def main() -> int:
     k2_plain = cuda_time_ms(lambda: ripple_attention_ref(q, k, v, scale), iters=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     k2_lib = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale), iters=10)
-    _, _, flops = ripple_ops.ripple_tile_stats(q, k, 128)
-    k2_bytes = 4 * q.numel() * 2
-    k2_bound = max(k2_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
-    k2_by = ("operations" if flops / PEAK_FLOPS["bfloat16"]
-             >= k2_bytes / HBM_BYTES_PER_S else "bytes")
+    k2_bound, k2_by, flops, _, _ = ripple_bound(q, k, 128)
+    k2_by = "bytes" if k2_by == "bytes" else "operations"
     log(f"time ripple_attention bf16 {tuple(serve_qkv)}: kernel {k2_ms:.4f} ms "
         f"({flops / k2_ms / 1e9:.2f} TFLOP/s), plain {k2_plain:.4f} ms, sdpa "
         f"{k2_lib:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}: {flops / 1e12:.4f} "
@@ -2337,15 +2550,18 @@ def main() -> int:
     scale = ripple_ops.attention_scale(72)
     r_plain = cuda_time_ms(lambda: ripple_attention_ref(q, k, v, scale), iters=3)
     r_lib = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale), iters=10)
-    _, _, r_flops = ripple_ops.ripple_tile_stats(q, k, 72)
-    r_bytes = 4 * q.numel() * 2
-    r_bound = max(r_bytes / HBM_BYTES_PER_S, r_flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    r_bound, r_by, r_flops, _, _ = ripple_bound(q, k, 72)
     log(f"time ripple_attention bf16 {dit_qk} (dit-xl2, tensor cores "
         f"{ripple_ops.uses_tensor_cores(q, v)}): kernel {r_ms:.4f} ms "
         f"({r_flops / r_ms / 1e9:.2f} TFLOP/s), plain {r_plain:.4f} ms, sdpa "
-        f"{r_lib:.4f} ms, bound {r_bound:.4f} ms (operations: {r_flops / 1e12:.4f} "
+        f"{r_lib:.4f} ms, bound {r_bound:.4f} ms ({r_by}: {r_flops / 1e12:.4f} "
         f"TFLOP); kernel/sdpa {r_ms / r_lib:.3f}, bound/kernel {r_bound / r_ms:.3f}")
     del q, k, v, dit_q, dit_k, dit_v
+    unet_times = time_unet_ripple(unet_served)
+    xu = correlated(UNET_QK[0][0], bf16, 24)
+    t1u = time_fused_reuse(xu, UNET_QK[0][1], ("x", "y"), None, "unet-sd15 served call",
+                           flush)
+    del xu
 
     # adaLN at the DiT's main-path shape, shift/scale chunks of the
     # projection as the model passes them.
@@ -2486,6 +2702,13 @@ def main() -> int:
     # before it and read just after ----------------------------------------
     counts_d = serve_dit()
 
+    # 8a. unet-sd15 at full width and depth, with the counters set to 0 just
+    # before it and read just after ----------------------------------------
+    counts_u, by_shape_u = serve_unet()
+    for inst in unet_times:
+        inst["launches"] = sum(c for (n, d), c in by_shape_u.items()
+                               if [n, d] == inst["shape"][-2:])
+
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
     counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
@@ -2502,6 +2725,8 @@ def main() -> int:
     # The DiT at head dim 72 (d_model 144, 2 heads), 2 layers, grid (1, 4, 4).
     small_reference_check("dit-xl2", name="dit-xl2",
                           overrides=("model.d_model=144", "model.num_heads=2"))
+    # The smoke UNet (ch 32, 2 levels, head dims 8 and 16), latents 8 x 8.
+    small_reference_check("unet", name="unet-sd15")
 
     kernels = [
         # Device times (torch.profiler, L2 flushed before each call) for
@@ -2515,13 +2740,20 @@ def main() -> int:
          # refresh step launches it, and its launches in serve[ripple-cache].
          "src_ms": t1s["ms"], "src_host_ms": t1s["host_ms"],
          "src_plain_ms": t1s["plain_ms"], "src_bound_ms": t1s["bound_ms"],
-         "launches_ripple_cache": counts_c["fused_reuse"]},
+         "launches_ripple_cache": counts_c["fused_reuse"],
+         # unet-sd15: its launches in serve[unet-sd15] and the call at its
+         # finest level, (4, 8, 16384, 40), T = 1, axes xy.
+         "launches_unet": counts_u["fused_reuse"], "unet_ms": t1u["ms"],
+         "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",
          "launches": counts_r["ripple_attention"], "max_abs_err": serve_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib},
+         "bound_by": k2_by, "library_ms": k2_lib,
+         # unet-sd15's head dims 40, 80 and 160 on their served calls, with
+         # their launches in serve[unet-sd15].
+         "launches_unet": counts_u["ripple_attention"], "unet": unet_times},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",
          "replaces": "src/repro/kernels/sparse/kernel.py:120",

@@ -3,9 +3,10 @@ from repro_torch.config.base import (
     DiTConfig,
     RippleConfig,
     ShapeSpec,
+    UNetConfig,
     VDiTConfig,
     apply_overrides,
 )
 
 __all__ = ["ArchConfig", "DiTConfig", "RippleConfig", "ShapeSpec",
-           "VDiTConfig", "apply_overrides"]
+           "UNetConfig", "VDiTConfig", "apply_overrides"]

@@ -3,8 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, with the same
 field names and defaults as the JAX package's ``repro.config.base``, so
 that one config (and one ``key=value`` override string) means the same
-thing in both packages.  The vDiT and DiT families are carried over so
-far.
+thing in both packages.  The vDiT, DiT and UNet families are carried
+over so far.
 """
 
 from __future__ import annotations
@@ -118,6 +118,22 @@ class DiTConfig:
     def num_tokens(self, img_res: Optional[int] = None) -> int:
         side = self.latent_res(img_res) // self.patch
         return side * side
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    """SD1.5-style latent UNet (arXiv:2112.10752)."""
+
+    img_res: int
+    latent_res: int
+    ch: int
+    ch_mult: Tuple[int, ...]
+    n_res_blocks: int
+    attn_res: Tuple[int, ...]  # downsample factors at which attention runs
+    ctx_dim: int
+    in_channels: int = 4
+    num_heads: int = 8
+    ctx_tokens: int = 77
 
 
 @dataclass(frozen=True)

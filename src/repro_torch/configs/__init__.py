@@ -1,14 +1,15 @@
-"""Architecture registry of the port: ``vdit-paper``, ``dit-xl2`` and
-``dit-b2`` so far."""
+"""Architecture registry of the port: ``vdit-paper``, ``dit-xl2``,
+``dit-b2`` and ``unet-sd15`` so far."""
 
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.config.base import ArchConfig
-from repro_torch.configs import dit_b2, dit_xl2, vdit_paper
+from repro_torch.configs import dit_b2, dit_xl2, unet_sd15, vdit_paper
 
-_MODULES = {"vdit-paper": vdit_paper, "dit-xl2": dit_xl2, "dit-b2": dit_b2}
+_MODULES = {"vdit-paper": vdit_paper, "dit-xl2": dit_xl2, "dit-b2": dit_b2,
+            "unet-sd15": unet_sd15}
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

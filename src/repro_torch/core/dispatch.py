@@ -17,7 +17,9 @@ model targets (DESIGN.md §8).
      their masks into a skip/full/partial block map.  ``auto`` picks
      ``sparse`` for such policies on any device (the plain version on
      the CPU), as the reference does, and otherwise ``pallas`` for CUDA
-     operands where the reference picks it on TPU.
+     operands where the reference picks it on TPU, at any head dim: the
+     kernel takes every head dim a config of the repo serves (up to 256)
+     and raises on a larger one.
   3. **Mask pipeline placement** — the Δ-checks run in the fused CUDA
      kernel (``kernels/reuse_mask``) or on the host path
      (``core.reuse``), per ``cfg.fused_mask``; ``auto`` fuses on CUDA.

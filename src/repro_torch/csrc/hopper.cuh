@@ -26,9 +26,13 @@ __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 // How a head dim's channels lie in shared memory.  Main boxes: rows of
 // MAIN_SW bytes (MAIN_SW / 2 channels, swizzled over MAIN_SW bytes) over
-// the first MAIN_C channels; d 72 adds a tail box of 16 channels in 32 B
-// rows (32 B swizzle) over channels 64-79, 72-79 zero-filled by TMA.  A
-// tile of R rows stores main box b at b * R * MAIN_SW, then the tail.
+// the first MAIN_C channels; then at most one tail box over the rest of
+// the DP channels, in rows of TAIL_SW bytes swizzled over as many:
+//   d 72:  64 + a 16-channel tail in 32 B rows, 72-79 zero-filled by TMA;
+//   d 80:  64 + 16, no padding;
+//   d 40:  32 (64 B rows) + a 16-channel tail, 40-47 zero-filled;
+//   d 160: 64 + 64 + a 32-channel tail in 64 B rows.
+// A tile of R rows stores main box b at b * R * MAIN_SW, then the tail.
 template <int D>
 struct Boxes {
   static constexpr int DP = (D + 15) / 16 * 16;  // channels multiplied
@@ -37,12 +41,13 @@ struct Boxes {
   static constexpr int NMAIN = D / MAIN_BOXC;
   static constexpr int MAIN_C = NMAIN * MAIN_BOXC;
   static constexpr int TAIL_C = DP - MAIN_C;
-  static constexpr int TAIL_SW = 32;
+  static constexpr int TAIL_SW = TAIL_C == 32 ? 64 : 32;
   static constexpr int KSTEPS = DP / 16;  // score-product k-steps
   // wgmma descriptor layout codes: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B.
   static constexpr uint64_t MAIN_MODE = MAIN_SW == 128 ? 1 : 2;
-  static constexpr uint64_t TAIL_MODE = 3;
-  static_assert(TAIL_C == 0 || TAIL_C == 16, "at most one 16-channel tail");
+  static constexpr uint64_t TAIL_MODE = TAIL_SW == 64 ? 2 : 3;
+  static_assert(TAIL_C == 0 || TAIL_C == 16 || TAIL_C == 32,
+                "at most one tail box of 16 or 32 channels");
   static_assert(MAIN_C % MAIN_BOXC == 0 && DP % 16 == 0, "whole boxes");
 };
 
@@ -292,16 +297,19 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// Descriptor of the 16 channels of k-step kk in a K-major tile of R rows.
+// Descriptor of the 16 channels of k-step kk in a K-major tile of R rows,
+// from row row0 on (a multiple of 8, so the swizzle pattern lines up).
 template <int D, int R>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk,
+                                                int row0 = 0) {
   using T = Boxes<D>;
   const int ch = 16 * kk;
   if (ch < T::MAIN_C)
     return make_desc(tile + (2 * ch / T::MAIN_SW) * R * T::MAIN_SW +
-                         2 * ch % T::MAIN_SW,
+                         row0 * T::MAIN_SW + 2 * ch % T::MAIN_SW,
                      16, 8 * T::MAIN_SW, T::MAIN_MODE);
-  return make_desc(tile + T::NMAIN * R * T::MAIN_SW + 2 * (ch - T::MAIN_C),
+  return make_desc(tile + T::NMAIN * R * T::MAIN_SW + row0 * T::TAIL_SW +
+                       2 * (ch - T::MAIN_C),
                    16, 8 * T::TAIL_SW, T::TAIL_MODE);
 }
 

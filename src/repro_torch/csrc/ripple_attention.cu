@@ -21,7 +21,8 @@
 // byte at serving length, above the card's ~295 flops/B bf16 ridge.  So
 // the design feeds the tensor cores at their Hopper rate and keeps the
 // loads off the critical path:
-//   * bf16 with d == dv in {32, 64, 72, 128}: wgmma.mma_async (sm_90a),
+//   * bf16 with d == dv in {32, 40, 64, 72, 80, 128, 160}: wgmma.mma_async
+//     (sm_90a),
 //     with the TMA, mbarrier and wgmma helpers of hopper.cuh (shared with
 //     sparse_attention.cu).
 //     A block owns a query tile of 64 pairs: consumer warpgroup 0 the 64
@@ -31,7 +32,8 @@
 //     query flags are needed).  A third, producer warpgroup (one thread
 //     issues; setmaxnreg hands its registers to the consumers, though
 //     ptxas compiles every path within the launch bound, below) streams key stages of 64 pairs through a ring of as many stages as
-//     227 KB of shared memory holds (3 at d 128, 5 at d 72) with TMA;
+//     227 KB of shared memory holds (2 at d 160, 3 at d 128, 5 at d 72 and
+//     80) with TMA;
 //     mbarriers say when a stage's K and V are full (transaction bytes)
 //     and when both consumers have released it.  The ring's depth matters:
 //     the stages come from L2 with a latency of several stages' compute.
@@ -44,11 +46,16 @@
 //   * Shared tiles are stored in swizzled channel boxes, written by TMA
 //     with a swizzle and read by wgmma through descriptors of the same
 //     mode: 128 B rows of 64 channels (d 64, 128; d 32: 64 B rows of 32).
-//     d 72 pads to 80 channels: one 64-channel box plus a 16-channel tail
-//     box in 32 B rows, whose map's innermost extent is 72, so TMA
-//     zero-fills channels 72-79; the score product adds exact zeros and the
-//     PV product's tail (N = 16) columns 72-79 are never stored.  (Five
-//     16-channel boxes load the same tile at half the rate.)
+//     Other head dims add one tail box (hopper.cuh, Boxes): d 72 pads to
+//     80 channels, one 64-channel box plus a 16-channel tail box in 32 B
+//     rows, whose map's innermost extent is 72, so TMA zero-fills channels
+//     72-79; the score product adds exact zeros and the PV product's tail
+//     (N = 16) columns 72-79 are never stored.  (Five 16-channel boxes load
+//     the same tile at half the rate.)  d 80 is 64 + 16 with no padding;
+//     d 40 a 32-channel box in 64 B rows plus a 16-channel tail padded the
+//     same way (channels 40-47, K = 48 for the score product, the PV
+//     product at N = 32 + 16); d 160 is 64 + 64 + a 32-channel tail in 64 B
+//     rows.
 //   * S = Q K^T is wgmma SS (Q and K both K-major); O += P V is wgmma RS:
 //     P is re-packed from the f32 score accumulators into bf16 A
 //     registers, V is the MN-major B operand (row-major keys x dv,
@@ -59,15 +66,19 @@
 //     ptxas keeps the kernel at the 168 registers a thread of the launch
 //     bound, and holding the next stage's scores while the PV product
 //     runs does not fit there (it spills and serialises the wgmmas).
+//     Above 128 channels (d 160) the O accumulator alone takes DP / 2
+//     registers a thread, so a dense stage runs as two halves of 64 keys
+//     (representatives, then followers), each S -> softmax -> PV over its
+//     own 64 V rows: 64 x 64 scores live at a time instead of 64 x 128.
 //   * A collapsed key tile loads its 64 representative keys only and runs
 //     the score product at N = 64; the PV product runs over both halves of
 //     V with the probabilities duplicated (p * v_even + p * v_odd, exact
 //     up to rounding, no V sum in shared memory), and the row sum counts
 //     each probability twice.
-//   * float32 (and other head dims): CUDA-core FMAs in f32, 4x4 scores and
-//     8x4 outputs per thread from f32 tiles in shared memory, 32-pair
-//     tiles reading the 64-pair flags (a collapsed flag covers both of its
-//     halves).
+//   * float32 (and other head dims up to 256): CUDA-core FMAs in f32, 4x4
+//     scores and 8x4 outputs per thread (8x8 for dv above 128) from f32
+//     tiles in shared memory, 32-pair tiles reading the 64-pair flags (a
+//     collapsed flag covers both of its halves).
 
 #include <math.h>
 #include <stdint.h>
@@ -80,7 +91,7 @@ constexpr int kFlagTile = 64;     // pairs per flag = the wgmma path's tile
 constexpr int kTile = 32;         // pairs per tile of the CUDA-core path
 constexpr int kSubTiles = kFlagTile / kTile;
 constexpr int kRows = 2 * kTile;  // rows (even + odd) of a CUDA-core tile
-constexpr int kMaxDim = 128;
+constexpr int kMaxDim = 256;  // both paths, as the fused Δ-check kernel
 
 // ---------------------------------------------------------------------------
 // Tensor-core path (bf16): TMA ring, producer warpgroup, wgmma
@@ -110,7 +121,25 @@ struct Tiles : Boxes<D> {
   static constexpr int TILE_BYTES = kConsumers * Q_BYTES + 2 * STAGES * KV_BYTES;
   static constexpr int BARRIERS = 1 + 3 * STAGES;
   static constexpr int SMEM = 1024 + TILE_BYTES + 8 * BARRIERS;  // + alignment
+  // Dense stages in two 64-key halves: O's DP / 2 registers a thread
+  // leave no room for 64 x 128 scores beside them above 128 channels.
+  static constexpr bool SPLIT = B::DP > 128;
   static_assert(STAGES >= 2 && SMEM <= kSmemLimit, "a ring of 2+ stages fits");
+};
+
+// How a consumer runs one key stage: the whole stage (128 scores a row);
+// a collapsed stage (64 representative keys, each probability fed to both
+// halves of V); or, when SPLIT, a dense stage as its representative half
+// then its follower half, each against its own 64 V rows.
+enum StageMode { kDense, kCollapsed, kRepHalf, kFolHalf };
+
+template <int MODE>
+struct Stage {
+  static constexpr int KEYS = MODE == kDense ? kStageKeys : kPairs;  // score N
+  static constexpr int KROW0 = MODE == kFolHalf ? kPairs : 0;  // first K row
+  static constexpr int V0 = MODE == kFolHalf ? 4 : 0;          // PV k-steps
+  static constexpr int V1 = MODE == kRepHalf ? 4 : kStageKeys / 16;
+  static constexpr float W = MODE == kCollapsed ? 2.f : 1.f;   // keys a prob.
 };
 
 // The online-softmax state of one consumer thread: rows r and r + 8 of its
@@ -119,44 +148,48 @@ struct Tiles : Boxes<D> {
 // the output over DP columns.
 template <int D>
 struct RowState {
-  float s[kStageKeys / 2];
-  uint32_t pk[kStageKeys / 16][4];
+  static constexpr int NS = Tiles<D>::SPLIT ? kPairs : kStageKeys;
+  float s[NS / 2];
+  uint32_t pk[NS / 16][4];
   float o[Tiles<D>::DP / 2];
   float m[2], l[2];
 };
 
-// Issue S = Q K^T for one stage (N = 64 representative keys when the
-// stage is collapsed, else 128) and commit it as one wgmma group.
-template <int D, bool COLLAPSED>
+// Issue S = Q K^T for one stage (N = 64 keys from row KROW0 of the stage
+// for a collapsed stage or a half, else 128) and commit it as one wgmma
+// group.
+template <int D, int MODE>
 __device__ __forceinline__ void issue_scores(RowState<D>& st, uint32_t q_tile,
                                              uint32_t k_tile) {
+  using S = Stage<MODE>;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < Tiles<D>::KSTEPS; ++kk)
-    wgmma_ss<COLLAPSED ? kPairs : kStageKeys>(
-        st.s, kmajor_desc<D, kPairs>(q_tile, kk),
-        kmajor_desc<D, kStageKeys>(k_tile, kk), kk > 0);
+    wgmma_ss<S::KEYS>(st.s, kmajor_desc<D, kPairs>(q_tile, kk),
+                      kmajor_desc<D, kStageKeys>(k_tile, kk, S::KROW0),
+                      kk > 0);
   wgmma_commit();
 }
 
-// Issue O += P V over a stage's 128 V rows (representatives, then
-// followers; V is the MN-major operand) from the probabilities in pk; a
-// collapsed stage feeds each probability to both halves.  d 72's tail
-// columns are a second product of N = 16.  Commits one wgmma group.
-template <int D, bool COLLAPSED>
+// Issue O += P V over the stage's V rows 16 V0 .. 16 V1 (representatives,
+// then followers; V is the MN-major operand) from the probabilities in pk;
+// a collapsed stage feeds each probability to both halves.  The tail box's
+// columns are a second product of N = 16 or 32.  Commits one wgmma group.
+template <int D, int MODE>
 __device__ __forceinline__ void issue_pv(RowState<D>& st, uint32_t v_tile) {
   using T = Tiles<D>;
-  constexpr int KP = (COLLAPSED ? kPairs : kStageKeys) / 16;  // k-steps of P
+  using S = Stage<MODE>;
+  constexpr int KP = S::KEYS / 16;  // k-steps of P
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kStageKeys / 16; ++kk) {
+  for (int kk = S::V0; kk < S::V1; ++kk) {
     wgmma_rs<T::MAIN_C>(
-        st.o, st.pk[kk % KP],
+        st.o, st.pk[(kk - S::V0) % KP],
         make_desc(v_tile + kk * 16 * T::MAIN_SW, kStageKeys * T::MAIN_SW,
                   8 * T::MAIN_SW, T::MAIN_MODE));
     if constexpr (T::TAIL_C > 0)
       wgmma_rs<T::TAIL_C>(
-          st.o + T::MAIN_C / 2, st.pk[kk % KP],
+          st.o + T::MAIN_C / 2, st.pk[(kk - S::V0) % KP],
           make_desc(v_tile + T::NMAIN * kStageKeys * T::MAIN_SW +
                         kk * 16 * T::TAIL_SW,
                     kStageKeys * T::TAIL_SW, 8 * T::TAIL_SW, T::TAIL_MODE));
@@ -169,10 +202,10 @@ __device__ __forceinline__ void issue_pv(RowState<D>& st, uint32_t v_tile) {
 // max of the raw scores scales to it and each exponent is one FFMA) and
 // the row sum, leave the f32 exponentials in s and return O's rescale
 // factors.
-template <int D, bool COLLAPSED>
+template <int D, int MODE>
 __device__ __forceinline__ float2 softmax_scores(RowState<D>& st, int pair0,
                                                  int P, float scale_log2) {
-  constexpr int NS = COLLAPSED ? kPairs : kStageKeys;
+  constexpr int NS = Stage<MODE>::KEYS;
   if (pair0 + kPairs > P) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -200,7 +233,7 @@ __device__ __forceinline__ float2 softmax_scores(RowState<D>& st, int pair0,
     st.s[i] = exp2_ftz(fmaf(st.s[i], scale_log2, neg_m[(i >> 1) & 1]));
     sum[(i >> 1) & 1] += st.s[i];
   }
-  const float w = COLLAPSED ? 2.f : 1.f;  // each probability stands for two keys
+  const float w = Stage<MODE>::W;  // a collapsed probability stands for two keys
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
@@ -213,7 +246,7 @@ __device__ __forceinline__ float2 softmax_scores(RowState<D>& st, int pair0,
 // O *= alpha, then the exponentials in s become the bf16 A operand of the
 // next PV product: k-step kk is score columns 16kk..16kk+15 (accumulator
 // chunks 2kk and 2kk + 1, the row-major A fragment of m64k16).
-template <int D, bool COLLAPSED>
+template <int D, int MODE>
 __device__ __forceinline__ void rescale_and_pack(RowState<D>& st,
                                                  float2 alpha) {
 #pragma unroll
@@ -224,32 +257,33 @@ __device__ __forceinline__ void rescale_and_pack(RowState<D>& st,
     st.o[c * 4 + 3] *= alpha.y;
   }
 #pragma unroll
-  for (int kk = 0; kk < (COLLAPSED ? kPairs : kStageKeys) / 16; ++kk)
+  for (int kk = 0; kk < Stage<MODE>::KEYS / 16; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       st.pk[kk][j] = pack_bf16(st.s[kk * 8 + 2 * j], st.s[kk * 8 + 2 * j + 1]);
 }
 
-// One key stage for one consumer warpgroup: S = Q K^T, online softmax,
-// O += P V once the stage's V has arrived on v_bar (phase `parity`).
-template <int D, bool COLLAPSED>
+// One key stage (or half of one) for one consumer warpgroup: S = Q K^T,
+// online softmax, O += P V once the stage's V has arrived on v_bar (phase
+// `parity`).
+template <int D, int MODE>
 __device__ __forceinline__ void consume_stage(RowState<D>& st, uint32_t q_tile,
                                               uint32_t k_tile, uint32_t v_tile,
                                               uint32_t v_bar, uint32_t parity,
                                               int pair0, int P,
                                               float scale_log2) {
-  issue_scores<D, COLLAPSED>(st, q_tile, k_tile);
+  issue_scores<D, MODE>(st, q_tile, k_tile);
   wgmma_wait_all();
-  pin<kStageKeys / 2>(st.s);
-  rescale_and_pack<D, COLLAPSED>(
-      st, softmax_scores<D, COLLAPSED>(st, pair0, P, scale_log2));
+  pin<RowState<D>::NS / 2>(st.s);
+  rescale_and_pack<D, MODE>(
+      st, softmax_scores<D, MODE>(st, pair0, P, scale_log2));
   mbar_wait(v_bar, parity);
-  issue_pv<D, COLLAPSED>(st, v_tile);
+  issue_pv<D, MODE>(st, v_tile);
   wgmma_wait_all();
   pin<Tiles<D>::DP / 2>(st.o);
 }
 
-// The three operands' tensor maps: main boxes, then d 72's tail boxes.
+// The three operands' tensor maps: main boxes, then the tail boxes.
 struct Maps {
   CUtensorMap main[3];  // q, k, v
   CUtensorMap tail[3];
@@ -358,12 +392,18 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
       const uint32_t vt = v_tiles + s * T::KV_BYTES;
       const int kf = kflags[(long)bh * nkb + kb];
       mbar_wait(k_full(s), ring.phase);
-      if (kf)
-        consume_stage<D, true>(st, q_tile, kt, vt, v_full(s), ring.phase,
-                               kb * kPairs, P, scale_log2);
-      else
-        consume_stage<D, false>(st, q_tile, kt, vt, v_full(s), ring.phase,
-                                kb * kPairs, P, scale_log2);
+      if (kf) {
+        consume_stage<D, kCollapsed>(st, q_tile, kt, vt, v_full(s), ring.phase,
+                                     kb * kPairs, P, scale_log2);
+      } else if constexpr (T::SPLIT) {
+        consume_stage<D, kRepHalf>(st, q_tile, kt, vt, v_full(s), ring.phase,
+                                   kb * kPairs, P, scale_log2);
+        consume_stage<D, kFolHalf>(st, q_tile, kt, vt, v_full(s), ring.phase,
+                                   kb * kPairs, P, scale_log2);
+      } else {
+        consume_stage<D, kDense>(st, q_tile, kt, vt, v_full(s), ring.phase,
+                                 kb * kPairs, P, scale_log2);
+      }
       mbar_arrive(empty(s));
     }
 
@@ -389,12 +429,13 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core path (f32, any head dim <= 128)
+// CUDA-core path (f32, and bf16 at other head dims; d, dv <= 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kFmaThreads = 256;
 
-template <typename T>
+// NJ: output columns a lane holds (lane + 32 j), 4 up to dv 128, else 8.
+template <typename T, int NJ>
 __global__ void __launch_bounds__(kFmaThreads)
     ripple_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
@@ -410,11 +451,12 @@ __global__ void __launch_bounds__(kFmaThreads)
   const int tid = threadIdx.x;
   const int dp = d + 1;
   const int sp = kRows + 1;
+  constexpr int VS = 32 * NJ;    // V row stride
 
   float* Qs = sm;                // [kRows][d + 1]
   float* Ks = Qs + kRows * dp;   // [kRows][d + 1]
-  float* Vs = Ks + kRows * dp;   // [kRows][kMaxDim]
-  float* Ss = Vs + kRows * kMaxDim;  // [kRows][kRows + 1]
+  float* Vs = Ks + kRows * dp;   // [kRows][VS]
+  float* Ss = Vs + kRows * VS;   // [kRows][kRows + 1]
   float* m_s = Ss + kRows * sp;  // [kRows]
   float* l_s = m_s + kRows;      // [kRows]
   float* a_s = l_s + kRows;      // [kRows]
@@ -432,7 +474,7 @@ __global__ void __launch_bounds__(kFmaThreads)
     const int tok = 2 * p + (r >= kTile);
     Qs[r * dp + c] = p < P ? to_f(qh[(long)tok * d + c]) : 0.f;
   }
-  for (int i = tid; i < kRows * kMaxDim; i += kFmaThreads) Vs[i] = 0.f;
+  for (int i = tid; i < kRows * VS; i += kFmaThreads) Vs[i] = 0.f;
   for (int r = tid; r < kRows; r += kFmaThreads) {
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
@@ -442,11 +484,11 @@ __global__ void __launch_bounds__(kFmaThreads)
   const int ty = tid / 16, tx = tid % 16;
   // PV micro-tile: rows warp + 8*i, output columns lane + 32*j.
   const int warp = tid / 32, lane = tid % 32;
-  float acc[8][4];
+  float acc[8][NJ];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   for (int kb = 0; kb < nkb; ++kb) {
     const int kf = kflags[bh * nf + kb / kSubTiles];
@@ -469,7 +511,7 @@ __global__ void __launch_bounds__(kFmaThreads)
         else
           val = to_f(vh[(long)(2 * p + (j >= kTile)) * dv + c]);
       }
-      Vs[j * kMaxDim + c] = val;
+      Vs[j * VS + c] = val;
     }
     __syncthreads();
 
@@ -539,12 +581,12 @@ __global__ void __launch_bounds__(kFmaThreads)
       const int r = warp + 8 * i;
       const float alpha = r < nrows ? a_s[r] : 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
     for (int kk = 0; kk < nkeys; ++kk) {
-      float vv[4];
+      float vv[NJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kMaxDim + lane + 32 * j];
+      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * VS + lane + 32 * j];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int r = warp + 8 * i;
@@ -553,7 +595,7 @@ __global__ void __launch_bounds__(kFmaThreads)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
 
@@ -567,7 +609,7 @@ __global__ void __launch_bounds__(kFmaThreads)
     const float inv_l = 1.f / l_s[r];
     const int tok = 2 * p + (r >= kTile);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int col = lane + 32 * j;
       if (col >= dv) continue;
       const float o = acc[i][j] * inv_l;
@@ -578,23 +620,33 @@ __global__ void __launch_bounds__(kFmaThreads)
 }
 
 
-template <typename T>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
+template <typename T, int NJ>
+cudaError_t launch_fma_cols(const void* q, const void* k, const void* v, void* out,
                        const int* qf, const int* kf, int BH, int N, int d,
                        int dv, float scale, cudaStream_t s) {
   const int P = N / 2;
   const dim3 grid((P + kTile - 1) / kTile, BH);
+  // At d = dv = 256: 2 x 64 x 257 + 64 x 256 + 64 x 65 + 192 floats, 210 KB.
   const size_t smem =
-      sizeof(float) * ((size_t)kRows * (d + 1) * 2 + (size_t)kRows * kMaxDim +
+      sizeof(float) * ((size_t)kRows * (d + 1) * 2 + (size_t)kRows * 32 * NJ +
                        (size_t)kRows * (kRows + 1) + 3 * kRows);
   cudaError_t err = cudaFuncSetAttribute(
-      ripple_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ripple_fma_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  ripple_fma_kernel<T><<<grid, kFmaThreads, smem, s>>>(
+  ripple_fma_kernel<T, NJ><<<grid, kFmaThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), qf, kf, N, d, dv, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
+                       const int* qf, const int* kf, int BH, int N, int d,
+                       int dv, float scale, cudaStream_t s) {
+  if (dv > 128)
+    return launch_fma_cols<T, 8>(q, k, v, out, qf, kf, BH, N, d, dv, scale, s);
+  return launch_fma_cols<T, 4>(q, k, v, out, qf, kf, BH, N, d, dv, scale, s);
 }
 
 
@@ -657,7 +709,8 @@ extern "C" int ripple_tile_pairs() { return kFlagTile; }
 // or bfloat16; kflags: (BH, ceil(N/2 / kFlagTile)) int32; qflags, the same
 // shape, is read by the CUDA-core path only (the tensor-core path computes
 // follower rows in any case) and may be null there.  bf16 with d == dv in
-// {32, 64, 72, 128} takes the tensor-core path.  Returns the CUDA error of
+// {32, 40, 64, 72, 80, 128, 160} takes the tensor-core path; d and dv are
+// at most 256.  Returns the CUDA error of
 // the launch (0 on success), or kEncodeError + the CUresult of a failed
 // tensor-map encode.
 extern "C" int ripple_attention_launch(const void* q, const void* k,
@@ -674,9 +727,12 @@ extern "C" int ripple_attention_launch(const void* q, const void* k,
   if (is_bf16 && d == dv) {
     switch (d) {
       case 32: return launch_wgmma<32>(q, k, v, out, kf, BH, N, scale, s);
+      case 40: return launch_wgmma<40>(q, k, v, out, kf, BH, N, scale, s);
       case 64: return launch_wgmma<64>(q, k, v, out, kf, BH, N, scale, s);
       case 72: return launch_wgmma<72>(q, k, v, out, kf, BH, N, scale, s);
+      case 80: return launch_wgmma<80>(q, k, v, out, kf, BH, N, scale, s);
       case 128: return launch_wgmma<128>(q, k, v, out, kf, BH, N, scale, s);
+      case 160: return launch_wgmma<160>(q, k, v, out, kf, BH, N, scale, s);
       default: break;
     }
   }
@@ -689,5 +745,7 @@ extern "C" int ripple_attention_launch(const void* q, const void* k,
 
 // Which path a call takes: 1 for the tensor-core kernel, 0 for CUDA cores.
 extern "C" int ripple_uses_tensor_cores(int is_bf16, int d, int dv) {
-  return is_bf16 && d == dv && (d == 32 || d == 64 || d == 72 || d == 128);
+  return is_bf16 && d == dv &&
+         (d == 32 || d == 40 || d == 64 || d == 72 || d == 80 || d == 128 ||
+          d == 160);
 }

@@ -9,7 +9,8 @@ case), and launches the kernel, which reads the even/odd tokens in place
 and masks the ragged last tile by index.  On a
 CUDA tensor it launches the kernel or raises; on a CPU tensor, and only
 there, it runs the plain version (``ref.py``).  ``launches`` counts
-kernel launches.
+kernel launches, ``launches_by_shape`` the same launches by (tokens, head
+dim).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.kernels.ripple.ref import (block_flags, full_block_flags,
                                             ripple_attention_ref, split_pairs)
 
 launches = 0
+launches_by_shape: dict = {}
 
 # Pairs per flag: the tensor-core path's query tile and key stage
 # (``kFlagTile`` in ripple_attention.cu; the CUDA-core path runs 32-pair
@@ -31,7 +33,9 @@ launches = 0
 TILE_PAIRS = 64
 # A failed tensor-map encode returns this plus its CUresult.
 _ENCODE_ERROR = 10000
-_MAX_DIM = 128
+# The largest head dim either path takes (``kMaxDim``), the fused Δ-check
+# kernel's too: every head dim a config of the repo serves.
+_MAX_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -85,13 +89,14 @@ def _launch(q, k, v, scale: float):
         raise RuntimeError(f"ripple attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    launches_by_shape[(N, d)] = launches_by_shape.get((N, d), 0) + 1
     return out
 
 
 def uses_tensor_cores(q: torch.Tensor, v: torch.Tensor) -> bool:
     """Does a CUDA call on these operands take the kernel's tensor-core
-    path?  The library decides (bf16, equal head dims of 32, 64, 72 or
-    128)."""
+    path?  The library decides (bf16, equal head dims of 32, 40, 64, 72,
+    80, 128 or 160)."""
     lib = _build.load("ripple_attention")
     return bool(lib.ripple_uses_tensor_cores(int(q.dtype == torch.bfloat16),
                                              q.shape[-1], v.shape[-1]))

@@ -4,9 +4,11 @@ image generation with TimeRipple on.
 ``python -m repro_torch.launch.serve`` runs on the CUDA card;
 ``--device cpu`` runs it on the CPU (kernel wrappers then take their
 plain PyTorch versions).  ``--arch`` picks the model (``vdit-paper``,
-the default, or the image DiTs ``dit-xl2`` / ``dit-b2``, served at
-``--shape gen_1024``).  ``--smoke`` serves the smoke config at a 64²
-resolution for 3 steps; ``--override key=value`` edits the config
+the default, the image DiTs ``dit-xl2`` / ``dit-b2``, or the latent
+UNet ``unet-sd15``, whose requests carry a 77 x 768 text context; the
+image models are served at ``--shape gen_1024``).  ``--smoke`` serves
+the smoke config at a 64² resolution for 3 steps; ``--override
+key=value`` edits the config
 (e.g. ``model.num_layers=8``, ``ripple.backend=dense``); ``--policy svg``
 serves under the SVG block mask and ``--override ripple.svg_mask=true``
 composes it with TimeRipple's snapping, both through the block-sparse
@@ -32,12 +34,12 @@ from repro_torch.core import decision_cache
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
-from repro_torch.launch.workloads import (_denoise_call, attention_tokens,
+from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           latent_shape_for,
                                           mixed_request_stream,
                                           request_label,
                                           vdit_decision_state)
-from repro_torch.models.params import init_dit, init_vdit
+from repro_torch.models.params import init_dit, init_unet, init_vdit
 from repro_torch.serving.engine import DiffusionEngine
 from repro_torch.utils.device import resolve_device
 
@@ -48,12 +50,13 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
                   policy=None, reuse_every=None,
                   compute_dtype: torch.dtype = torch.bfloat16):
     """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt,
-    seeds=None) -> latents`` runs the whole DDIM trajectory (neither
-    vdit nor dit is ``mmdit``, so the server samples with DDIM) on the
-    model's device.  The dit family ignores ``txt`` and conditions each
-    request on a class label drawn from its seed (``seeds``, one per
-    row, required there).  ``policy`` overrides the arch config's reuse
-    policy for this sampler, ``reuse_every`` its decision-cache cadence.
+    seeds=None) -> latents`` runs the whole DDIM trajectory (no ported
+    family is ``mmdit``, so the server samples with DDIM) on the model's
+    device.  The dit family ignores ``txt`` and conditions each request
+    on a class label drawn from its seed (``seeds``, one per row,
+    required there); the unet attends to ``txt`` as its text context.
+    ``policy`` overrides the arch config's reuse policy for this sampler,
+    ``reuse_every`` its decision-cache cadence.
 
     With a cadence above 1 (or the drift guard on) on a cache-capable
     vdit config, the per-layer decision state is threaded through the
@@ -62,7 +65,7 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     ``cache_hits`` / ``cache_refreshes`` counters.  As in the JAX
     launcher the cache is threaded for the vdit family only: a dit under
     those settings decides on every step."""
-    if arch.family not in ("vdit", "dit"):
+    if arch.family not in ("vdit", "dit", "unet"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
     if policy:
         arch = dataclasses.replace(
@@ -86,6 +89,8 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
             labels = [request_label(s, arch.model.num_classes)
                       for s in seeds]
             cond = {"labels": torch.tensor(labels, device=noise.device)}
+        elif arch.family == "unet":
+            cond = {"ctx": txt}
         else:
             cond = {"txt": txt}
 
@@ -115,6 +120,33 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     return sample_fn, latent_shape_for(arch, shape)
 
 
+# A family's seeded initializer.
+MODEL_INIT = {"vdit": init_vdit, "dit": init_dit, "unet": init_unet}
+
+
+def model_summary(arch) -> str:
+    """The served model's depth in the log: its layers, or for the unet
+    its levels and base channels."""
+    m = arch.model
+    if arch.family == "unet":
+        return (f"{len(m.ch_mult)} levels, ch {m.ch}, "
+                f"n_res_blocks {m.n_res_blocks}")
+    return f"{m.num_layers} layers"
+
+
+def attention_plans(arch, shape, *, on_cuda: bool, policy=None):
+    """``(tokens, head dim, plan)`` of each distinct self-attention call of
+    a forward (:func:`attention_shapes`: one for the (v)DiT, one per
+    attention level for the unet), each resolved at batch 1."""
+    m = arch.model
+    out = []
+    for n, hd in attention_shapes(arch, shape):
+        qk = (1, m.num_heads, n, hd)
+        out.append((n, hd, dispatch_lib.resolve_plan(
+            qk, qk, arch.ripple, on_cuda=on_cuda, policy=policy)))
+    return out
+
+
 def serving_shape(arch, name, *, smoke: bool, steps=None):
     """The named generate shape; ``smoke`` drops it to 64² and 3 steps;
     ``steps`` overrides the step count."""
@@ -132,7 +164,7 @@ def main(argv=None):
     ap.add_argument("--shape", default=None,
                     help="the generate shape every request uses (default: "
                          "the arch's first, gen_512 for vdit-paper and "
-                         "gen_1024 for the DiTs)")
+                         "gen_1024 for the DiTs and the UNet)")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke config, 64x64, 3 steps")
     ap.add_argument("--requests", type=int, default=3)
@@ -175,18 +207,15 @@ def main(argv=None):
         sp.name for sp in arch.shapes if sp.kind == "generate")
     shape = serving_shape(arch, shape_name, smoke=args.smoke,
                           steps=args.steps)
-    init = init_dit if arch.family == "dit" else init_vdit
-    model = init(arch.model, seed=args.seed, device=device)
+    model = MODEL_INIT[arch.family](arch.model, seed=args.seed, device=device)
     lat_shape = latent_shape_for(arch, shape)
-    m = arch.model
-    qk = (1, m.num_heads, attention_tokens(arch, shape),
-          m.d_model // m.num_heads)
-    plan = dispatch_lib.resolve_plan(qk, qk, arch.ripple,
-                                     on_cuda=device.type == "cuda",
-                                     policy=args.policy)
-    log.info("device %s; %s (%d layers) at %s, %d steps, latents %s; "
-             "plan %s", device, arch.name, m.num_layers, shape.name,
-             shape.steps, lat_shape, plan.summary())
+    plans = attention_plans(arch, shape, on_cuda=device.type == "cuda",
+                            policy=args.policy)
+    log.info("device %s; %s (%s) at %s, %d steps, latents %s; plan %s",
+             device, arch.name, model_summary(arch), shape.name,
+             shape.steps, lat_shape, "; ".join(
+                 (f"{n} tokens x d {hd}: " if len(plans) > 1 else "")
+                 + plan.summary() for n, hd, plan in plans))
 
     def factory(shp, steps, policy=None, reuse_every=None):
         if (tuple(shp), steps) != (tuple(lat_shape), shape.steps):

@@ -1,7 +1,7 @@
 """Serving helpers of the port: per-request latent shapes, attention
-token counts, a deterministic request stream, per-request class labels,
-one denoiser forward (vdit and dit families) and the vdit's per-layer
-decision-cache state."""
+call shapes, a deterministic request stream, per-request
+class labels, one denoiser forward (vdit, dit and unet families) and the
+vdit's per-layer decision-cache state."""
 
 from __future__ import annotations
 
@@ -21,6 +21,9 @@ def latent_shape_for(arch: ArchConfig, shape: ShapeSpec) -> Tuple[int, ...]:
     if arch.family == "dit":
         lr = m.latent_res(shape.img_res)
         return (lr, lr, m.in_channels)
+    if arch.family == "unet":
+        lr = shape.img_res // 8
+        return (lr, lr, m.in_channels)
     if arch.family == "vdit":
         g = m.grid(img_res=shape.img_res)
         return (g[0] * m.t_patch, g[1] * m.patch, g[2] * m.patch,
@@ -29,15 +32,28 @@ def latent_shape_for(arch: ArchConfig, shape: ShapeSpec) -> Tuple[int, ...]:
                      f"port yet")
 
 
-def attention_tokens(arch: ArchConfig, shape: ShapeSpec) -> int:
-    """Tokens of the cell's joint self-attention (text + grid for the
-    vdit, the patch grid for the dit)."""
+def attention_shapes(arch: ArchConfig,
+                     shape: ShapeSpec) -> List[Tuple[int, int]]:
+    """(tokens, head dim) of each distinct self-attention call of one
+    forward: the joint text + grid attention of the vdit, the patch grid
+    of the dit; for the unet one per level that attends, finest first,
+    the mid block's last (unet-sd15 at gen_1024: (16384, 40), (4096,
+    80), (1024, 160), (256, 160))."""
     m = arch.model
     if arch.family == "dit":
-        return m.num_tokens(shape.img_res)
+        return [(m.num_tokens(shape.img_res), m.d_model // m.num_heads)]
     if arch.family == "vdit":
         g = m.grid(img_res=shape.img_res)
-        return g[0] * g[1] * g[2] + m.txt_tokens
+        return [(g[0] * g[1] * g[2] + m.txt_tokens,
+                 m.d_model // m.num_heads)]
+    if arch.family == "unet":
+        side = latent_shape_for(arch, shape)[0]
+        levels = len(m.ch_mult)
+        out = [((side >> lvl) ** 2, m.ch * m.ch_mult[lvl] // m.num_heads)
+               for lvl in range(levels) if 2 ** lvl in m.attn_res]
+        out.append(((side >> (levels - 1)) ** 2,
+                    m.ch * m.ch_mult[-1] // m.num_heads))
+        return list(dict.fromkeys(out))
     raise ValueError(f"family {arch.family!r} is not ported yet")
 
 
@@ -54,15 +70,17 @@ def mixed_request_stream(arch: ArchConfig, shapes, num_requests: int,
                          seed: int = 0, reuse_every: Optional[int] = None):
     """Round-robin (ShapeSpec, GenRequest) traffic over ``shapes`` with
     deterministic per-request text embeddings (numpy, seeded per
-    request; a family without text gets the JAX package's (8, 64)
-    stand-in, which its sampler ignores) and seeds; every request asks
-    for the decision-cache cadence ``reuse_every`` (None: the engine's
+    request) of the model's text shape: ``txt_tokens`` x ``txt_dim``,
+    else the unet's ``ctx_tokens`` x ``ctx_dim`` (77 x 768 for
+    unet-sd15), else the JAX package's (8, 64) stand-in, which a family
+    without text (the dit) ignores; and seeds.  Every request asks for
+    the decision-cache cadence ``reuse_every`` (None: the engine's
     default)."""
     from repro_torch.serving.engine import GenRequest
 
     m = arch.model
-    txt_tokens = getattr(m, "txt_tokens", 8)
-    txt_dim = getattr(m, "txt_dim", 64)
+    txt_tokens = getattr(m, "txt_tokens", getattr(m, "ctx_tokens", 8))
+    txt_dim = getattr(m, "txt_dim", getattr(m, "ctx_dim", 64))
     out = []
     for i in range(num_requests):
         sp = shapes[i % len(shapes)]
@@ -96,11 +114,11 @@ def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
                   use_ripple: bool = True,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   dstate: Optional[List] = None):
-    """One denoiser forward: ``cond`` holds ``txt`` for the vdit and
+    """One denoiser forward: ``cond`` holds ``txt`` for the vdit,
     ``labels`` for the dit, whose sigma channels are dropped (the DDIM
-    path uses the noise prediction only).  ``dstate`` threads the
-    per-layer decision cache (vdit only); the call then returns
-    ``(out, new_dstate)``."""
+    path uses the noise prediction only), and ``ctx`` for the unet.
+    ``dstate`` threads the per-layer decision cache (vdit only); the
+    call then returns ``(out, new_dstate)``."""
     rip = arch.ripple if use_ripple else dataclasses.replace(
         arch.ripple, enabled=False)
     kw = dict(ripple=rip, step=step, total_steps=total,
@@ -111,6 +129,8 @@ def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
     if arch.family == "dit":
         out = model(x, t, cond["labels"], **kw)
         return out[..., :arch.model.in_channels]
+    if arch.family == "unet":
+        return model(x, t, cond["ctx"], **kw)
     if arch.family == "vdit":
         return model(x, t, cond["txt"], decision_state=dstate, **kw)
     raise ValueError(f"family {arch.family!r} is not ported yet")

@@ -1,20 +1,24 @@
 """Parameters of the port's models.
 
-The vDiT's and the DiT's parameters carry the leaf names and per-layer
-shapes of the JAX package's ``vdit_defs`` (``repro/models/vdit.py``)
-and ``dit_defs`` (``repro/models/dit.py``), in its (d_in, d_out) weight
+The vDiT's, the DiT's and the UNet's parameters carry the leaf names and
+per-layer shapes of the JAX package's ``vdit_defs``
+(``repro/models/vdit.py``), ``dit_defs`` (``repro/models/dit.py``) and
+``unet_defs`` (``repro/models/unet.py``), in its (d_in, d_out) weight
 layout, so a parameter tree crosses between the two packages leaf by
-leaf:
+leaf.  The one layout that differs is a convolution's weight: (k, k,
+c_in, c_out) in JAX, (c_out, c_in, k, k) in the port (:func:`to_port`).
 
-* :func:`vdit_param_specs` / :func:`dit_param_specs` — every leaf's
-  path, shape and initializer;
-* :func:`init_vdit` / :func:`init_dit` — a seeded initialization on a
-  device, with ``torch.Generator`` draws;
+* :func:`vdit_param_specs` / :func:`dit_param_specs` /
+  :func:`unet_param_specs` — every leaf's path (lists of levels and
+  blocks give integer steps), JAX shape and initializer;
+* :func:`init_vdit` / :func:`init_dit` / :func:`init_unet` — a seeded
+  initialization on a device, with ``torch.Generator`` draws in the JAX
+  layout;
 * :func:`params_from_numpy` — the JAX param tree, passed through numpy
   (``jax.tree_util.tree_map(np.asarray, params)``), as the port's model
-  of the config's family.  The JAX tree stacks the blocks' leaves on a
-  leading ``num_layers`` dim (scan-over-layers); here it is split per
-  layer.
+  of the config's family.  The JAX tree stacks the (v)DiT blocks' leaves
+  on a leading ``num_layers`` dim (scan-over-layers); here it is split
+  per layer.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.config.base import DiTConfig, VDiTConfig
+from repro_torch.config.base import DiTConfig, UNetConfig, VDiTConfig
 from repro_torch.utils.device import resolve_device
 
 # Initializer kinds, as in the JAX defs: 'fan_in' (normal, std
@@ -97,11 +101,85 @@ def dit_param_specs(cfg: DiTConfig) -> Dict:
     }
 
 
-ModelConfig = Union[VDiTConfig, DiTConfig]
+def _conv(k, c_in, c_out) -> Dict[str, Spec]:
+    return {"w": ((k, k, c_in, c_out), "fan_in"), "b": ((c_out,), "zeros")}
+
+
+def _norm(c) -> Dict[str, Spec]:
+    return {"scale": ((c,), "ones"), "bias": ((c,), "zeros")}
+
+
+def _resblock_specs(c_in, c_out, t_dim) -> Dict:
+    out = {"norm1": _norm(c_in), "conv1": _conv(3, c_in, c_out),
+           "temb": _linear(t_dim, c_out), "norm2": _norm(c_out),
+           "conv2": _conv(3, c_out, c_out)}
+    if c_in != c_out:
+        out["skip"] = _conv(1, c_in, c_out)
+    return out
+
+
+def _xformer_specs(c, ctx_dim) -> Dict:
+    w = {n: ((c, c), "fan_in") for n in ("wq", "wk", "wv", "wo")}
+    return {"norm": _norm(c), "proj_in": _conv(1, c, c), "ln1": _norm(c),
+            "self_attn": w, "ln2": _norm(c),
+            "cross_q": ((c, c), "fan_in"), "cross_k": ((ctx_dim, c), "fan_in"),
+            "cross_v": ((ctx_dim, c), "fan_in"),
+            "cross_o": ((c, c), "fan_in"), "ln3": _norm(c),
+            "ff1": ((c, 8 * c), "fan_in"), "ff2": ((4 * c, c), "fan_in"),
+            "proj_out": _conv(1, c, c)}
+
+
+def unet_param_specs(cfg: UNetConfig) -> Dict:
+    """Nested dict of (JAX shape, init) per leaf, ``down`` / ``up`` and
+    each level's ``res`` / ``attn`` as lists (the JAX ``unet_defs``)."""
+    from repro_torch.models.unet import skip_channels
+
+    ch = cfg.ch
+    t_dim = 4 * ch
+    chans = [ch * m for m in cfg.ch_mult]
+    specs: Dict = {"t_mlp1": _linear(ch, t_dim), "t_mlp2": _linear(t_dim, t_dim),
+                   "conv_in": _conv(3, cfg.in_channels, ch), "down": [], "up": []}
+    c_cur = ch
+    for lvl, c_out in enumerate(chans):
+        level = {"res": [], "attn": []}
+        for _ in range(cfg.n_res_blocks):
+            level["res"].append(_resblock_specs(c_cur, c_out, t_dim))
+            c_cur = c_out
+            if 2 ** lvl in cfg.attn_res:
+                level["attn"].append(_xformer_specs(c_out, cfg.ctx_dim))
+        if lvl < len(chans) - 1:
+            level["down"] = _conv(3, c_out, c_out)
+        specs["down"].append(level)
+    specs["mid"] = {"res1": _resblock_specs(c_cur, c_cur, t_dim),
+                    "attn": _xformer_specs(c_cur, cfg.ctx_dim),
+                    "res2": _resblock_specs(c_cur, c_cur, t_dim)}
+    skips = skip_channels(cfg)
+    for lvl in reversed(range(len(chans))):
+        c_out = chans[lvl]
+        level = {"res": [], "attn": []}
+        for _ in range(cfg.n_res_blocks + 1):
+            level["res"].append(_resblock_specs(c_cur + skips.pop(), c_out,
+                                                t_dim))
+            c_cur = c_out
+            if 2 ** lvl in cfg.attn_res:
+                level["attn"].append(_xformer_specs(c_out, cfg.ctx_dim))
+        if lvl > 0:
+            level["up"] = _conv(3, c_out, c_out)
+        specs["up"].append(level)
+    specs["norm_out"] = _norm(ch)
+    specs["conv_out"] = _conv(3, ch, cfg.in_channels)
+    return specs
+
+
+ModelConfig = Union[VDiTConfig, DiTConfig, UNetConfig]
 
 
 def _family(cfg: ModelConfig):
     """(model class, param specs) of a model config's family."""
+    if isinstance(cfg, UNetConfig):
+        from repro_torch.models.unet import UNet
+
+        return UNet, unet_param_specs(cfg)
     if isinstance(cfg, DiTConfig):
         from repro_torch.models.dit import DiT
 
@@ -113,28 +191,36 @@ def _family(cfg: ModelConfig):
     raise TypeError(f"no port model for config {type(cfg).__name__}")
 
 
-def iter_specs(tree: Dict, prefix: Tuple[str, ...] = ()
-               ) -> Iterator[Tuple[Tuple[str, ...], Spec]]:
-    for k, v in tree.items():
-        if isinstance(v, dict):
+def iter_specs(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
+    """(path, spec) of every leaf; a list's items are path steps 0, 1, …"""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             yield from iter_specs(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
 
-def _fill(t: torch.Tensor, init: str, generator: torch.Generator,
+def to_port(arr: torch.Tensor) -> torch.Tensor:
+    """A leaf in the JAX layout as the port keeps it: a (k, k, c_in,
+    c_out) convolution weight as (c_out, c_in, k, k); any other leaf as
+    it is."""
+    return arr.permute(3, 2, 0, 1) if arr.dim() == 4 else arr
+
+
+def _fill(t: torch.Tensor, shape, init: str, generator: torch.Generator,
           zero_init: bool):
-    """Fill one leaf in place.  With ``zero_init=False`` the leaves the
-    JAX defs initialize to zeros or ones are drawn too, at fan-in scale
-    (offset by 1 for norm scales), so no block is the identity."""
-    shape = t.shape
+    """Fill one leaf in place from a draw of its JAX ``shape``.  With
+    ``zero_init=False`` the leaves the JAX defs initialize to zeros or
+    ones are drawn too, at fan-in scale (offset by 1 for norm scales), so
+    no block is the identity."""
     fan = int(np.prod(shape[:-1])) if len(shape) > 1 else int(shape[0])
     std = 0.02 if init == "normal" else (1.0 / max(fan, 1)) ** 0.5
     if init in ("fan_in", "normal") or not zero_init:
         noise = torch.randn(shape, generator=generator, device=t.device,
                             dtype=torch.float32) * std
         base = 1.0 if init == "ones" else 0.0
-        t.copy_(noise + base)
+        t.copy_(to_port(noise + base))
     elif init == "zeros":
         t.zero_()
     else:
@@ -148,12 +234,12 @@ def _init(cfg: ModelConfig, seed: int, device, dtype, zero_init: bool):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
-        for path, (_, init) in iter_specs(specs):
+        for path, (shape, init) in iter_specs(specs):
             if path[0] == "blocks":
                 for blk in model.blocks:
-                    _fill(_get(blk, path[1:]), init, gen, zero_init)
+                    _fill(_get(blk, path[1:]), shape, init, gen, zero_init)
             else:
-                _fill(_get(model, path), init, gen, zero_init)
+                _fill(_get(model, path), shape, init, gen, zero_init)
     return model
 
 
@@ -174,18 +260,27 @@ def init_dit(cfg: DiTConfig, *, seed: int = 0, device=None,
     return _init(cfg, seed, device, dtype, zero_init)
 
 
+def init_unet(cfg: UNetConfig, *, seed: int = 0, device=None,
+              dtype=torch.float32, zero_init: bool = True):
+    """A seeded UNet on ``device`` (default CUDA).  ``zero_init=True``
+    follows the JAX defs (zero biases, unit norm scales); served and chip
+    runs use ``False``, which randomizes every leaf."""
+    return _init(cfg, seed, device, dtype, zero_init)
+
+
 def _get(module, path) -> torch.Tensor:
     obj = module
     for p in path:
-        obj = getattr(obj, p)
+        obj = obj[p] if isinstance(p, int) else getattr(obj, p)
     return obj
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = torch.float32):
     """The JAX param tree (numpy leaves, float32) as the port's model of
-    ``cfg``'s family (VDiT or DiT).  Leaves are copied verbatim, then
-    cast to ``dtype`` on ``device`` (default CUDA)."""
+    ``cfg``'s family (VDiT, DiT or UNet).  Leaves are copied verbatim
+    (convolution weights transposed to the port's layout), then cast to
+    ``dtype`` on ``device`` (default CUDA)."""
     cls, specs = _family(cfg)
     model = cls(cfg, device=resolve_device(device), dtype=dtype)
     with torch.no_grad():
@@ -196,15 +291,19 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None,
             arr = np.asarray(leaf)
             if path[0] == "blocks":
                 if arr.shape != (cfg.num_layers,) + tuple(shape):
-                    raise ValueError(f"{'.'.join(path)}: shape {arr.shape} "
+                    raise ValueError(f"{_name(path)}: shape {arr.shape} "
                                      f"!= {(cfg.num_layers,) + shape}")
                 for i, blk in enumerate(model.blocks):
                     _get(blk, path[1:]).copy_(torch.from_numpy(
                         np.ascontiguousarray(arr[i], np.float32)))
             else:
                 if arr.shape != tuple(shape):
-                    raise ValueError(f"{'.'.join(path)}: shape {arr.shape} "
+                    raise ValueError(f"{_name(path)}: shape {arr.shape} "
                                      f"!= {shape}")
-                _get(model, path).copy_(torch.from_numpy(
-                    np.ascontiguousarray(arr, np.float32)))
+                _get(model, path).copy_(to_port(torch.from_numpy(
+                    np.ascontiguousarray(arr, np.float32))))
     return model
+
+
+def _name(path) -> str:
+    return ".".join(str(p) for p in path)

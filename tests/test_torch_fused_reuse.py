@@ -130,6 +130,30 @@ def test_grid_slice_bit_equal_to_jax_interpret(dtype):
                                   _bits(np.asarray(s_j.astype(jnp.float32))))
 
 
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_head_dims_bit_equal_to_jax_interpret(d, dtype):
+    """unet-sd15's self-attention call shape at its head dims 40, 80 and
+    160 (T = 1, axes x/y, every token a grid token; d 40 is 5 sixteen-byte
+    chunks a bf16 row), on the (B, N, H, d) view ``mha_attention``
+    transposes: the wrapper against the JAX fused Pallas kernel in
+    interpret mode, bit for bit."""
+    grid = (1, 8, 8)
+    x = _mixed(d, 2, 2, grid, d, n_txt=0, noise=0.1)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    th = {"x": 0.2, "y": 0.2}
+    s_j, m_j = j_fused_compute_reuse(
+        xj, grid, {a: jnp.float32(v) for a, v in th.items()}, axes=("x", "y"),
+        interpret=True)
+    s_t, m_t = reuse_ops.fused_compute_reuse(
+        _view(torch.from_numpy(x).to(getattr(torch, dtype)), "transposed"),
+        grid, th, axes=("x", "y"))
+    assert 0.05 < float(m_t.float().mean()) < 0.95
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_array_equal(_bits(s_t.float().numpy()),
+                                  _bits(np.asarray(s_j.astype(jnp.float32))))
+
+
 @pytest.mark.parametrize("grid,axes,granularity", [
     ((4, 4, 4), ("t", "x", "y"), "channel"),
     ((2, 6, 4), ("y", "t", "x"), "token"),

@@ -36,6 +36,9 @@ _TOL = 3e-5
 @pytest.mark.parametrize("N,d,frac", [
     (256, 32, 0.0), (256, 32, 0.6), (256, 32, 1.0), (130, 16, 1.0),
     (130, 16, 0.6), (418, 16, 0.6),
+    # unet-sd15's head dims (its three attention levels)
+    (256, 40, 0.6), (130, 40, 1.0), (256, 80, 0.0), (256, 80, 0.6),
+    (130, 160, 0.6), (256, 160, 1.0),
 ])
 def test_matches_jax_kernel_and_oracle(N, d, frac):
     q = _snapped_operand(1, 1, 2, N, d, frac)
@@ -103,6 +106,17 @@ def test_wrapper_refuses_devices_it_has_no_kernel_for():
     x = torch.empty((1, 1, 64, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ripple_attention(x, x, x)
+
+
+def test_cpu_calls_count_no_launch_and_reset_clears_counts_by_shape():
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.ripple import ops
+
+    ops.launches_by_shape[(64, 40)] = 3
+    reset_launch_counts()
+    x = torch.randn((1, 2, 64, 40))
+    ripple_attention(x, x, x)
+    assert ops.launches == 0 and ops.launches_by_shape == {}
 
 
 def test_kernel_tile_is_the_wgmma_key_stage():
