@@ -41,7 +41,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and heads, map rows live only at their two ends (the ring wraps, with
    and without a bias), an SVG map at the serving shape, and a
    constructed all-temporal map at batch 2 whose batch rows carry
-   different biases; each case logs the path it took;
+   different biases; each case logs the path it took; then the same
+   kinds of case at unet-sd15's head dims 40, 80 and 160 (tensor cores,
+   asserted), the CUDA cores at d 160 and 256, and the UNet's four served
+   calls all-FULL and on a constructed spatial_local map with its bias;
 5b. holds the dense flash attention kernel against f32 dense softmax
    (rounding p where the bf16 kernel rounds it) on the reference tests'
    four shapes (d != dv, Nq != Nk, unaligned), odd head dims, a ragged
@@ -96,9 +99,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    f32 with the same mask) and f32 flash on the wide operands;
    and runs the public ``reuse_snap`` wrapper at that width; each with
    the counters set to 0 just before and read just after;
+8c. (inside 7, before the vDiT model is freed) runs the port's
+   ``pattern_search`` at the served grid (24 heads, 1 layer, 2 steps),
+   writing its artifact under ``build/patterns/``; serves the vDiT under
+   ``--policy static`` with no artifact (480 sparse launches, nothing
+   else; the default template's 72.0% SKIP / 28.0% FULL map; no bias;
+   one plan build) and under ``--policy rainfusion`` with the searched
+   artifact (fused_reuse and the sparse kernel); and (after 8a) serves 2
+   requests of unet-sd15 at full width and depth under ``--policy svg``
+   (800 sparse launches, each on the tensor cores at d 40, 80 or 160);
 9. checks a small trajectory of each of the four paths, of the ripple
-   path under the decision cache with its drift guard, and of the smoke
-   DiT and UNet, on the card against the same trajectory on the CPU.
+   path under the decision cache with its drift guard, of the smoke
+   DiT and UNet (also under svg), and of static and rainfusion, on the
+   card against the same trajectory on the CPU.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -944,10 +957,16 @@ def sparse_oracle(q, k, v, bias, bmap, blk, round_p, exact=False):
     return out
 
 
+# The head dims whose bf16 calls (d == dv) take the tensor cores.
+SPARSE_TC_DIMS = (32, 40, 64, 80, 128, 160)
+
+
 def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False, slack=None):
     """The kernel against :func:`sparse_oracle` at ``attn_tol`` (bf16
-    rounds probabilities where the kernel does); an all-SKIP map must give
-    exact zeros; ``sdpa`` also holds an all-FULL call against
+    rounds probabilities where the kernel does); a bf16 call at a head dim
+    of ``SPARSE_TC_DIMS`` must take the tensor cores, no other call; an
+    all-SKIP map must give exact zeros; ``sdpa`` also holds an all-FULL
+    call against
     ``scaled_dot_product_attention``.  With ``slack`` (f32 operands whose
     logits are far from O(1), :func:`f32_logit_slack`) the oracle is
     exact and the bar is ``attn_tol`` plus the slack.  Returns the max abs
@@ -959,13 +978,15 @@ def check_sparse(results, label, q, k, v, bias, bmap, blk, sdpa=False, slack=Non
     out = sparse_ops.sparse_attention(q, k, v, bias=bias, block_map=bmap,
                                       block_q=blk, block_k=blk)
     tc = sparse_ops.uses_tensor_cores(q, v)
+    want_tc = (q.dtype == torch.bfloat16 and q.shape[-1] == v.shape[-1]
+               and q.shape[-1] in SPARSE_TC_DIMS)
     ref = sparse_oracle(q, k, v, bias, bmap, blk, round_p=q.dtype == torch.bfloat16,
                         exact=slack is not None)
     torch.cuda.synchronize()
     err = (out.to(ref.dtype) - ref).abs().max().item()
     name = str(q.dtype).replace("torch.", "")
     tol = attn_tol(name, ref) + (slack or 0.0)
-    ok = err <= tol and bool(torch.isfinite(out).all())
+    ok = err <= tol and bool(torch.isfinite(out).all()) and tc == want_tc
     extra = "" if slack is None else f"; vs f64, logit slack {slack:.3g}"
     if bool((bmap == SKIP).all()):
         zeros = bool((out == 0).all())
@@ -1153,8 +1174,8 @@ def sparse_checks(serve_grid, n_txt):
 def sparse_bound(q, v, bias, bmap, blk):
     """(bound ms, 'bytes' or 'operations', flops, bytes) of one call: the
     products of the non-SKIP tiles (2*(d + dv) flops per score) at the
-    bf16 peak against q, k, v and the output once, the map, and the f32
-    bias of the PARTIAL tiles at the memory rate."""
+    peak of the operands' dtype against q, k, v and the output once, the
+    map, and the f32 bias of the PARTIAL tiles at the memory rate."""
     import torch
     from repro_torch.kernels.sparse.ops import PARTIAL, SKIP, sparse_grid
 
@@ -1166,7 +1187,14 @@ def sparse_bound(q, v, bias, bmap, blk):
     area = rows[:, None] * keys[None, :]
     bm = bmap.expand(B, H, nq, nk).cpu()
     live = ((bm != SKIP).double() * area).sum().item()
-    partial = ((bm == PARTIAL).double() * area).sum().item()
+    # The bias is read once: a slab broadcast over batch rows or heads
+    # counts the tiles that are PARTIAL in any map that reads it.
+    pm = bm == PARTIAL
+    if bias is not None:
+        for dim in (0, 1):
+            if bias.shape[dim] == 1:
+                pm = pm.any(dim, keepdim=True)
+    partial = (pm.double() * area).sum().item()
     elt = q.element_size()
     flops = 2.0 * (d + dv) * live
     nbytes = (elt * (B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)) + 4 * bm.numel()
@@ -1175,6 +1203,199 @@ def sparse_bound(q, v, bias, bmap, blk):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
         flops, nbytes
+
+
+def spatial_local_keep(grid, radius):
+    """The (N, N) keep of the ``spatial_local`` template on a T = 1 grid,
+    built on the card: same-frame keys within Chebyshev distance
+    ``radius``."""
+    import torch
+
+    _, h, w = grid
+    idx = torch.arange(h * w, device="cuda")
+    y, x = idx // w, idx % w
+    return (((y[:, None] - y[None, :]).abs() <= radius)
+            & ((x[:, None] - x[None, :]).abs() <= radius))
+
+
+def unet_served_map(grid, blk=128):
+    """A constructed map at a unet-sd15 level: the UNet's default template
+    (``spatial_local``, radius a quarter of the side) with every key kept
+    for the first query tile, so the map has FULL, PARTIAL and (from 1024
+    tokens on) SKIP tiles; the bias is -inf off the keep and a finite
+    random term on it, one (1, 1, N, N) f32 slab broadcast over batch and
+    heads.  Returns (bias, map)."""
+    import torch
+    from repro_torch.kernels.sparse.ops import block_map_from_keep
+
+    keep = spatial_local_keep(grid, max(1, min(grid[1:]) // 4))
+    keep[:blk] = True
+    g = torch.Generator(device="cuda")
+    g.manual_seed(sum(grid))
+    bias = torch.where(keep, 0.5 * torch.randn(keep.shape, generator=g, device="cuda"),
+                       float("-inf"))
+    bmap = block_map_from_keep(keep, blk, blk)
+    del keep
+    return bias[None, None], bmap
+
+
+def unet_sparse_checks(results):
+    """The sparse kernel at unet-sd15's head dims: bf16 at d 40, 80 and 160
+    on the tensor cores (all-FULL against SDPA, all-SKIP, mixed maps under
+    -inf and finite PARTIAL biases, B*H > 1 with a ragged N, a
+    PARTIAL-heavy map under a bias broadcast over batch and heads, map rows
+    live only at their two ends so the ring wraps); the CUDA cores at d 160
+    and 256 in f32, d 256 in bf16 and bf16 at d 160 with dv 256; then the
+    four served calls (batch 4, 8 heads) all-FULL as ``svg`` serves them
+    at T = 1 and on a constructed map with SKIP, FULL and PARTIAL tiles
+    and a bias (:func:`unet_served_map`).  Returns the served calls'
+    operands, maps and errors for :func:`time_unet_sparse`."""
+    import torch
+    from repro_torch.kernels.sparse.ops import (FULL, PARTIAL, SKIP,
+                                                block_map_from_keep, sparse_grid)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device="cuda")
+    g.manual_seed(130)
+
+    def qkv(shape, dt, dv=None):
+        B, H, N, d = shape
+        return tuple(torch.randn((B, H, N, n), generator=g, device="cuda").to(dt)
+                     for n in (d, d, dv or d))
+
+    def mixed_keep(shape, blk):
+        B, H, N = shape[:3]
+        keep = torch.rand((B, H, N, N), generator=g, device="cuda") < 0.5
+        keep[..., :blk, :blk] = True             # a FULL tile
+        keep[..., blk:2 * blk, :blk] = False     # a SKIP tile
+        return keep
+
+    def neg_inf(keep):
+        return torch.where(keep, 0.0, float("-inf")).float()
+
+    def states(shape, blk):
+        nb = sparse_grid(shape[2], shape[2], blk, blk)[2]
+        return torch.randint(0, 3, (*shape[:2], nb, nb), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    for d in (40, 80, 160):
+        shape, blk = (1, 2, 256, d), 64
+        nb = 4
+        q, k, v = qkv(shape, bf16)
+        check_sparse(results, f"d={d} all FULL", q, k, v, None,
+                     torch.full((nb, nb), FULL, dtype=torch.int32, device="cuda"), blk,
+                     sdpa=True)
+        check_sparse(results, f"d={d} all SKIP", q, k, v, None,
+                     torch.full((nb, nb), SKIP, dtype=torch.int32, device="cuda"), blk)
+        keep = mixed_keep(shape, blk)
+        check_sparse(results, f"d={d} mixed, -inf bias", q, k, v, neg_inf(keep),
+                     block_map_from_keep(keep, blk, blk), blk)
+        check_sparse(results, f"d={d} random states, finite PARTIAL bias", q, k, v,
+                     torch.randn((1, 2, 256, 256), generator=g, device="cuda"),
+                     states(shape, blk), blk)
+        shape = (2, 3, 300, d)
+        q, k, v = qkv(shape, bf16)
+        keep = mixed_keep(shape, 128)
+        check_sparse(results, f"d={d} mixed, N=300 (ragged, B*H > 1)", q, k, v,
+                     neg_inf(keep), block_map_from_keep(keep, 128, 128), 128)
+        shape = (2, 3, 512, d)
+        q, k, v = qkv(shape, bf16)
+        st = states(shape, 64)
+        st = torch.where(torch.rand(st.shape, generator=g, device="cuda") < 0.7,
+                         torch.full_like(st, PARTIAL), st)
+        check_sparse(results, f"d={d} PARTIAL-heavy map, bias broadcast over batch and "
+                     f"heads", q, k, v,
+                     torch.randn((1, 1, 512, 512), generator=g, device="cuda"), st, 64)
+        # Live tiles at both ends of each map row: the ring wraps within a
+        # row (at d 160 it has 2 slots, and a PARTIAL stage takes both).
+        shape = (1, 2, 1024, d)
+        q, k, v = qkv(shape, bf16)
+        bias = torch.randn((1, 2, 1024, 1024), generator=g, device="cuda")
+        for blk, b, ends in ((128, bias, (PARTIAL, PARTIAL)), (256, None, (FULL, FULL))):
+            nb = 1024 // blk
+            bmap = torch.full((1, 2, nb, nb), SKIP, dtype=torch.int32, device="cuda")
+            bmap[..., 0], bmap[..., -1] = ends
+            check_sparse(results, f"d={d} live tiles at both ends of each map row, "
+                         f"block {blk}, {'bias' if b is not None else 'no bias'}",
+                         q, k, v, b, bmap, blk)
+        del q, k, v, bias, bmap, keep
+    for d, dv, dt in ((160, 160, f32), (256, 256, f32), (256, 256, bf16),
+                      (160, 256, bf16)):
+        for N in (130, 256):
+            shape = (1, 2, N, d)
+            q, k, v = qkv(shape, dt, dv)
+            keep = mixed_keep(shape, 64)
+            check_sparse(results, f"d={d} dv={dv} N={N} mixed, -inf bias", q, k, v,
+                         neg_inf(keep), block_map_from_keep(keep, 64, 64), 64)
+        check_sparse(results, f"d={d} dv={dv} random states, finite PARTIAL bias",
+                     q, k, v, torch.randn((1, 2, N, N), generator=g, device="cuda"),
+                     states(shape, 64), 64)
+    del q, k, v, keep
+    served = []
+    for i, (shape, grid) in enumerate(UNET_QK):
+        q, k, v = (correlated(shape, bf16, 140 + 3 * i + j) for j in range(3))
+        nb = sparse_grid(shape[2], shape[2], 128, 128)[2]
+        full = torch.full((nb, nb), FULL, dtype=torch.int32, device="cuda")
+        err_full = check_sparse(results, f"{shape} all FULL (svg at T = 1, unet-sd15 "
+                                f"serving shape)", q, k, v, None, full, 128, sdpa=True)
+        bias, bmap = unet_served_map(grid)
+        err = check_sparse(results, f"{shape} spatial_local map (constructed, unet-sd15 "
+                           f"serving shape)", q, k, v, bias, bmap, 128)
+        served.append({"shape": shape, "qkv": (q, k, v), "full": full, "bias": bias,
+                       "bmap": bmap, "err": max(err, err_full)})
+    torch.cuda.empty_cache()
+    return served
+
+
+def time_unet_sparse(served):
+    """The sparse kernel at unet-sd15's four served calls (batch 4, 8
+    heads, bf16, tensor cores): device time (torch.profiler) on the
+    all-FULL map ``svg`` serves at T = 1 and on the constructed map
+    (:func:`unet_served_map`), SDPA's device time without a mask and with
+    the same f32 mask, the plain version (a loop over the batch rows: the
+    full batch's dense scores at 16384 tokens take 34 GB), and the bound.
+    Returns one dict a call."""
+    import torch
+    from repro_torch.kernels.sparse import ops as sparse_ops
+    from repro_torch.kernels.sparse.ref import sparse_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for call in served:
+        q, k, v = call["qkv"]
+        shape, d = call["shape"], call["shape"][-1]
+        scale = float(1.0 / d ** 0.5)
+        inst = {"shape": list(shape), "max_abs_err": call["err"],
+                "tensor_cores": sparse_ops.uses_tensor_cores(q, v)}
+        for name, bias, bmap in (("full", None, call["full"]),
+                                 ("map", call["bias"], call["bmap"])):
+            def kern():
+                return sparse_ops.sparse_attention(q, k, v, bias=bias, block_map=bmap,
+                                                   block_q=128, block_k=128)
+            ms, host = device_time_ms(kern, "sparse_wgmma_kernel")
+            # The mask in q's dtype, so that SDPA may take its fused kernels.
+            mask = None if bias is None else bias.to(q.dtype)
+            lib, _ = device_time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale))
+            plain = cuda_time_ms(lambda: [sparse_attention_ref(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1], bias=bias, block_map=bmap,
+                block_q=128, block_k=128, scale=scale) for b in range(q.shape[0])],
+                iters=1, warmup=1)
+            bound, by, flops, nbytes = sparse_bound(q, v, bias, bmap, 128)
+            log(f"time sparse_attention bf16 {shape} (unet-sd15, d {d}, tensor cores "
+                f"{inst['tensor_cores']}) {'all-FULL map, no bias' if bias is None else 'spatial_local map with its bias'} "
+                f"({tile_shares(bmap)}): kernel device {ms:.4f} ms "
+                f"({flops / ms / 1e9:.2f} TFLOP/s), host {host:.4f} ms a wrapper call; "
+                f"plain {plain:.4f} ms; sdpa {'' if bias is None else 'with the mask in bf16 '}"
+                f"device {lib:.4f} ms; bound {bound:.4f} ms ({by}: {flops / 1e12:.4f} "
+                f"TFLOP, {nbytes / 1e6:.1f} MB); bound/kernel {bound / ms:.3f}, "
+                f"kernel/sdpa {ms / lib:.3f}; {CARD}")
+            inst.update({f"{name}_ms": ms, f"{name}_host_ms": host,
+                         f"{name}_plain_ms": plain, f"{name}_library_ms": lib,
+                         f"{name}_bound_ms": bound, f"{name}_bound_by": by})
+        out.append(inst)
+    served.clear()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1456,6 +1677,14 @@ def kernel_bench_phase():
             return f
         return make
 
+    swept = []
+
+    def sweep(orig):
+        def f(*a, **kw):
+            swept.append(orig(*a, **kw))
+            return swept[-1]
+        return f
+
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1463,7 +1692,8 @@ def kernel_bench_phase():
                  keep(flash_calls, lambda q, kw: tuple(q.shape))), \
             wrapped(kernel_bench, "sparse_attention",
                     keep(sparse_calls, lambda q, kw: (tuple(q.shape),
-                                                      kw["block_map"].data_ptr()))):
+                                                      kw["block_map"].data_ptr()))), \
+            wrapped(kernel_bench, "static_pattern_sweep", sweep):
         kernel_bench.main([])
         wide = kernel_bench.sparse_backend_sweep(grid=(8, 32, 32), d=128, heads=24)
         log(kernel_bench.sparse_row(wide))
@@ -1473,6 +1703,8 @@ def kernel_bench_phase():
     if any(counts[n] <= 0 for n in ("flash_attention", "sparse_attention",
                                     "fused_reuse")):
         raise SystemExit(f"kernel_bench: a kernel of the path never launched: {counts}")
+    if len(swept) != 1 or not swept[0]["map_stable"]:
+        raise SystemExit(f"kernel_bench[static_pattern_sweep]: {swept}")
     if KB_WIDE not in flash_calls or len(sparse_calls) != 4:
         raise SystemExit(f"kernel_bench: calls kept {list(flash_calls)}, "
                          f"{len(sparse_calls)} sparse")
@@ -2062,6 +2294,195 @@ def serve_unet():
     return counts, by_shape
 
 
+UNET_SVG_REQUESTS = 2  # svg's dense (B, 8, N, N) f32 bias: 17.2 GB at batch 2
+
+
+def sparse_recorder(shapes, maps=None, biases=None):
+    """A maker for :func:`wrapped` that adds each sparse-wrapper call's
+    (tokens, head dim, tensor cores) to the set ``shapes``, keeps the
+    first block map of each distinct map tensor in ``maps`` and records
+    whether each call carried a bias in ``biases``.  It counts nothing:
+    the launches are the wrapper's own counts."""
+    from repro_torch.kernels.sparse import ops as sparse_ops
+
+    def make(orig):
+        def f(q, k, v, **kw):
+            shapes.add((q.shape[-2], q.shape[-1], sparse_ops.uses_tensor_cores(q, v)))
+            bm = kw.get("block_map")
+            if maps is not None and bm is not None:
+                maps.setdefault((bm.data_ptr(), tuple(bm.shape)), bm)
+            if biases is not None:
+                biases.append(kw.get("bias") is not None)
+            return orig(q, k, v, **kw)
+        return f
+    return make
+
+
+def map_shares(maps):
+    """(FULL, PARTIAL, SKIP) shares over the distinct maps kept by
+    :func:`sparse_recorder` (each head's map once)."""
+    import torch
+
+    c = sum(tile_counts(m).reshape(-1, 3).sum(0).double() for m in maps.values())
+    return tuple((c / c.sum()).tolist()) if torch.is_tensor(c) else (0.0, 0.0, 0.0)
+
+
+def serve_unet_svg():
+    """unet-sd15 at full width and depth (ch 320, 8 heads, text context 77 x
+    768) on gen_1024 under ``--policy svg``, 50 DDIM steps, 2 requests in
+    one batch (the reference's dense (B, 8, N, N) f32 bias takes 17.2 GB
+    at the 128² level at batch 2, 34.4 GB at the shape's batch 4: cut to
+    2).  Every one of the 16 self-attention calls a forward goes through
+    the sparse kernel, on the tensor cores at its level's head dim (40, 80,
+    160); fused_reuse and ripple never launch.  On a T = 1 grid svg's
+    spatial mask keeps every token, so every map is all-FULL.  Returns the
+    launch counts and the sparse launches by (tokens, head dim), as the
+    wrapper counted them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sparse import ops as sparse_ops
+    from repro_torch.launch.serve import serving_shape
+    from repro_torch.models.params import init_unet
+
+    arch = get_config("unet-sd15")
+    shape = serving_shape(arch, UNET_SHAPE, smoke=False)
+    log(f"serve: unet-sd15 full width and depth under svg, {shape.name}, "
+        f"{shape.steps} DDIM steps, {UNET_SVG_REQUESTS} requests; cut: batch 4 -> "
+        f"{UNET_SVG_REQUESTS} (the dense f32 bias)")
+    model = init_unet(arch.model, seed=0, device="cuda", dtype=torch.bfloat16,
+                      zero_init=False)
+    calls = 1 + sum(len(level.attn) for level in (*model.down, *model.up))
+    shapes, maps = set(), {}
+    with wrapped(sparse_ops, "sparse_attention", sparse_recorder(shapes, maps)):
+        counts, _, _ = serve_phase(
+            "unet-svg", arch, shape, model, policy="svg", requests=UNET_SVG_REQUESTS,
+            launched=("sparse_attention",), absent=("ripple_attention", "fused_reuse"))
+    by_shape = dict(sparse_ops.launches_by_shape)  # read with ``counts``
+    want = calls * shape.steps
+    dims = sorted({d for _, d, _ in shapes})
+    full, partial, skip = map_shares(maps)
+    log(f"serve[unet-svg]: {calls} self-attention calls a forward; sparse launches "
+        f"{counts['sparse_attention']} (expected {want}), by (tokens, head dim) "
+        f"{sorted(by_shape.items())}; calls at (tokens, head dim, tensor cores) "
+        f"{sorted(shapes)}; tile shares full {full:.4f} partial {partial:.4f} "
+        f"skip {skip:.4f}")
+    if counts["sparse_attention"] != want:
+        raise SystemExit("serve[unet-svg]: a self-attention call missed the kernel")
+    if sum(by_shape.values()) != counts["sparse_attention"]:
+        raise SystemExit("serve[unet-svg]: sparse launches by shape do not add up")
+    if dims != [40, 80, 160] or not all(tc for *_, tc in shapes):
+        raise SystemExit("serve[unet-svg]: the sparse kernel left the tensor cores "
+                         "or missed a level")
+    if full != 1.0:
+        raise SystemExit("serve[unet-svg]: a T = 1 svg map is not all-FULL")
+    del model
+    torch.cuda.empty_cache()
+    return counts, by_shape
+
+
+PATTERN_DIR = os.path.join(ROOT, "build", "patterns")
+# The default template at the served grid (8, 32, 32) + 256 text tokens,
+# frame_diag(window=1, sink=1) in 128 x 128 tiles: (FULL, PARTIAL, SKIP).
+STATIC_SHARES = (0.280, 0.0, 0.720)
+
+
+def pattern_search_phase():
+    """The port's ``pattern_search`` on the card at the served vDiT grid
+    (8, 32, 32): 24 heads of 128, 1 layer, 1 prompt, 2 steps of its
+    synthetic calibration traffic, the reference's defaults otherwise
+    (128 x 128 blocks, 25 dB).  It writes its artifact under the
+    git-ignored ``build/patterns/``.  Returns the artifact's path."""
+    import collections
+
+    import torch
+    from repro_torch.launch import pattern_search
+
+    path = os.path.join(PATTERN_DIR, "vdit.json")
+    t0 = time.perf_counter()
+    art = pattern_search.main(["--grid", "8x32x32", "--layers", "1", "--heads", "24",
+                               "--d", "128", "--prompts", "1", "--steps", "2",
+                               "--out", path])
+    torch.cuda.synchronize()
+    log(f"pattern_search[vdit]: grid (8, 32, 32), 24 heads x 128, 1 layer, 1 prompt, "
+        f"2 steps: static share {art.static_fraction():.4f}; branches "
+        f"{dict(collections.Counter(art.branches(24)))}; version {art.version}; "
+        f"{time.perf_counter() - t0:.1f}s; {CARD}")
+    return path
+
+
+def serve_static(arch, shape, model):
+    """``--policy static`` on the served vDiT with no artifact installed:
+    the default template on every head, its plan built once, no bias
+    (the map has no PARTIAL tile), and only the sparse kernel: one launch
+    a layer-step."""
+    from repro_torch.core import patterns
+    from repro_torch.kernels.sparse import ops as sparse_ops
+
+    patterns.set_active_artifact(None)
+    builds0 = patterns.plan_builds
+    shapes, maps, biases = set(), {}, []
+    with wrapped(sparse_ops, "sparse_attention", sparse_recorder(shapes, maps, biases)):
+        counts, _, _ = serve_phase("static", arch, shape, model, policy="static",
+                                   launched=("sparse_attention",),
+                                   absent=("ripple_attention", "fused_reuse"))
+    by_shape = dict(sparse_ops.launches_by_shape)  # read with ``counts``
+    builds = patterns.plan_builds - builds0
+    store = patterns.plan_store()
+    shares = map_shares(maps)
+    want = arch.model.num_layers * shape.steps
+    log(f"serve[static]: sparse launches {counts['sparse_attention']} (expected "
+        f"{want}), by (tokens, head dim) {sorted(by_shape.items())}; calls at "
+        f"(tokens, head dim, tensor cores) {sorted(shapes)}; "
+        f"tile shares full {shares[0]:.4f} partial {shares[1]:.4f} skip "
+        f"{shares[2]:.4f} (expected {STATIC_SHARES}); calls with a bias "
+        f"{sum(biases)}; plan builds {builds} for {len(store)} keys {list(store)}")
+    if counts["sparse_attention"] != want:
+        raise SystemExit("serve[static]: a layer-step missed the sparse kernel")
+    if tuple(round(x, 3) for x in shares) != STATIC_SHARES:
+        raise SystemExit("serve[static]: the served map has other tiles")
+    if any(biases) or any(p.bias is not None for p in store.values()):
+        raise SystemExit("serve[static]: a bias was built for a PARTIAL-free map")
+    if builds != len(store) or len(store) != 1:
+        raise SystemExit("serve[static]: the constant plan was built more than "
+                         "once per key")
+    return counts
+
+
+def serve_rainfusion(arch, shape, model, path):
+    """``--policy rainfusion`` on the served vDiT with the artifact of
+    :func:`pattern_search_phase` installed: fused_reuse snaps the dynamic
+    heads, the sparse kernel runs every head under the static heads' maps
+    and their bias, the ripple kernel never launches."""
+    import torch
+    from repro_torch.core import patterns
+    from repro_torch.kernels.sparse import ops as sparse_ops
+
+    art = patterns.install_artifact(path)
+    heads = arch.model.num_heads
+    static = [h for h in range(heads) if art.assignment(None, h) is not None]
+    builds0 = patterns.plan_builds
+    shapes, maps, biases = set(), {}, []
+    with wrapped(sparse_ops, "sparse_attention", sparse_recorder(shapes, maps, biases)):
+        counts, _, _ = serve_phase("rainfusion", arch, shape, model,
+                                   policy="rainfusion",
+                                   launched=("fused_reuse", "sparse_attention"),
+                                   absent=("ripple_attention",))
+    store = patterns.plan_store()
+    shares = map_shares(maps)
+    bias_gb = sum(p.bias.numel() * 4 for p in store.values() if p.bias is not None) / 1e9
+    log(f"serve[rainfusion]: artifact {art.version}: {len(static)} of {heads} heads "
+        f"static {static}; launches fused_reuse {counts['fused_reuse']}, sparse "
+        f"{counts['sparse_attention']}; calls with a bias {sum(biases)} of "
+        f"{len(biases)}; tile shares full {shares[0]:.4f} partial {shares[1]:.4f} "
+        f"skip {shares[2]:.4f}; plan builds {patterns.plan_builds - builds0} for "
+        f"{len(store)} keys, stored bias {bias_gb:.2f} GB")
+    if patterns.plan_builds - builds0 != len(store) or len(store) > 1:
+        raise SystemExit("serve[rainfusion]: a constant plan was built more than once")
+    patterns.set_active_artifact(None)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def ripple_ranges():
     """The ripple wrapper's collapse-flag pass (plain PyTorch, on the key
     operand) and the policy's snap step (the fused_reuse kernel and any
@@ -2406,6 +2827,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    # The pattern policies read only artifacts this run writes or installs.
+    os.environ["REPRO_PATTERN_ARTIFACT"] = os.path.join(PATTERN_DIR, "active.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2513,6 +2936,10 @@ def main() -> int:
 
     # 5. kernel 3 vs its plain semantics -------------------------------------
     sparse_checks(serve_grid, 256)
+    res_u = []
+    unet_sparse = unet_sparse_checks(res_u)
+    log(f"kernel sparse_attention at unet-sd15's head dims: {sum(res_u)}/{len(res_u)} "
+        f"cases within tolerance")
 
     # 5b. kernels 5 (flash) and 6 (reuse_snap) vs their plain versions ------
     flash_checks()
@@ -2558,6 +2985,7 @@ def main() -> int:
         f"TFLOP); kernel/sdpa {r_ms / r_lib:.3f}, bound/kernel {r_bound / r_ms:.3f}")
     del q, k, v, dit_q, dit_k, dit_v
     unet_times = time_unet_ripple(unet_served)
+    unet_sparse_times = time_unet_sparse(unet_sparse)
     xu = correlated(UNET_QK[0][0], bf16, 24)
     t1u = time_fused_reuse(xu, UNET_QK[0][1], ("x", "y"), None, "unet-sd15 served call",
                            flush)
@@ -2629,6 +3057,11 @@ def main() -> int:
     counts_c, _ = serve_ripple_cache(arch_c, dataclasses.replace(shape, steps=CACHE_STEPS),
                                      model)
     profile_cache(arch_c, model, lat_shape, 12, 13, CACHE_STEPS)
+    # The offline-pattern policies: the search at the served grid, then
+    # static (no artifact) and rainfusion (the searched artifact).
+    art_path = pattern_search_phase()
+    counts_st = serve_static(arch, shape, model)
+    counts_rf = serve_rainfusion(arch, shape, model, art_path)
     del model
     torch.cuda.empty_cache()
     arch2, shape2, model2 = load_served_model(2)
@@ -2708,6 +3141,11 @@ def main() -> int:
     for inst in unet_times:
         inst["launches"] = sum(c for (n, d), c in by_shape_u.items()
                                if [n, d] == inst["shape"][-2:])
+    # 8a'. unet-sd15 under svg: the sparse kernel at d 40, 80 and 160.
+    counts_us, by_shape_us = serve_unet_svg()
+    for inst in unet_sparse_times:
+        inst["launches_unet_svg"] = sum(c for (n, d), c in by_shape_us.items()
+                                        if [n, d] == inst["shape"][-2:])
 
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
@@ -2727,6 +3165,15 @@ def main() -> int:
                           overrides=("model.d_model=144", "model.num_heads=2"))
     # The smoke UNet (ch 32, 2 levels, head dims 8 and 16), latents 8 x 8.
     small_reference_check("unet", name="unet-sd15")
+    small_reference_check("unet-svg", name="unet-sd15", policy="svg")
+    # The offline-pattern policies: static on the default template, and
+    # rainfusion under the artifact pattern_search[vdit] wrote.
+    from repro_torch.core import patterns
+
+    small_reference_check("static", policy="static")
+    patterns.install_artifact(art_path)
+    small_reference_check("rainfusion", policy="rainfusion")
+    patterns.set_active_artifact(None)
 
     kernels = [
         # Device times (torch.profiler, L2 flushed before each call) for
@@ -2743,7 +3190,8 @@ def main() -> int:
          "launches_ripple_cache": counts_c["fused_reuse"],
          # unet-sd15: its launches in serve[unet-sd15] and the call at its
          # finest level, (4, 8, 16384, 40), T = 1, axes xy.
-         "launches_unet": counts_u["fused_reuse"], "unet_ms": t1u["ms"],
+         "launches_unet": counts_u["fused_reuse"],
+         "launches_rainfusion": counts_rf["fused_reuse"], "unet_ms": t1u["ms"],
          "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
@@ -2759,7 +3207,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/sparse/kernel.py:120",
          "launches": counts_s["sparse_attention"], "max_abs_err": serve_err3,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib},
+         "bound_by": k3_by, "library_ms": k3_lib,
+         # Its launches on this slice's paths, and unet-sd15's four
+         # served calls (all-FULL as svg serves them, and a constructed
+         # spatial_local map with its bias) against SDPA by device time.
+         "launches_static": counts_st["sparse_attention"],
+         "launches_rainfusion": counts_rf["sparse_attention"],
+         "launches_unet_svg": counts_us["sparse_attention"],
+         "unet": unet_sparse_times},
         # No single PyTorch call computes LayerNorm-and-modulate: the time
         # of F.layer_norm with its two elementwise ops is in the log line.
         {"name": "adaln", "route": "cuda",

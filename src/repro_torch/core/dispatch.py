@@ -259,7 +259,8 @@ def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
         new_cache = dc.cache_from_decision(d, stat, prev=cached)
     else:
         d = policy.apply_decision(q, k, cached, grid=grid, cfg=cfg,
-                                  thetas=thetas, grid_slice=grid_slice)
+                                  thetas=thetas, grid_slice=grid_slice,
+                                  **_decide_extra(plan, policy, cfg))
         new_cache = dc.bump_hit(cached)
     return _execute_backend(d, v, scale, plan=plan, cfg=cfg), new_cache
 

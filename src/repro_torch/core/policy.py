@@ -18,6 +18,9 @@ Built-in policies of the port:
   ``equal_mse``  ripple's decision with the Fig. 9 equal-impact per-step
               schedule (``core.calibrate``) instead of the linear ramp
   ``dense``   no-op baseline; plans resolve straight to the dense backend
+  ``static``, ``rainfusion``  the offline-pattern policies of
+              ``core.patterns`` (DESIGN.md §16), registered when this
+              module is imported
 
 Cache-capable policies (``caches_decisions``) also emit the cacheable
 half of their decision with ``decide(want_plan=True)`` and re-apply a
@@ -103,8 +106,7 @@ class ReusePolicy:
                             operands: the cross-step decision cache
       ``plan_once``         a cache-capable policy whose decision is a
                             constant of the trajectory: the cache
-                            refreshes at step 0 only (offline patterns,
-                            not ported yet)
+                            refreshes at step 0 only (``static``)
     """
 
     name: str = ""
@@ -160,14 +162,16 @@ class ReusePolicy:
     def apply_decision(self, q: torch.Tensor, k: torch.Tensor, cached, *,
                        grid: Tuple[int, int, int], cfg: RippleConfig,
                        thetas: Dict[str, float],
-                       grid_slice: Optional[Tuple[int, int]] = None
+                       grid_slice: Optional[Tuple[int, int]] = None,
+                       block_shape: Optional[Tuple[int, int]] = None
                        ) -> ReuseDecision:
         """Re-apply a cached decision (a
         :class:`~repro_torch.core.decision_cache.CachedDecision` that an
         earlier ``decide(want_plan=True)`` made on operands of the same
         shapes) to *fresh* operands: snap-source maps are replayed as one
         gather each, the cached bias and block map attached as they are.
-        Only the decision is stale; the per-step math stays exact."""
+        Only the decision is stale; the per-step math stays exact.
+        ``block_shape`` is the one that ``decide`` took."""
         q_s, q_mask = replay_snap(q, cached.q_idx, grid_slice,
                                   self.snaps_operands)
         k_s, k_mask = replay_snap(k, cached.k_idx, grid_slice,
@@ -486,3 +490,8 @@ register_policy(RipplePolicy())
 register_policy(SVGPolicy())
 register_policy(EqualMSEPolicy())
 register_policy(DensePolicy())
+
+# The pattern-search policies (``static``, ``rainfusion``) live in
+# core/patterns.py and register themselves on import; importing here
+# makes every registry consumer see them, as in the JAX package.
+from repro_torch.core import patterns as _patterns  # noqa: E402,F401

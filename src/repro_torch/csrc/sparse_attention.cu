@@ -27,39 +27,51 @@
 // a spatial head's map has no PARTIAL tile and is bound by its flops.
 //
 // Design:
-//   * bf16 with d == dv in {32, 64, 128}: wgmma.mma_async (sm_90a), the
-//     ripple kernel's machinery (hopper.cuh).  A block owns 128 query rows
-//     of one map row (a map tile taller than 128 rows takes several
-//     blocks; rows past the tile are computed and never stored): consumer
-//     warpgroups 0 and 1 hold 64 rows each, a third, producer warpgroup
-//     streams key stages through a ring in shared memory.  The producer
-//     walks the block's map row and issues nothing for a SKIP tile (the
-//     CUDA form of the JAX kernel's k_fetch / bias_fetch copy elision);
-//     the consumers walk the same row and do no math there.  A live tile
-//     is cut into stages from its first key; keys of a stage past the
-//     tile's end or past Nk are masked by index, rows past Nk arrive as
-//     zeros (TMA fills them).
-//   * Q, K and V arrive by TMA in 128 B (d 32: 64 B) swizzled channel
-//     boxes that the wgmma descriptors read; S = Q K^T is wgmma SS, O +=
-//     P V wgmma RS with P re-packed from the f32 score accumulators into
-//     bf16 registers.  mbarriers say when a stage's K, V and bias are full
-//     and when both consumers have released it.  Softmax runs online in
-//     log2 units, each exponent one FFMA into ex2.approx.ftz.
-//   * The ring has slots of 64 KB (3 at d 128, beside 32 KB of Q).  Every
-//     stage has 128 keys, as the ripple kernel's: its K and V take one
-//     slot.  A PARTIAL tile's stage in a call with a bias also takes the
-//     next slot for its 128 x 128 f32 bias, which the whole producer
-//     warpgroup copies with cp.async (16-byte copies when every row starts
-//     on a 16-byte boundary, 4-byte copies otherwise) into a swizzled
-//     layout that the consumers read as float2 without bank conflicts; it
-//     arrives on the slot's bias barrier when its copies land.  So FULL and
-//     PARTIAL stages run the same wgmma code, with one branch for the bias
-//     add; a call without a bias runs an instantiation with no bias code
-//     (PARTIAL tiles run as FULL ones there).  Each consumer runs a stage in order (S, softmax, PV) within the
-//     168 registers a thread of the launch bound; the two consumers
-//     overlap one another.
-//   * float32 (and other head dims): CUDA-core FMAs in f32, the tile code
-//     of ripple_attention.cu's CUDA-core path.
+//   * bf16 with d == dv in {32, 40, 64, 80, 128, 160}: wgmma.mma_async
+//     (sm_90a), the ripple kernel's machinery (hopper.cuh).  A block owns
+//     128 query rows of one map row (a map tile taller than 128 rows takes
+//     several blocks; rows past the tile are computed and never stored):
+//     consumer warpgroups 0 and 1 hold 64 rows each, a third, producer
+//     warpgroup streams key stages through a ring in shared memory.  The
+//     producer walks the block's map row and issues nothing for a SKIP
+//     tile (the CUDA form of the JAX kernel's k_fetch / bias_fetch copy
+//     elision); the consumers walk the same row and do no math there.  A
+//     live tile is cut into stages from its first key; keys of a stage
+//     past the tile's end or past Nk are masked by index, rows past Nk
+//     arrive as zeros (TMA fills them).
+//   * Q, K and V arrive by TMA in swizzled channel boxes that the wgmma
+//     descriptors read (hopper.cuh, Boxes): 128 B rows of 64 channels (d
+//     32: 64 B rows of 32), and at d 40, 80 and 160 one tail box more,
+//     with its own tensor map: d 40 is 32 + 16 channels, the map ending
+//     at 40 so that TMA zero-fills channels 40-47 (exact zeros in the
+//     score product, never stored by the PV product); d 80 64 + 16; d 160
+//     64 + 64 + 32.  S = Q K^T is wgmma SS, O += P V wgmma RS with P
+//     re-packed from the f32 score accumulators into bf16 registers (the
+//     tail box's columns a second product of N = 16 or 32).  mbarriers say
+//     when a stage's K, V and bias are full and when both consumers have
+//     released it.  Softmax runs online in log2 units, each exponent one
+//     FFMA into ex2.approx.ftz.
+//   * The ring has slots of 64 KB (3 at d <= 128, beside Q), 80 KB at d
+//     160 (2: a stage's K and V take 80 KB there).  Every stage has 128
+//     keys, as the ripple kernel's: its K and V take one slot.  A PARTIAL
+//     tile's stage in a call with a bias also takes the next slot for its
+//     128 x 128 f32 bias, which the whole producer warpgroup copies with
+//     cp.async (16-byte copies when every row starts on a 16-byte
+//     boundary, 4-byte copies otherwise) into a swizzled layout that the
+//     consumers read as float2 without bank conflicts; it arrives on the
+//     slot's bias barrier when its copies land.  So FULL and PARTIAL
+//     stages run the same wgmma code, with one branch for the bias add; a
+//     call without a bias runs an instantiation with no bias code
+//     (PARTIAL tiles run as FULL ones there).  Each consumer runs a stage
+//     in order (S, softmax, PV) within the 168 registers a thread of the
+//     launch bound; the two consumers overlap one another.  At d 160 the
+//     O accumulator takes 80 registers a thread, so a stage runs as two
+//     halves of 64 keys (S -> softmax -> PV each, over its own 64 V rows
+//     and the same 64 columns of the stage's bias slot): 64 x 64 scores
+//     live at a time, as in the ripple kernel's d-160 path.
+//   * float32 (and other head dims up to 256): CUDA-core FMAs in f32, the
+//     tile code of ripple_attention.cu's CUDA-core path: 8 x 4 outputs a
+//     lane, 8 x 8 above dv 128.
 
 #include <math.h>
 #include <stdint.h>
@@ -72,7 +84,7 @@ constexpr int kSkip = 0;
 constexpr int kPartial = 2;
 constexpr float kMInit = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxDim = 128;
+constexpr int kMaxDim = 256;  // both paths, as the ripple kernel
 constexpr int kChunk = 64;  // keys per shared-memory chunk (CUDA cores)
 
 struct Args {
@@ -102,26 +114,33 @@ constexpr int kConsumers = 2;
 constexpr int kBlockRows = kConsumers * kWgRows;
 constexpr int kWgmmaThreads = 128 * (kConsumers + 1);  // + the producer
 constexpr int kKeys = 128;                          // keys a stage
-constexpr int kSlotBytes = kBlockRows * kKeys * 4;  // one stage's f32 bias
+constexpr int kBiasBytes = kBlockRows * kKeys * 4;  // one stage's f32 bias
 
-// The ring of key stages at head dim D: STAGES slots of 64 KB.  A stage
-// takes one slot for its K and V (128 keys each); a PARTIAL tile's stage
-// in a call with a bias also takes the next slot for its 128 x 128 f32
-// bias.
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The ring of key stages at head dim D: STAGES slots, each a stage's K and
+// V (128 keys each) or, for a PARTIAL tile's stage in a call with a bias,
+// the 128 x 128 f32 bias in the slot after its K and V: 64 KB up to 128
+// channels, 80 KB at d 160.
 template <int D>
 struct Ring : Boxes<D> {
   using B = Boxes<D>;
   static constexpr int Q_BYTES = kWgRows * B::DP * 2;  // one consumer's rows
   static constexpr int KV_BYTES = kKeys * B::DP * 2;
+  static constexpr int SLOT = cmax(kBiasBytes, 2 * KV_BYTES);
   // As many slots as 227 KB holds beside Q, the alignment slack and
   // 512 bytes of barriers.
   static constexpr int STAGES =
-      (kSmemLimit - 1024 - 512 - kConsumers * Q_BYTES) / kSlotBytes;
-  static constexpr int TILE_BYTES = kConsumers * Q_BYTES + STAGES * kSlotBytes;
+      (kSmemLimit - 1024 - 512 - kConsumers * Q_BYTES) / SLOT;
+  static constexpr int TILE_BYTES = kConsumers * Q_BYTES + STAGES * SLOT;
   static constexpr int BARRIERS = 1 + 4 * STAGES;
   static constexpr int SMEM = 1024 + TILE_BYTES + 8 * BARRIERS;  // + alignment
-  static_assert(B::TAIL_C == 0, "whole channel boxes only");
-  static_assert(2 * KV_BYTES <= kSlotBytes, "a stage's K and V fit a slot");
+  // Keys a consumer scores at a time: a stage's 128, or above 128
+  // channels two halves of 64 (O's DP / 2 registers a thread leave no
+  // room for 64 x 128 scores beside them).
+  static constexpr int PASS = B::DP > 128 ? 64 : kKeys;
+  static_assert(SLOT % 1024 == 0 && KV_BYTES % 1024 == 0 && Q_BYTES % 1024 == 0,
+                "swizzled tiles start on 1024-byte boundaries");
   static_assert(STAGES >= 2 && 8 * BARRIERS <= 512 && SMEM <= kSmemLimit,
                 "a ring of 2+ slots fits");
 };
@@ -135,55 +154,59 @@ __device__ __forceinline__ int bias_at(int row, int key) {
 }
 
 // The online-softmax state of one consumer thread: rows r and r + 8 of its
-// warp's 16 (wgmma accumulator layout).
+// warp's 16 (wgmma accumulator layout).  s holds a pass's scores, then
+// their exponentials; pk the probabilities in bf16; o the output over DP
+// columns.
 template <int D>
 struct RowState {
-  float s[kKeys / 2];
-  uint32_t pk[kKeys / 16][4];
-  float o[D / 2];
+  static constexpr int NK = Ring<D>::PASS;
+  float s[NK / 2];
+  uint32_t pk[NK / 16][4];
+  float o[Boxes<D>::DP / 2];
   float m[2], l[2];
 };
 
-// One key stage for one consumer warpgroup: S = Q K^T, the bias of a
-// PARTIAL tile's stage (BIAS and `bias` non-null, waited on b_bar at
-// b_parity), the key mask past key_end (keys of the stage from key0),
-// online softmax, then O += P V once V has arrived.
-template <int D, bool BIAS>
-__device__ __forceinline__ void consume_stage(
+// One pass of NK keys from key K0 of a stage (the whole stage, or a half
+// of it) for one consumer warpgroup: S = Q K^T, the bias of a PARTIAL
+// tile's stage (BIAS and `bias` non-null, waited on b_bar at b_parity),
+// the key mask past key_end (keys of the stage from key0), online softmax,
+// then O += P V over the pass's V rows once V has arrived.
+template <int D, bool BIAS, int NK, int K0>
+__device__ __forceinline__ void consume_keys(
     RowState<D>& st, uint32_t q_tile, uint32_t k_tile, uint32_t v_tile,
     const float* bias, int slot_row, uint32_t v_bar, uint32_t parity,
     uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale_log2) {
   using R = Ring<D>;
-  constexpr int NS = kKeys / 2;
+  constexpr int NS = NK / 2;
   const int lane = threadIdx.x % 32;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < R::KSTEPS; ++kk)
-    wgmma_ss<kKeys>(st.s, kmajor_desc<D, kWgRows>(q_tile, kk),
-                    kmajor_desc<D, kKeys>(k_tile, kk), kk > 0);
+    wgmma_ss<NK>(st.s, kmajor_desc<D, kWgRows>(q_tile, kk),
+                 kmajor_desc<D, kKeys>(k_tile, kk, K0), kk > 0);
   wgmma_commit();
   wgmma_wait_all();
   pin<NS>(st.s);
 
-  // Entry i is column (i / 4) * 8 + (lane % 4) * 2 + (i & 1) of row
-  // slot_row + 8 * ((i >> 1) & 1).
+  // Entry i is column K0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1) of the
+  // stage, row slot_row + 8 * ((i >> 1) & 1).
   float sc = scale_log2;
   if (BIAS && bias != nullptr) {
     mbar_wait(b_bar, b_parity);
 #pragma unroll
     for (int i = 0; i < NS; i += 2) {
       const int row = slot_row + 8 * ((i >> 1) & 1);
-      const int col = (i / 4) * 8 + (lane % 4) * 2;
+      const int col = K0 + (i / 4) * 8 + (lane % 4) * 2;
       const float2 b = *reinterpret_cast<const float2*>(bias + bias_at(row, col));
       st.s[i] = fmaf(st.s[i], scale_log2, b.x * kLog2e);
       st.s[i + 1] = fmaf(st.s[i + 1], scale_log2, b.y * kLog2e);
     }
     sc = 1.f;
   }
-  if (key0 + kKeys > key_end) {
+  if (key0 + K0 + NK > key_end) {
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
-      const int col = (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+      const int col = K0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
       if (key0 + col >= key_end) st.s[i] = -INFINITY;
     }
   }
@@ -217,33 +240,74 @@ __device__ __forceinline__ void consume_stage(
   // O *= alpha; the exponentials become the bf16 A operand: k-step kk is
   // score columns 16kk..16kk+15 (accumulator chunks 2kk and 2kk + 1).
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
+  for (int c = 0; c < R::DP / 8; ++c) {
     st.o[c * 4 + 0] *= alpha[0];
     st.o[c * 4 + 1] *= alpha[0];
     st.o[c * 4 + 2] *= alpha[1];
     st.o[c * 4 + 3] *= alpha[1];
   }
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk)
+  for (int kk = 0; kk < NK / 16; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       st.pk[kk][j] = pack_bf16(st.s[kk * 8 + 2 * j], st.s[kk * 8 + 2 * j + 1]);
 
+  // V rows K0 .. K0 + NK - 1 are the MN-major B operand; the tail box's
+  // columns are a second product.
   mbar_wait(v_bar, parity);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk)
-    wgmma_rs<D>(st.o, st.pk[kk],
-                make_desc(v_tile + kk * 16 * R::MAIN_SW, kKeys * R::MAIN_SW,
-                          8 * R::MAIN_SW, R::MAIN_MODE));
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    const int row = K0 + 16 * kk;
+    wgmma_rs<R::MAIN_C>(st.o, st.pk[kk],
+                        make_desc(v_tile + row * R::MAIN_SW, kKeys * R::MAIN_SW,
+                                  8 * R::MAIN_SW, R::MAIN_MODE));
+    if constexpr (R::TAIL_C > 0)
+      wgmma_rs<R::TAIL_C>(st.o + R::MAIN_C / 2, st.pk[kk],
+                          make_desc(v_tile + R::NMAIN * kKeys * R::MAIN_SW +
+                                        row * R::TAIL_SW,
+                                    kKeys * R::TAIL_SW, 8 * R::TAIL_SW,
+                                    R::TAIL_MODE));
+  }
   wgmma_commit();
   wgmma_wait_all();
-  pin<D / 2>(st.o);
+  pin<R::DP / 2>(st.o);
 }
 
+// One key stage: one pass of 128 keys, or two of 64 above 128 channels.
+template <int D, bool BIAS>
+__device__ __forceinline__ void consume_stage(
+    RowState<D>& st, uint32_t q_tile, uint32_t k_tile, uint32_t v_tile,
+    const float* bias, int slot_row, uint32_t v_bar, uint32_t parity,
+    uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale_log2) {
+  constexpr int NK = Ring<D>::PASS;
+  consume_keys<D, BIAS, NK, 0>(st, q_tile, k_tile, v_tile, bias, slot_row, v_bar,
+                               parity, b_bar, b_parity, key0, key_end, scale_log2);
+  if constexpr (NK < kKeys)
+    consume_keys<D, BIAS, NK, NK>(st, q_tile, k_tile, v_tile, bias, slot_row, v_bar,
+                                  parity, b_bar, b_parity, key0, key_end,
+                                  scale_log2);
+}
+
+// The three operands' tensor maps: main boxes, then the tail boxes.
 struct Maps {
   CUtensorMap q, k, v;
+  CUtensorMap qt, kt, vt;  // tail boxes (TAIL_C > 0 only)
 };
+
+// One tile of `rows` rows from row `row` of head bh: the main boxes, then
+// the tail box, into `tile`, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t tile, int rows,
+                                          const CUtensorMap* mmain,
+                                          const CUtensorMap* mtail, uint32_t bar,
+                                          int row, int bh) {
+  using R = Ring<D>;
+  for (int b = 0; b < R::NMAIN; ++b)
+    tma_load(tile + b * rows * R::MAIN_SW, mmain, bar, b * R::MAIN_BOXC, row, bh);
+  if constexpr (R::TAIL_C > 0)
+    tma_load(tile + R::NMAIN * rows * R::MAIN_SW, mtail, bar, R::MAIN_C, row, bh);
+}
 
 // BIAS: the call has a bias (PARTIAL tiles add it); without one, PARTIAL
 // tiles run as FULL ones and the kernel has no bias code.
@@ -258,7 +322,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t q_tiles = base;  // [kConsumers][kWgRows rows]
   const uint32_t slots = q_tiles + kConsumers * R::Q_BYTES;
-  auto slot = [&](int s) { return slots + s * kSlotBytes; };  // K, then V
+  auto slot = [&](int s) { return slots + s * R::SLOT; };  // K, then V
   const uint32_t bars = base + R::TILE_BYTES;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
@@ -304,9 +368,8 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
     if (pt == 0) {
       mbar_expect_tx(q_full, kConsumers * R::Q_BYTES);
       for (int c = 0; c < kConsumers; ++c)
-        for (int b = 0; b < R::NMAIN; ++b)
-          tma_load(q_tiles + c * R::Q_BYTES + b * kWgRows * R::MAIN_SW, &maps.q,
-                   q_full, b * R::MAIN_BOXC, row_lo + c * kWgRows, bh);
+        load_tile<D>(q_tiles + c * R::Q_BYTES, kWgRows, &maps.q, &maps.qt, q_full,
+                     row_lo + c * kWgRows, bh);
     }
     const float* bias_rows =
         BIAS ? a.bias + (long long)(bh / a.H) * a.bias_sb +
@@ -324,13 +387,10 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
         mbar_wait(empty(s), pos.phase ^ 1);
         if (pt == 0) {
           mbar_expect_tx(k_full(s), R::KV_BYTES);
-          for (int b = 0; b < R::NMAIN; ++b)
-            tma_load(slot(s) + b * kKeys * R::MAIN_SW, &maps.k, k_full(s),
-                     b * R::MAIN_BOXC, key0, bh);
+          load_tile<D>(slot(s), kKeys, &maps.k, &maps.kt, k_full(s), key0, bh);
           mbar_expect_tx(v_full(s), R::KV_BYTES);
-          for (int b = 0; b < R::NMAIN; ++b)
-            tma_load(slot(s) + R::KV_BYTES + b * kKeys * R::MAIN_SW, &maps.v,
-                     v_full(s), b * R::MAIN_BOXC, key0, bh);
+          load_tile<D>(slot(s) + R::KV_BYTES, kKeys, &maps.v, &maps.vt, v_full(s),
+                       key0, bh);
         }
         if (!BIAS) continue;
         mbar_arrive(b_full(s));
@@ -367,7 +427,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
     // Consumers: warpgroup wg owns block rows wg*64 .. wg*64 + 63.
     RowState<D> st;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+    for (int i = 0; i < R::DP / 2; ++i) st.o[i] = 0.f;
     st.m[0] = st.m[1] = kMInit * kLog2e;
     st.l[0] = st.l[1] = 0.f;
     const uint32_t q_tile = q_tiles + wg * R::Q_BYTES;
@@ -390,7 +450,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
         const float* bias = nullptr;
         if (partial) {
           pos.advance();
-          bias = reinterpret_cast<const float*>(slot_mem + pos.slot * kSlotBytes);
+          bias = reinterpret_cast<const float*>(slot_mem + pos.slot * R::SLOT);
         }
         consume_stage<D, BIAS>(st, q_tile, slot(kv.slot), slot(kv.slot) + R::KV_BYTES,
                          bias, r0, v_full(kv.slot), kv.phase, b_full(pos.slot),
@@ -410,30 +470,34 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
       const float inv_l = st.l[h] > 0.f ? 1.f / st.l[h] : 0.f;
       __nv_bfloat16* dst = oh + (long)row * D + col0;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < R::DP / 8; ++c) {
+        if (c * 8 >= D) continue;  // padding columns
         *reinterpret_cast<uint32_t*>(dst + c * 8) = pack_bf16(
             st.o[c * 4 + 2 * h] * inv_l, st.o[c * 4 + 2 * h + 1] * inv_l);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core path (f32, and bf16 with other head dims <= 128)
+// CUDA-core path (f32, and bf16 at other head dims; d, dv <= 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kFmaRows = 64;  // query rows per block
 constexpr int kFmaThreads = 256;
 
-template <typename T>
+// NJ: output columns a lane holds (lane + 32 j), 4 up to dv 128, else 8.
+template <typename T, int NJ>
 __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
+  constexpr int VS = 32 * NJ;  // V row stride
   extern __shared__ float sm[];
   const int d = a.d, dv = a.dv;
   const int dp = d + 1;
   const int sp = kChunk + 1;
   float* Qs = sm;                      // [64][d + 1]
   float* Ks = Qs + kFmaRows * dp;      // [64][d + 1]
-  float* Vs = Ks + kChunk * dp;        // [64][kMaxDim]
-  float* Ss = Vs + kChunk * kMaxDim;   // [64][65]
+  float* Vs = Ks + kChunk * dp;        // [64][VS]
+  float* Ss = Vs + kChunk * VS;        // [64][65]
   float* m_s = Ss + kFmaRows * sp;     // [64]
   float* l_s = m_s + kFmaRows;         // [64]
   float* a_s = l_s + kFmaRows;         // [64]
@@ -458,7 +522,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
     const int row = row_lo + r;
     Qs[r * dp + c] = row < row_hi ? to_f(qh[(long)row * d + c]) : 0.f;
   }
-  for (int i = tid; i < kChunk * kMaxDim; i += kFmaThreads) Vs[i] = 0.f;
+  for (int i = tid; i < kChunk * VS; i += kFmaThreads) Vs[i] = 0.f;
   for (int r = tid; r < kFmaRows; r += kFmaThreads) {
     m_s[r] = kMInit;
     l_s[r] = 0.f;
@@ -468,11 +532,11 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
   const int ty = tid / 16, tx = tid % 16;
   // PV micro-tile: rows warp + 8*i, output columns lane + 32*j.
   const int warp = tid / 32, lane = tid % 32;
-  float acc[8][4];
+  float acc[8][NJ];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   for (int kj = 0; kj < a.nk; ++kj) {
     const int state = mrow[kj];  // uniform over the block
@@ -488,7 +552,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
       }
       for (int i = tid; i < kChunk * dv; i += kFmaThreads) {
         const int j = i / dv, c = i % dv;
-        Vs[j * kMaxDim + c] = j < nkeys ? to_f(vh[(long)(c0 + j) * dv + c]) : 0.f;
+        Vs[j * VS + c] = j < nkeys ? to_f(vh[(long)(c0 + j) * dv + c]) : 0.f;
       }
       __syncthreads();
 
@@ -557,18 +621,18 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
       for (int i = 0; i < 8; ++i) {
         const float alpha = a_s[warp + 8 * i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+        for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
       }
       for (int kk = 0; kk < nkeys; ++kk) {
-        float vv[4], pv[8];
+        float vv[NJ], pv[8];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kMaxDim + lane + 32 * j];
+        for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * VS + lane + 32 * j];
 #pragma unroll
         for (int i = 0; i < 8; ++i) pv[i] = Ss[(warp + 8 * i) * sp + kk];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
       }
     }
   }
@@ -582,7 +646,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
     // l == 0: every tile of the row was skipped or fully masked.
     const float inv_l = l_s[r] > 0.f ? 1.f / l_s[r] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int col = lane + 32 * j;
       if (col < dv) from_f(oh + (long)row * dv + col, acc[i][j] * inv_l);
     }
@@ -619,6 +683,11 @@ int launch_wgmma(Args a, int BH, cudaStream_t s) {
   int rc = encode_rows(&maps.q, a.q, D, a.Nq, BH, R::MAIN_BOXC, kWgRows, R::MAIN_SW);
   if (rc == 0) rc = encode_rows(&maps.k, a.k, D, a.Nk, BH, R::MAIN_BOXC, kKeys, R::MAIN_SW);
   if (rc == 0) rc = encode_rows(&maps.v, a.v, D, a.Nk, BH, R::MAIN_BOXC, kKeys, R::MAIN_SW);
+  if (R::TAIL_C > 0) {
+    if (rc == 0) rc = encode_rows(&maps.qt, a.q, D, a.Nq, BH, R::TAIL_C, kWgRows, R::TAIL_SW);
+    if (rc == 0) rc = encode_rows(&maps.kt, a.k, D, a.Nk, BH, R::TAIL_C, kKeys, R::TAIL_SW);
+    if (rc == 0) rc = encode_rows(&maps.vt, a.v, D, a.Nk, BH, R::TAIL_C, kKeys, R::TAIL_SW);
+  }
   if (rc != 0) return rc;
   // 16-byte bias copies need every copied row to start on a 16-byte
   // boundary: the base, both head strides, the row length and the first
@@ -643,23 +712,30 @@ int launch_wgmma_d(Args a, int BH, cudaStream_t s) {
                            : launch_wgmma<D, false>(a, BH, s);
 }
 
-template <typename T>
-cudaError_t launch_fma(Args a, int BH, cudaStream_t s) {
+template <typename T, int NJ>
+cudaError_t launch_fma_cols(Args a, int BH, cudaStream_t s) {
   a.sub = (a.bq + kFmaRows - 1) / kFmaRows;
   const dim3 grid(a.nq * a.sub, BH);
+  // At d = dv = 256: 2 x 64 x 257 + 64 x 256 + 64 x 65 + 192 floats, 210 KB.
   const size_t smem =
-      sizeof(float) * ((size_t)(kFmaRows + kChunk) * (a.d + 1) + (size_t)kChunk * kMaxDim +
+      sizeof(float) * ((size_t)(kFmaRows + kChunk) * (a.d + 1) + (size_t)kChunk * 32 * NJ +
                        (size_t)kFmaRows * (kChunk + 1) + 3 * kFmaRows);
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sparse_fma_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  sparse_fma_kernel<T><<<grid, kFmaThreads, smem, s>>>(a);
+  sparse_fma_kernel<T, NJ><<<grid, kFmaThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fma(Args a, int BH, cudaStream_t s) {
+  return a.dv > 128 ? launch_fma_cols<T, 8>(a, BH, s) : launch_fma_cols<T, 4>(a, BH, s);
 }
 
 
 bool tensor_cores(int is_bf16, int d, int dv) {
-  return is_bf16 && d == dv && (d == 32 || d == 64 || d == 128);
+  return is_bf16 && d == dv &&
+         (d == 32 || d == 40 || d == 64 || d == 80 || d == 128 || d == 160);
 }
 
 }  // namespace
@@ -704,8 +780,11 @@ extern "C" int sparse_attention_launch(const void* q, const void* k, const void*
   if (tensor_cores(is_bf16, d, dv)) {
     switch (d) {
       case 32: return launch_wgmma_d<32>(a, BH, s);
+      case 40: return launch_wgmma_d<40>(a, BH, s);
       case 64: return launch_wgmma_d<64>(a, BH, s);
-      default: return launch_wgmma_d<128>(a, BH, s);
+      case 80: return launch_wgmma_d<80>(a, BH, s);
+      case 128: return launch_wgmma_d<128>(a, BH, s);
+      default: return launch_wgmma_d<160>(a, BH, s);
     }
   }
   if (is_bf16) return (int)launch_fma<__nv_bfloat16>(a, BH, s);
@@ -713,7 +792,7 @@ extern "C" int sparse_attention_launch(const void* q, const void* k, const void*
 }
 
 // Which path a call takes: 1 for the tensor-core kernel (bf16 with d == dv
-// in {32, 64, 128}), 0 for CUDA cores.
+// in {32, 40, 64, 80, 128, 160}), 0 for CUDA cores.
 extern "C" int sparse_uses_tensor_cores(int is_bf16, int d, int dv) {
   return tensor_cores(is_bf16, d, dv);
 }

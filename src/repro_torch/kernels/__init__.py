@@ -5,7 +5,8 @@ single-axis pair snap, ``ripple`` the pair-collapse flash attention
 kernel, ``sparse`` the block-sparse masked attention kernel, ``flash``
 the dense flash attention kernel and ``adaln`` the fused adaLN
 modulation kernel; each wrapper counts the launches of its kernel in a
-plain module-level integer (the ripple wrapper also by shape).
+plain module-level integer (the ripple and sparse wrappers also by
+shape).
 """
 
 from __future__ import annotations
@@ -37,4 +38,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
-    _counters()["ripple_attention"][0].launches_by_shape.clear()
+    for name in ("ripple_attention", "sparse_attention"):
+        _counters()[name][0].launches_by_shape.clear()

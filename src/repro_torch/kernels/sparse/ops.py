@@ -8,7 +8,8 @@
 
 On a CUDA tensor :func:`sparse_attention` launches the kernel or raises;
 on a CPU tensor, and only there, it runs the plain version (``ref.py``).
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, ``launches_by_shape`` the same
+launches by (tokens, head dim).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ __all__ = ["FULL", "PARTIAL", "SKIP", "block_map_from_keep",
            "sparse_attention", "sparse_block_stats", "sparse_grid"]
 
 launches = 0
+launches_by_shape: dict = {}
 
-_MAX_DIM = 128
+_MAX_DIM = 256  # both paths, as the ripple kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -117,12 +119,14 @@ def _launch(q, k, v, bias, block_map, block_q: int, block_k: int):
         raise RuntimeError(f"sparse attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    launches_by_shape[(Nq, d)] = launches_by_shape.get((Nq, d), 0) + 1
     return out
 
 
 def uses_tensor_cores(q: torch.Tensor, v: torch.Tensor) -> bool:
     """Does a CUDA call on these operands take the kernel's tensor-core
-    path?  The library decides (bf16, equal head dims of 32, 64 or 128)."""
+    path?  The library decides (bf16, equal head dims of 32, 40, 64, 80,
+    128 or 160)."""
     lib = _build.load("sparse_attention")
     return bool(lib.sparse_uses_tensor_cores(int(q.dtype == torch.bfloat16),
                                              q.shape[-1], v.shape[-1]))

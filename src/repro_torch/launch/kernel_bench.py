@@ -24,11 +24,14 @@ Sections:
 * :func:`decision_amortization` — the cross-step decision cache: one
   decision against one re-application of a cached plan, per
   cache-capable policy, and the per-step decision overhead at cadences
-  R = 1, 2, 4, 8.
+  R = 1, 2, 4, 8;
+* :func:`static_pattern_sweep` — searched static patterns against
+  adaptive ripple: the per-step replay cost of each, the block map's
+  stability over the schedule, and the output quality of each at the
+  same savings.
 
 The reference's other sections wait for their modules: the dispatch
-autotune cache (``autotune_sweep``), offline patterns
-(``static_pattern_sweep``) and ring attention (``ring_sweep``).
+autotune cache (``autotune_sweep``) and ring attention (``ring_sweep``).
 """
 
 from __future__ import annotations
@@ -324,6 +327,125 @@ def decision_amortization(grid=None, d=64, heads=2, cadences=(1, 2, 4, 8),
     return rows
 
 
+def static_pattern_sweep(grid=None, d=64, heads=2, steps=4, *,
+                         device="cuda"):
+    """Searched static patterns (DESIGN.md §16) against adaptive ripple at
+    a ``vdit_paper``-style latent grid (default (8, 16, 16)).
+
+    Runs the offline pattern search in-process on small head-diverse
+    calibration traffic, installs the artifact, and reports:
+
+      * ``apply_ratio`` — the static policy's per-step ``apply_decision``
+        cost over ripple's, each followed by a sum over every tensor the
+        backend would read, less the time of those sums alone (the
+        consumer floor, as in :func:`decision_amortization`).  Static
+        replay is a passthrough (no snap gather);
+      * ``map_stable`` — the block map decided at step 0 against the last
+        step's, bitwise (a static plan must not drift with the schedule);
+      * ``psnr_static`` / ``psnr_ripple`` / ``psnr_delta_db`` — output
+        PSNR against dense attention of the static pattern and of ripple
+        at a θ matched to the same savings;
+      * ``skip_rate`` — the skipped-tile share of the searched patterns'
+        block map.
+    """
+    from repro_torch.core import decision_cache as dc
+    from repro_torch.core import dispatch as dispatch_lib
+    from repro_torch.core import patterns
+    from repro_torch.launch.pattern_search import calibration_traffic
+
+    if grid is None:
+        grid = make_config().model.grid(frames=32, img_res=256)  # (8,16,16)
+    blocks = (128, 128)
+    # one layer of head-diverse calibration traffic, searched in-process
+    samples = calibration_traffic(grid=grid, layers=1, heads=heads, steps=2,
+                                  prompts=1, d=d,
+                                  characters=("temporal", "spatial"),
+                                  device=device)
+    art = patterns.search_patterns(samples, grid, block_shape=blocks,
+                                   tolerance_db=20.0,
+                                   meta={"traffic": "bench"})
+    # held-out eval traffic: the same head characters, another seed
+    _, q, k, v = next(iter(calibration_traffic(
+        grid=grid, layers=1, heads=heads, steps=1, prompts=1, d=d, seed=123,
+        characters=("temporal", "spatial"), device=device)))
+
+    with patterns.use_artifact(art):
+        # --- per-step replay cost, static vs ripple -------------------
+        apply_us = {}
+        for name in ("static", "ripple"):
+            pol = get_policy(name)
+            cfg = RippleConfig(enabled=True, policy=name, theta_min=0.2,
+                               theta_max=0.5, i_min=1, i_max=steps - 1)
+            thetas = pol.thetas_for(cfg, 1, steps)
+            extra = {"block_shape": blocks} if name == "static" else {}
+            d0 = pol.decide(q, k, grid=grid, cfg=cfg, thetas=thetas,
+                            fused=q.is_cuda, want_plan=True, **extra)
+            cache = dc.cache_from_decision(d0, dc.drift_stat(q, k, cfg))
+
+            def apply(pol=pol, cfg=cfg, thetas=thetas, cache=cache,
+                      extra=extra):
+                return _consume(pol.apply_decision(q, k, cache, grid=grid,
+                                                   cfg=cfg, thetas=thetas,
+                                                   **extra))
+
+            # Interleaved floor/apply rounds, the smallest difference
+            # kept: drift common to a round cancels.
+            diffs = []
+            for _ in range(5):
+                f = time_best(lambda d0=d0: _consume(d0), repeats=10)
+                a = time_best(apply, repeats=10)
+                diffs.append(a - f)
+            apply_us[name] = max(min(diffs) * 1e6, 0.0)
+
+        # --- block-map stability across the schedule ------------------
+        pol = get_policy("static")
+        cfg_s = RippleConfig(enabled=True, policy="static", theta_min=0.2,
+                             theta_max=0.5, i_min=1, i_max=steps - 1)
+        maps = [pol.decide(q, k, grid=grid, cfg=cfg_s,
+                           thetas=pol.thetas_for(cfg_s, s, steps),
+                           block_shape=blocks).block_map
+                for s in (0, steps - 1)]
+        stable = bool(torch.equal(maps[0], maps[1]))
+        skip = float(sparse_block_stats(maps[0]))
+
+        # --- quality at matched savings -------------------------------
+        dense = dispatch_lib.attention_dispatch(
+            q, k, v, grid=grid, cfg=RippleConfig(enabled=False),
+            backend="dense").cpu().numpy()
+        out_s = dispatch_lib.attention_dispatch(q, k, v, grid=grid, cfg=cfg_s,
+                                                step=1, total_steps=steps)
+        target = float(pol.decide(q, k, grid=grid, cfg=cfg_s,
+                                  thetas=pol.thetas_for(cfg_s, 1, steps),
+                                  block_shape=blocks).savings)
+        theta = theta_for_savings(q, k, target, grid=grid)
+        cfg_r = RippleConfig(enabled=True, policy="ripple", theta_min=theta,
+                             theta_max=theta, i_min=1, i_max=steps - 1)
+        out_r = dispatch_lib.attention_dispatch(q, k, v, grid=grid,
+                                                cfg=cfg_r, step=1,
+                                                total_steps=steps)
+
+    def psnr(ref, out):
+        mse = float(((ref - out.cpu().numpy()) ** 2).mean())
+        rng = float(ref.max() - ref.min())
+        return 10 * math.log10(rng ** 2 / max(mse, 1e-12))
+
+    p_s, p_r = psnr(dense, out_s), psnr(dense, out_r)
+    return {
+        "grid": tuple(grid), "d": d, "heads": heads,
+        "static_frac": round(art.static_fraction(), 3),
+        "skip_rate": round(skip, 3),
+        "matched_savings": round(target, 3),
+        "static_apply_us": round(apply_us["static"], 1),
+        "ripple_apply_us": round(apply_us["ripple"], 1),
+        "apply_ratio": round(apply_us["static"]
+                             / max(apply_us["ripple"], 1e-9), 3),
+        "map_stable": stable,
+        "psnr_static": round(p_s, 1),
+        "psnr_ripple": round(p_r, 1),
+        "psnr_delta_db": round(p_r - p_s, 2),
+    }
+
+
 # --- entry point -------------------------------------------------------------
 
 
@@ -351,6 +473,22 @@ def amortization_row(r) -> str:
             f"{r['decide_us']:.0f},"
             f"decide_us={r['decide_us']};apply_us={r['apply_us']};"
             f"{per};{red}")
+
+
+def static_pattern_row(sp) -> str:
+    return (f"kernel_bench[static_pattern@vdit_paper"
+            f"{_gname(sp['grid'])}xd{sp['d']}],"
+            f"{sp['static_apply_us']:.0f},"
+            f"apply_ratio={sp['apply_ratio']};"
+            f"static_apply_us={sp['static_apply_us']};"
+            f"ripple_apply_us={sp['ripple_apply_us']};"
+            f"skip_rate={sp['skip_rate']};"
+            f"static_frac={sp['static_frac']};"
+            f"map_stable={sp['map_stable']};"
+            f"matched_savings={sp['matched_savings']};"
+            f"psnr_static={sp['psnr_static']};"
+            f"psnr_ripple={sp['psnr_ripple']};"
+            f"psnr_delta_db={sp['psnr_delta_db']}")
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -389,7 +527,10 @@ def main(argv: Optional[Sequence[str]] = None):
     amort = decision_amortization(device=device)
     for r in amort:
         print(amortization_row(r), flush=True)
-    return rows + [m, s] + amort
+
+    sp = static_pattern_sweep(device=device)
+    print(static_pattern_row(sp), flush=True)
+    return rows + [m, s] + amort + [sp]
 
 
 if __name__ == "__main__":

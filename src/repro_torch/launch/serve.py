@@ -16,7 +16,13 @@ backend; ``--attn-backend`` picks the dispatch backend (``collapse``
 runs the exact pair-collapse identities in plain PyTorch);
 ``--reuse-every R`` (or ``--override ripple.drift_tol=...``) serves the
 vdit under the cross-step decision cache, and each served batch logs
-``decision cache: N hits / M refreshes``.
+``decision cache: N hits / M refreshes``.  ``--policy static`` serves
+constant searched masks and ``--policy rainfusion`` routes each head to
+its searched mask or to ripple's snapping (DESIGN.md §16), both through
+the block-sparse backend; ``--pattern-artifact PATH`` installs the
+artifact that ``launch/pattern_search.py`` wrote (without it they read
+``REPRO_PATTERN_ARTIFACT`` or the user cache, and ``static`` falls back
+to the grid's default template).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from repro_torch.config.base import apply_overrides
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.core import decision_cache
 from repro_torch.core import dispatch as dispatch_lib
+from repro_torch.core import patterns
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
 from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
@@ -176,8 +183,15 @@ def main(argv=None):
     ap.add_argument("--no-ripple", action="store_true")
     ap.add_argument("--policy", default=None,
                     help="reuse-policy name for every request (ripple, "
-                         "svg, dense); default: the arch config's "
-                         "ripple.policy")
+                         "svg, equal_mse, dense, static, rainfusion); "
+                         "default: the arch config's ripple.policy")
+    ap.add_argument("--pattern-artifact", default=None, metavar="PATH",
+                    help="install a searched pattern artifact "
+                         "(launch/pattern_search.py) for the static / "
+                         "rainfusion policies; errors if the file is "
+                         "missing or corrupt.  Default: the "
+                         "REPRO_PATTERN_ARTIFACT env var / user cache "
+                         "(loaded lazily, missing file tolerated)")
     ap.add_argument("--reuse-every", type=int, default=None, metavar="R",
                     help="decision-cache cadence: make the reuse decision "
                          "every R denoising steps and re-apply it in "
@@ -197,6 +211,11 @@ def main(argv=None):
                         format="%(asctime)s %(name)s: %(message)s")
 
     device = resolve_device(args.device)
+    if args.pattern_artifact is not None:
+        art = patterns.install_artifact(args.pattern_artifact)
+        log.info("pattern artifact %s: %d heads, %.0f%% static",
+                 art.version, len(art.heads),
+                 100.0 * art.static_fraction())
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.override)
     if args.attn_backend is not None:

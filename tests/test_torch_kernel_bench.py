@@ -95,6 +95,9 @@ SPARSE_FIELDS = ["skip_rate", "mask_savings", "modeled_attn_speedup",
                  "walltime_speedup"]
 AMORT_FIELDS = ["decide_us", "apply_us", "R1", "R2", "R4", "R8", "red_R1",
                 "red_R2", "red_R4", "red_R8"]
+STATIC_FIELDS = ["apply_ratio", "static_apply_us", "ripple_apply_us",
+                 "skip_rate", "static_frac", "map_stable", "matched_savings",
+                 "psnr_static", "psnr_ripple", "psnr_delta_db"]
 
 
 def _fields(line):
@@ -116,11 +119,14 @@ def test_main_prints_the_reference_rows_on_cpu(capsys):
                     "kernel_bench[decision_amortization@vdit_paper8x16x16"
                     "xd64/ripple]": AMORT_FIELDS,
                     "kernel_bench[decision_amortization@vdit_paper8x16x16"
-                    "xd64/svg]": AMORT_FIELDS}
-    mask, sparse = out[2], out[3]
+                    "xd64/svg]": AMORT_FIELDS,
+                    "kernel_bench[static_pattern@vdit_paper8x16x16xd64]":
+                        STATIC_FIELDS}
+    mask, sparse, static = out[2], out[3], out[6]
     assert mask["fused_le_host"] and 0 < mask["bytes_ratio"] < 1
     assert 0 < sparse["skip_rate"] < 1 and sparse["dense_flash_us"] > 0
-    assert [r["policy"] for r in out[4:]] == ["ripple", "svg"]
+    assert [r["policy"] for r in out[4:6]] == ["ripple", "svg"]
+    assert static["map_stable"] and 0 < static["skip_rate"] < 1
 
 
 def test_decision_amortization_rows_on_cpu():

@@ -103,6 +103,36 @@ def test_matches_jax_kernel_and_oracle(name, N):
         assert np.abs(out[..., :128, :]).min(axis=-1).max() > 0
 
 
+@pytest.mark.parametrize("d", [40, 80, 160, 256])
+@pytest.mark.parametrize("name", ["mixed", "random_bias_partial"])
+def test_head_dims_above_128_match_jax_kernel(d, name):
+    """unet-sd15's head dims (40, 80, 160) and the largest the kernel
+    takes (256): the plain version against the JAX kernel in interpret
+    mode, f32, on a mixed map under a -inf bias and on an all-PARTIAL
+    map under a finite one."""
+    q, k, v = _qkv(11, 130, d=d)
+    _, bias, bmap, blk = _case(name, 130)
+    out = _port(q, k, v, bias, bmap, blk).numpy()
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    want = np.asarray(j_ops.sparse_attention_pallas(
+        j(q), j(k), j(v), bias=j(bias), block_map=j(bmap), block_q=blk,
+        block_k=blk, interpret=True))
+    np.testing.assert_allclose(out, want, atol=_TOL, rtol=0)
+
+
+def test_wrapper_refuses_head_dims_above_256():
+    """The kernel takes head dims up to 256 on both paths; the wrapper
+    refuses a larger one before it builds or launches anything."""
+    assert ops._MAX_DIM == 256
+    big = torch.zeros((1, 1, 64, 257))
+    with pytest.raises(ValueError, match="head dims <= 256"):
+        ops._launch(big, big, big, None, None, 64, 64)
+    v = torch.zeros((1, 1, 64, 257))
+    q = torch.zeros((1, 1, 64, 256))
+    with pytest.raises(ValueError, match="head dims <= 256"):
+        ops._launch(q, q, v, None, None, 64, 64)
+
+
 def test_bf16_matches_jax_oracle():
     """bf16 operands: both round the product's logits to bf16 and the
     output to bf16, so the gap is one bf16 ulp of outputs below 2 plus
@@ -176,3 +206,13 @@ def test_wrapper_on_cpu_never_counts_a_launch():
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 64))
     sparse_attention(q, k, v)
     assert ops.launches == before
+
+
+def test_reset_clears_counts_by_shape_and_cpu_calls_add_none():
+    from repro_torch.kernels import reset_launch_counts
+
+    ops.launches_by_shape[(64, 40)] = 3
+    reset_launch_counts()
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, d=40))
+    sparse_attention(q, k, v)
+    assert ops.launches == 0 and ops.launches_by_shape == {}

@@ -244,6 +244,49 @@ def test_ddim_trajectory_matches_the_jax_launcher(tree, monkeypatch):
     assert rel < 1e-3, rel
 
 
+def test_svg_trajectory_matches_the_jax_launcher(tree, monkeypatch):
+    """``--policy svg`` on the UNet, as the JAX launcher serves it: both
+    samplers under svg, 12 DDIM steps in float32 on the same params,
+    noise and context.  On a T = 1 grid svg's spatial mask keeps every
+    token, so every level's map is all-FULL and runs through the sparse
+    backend (the JAX kernel in interpret mode, the port's plain version
+    on the CPU)."""
+    orig = j_workloads.unet_lib.unet_apply
+    monkeypatch.setattr(j_workloads.unet_lib, "unet_apply",
+                        lambda *a, **kw: orig(*a, compute_dtype=jnp.float32,
+                                              **kw))
+    shape = serve_lib.serving_shape(ARCH, "gen_1024", smoke=True,
+                                    steps=STEPS)
+    j_shape = serve_lib.serving_shape(J_ARCH, "gen_1024", smoke=True,
+                                      steps=STEPS)
+    j_fn, _ = j_serve.build_sampler(
+        J_ARCH, j_shape, jax.tree_util.tree_map(jnp.asarray, tree),
+        policy="svg")
+    fn, _ = serve_lib.build_sampler(
+        ARCH, shape, params_from_numpy(tree, ARCH.model, device="cpu"),
+        policy="svg", compute_dtype=torch.float32)
+    lat, _, ctx = _inputs(3)
+    rngs = jnp.stack([jax.random.PRNGKey(i) for i in range(2)])
+    want = np.asarray(j_fn(jnp.asarray(lat), jnp.asarray(ctx), rngs))
+    got = fn(torch.from_numpy(lat), torch.from_numpy(ctx)).numpy()
+    assert np.isfinite(got).all()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 1e-3, rel
+
+
+def test_main_serves_unet_sd15_under_svg_on_cpu(caplog):
+    """The launcher serves the UNet under ``--policy svg``: every
+    attention level plans the block-sparse backend (on the card, the
+    sparse kernel's tensor cores at d 40, 80 and 160)."""
+    caplog.set_level("INFO", logger="repro_torch.launch.serve")
+    done = serve_lib.main(["--arch", "unet-sd15", "--smoke", "--device",
+                           "cpu", "--requests", "1", "--policy", "svg"])
+    assert len(done) == 1 and np.isfinite(done[0].latents).all()
+    assert ("plan 64 tokens x d 8: attention[svg/sparse block=128x128 "
+            "bucket=(64, 64)]; 16 tokens x d 16: attention[svg/sparse"
+            in caplog.text)
+
+
 def test_main_serves_unet_sd15_on_cpu(caplog):
     """One plan line per attention level (head dims 8 and 16 at the smoke
     config), none built from a d_model the UNet does not have."""
