@@ -12,7 +12,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    dim 72, views read in place (transposed, channel windows, unaligned)
    with text tokens around the grid, d 72 and 128 and the scalar
    instance (bf16 d 36, f32 d 6), unet-sd15's four self-attention calls
-   (d 40, 80, 160, T = 1); the channel gate at every θ the
+   (d 40, 80, 160, T = 1), ``serve[launcher]``'s half-resolution bucket
+   ((2, 24, 2048, 128) grid tokens on (8, 16, 16) after 256 text
+   tokens); the channel gate at every θ the
    served schedules give (each bf16 value from 0.2 to 0.5, the schedules'
    float32 values) and at 0, denormals, 1.0 and inf; then
    ``core.policy.snap_operand`` at the vDiT's served call through the
@@ -26,7 +28,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    fractions 0, 0.6 and 1.0, an unaligned N, head dims 16 to 128 (72 on
    tensor cores, asserted), B*H > 1 with a ragged last tile at d 128 and
    72, all-collapsed keys under dense queries and the other way round,
-   and both serving shapes; the same cases at unet-sd15's head dims 40,
+   and both serving shapes and ``serve[launcher]``'s half-resolution
+   bucket (2, 24, 2304, 128); the same cases at unet-sd15's head dims 40,
    80 and 160 (tensor cores, asserted) and its four served shapes, and
    the CUDA cores at d 160 and 256;
 4. holds the fused adaLN modulation kernel against its plain version,
@@ -108,6 +111,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    artifact (fused_reuse and the sparse kernel); and (after 8a) serves 2
    requests of unet-sd15 at full width and depth under ``--policy svg``
    (800 sparse launches, each on the tensor cores at d 40, 80 or 160);
+8d. (inside 7, after 8c) serves four requests alternating ripple and
+   static through one engine built by the launcher's
+   ``make_sampler_factory`` on the loaded model (``serve[policies]``:
+   two buckets, fused_reuse + ripple in one, the sparse kernel alone in
+   the other, latents within 1e-3 of ``serve[ripple]`` /
+   ``serve[static]``), installs the searched artifact between two steps
+   of the static batch (the batch keeps its template; the next static
+   request gets a bucket keyed by the new version); then, with the
+   40-layer model freed, runs ``repro_torch.launch.serve.main`` itself
+   (``serve[launcher]``: 8 layers, 6 requests over 3 mixed buckets,
+   streamed every 4 steps, each request's latency and TTFF, its
+   summary file, each result bit-equal to its batch run again in one
+   piece);
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT and UNet (also under svg), and of static and rainfusion, on the
@@ -283,6 +299,10 @@ def check_reuse(results, shape, grid, dtype, gran, thetas, axes=("t", "x", "y"),
 
 SERVE_SNAP = (3, 24, 8192, 128)  # the vDiT's served Q/K grid tokens at batch 3
 SERVE_TEXT = (256, 0)            # 256 text tokens before them
+# serve[launcher]'s half-resolution bucket: Q/K grid tokens at batch 2 on
+# grid (8, 16, 16), the same 256 text tokens before them.
+HALF_GRID = (8, 16, 16)
+HALF_SNAP = (2, 24, 8 * 16 * 16, 128)
 
 
 def reuse_checks(serve_grid, dit_qk, dit_grid):
@@ -331,6 +351,10 @@ def reuse_checks(serve_grid, dit_qk, dit_grid):
                             view="transposed", text=(7, 2))
     check_reuse(res, (1, 24, 8192, 128), serve_grid, bf16, "channel", th,
                 view="transposed", text=SERVE_TEXT)
+    # serve[launcher]'s half-resolution bucket, as q and k reach the kernel.
+    for view in ("contiguous", "transposed"):
+        check_reuse(res, HALF_SNAP, HALF_GRID, bf16, "channel", th, view=view,
+                    text=SERVE_TEXT)
     # The served call: snap_operand at batch 3 through the kernel (one
     # launch on the whole operand) and through the host pipeline.
     x = reuse_operand(SERVE_SNAP, bf16, 30, 0.6, text=SERVE_TEXT)
@@ -512,9 +536,11 @@ def device_time_ms(fn, kernel=None, iters=20, flush=None):
                 flush.max()
             fn()
 
-    # The profiler has dropped a kernel record now and then (19 of 20): a
-    # reading with another count is taken again, at most three times.
-    for _ in range(3):
+    # The profiler has dropped kernel records now and then (19 of 20; once
+    # 17, 0, 12 and 12 of 20 in a row): a reading with another count is
+    # taken again, at most five times, and then the same calls are timed
+    # by CUDA events instead.
+    for _ in range(5):
         durs = {}
         for ev in record(calls):
             if ev.name not in skip and (kernel is None or kernel in ev.name):
@@ -525,8 +551,31 @@ def device_time_ms(fn, kernel=None, iters=20, flush=None):
             return sum(sum(v) for v in durs.values()) / iters / 1e3, host_ms
         log(f"profiler saw {counts} launches of {kernel or 'the call'}, not {iters} "
             f"calls' worth; reading again")
-    raise SystemExit(f"profiler saw {counts} launches of {kernel or 'the call'}, "
-                     f"not {iters} calls' worth, three times")
+    ms = event_time_ms(fn, iters, flush)
+    log(f"profiler dropped records five times: {kernel or 'the call'} timed by CUDA "
+        f"events around each call instead: {ms:.4f} ms a call")
+    return ms, host_ms
+
+
+def event_time_ms(fn, iters=20, flush=None):
+    """Device time of a call of ``fn``: a pair of CUDA events around each
+    of ``iters`` calls, the L2 evicted before each (outside the pair)
+    when ``flush`` is given.  The fallback of :func:`device_time_ms`: it
+    also counts the gaps between the call's kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in pairs:
+        if flush is not None:
+            flush.max()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
 def reuse_bound(x, grid, want_src=False):
@@ -1836,14 +1885,52 @@ def load_served_model(layers: int):
     return arch, shape, model
 
 
+def vdit_plain_versions():
+    """``(module, name)`` of the plain versions of the kernels a served
+    vDiT runs (ripple, fused_reuse and the sparse kernel), for
+    :func:`plain_guard`."""
+    from repro_torch.core import reuse as reuse_lib
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+    from repro_torch.kernels.ripple import ops as ripple_ops
+    from repro_torch.kernels.sparse import ops as sparse_ops
+
+    return ((reuse_ops, "fused_reuse_ref"), (reuse_lib, "compute_reuse"),
+            (ripple_ops, "ripple_attention_ref"), (sparse_ops, "sparse_attention_ref"))
+
+
+@contextlib.contextmanager
+def plain_guard(plain_absent):
+    """Count the calls on CUDA tensors of each function ``(module, name)``
+    of ``plain_absent`` (a kernel's plain version) for the duration;
+    yields the counts by ``module.name``."""
+    import torch
+
+    plain = {f"{mod.__name__}.{name}": 0 for mod, name in plain_absent}
+
+    def counting(key):
+        def make(orig):
+            def f(*a, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    plain[key] += 1
+                return orig(*a, **kw)
+            return f
+        return make
+
+    with contextlib.ExitStack() as ctx:
+        for mod, name in plain_absent:
+            ctx.enter_context(wrapped(mod, name, counting(f"{mod.__name__}.{name}")))
+        yield plain
+
+
 def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(),
-                requests=SERVE_REQUESTS, plain_absent=(), aux=None):
+                requests=SERVE_REQUESTS, plain_absent=(), aux=None, latents=None):
     """Serve ``requests`` requests in one batch through the port's
     DiffusionEngine with the launch counters set to 0 just before and
     read just after; each kernel in ``launched`` must have run, none in
     ``absent``, and no function ``(module, name)`` of ``plain_absent``
     (a kernel's plain version) may run on a CUDA tensor.  A cache-aware
-    sampler's counters (its ``(latents, aux)`` return) go into ``aux``."""
+    sampler's counters (its ``(latents, aux)`` return) go into ``aux``;
+    each request's latents go into ``latents`` by seed."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1862,17 +1949,6 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
             aux.update({k: int(v) for k, v in out[1].items()})
         return out
 
-    plain = {f"{mod.__name__}.{name}": 0 for mod, name in plain_absent}
-
-    def counting(key):
-        def make(orig):
-            def f(*a, **kw):
-                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
-                    plain[key] += 1
-                return orig(*a, **kw)
-            return f
-        return make
-
     engine = DiffusionEngine(lambda shp, steps: sampler, device="cuda",
                              max_batch=requests)
     traffic = mixed_request_stream(arch, (shape,), requests, seed=0)
@@ -1881,9 +1957,7 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     reset_launch_counts()
     for _, req in traffic:  # all queued before the worker starts: one batch
         engine.submit(req)
-    with contextlib.ExitStack() as ctx:
-        for mod, name in plain_absent:
-            ctx.enter_context(wrapped(mod, name, counting(f"{mod.__name__}.{name}")))
+    with plain_guard(plain_absent) as plain:
         engine.start()
         try:
             results = [engine.result(req.request_id) for _, req in traffic]
@@ -1900,6 +1974,8 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
             raise SystemExit(f"latents {r.latents.shape} != {lat_shape}")
         if not np.isfinite(r.latents).all():
             raise SystemExit("served latents are not finite")
+    if latents is not None:
+        latents.update({req.seed: r.latents for (_, req), r in zip(traffic, results)})
     log(f"serve[{label}]: launches {counts}; peak device memory {peak:.2f} GiB; {CARD}")
     if len({r.batch_index for r in results}) != 1:
         raise SystemExit(f"serve[{label}]: the requests did not share one batch")
@@ -2410,21 +2486,23 @@ def pattern_search_phase():
     return path
 
 
-def serve_static(arch, shape, model):
+def serve_static(arch, shape, model, latents=None):
     """``--policy static`` on the served vDiT with no artifact installed:
     the default template on every head, its plan built once, no bias
     (the map has no PARTIAL tile), and only the sparse kernel: one launch
-    a layer-step."""
+    a layer-step.  Each request's latents go into ``latents`` by seed."""
     from repro_torch.core import patterns
     from repro_torch.kernels.sparse import ops as sparse_ops
 
     patterns.set_active_artifact(None)
+    patterns.clear_plans()
     builds0 = patterns.plan_builds
     shapes, maps, biases = set(), {}, []
     with wrapped(sparse_ops, "sparse_attention", sparse_recorder(shapes, maps, biases)):
         counts, _, _ = serve_phase("static", arch, shape, model, policy="static",
                                    launched=("sparse_attention",),
-                                   absent=("ripple_attention", "fused_reuse"))
+                                   absent=("ripple_attention", "fused_reuse"),
+                                   latents=latents)
     by_shape = dict(sparse_ops.launches_by_shape)  # read with ``counts``
     builds = patterns.plan_builds - builds0
     store = patterns.plan_store()
@@ -2458,6 +2536,7 @@ def serve_rainfusion(arch, shape, model, path):
     from repro_torch.kernels.sparse import ops as sparse_ops
 
     art = patterns.install_artifact(path)
+    patterns.clear_plans()  # installing keeps the store: count this phase's plans
     heads = arch.model.num_heads
     static = [h for h in range(heads) if art.assignment(None, h) is not None]
     builds0 = patterns.plan_builds
@@ -2479,6 +2558,273 @@ def serve_rainfusion(arch, shape, model, path):
     if patterns.plan_builds - builds0 != len(store) or len(store) > 1:
         raise SystemExit("serve[rainfusion]: a constant plan was built more than once")
     patterns.set_active_artifact(None)
+    patterns.clear_plans()  # its 6.85 GB bias
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_policies(arch, shape, model, art_path, want):
+    """Per-request policies in one engine: the launcher's
+    ``make_sampler_factory`` on the loaded model, four requests (seeds 0
+    and 1, each under ripple and under static with no artifact, so on
+    the default template) in two buckets of two, the launch counters set
+    to 0 just before and read just after, and each bucket's launches
+    read around its batch.  A denoise hook installs the searched
+    artifact between steps ``steps // 2 - 1`` and ``steps // 2`` of the
+    static batch: that batch keeps its pinned template (its map shares
+    and sparse launches are those of ``serve[static]``), and a fifth
+    request, static again, gets a bucket of its own whose token is the
+    new artifact's version.  Each of the four requests' latents is held
+    within relative L2 1e-3 of the same seed's in ``serve[ripple]`` /
+    ``serve[static]`` (``want``: policy -> seed -> latents).  The ripple
+    batch must launch fused_reuse twice and ripple once a layer-step, the
+    static batch the sparse kernel once a layer-step and nothing else,
+    and no plain version may run on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import patterns
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.sparse import ops as sparse_ops
+    from repro_torch.launch.serve import make_sampler_factory
+    from repro_torch.launch.workloads import mixed_request_stream
+    from repro_torch.serving.engine import DiffusionEngine
+
+    patterns.set_active_artifact(None)
+    swap_at = shape.steps // 2
+    swapped = []
+
+    def hooked(*a, **kw):
+        # The static bucket's denoise call at step ``swap_at``: install
+        # the searched artifact before its forward runs.
+        if (not swapped and kw["step"] == swap_at
+                and get_policy(kw["ripple"].policy).name == "static"):
+            swapped.append(patterns.install_artifact(art_path))
+        return model(*a, **kw)
+
+    factory, plan_fn = make_sampler_factory(arch, (shape,), hooked)
+    batches = []  # (policy, launches, map shares) of each batch
+
+    def counted(shp, steps, policy=None, reuse_every=None, stream_every=None):
+        fn = factory(shp, steps, policy, reuse_every, stream_every)
+
+        def run(noise, txt, seeds):
+            shapes, maps = set(), {}
+            before = launch_counts()
+            with wrapped(sparse_ops, "sparse_attention", sparse_recorder(shapes, maps)):
+                out = fn(noise, txt, seeds)
+            after = launch_counts()
+            # A static bucket's policy comes pinned: an instance.
+            batches.append((getattr(policy, "name", policy),
+                            {k: after[k] - before[k] for k in after},
+                            map_shares(maps)))
+            return out
+        return run
+
+    base = [req for _, req in mixed_request_stream(arch, (shape,), 2, seed=0)]
+    reqs = [dataclasses.replace(base[i // 2], request_id=i, policy=pol)
+            for i, pol in enumerate(("ripple", "static") * 2)]
+    engine = DiffusionEngine(counted, device="cuda", max_batch=2, plan_fn=plan_fn)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for req in reqs:  # all queued before the worker starts: one batch a bucket
+        engine.submit(req)
+    with plain_guard(vdit_plain_versions()) as plain:
+        engine.start()
+        try:
+            results = [engine.result(req.request_id) for req in reqs]
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            keys = list(engine._compiled)
+            after = dataclasses.replace(base[0], request_id=4, policy="static")
+            engine.submit(after)
+            res_after = engine.result(4)
+        finally:
+            engine.stop()
+    wall = time.perf_counter() - t0
+    keys_after = list(engine._compiled)
+    errs = {}
+    for req, r in zip(reqs, results):
+        ref = want[req.policy][req.seed]
+        errs[req.request_id] = float(np.linalg.norm(r.latents - ref) / np.linalg.norm(ref))
+        log(f"serve[policies]: request {req.request_id} ({req.policy}, seed {req.seed}) "
+            f"latency {r.latency_s:.3f}s (batch {r.batch_index} served in "
+            f"{r.walltime_s:.3f}s); relative L2 to serve[{req.policy}]'s seed "
+            f"{req.seed}: {errs[req.request_id]:.3e} (tol 1e-3); {CARD}")
+    log(f"serve[policies]: request 4 (static, after the swap) latency "
+        f"{res_after.latency_s:.3f}s; bucket keys {keys} then {keys_after[-1]}; "
+        f"swapped in artifact {swapped[0].version if swapped else None} at step "
+        f"{swap_at}; launches of the first two batches {counts}; plain versions "
+        f"called on the card {plain}; {wall:.1f}s; {CARD}")
+    for pol, launched, shares in batches:
+        log(f"serve[policies]: batch ({pol}): launches {launched}; tile shares full "
+            f"{shares[0]:.4f} partial {shares[1]:.4f} skip {shares[2]:.4f}")
+    by_pol = {pol: (launched, shares) for pol, launched, shares in batches[:2]}
+    rip, (st, st_shares) = by_pol["ripple"][0], by_pol["static"]
+    layer_steps = arch.model.num_layers * shape.steps
+    checks = {
+        "two buckets that differ in the policy, each with its policy's token":
+            len(keys) == 2 and {k[2] for k in keys} == {"ripple", "static"}
+            and all(k[7] is None for k in keys),
+        "the ripple batch launched fused_reuse twice and ripple once a "
+        "layer-step, nothing else":
+            rip["fused_reuse"] == 2 * layer_steps
+            and rip["ripple_attention"] == layer_steps
+            and rip["sparse_attention"] == 0,
+        "the static batch launched the sparse kernel only, once a layer-step":
+            st["sparse_attention"] == layer_steps and st["fused_reuse"] == 0
+            and st["ripple_attention"] == 0,
+        "no plain version ran on the card": not any(plain.values()),
+        "the swap landed inside the static batch": len(swapped) == 1,
+        "the static batch kept its template across the swap":
+            tuple(round(x, 3) for x in st_shares) == STATIC_SHARES,
+        "the next static request got a bucket with the new version":
+            len(keys_after) == 3 and keys_after[-1][2] == "static"
+            and bool(swapped) and keys_after[-1][7] == swapped[0].version
+            and keys_after[-1][:7] == next(k for k in keys if k[2] == "static")[:7],
+        "latents within 1e-3 of serve[ripple] / serve[static]":
+            all(e < 1e-3 for e in errs.values()),
+    }
+    for what, ok in checks.items():
+        log(f"serve[policies]: {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("serve[policies] failed")
+    patterns.set_active_artifact(None)
+    patterns.clear_plans()
+    torch.cuda.empty_cache()
+    return counts
+
+
+LAUNCHER_LAYERS = 8       # serve[launcher]: vdit-paper depth 40 cut to 8
+LAUNCHER_STREAM = 4       # --stream-every
+
+
+def serve_launcher():
+    """``repro_torch.launch.serve.main`` itself on the card: vdit-paper at
+    full width, depth cut to 8 layers (and frames to 32) so the phase
+    stays short, 12 steps, 6 requests over the launcher's mixed buckets
+    (grid (8, 32, 32) at 12 and 6 steps, (8, 16, 16) at 12), batches of
+    2, streamed every 4 steps, with its summary written to a temporary
+    directory; the launch counters are set to 0 just before and read
+    just after.  Each request's chunks are read as the launcher's
+    ``stream`` hands them out: there must be ceil(steps / 4) of them,
+    the last equal to the result, and on the 12-step buckets the TTFF
+    below the latency.  fused_reuse must launch twice and ripple once a
+    layer-step, and no plain version may run on the card.  Afterwards
+    each served batch runs again in one piece, through the launcher's own
+    sampler factory without ``stream_every``, on the same noise, text
+    and model: every streamed result must equal it bit for bit."""
+    import json
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serving import engine as engine_lib
+
+    streams, seen = {}, {}
+
+    def recording(orig):
+        def stream(self, request_id, timeout=3600.0):
+            for chunk in orig(self, request_id, timeout):
+                streams.setdefault(request_id, []).append(chunk)
+                yield chunk
+        return stream
+
+    def keeping(name):
+        # The launcher's sampler factory and traffic, kept for the run in
+        # one piece.
+        def make(orig):
+            def f(*a, **kw):
+                seen[name] = out = orig(*a, **kw)
+                return out
+            return f
+        return make
+
+    log(f"serve[launcher]: python -m repro_torch.launch.serve, vdit-paper full width; "
+        f"cuts: frames 128->32, layers 40->{LAUNCHER_LAYERS} (to keep the phase "
+        f"short), 12 DDIM steps; 6 requests, batches of 2, --stream-every "
+        f"{LAUNCHER_STREAM}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "summary.json")
+        argv = ["--arch", "vdit-paper", "--steps", "12", "--requests", "6",
+                "--max-batch", "2", "--stream-every", str(LAUNCHER_STREAM),
+                "--summary-json", path, "model.frames=32",
+                f"model.num_layers={LAUNCHER_LAYERS}"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with wrapped(engine_lib.DiffusionEngine, "stream", recording), \
+                wrapped(serve_lib, "make_sampler_factory", keeping("factory")), \
+                wrapped(serve_lib, "mixed_request_stream", keeping("traffic")), \
+                plain_guard(vdit_plain_versions()) as plain:
+            done = serve_lib.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(path, encoding="utf-8") as f:
+            summary = json.load(f)
+    # Each batch again in one piece (the launch counts are read already).
+    factory = seen["factory"][0]
+    reqs = {req.request_id: req for _, req in seen["traffic"]}
+    whole = {}
+    for bi in sorted({r.batch_index for r in done}):
+        batch = sorted((r.request_id for r in done if r.batch_index == bi))
+        req = reqs[batch[0]]
+        fn = factory(req.latent_shape, req.steps, req.policy, req.reuse_every, None)
+        noise = torch.stack([engine_lib.request_noise(reqs[i].seed, req.latent_shape,
+                                                      "cuda") for i in batch])
+        txt = torch.from_numpy(np.stack([reqs[i].txt for i in batch])).float().cuda()
+        out = fn(noise, txt, [reqs[i].seed for i in batch])
+        lat = (out[0] if isinstance(out, tuple) else out).float().cpu().numpy()
+        whole.update(zip(batch, lat))
+    del factory, fn, seen
+    torch.cuda.synchronize()
+    steps = {0: 12, 1: 12, 2: 6}  # round-robin over base, _r256, _s6
+    chunk_ok, ttff_ok, whole_ok = True, True, True
+    buckets = set()
+    for r in done:
+        n_steps = steps[r.request_id % 3]
+        buckets.add((r.latents.shape, n_steps))
+        chunks = streams.get(r.request_id, [])
+        same = bool(chunks) and np.array_equal(chunks[-1], r.latents)
+        chunk_ok &= len(chunks) == math.ceil(n_steps / LAUNCHER_STREAM) and same
+        one = whole.get(r.request_id)
+        equal = one is not None and np.array_equal(one, r.latents)
+        whole_ok &= equal
+        if n_steps == 12:
+            ttff_ok &= 0 <= r.ttff_s < r.latency_s
+        log(f"serve[launcher]: request {r.request_id} ({n_steps} steps, latents "
+            f"{r.latents.shape}) latency {r.latency_s:.3f}s, ttff {r.ttff_s:.3f}s, "
+            f"{len(chunks)} chunks, last chunk equals the result: {same}, result "
+            f"equals the run in one piece: {equal}; batch {r.batch_index} served "
+            f"in {r.walltime_s:.3f}s; {CARD}")
+    log(f"serve[launcher]: summary {summary}; launches {counts}; plain versions "
+        f"called on the card {plain}; {wall:.1f}s with the model's init; {CARD}")
+    layer_steps = LAUNCHER_LAYERS * sum(
+        {r.batch_index: steps[r.request_id % 3] for r in done}.values())
+    checks = {
+        "all 6 requests completed": summary["completed"] == list(range(6))
+        and not summary["errors"],
+        "3 buckets served": len(buckets) == 3
+        and summary["counters"].get("batches_served") == 3,
+        "ceil(steps / 4) chunks a request, the last equal to the result": chunk_ok,
+        "each streamed result equals the batch run in one piece, bit for bit":
+            whole_ok,
+        "TTFF below the latency on the 12-step buckets": ttff_ok,
+        "fused_reuse twice and ripple once a layer-step":
+            counts["fused_reuse"] == 2 * layer_steps
+            and counts["ripple_attention"] == layer_steps,
+        "no plain version ran on the card": not any(plain.values()),
+        "finite latents": all(np.isfinite(r.latents).all() for r in done),
+    }
+    for what, ok in checks.items():
+        log(f"serve[launcher]: {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("serve[launcher] failed")
     torch.cuda.empty_cache()
     return counts
 
@@ -2916,6 +3262,19 @@ def main() -> int:
     v = correlated(serve_qkv, bf16, 12)
     serve_err = check_ripple(res2, qk[0], qk[1], v,
                              f"N={n_tok} d=128 main-path snapped operands")
+    # serve[launcher]'s half-resolution bucket, constructed and as the
+    # main path makes it: (2, 24, 2304, 128), grid slice (256, 2048).
+    half_qkv = (HALF_SNAP[0], HALF_SNAP[1], SERVE_TEXT[0] + HALF_SNAP[2], 128)
+    check_ripple(res2, *(snapped_operand(half_qkv, frac, seed, bf16, tile)
+                         for frac, seed in ((0.6, 27), (0.6, 28), (0.0, 29))),
+                 f"{half_qkv} frac=0.6 (serve[launcher] half resolution)")
+    half_q, half_k = (reuse_ops.fused_compute_reuse(
+        correlated(half_qkv, bf16, seed), HALF_GRID, dict(zip("txy", (0.2,) * 3)),
+        grid_slice=(SERVE_TEXT[0], HALF_SNAP[2]))[0] for seed in (31, 32))
+    check_ripple(res2, half_q, half_k, correlated(half_qkv, bf16, 33),
+                 f"{half_qkv} main-path snapped operands (serve[launcher] half "
+                 f"resolution)")
+    del half_q, half_k
     # dit-xl2 at gen_1024: (4, 16, 4096, 72), constructed and as the DiT's
     # path makes them (all tokens grid tokens, snapped on x/y at θ = 0.2).
     check_ripple(res2, *(snapped_operand(dit_qk, frac, seed, bf16, tile)
@@ -3036,7 +3395,9 @@ def main() -> int:
     from repro_torch.kernels.sparse.ref import FULL, sparse_attention_ref
 
     arch, shape, model = load_served_model(args.layers)
-    counts_r, lat_shape, _ = serve_ripple(arch, shape, model)
+    served_lat = {"ripple": {}, "static": {}}
+    counts_r, lat_shape, _ = serve_ripple(arch, shape, model,
+                                          latents=served_lat["ripple"])
     profile_forward("ripple", arch, model, lat_shape,
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
                     annotate=ripple_ranges())
@@ -3060,10 +3421,14 @@ def main() -> int:
     # The offline-pattern policies: the search at the served grid, then
     # static (no artifact) and rainfusion (the searched artifact).
     art_path = pattern_search_phase()
-    counts_st = serve_static(arch, shape, model)
+    counts_st = serve_static(arch, shape, model, latents=served_lat["static"])
     counts_rf = serve_rainfusion(arch, shape, model, art_path)
-    del model
+    # The engine and launcher of slice 11: per-request policies with the
+    # artifact pinned per sampler, then the launcher's main() itself.
+    counts_pol = serve_policies(arch, shape, model, art_path, served_lat)
+    del model, served_lat
     torch.cuda.empty_cache()
+    counts_la = serve_launcher()
     arch2, shape2, model2 = load_served_model(2)
     serve_svg_cache(apply_overrides(arch2, cache_cut),
                     dataclasses.replace(shape2, steps=CACHE_STEPS), model2)
@@ -3191,7 +3556,10 @@ def main() -> int:
          # unet-sd15: its launches in serve[unet-sd15] and the call at its
          # finest level, (4, 8, 16384, 40), T = 1, axes xy.
          "launches_unet": counts_u["fused_reuse"],
-         "launches_rainfusion": counts_rf["fused_reuse"], "unet_ms": t1u["ms"],
+         "launches_rainfusion": counts_rf["fused_reuse"],
+         # The engine and launcher phases (serve[policies], serve[launcher]).
+         "launches_policies": counts_pol["fused_reuse"],
+         "launches_launcher": counts_la["fused_reuse"], "unet_ms": t1u["ms"],
          "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
@@ -3201,7 +3569,9 @@ def main() -> int:
          "bound_by": k2_by, "library_ms": k2_lib,
          # unet-sd15's head dims 40, 80 and 160 on their served calls, with
          # their launches in serve[unet-sd15].
-         "launches_unet": counts_u["ripple_attention"], "unet": unet_times},
+         "launches_unet": counts_u["ripple_attention"],
+         "launches_policies": counts_pol["ripple_attention"],
+         "launches_launcher": counts_la["ripple_attention"], "unet": unet_times},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",
          "replaces": "src/repro/kernels/sparse/kernel.py:120",
@@ -3213,6 +3583,7 @@ def main() -> int:
          # spatial_local map with its bias) against SDPA by device time.
          "launches_static": counts_st["sparse_attention"],
          "launches_rainfusion": counts_rf["sparse_attention"],
+         "launches_policies": counts_pol["sparse_attention"],
          "launches_unet_svg": counts_us["sparse_attention"],
          "unet": unet_sparse_times},
         # No single PyTorch call computes LayerNorm-and-modulate: the time

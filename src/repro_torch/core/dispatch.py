@@ -176,8 +176,12 @@ def resolve_plan(q_shape, v_shape, cfg: RippleConfig, *, on_cuda: bool,
     resolved = resolve_backend(cfg, backend, has_bias=has_bias, n_tokens=n,
                                on_cuda=on_cuda, policy=pol)
     bh = math.prod(lead) if lead else 1
+    # The policy's plan token (a pattern artifact's version) is in the key
+    # only to match the reference's key: no field of a DispatchPlan comes
+    # from the artifact, so it splits plans that are the same.
     key = (resolved, shape_bucket(bh), shape_bucket(n), d, v_shape[-1],
-           pol.name, cfg.fused_mask, cfg.window, cfg.granularity, on_cuda)
+           pol.name, pol.plan_token(cfg), cfg.fused_mask, cfg.window,
+           cfg.granularity, on_cuda)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         _PLAN_CACHE.move_to_end(key)

@@ -23,9 +23,13 @@ as a constant is built here once and kept: each policy's constant plan
 (the block map on the device, the bias or None, the savings) lives in a
 store keyed by (artifact version, grid, heads, tokens, ``grid_slice``,
 block shape, layer, device), an LRU bounded by the bytes of its plans;
-:data:`plan_builds` counts the builds.  The artifact version lives in
-that key only: the eager port compiles nothing that could bake an old
-artifact's masks in, so a swap needs no other key.
+:data:`plan_builds` counts the builds.  Where the reference's jitted
+sampler folds one artifact in when it is traced, a served sampler here
+holds a policy pinned to one artifact (:meth:`_ArtifactPolicy.pin`), so
+a swap while a batch runs leaves that batch on the artifact it started
+with; the policies' ``plan_token`` (the version) keys the dispatch plan
+and the serving bucket, so traffic after a swap gets a sampler of its
+own.
 
 Not ported yet: ``StaticPatternPolicy.ring_bias_rows`` and the
 policies' ``will_seq_shard`` wait for the ring (multi-GPU,
@@ -518,14 +522,15 @@ def active_artifact() -> Optional[PatternArtifact]:
 
 def set_active_artifact(artifact: Optional[PatternArtifact]
                         ) -> Optional[PatternArtifact]:
-    """Install (or with None, uninstall) the active artifact.  Empties
-    the constant-plan store: its keys carry the artifact version, so the
-    old artifact's plans could only take card memory."""
+    """Install (or with None, uninstall) the active artifact.  The
+    constant-plan store is left as it is: a batch still running on a
+    sampler pinned to the old artifact keeps using its plans (keyed by
+    their version), and the store's byte bound evicts them once newer
+    plans need the room."""
     global _ACTIVE, _AUTO
     prev = _ACTIVE
     _ACTIVE = artifact
     _AUTO = None
-    clear_plans()
     return prev
 
 
@@ -818,16 +823,28 @@ def _n_heads(q: torch.Tensor) -> int:
 
 class _ArtifactPolicy:
     """What both pattern policies share: the artifact they consult and
-    their per-head specs' constant plan."""
+    their per-head specs' constant plan.  The registered instances
+    consult :func:`active_artifact` at every call; one made with an
+    ``artifact``, or with ``pinned=True`` (:meth:`pin`), consults that
+    artifact only (None: the default templates)."""
 
     def __init__(self, artifact: Optional[PatternArtifact] = None,
-                 layer: Optional[int] = None):
+                 layer: Optional[int] = None, *, pinned: bool = False):
         self._artifact = artifact
+        self._pinned = pinned or artifact is not None
         self.layer = layer
 
     def artifact(self) -> Optional[PatternArtifact]:
-        return self._artifact if self._artifact is not None \
-            else active_artifact()
+        return self._artifact if self._pinned else active_artifact()
+
+    def pin(self) -> "_ArtifactPolicy":
+        """A copy of this policy held to the artifact it consults now,
+        whatever is installed later."""
+        return type(self)(self.artifact(), self.layer, pinned=True)
+
+    def plan_token(self, cfg=None) -> Optional[str]:
+        art = self.artifact()
+        return art.version if art is not None else None
 
     def _specs(self, n_heads: int, grid) -> List[Optional[TemplateSpec]]:
         raise NotImplementedError

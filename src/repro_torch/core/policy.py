@@ -132,6 +132,14 @@ class ReusePolicy:
         and calls :meth:`apply_decision` on cache hits, only then."""
         return self.caches_decisions
 
+    def plan_token(self, cfg: Optional[RippleConfig] = None):
+        """Hashable token of the outside state this policy's decisions
+        depend on (the pattern artifact's version, DESIGN.md §16).  The
+        dispatch plan key and the serving bucket key carry it, so a swap
+        of that state gets a plan and a sampler of its own.  None when
+        the policy has no such state."""
+        return None
+
     def thetas_for(self, cfg: RippleConfig, step, total_steps,
                    thetas: Optional[Dict[str, float]] = None
                    ) -> Dict[str, float]:

@@ -5,30 +5,42 @@ image generation with TimeRipple on.
 ``--device cpu`` runs it on the CPU (kernel wrappers then take their
 plain PyTorch versions).  ``--arch`` picks the model (``vdit-paper``,
 the default, the image DiTs ``dit-xl2`` / ``dit-b2``, or the latent
-UNet ``unet-sd15``, whose requests carry a 77 x 768 text context; the
-image models are served at ``--shape gen_1024``).  ``--smoke`` serves
-the smoke config at a 64² resolution for 3 steps; ``--override
-key=value`` edits the config
-(e.g. ``model.num_layers=8``, ``ripple.backend=dense``); ``--policy svg``
-serves under the SVG block mask and ``--override ripple.svg_mask=true``
-composes it with TimeRipple's snapping, both through the block-sparse
-backend; ``--attn-backend`` picks the dispatch backend (``collapse``
-runs the exact pair-collapse identities in plain PyTorch);
-``--reuse-every R`` (or ``--override ripple.drift_tol=...``) serves the
-vdit under the cross-step decision cache, and each served batch logs
-``decision cache: N hits / M refreshes``.  ``--policy static`` serves
-constant searched masks and ``--policy rainfusion`` routes each head to
-its searched mask or to ripple's snapping (DESIGN.md §16), both through
-the block-sparse backend; ``--pattern-artifact PATH`` installs the
-artifact that ``launch/pattern_search.py`` wrote (without it they read
+UNet ``unet-sd15``, whose requests carry a 77 x 768 text context).
+Without ``--shape`` the traffic is mixed, as in the reference launcher:
+round-robin over the arch's first generate shape (``--steps`` sets its
+step count), its half resolution and its half schedule, each its own
+engine bucket, with one attention-plan line per bucket; ``--shape
+NAME`` serves that shape only.  ``--smoke`` serves the smoke config at
+a 64² base resolution for 3 steps; ``key=value`` overrides (positional,
+or ``--override``) edit the config (e.g. ``model.num_layers=8``,
+``ripple.backend=dense``); ``--policy svg`` serves under the SVG block
+mask and ``ripple.svg_mask=true`` composes it with TimeRipple's
+snapping, both through the block-sparse backend; ``--policy-module M``
+imports M first so that it can register a policy of its own;
+``--attn-backend`` picks the dispatch backend (``collapse`` runs the
+exact pair-collapse identities in plain PyTorch); ``--reuse-every R``
+and ``--drift-tol TOL`` serve the vdit under the cross-step decision
+cache, and each served batch logs ``decision cache: N hits / M
+refreshes``.  ``--policy static`` serves constant searched masks and
+``--policy rainfusion`` routes each head to its searched mask or to
+ripple's snapping (DESIGN.md §16), both through the block-sparse
+backend; ``--pattern-artifact PATH`` installs the artifact that
+``launch/pattern_search.py`` wrote (without it they read
 ``REPRO_PATTERN_ARTIFACT`` or the user cache, and ``static`` falls back
-to the grid's default template).
+to the grid's default template); each bucket's sampler keeps the
+artifact that was active when it was built.  ``--stream-every K``
+delivers each request's latents every K steps through the engine's
+``stream``; every request's log line carries its latency and its time
+to the first frame (TTFF).  ``--summary-json PATH`` writes the
+reference launcher's summary keys.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
+import json
 import logging
 import time
 
@@ -39,10 +51,12 @@ from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.core import decision_cache
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core import patterns
+from repro_torch.core.policy import get_policy, list_policies
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
 from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           latent_shape_for,
+                                          mixed_gen_shapes,
                                           mixed_request_stream,
                                           request_label,
                                           vdit_decision_state)
@@ -54,7 +68,7 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 
 def build_sampler(arch, shape, model, *, use_ripple: bool = True,
-                  policy=None, reuse_every=None,
+                  policy=None, reuse_every=None, stream_every=None,
                   compute_dtype: torch.dtype = torch.bfloat16):
     """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt,
     seeds=None) -> latents`` runs the whole DDIM trajectory (no ported
@@ -62,8 +76,10 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     device.  The dit family ignores ``txt`` and conditions each request
     on a class label drawn from its seed (``seeds``, one per row,
     required there); the unet attends to ``txt`` as its text context.
-    ``policy`` overrides the arch config's reuse policy for this sampler,
-    ``reuse_every`` its decision-cache cadence.
+    ``policy`` (a registered name or a policy instance, such as a
+    pattern policy pinned to one artifact) overrides the arch config's
+    reuse policy for this sampler, ``reuse_every`` its decision-cache
+    cadence.
 
     With a cadence above 1 (or the drift guard on) on a cache-capable
     vdit config, the per-layer decision state is threaded through the
@@ -71,7 +87,15 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     ``sample_fn`` returns ``(latents, aux)`` with the summed
     ``cache_hits`` / ``cache_refreshes`` counters.  As in the JAX
     launcher the cache is threaded for the vdit family only: a dit under
-    those settings decides on every step."""
+    those settings decides on every step.
+
+    ``stream_every=K`` makes ``sample_fn`` a generator instead: it runs
+    the trajectory in K-step chunks (the sampler's ``step_offset`` /
+    ``total_steps`` slices, the same arithmetic as one run) and yields
+    ``(latents, aux)`` after each, ``aux`` holding the decision-cache
+    counters so far (empty without the cache); the decision state
+    crosses chunks unchanged, so the last chunk is the whole run's
+    result bit for bit."""
     if arch.family not in ("vdit", "dit", "unet"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
     if policy:
@@ -88,43 +112,123 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     steps = shape.steps or 50
     ddpm = DDPMSchedule()
 
-    def sample_fn(noise, txt, seeds=None):
+    def make_cond(noise, txt, seeds):
         if arch.family == "dit":
             if seeds is None or len(seeds) != noise.shape[0]:
                 raise ValueError("the dit sampler needs one seed per "
                                  "request for its class labels")
             labels = [request_label(s, arch.model.num_classes)
                       for s in seeds]
-            cond = {"labels": torch.tensor(labels, device=noise.device)}
-        elif arch.family == "unet":
-            cond = {"ctx": txt}
-        else:
-            cond = {"txt": txt}
+            return {"labels": torch.tensor(labels, device=noise.device)}
+        if arch.family == "unet":
+            return {"ctx": txt}
+        return {"txt": txt}
 
-        if thread_cache:
-            def denoise(x, t, step, dstate):
-                out, dstate = _denoise_call(
-                    arch, model, x, t, cond, step, steps,
-                    use_ripple=use_ripple, compute_dtype=compute_dtype,
-                    dstate=dstate)
-                return out.to(x.dtype), dstate
+    def run(x, cond, step0, count, dstate):
+        """DDIM steps [step0, step0 + count) of the trajectory; returns
+        (x, decision state or None)."""
+        if dstate is None:
+            def denoise(x, t, step):
+                return _denoise_call(arch, model, x, t, cond, step, steps,
+                                     use_ripple=use_ripple,
+                                     compute_dtype=compute_dtype).to(x.dtype)
 
-            dstate = vdit_decision_state(arch, shape.img_res,
-                                         noise.shape[0])
-            lat, final = ddim_sample(denoise, noise, ddpm, steps,
-                                     decision_state=dstate)
-            return lat, {
-                "cache_hits": sum(st.hits.sum() for st in final),
-                "cache_refreshes": sum(st.refreshes.sum() for st in final)}
+            return ddim_sample(denoise, x, ddpm, count, step_offset=step0,
+                               total_steps=steps), None
 
-        def denoise(x, t, step):
-            return _denoise_call(arch, model, x, t, cond, step, steps,
-                                 use_ripple=use_ripple,
-                                 compute_dtype=compute_dtype).to(x.dtype)
+        def denoise(x, t, step, dstate):
+            out, dstate = _denoise_call(
+                arch, model, x, t, cond, step, steps, use_ripple=use_ripple,
+                compute_dtype=compute_dtype, dstate=dstate)
+            return out.to(x.dtype), dstate
 
-        return ddim_sample(denoise, noise, ddpm, steps)
+        return ddim_sample(denoise, x, ddpm, count, step_offset=step0,
+                           total_steps=steps, decision_state=dstate)
+
+    def start_state(noise):
+        return (vdit_decision_state(arch, shape.img_res, noise.shape[0])
+                if thread_cache else None)
+
+    def counters(dstate) -> dict:
+        if dstate is None:
+            return {}
+        return {"cache_hits": sum(st.hits.sum() for st in dstate),
+                "cache_refreshes": sum(st.refreshes.sum() for st in dstate)}
+
+    if stream_every:
+        chunk = int(stream_every)
+
+        def stream_fn(noise, txt, seeds=None):
+            cond = make_cond(noise, txt, seeds)
+            x, dstate = noise, start_state(noise)
+            for step0 in range(0, steps, chunk):
+                x, dstate = run(x, cond, step0, min(chunk, steps - step0),
+                                dstate)
+                yield x, counters(dstate)
+
+        return stream_fn, latent_shape_for(arch, shape)
+
+    def sample_fn(noise, txt, seeds=None):
+        lat, dstate = run(noise, make_cond(noise, txt, seeds), 0, steps,
+                          start_state(noise))
+        return lat if dstate is None else (lat, counters(dstate))
 
     return sample_fn, latent_shape_for(arch, shape)
+
+
+def pinned_policy(arch, policy=None):
+    """The policy a served sampler runs: ``policy`` (default: the arch
+    config's), and for a pattern policy a copy pinned to the artifact
+    active now, so that an artifact installed while its batches run
+    does not reach them (the reference's jitted sampler folds the
+    artifact in when it is traced).  A policy instance, such as the one
+    the engine pinned when the request was submitted, is kept as it is."""
+    if policy is not None and not isinstance(policy, str):
+        return policy
+    name = policy or arch.ripple.policy
+    pin = getattr(get_policy(name), "pin", None)
+    return pin() if pin is not None else policy
+
+
+def make_sampler_factory(arch, shapes, model, *, use_ripple: bool = True,
+                         device=None,
+                         compute_dtype: torch.dtype = torch.bfloat16):
+    """``(sampler_factory, plan_fn)`` for a :class:`DiffusionEngine` over
+    the generate cells ``shapes``, keyed by the bucket's (latent_shape,
+    steps).  The factory takes the bucket's policy (None: the arch
+    config's), decision-cache cadence and streaming cadence, and builds
+    the sampler around :func:`pinned_policy`: a ``static`` or
+    ``rainfusion`` bucket runs the policy the engine pinned at submit,
+    to the artifact whose version is the bucket's pattern token (a name
+    is pinned when the sampler is built).
+    ``plan_fn`` gives the bucket's attention plans as one line for the
+    log (``device``: where ``model`` runs, default CUDA)."""
+    by_bucket = {(tuple(latent_shape_for(arch, sp)), sp.steps): sp
+                 for sp in shapes}
+    on_cuda = resolve_device(device).type == "cuda"
+
+    def cell(latent_shape, steps):
+        sp = by_bucket.get((tuple(latent_shape), steps))
+        if sp is None:
+            raise ValueError(f"no sampler for bucket {tuple(latent_shape)}, "
+                             f"{steps} steps")
+        return sp
+
+    def factory(latent_shape, steps, policy=None, reuse_every=None,
+                stream_every=None):
+        return build_sampler(arch, cell(latent_shape, steps), model,
+                             use_ripple=use_ripple,
+                             policy=pinned_policy(arch, policy),
+                             reuse_every=reuse_every,
+                             stream_every=stream_every,
+                             compute_dtype=compute_dtype)[0]
+
+    def plan_fn(latent_shape, steps, policy=None):
+        return plans_summary(attention_plans(
+            arch, cell(latent_shape, steps), on_cuda=on_cuda,
+            policy=policy))
+
+    return factory, plan_fn
 
 
 # A family's seeded initializer.
@@ -154,6 +258,13 @@ def attention_plans(arch, shape, *, on_cuda: bool, policy=None):
     return out
 
 
+def plans_summary(plans) -> str:
+    """One log line for :func:`attention_plans`: the plan, or with more
+    than one attention shape each prefixed by its tokens and head dim."""
+    return "; ".join((f"{n} tokens x d {hd}: " if len(plans) > 1 else "")
+                     + plan.summary() for n, hd, plan in plans)
+
+
 def serving_shape(arch, name, *, smoke: bool, steps=None):
     """The named generate shape; ``smoke`` drops it to 64² and 3 steps;
     ``steps`` overrides the step count."""
@@ -169,22 +280,36 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vdit-paper", choices=ALL_ARCHS)
     ap.add_argument("--shape", default=None,
-                    help="the generate shape every request uses (default: "
-                         "the arch's first, gen_512 for vdit-paper and "
-                         "gen_1024 for the DiTs and the UNet)")
+                    help="single-shape traffic from this named generate "
+                         "shape; default: mixed-shape traffic over the "
+                         "arch's first generate shape (gen_512 for "
+                         "vdit-paper, gen_1024 for the DiTs and the UNet), "
+                         "its half resolution and its half schedule")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke config, 64x64, 3 steps")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--steps", type=int, default=None,
-                    help="denoising steps (default: the shape's)")
+                    help="denoising steps of the base shape, before the "
+                         "mixed variants are made (default: the shape's)")
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-compiled", type=int, default=8,
+                    help="bounded LRU of per-bucket samplers")
+    ap.add_argument("--stream-every", type=int, default=None, metavar="K",
+                    help="chunked streaming: deliver the latents every K "
+                         "denoising steps and report the time to the "
+                         "first frame (TTFF)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--no-ripple", action="store_true")
     ap.add_argument("--policy", default=None,
-                    help="reuse-policy name for every request (ripple, "
-                         "svg, equal_mse, dense, static, rainfusion); "
-                         "default: the arch config's ripple.policy")
+                    help="reuse-policy name for every request (built-ins: "
+                         "ripple, svg, equal_mse, dense, static, "
+                         "rainfusion; out-of-tree policies register via "
+                         "--policy-module); default: the arch config's "
+                         "ripple.policy")
+    ap.add_argument("--policy-module", default=None, metavar="MODULE",
+                    help="import this python module before serving so it "
+                         "can register_policy() an out-of-tree policy")
     ap.add_argument("--pattern-artifact", default=None, metavar="PATH",
                     help="install a searched pattern artifact "
                          "(launch/pattern_search.py) for the static / "
@@ -198,73 +323,126 @@ def main(argv=None):
                          "between; part of the engine's bucket key.  "
                          "Default: the arch config's ripple.reuse_every "
                          "(1 = a decision every step)")
+    ap.add_argument("--drift-tol", type=float, default=None, metavar="TOL",
+                    help="decision-cache drift guard: refresh early when "
+                         "the sampled-channel Δ statistic moves more than "
+                         "TOL (relative) from the cached decision's.  0 "
+                         "disables (default: the arch config's "
+                         "ripple.drift_tol)")
     ap.add_argument("--attn-backend", default=None,
                     choices=dispatch_lib.BACKENDS,
                     help="override RippleConfig.backend for the dispatch "
                          "layer (default: the arch config's setting)")
+    ap.add_argument("--summary-json", default=None, metavar="PATH",
+                    help="write the run's summary (submitted, completed, "
+                         "errors, counters) to PATH as JSON")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--override", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="config override, e.g. model.num_layers=8")
+    ap.add_argument("overrides", nargs="*", metavar="KEY=VALUE",
+                    help="config overrides, as --override")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
 
     device = resolve_device(args.device)
+    if args.policy_module:
+        importlib.import_module(args.policy_module)
     if args.pattern_artifact is not None:
         art = patterns.install_artifact(args.pattern_artifact)
         log.info("pattern artifact %s: %d heads, %.0f%% static",
                  art.version, len(art.heads),
                  100.0 * art.static_fraction())
+    if args.policy is not None and args.policy not in list_policies():
+        ap.error(f"unknown policy {args.policy!r}; registered: "
+                 f"{list_policies()} (use --policy-module to register an "
+                 f"out-of-tree policy first)")
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    arch = apply_overrides(arch, args.override)
+    arch = apply_overrides(arch, args.override + args.overrides)
+    ripple = {}
     if args.attn_backend is not None:
+        ripple["backend"] = args.attn_backend
+    if args.drift_tol is not None:
+        ripple["drift_tol"] = args.drift_tol
+    if ripple:
         arch = dataclasses.replace(
-            arch, ripple=dataclasses.replace(arch.ripple,
-                                             backend=args.attn_backend))
-    shape_name = args.shape or next(
-        sp.name for sp in arch.shapes if sp.kind == "generate")
-    shape = serving_shape(arch, shape_name, smoke=args.smoke,
-                          steps=args.steps)
+            arch, ripple=dataclasses.replace(arch.ripple, **ripple))
+    if args.shape is not None:
+        shapes = (serving_shape(arch, args.shape, smoke=args.smoke,
+                                steps=args.steps),)
+    else:
+        base = next(sp.name for sp in arch.shapes if sp.kind == "generate")
+        shapes = mixed_gen_shapes(arch, base=serving_shape(
+            arch, base, smoke=args.smoke, steps=args.steps))
+    # Every request names its policy (the config's without --policy), so
+    # a pattern policy's token is in its bucket key.
+    policy = args.policy or arch.ripple.policy
     model = MODEL_INIT[arch.family](arch.model, seed=args.seed, device=device)
-    lat_shape = latent_shape_for(arch, shape)
-    plans = attention_plans(arch, shape, on_cuda=device.type == "cuda",
-                            policy=args.policy)
-    log.info("device %s; %s (%s) at %s, %d steps, latents %s; plan %s",
-             device, arch.name, model_summary(arch), shape.name,
-             shape.steps, lat_shape, "; ".join(
-                 (f"{n} tokens x d {hd}: " if len(plans) > 1 else "")
-                 + plan.summary() for n, hd, plan in plans))
+    log.info("traffic buckets: %s",
+             [(sp.name, sp.img_res, sp.steps) for sp in shapes])
+    # One plan line a bucket, here rather than through the engine's
+    # plan_fn: every bucket of a run has one policy.
+    for sp in shapes:
+        log.info("device %s; %s (%s) at %s, %d steps, latents %s; plan %s",
+                 device, arch.name, model_summary(arch), sp.name, sp.steps,
+                 latent_shape_for(arch, sp), plans_summary(attention_plans(
+                     arch, sp, on_cuda=device.type == "cuda", policy=policy)))
 
-    def factory(shp, steps, policy=None, reuse_every=None):
-        if (tuple(shp), steps) != (tuple(lat_shape), shape.steps):
-            raise ValueError(f"no sampler for bucket {shp}, {steps} steps")
-        return build_sampler(arch, shape, model,
-                             use_ripple=not args.no_ripple,
-                             policy=policy or args.policy,
-                             reuse_every=reuse_every)[0]
-
+    factory, _ = make_sampler_factory(
+        arch, shapes, model, use_ripple=not args.no_ripple, device=device)
     engine = DiffusionEngine(factory, device=device, max_batch=args.max_batch,
+                             max_compiled=args.max_compiled,
                              default_reuse_every=args.reuse_every)
-    engine.start()
+    traffic = mixed_request_stream(arch, shapes, args.requests,
+                                   seed=args.seed, policy=policy,
+                                   reuse_every=args.reuse_every,
+                                   stream_every=args.stream_every)
     t0 = time.time()
-    done = []
+    done, errors = [], {}
+    # All queued before the worker starts, so the batches do not depend
+    # on how fast the requests are submitted.
+    for _, req in traffic:
+        engine.submit(req)
+    engine.start()
     try:
-        traffic = mixed_request_stream(arch, (shape,), args.requests,
-                                       seed=args.seed)
-        for _, req in traffic:
-            engine.submit(req)
-        for _, req in traffic:
-            r = engine.result(req.request_id)
+        for sp, req in traffic:
+            # A streaming request's chunks as a client reads them; the
+            # stream ends when its result lands.
+            chunks = (sum(1 for _ in engine.stream(req.request_id))
+                      if req.stream_every else 0)
+            try:
+                r = engine.result(req.request_id)
+            except RuntimeError as e:
+                errors[req.request_id] = str(e)
+                log.error("request %d failed: %s", req.request_id, e)
+                continue
             done.append(r)
-            log.info("request %d (%s, %d steps) done: latency %.3fs, "
-                     "batch %d served in %.3fs; latents %s", req.request_id,
-                     shape.name, shape.steps, r.latency_s, r.batch_index,
-                     r.walltime_s, r.latents.shape)
+            log.info("request %d (%s, %d steps) done: latency %.3fs, ttff "
+                     "%.3fs%s, batch %d served in %.3fs; latents %s",
+                     req.request_id, sp.name, sp.steps, r.latency_s,
+                     r.ttff_s, f" ({chunks} chunks)" if chunks else "",
+                     r.batch_index, r.walltime_s, r.latents.shape)
     finally:
         engine.stop()
-    log.info("served %d/%d requests in %.2fs", len(done), args.requests,
-             time.time() - t0)
+    counters = engine.metrics()
+    log.info("served %d/%d requests over %d bucket(s) in %.2fs; counters %s",
+             len(done), args.requests, len(shapes), time.time() - t0,
+             counters)
+    if args.summary_json:
+        # The reference launcher's keys; the port has no admission
+        # control, journal or resume yet, so their counts are 0.
+        summary = {
+            "submitted": [req.request_id for _, req in traffic],
+            "completed": [r.request_id for r in done],
+            "errors": {str(k): v for k, v in errors.items()},
+            "shed": 0, "recovered": 0, "resumed_from_step": 0,
+            "sigterm": False,
+            "counters": {k: int(v) for k, v in counters.items()},
+        }
+        with open(args.summary_json, "w", encoding="utf-8") as f:
+            json.dump(summary, f, indent=1, sort_keys=True)
+        log.info("wrote summary to %s", args.summary_json)
     return done
 
 

@@ -1,7 +1,7 @@
 """Serving helpers of the port: per-request latent shapes, attention
-call shapes, a deterministic request stream, per-request
-class labels, one denoiser forward (vdit, dit and unet families) and the
-vdit's per-layer decision-cache state."""
+call shapes, mixed generate shapes, a deterministic request stream,
+per-request class labels, one denoiser forward (vdit, dit and unet
+families) and the vdit's per-layer decision-cache state."""
 
 from __future__ import annotations
 
@@ -66,16 +66,47 @@ def request_label(seed: int, num_classes: int) -> int:
     return int(torch.randint(0, num_classes, (), generator=gen))
 
 
+def mixed_gen_shapes(arch: ArchConfig, *, smoke: bool = False,
+                     base: Optional[ShapeSpec] = None):
+    """Heterogeneous 'generate' cells for mixed-traffic serving: the base
+    resolution and step count (default: the arch's first generate
+    shape; ``smoke`` drops it to 64² and 3 steps) plus a
+    half-resolution and a half-schedule variant, each its own engine
+    bucket; duplicates of (resolution, steps) are dropped."""
+    if base is None:
+        base = next(s for s in arch.shapes if s.kind == "generate")
+    if smoke:
+        base = dataclasses.replace(base, img_res=64, steps=3)
+    res_lo = max(base.img_res // 2, 32)
+    steps_lo = max(base.steps // 2, 2)
+    variants = [
+        base,
+        dataclasses.replace(base, name=f"{base.name}_r{res_lo}",
+                            img_res=res_lo),
+        dataclasses.replace(base, name=f"{base.name}_s{steps_lo}",
+                            steps=steps_lo),
+    ]
+    seen, out = set(), []
+    for s in variants:
+        if (s.img_res, s.steps) not in seen:
+            seen.add((s.img_res, s.steps))
+            out.append(s)
+    return tuple(out)
+
+
 def mixed_request_stream(arch: ArchConfig, shapes, num_requests: int,
-                         seed: int = 0, reuse_every: Optional[int] = None):
+                         seed: int = 0, policy: Optional[str] = None,
+                         reuse_every: Optional[int] = None,
+                         stream_every: Optional[int] = None):
     """Round-robin (ShapeSpec, GenRequest) traffic over ``shapes`` with
     deterministic per-request text embeddings (numpy, seeded per
     request) of the model's text shape: ``txt_tokens`` x ``txt_dim``,
     else the unet's ``ctx_tokens`` x ``ctx_dim`` (77 x 768 for
     unet-sd15), else the JAX package's (8, 64) stand-in, which a family
     without text (the dit) ignores; and seeds.  Every request asks for
-    the decision-cache cadence ``reuse_every`` (None: the engine's
-    default)."""
+    the reuse policy ``policy``, the decision-cache cadence
+    ``reuse_every`` and the streaming cadence ``stream_every`` (None:
+    the engine's default; each is part of the bucket key)."""
     from repro_torch.serving.engine import GenRequest
 
     m = arch.model
@@ -88,8 +119,8 @@ def mixed_request_stream(arch: ArchConfig, shapes, num_requests: int,
             (txt_tokens, txt_dim)).astype(np.float32)
         out.append((sp, GenRequest(
             request_id=i, txt=txt, steps=sp.steps, seed=seed + i,
-            latent_shape=latent_shape_for(arch, sp),
-            reuse_every=reuse_every)))
+            latent_shape=latent_shape_for(arch, sp), policy=policy,
+            reuse_every=reuse_every, stream_every=stream_every)))
     return out
 
 

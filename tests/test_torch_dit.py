@@ -218,8 +218,9 @@ def test_main_serves_dit_xl2_on_cpu(caplog):
     done = serve_lib.main(["--arch", "dit-xl2", "--smoke", "--device", "cpu",
                            "--requests", "2"])
     assert [r.request_id for r in done] == [0, 1]
+    # Mixed traffic: the base 64² shape, then its half resolution.
+    assert [r.latents.shape for r in done] == [(8, 8, 4), (4, 4, 4)]
     for r in done:
-        assert r.latents.shape == (8, 8, 4)
         assert np.isfinite(r.latents).all()
     assert "dit-xl2-smoke (2 layers) at gen_1024" in caplog.text
     assert "attention[ripple/reference" in caplog.text

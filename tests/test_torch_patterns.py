@@ -78,8 +78,10 @@ def _toy(mod, grid=(4, 8, 8), block=(32, 32)):
 def clean_state():
     """No active artifact in either package, before and after, and no
     stored plans or cached dispatch plans left behind."""
+    patterns.clear_plans()
     with patterns.use_artifact(None), j_patterns.use_artifact(None):
         yield
+    patterns.clear_plans()
     j_dispatch.clear_plan_cache()
 
 
@@ -387,11 +389,12 @@ def test_constant_plans_are_built_once_per_key(clean_state):
                     block_shape=(64, 64))
     assert not (d3.block_map == sparse_ops.PARTIAL).any()
     assert d3.bias is None and patterns.plan_builds == before + 3
-    with patterns.use_artifact(_toy(patterns)):
+    with patterns.use_artifact(_toy(patterns)) as art:
         pol.decide(q, k, grid=GRID, cfg=cfg, thetas=th,
                    block_shape=(128, 128))
     assert patterns.plan_builds == before + 4
-    assert len(patterns.plan_store()) == 0  # the swap flushed the store
+    # The swap kept the older plans, each under its own version.
+    assert [k[1] for k in patterns.plan_store()] == [None] * 3 + [art.version]
 
 
 def test_plan_store_evicts_the_oldest_plan_past_its_budget(clean_state,

@@ -64,11 +64,13 @@ def test_request_noise_is_per_seed():
 
 
 def test_main_serves_on_cpu():
+    """Without ``--shape`` the traffic is mixed: request 0 at the base
+    64² shape, request 1 at its half resolution."""
     done = serve_lib.main(["--device", "cpu", "--smoke", "--requests", "2",
                            "--override", "model.num_layers=1"])
     assert [r.request_id for r in done] == [0, 1]
+    assert [r.latents.shape for r in done] == [(4, 8, 8, 4), (4, 4, 4, 4)]
     for r in done:
-        assert r.latents.shape == (4, 8, 8, 4)
         assert np.isfinite(r.latents).all()
 
 
@@ -114,7 +116,8 @@ def test_main_serves_decision_cache_settings(setting, caplog):
     guard alone (R=1) every step refreshes."""
     policy, overrides = CACHE_SETTINGS[setting]
     caplog.set_level("INFO", logger="repro_torch.serve")
-    argv = ["--device", "cpu", "--smoke", "--requests", "2"]
+    argv = ["--device", "cpu", "--smoke", "--requests", "2", "--shape",
+            "gen_512"]
     argv += ["--policy", policy] if policy else []
     for o in overrides + CACHE_SCHEDULE:
         argv += ["--override", o]

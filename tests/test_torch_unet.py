@@ -294,8 +294,9 @@ def test_main_serves_unet_sd15_on_cpu(caplog):
     done = serve_lib.main(["--arch", "unet-sd15", "--smoke", "--device",
                            "cpu", "--requests", "2"])
     assert [r.request_id for r in done] == [0, 1]
+    # Mixed traffic: the base 64² shape, then its half resolution.
+    assert [r.latents.shape for r in done] == [(8, 8, 4), (4, 4, 4)]
     for r in done:
-        assert r.latents.shape == (8, 8, 4)
         assert np.isfinite(r.latents).all()
     assert "unet-sd15-smoke (2 levels, ch 32, n_res_blocks 1)" in caplog.text
     assert ("plan 64 tokens x d 8: attention[ripple/reference "
