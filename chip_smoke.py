@@ -123,7 +123,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (``serve[launcher]``: 8 layers, 6 requests over 3 mixed buckets,
    streamed every 4 steps, each request's latency and TTFF, its
    summary file, each result bit-equal to its batch run again in one
-   piece);
+   piece, no degradation, retry, quarantine or watchdog trip);
+8e. (after 8d, on the launcher's 8-layer vDiT) the serving control
+   plane: ``serve[slo]`` (one warm batch gives the service-time
+   estimator its lower bound L; a fresh engine sharing it sheds exactly
+   the requests that ``admission_decision`` proves from L and the queue
+   depth; ``edf`` serves the earlier feasible deadline first and
+   ``hottest`` the deepest bucket); ``serve[failover]`` (the launcher
+   with ``--replicas 2``: fault-free, then ``kill_replica:after=1``,
+   then ``hang:count=1`` under an 8 s ``--batch-timeout``: every request
+   completes, each result equal to the fault-free run's bit for bit
+   where its batch has the same members, else within relative L2
+   1e-3); ``serve[guardrail]`` (``attn_nan:step=1``: a ripple batch
+   launches fused_reuse and ripple, trips and is served again under
+   dense with neither, bit-equal to ``--policy dense``; a static batch
+   runs the sparse kernel, then fused_reuse and ripple, then neither;
+   then the first on-card ``sentinel_drift`` reading with
+   ``--reuse-every 4 ripple.sentinel_probe_every=4``);
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT and UNet (also under svg), and of static and rainfusion, on the
@@ -2809,6 +2825,8 @@ def serve_launcher():
     checks = {
         "all 6 requests completed": summary["completed"] == list(range(6))
         and not summary["errors"],
+        "no degradation, retry, quarantine or watchdog trip":
+            quiet_counters(summary),
         "3 buckets served": len(buckets) == 3
         and summary["counters"].get("batches_served") == 3,
         "ceil(steps / 4) chunks a request, the last equal to the result": chunk_ok,
@@ -2827,6 +2845,389 @@ def serve_launcher():
         raise SystemExit("serve[launcher] failed")
     torch.cuda.empty_cache()
     return counts
+
+
+# The counters a fault-free launcher run must leave at 0 (guardrails are
+# on by default: a kernel returning NaN would otherwise be served quietly
+# through the dense rung).
+QUIET_COUNTERS = ("degraded_count", "dense_fallbacks", "batch_retries",
+                  "quarantined", "watchdog_trips")
+CONTROL_CUT = ("model.frames=32", f"model.num_layers={LAUNCHER_LAYERS}")
+HANG_TIMEOUT_S = 8.0  # serve[failover]'s --batch-timeout: ~4x a batch here
+
+
+def quiet_counters(summary) -> bool:
+    """Every :data:`QUIET_COUNTERS` entry of the summary (and of each
+    router replica's) is 0, and the keys are there."""
+    c = summary["counters"]
+    found = [k for k in c if k.split("_", 1)[-1] in QUIET_COUNTERS
+             or k in QUIET_COUNTERS]
+    return bool(found) and not any(c[k] for k in found)
+
+
+def run_launcher(label, argv):
+    """``repro_torch.launch.serve.main(argv)`` with the summary in a
+    temporary directory, and the engine's internals shadowed to record,
+    in order: each attempt's launches (``_run_batch``; exact only when
+    one engine runs), each published batch's members and latents
+    (``_publish_batch``), each batch's sentinel readings
+    (``_sentinel_verdict``) and each watchdog trip with the engine's
+    health after it.  Any fault plan is cleared at the end."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import faults as fault_lib
+
+    rec = {"attempts": [], "published": [], "aux": [], "trips": []}
+
+    def attempts(orig):
+        def f(self, key, batch, policy, pub, abandoned):
+            before = launch_counts()
+            out = orig(self, key, batch, policy, pub, abandoned)
+            after = launch_counts()
+            rec["attempts"].append((key[2], sorted(r.request_id for _, r, _ in batch),
+                                    {k: after[k] - before[k] for k in after
+                                     if after[k] != before[k]}))
+            return out
+        return f
+
+    def published(orig):
+        def f(self, batch, lat, dt, pub, err, degraded):
+            if err is None:
+                rids = sorted(r.request_id for _, r, _ in batch)
+                rec["published"].append((id(self), rids, {
+                    r.request_id: np.array(lat[i]) for i, (_, r, _) in enumerate(batch)}))
+            return orig(self, batch, lat, dt, pub, err, degraded)
+        return f
+
+    def verdict(orig):
+        def f(self, lat, aux):
+            rec["aux"].append({k: float(v) for k, v in (aux or {}).items()})
+            return orig(self, lat, aux)
+        return f
+
+    def trip(orig):
+        def f(self, *a, **kw):
+            orig(self, *a, **kw)
+            rec["trips"].append(self.healthy())
+        return f
+
+    log(f"serve[{label}]: python -m repro_torch.launch.serve {' '.join(argv)}")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "summary.json")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with wrapped(engine_lib.DiffusionEngine, "_run_batch", attempts), \
+                    wrapped(engine_lib.DiffusionEngine, "_publish_batch", published), \
+                    wrapped(engine_lib.DiffusionEngine, "_sentinel_verdict", verdict), \
+                    wrapped(engine_lib.DiffusionEngine, "_trip_watchdog", trip):
+                done = serve_lib.main(argv + ["--summary-json", path])
+            torch.cuda.synchronize()
+            rec["wall"] = time.perf_counter() - t0
+            with open(path, encoding="utf-8") as f:
+                rec["summary"] = json.load(f)
+    finally:
+        fault_lib.clear_faults()
+    rec["done"] = {r.request_id: r for r in done}
+    log(f"serve[{label}]: {rec['wall']:.1f}s with the model's init; completed "
+        f"{rec['summary']['completed']}, errors {rec['summary']['errors']}, shed "
+        f"{rec['summary']['shed']}; {CARD}")
+    return rec
+
+
+def batch_of(rec, rid, lat):
+    """The members of the published batch that produced ``lat`` for
+    ``rid`` (a request served twice, by a zombie batch and by its new
+    replica, has two)."""
+    import numpy as np
+
+    for _, rids, lats in rec["published"]:
+        if rid in lats and np.array_equal(lats[rid], lat):
+            return rids
+    return None
+
+
+def rel_l2(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def report(label, checks):
+    for what, ok in checks.items():
+        log(f"serve[{label}]: {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit(f"serve[{label}] failed")
+
+
+def serve_slo():
+    """Deadlines and admission on the launcher's 8-layer vDiT, through
+    engines built on ``make_sampler_factory`` (guardrails on).  One warm
+    batch of 2 at (8, 32, 32), 12 steps, gives the shared estimator its
+    lower bound L.  A fresh engine sharing it (not started, so the queue
+    depth at each submit is known) gets six requests of that bucket with
+    deadlines at -1 s and 0.5, 1.5, 1.5, 1.5, 2.5 L from their submit:
+    the requests shed must be exactly those ``admission_decision``
+    proves from L and the depth (the first, second and fifth), and the
+    rest are served.  Then two fresh engines, edf and hottest, each get
+    two requests of the (8, 32, 32) 6-step bucket (deadline 60 s) and one
+    of the (8, 16, 16) 12-step bucket (deadline 30 s), queued before the
+    worker starts: edf must serve the 30 s bucket first, hottest the
+    deeper one.  In every engine completed + shed = submitted, and met +
+    missed = completed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.workloads import mixed_gen_shapes, mixed_request_stream
+    from repro_torch.serving.engine import DiffusionEngine
+    from repro_torch.serving.slo import ServiceEstimator, ShedError, admission_decision
+
+    arch = apply_overrides(get_config("vdit-paper"), CONTROL_CUT)
+    shapes = mixed_gen_shapes(arch, base=serve_lib.serving_shape(
+        arch, "gen_512", smoke=False, steps=12))
+    log(f"serve[slo]: vdit-paper full width, {LAUNCHER_LAYERS} layers, buckets "
+        f"{[(sp.name, sp.img_res, sp.steps) for sp in shapes]}, batches of 2")
+    t0 = time.perf_counter()
+    model = serve_lib.MODEL_INIT["vdit"](arch.model, seed=0, device="cuda")
+    factory, _ = serve_lib.make_sampler_factory(arch, shapes, model, device="cuda",
+                                                sentinel=True)
+    # Round robin: ids 0, 3, ... the 12-step (8, 32, 32) bucket; 1, 4, ...
+    # (8, 16, 16); 2, 5, ... the 6-step one.
+    traffic = [req for _, req in mixed_request_stream(arch, shapes, 12, seed=0,
+                                                       policy="ripple")]
+    engines = []
+
+    def engine(est, scheduler="edf"):
+        eng = DiffusionEngine(factory, device="cuda", max_batch=2, estimator=est,
+                              scheduler=scheduler, guardrail=True)
+        engines.append(eng)
+        return eng
+
+    def served(eng, reqs):
+        eng.start()
+        try:
+            return {r.request_id: eng.result(r.request_id) for r in reqs}
+        finally:
+            eng.stop()
+
+    est = ServiceEstimator()
+    eng = engine(est)
+    for req in (traffic[0], traffic[3]):  # queued first: one batch of 2
+        eng.submit(req)
+    warm = served(eng, [traffic[0], traffic[3]])
+    key = eng._bucket_key(traffic[0])
+    L, ewma = est.lower_bound(key), est.expected(key)
+    log(f"serve[slo]: warm batch of 2 served in {warm[0].walltime_s:.3f}s; bucket "
+        f"{key[:3]}: lower bound L {L:.4f}s, EWMA {ewma:.4f}s; {CARD}")
+    eng = engine(est)
+    margins = (None, 0.5, 1.5, 1.5, 1.5, 2.5)   # None: a deadline 1 s ago
+    reqs = [dataclasses.replace(traffic[6], request_id=100 + j, seed=100 + j)
+            for j in range(len(margins))]
+    proved, shed, admitted, submit_t = set(), set(), [], {}
+    for req, m in zip(reqs, margins):
+        now = submit_t[req.request_id] = time.time()
+        req.deadline_s = now - 1.0 if m is None else now + m * L
+        if admission_decision(req.deadline_s, now, len(admitted), 2, L) is not None:
+            proved.add(req.request_id)
+        try:
+            eng.submit(req)
+            admitted.append(req)
+        except ShedError as e:
+            shed.add(req.request_id)
+            log(f"serve[slo]: {e}")
+    res = served(eng, admitted)
+    for req in admitted:
+        r = res[req.request_id]
+        budget = req.deadline_s - submit_t[req.request_id]
+        margin = budget - r.latency_s
+        log(f"serve[slo]: request {r.request_id} (deadline {budget:.3f}s after "
+            f"submit) latency {r.latency_s:.3f}s, batch {r.batch_index} in "
+            f"{r.walltime_s:.3f}s, deadline {'met' if r.deadline_met else 'MISSED'}, "
+            f"margin {margin:.3f}s; {CARD}")
+    order, served_n = {}, []
+    for scheduler in ("edf", "hottest"):
+        e2 = engine(ServiceEstimator(), scheduler)
+        now = time.time()
+        q = [dataclasses.replace(traffic[i], deadline_s=now + dl)
+             for i, dl in ((2, 60.0), (5, 60.0), (1, 30.0))]
+        for r in q:
+            e2.submit(r)
+        got = served(e2, q)
+        served_n.append(len(got))
+        first = min(got.values(), key=lambda r: r.batch_index)
+        order[scheduler] = first.request_id
+        log(f"serve[slo]: {scheduler}: batches "
+            f"{sorted((r.batch_index, r.request_id) for r in got.values())}, first "
+            f"request {first.request_id}; latencies "
+            f"{[round(got[r.request_id].latency_s, 3) for r in q]}s; {CARD}")
+    wall = time.perf_counter() - t0
+    metrics = [e.metrics() for e in engines]
+    for e, m in zip(engines, metrics):
+        log(f"serve[slo]: engine {e.scheduler} counters {m}")
+    subs = [2, len(reqs), 3, 3]
+    checks = {
+        "the shed requests are exactly those admission_decision proves":
+            shed == proved == {100, 101, 104},
+        "every admitted request served, finite":
+            len(res) == 3 and all(np.isfinite(r.latents).all() for r in res.values()),
+        "edf serves the earlier feasible deadline first": order["edf"] == 1,
+        "hottest serves the deepest bucket first": order["hottest"] in (2, 5),
+        "completed + shed = submitted in every engine":
+            [len(warm), len(res), *served_n] == [s - m["shed_count"]
+                                                 for s, m in zip(subs, metrics)],
+        "met + missed = completed with a deadline":
+            [m["deadlines_met"] + m["deadlines_missed"] for m in metrics]
+            == [0, 3, 3, 3],
+        "no degradation": all(m["degraded_count"] == 0 for m in metrics),
+    }
+    log(f"serve[slo]: {wall:.1f}s the phase with the model's init; {CARD}")
+    report("slo", checks)
+    del model, factory
+    torch.cuda.empty_cache()
+
+
+def serve_failover():
+    """The launcher with ``--replicas 2`` on the 8-layer vDiT (6 requests
+    over its 3 mixed buckets, 12 steps, batches of up to 2): fault-free,
+    then with ``kill_replica:after=1`` (the deeper replica is failed
+    after the first result and its unserved requests requeue), then with
+    ``hang:count=1`` under ``--batch-timeout 8`` (the first batch sleeps
+    before its sampler runs; the watchdog trips once and takes that
+    replica down).  Every request completes without an error, and each
+    result equals the fault-free run's bit for bit where its batch has
+    the same members, else within relative L2 1e-3.  The latencies of
+    the fault runs share the card with the zombie batch of the failed
+    replica."""
+    import numpy as np
+
+    base = ["--arch", "vdit-paper", "--steps", "12", "--requests", "6",
+            "--max-batch", "2", "--replicas", "2", *CONTROL_CUT]
+    ref = run_launcher("failover", base)
+    checks = {"fault-free: every request completed":
+              sorted(ref["summary"]["completed"]) == list(range(6))
+              and not ref["summary"]["errors"],
+              "fault-free: no degradation, retry, quarantine or watchdog trip":
+              quiet_counters(ref["summary"])}
+    for label, extra in (("kill_replica", ["--inject-faults", "kill_replica:after=1"]),
+                         ("hang", ["--inject-faults", "hang:count=1",
+                                   "--batch-timeout", str(HANG_TIMEOUT_S)])):
+        rec = run_launcher(f"failover {label}", base + extra)
+        c = rec["summary"]["counters"]
+        bitwise, close, worst = [], [], 0.0
+        for rid, r in sorted(rec["done"].items()):
+            want = ref["done"][rid].latents
+            same = batch_of(rec, rid, r.latents) == batch_of(ref, rid, want)
+            err = rel_l2(r.latents, want)
+            worst = max(worst, err)
+            (bitwise if same else close).append(rid)
+            log(f"serve[failover {label}]: request {rid} latency {r.latency_s:.3f}s "
+                f"(shared with a zombie batch), batch "
+                f"{batch_of(rec, rid, r.latents)} against "
+                f"{batch_of(ref, rid, want)}: bit-equal "
+                f"{np.array_equal(r.latents, want)}, relative L2 {err:.3e}; {CARD}")
+        log(f"serve[failover {label}]: counters {c}")
+        checks[f"{label}: every request completed without an error"] = (
+            sorted(rec["summary"]["completed"]) == list(range(6))
+            and not rec["summary"]["errors"])
+        checks[f"{label}: bit-equal where the batch has the same members"] = all(
+            np.array_equal(rec["done"][i].latents, ref["done"][i].latents)
+            for i in bitwise)
+        checks[f"{label}: within relative L2 1e-3 elsewhere"] = worst < 1e-3
+        if label == "kill_replica":
+            checks["kill_replica: router_requeued >= 1"] = c["router_requeued"] >= 1
+        else:
+            trips = sum(v for k, v in c.items() if k.endswith("watchdog_trips"))
+            checks["hang: the watchdog tripped once and its replica went down"] = (
+                trips == 1 and rec["trips"] == [False])
+    report("failover", checks)
+
+
+def serve_guardrail():
+    """The guardrail ladder on the launcher's 8-layer vDiT (gen_512 at
+    grid (8, 32, 32), 2 requests in one batch, 4 steps) with
+    ``attn_nan:step=1``: the ripple batch launches fused_reuse and
+    ripple, trips, and is served again under dense with neither kernel
+    launched; its results are finite, degraded, and bit-equal to the same
+    batch under ``--policy dense`` (run next, fault-free).  A static
+    batch (the grid's default template) runs three attempts: the sparse
+    kernel only, then fused_reuse + ripple, then neither.  Then, without
+    a fault, 12 steps under ``--reuse-every 4
+    ripple.sentinel_probe_every=4``: the drift probe (the served
+    attention of head 0 against a dense f32 recompute, at steps 0, 4 and
+    8) must read finite.  Returns the launches of the fault runs by
+    kernel."""
+    import numpy as np
+    from repro_torch.core import patterns
+
+    common = ["--arch", "vdit-paper", "--shape", "gen_512", "--steps", "4",
+              "--requests", "2", "--max-batch", "2", *CONTROL_CUT]
+    fault = ["--inject-faults", "attn_nan:step=1"]
+    layer_steps = LAUNCHER_LAYERS * 4
+    patterns.set_active_artifact(None)  # static on the default template
+    rip = run_launcher("guardrail ripple", common + fault)
+    dense = run_launcher("guardrail dense", common + ["--policy", "dense"])
+    stat = run_launcher("guardrail static", common + ["--policy", "static"] + fault)
+    drift = run_launcher("guardrail drift", [
+        "--arch", "vdit-paper", "--shape", "gen_512", "--steps", "12", "--requests",
+        "2", "--max-batch", "2", "--reuse-every", "4", *CONTROL_CUT,
+        "ripple.sentinel_probe_every=4"])
+    for label, rec in (("ripple", rip), ("static", stat)):
+        for pol, rids, launched in rec["attempts"]:
+            log(f"serve[guardrail {label}]: attempt under {pol} for {rids}: "
+                f"launches {launched}")
+        log(f"serve[guardrail {label}]: sentinel readings {rec['aux']}; counters "
+            f"{rec['summary']['counters']}")
+    readings = drift["aux"][-1] if drift["aux"] else {}
+    log(f"serve[guardrail drift]: sentinel_drift {readings.get('sentinel_drift')} "
+        f"(the ripple kernel's output of head 0 against a dense f32 recompute, "
+        f"max over steps 0, 4, 8), sentinel_nonfinite "
+        f"{readings.get('sentinel_nonfinite')}, latent_nonfinite "
+        f"{readings.get('latent_nonfinite')}; {CARD}")
+    rc, sc = rip["summary"]["counters"], stat["summary"]["counters"]
+    want = {"fused_reuse": 2 * layer_steps, "ripple_attention": layer_steps}
+    checks = {
+        "ripple: fused_reuse + ripple, then dense with neither":
+            [(p, launched) for p, _, launched in rip["attempts"]]
+            == [("ripple", want), ("dense", {})],
+        "ripple: finite, degraded, degraded_count = dense_fallbacks = 1":
+            all(np.isfinite(r.latents).all() and r.degraded
+                for r in rip["done"].values()) and len(rip["done"]) == 2
+            and rc["degraded_count"] == rc["dense_fallbacks"] == 1,
+        "ripple: bit-equal to --policy dense": all(
+            np.array_equal(r.latents, dense["done"][i].latents)
+            for i, r in rip["done"].items()),
+        "dense and drift: no degradation, retry, quarantine or watchdog trip":
+            quiet_counters(dense["summary"]) and quiet_counters(drift["summary"]),
+        "static: sparse only, then fused_reuse + ripple, then neither":
+            [(p, launched) for p, _, launched in stat["attempts"]]
+            == [("static", {"sparse_attention": layer_steps}), ("ripple", want),
+                ("dense", {})],
+        "static: degraded_count 2, finite":
+            sc["degraded_count"] == 2 and sc["dense_fallbacks"] == 1
+            and all(np.isfinite(r.latents).all() and r.degraded
+                    for r in stat["done"].values()),
+        "drift: sentinel_drift finite, no non-finite entry":
+            np.isfinite(readings.get("sentinel_drift", np.nan))
+            and readings.get("sentinel_nonfinite") == 0
+            and readings.get("latent_nonfinite") == 0,
+    }
+    report("guardrail", checks)
+    out = {}
+    for rec in (rip, stat):
+        for _, _, launched in rec["attempts"]:
+            for k, v in launched.items():
+                out[k] = out.get(k, 0) + v
+    return out
 
 
 def ripple_ranges():
@@ -3429,6 +3830,10 @@ def main() -> int:
     del model, served_lat
     torch.cuda.empty_cache()
     counts_la = serve_launcher()
+    # The serving control plane on the launcher's 8-layer model (8e).
+    serve_slo()
+    serve_failover()
+    counts_gr = serve_guardrail()
     arch2, shape2, model2 = load_served_model(2)
     serve_svg_cache(apply_overrides(arch2, cache_cut),
                     dataclasses.replace(shape2, steps=CACHE_STEPS), model2)
@@ -3559,7 +3964,8 @@ def main() -> int:
          "launches_rainfusion": counts_rf["fused_reuse"],
          # The engine and launcher phases (serve[policies], serve[launcher]).
          "launches_policies": counts_pol["fused_reuse"],
-         "launches_launcher": counts_la["fused_reuse"], "unet_ms": t1u["ms"],
+         "launches_launcher": counts_la["fused_reuse"],
+         "launches_guardrail": counts_gr.get("fused_reuse", 0), "unet_ms": t1u["ms"],
          "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
@@ -3571,7 +3977,9 @@ def main() -> int:
          # their launches in serve[unet-sd15].
          "launches_unet": counts_u["ripple_attention"],
          "launches_policies": counts_pol["ripple_attention"],
-         "launches_launcher": counts_la["ripple_attention"], "unet": unet_times},
+         "launches_launcher": counts_la["ripple_attention"],
+         "launches_guardrail": counts_gr.get("ripple_attention", 0),
+         "unet": unet_times},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",
          "replaces": "src/repro/kernels/sparse/kernel.py:120",
@@ -3585,6 +3993,7 @@ def main() -> int:
          "launches_rainfusion": counts_rf["sparse_attention"],
          "launches_policies": counts_pol["sparse_attention"],
          "launches_unet_svg": counts_us["sparse_attention"],
+         "launches_guardrail": counts_gr.get("sparse_attention", 0),
          "unet": unet_sparse_times},
         # No single PyTorch call computes LayerNorm-and-modulate: the time
         # of F.layer_norm with its two elementwise ops is in the log line.

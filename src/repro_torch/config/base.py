@@ -23,9 +23,12 @@ class RippleConfig:
     their partial attention scores (DESIGN.md §2).  ``svg_mask`` composes
     the SVG block mask with the snapping (the block-sparse backend runs
     it).  ``reuse_every`` / ``drift_tol`` / ``drift_channels`` drive the
-    cross-step decision cache (``core.decision_cache``).  Fields the port
-    does not act on yet (sentinels, 1-D reuse) keep their defaults so
-    configs stay interchangeable.
+    cross-step decision cache (``core.decision_cache``).  ``sentinel``
+    folds the guardrail sentinels into that cache's state (the non-finite
+    count of each attention output) and ``sentinel_probe_every`` K adds a
+    dense float32 probe of one (batch, head) slice every K steps
+    (``core.guardrail``).  ``enable_1d`` (1-D reuse) is not acted on and
+    keeps its default so configs stay interchangeable.
     """
 
     enabled: bool = False

@@ -53,8 +53,11 @@ __all__ = ["CachedDecision", "bump_hit", "cache_from_decision",
 class CachedDecision:
     """The plan half of one reuse decision (see the module doc).  Every
     tensor keeps the operands' leading (batch, head) dims.  ``elided``
-    (ring attention) and the sentinel leaves ``nonfinite`` /
-    ``probe_err`` are not ported and stay None."""
+    (ring attention) is not ported and stays None.  The guardrail
+    sentinels (``core.guardrail.attach_sentinel``, with ``cfg.sentinel``
+    on) fill ``nonfinite``, the running count of non-finite attention
+    outputs, and ``probe_err``, the largest dense-probe relative error;
+    both are None otherwise and carry across refreshes."""
 
     q_idx: Optional[torch.Tensor] = None      # int32 (..., Ng, d)
     k_idx: Optional[torch.Tensor] = None
@@ -64,8 +67,8 @@ class CachedDecision:
     hits: Optional[torch.Tensor] = None       # int32 lead-shaped
     refreshes: Optional[torch.Tensor] = None
     elided: Optional[torch.Tensor] = None
-    nonfinite: Optional[torch.Tensor] = None
-    probe_err: Optional[torch.Tensor] = None
+    nonfinite: Optional[torch.Tensor] = None  # int32 lead-shaped
+    probe_err: Optional[torch.Tensor] = None  # f32 lead-shaped
 
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(CachedDecision))
@@ -122,7 +125,8 @@ def cache_from_decision(decision: ReuseDecision, stat: torch.Tensor,
                         prev: Optional[CachedDecision] = None
                         ) -> CachedDecision:
     """The cacheable plan of a fresh ``decide(want_plan=True)``, with the
-    refresh counter bumped (``prev=None`` starts the counters)."""
+    refresh counter bumped (``prev=None`` starts the counters) and the
+    sentinel leaves of ``prev`` carried on."""
     if prev is None or prev.hits is None:
         hits = torch.zeros(stat.shape, dtype=torch.int32, device=stat.device)
         refreshes = torch.ones(stat.shape, dtype=torch.int32,
@@ -132,7 +136,9 @@ def cache_from_decision(decision: ReuseDecision, stat: torch.Tensor,
     return CachedDecision(
         q_idx=decision.q_src, k_idx=decision.k_src, bias=decision.bias,
         block_map=decision.block_map, ref_stat=stat, hits=hits,
-        refreshes=refreshes)
+        refreshes=refreshes,
+        nonfinite=None if prev is None else prev.nonfinite,
+        probe_err=None if prev is None else prev.probe_err)
 
 
 def bump_hit(cached: CachedDecision) -> CachedDecision:

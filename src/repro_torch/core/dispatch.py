@@ -27,13 +27,21 @@ model targets (DESIGN.md §8).
   5. **The cross-step decision cache** (``core.decision_cache``): with a
      ``cached_decision`` or ``return_decision``, the policy decides anew
      only on refresh steps and otherwise re-applies the carried plan to
-     the fresh operands (:func:`_run_pipeline_cached`).
+     the fresh operands (:func:`_run_pipeline_cached`); with
+     ``cfg.sentinel`` the guardrail sentinels ride that state
+     (``core.guardrail.attach_sentinel``).
+  6. **Fault injection** (``serving.faults``): an armed ``attn_nan`` fault
+     flips a non-dense backend's output to NaN (:func:`_inject_attn_nan`).
+
+The plan cache is shared by every engine thread of a process (router
+replicas on one card) and guarded by a lock.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
@@ -57,6 +65,7 @@ BACKENDS = ("auto", "dense", "reference", "collapse", "pallas", "sparse")
 _SPARSE_BLOCKS = (128, 128)
 _PLAN_CACHE: "OrderedDict[Tuple, DispatchPlan]" = OrderedDict()
 _PLAN_CACHE_CAP = 256
+_PLAN_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,19 +191,21 @@ def resolve_plan(q_shape, v_shape, cfg: RippleConfig, *, on_cuda: bool,
     key = (resolved, shape_bucket(bh), shape_bucket(n), d, v_shape[-1],
            pol.name, pol.plan_token(cfg), cfg.fused_mask, cfg.window,
            cfg.granularity, on_cuda)
-    plan = _PLAN_CACHE.get(key)
-    if plan is not None:
-        _PLAN_CACHE.move_to_end(key)
+    with _PLAN_LOCK:
+        plan = _PLAN_CACHE.get(key)
+        if plan is not None:
+            _PLAN_CACHE.move_to_end(key)
+            return plan
+        blocks = (_SPARSE_BLOCKS if resolved == "sparse"
+                  else (TILE_PAIRS,) * 2)
+        plan = DispatchPlan(backend=resolved, policy=pol.name,
+                            block_q=blocks[0], block_k=blocks[1],
+                            fused_mask=_fused_requested(cfg, on_cuda),
+                            bucket=key[1:3])
+        _PLAN_CACHE[key] = plan
+        while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
+            _PLAN_CACHE.popitem(last=False)
         return plan
-    blocks = _SPARSE_BLOCKS if resolved == "sparse" else (TILE_PAIRS,) * 2
-    plan = DispatchPlan(backend=resolved, policy=pol.name,
-                        block_q=blocks[0], block_k=blocks[1],
-                        fused_mask=_fused_requested(cfg, on_cuda),
-                        bucket=key[1:3])
-    _PLAN_CACHE[key] = plan
-    while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
-        _PLAN_CACHE.popitem(last=False)
-    return plan
 
 
 def _decide_extra(plan: DispatchPlan, policy: ReusePolicy,
@@ -227,6 +238,24 @@ def _execute_backend(d: ReuseDecision, v, scale: float, *,
     return dense_attention(d.q, d.k, v, scale, d.bias)
 
 
+def _inject_attn_nan(out: torch.Tensor, step) -> torch.Tensor:
+    """The ``attn_nan`` fault (``serving.faults``): with the fault armed,
+    this call's output becomes NaN at the spec's denoising step.  Only
+    the non-dense pipelines call this, so the ladder's dense rung clears
+    the fault as it would clear a sparse-kernel bug.  Each flipped call
+    counts one ``fault_attn_nan``."""
+    if step is None:
+        return out
+    from repro_torch.serving import faults as fault_lib
+
+    fault = fault_lib.active_faults()
+    spec = fault.spec("attn_nan") if fault is not None else None
+    if spec is None or int(step) != int(spec.param("step", 0)):
+        return out
+    fault.note_fired("attn_nan")
+    return torch.full_like(out, float("nan"))
+
+
 def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
                          plan: DispatchPlan, grid, cfg: RippleConfig,
                          grid_slice, policy: ReusePolicy, step: int, cached,
@@ -237,7 +266,11 @@ def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
     the fresh operands; then the backend runs once on the chosen
     decision.  Refresh or reuse is chosen on the host: the step and the
     cadence are Python ints, and only the drift guard reads the device
-    (one bool a call, in ``refresh_due``).  Returns (out, new_cache)."""
+    (one bool a call, in ``refresh_due``).  With ``cfg.sentinel`` the
+    output's readings are folded into the new state
+    (``core.guardrail.attach_sentinel``; the probe compares against the
+    original q and k, so it measures the whole approximation).  Returns
+    (out, new_cache)."""
     from repro_torch.core import decision_cache as dc
 
     plan_once = getattr(policy, "plan_once", False)
@@ -266,7 +299,14 @@ def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
                                   thetas=thetas, grid_slice=grid_slice,
                                   **_decide_extra(plan, policy, cfg))
         new_cache = dc.bump_hit(cached)
-    return _execute_backend(d, v, scale, plan=plan, cfg=cfg), new_cache
+    out = _inject_attn_nan(_execute_backend(d, v, scale, plan=plan, cfg=cfg),
+                           step)
+    if cfg.sentinel:
+        from repro_torch.core import guardrail
+
+        new_cache = guardrail.attach_sentinel(new_cache, out, q, k, v, scale,
+                                              step, cfg)
+    return out, new_cache
 
 
 def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -330,4 +370,5 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = pol.decide(q, k, grid=grid, cfg=cfg, thetas=thetas, bias=bias,
                    grid_slice=grid_slice, fused=plan.fused_mask,
                    **_decide_extra(plan, pol, cfg))
-    return _execute_backend(d, v, scale, plan=plan, cfg=cfg)
+    return _inject_attn_nan(_execute_backend(d, v, scale, plan=plan, cfg=cfg),
+                            step)

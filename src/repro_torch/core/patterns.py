@@ -44,6 +44,7 @@ import hashlib
 import json
 import os
 import tempfile
+import threading
 import warnings
 from collections import OrderedDict
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -714,23 +715,30 @@ class ConstantPlan:
 # served vDiT grid holds a (24, 8448, 8448) f32 bias, 6.85 GB, so a
 # server that meets several grids or token counts keeps only the newest
 # plans.  The newest plan is kept whatever its size.
+# The store is shared by every engine thread of a process (router
+# replicas on one card): a lock guards it, held across a build so that a
+# key is built once.
 _PLAN_STORE_BYTES = 8 << 30
 _PLANS: "OrderedDict[tuple, ConstantPlan]" = OrderedDict()
+_PLANS_LOCK = threading.Lock()
 plan_builds = 0  # constant plans built (one per store key)
 
 
 def clear_plans() -> None:
     """Drop every stored constant plan (the count of builds stays)."""
-    _PLANS.clear()
+    with _PLANS_LOCK:
+        _PLANS.clear()
 
 
 def plan_store() -> Dict[tuple, ConstantPlan]:
     """The stored constant plans by key, oldest first (for inspection)."""
-    return dict(_PLANS)
+    with _PLANS_LOCK:
+        return dict(_PLANS)
 
 
 def _make_room(nbytes: int) -> None:
-    """Evict the oldest plans until ``nbytes`` more fit the budget."""
+    """Evict the oldest plans until ``nbytes`` more fit the budget (the
+    caller holds ``_PLANS_LOCK``)."""
     used = sum(p.nbytes for p in _PLANS.values())
     while _PLANS and used + nbytes > _PLAN_STORE_BYTES:
         used -= _PLANS.popitem(last=False)[1].nbytes
@@ -760,11 +768,19 @@ def _constant_plan(kind: str, specs: Sequence[Optional[TemplateSpec]],
     (``block_map_np``, bit-equal to the reference's) and gathered per
     head onto the device; the bias built on the device, only when some
     tile is PARTIAL, no block shape was given, or ``bias_always``."""
-    global plan_builds
     device = torch.device(device)
     key = (kind, version, tuple(grid), len(specs), n_tokens,
            None if grid_slice is None else tuple(grid_slice), layer,
            None if block_shape is None else tuple(block_shape), str(device))
+    with _PLANS_LOCK:
+        return _stored_plan(key, specs, grid, n_tokens, grid_slice,
+                            block_shape, device, bias_always)
+
+
+def _stored_plan(key, specs, grid, n_tokens, grid_slice, block_shape,
+                 device, bias_always) -> ConstantPlan:
+    """The body of :func:`_constant_plan`, under ``_PLANS_LOCK``."""
+    global plan_builds
     plan = _PLANS.get(key)
     if plan is not None:
         _PLANS.move_to_end(key)

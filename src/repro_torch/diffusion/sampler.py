@@ -12,6 +12,11 @@ model's per-layer state, e.g. from ``launch.workloads.vdit_decision_state``)
 and the contract becomes ``denoise_fn(x, t, step, state) -> (eps, state)``;
 the sampler then returns ``(x, final_state)``, and a chunk's final state
 is the next chunk's ``decision_state``.
+
+Guardrails (DESIGN.md §17): with ``sentinel=True`` the sampler keeps a
+running int32 count of non-finite latent entries, one ``isfinite`` pass
+after each step, on the device (nothing is read back per step), and
+appends it to the return: ``(x, nf)`` or ``(x, final_state, nf)``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor,
                 schedule: DDPMSchedule, num_steps: int, *, eta: float = 0.0,
                 generator: Optional[torch.Generator] = None,
                 step_offset: int = 0, total_steps: Optional[int] = None,
-                decision_state=None):
+                decision_state=None, sentinel: bool = False):
     """DDIM sampler. denoise_fn(x, t (B,) float, step_idx) -> eps.
 
     ``total_steps`` is the full schedule length and ``step_offset`` the
@@ -45,13 +50,16 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor,
     indexed by absolute step.  With ``eta > 0`` fresh noise comes from
     ``generator``.  With ``decision_state`` the denoiser carries it
     (``denoise_fn(x, t, step, state) -> (eps, state)``) and the sampler
-    returns ``(x, final_state)``."""
+    returns ``(x, final_state)``; ``sentinel`` appends the non-finite
+    latent count (module doc)."""
     total = num_steps if total_steps is None else total_steps
     ts = ddim_timesteps(schedule, total)
     alpha_bars = schedule.alpha_bars(x_T.device)
     one = torch.ones((), device=x_T.device)
     B = x_T.shape[0]
     x = x_T
+    nf = (torch.zeros((), dtype=torch.int32, device=x_T.device)
+          if sentinel else None)
     for si in range(step_offset, step_offset + num_steps):
         t = int(ts[si])
         t_prev = int(ts[si + 1]) if si + 1 < total else -1
@@ -73,7 +81,17 @@ def ddim_sample(denoise_fn: Callable, x_T: torch.Tensor,
                 raise ValueError("eta > 0 needs a generator")
             x = x + sigma * torch.randn(x.shape, generator=generator,
                                         device=x.device, dtype=x.dtype)
-    return x if decision_state is None else (x, decision_state)
+        if nf is not None:
+            nf = nf + (~torch.isfinite(x)).sum().to(torch.int32)
+    return _result(x, decision_state, nf)
+
+
+def _result(x, decision_state, nf):
+    """The samplers' return: x, then the final decision state when one is
+    carried, then the non-finite count when the sentinel is on."""
+    out = (x,) + (() if decision_state is None else (decision_state,)) \
+        + (() if nf is None else (nf,))
+    return out[0] if len(out) == 1 else out
 
 
 @torch.no_grad()
@@ -82,15 +100,16 @@ def euler_flow_sample(denoise_fn: Callable, x_T: torch.Tensor,
                       schedule: Optional[RectifiedFlowSchedule] = None,
                       step_offset: int = 0,
                       total_steps: Optional[int] = None,
-                      decision_state=None):
+                      decision_state=None, sentinel: bool = False):
     """Euler ODE integration of rectified flow from t=1 (noise) to t=0.
     denoise_fn(x, t (B,), step_idx) -> velocity (noise - x0); with
-    ``decision_state`` as in :func:`ddim_sample`, returning
-    ``(x, final_state)``."""
+    ``decision_state`` and ``sentinel`` as in :func:`ddim_sample`."""
     total = num_steps if total_steps is None else total_steps
     ts = linspace_f32(1.0, 0.0, total + 1)
     B = x_T.shape[0]
     x = x_T
+    nf = (torch.zeros((), dtype=torch.int32, device=x_T.device)
+          if sentinel else None)
     for si in range(step_offset, step_offset + num_steps):
         t, t_next = ts[si], ts[si + 1]
         t_b = torch.full((B,), float(t), device=x.device)
@@ -99,4 +118,6 @@ def euler_flow_sample(denoise_fn: Callable, x_T: torch.Tensor,
         else:
             v, decision_state = denoise_fn(x, t_b, si, decision_state)
         x = x + float(np.float32(t_next - t)) * v
-    return x if decision_state is None else (x, decision_state)
+        if nf is not None:
+            nf = nf + (~torch.isfinite(x)).sum().to(torch.int32)
+    return _result(x, decision_state, nf)

@@ -6,12 +6,16 @@ kernel, ``sparse`` the block-sparse masked attention kernel, ``flash``
 the dense flash attention kernel and ``adaln`` the fused adaLN
 modulation kernel; each wrapper counts the launches of its kernel in a
 plain module-level integer (the ripple and sparse wrappers also by
-shape).
+shape), under :data:`LAUNCH_LOCK`, since router replicas launch from
+several engine threads of one process.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
+
+LAUNCH_LOCK = threading.Lock()
 
 
 def _counters() -> Dict[str, Tuple[object, str]]:
@@ -31,12 +35,16 @@ def _counters() -> Dict[str, Tuple[object, str]]:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: getattr(mod, attr)
-            for name, (mod, attr) in _counters().items()}
+    counters = _counters()
+    with LAUNCH_LOCK:
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in _counters().values():
-        setattr(mod, attr, 0)
-    for name in ("ripple_attention", "sparse_attention"):
-        _counters()[name][0].launches_by_shape.clear()
+    counters = _counters()
+    with LAUNCH_LOCK:
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        for name in ("ripple_attention", "sparse_attention"):
+            counters[name][0].launches_by_shape.clear()

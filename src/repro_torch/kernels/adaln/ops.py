@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.adaln.ref import adaln_modulate_ref
 
 launches = 0
@@ -67,7 +67,8 @@ def _launch(x, shift, scale, eps: float):
                 sc_stride, eps, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"adaln kernel launch failed: CUDA error {rc}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     return out
 
 

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.flash.ref import attention_ref, default_scale
 
 launches = 0
@@ -52,7 +52,8 @@ def _launch(q, k, v):
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     return out
 
 

@@ -26,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.reuse_mask.ref import fused_reuse_ref, reuse_snap_plain
 
 launches = 0
@@ -74,7 +74,8 @@ def _snap_launch(x: torch.Tensor, theta: float):
     if rc != 0:
         raise RuntimeError(f"reuse snap kernel launch failed: CUDA error "
                            f"{rc}")
-    snap_launches += 1
+    with LAUNCH_LOCK:
+        snap_launches += 1
     return out, mask
 
 
@@ -169,7 +170,8 @@ def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
     if rc != 0:
         raise RuntimeError(f"fused_reuse kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     return (out, mask) + ((src,) if want_src else ())
 
 

@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.ripple.ref import (block_flags, full_block_flags,
                                             ripple_attention_ref, split_pairs)
 
@@ -88,8 +88,9 @@ def _launch(q, k, v, scale: float):
     if rc != 0:
         raise RuntimeError(f"ripple attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
-    launches_by_shape[(N, d)] = launches_by_shape.get((N, d), 0) + 1
+    with LAUNCH_LOCK:
+        launches += 1
+        launches_by_shape[(N, d)] = launches_by_shape.get((N, d), 0) + 1
     return out
 
 

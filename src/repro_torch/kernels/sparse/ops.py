@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.sparse.ref import (FULL, PARTIAL, SKIP,
                                             sparse_attention_ref,
                                             sparse_grid)
@@ -118,8 +118,9 @@ def _launch(q, k, v, bias, block_map, block_q: int, block_k: int):
     if rc != 0:
         raise RuntimeError(f"sparse attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
-    launches_by_shape[(Nq, d)] = launches_by_shape.get((Nq, d), 0) + 1
+    with LAUNCH_LOCK:
+        launches += 1
+        launches_by_shape[(Nq, d)] = launches_by_shape.get((Nq, d), 0) + 1
     return out
 
 

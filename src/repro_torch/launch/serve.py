@@ -33,6 +33,18 @@ delivers each request's latents every K steps through the engine's
 ``stream``; every request's log line carries its latency and its time
 to the first frame (TTFF).  ``--summary-json PATH`` writes the
 reference launcher's summary keys.
+
+The serving control plane (DESIGN.md §15, §17): ``--replicas N`` serves
+through a Router over N engines that share the loaded model and one
+guardrail ladder; ``--scheduler edf|hottest`` picks the drain order;
+``--deadline-ms MS`` stamps each request with a deadline at submit, and
+a request that provably cannot meet it is shed (counted in the
+summary's ``shed``).  Guardrails are on by default (``--no-guardrail``
+turns them off): the samplers carry the non-finite and drift sentinels
+and a tripped bucket steps down the degradation ladder.
+``--batch-timeout S`` arms the hang watchdog; ``--inject-faults SPEC``
+(or ``REPRO_FAULTS``) arms the fault-injection harness, whose
+``kill_replica`` the launcher fires.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import dataclasses
 import importlib
 import json
 import logging
+import os
 import time
 
 import torch
@@ -51,6 +64,7 @@ from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.core import decision_cache
 from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core import patterns
+from repro_torch.core.guardrail import DegradationLadder
 from repro_torch.core.policy import get_policy, list_policies
 from repro_torch.diffusion.sampler import ddim_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
@@ -61,7 +75,10 @@ from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           request_label,
                                           vdit_decision_state)
 from repro_torch.models.params import init_dit, init_unet, init_vdit
+from repro_torch.serving import faults as fault_lib
 from repro_torch.serving.engine import DiffusionEngine
+from repro_torch.serving.router import Router
+from repro_torch.serving.slo import ShedError
 from repro_torch.utils.device import resolve_device
 
 log = logging.getLogger("repro_torch.launch.serve")
@@ -69,6 +86,7 @@ log = logging.getLogger("repro_torch.launch.serve")
 
 def build_sampler(arch, shape, model, *, use_ripple: bool = True,
                   policy=None, reuse_every=None, stream_every=None,
+                  sentinel: bool = False,
                   compute_dtype: torch.dtype = torch.bfloat16):
     """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt,
     seeds=None) -> latents`` runs the whole DDIM trajectory (no ported
@@ -95,9 +113,23 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     ``(latents, aux)`` after each, ``aux`` holding the decision-cache
     counters so far (empty without the cache); the decision state
     crosses chunks unchanged, so the last chunk is the whole run's
-    result bit for bit."""
+    result bit for bit.
+
+    ``sentinel=True`` arms the guardrail sentinels (DESIGN.md §17): the
+    sampler counts the non-finite latent entries of every step
+    (``aux["latent_nonfinite"]``, the running total in each chunk) and,
+    where the decision cache is threaded, dispatch folds each attention
+    output's non-finite count and the dense probe
+    (``ripple.sentinel_probe_every``) into the cache
+    (``aux["sentinel_nonfinite"]`` / ``aux["sentinel_drift"]``); the
+    sampler then always returns ``(latents, aux)``.  The readings stay
+    device tensors, which the engine reads once a batch; they change no
+    number of the trajectory."""
     if arch.family not in ("vdit", "dit", "unet"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
+    if sentinel:
+        arch = dataclasses.replace(
+            arch, ripple=dataclasses.replace(arch.ripple, sentinel=True))
     if policy:
         arch = dataclasses.replace(
             arch, ripple=dataclasses.replace(arch.ripple, policy=policy))
@@ -126,15 +158,16 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
 
     def run(x, cond, step0, count, dstate):
         """DDIM steps [step0, step0 + count) of the trajectory; returns
-        (x, decision state or None)."""
+        (x, decision state or None, non-finite count or None)."""
         if dstate is None:
             def denoise(x, t, step):
                 return _denoise_call(arch, model, x, t, cond, step, steps,
                                      use_ripple=use_ripple,
                                      compute_dtype=compute_dtype).to(x.dtype)
 
-            return ddim_sample(denoise, x, ddpm, count, step_offset=step0,
-                               total_steps=steps), None
+            out = ddim_sample(denoise, x, ddpm, count, step_offset=step0,
+                              total_steps=steps, sentinel=sentinel)
+            return (out[0], None, out[1]) if sentinel else (out, None, None)
 
         def denoise(x, t, step, dstate):
             out, dstate = _denoise_call(
@@ -142,36 +175,52 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
                 compute_dtype=compute_dtype, dstate=dstate)
             return out.to(x.dtype), dstate
 
-        return ddim_sample(denoise, x, ddpm, count, step_offset=step0,
-                           total_steps=steps, decision_state=dstate)
+        out = ddim_sample(denoise, x, ddpm, count, step_offset=step0,
+                          total_steps=steps, decision_state=dstate,
+                          sentinel=sentinel)
+        return out if sentinel else out + (None,)
 
     def start_state(noise):
         return (vdit_decision_state(arch, shape.img_res, noise.shape[0])
                 if thread_cache else None)
 
-    def counters(dstate) -> dict:
-        if dstate is None:
-            return {}
-        return {"cache_hits": sum(st.hits.sum() for st in dstate),
-                "cache_refreshes": sum(st.refreshes.sum() for st in dstate)}
+    def readings(dstate, nf) -> dict:
+        """The cache counters and the sentinels, as device tensors."""
+        aux = {}
+        if dstate is not None:
+            aux["cache_hits"] = sum(st.hits.sum() for st in dstate)
+            aux["cache_refreshes"] = sum(st.refreshes.sum() for st in dstate)
+            if dstate[0].nonfinite is not None:
+                aux["sentinel_nonfinite"] = sum(st.nonfinite.sum()
+                                                for st in dstate)
+                aux["sentinel_drift"] = torch.stack(
+                    [st.probe_err.max() for st in dstate]).max()
+        if nf is not None:
+            aux["latent_nonfinite"] = nf
+        return aux
 
     if stream_every:
         chunk = int(stream_every)
 
         def stream_fn(noise, txt, seeds=None):
             cond = make_cond(noise, txt, seeds)
-            x, dstate = noise, start_state(noise)
+            x, dstate, total = noise, start_state(noise), None
             for step0 in range(0, steps, chunk):
-                x, dstate = run(x, cond, step0, min(chunk, steps - step0),
-                                dstate)
-                yield x, counters(dstate)
+                x, dstate, nf = run(x, cond, step0,
+                                    min(chunk, steps - step0), dstate)
+                if nf is not None:
+                    # A running total: the last chunk reports the run.
+                    total = nf if total is None else total + nf
+                yield x, readings(dstate, total)
 
         return stream_fn, latent_shape_for(arch, shape)
 
     def sample_fn(noise, txt, seeds=None):
-        lat, dstate = run(noise, make_cond(noise, txt, seeds), 0, steps,
-                          start_state(noise))
-        return lat if dstate is None else (lat, counters(dstate))
+        lat, dstate, nf = run(noise, make_cond(noise, txt, seeds), 0, steps,
+                              start_state(noise))
+        if dstate is None and nf is None:
+            return lat
+        return lat, readings(dstate, nf)
 
     return sample_fn, latent_shape_for(arch, shape)
 
@@ -191,7 +240,7 @@ def pinned_policy(arch, policy=None):
 
 
 def make_sampler_factory(arch, shapes, model, *, use_ripple: bool = True,
-                         device=None,
+                         device=None, sentinel: bool = False,
                          compute_dtype: torch.dtype = torch.bfloat16):
     """``(sampler_factory, plan_fn)`` for a :class:`DiffusionEngine` over
     the generate cells ``shapes``, keyed by the bucket's (latent_shape,
@@ -200,7 +249,8 @@ def make_sampler_factory(arch, shapes, model, *, use_ripple: bool = True,
     the sampler around :func:`pinned_policy`: a ``static`` or
     ``rainfusion`` bucket runs the policy the engine pinned at submit,
     to the artifact whose version is the bucket's pattern token (a name
-    is pinned when the sampler is built).
+    is pinned when the sampler is built); ``sentinel`` arms every
+    sampler's guardrail sentinels (:func:`build_sampler`).
     ``plan_fn`` gives the bucket's attention plans as one line for the
     log (``device``: where ``model`` runs, default CUDA)."""
     by_bucket = {(tuple(latent_shape_for(arch, sp)), sp.steps): sp
@@ -221,6 +271,7 @@ def make_sampler_factory(arch, shapes, model, *, use_ripple: bool = True,
                              policy=pinned_policy(arch, policy),
                              reuse_every=reuse_every,
                              stream_every=stream_every,
+                             sentinel=sentinel,
                              compute_dtype=compute_dtype)[0]
 
     def plan_fn(latent_shape, steps, policy=None):
@@ -276,6 +327,26 @@ def serving_shape(arch, name, *, smoke: bool, steps=None):
     return sp
 
 
+def _maybe_kill_replica(front, fault, completed: int):
+    """Fire a ``kill_replica`` fault (DESIGN.md §17.3) once ``completed``
+    results have been read: fail the deepest router replica, so that its
+    unserved requests requeue onto the survivors."""
+    if fault is None or not isinstance(front, Router):
+        return
+    spec = fault.spec("kill_replica")
+    if spec is None or completed < int(spec.param("after", 1)):
+        return
+    if fault.take("kill_replica") is None:
+        return
+    depths = front.depths()
+    if not depths:
+        return
+    idx = max(depths, key=depths.get)
+    log.warning("fault injection: killing replica %d (depth %d)",
+                idx, depths[idx])
+    front.fail_replica(idx)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vdit-paper", choices=ALL_ARCHS)
@@ -294,6 +365,19 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-compiled", type=int, default=8,
                     help="bounded LRU of per-bucket samplers")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="serve through a Router over N in-process engine "
+                         "replicas that share one loaded model and one "
+                         "guardrail ladder: least-loaded routing, "
+                         "failover requeue")
+    ap.add_argument("--scheduler", default="edf",
+                    choices=("edf", "hottest"),
+                    help="bucket drain order: deadline-aware EDF "
+                         "(default) or the deepest bucket first")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="stamp every request with a deadline of now+MS "
+                         "at submit; a request that provably cannot meet "
+                         "it is shed at the door")
     ap.add_argument("--stream-every", type=int, default=None, metavar="K",
                     help="chunked streaming: deliver the latents every K "
                          "denoising steps and report the time to the "
@@ -333,9 +417,29 @@ def main(argv=None):
                     choices=dispatch_lib.BACKENDS,
                     help="override RippleConfig.backend for the dispatch "
                          "layer (default: the arch config's setting)")
+    ap.add_argument("--no-guardrail", action="store_true",
+                    help="turn off the runtime quality guardrails: the "
+                         "non-finite and drift sentinels and the "
+                         "per-bucket degradation ladder.  On by default")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="arm the fault-injection harness "
+                         "(serving/faults.py), e.g. "
+                         "'attn_nan:step=1;kill_replica:after=1'.  "
+                         "Default: the REPRO_FAULTS env var.  'crash' is "
+                         "refused until the journal is ported")
+    ap.add_argument("--batch-timeout", type=float, default=None,
+                    metavar="S",
+                    help="hang-watchdog floor per batch in seconds (scaled "
+                         "by the service-time estimator once observed); a "
+                         "hung batch takes its replica down and its "
+                         "requests fail over.  Default: no watchdog")
+    ap.add_argument("--probe-interval", type=float, default=0.5,
+                    metavar="S",
+                    help="router health-probe cadence for re-admitting "
+                         "recovered replicas (only with --replicas > 1)")
     ap.add_argument("--summary-json", default=None, metavar="PATH",
                     help="write the run's summary (submitted, completed, "
-                         "errors, counters) to PATH as JSON")
+                         "errors, shed, counters) to PATH as JSON")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--override", action="append", default=[],
                     metavar="KEY=VALUE",
@@ -358,6 +462,16 @@ def main(argv=None):
         ap.error(f"unknown policy {args.policy!r}; registered: "
                  f"{list_policies()} (use --policy-module to register an "
                  f"out-of-tree policy first)")
+    spec = args.inject_faults or os.environ.get(fault_lib.ENV_VAR, "").strip()
+    fault = None
+    if spec:
+        try:
+            fault = fault_lib.parse_faults(spec)
+        except ValueError as e:
+            ap.error(str(e))
+        if fault.spec("crash") is not None:
+            ap.error("the 'crash' fault needs the journal (--journal / "
+                     "--resume), which the port does not have yet")
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.override + args.overrides)
     ripple = {}
@@ -389,56 +503,97 @@ def main(argv=None):
                  latent_shape_for(arch, sp), plans_summary(attention_plans(
                      arch, sp, on_cuda=device.type == "cuda", policy=policy)))
 
+    guardrail = not args.no_guardrail
+    # One ladder for every replica: a degraded bucket stays degraded
+    # across a failover.
+    ladder = DegradationLadder() if guardrail else None
     factory, _ = make_sampler_factory(
-        arch, shapes, model, use_ripple=not args.no_ripple, device=device)
-    engine = DiffusionEngine(factory, device=device, max_batch=args.max_batch,
-                             max_compiled=args.max_compiled,
-                             default_reuse_every=args.reuse_every)
+        arch, shapes, model, use_ripple=not args.no_ripple, device=device,
+        sentinel=guardrail)
+
+    def make_engine():
+        return DiffusionEngine(factory, device=device,
+                               max_batch=args.max_batch,
+                               max_compiled=args.max_compiled,
+                               default_reuse_every=args.reuse_every,
+                               scheduler=args.scheduler, guardrail=ladder,
+                               batch_timeout_s=args.batch_timeout)
+
+    if args.replicas > 1:
+        front = Router([make_engine() for _ in range(args.replicas)],
+                       probe_interval_s=args.probe_interval)
+    else:
+        front = make_engine()
     traffic = mixed_request_stream(arch, shapes, args.requests,
                                    seed=args.seed, policy=policy,
                                    reuse_every=args.reuse_every,
                                    stream_every=args.stream_every)
+    if fault is not None:
+        fault_lib.install_faults(fault)
     t0 = time.time()
-    done, errors = [], {}
-    # All queued before the worker starts, so the batches do not depend
-    # on how fast the requests are submitted.
-    for _, req in traffic:
-        engine.submit(req)
-    engine.start()
+    done, errors, submitted, shed = [], {}, [], 0
     try:
+        # A single engine gets every request before its worker starts, so
+        # its batches do not depend on how fast they are submitted; the
+        # router routes only to running replicas.
+        if args.replicas > 1:
+            front.start()
         for sp, req in traffic:
-            # A streaming request's chunks as a client reads them; the
-            # stream ends when its result lands.
-            chunks = (sum(1 for _ in engine.stream(req.request_id))
-                      if req.stream_every else 0)
+            if args.deadline_ms is not None:
+                req.deadline_s = time.time() + args.deadline_ms / 1e3
             try:
-                r = engine.result(req.request_id)
-            except RuntimeError as e:
+                front.submit(req)
+            except ShedError as e:
+                shed += 1
+                log.warning("%s", e)
+                continue
+            submitted.append((sp, req))
+        if args.replicas <= 1:
+            front.start()
+        for n_done, (sp, req) in enumerate(submitted):
+            _maybe_kill_replica(front, fault, n_done)
+            try:
+                # A streaming request's chunks as a client reads them; the
+                # stream ends when its result lands.
+                chunks = (sum(1 for _ in front.stream(req.request_id))
+                          if req.stream_every else 0)
+                r = front.result(req.request_id)
+            except (RuntimeError, TimeoutError) as e:
                 errors[req.request_id] = str(e)
                 log.error("request %d failed: %s", req.request_id, e)
                 continue
             done.append(r)
             log.info("request %d (%s, %d steps) done: latency %.3fs, ttff "
-                     "%.3fs%s, batch %d served in %.3fs; latents %s",
+                     "%.3fs%s, batch %d served in %.3fs%s%s; latents %s",
                      req.request_id, sp.name, sp.steps, r.latency_s,
                      r.ttff_s, f" ({chunks} chunks)" if chunks else "",
-                     r.batch_index, r.walltime_s, r.latents.shape)
+                     r.batch_index, r.walltime_s,
+                     "" if r.deadline_met is None else
+                     f", deadline {'met' if r.deadline_met else 'MISSED'}",
+                     ", DEGRADED" if r.degraded else "", r.latents.shape)
     finally:
-        engine.stop()
-    counters = engine.metrics()
-    log.info("served %d/%d requests over %d bucket(s) in %.2fs; counters %s",
-             len(done), args.requests, len(shapes), time.time() - t0,
-             counters)
+        front.stop()
+        if fault is not None:
+            fault_lib.clear_faults()
+    counters = dict(front.metrics())
+    if fault is not None:
+        counters.update(fault.counters())
+    if ladder is not None:
+        counters.update(ladder.metrics())
+    log.info("served %d/%d requests (%d shed) over %d bucket(s) in %.2fs; "
+             "counters %s", len(done), args.requests, shed, len(shapes),
+             time.time() - t0, counters)
     if args.summary_json:
-        # The reference launcher's keys; the port has no admission
-        # control, journal or resume yet, so their counts are 0.
+        # The reference launcher's keys; the port has no journal or
+        # resume yet, so those counts are 0.
         summary = {
-            "submitted": [req.request_id for _, req in traffic],
+            "submitted": [req.request_id for _, req in submitted],
             "completed": [r.request_id for r in done],
             "errors": {str(k): v for k, v in errors.items()},
-            "shed": 0, "recovered": 0, "resumed_from_step": 0,
+            "shed": shed, "recovered": 0, "resumed_from_step": 0,
             "sigterm": False,
-            "counters": {k: int(v) for k, v in counters.items()},
+            "counters": {k: (float(v) if isinstance(v, float) else int(v))
+                         for k, v in counters.items()},
         }
         with open(args.summary_json, "w", encoding="utf-8") as f:
             json.dump(summary, f, indent=1, sort_keys=True)

@@ -1,5 +1,6 @@
 """Serving engine: shape-bucketed continuous batching for video and
-image generation.
+image generation, with deadline-aware scheduling, admission control and
+the guardrail escalation chain.
 
 Requests are keyed into a **bucket** by the reference's 9-tuple
 ``(latent_shape, steps, policy, reuse_every, seq_shards, txt_shape,
@@ -12,19 +13,37 @@ fixed at submit together with the policy the sampler runs: a pattern
 policy is pinned there to the artifact active then, and that pinned
 policy travels with the request to the factory, so the sampler built for
 a key (also after an eviction) runs on the artifact the key names, and
-traffic after an artifact swap gets a sampler of its own.  A worker thread drains the deepest bucket first (ties to the
-oldest head), lingers ``max_wait_s`` for batch-mates from the same
-bucket up to ``max_batch``, and runs that bucket's sampler, held in a
-bounded LRU (keyed on ``key[:8]``) of ``sampler_factory(latent_shape,
-steps[, policy[, reuse_every[, stream_every]]])`` results; ``plan_fn``
-lets the launcher log each bucket's attention plan when its sampler is
-built.
+traffic after an artifact swap gets a sampler of its own.
+
+A worker thread drains the buckets under the SLO-aware order of
+:func:`repro_torch.serving.slo.choose_bucket` (DESIGN.md §15): a head
+older than ``starve_after_s`` first, then under the ``edf`` scheduler the
+earliest feasible deadline among heads that carry one, then the deepest
+bucket (ties to the first bucket created).  It lingers ``max_wait_s``
+for batch-mates from the same bucket up to ``max_batch`` and runs that
+bucket's sampler, held in a bounded LRU (keyed on ``key[:8]``) of
+``sampler_factory(latent_shape, steps[, policy[, reuse_every[,
+stream_every]]])`` results; ``plan_fn`` lets the launcher log each
+bucket's attention plan when its sampler is built.  Admission control
+sheds a request at submit (:class:`~repro_torch.serving.slo.ShedError`)
+only when its deadline provably cannot be met
+(:func:`~repro_torch.serving.slo.admission_decision`).
 
 Streaming: a factory that honours ``stream_every`` returns a *generator*
 sampler yielding the latents every K denoising steps; the engine
 publishes each chunk to :meth:`DiffusionEngine.stream` subscribers as it
 lands and records the time to the first frame (``GenResult.ttff_s``,
 from submit; completion for a monolithic bucket).
+
+Guardrails (DESIGN.md §17): with ``guardrail`` the engine reads the
+sampler's sentinels (aux ``latent_nonfinite``, ``sentinel_nonfinite``,
+``sentinel_drift``, and a host ``isfinite`` over the latents and each
+streamed chunk before it is published) once a batch; a trip steps the
+bucket family down the :class:`~repro_torch.core.guardrail.
+DegradationLadder` and serves the batch again under the degraded key.  A
+batch that outlives ``batch_timeout_s`` (scaled by the estimator) trips
+the watchdog and takes the replica down; a failing batch is retried
+with backoff, then bisected so that a poison request fails alone.
 
 Per-request initial noise comes from a ``torch.Generator`` on the engine's
 device seeded with ``GenRequest.seed``, and the sampler gets every
@@ -46,16 +65,32 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.guardrail import DegradationLadder, GuardrailConfig
+from repro_torch.serving import faults as fault_lib
+from repro_torch.serving import slo as slo_lib
+from repro_torch.serving.slo import ServiceEstimator, ShedError
 from repro_torch.utils.device import resolve_device
 
 log = logging.getLogger("repro_torch.serve")
+
+# Error-message markers that mean "the replica failed, not the request":
+# the router requeues such failures onto a healthy replica.
+FAILOVER_MARKERS = ("engine stopped", "watchdog")
+
+
+def is_failover_error(msg: object) -> bool:
+    """Does this error text name a replica-level failure (stop, watchdog
+    trip) rather than a request-level one?"""
+    text = str(msg)
+    return any(marker in text for marker in FAILOVER_MARKERS)
+
 
 # (latent_shape, steps, policy, reuse_every, seq_shards, txt_shape,
 # stream_every, pattern_token, resume_step), in the reference's order.
 BucketKey = Tuple
 
-# How long the chunks of a consumed result stay readable by stream().
-_FINISHED_TTL_S = 60.0
+# A queued request: (enqueue time, request, the policy its sampler runs).
+Entry = Tuple[float, "GenRequest", Any]
 
 
 def _bucket_policy(policy_name: Optional[str]) -> Tuple[Any, Optional[str]]:
@@ -119,6 +154,10 @@ class GenRequest:
     # DiffusionEngine.stream; None -> monolithic.  Part of the bucket
     # identity.
     stream_every: Optional[int] = None
+    # Absolute deadline (time.time() seconds); None -> no SLO: never
+    # shed, drained behind deadline traffic by depth.  Callers with a
+    # relative SLO stamp time.time() + slo_ms / 1e3 at submit.
+    deadline_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -132,6 +171,11 @@ class GenResult:
     # Time to the first frame, from submit: the first streamed chunk for
     # a streaming bucket, completion for a monolithic one.
     ttff_s: float = -1.0
+    # Deadline outcome (None: the request carried no deadline).
+    deadline_met: Optional[bool] = None
+    # Was the bucket below its requested policy on the guardrail ladder
+    # when this result was made?
+    degraded: bool = False
 
 
 def request_noise(seed: int, shape: Tuple[int, ...],
@@ -163,20 +207,41 @@ class DiffusionEngine:
     (default CUDA) and the requests' seeds (a list of B ints), and
     returns the final latents or ``(latents, aux)``, where a cache-aware
     sampler reports its decision-cache counters (``cache_hits`` /
-    ``cache_refreshes``), which the engine logs; or, for a streaming
-    bucket, a generator yielding either form once a chunk, the last
-    chunk being the result.  ``plan_fn(latent_shape, steps, policy)``
-    returns the bucket's attention plan, logged when its sampler is
-    built (a string, or an object with ``summary()``; None logs
-    nothing).
+    ``cache_refreshes``), which the engine logs, and a sentinel-armed one
+    its guardrail readings; or, for a streaming bucket, a generator
+    yielding either form once a chunk, the last chunk being the result.
+    ``plan_fn(latent_shape, steps, policy)`` returns the bucket's
+    attention plan, logged when its sampler is built (a string, or an
+    object with ``summary()``; None logs nothing).
+
+    ``scheduler`` is ``"edf"`` (default) or ``"hottest"``;
+    ``admission_control`` sheds provably infeasible requests at submit;
+    ``estimator`` (shared or own) keeps per-bucket batch times.
+    ``guardrail`` is True (an own ladder), a ``GuardrailConfig`` or a
+    shared ``DegradationLadder``; it needs a factory that takes a policy.
+    ``batch_timeout_s`` is the watchdog's floor (None: no watchdog, the
+    batch runs on the worker thread); ``max_retries`` /
+    ``retry_backoff_s`` / ``bisect_on_error`` drive the error path.
+    Errored results stay readable for ``error_ttl_s``.
     """
 
     def __init__(self, sampler_factory: Callable, *, device=None,
                  max_batch: int = 8, max_wait_s: float = 0.05,
-                 max_compiled: int = 8,
+                 max_compiled: int = 8, starve_after_s: float = 2.0,
                  plan_fn: Optional[Callable] = None,
                  default_policy: Optional[str] = None,
-                 default_reuse_every: Optional[int] = None):
+                 default_reuse_every: Optional[int] = None,
+                 scheduler: str = "edf",
+                 admission_control: bool = True,
+                 error_ttl_s: float = 60.0,
+                 estimator: Optional[ServiceEstimator] = None,
+                 guardrail: Any = None,
+                 batch_timeout_s: Optional[float] = None,
+                 max_retries: int = 1,
+                 retry_backoff_s: float = 0.05,
+                 bisect_on_error: bool = True):
+        if scheduler not in ("edf", "hottest"):
+            raise ValueError(f"unknown scheduler {scheduler!r}")
         self._factory = sampler_factory
         self._factory_arity = _positional_arity(sampler_factory)
         self._factory_takes_policy = self._factory_arity >= 3
@@ -190,6 +255,22 @@ class DiffusionEngine:
             raise ValueError(
                 "default_reuse_every is set but the sampler factory does "
                 "not take a reuse_every argument — it could not honour it")
+        if guardrail is None or guardrail is False:
+            self._ladder: Optional[DegradationLadder] = None
+        elif isinstance(guardrail, DegradationLadder):
+            self._ladder = guardrail
+        elif isinstance(guardrail, GuardrailConfig):
+            self._ladder = DegradationLadder(guardrail)
+        elif guardrail is True:
+            self._ladder = DegradationLadder()
+        else:
+            raise ValueError(f"guardrail must be True, a GuardrailConfig "
+                             f"or a DegradationLadder, got {guardrail!r}")
+        if self._ladder is not None and not self._factory_takes_policy:
+            raise ValueError(
+                "guardrail degradation rewrites the bucket policy, but "
+                "this engine's sampler factory does not take a policy "
+                "argument — it could not serve a degraded bucket")
         self.plan_fn = plan_fn
         self.default_policy = default_policy
         self.default_reuse_every = default_reuse_every
@@ -197,9 +278,30 @@ class DiffusionEngine:
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.max_compiled = max_compiled
+        self.starve_after_s = starve_after_s
+        self.scheduler = scheduler
+        self.admission_control = admission_control
+        self.error_ttl_s = error_ttl_s
+        self.estimator = estimator if estimator is not None \
+            else ServiceEstimator()
+        self.batch_timeout_s = batch_timeout_s
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.bisect_on_error = bisect_on_error
+        self.watchdog_trips = 0
+        self.batch_retries = 0
+        self.quarantined = 0
+        self.shed_count = 0
+        self.deadlines_met = 0
+        self.deadlines_missed = 0
         self._buckets: Dict[BucketKey, deque] = {}
         self._compiled: "OrderedDict[BucketKey, Callable]" = OrderedDict()
+        self._compiled_lock = threading.Lock()
         self._results: Dict[int, GenResult] = {}
+        # Errored results stay readable until their TTL, so a caller that
+        # retries after a TimeoutError sees the batch's error: rid ->
+        # eviction time.
+        self._error_expiry: Dict[int, float] = {}
         # Streamed chunks: rid -> the latents of each delivered chunk.
         self._partials: Dict[int, List[np.ndarray]] = {}
         # Tombstones of successes consumed by result(): rid -> eviction
@@ -226,26 +328,33 @@ class DiffusionEngine:
         with self._lock:
             self._stop = True
             if not drain:
+                now = time.time()
                 for dq in self._buckets.values():
                     for _, r, _ in dq:
                         self._results[r.request_id] = GenResult(
                             r.request_id, None, 0.0, error="engine stopped")
+                        self._error_expiry[r.request_id] = (
+                            now + self.error_ttl_s)
                 self._buckets.clear()
             self._lock.notify_all()
         if self._thread:
             self._thread.join()
             self._thread = None
 
+    def healthy(self) -> bool:
+        """Is the worker thread alive and accepting work?"""
+        with self._lock:
+            stopped = self._stop
+        return (not stopped and self._thread is not None
+                and self._thread.is_alive())
+
     def submit(self, req: GenRequest):
+        """Enqueue one request.  Raises :class:`ShedError` when admission
+        control proves its deadline cannot be met under the current queue
+        depth (no compute spent, no result record), ValueError for a
+        malformed request or one its factory cannot honour."""
+        self._validate(req)
         rid = req.request_id
-        if not isinstance(req.steps, (int, np.integer)) or req.steps <= 0:
-            raise ValueError(f"request {rid}: steps must be a "
-                             f"positive int, got {req.steps!r}")
-        for name in ("reuse_every", "stream_every"):
-            val = getattr(req, name)
-            if val is not None and val <= 0:
-                raise ValueError(f"request {rid}: {name} must be "
-                                 f"positive, got {val!r}")
         for name, takes in (("policy", self._factory_takes_policy),
                             ("reuse_every", self._factory_takes_reuse),
                             ("stream_every", self._factory_takes_stream)):
@@ -258,31 +367,72 @@ class DiffusionEngine:
                     f"engine's sampler factory does not take a {name} "
                     "argument")
         key, policy = self._bucket(req)
+        now = time.time()
         with self._lock:
             if self._stop:
                 raise RuntimeError("engine is stopped")
-            self._buckets.setdefault(key, deque()).append(
-                (time.time(), req, policy))
+            if self.admission_control and req.deadline_s is not None:
+                dq = self._buckets.get(key)
+                reason = slo_lib.admission_decision(
+                    req.deadline_s, now, len(dq) if dq else 0,
+                    self.max_batch, self.estimator.lower_bound(key))
+                if reason is not None:
+                    self.shed_count += 1
+                    raise ShedError(f"request {rid} shed: {reason}")
+            self._buckets.setdefault(key, deque()).append((now, req, policy))
             self._lock.notify_all()
+
+    def _validate(self, req: GenRequest) -> None:
+        """Refuse a malformed request at the door, before it can fail a
+        whole batch inside the worker."""
+        rid = req.request_id
+        if not isinstance(req.steps, (int, np.integer)) or req.steps <= 0:
+            raise ValueError(f"request {rid}: steps must be a "
+                             f"positive int, got {req.steps!r}")
+        shape = tuple(req.latent_shape) if req.latent_shape is not None \
+            else ()
+        if not shape or not all(isinstance(d, (int, np.integer)) and d > 0
+                                for d in shape):
+            raise ValueError(
+                f"request {rid}: latent_shape must be a non-empty tuple "
+                f"of positive ints, got {req.latent_shape!r}")
+        if req.deadline_s is not None and req.deadline_s <= 0:
+            raise ValueError(
+                f"request {rid}: deadline_s must be an absolute "
+                f"time.time() deadline (> 0), got {req.deadline_s!r}")
+        for name in ("reuse_every", "stream_every"):
+            val = getattr(req, name)
+            if val is not None and val <= 0:
+                raise ValueError(f"request {rid}: {name} must be "
+                                 f"positive, got {val!r}")
 
     def result(self, request_id: int, timeout: float = 3600.0) -> GenResult:
         deadline = time.time() + timeout
         with self._lock:
-            self._evict_finished_locked()
+            self._evict_expired_locked()
             while request_id not in self._results:
                 remaining = deadline - time.time()
                 if remaining <= 0:
                     raise TimeoutError(f"request {request_id}")
                 self._lock.wait(timeout=remaining)
-            res = self._results.pop(request_id)
+            res = self._results[request_id]
             if res.error is None:
+                self._results.pop(request_id)
                 self._finished_expiry.setdefault(
-                    request_id, time.time() + _FINISHED_TTL_S)
+                    request_id, time.time() + self.error_ttl_s)
             else:
-                self._partials.pop(request_id, None)
+                # Kept until its TTL: a retry sees the same error.
+                self._error_expiry.setdefault(
+                    request_id, time.time() + self.error_ttl_s)
         if res.error is not None:
             raise RuntimeError(f"request {request_id} failed: {res.error}")
         return res
+
+    def peek_result(self, request_id: int) -> Optional[GenResult]:
+        """Non-blocking, non-consuming lookup (the router tells served
+        from lost requests with it)."""
+        with self._lock:
+            return self._results.get(request_id)
 
     def stream(self, request_id: int,
                timeout: float = 3600.0) -> Iterator[np.ndarray]:
@@ -310,15 +460,34 @@ class DiffusionEngine:
                     self._lock.wait(timeout=remaining)
             yield chunk  # outside the lock
 
-    def metrics(self) -> Dict[str, int]:
-        """Serving counters."""
+    def pending(self) -> int:
         with self._lock:
-            return {"batches_served": self._batches_served}
+            return sum(len(dq) for dq in self._buckets.values())
+
+    def metrics(self) -> Dict[str, int]:
+        """Serving counters: batches, sheds, deadline outcomes, the
+        robustness counters and, with a ladder, its counters."""
+        with self._lock:
+            m = {"batches_served": self._batches_served,
+                 "shed_count": self.shed_count,
+                 "deadlines_met": self.deadlines_met,
+                 "deadlines_missed": self.deadlines_missed,
+                 "watchdog_trips": self.watchdog_trips,
+                 "batch_retries": self.batch_retries,
+                 "quarantined": self.quarantined}
+        if self._ladder is not None:
+            m.update(self._ladder.metrics())
+        return m
 
     # -- batching loop ----------------------------------------------------------
 
-    def _evict_finished_locked(self):
+    def _evict_expired_locked(self):
+        # A record lives through its expiry instant (strictly after).
         now = time.time()
+        for rid in [r for r, exp in self._error_expiry.items() if exp < now]:
+            self._error_expiry.pop(rid, None)
+            self._results.pop(rid, None)
+            self._partials.pop(rid, None)
         for rid in [r for r, exp in self._finished_expiry.items()
                     if exp < now]:
             self._finished_expiry.pop(rid, None)
@@ -337,13 +506,23 @@ class DiffusionEngine:
     def _bucket_key(self, req: GenRequest) -> BucketKey:
         return self._bucket(req)[0]
 
+    def _next_bucket(self) -> Optional[BucketKey]:
+        """The drain order of :func:`repro_torch.serving.slo.choose_bucket`
+        (starvation aging, EDF, deepest); the caller holds the lock."""
+        heads = {k: (dq[0][0], dq[0][1].deadline_s, len(dq))
+                 for k, dq in self._buckets.items() if dq}
+        return slo_lib.choose_bucket(
+            heads, time.time(), scheduler=self.scheduler,
+            starve_after_s=self.starve_after_s, estimator=self.estimator)
+
     def _take_batch(self):
+        """Block for traffic, pick a bucket (:meth:`_next_bucket`) and
+        linger for batch-mates from the same bucket; (None, None) once
+        stopped and drained."""
         with self._lock:
             while True:
-                live = [(len(dq), -dq[0][0], k)
-                        for k, dq in self._buckets.items() if dq]
-                if live:
-                    key = max(live, key=lambda e: e[:2])[2]
+                key = self._next_bucket()
+                if key is not None:
                     break
                 if self._stop:
                     return None, None
@@ -351,7 +530,7 @@ class DiffusionEngine:
             batch = [self._buckets[key].popleft()]
             deadline = time.time() + self.max_wait_s
             while len(batch) < self.max_batch and not self._stop:
-                dq = self._buckets[key]
+                dq = self._buckets.get(key)
                 while dq and len(batch) < self.max_batch:
                     batch.append(dq.popleft())
                 remaining = deadline - time.time()
@@ -365,26 +544,27 @@ class DiffusionEngine:
         around ``policy`` (the one fixed with the key) and its plan
         logged on a miss."""
         key = key[:8]
-        fn = self._compiled.get(key)
-        if fn is None:
-            shape, steps, _, reuse = key[:4]
-            fn = self._factory(*(shape, steps, policy, reuse,
-                                 key[6])[:min(self._factory_arity, 5)])
-            self._compiled[key] = fn
-            if self.plan_fn is not None:
-                try:
-                    plan = self.plan_fn(shape, steps, policy)
-                    if plan is not None:
-                        log.info("bucket %s plan: %s", key,
-                                 plan if isinstance(plan, str)
-                                 else plan.summary())
-                except Exception:  # noqa: BLE001 — logging must not fail the batch
-                    log.exception("plan_fn failed for bucket %s", key)
-            while len(self._compiled) > self.max_compiled:
-                evicted, _ = self._compiled.popitem(last=False)
-                log.info("evicted the sampler of bucket %s", evicted)
-        self._compiled.move_to_end(key)
-        return fn
+        with self._compiled_lock:
+            fn = self._compiled.get(key)
+            if fn is None:
+                shape, steps, _, reuse = key[:4]
+                fn = self._factory(*(shape, steps, policy, reuse,
+                                     key[6])[:min(self._factory_arity, 5)])
+                self._compiled[key] = fn
+                if self.plan_fn is not None:
+                    try:
+                        plan = self.plan_fn(shape, steps, policy)
+                        if plan is not None:
+                            log.info("bucket %s plan: %s", key,
+                                     plan if isinstance(plan, str)
+                                     else plan.summary())
+                    except Exception:  # noqa: BLE001 — logging must not fail the batch
+                        log.exception("plan_fn failed for bucket %s", key)
+                while len(self._compiled) > self.max_compiled:
+                    evicted, _ = self._compiled.popitem(last=False)
+                    log.info("evicted the sampler of bucket %s", evicted)
+            self._compiled.move_to_end(key)
+            return fn
 
     @staticmethod
     def _split_out(out) -> Tuple[Any, Optional[dict]]:
@@ -393,59 +573,23 @@ class DiffusionEngine:
             return out[0], out[1]
         return out, None
 
-    def _publish_chunk(self, batch, lat: np.ndarray, ttff: Dict[int, float]):
+    def _publish_chunk(self, batch: List[Entry], lat: np.ndarray, pub: Dict,
+                       chunk_idx: int, abandoned: threading.Event):
         """Deliver one streamed chunk to every request's subscribers and
-        stamp the TTFF at the first."""
+        stamp the TTFF at the first.  ``pub`` survives re-serves: a chunk
+        an earlier attempt delivered is not delivered again, and an
+        abandoned (watchdog-tripped) worker's late chunks are dropped."""
         now = time.time()
         with self._lock:
+            if abandoned.is_set():
+                return
             for i, (t_enq, r, _) in enumerate(batch):
-                ttff.setdefault(r.request_id, now - t_enq)
+                if chunk_idx < pub["count"].get(r.request_id, 0):
+                    continue
+                pub["ttff"].setdefault(r.request_id, now - t_enq)
                 self._partials.setdefault(r.request_id, []).append(lat[i])
+                pub["count"][r.request_id] = chunk_idx + 1
             self._lock.notify_all()
-
-    def _serve(self, key: BucketKey, batch: List[Tuple[float, GenRequest, Any]]):
-        t0 = time.time()
-        lat, err = None, None
-        ttff: Dict[int, float] = {}
-        try:
-            # Every request of a bucket carries an equal policy (one token).
-            fn = self._sampler(key, batch[0][2])
-            noise = torch.stack([request_noise(r.seed, key[0], self.device)
-                                 for _, r, _ in batch])
-            txt = torch.from_numpy(np.stack([np.asarray(r.txt, np.float32)
-                                             for _, r, _ in batch]))
-            seeds = [r.seed for _, r, _ in batch]
-            out = fn(noise, txt.to(self.device), seeds)
-            if inspect.isgenerator(out):
-                # A streaming bucket: each chunk goes to the subscribers
-                # as it lands; the last is the result.
-                aux = None
-                for chunk in out:
-                    lat, aux = self._split_out(chunk)
-                    lat = lat.float().cpu().numpy()
-                    self._publish_chunk(batch, lat, ttff)
-                if lat is None:
-                    raise RuntimeError("streaming sampler yielded nothing")
-            else:
-                lat, aux = self._split_out(out)
-                lat = lat.float().cpu().numpy()
-            self._log_aux(key, aux)
-        except Exception as e:  # noqa: BLE001 — fail the batch, not the engine
-            log.exception("bucket %s batch failed", key)
-            err = repr(e)
-        now = time.time()
-        with self._lock:
-            bi = self._batches_served
-            self._batches_served += 1
-            for i, (t_enq, r, _) in enumerate(batch):
-                self._results[r.request_id] = GenResult(
-                    r.request_id, None if err else lat[i], now - t0,
-                    error=err, batch_index=bi, latency_s=now - t_enq,
-                    ttff_s=ttff.get(r.request_id,
-                                    -1.0 if err else now - t_enq))
-            self._lock.notify_all()
-        log.info("served bucket %s batch of %d in %.2fs", key, len(batch),
-                 now - t0)
 
     @staticmethod
     def _log_aux(key: BucketKey, aux: Optional[dict]):
@@ -460,9 +604,254 @@ class DiffusionEngine:
                      "(hit rate %.2f)", key, hits, refr,
                      hits / max(hits + refr, 1))
 
+    # -- guardrail and watchdog (DESIGN.md §17) -------------------------------
+
+    @staticmethod
+    def _family(key: BucketKey):
+        """The key without its policy and pattern token: the unit the
+        ladder keys on."""
+        return key[:2] + key[3:7]
+
+    @staticmethod
+    def _rekey(key: BucketKey, policy: Optional[str]) -> BucketKey:
+        """The same bucket one rung down: policy and pattern token
+        rewritten, so the degraded bucket gets a sampler of its own."""
+        return (key[:2] + (policy,) + key[3:7]
+                + (_pattern_token(policy),) + key[8:])
+
+    def _sentinel_verdict(self, lat: Optional[np.ndarray],
+                          aux: Optional[dict]) -> Optional[str]:
+        """None when the batch is clean, else the trip's reason: a host
+        ``isfinite`` over the latents, then the sampler's sentinel counts
+        (read from the device here, once a batch)."""
+        gcfg = self._ladder.config
+        if lat is not None and not np.all(np.isfinite(lat)):
+            return "non-finite final latents"
+        if aux:
+            nf = 0
+            for k in ("latent_nonfinite", "sentinel_nonfinite"):
+                if k in aux:
+                    nf += int(aux[k])
+            if nf > gcfg.max_nonfinite:
+                return f"{nf} non-finite sentinel entr(ies)"
+            if "sentinel_drift" in aux:
+                drift = float(aux["sentinel_drift"])
+                if not np.isfinite(drift):
+                    return "non-finite drift probe"
+                if gcfg.drift_tol > 0 and drift > gcfg.drift_tol:
+                    return (f"drift probe {drift:.3g} > "
+                            f"tol {gcfg.drift_tol:.3g}")
+        return None
+
+    def _run_batch(self, key: BucketKey, batch: List[Entry], policy,
+                   pub: Dict, abandoned: threading.Event):
+        """One sampler invocation, under the watchdog when it is on.
+        Returns ``(res, hung, budget)``: ``res`` holds ``lat`` / ``aux``,
+        or ``err`` (the exception), or ``sentinel`` (a streamed chunk was
+        not finite; caught before it was published)."""
+        res: Dict[str, Any] = {}
+
+        def work():
+            try:
+                fault = fault_lib.active_faults()
+                if fault is not None:
+                    fault.check_poison([r.request_id for _, r, _ in batch])
+                    fault.maybe_raise()
+                    if fault.maybe_hang():
+                        return  # hung past the watchdog; the batch is lost
+                fn = self._sampler(key, policy)
+                noise = torch.stack([request_noise(r.seed, key[0],
+                                                   self.device)
+                                     for _, r, _ in batch])
+                txt = torch.from_numpy(np.stack(
+                    [np.asarray(r.txt, np.float32) for _, r, _ in batch]))
+                out = fn(noise, txt.to(self.device),
+                         [r.seed for _, r, _ in batch])
+                if inspect.isgenerator(out):
+                    # A streaming bucket: each chunk goes to the
+                    # subscribers as it lands; the last is the result.
+                    lat = aux = None
+                    for ci, chunk in enumerate(out):
+                        lat, aux = self._split_out(chunk)
+                        lat = lat.float().cpu().numpy()
+                        if (self._ladder is not None
+                                and not np.all(np.isfinite(lat))):
+                            res["sentinel"] = \
+                                f"non-finite streamed chunk {ci}"
+                            return
+                        self._publish_chunk(batch, lat, pub, ci, abandoned)
+                    if lat is None:
+                        raise RuntimeError("streaming sampler yielded nothing")
+                else:
+                    lat, aux = self._split_out(out)
+                    lat = lat.float().cpu().numpy()
+                res["lat"], res["aux"] = lat, aux
+            except Exception as e:  # noqa: BLE001 — fail the batch, not the engine
+                log.exception("bucket %s batch failed", key)
+                res["err"] = e
+
+        if self.batch_timeout_s is None:
+            work()
+            return res, False, 0.0
+        budget = self.estimator.timeout_hint(key, self.batch_timeout_s)
+        worker = threading.Thread(target=work, daemon=True)
+        worker.start()
+        worker.join(timeout=budget)
+        return res, worker.is_alive(), budget
+
+    def _trip_watchdog(self, key: BucketKey, batch: List[Entry],
+                       budget: float, abandoned: threading.Event):
+        """A batch outlived its budget.  Its worker cannot be killed (a
+        CUDA call cannot be cancelled), so the replica steps down: the
+        engine stops (``healthy()`` False), the hung and the queued
+        requests get failover-marked errors for the router to requeue,
+        and the abandoned worker's late chunks are dropped."""
+        abandoned.set()
+        log.error("watchdog: bucket %s batch of %d hung past %.1fs — "
+                  "marking replica unhealthy", key, len(batch), budget)
+        now = time.time()
+        with self._lock:
+            self.watchdog_trips += 1
+            self._stop = True
+            err = f"watchdog: batch hung after {budget:.1f}s"
+            for t_enq, r, _ in batch:
+                if r.deadline_s is not None:
+                    self.deadlines_missed += 1
+                self._results[r.request_id] = GenResult(
+                    r.request_id, None, now - t_enq, error=err,
+                    latency_s=now - t_enq,
+                    deadline_met=False if r.deadline_s is not None
+                    else None)
+                self._error_expiry[r.request_id] = now + self.error_ttl_s
+            for dq in self._buckets.values():
+                for _, r, _ in dq:
+                    self._results[r.request_id] = GenResult(
+                        r.request_id, None, 0.0,
+                        error="engine stopped (watchdog)")
+                    self._error_expiry[r.request_id] = now + self.error_ttl_s
+            self._buckets.clear()
+            self._lock.notify_all()
+
+    def _publish_batch(self, batch: List[Entry], lat: Optional[np.ndarray],
+                       dt: float, pub: Dict, err: Optional[str],
+                       degraded: bool):
+        now = time.time()
+        with self._lock:
+            bi = self._batches_served
+            self._batches_served += 1
+            for i, (t_enq, r, _) in enumerate(batch):
+                met = None
+                if r.deadline_s is not None:
+                    met = err is None and now <= r.deadline_s
+                    if met:
+                        self.deadlines_met += 1
+                    else:
+                        self.deadlines_missed += 1
+                self._results[r.request_id] = GenResult(
+                    r.request_id, None if err else lat[i], dt, error=err,
+                    batch_index=bi, latency_s=now - t_enq,
+                    ttff_s=pub["ttff"].get(r.request_id,
+                                           -1.0 if err else now - t_enq),
+                    deadline_met=met, degraded=degraded)
+                if err is not None:
+                    self._error_expiry[r.request_id] = now + self.error_ttl_s
+            self._lock.notify_all()
+
+    def _serve(self, key: BucketKey, batch: List[Entry]):
+        pub: Dict[str, Dict] = {"ttff": {}, "count": {}}
+        self._serve_rec(key, batch, 0, pub, threading.Event())
+
+    def _serve_rec(self, key: BucketKey, batch: List[Entry], depth: int,
+                   pub: Dict, abandoned: threading.Event):
+        """Serve one (sub-)batch through the escalation chain: a sentinel
+        trip degrades one rung and serves again; a hang trips the
+        watchdog; an error is retried with backoff, then the batch is
+        bisected so a poison request is quarantined alone."""
+        t0 = time.time()
+        base_pol = key[2]
+        fam = self._family(key)
+        attempt = 0
+        while True:
+            eff_key, policy = key, batch[0][2]
+            if self._ladder is not None:
+                eff_pol, _probing = self._ladder.effective_policy(
+                    fam, base_pol)
+                if eff_pol != base_pol:
+                    eff_key = self._rekey(key, eff_pol)
+                    policy = _bucket_policy(eff_pol)[0]
+            res, hung, budget = self._run_batch(eff_key, batch, policy, pub,
+                                                abandoned)
+            if hung:
+                self._trip_watchdog(eff_key, batch, budget, abandoned)
+                return
+            sent = res.get("sentinel")
+            exc = res.get("err")
+            if exc is None and sent is None and "lat" not in res:
+                exc = RuntimeError("sampler worker produced no output")
+            if exc is None and sent is None and self._ladder is not None:
+                sent = self._sentinel_verdict(res.get("lat"),
+                                              res.get("aux"))
+            if sent is not None and self._ladder is not None:
+                nxt = self._ladder.trip(fam, base_pol)
+                if nxt is not None:
+                    log.warning(
+                        "bucket %s guardrail trip (%s): degrading to %r "
+                        "and re-serving", key, sent, nxt)
+                    continue
+                exc = RuntimeError(
+                    f"guardrail: {sent} at the dense floor — no "
+                    "degradation step left")
+            elif sent is None and exc is None and self._ladder is not None:
+                self._ladder.record_clean(fam)
+            if exc is None:
+                dt = time.time() - t0
+                self._log_aux(eff_key, res.get("aux"))
+                self.estimator.observe(key, dt)
+                if eff_key != key:
+                    self.estimator.observe(eff_key, dt)
+                self._publish_batch(
+                    batch, res["lat"], dt, pub, None,
+                    degraded=(self._ladder is not None
+                              and self._ladder.degraded(fam)))
+                log.info("served bucket %s batch of %d in %.2fs%s", key,
+                         len(batch), dt,
+                         " (degraded)" if eff_key != key else "")
+                return
+            # The error path.  A dead end at the dense floor is not
+            # transient: no retry, no bisection.
+            attempt += 1
+            if sent is None and attempt <= self.max_retries:
+                backoff = self.retry_backoff_s * (2 ** (attempt - 1))
+                with self._lock:
+                    self.batch_retries += 1
+                log.warning("bucket %s batch failed (attempt %d/%d), "
+                            "retrying in %.2fs: %r", key, attempt,
+                            self.max_retries + 1, backoff, exc)
+                time.sleep(backoff)
+                continue
+            if sent is None and self.bisect_on_error and len(batch) > 1:
+                mid = len(batch) // 2
+                log.warning("bucket %s: bisecting failed batch of %d to "
+                            "isolate the poison request", key, len(batch))
+                self._serve_rec(key, batch[:mid], depth + 1, pub, abandoned)
+                self._serve_rec(key, batch[mid:], depth + 1, pub, abandoned)
+                return
+            if depth > 0 and len(batch) == 1:
+                # Bisection ended on one request: it fails alone.
+                with self._lock:
+                    self.quarantined += 1
+                log.error("bucket %s: request %d quarantined after "
+                          "bisection: %r", key, batch[0][1].request_id, exc)
+            self._publish_batch(batch, None, time.time() - t0, pub,
+                                repr(exc), degraded=False)
+            return
+
     def _loop(self):
         while True:
             key, batch = self._take_batch()
             if key is None:
                 return
             self._serve(key, batch)
+            fault = fault_lib.active_faults()
+            if fault is not None:
+                fault.maybe_corrupt_artifact(self._batches_served)

@@ -269,7 +269,9 @@ def test_streaming_engine_delivers_chunks_then_the_result(model):
     assert not np.array_equal(chunks[0], chunks[-1])
     for r in res:
         assert 0 <= r.ttff_s <= r.latency_s
-    assert eng.metrics() == {"batches_served": 1}
+    m = eng.metrics()
+    assert m.pop("batches_served") == 1
+    assert m and not any(m.values())  # no shed, deadline, retry or trip
     whole = _serve(DiffusionEngine(factory, device="cpu"),
                    [dataclasses.replace(r, stream_every=None) for r in reqs])
     for r, w in zip(res, whole):
@@ -453,8 +455,11 @@ def test_a_bucket_runs_the_artifact_its_key_names(when, model, clean_state):
         reqs = _policy_reqs(["static"], [0])
     else:
         reqs = _policy_reqs(["static", "ripple", "static"], [1, 0, 0])
+    # starve_after_s=0: every head is past its aging bound, so the
+    # oldest head is served first and the ripple batch runs between the
+    # two static requests.
     eng = DiffusionEngine(factory, device="cpu", max_batch=1,
-                          max_compiled=1)
+                          max_compiled=1, starve_after_s=0.0)
     for r in reqs:
         eng.submit(r)
     if when == "between_submit_and_serve":
@@ -540,7 +545,13 @@ def test_launcher_streams_mixed_buckets_and_writes_its_summary(tmp_path,
     summary = json.loads(path.read_text())
     assert set(summary) == _reference_summary_keys()
     assert summary["completed"] == summary["submitted"] == [0, 1, 2]
-    assert summary["counters"] == {"batches_served": 3}
+    counters = summary["counters"]
+    assert counters.pop("batches_served") == 3
+    # Guardrails are on by default: the ladder's counters are there, and
+    # nothing shed, tripped, retried or degraded.
+    assert {"shed_count", "watchdog_trips", "degraded_count",
+            "dense_fallbacks"} <= set(counters)
+    assert not any(counters.values())
     assert (summary["errors"], summary["shed"], summary["sigterm"]) == \
         ({}, 0, False)
 
