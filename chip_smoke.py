@@ -140,6 +140,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    runs the sparse kernel, then fused_reuse and ripple, then neither;
    then the first on-card ``sentinel_drift`` reading with
    ``--reuse-every 4 ripple.sentinel_probe_every=4``);
+8f. (after 8e) crash safety: ``serve[crash]`` (``serve[launcher]``'s argv
+   with ``--journal``: the journal's and the checkpoints' costs beside
+   its latencies; then the launcher in a subprocess with
+   ``crash:after=1``, which must die by SIGKILL mid-generation, and a
+   ``--resume`` restart in process that completes every recovered
+   request, bit-equal to ``serve[launcher]`` where the batch matches,
+   launching only the steps left after each resume step) and
+   ``serve[resume]`` (a resume at a decision-cache hit step, bit-equal
+   with equal cache counters; a checkpointed router failover, bit-equal
+   to the fault-free run);
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT and UNet (also under svg), and of static and rainfusion, on the
@@ -2714,6 +2724,9 @@ def serve_policies(arch, shape, model, art_path, want):
 
 LAUNCHER_LAYERS = 8       # serve[launcher]: vdit-paper depth 40 cut to 8
 LAUNCHER_STREAM = 4       # --stream-every
+LAUNCHER_ARGV = ["--arch", "vdit-paper", "--steps", "12", "--requests", "6",
+                 "--max-batch", "2", "--stream-every", str(LAUNCHER_STREAM),
+                 "model.frames=32", f"model.num_layers={LAUNCHER_LAYERS}"]
 
 
 def serve_launcher():
@@ -2730,7 +2743,8 @@ def serve_launcher():
     layer-step, and no plain version may run on the card.  Afterwards
     each served batch runs again in one piece, through the launcher's own
     sampler factory without ``stream_every``, on the same noise, text
-    and model: every streamed result must equal it bit for bit."""
+    and model: every streamed result must equal it bit for bit.  Returns
+    the launch counts and the results by request id."""
     import json
     import math
     import tempfile
@@ -2766,10 +2780,7 @@ def serve_launcher():
         f"{LAUNCHER_STREAM}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "summary.json")
-        argv = ["--arch", "vdit-paper", "--steps", "12", "--requests", "6",
-                "--max-batch", "2", "--stream-every", str(LAUNCHER_STREAM),
-                "--summary-json", path, "model.frames=32",
-                f"model.num_layers={LAUNCHER_LAYERS}"]
+        argv = LAUNCHER_ARGV + ["--summary-json", path]
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -2844,7 +2855,7 @@ def serve_launcher():
     if not all(checks.values()):
         raise SystemExit("serve[launcher] failed")
     torch.cuda.empty_cache()
-    return counts
+    return counts, {r.request_id: r for r in done}
 
 
 # The counters a fault-free launcher run must leave at 0 (guardrails are
@@ -3228,6 +3239,334 @@ def serve_guardrail():
             for k, v in launched.items():
                 out[k] = out.get(k, 0) + v
     return out
+
+
+JOURNAL_ROOT = os.path.join(ROOT, "build", "journal")  # git-ignored
+
+
+def journal_dir(name):
+    """An empty journal directory under ``build/journal``."""
+    import shutil
+
+    d = os.path.join(JOURNAL_ROOT, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(JOURNAL_ROOT, exist_ok=True)
+    return d
+
+
+def serve_crash(launcher_done):
+    """The crash drill of DESIGN.md §18 on ``serve[launcher]``'s argv.
+    First the launcher runs it in process with ``--journal`` (fsync
+    ``always``): the journal's and the checkpoints' costs, and its
+    latencies beside ``serve[launcher]``'s.  Then ``python -m
+    repro_torch.launch.serve`` runs it in a subprocess with ``--journal
+    DIR --inject-faults crash:after=1``: it must die by SIGKILL once a
+    chunk checkpoint of work in flight is on disk.  ``recover(DIR)``
+    must show a crash, pending requests and a checkpoint strictly inside
+    its run.  The restart (``--journal DIR --resume --requests 0``, in
+    process) must complete every recovered request from its checkpoint:
+    ``recovered`` equal to the pending count, ``resumed_from_step`` > 0,
+    ``checkpoint_writes`` > 0, the quiet counters 0, then a clean journal
+    with nothing pending.  Each recovered request's latents must equal
+    ``serve[launcher]``'s bit for bit where its batch has the same
+    members, else within relative L2 1e-3, and each attempt of the
+    restart must launch fused_reuse twice and ripple once a layer-step
+    of the steps left after its resume step, exactly.  Returns the
+    restart's launches by kernel."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.serving import journal as journal_lib
+
+    d_on = journal_dir("launcher")
+    on = run_launcher("crash journal", LAUNCHER_ARGV + ["--journal", d_on])
+    c = on["summary"]["counters"]
+    for rid, r in sorted(on["done"].items()):
+        base = launcher_done[rid]
+        log(f"serve[crash journal]: request {rid} latency {r.latency_s:.3f}s ttff "
+            f"{r.ttff_s:.3f}s with --journal (fsync always), {base.latency_s:.3f}s / "
+            f"{base.ttff_s:.3f}s in serve[launcher]; {CARD}")
+    writes = max(c["checkpoint_writes"], 1)
+    log(f"serve[crash journal]: checkpoint_writes {c['checkpoint_writes']}, "
+        f"checkpoint_bytes {c['checkpoint_bytes']} ({c['checkpoint_bytes'] / writes:.0f} "
+        f"a write), checkpoint_write_ms {c['checkpoint_write_ms']} "
+        f"({c['checkpoint_write_ms'] / writes:.1f} a write); journal_appends "
+        f"{c['journal_appends']}, journal_bytes {c['journal_bytes']}, journal_fsyncs "
+        f"{c['journal_fsyncs']}, journal_fsync_ms {c['journal_fsync_ms']} "
+        f"({c['journal_fsync_ms'] / max(c['journal_fsyncs'], 1):.2f} a fsync); "
+        f"{CARD}")
+    same = all(np.array_equal(r.latents, launcher_done[rid].latents)
+               for rid, r in on["done"].items())
+
+    d = journal_dir("crash")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER_ARGV,
+           "--journal", d, "--inject-faults", "crash:after=1"]
+    log(f"serve[crash]: {' '.join(cmd[1:])} (a subprocess)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("REPRO_FAULTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                          stderr=subprocess.PIPE, timeout=300)
+    crash_wall = time.perf_counter() - t0
+    tail = proc.stderr.decode(errors="replace").strip().splitlines()[-4:]
+    log(f"serve[crash]: returncode {proc.returncode} after {crash_wall:.1f}s "
+        f"(process start, CUDA init and the model's init included); its last "
+        f"log lines: {tail}")
+    rec = journal_lib.recover(d)
+    store = journal_lib.CheckpointStore(d)
+    steps = {rid: int(r["steps"]) for rid, r in rec.pending.items()}
+    resume_at = {}
+    for rid in store.rids():
+        ck = store.get(rid)
+        if ck and rid in steps and 0 < ck["step"] < steps[rid] \
+                and ck["step"] % LAUNCHER_STREAM == 0:
+            resume_at[rid] = ck["step"]
+    del store
+    log(f"serve[crash]: recover: clean {rec.clean}, torn {rec.torn}, {rec.events} "
+        f"events, pending {sorted(rec.pending)}, finished {sorted(rec.finished)}, "
+        f"checkpoints strictly inside their runs {resume_at}")
+    restart = run_launcher("crash restart", LAUNCHER_ARGV + [
+        "--requests", "0", "--journal", d, "--resume"])
+    s = restart["summary"]
+    rc = s["counters"]
+    after = journal_lib.recover(d)
+    log(f"serve[crash restart]: restart wall {restart['wall']:.3f}s (in process: "
+        f"the scan, the model's init and the recovered requests); summary "
+        f"recovered {s['recovered']}, resumed_from_step {s['resumed_from_step']}, "
+        f"completed {s['completed']}; counters {rc}; {CARD}")
+    exact, worst = True, 0.0
+    for rid, r in sorted(restart["done"].items()):
+        want = launcher_done[rid]
+        members = batch_of(restart, rid, r.latents)
+        base_members = sorted(i for i, x in launcher_done.items()
+                              if x.batch_index == want.batch_index)
+        err = rel_l2(r.latents, want.latents)
+        if members == base_members:
+            exact &= bool(np.array_equal(r.latents, want.latents))
+        else:
+            worst = max(worst, err)
+        log(f"serve[crash restart]: request {rid} from step {resume_at.get(rid, 0)} "
+            f"of {steps.get(rid)}: latency {r.latency_s:.3f}s, batch {members} "
+            f"against serve[launcher]'s {base_members}: bit-equal "
+            f"{np.array_equal(r.latents, want.latents)}, relative L2 {err:.3e}; {CARD}")
+    launches_ok, out = bool(restart["attempts"]), {}
+    for _, rids, launched in restart["attempts"]:
+        first = min(rids)
+        left = steps[first] - resume_at.get(first, 0)
+        want = {"fused_reuse": 2 * LAUNCHER_LAYERS * left,
+                "ripple_attention": LAUNCHER_LAYERS * left}
+        launches_ok &= launched == want and all(
+            resume_at.get(i, 0) == resume_at.get(first, 0) for i in rids)
+        for k, v in launched.items():
+            out[k] = out.get(k, 0) + v
+        log(f"serve[crash restart]: attempt for {rids} from step "
+            f"{resume_at.get(first, 0)}: launches {launched}, want {want}")
+    checks = {
+        "journaled run: every request completed, bit-equal to serve[launcher]":
+            sorted(on["done"]) == list(range(6)) and same,
+        "journaled run: no degradation, retry, quarantine or watchdog trip":
+            quiet_counters(on["summary"]),
+        "the crashed launcher died by SIGKILL": proc.returncode == -9,
+        "recover: not clean, requests pending, a checkpoint inside its run":
+            not rec.clean and bool(rec.pending) and bool(resume_at),
+        "restart: recovered = pending, every recovered request completed":
+            s["recovered"] == len(rec.pending)
+            and sorted(s["completed"]) == sorted(rec.pending) and not s["errors"],
+        "restart: resumed_from_step > 0, checkpoint_writes > 0, resumed_count >= 1":
+            s["resumed_from_step"] > 0 and rc["checkpoint_writes"] > 0
+            and rc["resumed_count"] >= 1,
+        "restart: no degradation, retry, quarantine or watchdog trip":
+            quiet_counters(s),
+        "after the restart: CLEAN marker, recover clean with nothing pending":
+            os.path.exists(os.path.join(d, journal_lib.CLEAN_MARKER))
+            and after.clean and not after.pending,
+        "latents bit-equal to serve[launcher]'s where the batch matches, else "
+        "within relative L2 1e-3": exact and worst < 1e-3,
+        "each attempt launches fused_reuse and ripple for the steps left only":
+            launches_ok,
+    }
+    report("crash", checks)
+    shutil.rmtree(JOURNAL_ROOT, ignore_errors=True)
+    return out
+
+
+RESUME_EVERY = 3  # serve[resume]: boundaries 3, 6, 9 are cache hit steps at R 4
+
+
+def serve_resume():
+    """Mid-flight resume in process, on the launcher's factory over its
+    8-layer vDiT (every leaf drawn, none zeroed, so the latents depend on
+    every layer's attention).  (a) One request of the (8, 16, 16) bucket,
+    12 steps, ``reuse_every`` 4, streamed every 3 steps through a
+    journaled engine: the journal directory is copied right after its
+    first checkpoint lands (step 3, a cache hit step); a fresh engine on
+    the copy resumes it from the journal and the checkpoint and must
+    give the uninterrupted run's latents bit for bit, its cache counters,
+    and launch fused_reuse only on the refresh steps left (4, 8, 11) and
+    ripple on the 9 steps left.  (b) Two replicas behind a router share
+    one store; once a checkpoint of the request in flight lands, the
+    replica serving it is failed: the survivor resumes it
+    (``router_resumed`` >= 1, ``router_resumed_from_step`` > 0) and its
+    result equals the request's fault-free run bit for bit (one request:
+    the same members)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch.workloads import mixed_gen_shapes, mixed_request_stream
+    from repro_torch.models.params import init_vdit
+    from repro_torch.serving import engine as engine_lib
+    from repro_torch.serving import journal as journal_lib
+    from repro_torch.serving.engine import DiffusionEngine
+    from repro_torch.serving.router import Router
+
+    arch = apply_overrides(get_config("vdit-paper"), CONTROL_CUT)
+    shapes = mixed_gen_shapes(arch, base=serve_lib.serving_shape(
+        arch, "gen_512", smoke=False, steps=12))
+    model = init_vdit(arch.model, seed=0, device="cuda", zero_init=False)
+    factory, _ = serve_lib.make_sampler_factory(arch, shapes, model, device="cuda",
+                                                sentinel=True)
+    m = arch.model
+    grid = m.grid(img_res=shapes[1].img_res)
+    n_grid = grid[0] * grid[1] * grid[2]
+    hd = m.d_model // m.num_heads
+    # q_idx and k_idx: int32 (layers, 1, heads, grid tokens, head dim); the
+    # other leaves are (layers, 1, heads) and x is small.
+    predicted = 2 * LAUNCHER_LAYERS * m.num_heads * n_grid * hd * 4
+    log(f"serve[resume]: vdit-paper full width, {LAUNCHER_LAYERS} layers, grid {grid}, "
+        f"12 steps, reuse_every 4, stream every {RESUME_EVERY}; a checkpoint's q_idx + "
+        f"k_idx reckoned before the run: {predicted} bytes ({predicted / 1e9:.3f} GB) "
+        f"a request")
+    reqs = [req for _, req in mixed_request_stream(
+        arch, shapes, 2, seed=0, policy="ripple", reuse_every=4,
+        stream_every=RESUME_EVERY)]
+    req = reqs[1]  # the (8, 16, 16) bucket
+    aux = []
+
+    def verdict(orig):
+        def f(self, lat, a):
+            aux.append({k: int(v) for k, v in (a or {}).items()
+                        if k.startswith("cache_")})
+            return orig(self, lat, a)
+        return f
+
+    def serve(eng, r):
+        eng.submit(r)
+        eng.start()
+        try:
+            return eng.result(r.request_id)
+        finally:
+            eng.stop()
+
+    live, snap = journal_dir("resume-live"), journal_dir("resume-copy")
+    journal = journal_lib.Journal(live)
+    store = journal_lib.CheckpointStore(live)
+    put = store.put
+
+    def put_then_copy(rid, **kw):
+        put(rid, **kw)
+        if not os.path.exists(snap):
+            shutil.copytree(live, snap)
+
+    store.put = put_then_copy
+    with wrapped(engine_lib.DiffusionEngine, "_sentinel_verdict", verdict):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        whole = serve(DiffusionEngine(factory, device="cuda", guardrail=True,
+                                      journal=journal, checkpoint_store=store), req)
+        torch.cuda.synchronize()
+        whole_launches = {k: v for k, v in launch_counts().items() if v}
+        sm = store.metrics()
+        journal.close()
+        rec = journal_lib.recover(snap)
+        journal2 = journal_lib.Journal(snap)
+        store2 = journal_lib.CheckpointStore(snap)
+        ck = store2.get(req.request_id)
+        again = journal_lib.request_from_dict(rec.pending[req.request_id])
+        again.recovered = True
+        again.resume = {"step": ck["step"], "x": ck["x"], "dstate": ck["dstate"]}
+        eng = DiffusionEngine(factory, device="cuda", guardrail=True,
+                              journal=journal2, checkpoint_store=store2)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = serve(eng, again)
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        resumed_launches = {k: v for k, v in launch_counts().items() if v}
+        em = eng.metrics()
+        journal2.close()
+    after = journal_lib.recover(snap)
+    per_write = sm["checkpoint_bytes"] / max(sm["checkpoint_writes"], 1)
+    log(f"serve[resume]: uninterrupted run {whole.latency_s:.3f}s, checkpoints "
+        f"{sm['checkpoint_writes']} at steps 3, 6, 9: {per_write:.0f} bytes a write "
+        f"(reckoned {predicted} for q_idx + k_idx), checkpoint_write_ms "
+        f"{sm['checkpoint_write_ms']:.3f} ({sm['checkpoint_write_ms'] / max(sm['checkpoint_writes'], 1):.3f} "
+        f"a write); {CARD}")
+    log(f"serve[resume]: resumed from step {ck['step']} (recover: clean {rec.clean}, "
+        f"pending {sorted(rec.pending)}) in {resume_wall:.3f}s, latency "
+        f"{resumed.latency_s:.3f}s; cache counters {aux[-1]} against {aux[0]}; "
+        f"launches {resumed_launches} against {whole_launches} uninterrupted; "
+        f"engine counters {em}; {CARD}")
+    L = LAUNCHER_LAYERS
+    checks = {
+        "(a) the copy holds the step-3 checkpoint, a cache hit step":
+            not rec.clean and ck is not None and ck["step"] == 3
+            and ck["step"] % 4 != 0 and ck["dstate"] is not None,
+        "(a) a checkpoint's bytes as reckoned (q_idx + k_idx + at most 8 MB)":
+            predicted <= per_write <= predicted + 8e6,
+        "(a) resumed latents bit-equal to the uninterrupted run's":
+            np.array_equal(resumed.latents, whole.latents),
+        "(a) cache hit and refresh counters equal the uninterrupted run's":
+            len(aux) == 2 and aux[0] == aux[1] and aux[0].get("cache_hits", 0) > 0,
+        "(a) fused_reuse on the refresh steps left, ripple on the steps left":
+            whole_launches == {"fused_reuse": 2 * L * 4, "ripple_attention": 12 * L}
+            and resumed_launches == {"fused_reuse": 2 * L * 3,
+                                     "ripple_attention": 9 * L},
+        "(a) resumed_count 1 from step 3, recovered 1; the copy then clean":
+            (em["resumed_count"], em["last_resume_step"], em["recovered_count"])
+            == (1, 3, 1) and after.clean and not after.pending,
+    }
+    # (b) checkpointed failover.
+    plain = dataclasses.replace(req, request_id=10, reuse_every=None,
+                                stream_every=LAUNCHER_STREAM)
+    ref = serve(DiffusionEngine(factory, device="cuda", guardrail=True), plain)
+    d = journal_dir("failover")
+    journal = journal_lib.Journal(d)
+    store = journal_lib.CheckpointStore(d)
+    router = Router([DiffusionEngine(factory, device="cuda", guardrail=True,
+                                     journal=journal, checkpoint_store=store)
+                     for _ in range(2)], checkpoint_store=store)
+    router.start()
+    try:
+        idx = router.submit(plain)
+        t0 = time.time()
+        while plain.request_id not in store.rids() and time.time() < t0 + 120:
+            time.sleep(0.01)
+        router.fail_replica(idx)
+        got = router.result(plain.request_id)
+        rm = router.metrics()
+    finally:
+        router.stop()
+        journal.close()
+    log(f"serve[resume failover]: replica {idx} failed once its checkpoint landed; "
+        f"router_resumed {rm['router_resumed']} from step "
+        f"{rm['router_resumed_from_step']}, router_requeued {rm['router_requeued']}; "
+        f"survivor latency {got.latency_s:.3f}s (from its resubmit, beside the "
+        f"zombie batch), fault-free {ref.latency_s:.3f}s; bit-equal "
+        f"{np.array_equal(got.latents, ref.latents)}; {CARD}")
+    checks["(b) router_resumed >= 1 from a step > 0"] = (
+        rm["router_resumed"] >= 1 and rm["router_resumed_from_step"] > 0)
+    checks["(b) the survivor's result bit-equal to the fault-free run"] = \
+        np.array_equal(got.latents, ref.latents)
+    report("resume", checks)
+    shutil.rmtree(JOURNAL_ROOT, ignore_errors=True)
+    del model, factory
+    torch.cuda.empty_cache()
 
 
 def ripple_ranges():
@@ -3829,11 +4168,15 @@ def main() -> int:
     counts_pol = serve_policies(arch, shape, model, art_path, served_lat)
     del model, served_lat
     torch.cuda.empty_cache()
-    counts_la = serve_launcher()
+    counts_la, launcher_done = serve_launcher()
     # The serving control plane on the launcher's 8-layer model (8e).
     serve_slo()
     serve_failover()
     counts_gr = serve_guardrail()
+    # Crash safety (10d): the crash drill, then resume in process.
+    counts_cr = serve_crash(launcher_done)
+    serve_resume()
+    del launcher_done
     arch2, shape2, model2 = load_served_model(2)
     serve_svg_cache(apply_overrides(arch2, cache_cut),
                     dataclasses.replace(shape2, steps=CACHE_STEPS), model2)
@@ -3965,7 +4308,9 @@ def main() -> int:
          # The engine and launcher phases (serve[policies], serve[launcher]).
          "launches_policies": counts_pol["fused_reuse"],
          "launches_launcher": counts_la["fused_reuse"],
-         "launches_guardrail": counts_gr.get("fused_reuse", 0), "unet_ms": t1u["ms"],
+         "launches_guardrail": counts_gr.get("fused_reuse", 0),
+         # The crash drill's restart (serve[crash]): the steps left only.
+         "launches_crash_restart": counts_cr.get("fused_reuse", 0), "unet_ms": t1u["ms"],
          "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
@@ -3979,6 +4324,7 @@ def main() -> int:
          "launches_policies": counts_pol["ripple_attention"],
          "launches_launcher": counts_la["ripple_attention"],
          "launches_guardrail": counts_gr.get("ripple_attention", 0),
+         "launches_crash_restart": counts_cr.get("ripple_attention", 0),
          "unet": unet_times},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",

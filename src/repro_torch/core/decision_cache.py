@@ -46,7 +46,7 @@ from repro_torch.core.policy import ReuseDecision, get_policy
 __all__ = ["CachedDecision", "bump_hit", "cache_from_decision",
            "drift_stat", "merge_states", "refresh_due", "slice_state",
            "stack_layers", "state_from_arrays", "state_to_arrays",
-           "supports_cache"]
+           "supports_cache", "unstack_layers"]
 
 
 @dataclasses.dataclass
@@ -156,11 +156,22 @@ def stack_layers(states: Sequence[CachedDecision]) -> CachedDecision:
     return CachedDecision(**out)
 
 
+def unstack_layers(state: CachedDecision) -> List[CachedDecision]:
+    """The per-layer list of a layer-stacked state (:func:`stack_layers`'
+    inverse): the model's form of the JAX package's state."""
+    n = next(getattr(state, f) for f in _STATE_FIELDS
+             if getattr(state, f) is not None).shape[0]
+    return [CachedDecision(**{
+        name: None if getattr(state, name) is None else getattr(state, name)[i]
+        for name in _STATE_FIELDS}) for i in range(n)]
+
+
 # -- checkpoint (de)serialization -----------------------------------------
 #
 # A serving engine persists the decision state at chunk boundaries so a
 # restart can resume with the same cached plan.  Leaves cross the disk
-# boundary as host numpy arrays keyed by field name.
+# boundary as host arrays keyed by field name (numpy from
+# state_to_arrays; the checkpoint store reads them back as tensors).
 
 
 def state_to_arrays(state: CachedDecision) -> Dict[str, Optional[np.ndarray]]:
@@ -171,15 +182,16 @@ def state_to_arrays(state: CachedDecision) -> Dict[str, Optional[np.ndarray]]:
 
 
 def state_from_arrays(arrays, device=None) -> CachedDecision:
-    """Inverse of :func:`state_to_arrays`, onto ``device``; unknown keys
-    are refused, so a checkpoint of another code version fails loudly."""
+    """Inverse of :func:`state_to_arrays`, onto ``device``, from numpy
+    arrays or tensors; unknown keys are refused, so a checkpoint of
+    another code version fails loudly."""
     extra = set(arrays) - set(_STATE_FIELDS)
     if extra:
         raise ValueError(f"unknown CachedDecision fields in checkpoint: "
                          f"{sorted(extra)}")
     return CachedDecision(**{
         name: (None if arrays.get(name) is None
-               else torch.as_tensor(np.asarray(arrays[name]), device=device))
+               else torch.as_tensor(arrays[name], device=device))
         for name in _STATE_FIELDS})
 
 

@@ -44,7 +44,17 @@ turns them off): the samplers carry the non-finite and drift sentinels
 and a tripped bucket steps down the degradation ladder.
 ``--batch-timeout S`` arms the hang watchdog; ``--inject-faults SPEC``
 (or ``REPRO_FAULTS``) arms the fault-injection harness, whose
-``kill_replica`` the launcher fires.
+``kill_replica`` and ``crash`` the launcher fires.
+
+Crash safety (DESIGN.md §18): ``--journal DIR`` writes the request
+journal, chunk-boundary checkpoints (``--checkpoint-max`` of them at
+most) and the service-time estimator under DIR, fsynced as
+``--journal-fsync`` says; ``--resume`` first serves the requests the
+journal left pending, each from its checkpoint where one lies on a
+chunk boundary inside the run, and new request ids start above the
+journaled ones.  SIGTERM drains gracefully (exit 143: the queue stays
+journaled, the clean-shutdown marker is written); the ``crash`` fault
+SIGKILLs the process once a checkpoint of work in flight is on disk.
 """
 
 from __future__ import annotations
@@ -55,7 +65,11 @@ import importlib
 import json
 import logging
 import os
+import signal
+import sys
+import threading
 import time
+import types
 
 import torch
 
@@ -76,10 +90,12 @@ from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           vdit_decision_state)
 from repro_torch.models.params import init_dit, init_unet, init_vdit
 from repro_torch.serving import faults as fault_lib
-from repro_torch.serving.engine import DiffusionEngine
+from repro_torch.serving import journal as journal_lib
+from repro_torch.serving.engine import DiffusionEngine, request_noise
 from repro_torch.serving.router import Router
-from repro_torch.serving.slo import ShedError
+from repro_torch.serving.slo import ServiceEstimator, ShedError
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.diskio import atomic_write_text
 
 log = logging.getLogger("repro_torch.launch.serve")
 
@@ -111,9 +127,18 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     the trajectory in K-step chunks (the sampler's ``step_offset`` /
     ``total_steps`` slices, the same arithmetic as one run) and yields
     ``(latents, aux)`` after each, ``aux`` holding the decision-cache
-    counters so far (empty without the cache); the decision state
-    crosses chunks unchanged, so the last chunk is the whole run's
-    result bit for bit.
+    counters so far and ``__ckpt__ = {"step", "dstate"}``: the step the
+    next chunk starts from and the per-layer decision state it needs
+    (None without the cache), a chunk-boundary checkpoint for the
+    engine's store (DESIGN.md §18).  The decision state crosses chunks
+    unchanged, so the last chunk is the whole run's result bit for bit.
+    ``sample_fn(x, txt, seeds, resume={"step": S, "dstate": state})``
+    starts the chunk loop at step S from the latents ``x`` of that step
+    and the checkpointed state; since checkpoints lie on chunk
+    boundaries, the resumed run repeats the uninterrupted run's chunks
+    and lands on its latents bit for bit.  A cache-threading sampler
+    resumed without a state replays from step 0 instead, from the
+    requests' initial noise (their ``seeds``).
 
     ``sentinel=True`` arms the guardrail sentinels (DESIGN.md §17): the
     sampler counts the non-finite latent entries of every step
@@ -202,16 +227,36 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     if stream_every:
         chunk = int(stream_every)
 
-        def stream_fn(noise, txt, seeds=None):
+        def stream_fn(noise, txt, seeds=None, resume=None):
             cond = make_cond(noise, txt, seeds)
-            x, dstate, total = noise, start_state(noise), None
-            for step0 in range(0, steps, chunk):
-                x, dstate, nf = run(x, cond, step0,
-                                    min(chunk, steps - step0), dstate)
+            x, start, dstate, total = noise, 0, None, None
+            if resume is not None:
+                start = int(resume.get("step", 0))
+                if thread_cache and resume.get("dstate") is not None:
+                    # A copy: the model updates the list in place.
+                    dstate = list(resume["dstate"])
+                elif thread_cache and start > 0:
+                    # A hit step without the cached plan would apply
+                    # none: replay from step 0, from the initial noise.
+                    if seeds is None:
+                        raise ValueError("replaying a resumed request from "
+                                         "step 0 needs its seed")
+                    start = 0
+                    x = torch.stack([request_noise(s, noise.shape[1:],
+                                                   noise.device)
+                                     for s in seeds])
+            if dstate is None:
+                dstate = start_state(noise)
+            for step0 in range(start, steps, chunk):
+                count = min(chunk, steps - step0)
+                x, dstate, nf = run(x, cond, step0, count, dstate)
                 if nf is not None:
                     # A running total: the last chunk reports the run.
                     total = nf if total is None else total + nf
-                yield x, readings(dstate, total)
+                aux = readings(dstate, total)
+                aux["__ckpt__"] = {"step": step0 + count, "dstate": (
+                    None if dstate is None else list(dstate))}
+                yield x, aux
 
         return stream_fn, latent_shape_for(arch, shape)
 
@@ -347,6 +392,78 @@ def _maybe_kill_replica(front, fault, completed: int):
     front.fail_replica(idx)
 
 
+def _maybe_crash(fault, completed: int, *, store=None, read=()):
+    """Fire a ``crash`` fault (DESIGN.md §18) once ``completed`` results
+    have been read: SIGKILL this process, with no drain and no
+    clean-shutdown marker.  With ``wait_ckpt=1`` (default) and a
+    checkpoint store, first wait (up to ``wait_s``, default 60 s) until
+    a chunk checkpoint is written after this call began, for a request
+    whose result was not read (``read``), so that the kill lands
+    mid-generation rather than racing the sampler.  (A finished batch's
+    checkpoints are discarded just after its results are published, so
+    an entry on disk alone does not prove work in flight; a checkpoint
+    is never written on a batch's final chunk, so a new one does.)"""
+    if fault is None:
+        return
+    spec = fault.spec("crash")
+    if spec is None or completed < int(spec.param("after", 1)):
+        return
+    if int(spec.param("wait_ckpt", 1)) and store is not None:
+        deadline = time.time() + float(spec.param("wait_s", 60.0))
+        writes = store.metrics()["checkpoint_writes"]
+
+        def in_flight():
+            return (store.metrics()["checkpoint_writes"] > writes
+                    and set(store.rids()) - set(read))
+
+        while not in_flight() and time.time() < deadline:
+            time.sleep(0.01)
+        if not in_flight():
+            log.warning("crash fault: no checkpoint landed within the "
+                        "wait budget; killing anyway")
+    if fault.take("crash") is None:
+        return
+    log.warning("fault injection: SIGKILL self (hard crash, no drain)")
+    sys.stderr.flush()
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _recover(args, store):
+    """The journal's pending requests, to be served first: each with its
+    deadline dropped (it has passed across the restart; shedding a
+    journaled request would break the promise that every one completes)
+    and, where its checkpoint lies on a chunk boundary strictly inside
+    its run, the ``resume`` payload."""
+    rec = journal_lib.recover(args.journal)
+    if rec.events:
+        log.info("journal %s: %d event(s), %d pending, clean=%s, "
+                 "torn_tail=%s", args.journal, rec.events, len(rec.pending),
+                 rec.clean, rec.torn)
+    out = []
+    if not (args.resume and rec.pending):
+        return rec, out
+    if not rec.clean:
+        log.warning("crash detected (no matching clean-shutdown marker): "
+                    "recovering %d pending request(s)", len(rec.pending))
+    for rid, reqd in sorted(rec.pending.items()):
+        try:
+            req = journal_lib.request_from_dict(reqd)
+        except (KeyError, ValueError, TypeError):
+            log.exception("journaled request %s is unreadable; skipping", rid)
+            continue
+        req.deadline_s = None
+        req.recovered = True
+        ck = store.get(rid) if req.stream_every else None
+        if ck and 0 < ck["step"] < req.steps \
+                and ck["step"] % req.stream_every == 0:
+            req.resume = {"step": ck["step"], "x": ck["x"],
+                          "dstate": ck.get("dstate")}
+            log.info("request %d resumes from step %d/%d", rid, ck["step"],
+                     req.steps)
+        out.append(req)
+    return rec, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="vdit-paper", choices=ALL_ARCHS)
@@ -424,9 +541,9 @@ def main(argv=None):
     ap.add_argument("--inject-faults", default=None, metavar="SPEC",
                     help="arm the fault-injection harness "
                          "(serving/faults.py), e.g. "
-                         "'attn_nan:step=1;kill_replica:after=1'.  "
-                         "Default: the REPRO_FAULTS env var.  'crash' is "
-                         "refused until the journal is ported")
+                         "'attn_nan:step=1;kill_replica:after=1' or "
+                         "'crash:after=1' (needs --journal).  Default: "
+                         "the REPRO_FAULTS env var")
     ap.add_argument("--batch-timeout", type=float, default=None,
                     metavar="S",
                     help="hang-watchdog floor per batch in seconds (scaled "
@@ -437,9 +554,29 @@ def main(argv=None):
                     metavar="S",
                     help="router health-probe cadence for re-admitting "
                          "recovered replicas (only with --replicas > 1)")
+    ap.add_argument("--journal", default=None, metavar="DIR",
+                    help="crash-safe serving (DESIGN.md §18): write the "
+                         "request journal, chunk-boundary checkpoints and "
+                         "the service-time estimator under DIR.  SIGTERM "
+                         "drains gracefully and leaves a clean-shutdown "
+                         "marker; SIGKILL leaves a recoverable journal")
+    ap.add_argument("--resume", action="store_true",
+                    help="serve the journal's pending requests (submitted, "
+                         "never finished or shed) first, each resumed "
+                         "from its chunk checkpoint where it has one; "
+                         "requires --journal")
+    ap.add_argument("--journal-fsync", default="always",
+                    choices=journal_lib.FSYNC_POLICIES,
+                    help="journal durability: fsync every append "
+                         "(default), every few appends, or never (flush "
+                         "only: survives SIGKILL, not a power loss)")
+    ap.add_argument("--checkpoint-max", type=int, default=64, metavar="N",
+                    help="bound on the requests with a checkpoint on disk "
+                         "(the least recently written is evicted first)")
     ap.add_argument("--summary-json", default=None, metavar="PATH",
                     help="write the run's summary (submitted, completed, "
-                         "errors, shed, counters) to PATH as JSON")
+                         "errors, shed, recovered, resumed_from_step, "
+                         "sigterm, counters) to PATH as JSON")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--override", action="append", default=[],
                     metavar="KEY=VALUE",
@@ -469,9 +606,13 @@ def main(argv=None):
             fault = fault_lib.parse_faults(spec)
         except ValueError as e:
             ap.error(str(e))
-        if fault.spec("crash") is not None:
-            ap.error("the 'crash' fault needs the journal (--journal / "
-                     "--resume), which the port does not have yet")
+    if args.resume and not args.journal:
+        ap.error("--resume requires --journal DIR")
+    if fault is not None and fault.spec("crash") is not None \
+            and not args.journal:
+        # A crash drill recovers from the journal; without one it would
+        # only kill the process.
+        ap.error("the 'crash' fault needs --journal DIR")
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.override + args.overrides)
     ripple = {}
@@ -511,17 +652,44 @@ def main(argv=None):
         arch, shapes, model, use_ripple=not args.no_ripple, device=device,
         sentinel=guardrail)
 
+    # Crash safety: scan before the journal opens (opening it removes the
+    # clean-shutdown marker).
+    journal = store = estimator = est_path = None
+    recovered, rid_base = [], 0
+    if args.journal:
+        store = journal_lib.CheckpointStore(
+            args.journal, max_entries=args.checkpoint_max,
+            fsync=args.journal_fsync != "never")
+        rec, recovered = _recover(args, store)
+        journal = journal_lib.Journal(args.journal, fsync=args.journal_fsync)
+        est_path = os.path.join(args.journal, "estimator.json")
+        estimator = ServiceEstimator()
+        if os.path.exists(est_path):
+            try:
+                with open(est_path, "r", encoding="utf-8") as f:
+                    estimator = ServiceEstimator.from_json(f.read())
+                log.info("restored service-time estimator from %s", est_path)
+            except (OSError, ValueError):
+                log.warning("could not restore estimator from %s; "
+                            "starting cold", est_path)
+        # New ids never alias journaled history.
+        rid_base = max(set(rec.pending) | set(rec.finished) | set(rec.shed),
+                       default=-1) + 1
+
     def make_engine():
         return DiffusionEngine(factory, device=device,
                                max_batch=args.max_batch,
                                max_compiled=args.max_compiled,
                                default_reuse_every=args.reuse_every,
                                scheduler=args.scheduler, guardrail=ladder,
-                               batch_timeout_s=args.batch_timeout)
+                               batch_timeout_s=args.batch_timeout,
+                               estimator=estimator, journal=journal,
+                               checkpoint_store=store)
 
     if args.replicas > 1:
         front = Router([make_engine() for _ in range(args.replicas)],
-                       probe_interval_s=args.probe_interval)
+                       probe_interval_s=args.probe_interval,
+                       checkpoint_store=store)
     else:
         front = make_engine()
     traffic = mixed_request_stream(arch, shapes, args.requests,
@@ -530,6 +698,20 @@ def main(argv=None):
                                    stream_every=args.stream_every)
     if fault is not None:
         fault_lib.install_faults(fault)
+    terminating = {"sigterm": False}
+    prev_handler = None
+    if journal is not None and \
+            threading.current_thread() is threading.main_thread():
+        def _graceful(signum, frame):
+            # The graceful drain: queued requests stay journaled as
+            # pending, work in flight is checkpointed; the finally below
+            # stops without drain and writes the clean-shutdown marker.
+            terminating["sigterm"] = True
+            log.warning("SIGTERM: graceful drain; pending work stays "
+                        "journaled for --resume")
+            raise SystemExit(143)
+
+        prev_handler = signal.signal(signal.SIGTERM, _graceful)
     t0 = time.time()
     done, errors, submitted, shed = [], {}, [], 0
     try:
@@ -538,7 +720,17 @@ def main(argv=None):
         # router routes only to running replicas.
         if args.replicas > 1:
             front.start()
+        for req in recovered:
+            sp = types.SimpleNamespace(name="recovered", steps=req.steps)
+            try:
+                front.submit(req)
+            except (ShedError, ValueError) as e:
+                shed += isinstance(e, ShedError)
+                log.warning("recovered request %d: %s", req.request_id, e)
+                continue
+            submitted.append((sp, req))
         for sp, req in traffic:
+            req.request_id += rid_base
             if args.deadline_ms is not None:
                 req.deadline_s = time.time() + args.deadline_ms / 1e3
             try:
@@ -552,6 +744,8 @@ def main(argv=None):
             front.start()
         for n_done, (sp, req) in enumerate(submitted):
             _maybe_kill_replica(front, fault, n_done)
+            _maybe_crash(fault, n_done, store=store,
+                         read={r.request_id for r in done} | set(errors))
             try:
                 # A streaming request's chunks as a client reads them; the
                 # stream ends when its result lands.
@@ -564,40 +758,53 @@ def main(argv=None):
                 continue
             done.append(r)
             log.info("request %d (%s, %d steps) done: latency %.3fs, ttff "
-                     "%.3fs%s, batch %d served in %.3fs%s%s; latents %s",
+                     "%.3fs%s, batch %d served in %.3fs%s%s%s; latents %s",
                      req.request_id, sp.name, sp.steps, r.latency_s,
                      r.ttff_s, f" ({chunks} chunks)" if chunks else "",
                      r.batch_index, r.walltime_s,
                      "" if r.deadline_met is None else
                      f", deadline {'met' if r.deadline_met else 'MISSED'}",
-                     ", DEGRADED" if r.degraded else "", r.latents.shape)
+                     ", DEGRADED" if r.degraded else "",
+                     ", RECOVERED" if req.recovered else "", r.latents.shape)
+    except SystemExit:
+        if not terminating["sigterm"]:
+            raise
     finally:
-        front.stop()
+        front.stop(drain=not terminating["sigterm"])
         if fault is not None:
             fault_lib.clear_faults()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+        if journal is not None:
+            journal.close(clean=True)
+            atomic_write_text(est_path, estimator.to_json())
     counters = dict(front.metrics())
     if fault is not None:
         counters.update(fault.counters())
     if ladder is not None:
         counters.update(ladder.metrics())
-    log.info("served %d/%d requests (%d shed) over %d bucket(s) in %.2fs; "
-             "counters %s", len(done), args.requests, shed, len(shapes),
-             time.time() - t0, counters)
+    resumed_from = max([int(v) for k, v in counters.items()
+                        if k.endswith("last_resume_step")] or [0])
+    log.info("served %d/%d requests (%d shed, %d recovered, deepest resume "
+             "step %d) over %d bucket(s) in %.2fs; counters %s", len(done),
+             args.requests + len(recovered), shed, len(recovered),
+             resumed_from, len(shapes), time.time() - t0, counters)
     if args.summary_json:
-        # The reference launcher's keys; the port has no journal or
-        # resume yet, so those counts are 0.
         summary = {
             "submitted": [req.request_id for _, req in submitted],
             "completed": [r.request_id for r in done],
             "errors": {str(k): v for k, v in errors.items()},
-            "shed": shed, "recovered": 0, "resumed_from_step": 0,
-            "sigterm": False,
+            "shed": shed, "recovered": len(recovered),
+            "resumed_from_step": resumed_from,
+            "sigterm": terminating["sigterm"],
             "counters": {k: (float(v) if isinstance(v, float) else int(v))
                          for k, v in counters.items()},
         }
         with open(args.summary_json, "w", encoding="utf-8") as f:
             json.dump(summary, f, indent=1, sort_keys=True)
         log.info("wrote summary to %s", args.summary_json)
+    if terminating["sigterm"]:
+        sys.exit(143)
     return done
 
 

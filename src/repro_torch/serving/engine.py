@@ -5,9 +5,12 @@ the guardrail escalation chain.
 Requests are keyed into a **bucket** by the reference's 9-tuple
 ``(latent_shape, steps, policy, reuse_every, seq_shards, txt_shape,
 stream_every, pattern_token, resume_step)``, so one sampler invocation
-never pads or mixes shapes, reuse policies, decision-cache cadences or
-streaming cadences.  ``seq_shards`` is 1 and ``resume_step`` 0 until the
-port has context parallelism and checkpointed resume.  The pattern token
+never pads or mixes shapes, reuse policies, decision-cache cadences,
+streaming cadences or resume points.  ``seq_shards`` is 1 (the port has
+no context parallelism yet).  ``resume_step`` is 0 for fresh traffic
+and the checkpoint's step for a request resuming mid-flight: batchmates
+share one step range, but the sampler LRU is keyed on ``key[:8]``, so a
+resumed request runs on its fresh bucket's sampler.  The pattern token
 is the bucket policy's ``plan_token`` (the pattern artifact's version),
 fixed at submit together with the policy the sampler runs: a pattern
 policy is pinned there to the artifact active then, and that pinned
@@ -45,6 +48,20 @@ batch that outlives ``batch_timeout_s`` (scaled by the estimator) trips
 the watchdog and takes the replica down; a failing batch is retried
 with backoff, then bisected so that a poison request fails alone.
 
+Crash safety (DESIGN.md §18): with a ``journal``
+(:class:`~repro_torch.serving.journal.Journal`) the engine writes a
+write-ahead record per lifecycle event (``submitted`` before the request
+is accepted, ``chunk``, ``finished``, ``shed``); with a
+``checkpoint_store`` each streamed chunk also persists every request's
+``(x_t, decision-cache state, step)`` from the sampler's chunk aux
+(``aux["__ckpt__"]``).  A request with a ``resume`` payload lands in a
+bucket keyed by its resume step and is served from its checkpoint
+through the sampler's ``resume=`` keyword: the remaining steps only,
+bit-equal to the uninterrupted run by the chunked sampler's
+``step_offset`` / ``total_steps`` contract.  Failover-marked errors are
+never journaled as finished, so a failed replica's requests stay
+pending for a warm restart.
+
 Per-request initial noise comes from a ``torch.Generator`` on the engine's
 device seeded with ``GenRequest.seed``, and the sampler gets every
 request's seed for its own draws (a DiT's class label), so a request's
@@ -65,6 +82,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import decision_cache
 from repro_torch.core.guardrail import DegradationLadder, GuardrailConfig
 from repro_torch.serving import faults as fault_lib
 from repro_torch.serving import slo as slo_lib
@@ -144,6 +162,9 @@ class GenRequest:
     latent_shape: Tuple[int, ...]
     steps: int = 50
     seed: int = 0
+    # Classifier-free guidance scale: journaled with the request and read
+    # by no sampler, as in the JAX package.
+    guidance: float = 4.0
     # Decision-cache cadence for this request (RippleConfig.reuse_every);
     # None -> the engine default.  Part of the bucket identity.
     reuse_every: Optional[int] = None
@@ -158,6 +179,14 @@ class GenRequest:
     # shed, drained behind deadline traffic by depth.  Callers with a
     # relative SLO stamp time.time() + slo_ms / 1e3 at submit.
     deadline_s: Optional[float] = None
+    # Mid-flight resume payload (DESIGN.md §18): ``{"step": int, "x": the
+    # latents at that step, "dstate": the decision-cache field -> array
+    # mapping or None}`` from a chunk-boundary checkpoint.  Attached by
+    # the warm restart and by router failover, never by clients; the
+    # step joins the bucket key.
+    resume: Optional[dict] = dataclasses.field(default=None, repr=False)
+    # Resubmitted from a journal's recovery scan (``recovered_count``)?
+    recovered: bool = False
 
 
 @dataclasses.dataclass
@@ -222,7 +251,11 @@ class DiffusionEngine:
     ``batch_timeout_s`` is the watchdog's floor (None: no watchdog, the
     batch runs on the worker thread); ``max_retries`` /
     ``retry_backoff_s`` / ``bisect_on_error`` drive the error path.
-    Errored results stay readable for ``error_ttl_s``.
+    Errored results stay readable for ``error_ttl_s``.  ``journal`` and
+    ``checkpoint_store`` (shared by router replicas) make the engine
+    crash-safe (module doc); a sampler that takes ``resume=`` is handed
+    a resumed batch's ``{"step", "dstate"}`` (the per-layer decision
+    state) with its latents at that step in place of the noise.
     """
 
     def __init__(self, sampler_factory: Callable, *, device=None,
@@ -239,7 +272,9 @@ class DiffusionEngine:
                  batch_timeout_s: Optional[float] = None,
                  max_retries: int = 1,
                  retry_backoff_s: float = 0.05,
-                 bisect_on_error: bool = True):
+                 bisect_on_error: bool = True,
+                 journal: Any = None,
+                 checkpoint_store: Any = None):
         if scheduler not in ("edf", "hottest"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self._factory = sampler_factory
@@ -294,6 +329,12 @@ class DiffusionEngine:
         self.shed_count = 0
         self.deadlines_met = 0
         self.deadlines_missed = 0
+        # Crash safety (DESIGN.md §18): router replicas share both.
+        self._journal = journal
+        self._store = checkpoint_store
+        self.recovered_count = 0    # journal-recovered resubmissions seen
+        self.resumed_count = 0      # requests served from a checkpoint
+        self.last_resume_step = 0   # deepest checkpoint step resumed from
         self._buckets: Dict[BucketKey, deque] = {}
         self._compiled: "OrderedDict[BucketKey, Callable]" = OrderedDict()
         self._compiled_lock = threading.Lock()
@@ -352,7 +393,10 @@ class DiffusionEngine:
         """Enqueue one request.  Raises :class:`ShedError` when admission
         control proves its deadline cannot be met under the current queue
         depth (no compute spent, no result record), ValueError for a
-        malformed request or one its factory cannot honour."""
+        malformed request or one its factory cannot honour.  With a
+        journal, the ``submitted`` record lands before the request is
+        accepted (a crash after it can lose the result, never the
+        request) and a shed is journaled too."""
         self._validate(req)
         rid = req.request_id
         for name, takes in (("policy", self._factory_takes_policy),
@@ -368,19 +412,29 @@ class DiffusionEngine:
                     "argument")
         key, policy = self._bucket(req)
         now = time.time()
-        with self._lock:
-            if self._stop:
-                raise RuntimeError("engine is stopped")
-            if self.admission_control and req.deadline_s is not None:
-                dq = self._buckets.get(key)
-                reason = slo_lib.admission_decision(
-                    req.deadline_s, now, len(dq) if dq else 0,
-                    self.max_batch, self.estimator.lower_bound(key))
-                if reason is not None:
-                    self.shed_count += 1
-                    raise ShedError(f"request {rid} shed: {reason}")
-            self._buckets.setdefault(key, deque()).append((now, req, policy))
-            self._lock.notify_all()
+        if self._journal is not None:
+            self._journal.record_submitted(req)
+        try:
+            with self._lock:
+                if self._stop:
+                    raise RuntimeError("engine is stopped")
+                if self.admission_control and req.deadline_s is not None:
+                    dq = self._buckets.get(key)
+                    reason = slo_lib.admission_decision(
+                        req.deadline_s, now, len(dq) if dq else 0,
+                        self.max_batch, self.estimator.lower_bound(key))
+                    if reason is not None:
+                        self.shed_count += 1
+                        raise ShedError(f"request {rid} shed: {reason}")
+                self._buckets.setdefault(key, deque()).append(
+                    (now, req, policy))
+                if req.recovered:
+                    self.recovered_count += 1
+                self._lock.notify_all()
+        except ShedError as e:
+            if self._journal is not None:
+                self._journal.record_shed(rid, str(e))
+            raise
 
     def _validate(self, req: GenRequest) -> None:
         """Refuse a malformed request at the door, before it can fail a
@@ -405,6 +459,19 @@ class DiffusionEngine:
             if val is not None and val <= 0:
                 raise ValueError(f"request {rid}: {name} must be "
                                  f"positive, got {val!r}")
+        if req.resume is not None:
+            step = req.resume.get("step") if isinstance(req.resume, dict) \
+                else None
+            if (not isinstance(step, (int, np.integer)) or step < 0
+                    or step >= req.steps or "x" not in req.resume):
+                raise ValueError(
+                    f"request {rid}: resume payload needs an int step in "
+                    f"[0, steps) and an 'x' latent, got {req.resume!r:.80}")
+            if req.stream_every and step % req.stream_every != 0:
+                raise ValueError(
+                    f"request {rid}: resume step {step} is not a chunk "
+                    f"boundary of stream_every={req.stream_every}: the "
+                    "chunks would differ from the uninterrupted run's")
 
     def result(self, request_id: int, timeout: float = 3600.0) -> GenResult:
         deadline = time.time() + timeout
@@ -466,7 +533,8 @@ class DiffusionEngine:
 
     def metrics(self) -> Dict[str, int]:
         """Serving counters: batches, sheds, deadline outcomes, the
-        robustness counters and, with a ladder, its counters."""
+        robustness and recovery counters and, with a journal, a
+        checkpoint store or a ladder, theirs."""
         with self._lock:
             m = {"batches_served": self._batches_served,
                  "shed_count": self.shed_count,
@@ -474,7 +542,14 @@ class DiffusionEngine:
                  "deadlines_missed": self.deadlines_missed,
                  "watchdog_trips": self.watchdog_trips,
                  "batch_retries": self.batch_retries,
-                 "quarantined": self.quarantined}
+                 "quarantined": self.quarantined,
+                 "recovered_count": self.recovered_count,
+                 "resumed_count": self.resumed_count,
+                 "last_resume_step": self.last_resume_step}
+        if self._journal is not None:
+            m.update({k: int(v) for k, v in self._journal.metrics().items()})
+        if self._store is not None:
+            m.update({k: int(v) for k, v in self._store.metrics().items()})
         if self._ladder is not None:
             m.update(self._ladder.metrics())
         return m
@@ -500,8 +575,10 @@ class DiffusionEngine:
         policy, token = _bucket_policy(name)
         reuse = (req.reuse_every if req.reuse_every is not None
                  else self.default_reuse_every)
-        return (tuple(req.latent_shape), int(req.steps), name, reuse, 1,
-                tuple(np.shape(req.txt)), req.stream_every, token, 0), policy
+        # Plain Python literals only: a checkpoint stores repr(key[:8]).
+        return (tuple(int(d) for d in req.latent_shape), int(req.steps),
+                name, reuse, 1, tuple(np.shape(req.txt)), req.stream_every,
+                token, int(req.resume["step"]) if req.resume else 0), policy
 
     def _bucket_key(self, req: GenRequest) -> BucketKey:
         return self._bucket(req)[0]
@@ -643,6 +720,103 @@ class DiffusionEngine:
                             f"tol {gcfg.drift_tol:.3g}")
         return None
 
+    # -- crash safety (DESIGN.md §18) -----------------------------------------
+
+    @staticmethod
+    def _accepts_resume(fn: Callable) -> bool:
+        """Does this sampler take a ``resume=`` keyword?  One that does
+        not serves a resumed request by replay from step 0: slower, the
+        same latents."""
+        try:
+            params = inspect.signature(fn).parameters
+        except (TypeError, ValueError):
+            return False
+        return "resume" in params or any(
+            p.kind == p.VAR_KEYWORD for p in params.values())
+
+    def _assemble_resume(self, key: BucketKey, batch: List[Entry],
+                         fn: Callable) -> Optional[Dict[str, Any]]:
+        """The batch's resume payload ``{"x", "step", "dstate"}`` from its
+        requests' checkpoints, or None for fresh traffic and samplers
+        without ``resume=``.  The key pins the step, so batchmates share
+        it; their latents stack on axis 0 and their decision states
+        (layer-stacked, batch axis 1) merge and split into the per-layer
+        list the model carries."""
+        step = key[8]
+        if step <= 0:
+            return None
+        payloads = [r.resume for _, r, _ in batch]
+        if not self._accepts_resume(fn):
+            log.warning("bucket %s: sampler takes no resume argument; "
+                        "replaying %d checkpointed request(s) from step 0",
+                        key, len(batch))
+            return None
+        xs = torch.stack([torch.as_tensor(p["x"]) for p in payloads]).to(
+            device=self.device, dtype=torch.float32)
+        dstates = [p.get("dstate") for p in payloads]
+        merged = None
+        if all(d is not None for d in dstates):
+            merged = decision_cache.unstack_layers(decision_cache.merge_states(
+                [decision_cache.state_from_arrays(d, device=self.device)
+                 for d in dstates]))
+        elif any(d is not None for d in dstates):
+            log.warning("bucket %s: mixed cache/cache-less checkpoints in "
+                        "one batch; resuming without decision state", key)
+        return {"x": xs, "step": int(step), "dstate": merged}
+
+    @staticmethod
+    def _request_states(dstate, batch_size: int):
+        """Per-request layer-stacked slices (batch axis 1, kept as a
+        size-1 dim so ``merge_states`` is the inverse) of the sampler's
+        per-layer decision state, as ``field -> tensor`` maps; None when
+        the state has no batch axis to slice (a layer without a plan yet,
+        or a leaf broadcast over the batch)."""
+        if not dstate or any(st is None for st in dstate):
+            return None
+        leaves = [v for st in dstate for v in vars(st).values()
+                  if v is not None]
+        if any(v.dim() < 1 or v.shape[0] != batch_size for v in leaves):
+            return None
+        return [vars(decision_cache.stack_layers(
+            [decision_cache.slice_state(st, i, batch_axis=0)
+             for st in dstate])) for i in range(batch_size)]
+
+    def _record_chunk(self, key: BucketKey, batch: List[Entry],
+                      lat: np.ndarray, ck: Optional[Dict], ci: int,
+                      abandoned: threading.Event):
+        """The durable side of one delivered chunk: a ``chunk`` journal
+        record per request, and with a store and the sampler's
+        ``__ckpt__`` each request's ``(x_t, decision state, step)``
+        checkpoint (not on the final chunk: the request is about to
+        finish and its checkpoint would be discarded).  A watchdog-
+        abandoned zombie batch writes nothing.  A failed checkpoint write
+        is logged and serving goes on, as in the JAX package: the journal
+        is the source of truth."""
+        if (self._journal is None and self._store is None) \
+                or abandoned.is_set():
+            return
+        step = ck.get("step") if ck else None
+        stream = key[6] or 0
+        base_ci = key[8] // stream if stream else 0
+        if self._journal is not None:
+            for _, r, _ in batch:
+                try:
+                    self._journal.record_chunk(r.request_id, base_ci + ci,
+                                               step)
+                except RuntimeError:
+                    return  # the journal closed during shutdown
+        if self._store is None or step is None or int(step) >= key[1]:
+            return
+        per = self._request_states(ck.get("dstate"), len(batch))
+        for i, (_, r, _) in enumerate(batch):
+            try:
+                self._store.put(r.request_id, step=int(step), x=lat[i],
+                                seed=r.seed, bucket=key[:8],
+                                dstate=None if per is None else per[i])
+            except OSError as e:
+                log.warning("checkpoint write failed for request %d: %s",
+                            r.request_id, e)
+
     def _run_batch(self, key: BucketKey, batch: List[Entry], policy,
                    pub: Dict, abandoned: threading.Event):
         """One sampler invocation, under the watchdog when it is on.
@@ -660,19 +834,28 @@ class DiffusionEngine:
                     if fault.maybe_hang():
                         return  # hung past the watchdog; the batch is lost
                 fn = self._sampler(key, policy)
-                noise = torch.stack([request_noise(r.seed, key[0],
-                                                   self.device)
-                                     for _, r, _ in batch])
                 txt = torch.from_numpy(np.stack(
                     [np.asarray(r.txt, np.float32) for _, r, _ in batch]))
-                out = fn(noise, txt.to(self.device),
-                         [r.seed for _, r, _ in batch])
+                seeds = [r.seed for _, r, _ in batch]
+                resume = self._assemble_resume(key, batch, fn)
+                if resume is not None:
+                    # Mid-flight resume: the checkpointed latents replace
+                    # the noise and the sampler starts at their step.
+                    x = resume.pop("x")
+                    out = fn(x, txt.to(self.device), seeds, resume=resume)
+                else:
+                    noise = torch.stack([request_noise(r.seed, key[0],
+                                                       self.device)
+                                         for _, r, _ in batch])
+                    out = fn(noise, txt.to(self.device), seeds)
                 if inspect.isgenerator(out):
                     # A streaming bucket: each chunk goes to the
                     # subscribers as it lands; the last is the result.
                     lat = aux = None
                     for ci, chunk in enumerate(out):
                         lat, aux = self._split_out(chunk)
+                        ck = (aux.pop("__ckpt__", None)
+                              if isinstance(aux, dict) else None)
                         lat = lat.float().cpu().numpy()
                         if (self._ladder is not None
                                 and not np.all(np.isfinite(lat))):
@@ -680,6 +863,11 @@ class DiffusionEngine:
                                 f"non-finite streamed chunk {ci}"
                             return
                         self._publish_chunk(batch, lat, pub, ci, abandoned)
+                        self._record_chunk(key, batch, lat, ck, ci,
+                                           abandoned)
+                        # Not held while the next chunk runs: it would
+                        # keep a second plan a layer alive.
+                        ck = None
                     if lat is None:
                         raise RuntimeError("streaming sampler yielded nothing")
                 else:
@@ -755,7 +943,29 @@ class DiffusionEngine:
                     deadline_met=met, degraded=degraded)
                 if err is not None:
                     self._error_expiry[r.request_id] = now + self.error_ttl_s
+            resume = batch[0][1].resume
+            if err is None and resume:
+                self.resumed_count += len(batch)
+                self.last_resume_step = max(self.last_resume_step,
+                                            int(resume["step"]))
             self._lock.notify_all()
+        # The durable terminal records, outside the lock.  A failover-
+        # marked error (replica down, watchdog) is not journaled as
+        # finished: the request is still owed a result and stays pending
+        # for recovery; a request-level error is, so a restart never
+        # resurrects it.
+        if self._journal is None and self._store is None:
+            return
+        for _, r, _ in batch:
+            if err is not None and is_failover_error(err):
+                continue
+            if self._journal is not None:
+                try:
+                    self._journal.record_finished(r.request_id, error=err)
+                except RuntimeError:
+                    break  # the journal closed during shutdown
+            if self._store is not None:
+                self._store.discard(r.request_id)
 
     def _serve(self, key: BucketKey, batch: List[Entry]):
         pub: Dict[str, Dict] = {"ttff": {}, "count": {}}

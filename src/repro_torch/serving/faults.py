@@ -36,9 +36,14 @@ Fault kinds and where they fire:
                      the bisection quarantine's deterministic prey.
   ``kill_replica``   the launcher: fail a router replica after
                      ``after`` completed results.
-  ``crash``          parsed, as in the JAX package, but the port's
-                     launcher refuses it: the journal a crash drill
-                     recovers from (DESIGN.md §18) is not ported yet.
+  ``crash``          the launcher: SIGKILL the whole serving process
+                     after ``after`` completed results — a hard kill,
+                     no drain, no clean-shutdown marker (DESIGN.md
+                     §18).  With ``wait_ckpt=1`` (default) the launcher
+                     first waits for at least one in-flight request's
+                     chunk checkpoint to land, so "mid-generation" is
+                     deterministic; the restart drill then recovers
+                     from the journal with ``--resume``.
 
 ``count`` (default 1; ``-1`` = unlimited) bounds how many times a
 host-level fault fires; ``attn_nan`` stays armed while installed (the

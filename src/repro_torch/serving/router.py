@@ -25,13 +25,18 @@ The router keeps the original :class:`~repro_torch.serving.engine.
 GenRequest` for every in-flight request — requeue is replay, which is
 safe because generation is deterministic in (seed, txt, bucket): a
 request served twice returns the same latents (bit for bit when its
-batch has the same members).  Resume from a chunk checkpoint instead of
-replay comes with the journal (DESIGN.md §18), which the port does not
-have yet.
+batch has the same members).  With a
+:class:`~repro_torch.serving.journal.CheckpointStore` attached (DESIGN.md
+§18), requeue is *resume* instead of replay: the latest chunk-boundary
+checkpoint is snapshotted onto the request at requeue time (so a zombie
+batch on the dead replica racing newer writes cannot change what the
+survivor serves) and the survivor picks up mid-flight through the
+engine's resume path: the same latents, only the remaining steps paid.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -53,11 +58,23 @@ class Router:
     group).  All public methods are thread-safe."""
 
     def __init__(self, replicas: List[DiffusionEngine],
-                 probe_interval_s: Optional[float] = None):
+                 probe_interval_s: Optional[float] = None,
+                 checkpoint_store=None):
         if not replicas:
             raise ValueError("need at least one engine replica")
         self._replicas = list(replicas)
         self._healthy = [True] * len(replicas)
+        # Shared chunk-boundary checkpoint store (DESIGN.md §18): when
+        # set, failover hands the survivor the latest checkpoint
+        # instead of replaying from step 0.
+        self._store = checkpoint_store
+        self.resumed_count = 0
+        self.resumed_from_step = 0
+        # rid -> chunks already delivered by the replica that wrote the
+        # checkpoint the current assignment resumed from; the stream
+        # dedup baseline (a resumed replica only emits the *remaining*
+        # chunks, so plain skip-counting would swallow real ones).
+        self._resume_base: Dict[int, int] = {}
         # Health probing (§17.4): every probe_interval_s the router
         # re-checks downed replicas and re-admits any whose engine is
         # healthy again (externally restarted via engine.start()).
@@ -211,11 +228,15 @@ class Router:
             while True:
                 with self._lock:
                     idx = self._assigned.get(request_id)
+                    # A checkpointed-resume assignment emits only the
+                    # chunks after its resume point, so count its first
+                    # chunk as (base + 1), not 1 (§18).
+                    base = self._resume_base.get(request_id, 0)
                 if idx is None:
                     return  # result already consumed; nothing to stream
                 moved = False
                 try:
-                    seen = 0
+                    seen = base
                     for chunk in self._replicas[idx].stream(
                             request_id, timeout=timeout):
                         seen += 1
@@ -255,6 +276,7 @@ class Router:
         with self._lock:
             idx = self._assigned.pop(request_id, None)
             self._requests.pop(request_id, None)
+            self._resume_base.pop(request_id, None)
             if idx is not None:
                 self._inflight[idx] = max(self._inflight[idx] - 1, 0)
 
@@ -312,7 +334,9 @@ class Router:
     def metrics(self) -> Dict[str, int]:
         m = {"router_shed_count": self.shed_count,
              "router_requeued": self.requeued_count,
-             "router_readmitted": self.readmitted_count}
+             "router_readmitted": self.readmitted_count,
+             "router_resumed": self.resumed_count,
+             "router_resumed_from_step": self.resumed_from_step}
         for i, eng in enumerate(self._replicas):
             for k, v in eng.metrics().items():
                 m[f"replica{i}_{k}"] = v
@@ -340,6 +364,29 @@ class Router:
                 if res is None or res.error is not None:
                     self._requeue_one(rid, dead=idx)
 
+    def _with_checkpoint(self, req: GenRequest) -> GenRequest:
+        """Snapshot the latest chunk-boundary checkpoint onto the
+        request (DESIGN.md §18).  Read once at requeue time under the
+        failover lock: a zombie batch on the dead replica may keep
+        writing newer checkpoints, but the survivor serves exactly this
+        snapshot.  The request stays as it is (replay from step 0, or
+        its earlier resume) when there is no store, no streaming
+        cadence, or no usable checkpoint: one off a chunk boundary, at
+        the final step, or not past the resume the request has."""
+        if self._store is None or not req.stream_every:
+            return req
+        ck = self._store.get(req.request_id)
+        if not ck:
+            return req
+        step = int(ck.get("step") or 0)
+        prev = int(req.resume["step"]) if req.resume else 0
+        if (step <= prev or step >= req.steps
+                or step % req.stream_every != 0):
+            return req
+        return dataclasses.replace(
+            req, resume={"step": step, "x": ck["x"],
+                         "dstate": ck.get("dstate")})
+
     def _requeue_one(self, request_id: int, dead: int):
         with self._failover_lock:
             with self._lock:
@@ -347,6 +394,7 @@ class Router:
                 if req is None or self._assigned.get(request_id) != dead:
                     return  # already moved or consumed
                 self._inflight[dead] = max(self._inflight[dead] - 1, 0)
+            req = self._with_checkpoint(req)
             for idx in self._by_depth():
                 if idx == dead:
                     continue
@@ -359,8 +407,17 @@ class Router:
                     self._requests[request_id] = req
                     self._inflight[idx] += 1
                     self.requeued_count += 1
-                log.info("request %d requeued from replica %d to %d",
-                         request_id, dead, idx)
+                    if req.resume is not None:
+                        step = int(req.resume["step"])
+                        self.resumed_count += 1
+                        self.resumed_from_step = max(
+                            self.resumed_from_step, step)
+                        self._resume_base[request_id] = (
+                            step // req.stream_every)
+                log.info("request %d requeued from replica %d to %d%s",
+                         request_id, dead, idx,
+                         f" (resuming from step {req.resume['step']})"
+                         if req.resume else "")
                 return
             # no survivor took it: leave the assignment pointing at the
             # dead replica so result() surfaces the original error

@@ -209,7 +209,9 @@ def test_chunks_chain_to_the_monolithic_run(chunk, cached, model):
     """The streamed sampler's chunk j is the trajectory's latents after
     step min((j + 1) K, steps), the last one the monolithic result bit
     for bit, with and without the decision state; the cache counters of
-    the last chunk equal the whole run's."""
+    the last chunk equal the whole run's; each chunk's checkpoint
+    (``__ckpt__``) names the step after it and carries the decision
+    state exactly when the cache is threaded."""
     arch = CACHED if cached else ARCH
     shape = dataclasses.replace(SHAPE, steps=5)
     whole, _ = serve_lib.build_sampler(arch, shape, model,
@@ -222,6 +224,10 @@ def test_chunks_chain_to_the_monolithic_run(chunk, cached, model):
     want = whole(noise, txt)
     chunks = list(streamed(noise, txt))
     assert len(chunks) == math.ceil(5 / chunk)
+    ckpts = [aux.pop("__ckpt__") for _, aux in chunks]
+    assert [ck["step"] for ck in ckpts] == \
+        [min((j + 1) * chunk, 5) for j in range(len(chunks))]
+    assert all((ck["dstate"] is not None) == cached for ck in ckpts)
     if cached:
         want, want_aux = want
         assert {k: int(v) for k, v in chunks[-1][1].items()} == \

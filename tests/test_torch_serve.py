@@ -269,6 +269,7 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
+    # ml_dtypes too: the card machine does not have it.
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path} imports {bad}"
