@@ -93,6 +93,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    through fused_reuse (twice) and the ripple kernel, on the tensor cores
    at each level's head dim (40, 80, 160); then profiles one forward at
    step 10 (convolutions and GroupNorm as families of their own);
+8a''. holds fused_reuse bit for bit and the ripple kernel (tensor cores)
+   at flux-dev's served joint-attention call, (4, 24, 4608, 128) bf16
+   with 512 text tokens before a (1, 64, 64) grid, axes x/y, on a
+   contiguous operand and on the transposed (B, N, H, d) storage the
+   model hands over (``reuse[flux]``, with the kernels' times there);
+   serves 4 requests of flux-dev at full width and depth (19 double
+   and 38 single blocks, d_model 3072, 24 heads of 128, gen_1024: 4096
+   image + 512 text tokens, Euler rectified flow cut to 12 steps) with
+   the sentinels and the ladder on (``serve[flux-dev]``: exactly 1368
+   fused_reuse and 684 ripple launches, no sparse or adaLN launch), the
+   same batch with ripple off, one profiled forward at step 10, and the
+   launcher's ``main`` on it at 2 + 4 blocks (``serve[flux-launcher]``);
 8b. runs the port's kernel micro-bench (``repro_torch.launch.kernel_bench``)
    at the reference's defaults and its sparse sweep at the vDiT's serving
    width (the flash, sparse and fused_reuse kernels must launch), then
@@ -152,14 +164,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    to the fault-free run);
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
-   DiT and UNet (also under svg), and of static and rainfusion, on the
-   card against the same trajectory on the CPU.
+   DiT, UNet (also under svg) and MMDiT (12 Euler steps), and of static
+   and rainfusion, on the card against the same trajectory on the CPU.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
 mismatch or error exits non-zero.  It needs one card and no network.
 ``--layers N`` cuts the vDiT's served depth (default: all 40 layers);
-the DiT always runs all 28.  ``--baseline DIR`` runs none of the above:
+the DiT, the UNet and flux-dev always run at full depth.  ``--baseline DIR`` runs none of the above:
 it times the snap step of the checkout at DIR (for example an earlier
 commit unpacked by ``git archive``) against this checkout's, in turns,
 each in a process of its own (:func:`snap_ab`).
@@ -306,6 +318,10 @@ def check_reuse(results, shape, grid, dtype, gran, thetas, axes=("t", "x", "y"),
     ref_s, ref_m = snap_grid_tokens(x, grid, th, gs, axes=axes, granularity=gran)
     torch.cuda.synchronize()
     ok = bits_equal(s_k, ref_s) and bits_equal(m_k, ref_m)
+    if text != (0, 0):  # the text rows come back untouched, unmasked
+        for at, n in ((0, text[0]), (text[0] + shape[2], text[1])):
+            ok &= bits_equal(s_k.narrow(-2, at, n), x.narrow(-2, at, n)) \
+                and not m_k.narrow(-2, at, n).any().item()
     err = (s_k.float() - ref_s.float()).abs().max().item()
     n0, n1, s0, s1 = reuse_ops._lead_dims(x)
     vec = _build.function("fused_reuse", "fused_reuse_vector_path",
@@ -1949,22 +1965,31 @@ def plain_guard(plain_absent):
 
 
 def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(),
-                requests=SERVE_REQUESTS, plain_absent=(), aux=None, latents=None):
+                requests=SERVE_REQUESTS, plain_absent=(), aux=None, latents=None,
+                guardrail=False, metrics=None):
     """Serve ``requests`` requests in one batch through the port's
     DiffusionEngine with the launch counters set to 0 just before and
     read just after; each kernel in ``launched`` must have run, none in
     ``absent``, and no function ``(module, name)`` of ``plain_absent``
     (a kernel's plain version) may run on a CUDA tensor.  A cache-aware
     sampler's counters (its ``(latents, aux)`` return) go into ``aux``;
-    each request's latents go into ``latents`` by seed."""
+    each request's latents go into ``latents`` by seed.  With
+    ``guardrail`` the sampler carries the sentinels and the engine a
+    degradation ladder, as the launcher serves; the engine's counters
+    (the ladder's too) go into ``metrics``."""
     import numpy as np
     import torch
+    from repro_torch.core.guardrail import DegradationLadder
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import attention_plans, build_sampler
     from repro_torch.launch.workloads import mixed_request_stream
     from repro_torch.serving.engine import DiffusionEngine
 
-    sample_fn, lat_shape = build_sampler(arch, shape, model, policy=policy)
+    def make(pol=None):
+        return build_sampler(arch, shape, model, policy=pol or policy,
+                             sentinel=guardrail)
+
+    sample_fn, lat_shape = make()
     plans = "; ".join(f"{n} tokens x d {hd}: {plan.summary()}" for n, hd, plan in
                       attention_plans(arch, shape, on_cuda=True, policy=policy))
     log(f"serve[{label}]: plan {plans}; ripple {arch.ripple}"
@@ -1975,8 +2000,14 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
             aux.update({k: int(v) for k, v in out[1].items()})
         return out
 
-    engine = DiffusionEngine(lambda shp, steps: sampler, device="cuda",
-                             max_batch=requests)
+    if guardrail:  # a degraded bucket gets a sampler under its new policy
+        def factory(shp, steps, pol=None, reuse_every=None, stream_every=None):
+            return sampler if pol in (None, policy) else make(pol)[0]
+    else:
+        def factory(shp, steps):
+            return sampler
+    engine = DiffusionEngine(factory, device="cuda", max_batch=requests,
+                             guardrail=DegradationLadder() if guardrail else None)
     traffic = mixed_request_stream(arch, (shape,), requests, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1992,6 +2023,8 @@ def serve_phase(label, arch, shape, model, *, policy=None, launched=(), absent=(
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if metrics is not None:
+        metrics.update(engine.metrics())
     for r in results:
         log(f"serve[{label}]: request {r.request_id} latency {r.latency_s:.3f}s "
             f"(batch {r.batch_index} of {requests} served in "
@@ -2482,6 +2515,209 @@ def serve_unet_svg():
     return counts, by_shape
 
 
+# ---------------------------------------------------------------------------
+# flux-dev: the MMDiT's joint attention through fused_reuse and ripple
+# ---------------------------------------------------------------------------
+
+FLUX_SHAPE = "gen_1024"   # (128, 128, 16) latents: a (1, 64, 64) grid
+FLUX_REQUESTS = 4         # the shape's batch
+FLUX_GRID = (1, 64, 64)
+FLUX_SNAP = (FLUX_REQUESTS, 24, 64 * 64, 128)  # flux's Q/K grid tokens
+FLUX_TEXT = (512, 0)                           # 512 text tokens before them
+FLUX_LAUNCHER_CUT = ("model.n_double_blocks=2", "model.n_single_blocks=4")
+FLUX_LAUNCHER_ARGV = ["--arch", "flux-dev", "--shape", FLUX_SHAPE, "--steps",
+                      str(SERVE_STEPS), "--requests", "2", "--stream-every", "4",
+                      *FLUX_LAUNCHER_CUT]
+
+
+def flux_kernel_phase(flush):
+    """reuse[flux]: fused_reuse bit for bit against its plain version at
+    flux's served call, (4, 24, 4608, 128) bf16 on grid (1, 64, 64) behind
+    512 text tokens, axes x/y, θ 0.2, on a contiguous operand and on the
+    (B, N, H, d) storage that ``models.mmdit.joint_attention`` hands over
+    transposed (the text rows must come back untouched); then the ripple
+    kernel on the operands that snap produces against
+    :func:`attention_oracle` at the bf16 bar, on the tensor cores.  Times
+    both there: fused_reuse by device time with the L2 flushed, ripple
+    against its plain version (a loop over the batch rows), SDPA and its
+    bound.  Returns (fused_reuse's times, ripple's instance)."""
+    import torch
+    from repro_torch.kernels.reuse_mask import ops as reuse_ops
+    from repro_torch.kernels.ripple import ops as ripple_ops
+    from repro_torch.kernels.ripple.ref import ripple_attention_ref
+
+    bf16 = torch.bfloat16
+    res = []
+    for view in ("contiguous", "transposed"):
+        check_reuse(res, FLUX_SNAP, FLUX_GRID, bf16, "channel", (0.2,) * 3,
+                    axes=("x", "y"), view=view, text=FLUX_TEXT)
+    gs = (FLUX_TEXT[0], FLUX_SNAP[2])
+    qkv = (*FLUX_SNAP[:2], FLUX_TEXT[0] + FLUX_SNAP[2], FLUX_SNAP[3])
+    th = dict(zip("txy", (0.2,) * 3))
+    q, k = (reuse_ops.fused_compute_reuse(
+        reuse_operand(FLUX_SNAP, bf16, seed, 0.6, "transposed", FLUX_TEXT), FLUX_GRID,
+        th, axes=("x", "y"), grid_slice=gs)[0] for seed in (41, 42))
+    v = correlated(qkv, bf16, 43)
+    err = check_ripple(res, q, k, v, f"{qkv} flux-dev main-path snapped operands")
+    log(f"reuse[flux]: {sum(res)}/{len(res)} checks ok")
+
+    x = reuse_operand(FLUX_SNAP, bf16, 44, 0.6, "transposed", FLUX_TEXT)
+    t_reuse = time_fused_reuse(x, FLUX_GRID, ("x", "y"), gs,
+                               "flux-dev served call, the transposed storage", flush)
+    del x
+    scale = ripple_ops.attention_scale(qkv[-1])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = cuda_time_ms(lambda: ripple_ops.ripple_attention(q, k, v), iters=10)
+    plain = cuda_time_ms(lambda: [ripple_attention_ref(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1], scale) for b in range(q.shape[0])],
+        iters=2, warmup=1)
+    lib = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale), iters=10)
+    bound, by, flops, _, nbytes = ripple_bound(q, k, qkv[-1])
+    qf, kf, _ = ripple_ops.ripple_tile_stats(q, k, qkv[-1])
+    log(f"time ripple_attention bf16 {qkv} (flux-dev, tensor cores "
+        f"{ripple_ops.uses_tensor_cores(q, v)}; tiles collapsed q {qf:.3f} k {kf:.3f}): "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms (a loop "
+        f"over the batch rows), sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e6:.1f} MB); kernel/sdpa {ms / lib:.3f}, "
+        f"bound/kernel {bound / ms:.3f}; {CARD}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return t_reuse, {"shape": list(qkv), "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": "bytes" if by == "bytes" else "operations",
+                     "bound_detail": by, "library_ms": lib, "max_abs_err": err}
+
+
+def serve_flux():
+    """flux-dev at full width and depth (19 double and 38 single blocks,
+    d_model 3072, 24 heads of 128, MLP 12288, text 512 x 4096, RoPE
+    16/56/56) on gen_1024: latents 128 x 128 x 16, 4096 image + 512 text
+    tokens, 4 requests in one batch through the ripple policy, Euler
+    rectified flow cut to 12 steps (step 10 snaps at θ 0.2), with the
+    sentinels and the degradation ladder on.  fused_reuse must launch
+    twice and ripple once a block-step, ripple on the tensor cores, the
+    sparse and adaLN kernels never, no plain version on the card, and the
+    ladder's and engine's quiet counters must stay 0.  Then the same batch
+    with ripple off (dense attention, no kernel of the port), and one
+    forward at step 10 profiled.  Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_shape
+    from repro_torch.models.params import init_mmdit
+
+    arch = get_config("flux-dev")
+    shape = serving_shape(arch, FLUX_SHAPE, smoke=False, steps=SERVE_STEPS)
+    m = arch.model
+    hw = shape.img_res // 8 // m.patch
+    blocks = m.n_double_blocks + m.n_single_blocks
+    log(f"serve: flux-dev full width and depth {m.n_double_blocks} double + "
+        f"{m.n_single_blocks} single blocks, d_model={m.d_model} heads={m.num_heads}x"
+        f"{m.d_model // m.num_heads} mlp={int(m.d_model * m.mlp_ratio)} text="
+        f"{m.txt_tokens}x{m.txt_dim} axes={m.axes_dim}; {shape.name}: latents "
+        f"{shape.img_res // 8}x{shape.img_res // 8}x{m.in_channels}, grid (1, {hw}, {hw}) "
+        f"= {hw * hw} image + {m.txt_tokens} text = {hw * hw + m.txt_tokens} tokens, "
+        f"{FLUX_REQUESTS} requests; cut: Euler steps 50->{SERVE_STEPS}")
+    t0 = time.perf_counter()
+    model = init_mmdit(m, seed=0, device="cuda", dtype=torch.bfloat16, zero_init=False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: {n_params / 1e9:.3f} B params, "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB "
+        f"(bf16, every leaf drawn from a seeded generator, the zero-initialised mod, "
+        f"final_mod, final and bias leaves too) in {time.perf_counter() - t0:.1f}s")
+    metrics = {}
+    counts, lat_shape, paths = serve_ripple(
+        arch, shape, model, "flux-dev", requests=FLUX_REQUESTS,
+        absent=("sparse_attention", "adaln"), plain_absent=vdit_plain_versions(),
+        guardrail=True, metrics=metrics)
+    want = {"fused_reuse": 2 * blocks * shape.steps, "ripple_attention": blocks * shape.steps}
+    log(f"serve[flux-dev]: launches {counts} (expected {want} at every block-step); "
+        f"engine and ladder counters {metrics}")
+    checks = {
+        "fused_reuse twice and ripple once a block-step":
+            all(counts[n] == c for n, c in want.items()),
+        "every ripple call on the tensor cores at (4608, 128)":
+            bool(paths) and all(tc and (n, d) == (4608, 128) for _, n, d, _, tc in paths),
+        "no degradation, retry, quarantine or watchdog trip":
+            quiet_counters({"counters": metrics}),
+    }
+    report("flux-dev", checks)
+    off = dataclasses.replace(arch, ripple=dataclasses.replace(arch.ripple, enabled=False))
+    serve_phase("flux-dev ripple off", off, shape, model, requests=FLUX_REQUESTS,
+                absent=("fused_reuse", "ripple_attention", "sparse_attention", "adaln"))
+    profile_forward("flux-dev", arch, model, lat_shape,
+                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
+                    annotate=ripple_ranges(), batch=FLUX_REQUESTS, total=shape.steps)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_flux_launcher():
+    """``repro_torch.launch.serve.main`` on flux-dev at full width (depth cut
+    to 2 double + 4 single blocks to keep the phase short; the launcher's
+    init zeroes the mod, final and bias leaves as the JAX defs do): 2
+    requests at gen_1024, 12 Euler steps, streamed every 4; both must
+    complete with finite latents, 3 chunks each (the last equal to the
+    result), fused_reuse twice and ripple once a block-step, no plain
+    version on the card and the quiet counters 0.  Returns the launch
+    counts."""
+    import json
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serving import engine as engine_lib
+
+    streams = {}
+
+    log(f"serve[flux-launcher]: python -m repro_torch.launch.serve "
+        f"{' '.join(FLUX_LAUNCHER_ARGV)}; flux-dev full width; cut: depth 19 + 38 -> 2 + 4 "
+        f"blocks (to keep the phase short), Euler steps 50->{SERVE_STEPS}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "summary.json")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with wrapped(engine_lib.DiffusionEngine, "stream", recording(streams)), \
+                plain_guard(vdit_plain_versions()) as plain:
+            done = serve_lib.main(FLUX_LAUNCHER_ARGV + ["--summary-json", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(path, encoding="utf-8") as f:
+            summary = json.load(f)
+    chunk_ok = True
+    for r in done:
+        chunks = streams.get(r.request_id, [])
+        same = bool(chunks) and np.array_equal(chunks[-1], r.latents)
+        chunk_ok &= len(chunks) == math.ceil(SERVE_STEPS / 4) and same
+        log(f"serve[flux-launcher]: request {r.request_id} latents {r.latents.shape} "
+            f"latency {r.latency_s:.3f}s, ttff {r.ttff_s:.3f}s, {len(chunks)} chunks, "
+            f"last chunk equals the result: {same}; batch {r.batch_index} served in "
+            f"{r.walltime_s:.3f}s; {CARD}")
+    log(f"serve[flux-launcher]: summary {summary}; launches {counts}; plain versions "
+        f"called on the card {plain}; {wall:.1f}s with the model's init; {CARD}")
+    block_steps = 6 * SERVE_STEPS * len({r.batch_index for r in done})
+    report("flux-launcher", {
+        "both requests completed": summary["completed"] == [0, 1]
+        and not summary["errors"],
+        "3 chunks a request, the last equal to the result": chunk_ok,
+        "finite latents of (128, 128, 16)": all(
+            r.latents.shape == (128, 128, 16) and np.isfinite(r.latents).all()
+            for r in done),
+        "fused_reuse twice and ripple once a block-step":
+            counts["fused_reuse"] == 2 * block_steps
+            and counts["ripple_attention"] == block_steps,
+        "no degradation, retry, quarantine or watchdog trip": quiet_counters(summary),
+        "no plain version ran on the card": not any(plain.values()),
+    })
+    torch.cuda.empty_cache()
+    return counts
+
+
 PATTERN_DIR = os.path.join(ROOT, "build", "patterns")
 # The default template at the served grid (8, 32, 32) + 256 text tokens,
 # frame_diag(window=1, sink=1) in 128 x 128 tiles: (FULL, PARTIAL, SKIP).
@@ -2722,6 +2958,18 @@ def serve_policies(arch, shape, model, art_path, want):
     return counts
 
 
+def recording(streams):
+    """A ``wrapped`` maker for ``DiffusionEngine.stream``: each chunk the
+    engine hands out goes into ``streams[request_id]`` too."""
+    def make(orig):
+        def stream(self, request_id, timeout=3600.0):
+            for chunk in orig(self, request_id, timeout):
+                streams.setdefault(request_id, []).append(chunk)
+                yield chunk
+        return stream
+    return make
+
+
 LAUNCHER_LAYERS = 8       # serve[launcher]: vdit-paper depth 40 cut to 8
 LAUNCHER_STREAM = 4       # --stream-every
 LAUNCHER_ARGV = ["--arch", "vdit-paper", "--steps", "12", "--requests", "6",
@@ -2757,13 +3005,6 @@ def serve_launcher():
 
     streams, seen = {}, {}
 
-    def recording(orig):
-        def stream(self, request_id, timeout=3600.0):
-            for chunk in orig(self, request_id, timeout):
-                streams.setdefault(request_id, []).append(chunk)
-                yield chunk
-        return stream
-
     def keeping(name):
         # The launcher's sampler factory and traffic, kept for the run in
         # one piece.
@@ -2784,7 +3025,7 @@ def serve_launcher():
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        with wrapped(engine_lib.DiffusionEngine, "stream", recording), \
+        with wrapped(engine_lib.DiffusionEngine, "stream", recording(streams)), \
                 wrapped(serve_lib, "make_sampler_factory", keeping("factory")), \
                 wrapped(serve_lib, "mixed_request_stream", keeping("traffic")), \
                 plain_guard(vdit_plain_versions()) as plain:
@@ -3615,7 +3856,12 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     else:
         cond = {"txt": 0.05 * torch.randn((batch, m.txt_tokens, m.txt_dim),
                                           generator=g, device="cuda")}
-    t = torch.full((batch,), 200.0, device="cuda")
+    if arch.family == "mmdit":
+        cond["vec"] = torch.zeros((batch, 768), device="cuda")
+    # The sampler's time at ``step``: rectified flow's t in [0, 1] for the
+    # mmdit's Euler path, a DDPM timestep for the others.
+    t = torch.full((batch,), 1.0 - step / total if arch.family == "mmdit" else 200.0,
+                   device="cuda")
 
     def fwd():
         if make_state is None:
@@ -4089,6 +4335,8 @@ def main() -> int:
     t1u = time_fused_reuse(xu, UNET_QK[0][1], ("x", "y"), None, "unet-sd15 served call",
                            flush)
     del xu
+    # reuse[flux]: both kernels at flux-dev's served joint-attention call.
+    t1f, flux_ripple = flux_kernel_phase(flush)
 
     # adaLN at the DiT's main-path shape, shift/scale chunks of the
     # projection as the model passes them.
@@ -4260,6 +4508,11 @@ def main() -> int:
         inst["launches_unet_svg"] = sum(c for (n, d), c in by_shape_us.items()
                                         if [n, d] == inst["shape"][-2:])
 
+    # 8a''. flux-dev at full width and depth, then the launcher on it, each
+    # with the counters set to 0 just before and read just after ----------
+    counts_f = serve_flux()
+    counts_fl = serve_flux_launcher()
+
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
     counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
@@ -4279,6 +4532,9 @@ def main() -> int:
     # The smoke UNet (ch 32, 2 levels, head dims 8 and 16), latents 8 x 8.
     small_reference_check("unet", name="unet-sd15")
     small_reference_check("unet-svg", name="unet-sd15", policy="svg")
+    # The smoke MMDiT (d 64, 4 heads of 16, 2 + 2 blocks, text 8 x 64), 12
+    # Euler steps over 8 text + 16 image tokens.
+    small_reference_check("flux-dev", name="flux-dev")
     # The offline-pattern policies: static on the default template, and
     # rainfusion under the artifact pattern_search[vdit] wrote.
     from repro_torch.core import patterns
@@ -4311,7 +4567,11 @@ def main() -> int:
          "launches_guardrail": counts_gr.get("fused_reuse", 0),
          # The crash drill's restart (serve[crash]): the steps left only.
          "launches_crash_restart": counts_cr.get("fused_reuse", 0), "unet_ms": t1u["ms"],
-         "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"]},
+         "unet_plain_ms": t1u["plain_ms"], "unet_bound_ms": t1u["bound_ms"],
+         # flux-dev: its launches in serve[flux-dev] and serve[flux-launcher],
+         # and its served call (4, 24, 4608, 128), 512 text tokens, T = 1.
+         "launches_flux": counts_f["fused_reuse"],
+         "launches_flux_launcher": counts_fl["fused_reuse"], "flux": t1f},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",
@@ -4325,7 +4585,9 @@ def main() -> int:
          "launches_launcher": counts_la["ripple_attention"],
          "launches_guardrail": counts_gr.get("ripple_attention", 0),
          "launches_crash_restart": counts_cr.get("ripple_attention", 0),
-         "unet": unet_times},
+         "unet": unet_times,
+         "launches_flux": counts_f["ripple_attention"],
+         "launches_flux_launcher": counts_fl["ripple_attention"], "flux": flux_ripple},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",
          "replaces": "src/repro/kernels/sparse/kernel.py:120",

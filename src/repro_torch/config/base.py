@@ -3,8 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, with the same
 field names and defaults as the JAX package's ``repro.config.base``, so
 that one config (and one ``key=value`` override string) means the same
-thing in both packages.  The vDiT, DiT and UNet families are carried
-over so far.
+thing in both packages.  The vDiT, DiT, MMDiT and UNet families are
+carried over so far.
 """
 
 from __future__ import annotations
@@ -121,6 +121,24 @@ class DiTConfig:
     def num_tokens(self, img_res: Optional[int] = None) -> int:
         side = self.latent_res(img_res) // self.patch
         return side * side
+
+
+@dataclass(frozen=True)
+class MMDiTConfig:
+    """Flux-style MMDiT: double-stream joint blocks + single-stream blocks."""
+
+    img_res: int
+    latent_res: int
+    n_double_blocks: int
+    n_single_blocks: int
+    d_model: int
+    num_heads: int
+    in_channels: int = 16
+    patch: int = 2
+    txt_tokens: int = 512
+    txt_dim: int = 4096
+    mlp_ratio: float = 4.0
+    axes_dim: Tuple[int, ...] = (16, 56, 56)  # RoPE split (t/ids, x, y)
 
 
 @dataclass(frozen=True)

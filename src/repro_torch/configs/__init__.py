@@ -1,15 +1,16 @@
 """Architecture registry of the port: ``vdit-paper``, ``dit-xl2``,
-``dit-b2`` and ``unet-sd15`` so far."""
+``dit-b2``, ``unet-sd15`` and ``flux-dev`` so far."""
 
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.config.base import ArchConfig
-from repro_torch.configs import dit_b2, dit_xl2, unet_sd15, vdit_paper
+from repro_torch.configs import (dit_b2, dit_xl2, flux_dev, unet_sd15,
+                                 vdit_paper)
 
 _MODULES = {"vdit-paper": vdit_paper, "dit-xl2": dit_xl2, "dit-b2": dit_b2,
-            "unet-sd15": unet_sd15}
+            "unet-sd15": unet_sd15, "flux-dev": flux_dev}
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

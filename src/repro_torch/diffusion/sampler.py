@@ -1,6 +1,8 @@
 """Samplers: DDIM (for DDPM-trained denoisers; the server's sampler for
-vdit) and Euler rectified flow.  Every step's index feeds the Eq. 4
-threshold schedule, so the model function receives (x_t, t, step).
+vdit, dit and unet), Euler rectified flow (the server's sampler for the
+mmdit) and the classifier-free-guidance wrapper.  Every step's index
+feeds the Eq. 4 threshold schedule, so the model function receives
+(x_t, t, step).
 
 ``denoise_fn(x, t, step) -> eps/velocity`` closes over the model, the
 text conditioning and the RippleConfig; samplers stay model-agnostic.
@@ -121,3 +123,15 @@ def euler_flow_sample(denoise_fn: Callable, x_T: torch.Tensor,
         if nf is not None:
             nf = nf + (~torch.isfinite(x)).sum().to(torch.int32)
     return _result(x, decision_state, nf)
+
+
+def cfg_wrap(denoise_fn: Callable, guidance: float) -> Callable:
+    """Classifier-free guidance: denoise_fn must accept ``cond`` batches
+    stacked [uncond; cond] and return stacked outputs."""
+
+    def wrapped(x, t, step):
+        out = denoise_fn(torch.cat([x, x]), torch.cat([t, t]), step)
+        un, co = torch.chunk(out, 2, dim=0)
+        return un + guidance * (co - un)
+
+    return wrapped

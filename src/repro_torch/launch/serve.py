@@ -4,8 +4,10 @@ image generation with TimeRipple on.
 ``python -m repro_torch.launch.serve`` runs on the CUDA card;
 ``--device cpu`` runs it on the CPU (kernel wrappers then take their
 plain PyTorch versions).  ``--arch`` picks the model (``vdit-paper``,
-the default, the image DiTs ``dit-xl2`` / ``dit-b2``, or the latent
-UNet ``unet-sd15``, whose requests carry a 77 x 768 text context).
+the default, the image DiTs ``dit-xl2`` / ``dit-b2``, the latent UNet
+``unet-sd15``, whose requests carry a 77 x 768 text context, or the
+MMDiT ``flux-dev``, sampled by Euler rectified flow on a 512 x 4096
+text embedding and a zero pooled vector).
 Without ``--shape`` the traffic is mixed, as in the reference launcher:
 round-robin over the arch's first generate shape (``--steps`` sets its
 step count), its half resolution and its half schedule, each its own
@@ -80,7 +82,7 @@ from repro_torch.core import dispatch as dispatch_lib
 from repro_torch.core import patterns
 from repro_torch.core.guardrail import DegradationLadder
 from repro_torch.core.policy import get_policy, list_policies
-from repro_torch.diffusion.sampler import ddim_sample
+from repro_torch.diffusion.sampler import ddim_sample, euler_flow_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
 from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           latent_shape_for,
@@ -88,7 +90,8 @@ from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           mixed_request_stream,
                                           request_label,
                                           vdit_decision_state)
-from repro_torch.models.params import init_dit, init_unet, init_vdit
+from repro_torch.models.params import (init_dit, init_mmdit, init_unet,
+                                       init_vdit)
 from repro_torch.serving import faults as fault_lib
 from repro_torch.serving import journal as journal_lib
 from repro_torch.serving.engine import DiffusionEngine, request_noise
@@ -105,11 +108,13 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
                   sentinel: bool = False,
                   compute_dtype: torch.dtype = torch.bfloat16):
     """Returns ``(sample_fn, latent_shape)``; ``sample_fn(noise, txt,
-    seeds=None) -> latents`` runs the whole DDIM trajectory (no ported
-    family is ``mmdit``, so the server samples with DDIM) on the model's
-    device.  The dit family ignores ``txt`` and conditions each request
+    seeds=None) -> latents`` runs the whole trajectory on the model's
+    device: Euler rectified flow for the mmdit family, DDIM for the
+    others.  The dit family ignores ``txt`` and conditions each request
     on a class label drawn from its seed (``seeds``, one per row,
-    required there); the unet attends to ``txt`` as its text context.
+    required there); the unet attends to ``txt`` as its text context;
+    the mmdit reads ``txt`` and a zero pooled ``vec``, as the reference
+    launcher serves it.
     ``policy`` (a registered name or a policy instance, such as a
     pattern policy pinned to one artifact) overrides the arch config's
     reuse policy for this sampler, ``reuse_every`` its decision-cache
@@ -150,7 +155,7 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
     sampler then always returns ``(latents, aux)``.  The readings stay
     device tensors, which the engine reads once a batch; they change no
     number of the trajectory."""
-    if arch.family not in ("vdit", "dit", "unet"):
+    if arch.family not in ("vdit", "dit", "mmdit", "unet"):
         raise ValueError(f"family {arch.family!r} is not ported yet")
     if sentinel:
         arch = dataclasses.replace(
@@ -179,19 +184,26 @@ def build_sampler(arch, shape, model, *, use_ripple: bool = True,
             return {"labels": torch.tensor(labels, device=noise.device)}
         if arch.family == "unet":
             return {"ctx": txt}
+        if arch.family == "mmdit":
+            return {"txt": txt, "vec": torch.zeros((txt.shape[0], 768),
+                                                   device=noise.device)}
         return {"txt": txt}
 
     def run(x, cond, step0, count, dstate):
-        """DDIM steps [step0, step0 + count) of the trajectory; returns
-        (x, decision state or None, non-finite count or None)."""
+        """Steps [step0, step0 + count) of the trajectory (Euler for the
+        mmdit, DDIM otherwise); returns (x, decision state or None,
+        non-finite count or None)."""
         if dstate is None:
             def denoise(x, t, step):
                 return _denoise_call(arch, model, x, t, cond, step, steps,
                                      use_ripple=use_ripple,
                                      compute_dtype=compute_dtype).to(x.dtype)
 
-            out = ddim_sample(denoise, x, ddpm, count, step_offset=step0,
-                              total_steps=steps, sentinel=sentinel)
+            kw = dict(step_offset=step0, total_steps=steps,
+                      sentinel=sentinel)
+            out = (euler_flow_sample(denoise, x, count, **kw)
+                   if arch.family == "mmdit"
+                   else ddim_sample(denoise, x, ddpm, count, **kw))
             return (out[0], None, out[1]) if sentinel else (out, None, None)
 
         def denoise(x, t, step, dstate):
@@ -328,16 +340,21 @@ def make_sampler_factory(arch, shapes, model, *, use_ripple: bool = True,
 
 
 # A family's seeded initializer.
-MODEL_INIT = {"vdit": init_vdit, "dit": init_dit, "unet": init_unet}
+MODEL_INIT = {"vdit": init_vdit, "dit": init_dit, "mmdit": init_mmdit,
+              "unet": init_unet}
 
 
 def model_summary(arch) -> str:
-    """The served model's depth in the log: its layers, or for the unet
-    its levels and base channels."""
+    """The served model's depth in the log: its layers, for the mmdit its
+    double and single blocks, for the unet its levels and base
+    channels."""
     m = arch.model
     if arch.family == "unet":
         return (f"{len(m.ch_mult)} levels, ch {m.ch}, "
                 f"n_res_blocks {m.n_res_blocks}")
+    if arch.family == "mmdit":
+        return (f"{m.n_double_blocks} double + {m.n_single_blocks} single "
+                f"blocks")
     return f"{m.num_layers} layers"
 
 

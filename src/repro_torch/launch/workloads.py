@@ -1,7 +1,7 @@
 """Serving helpers of the port: per-request latent shapes, attention
 call shapes, mixed generate shapes, a deterministic request stream,
-per-request class labels, one denoiser forward (vdit, dit and unet
-families) and the vdit's per-layer decision-cache state."""
+per-request class labels, one denoiser forward (vdit, dit, mmdit and
+unet families) and the vdit's per-layer decision-cache state."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ def latent_shape_for(arch: ArchConfig, shape: ShapeSpec) -> Tuple[int, ...]:
     if arch.family == "dit":
         lr = m.latent_res(shape.img_res)
         return (lr, lr, m.in_channels)
-    if arch.family == "unet":
+    if arch.family in ("mmdit", "unet"):
         lr = shape.img_res // 8
         return (lr, lr, m.in_channels)
     if arch.family == "vdit":
@@ -35,8 +35,9 @@ def latent_shape_for(arch: ArchConfig, shape: ShapeSpec) -> Tuple[int, ...]:
 def attention_shapes(arch: ArchConfig,
                      shape: ShapeSpec) -> List[Tuple[int, int]]:
     """(tokens, head dim) of each distinct self-attention call of one
-    forward: the joint text + grid attention of the vdit, the patch grid
-    of the dit; for the unet one per level that attends, finest first,
+    forward: the joint text + grid attention of the vdit and the mmdit
+    (flux-dev at gen_1024: (4608, 128)), the patch grid of the dit; for
+    the unet one per level that attends, finest first,
     the mid block's last (unet-sd15 at gen_1024: (16384, 40), (4096,
     80), (1024, 160), (256, 160))."""
     m = arch.model
@@ -45,6 +46,9 @@ def attention_shapes(arch: ArchConfig,
     if arch.family == "vdit":
         g = m.grid(img_res=shape.img_res)
         return [(g[0] * g[1] * g[2] + m.txt_tokens,
+                 m.d_model // m.num_heads)]
+    if arch.family == "mmdit":
+        return [((shape.img_res // 8 // m.patch) ** 2 + m.txt_tokens,
                  m.d_model // m.num_heads)]
     if arch.family == "unet":
         side = latent_shape_for(arch, shape)[0]
@@ -147,7 +151,8 @@ def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
                   dstate: Optional[List] = None):
     """One denoiser forward: ``cond`` holds ``txt`` for the vdit,
     ``labels`` for the dit, whose sigma channels are dropped (the DDIM
-    path uses the noise prediction only), and ``ctx`` for the unet.
+    path uses the noise prediction only), ``txt`` and ``vec`` for the
+    mmdit (its velocity for the Euler path) and ``ctx`` for the unet.
     ``dstate`` threads the per-layer decision cache (vdit only); the
     call then returns ``(out, new_dstate)``."""
     rip = arch.ripple if use_ripple else dataclasses.replace(
@@ -160,6 +165,8 @@ def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
     if arch.family == "dit":
         out = model(x, t, cond["labels"], **kw)
         return out[..., :arch.model.in_channels]
+    if arch.family == "mmdit":
+        return model(x, t, cond["txt"], cond["vec"], **kw)
     if arch.family == "unet":
         return model(x, t, cond["ctx"], **kw)
     if arch.family == "vdit":

@@ -1,0 +1,234 @@
+"""Flux-style MMDiT: double-stream joint blocks + single-stream blocks
+(the ``flux-dev`` config: 19 double and 38 single blocks, d_model 3072,
+24 heads of 128, factorized RoPE with axes_dim (16, 56, 56)).
+
+Double blocks keep separate image and text streams (each its own adaLN
+modulation, QKV, norms, output projection and MLP) and attend jointly
+over the text-first concatenation; single blocks run the fused stream
+with one ``lin1`` giving Q/K/V and the MLP input and one ``lin2``
+taking both back.  The timestep embedding takes the rectified-flow t
+in [0, 1] as it is.  TimeRipple applies to the image-grid tokens of
+the joint attention (2-D mode, x/y axes on a (1, h, w) grid); text
+tokens are never snapped (``grid_slice``).  LayerNorm-and-modulate is
+inline, as in the JAX ``mmdit_apply``, so the adaLN kernel is not on
+this path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config.base import MMDiTConfig, RippleConfig
+from repro_torch.core.dispatch import attention_dispatch
+from repro_torch.models.attention import Scale
+from repro_torch.models.common import (Linear, apply_rope_precomputed,
+                                       gelu_tanh, layernorm, linear, param,
+                                       patch_embed, rmsnorm, rope_3d_angles,
+                                       sincos_timestep_embed, unpatchify)
+
+_RIPPLE_OFF = RippleConfig()
+
+
+class Stream(nn.Module):
+    """One stream of a double block (leaves of the JAX ``_stream_defs``)."""
+
+    def __init__(self, d: int, n_heads: int, mlp_ratio: float, device=None,
+                 dtype=None):
+        super().__init__()
+        ff = int(d * mlp_ratio)
+        self.mod = Linear(d, 6 * d, device, dtype)
+        self.wqkv = param(d, 3 * d, device=device, dtype=dtype)
+        self.wo = param(d, d, device=device, dtype=dtype)
+        self.mlp_in = param(d, ff, device=device, dtype=dtype)
+        self.mlp_in_b = param(ff, device=device, dtype=dtype)
+        self.mlp_out = param(ff, d, device=device, dtype=dtype)
+        self.mlp_out_b = param(d, device=device, dtype=dtype)
+        self.q_norm = Scale(d // n_heads, device, dtype)
+        self.k_norm = Scale(d // n_heads, device, dtype)
+
+
+class Single(nn.Module):
+    """A single-stream block (leaves of the JAX ``_single_defs``)."""
+
+    def __init__(self, d: int, n_heads: int, mlp_ratio: float, device=None,
+                 dtype=None):
+        super().__init__()
+        ff = int(d * mlp_ratio)
+        self.mod = Linear(d, 3 * d, device, dtype)
+        self.lin1 = param(d, 3 * d + ff, device=device, dtype=dtype)
+        self.lin1_b = param(3 * d + ff, device=device, dtype=dtype)
+        self.lin2 = param(d + ff, d, device=device, dtype=dtype)
+        self.lin2_b = param(d, device=device, dtype=dtype)
+        self.q_norm = Scale(d // n_heads, device, dtype)
+        self.k_norm = Scale(d // n_heads, device, dtype)
+
+
+class Double(nn.Module):
+    """The double blocks: per-layer image and text streams."""
+
+    def __init__(self, cfg: MMDiTConfig, device=None, dtype=None):
+        super().__init__()
+        args = (cfg.d_model, cfg.num_heads, cfg.mlp_ratio, device, dtype)
+        self.img = nn.ModuleList(Stream(*args)
+                                 for _ in range(cfg.n_double_blocks))
+        self.txt = nn.ModuleList(Stream(*args)
+                                 for _ in range(cfg.n_double_blocks))
+
+
+def _modulate(x, shift, scale):
+    """Parameter-free LayerNorm, then ``* (1 + scale) + shift``."""
+    return layernorm(x) * (1 + scale[:, None]) + shift[:, None]
+
+
+def _heads(x, n_heads: int):
+    B, N, d = x.shape
+    return x.reshape(B, N, n_heads, d // n_heads)
+
+
+def joint_rope(L: int, grid, axes_dim, device):
+    """(cos, sin) over the joint sequence: text rows at positions 1..L on
+    the first ``axes_dim[0] // 2`` frequencies (cos 1, sin 0 on the
+    rest), then the grid's factorized (t, x, y) rows."""
+    half = axes_dim[0] // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                            device=device) / half))
+    ang_t = (1 + torch.arange(L, device=device))[:, None].float() * freqs
+    rest = torch.zeros((L, (axes_dim[1] + axes_dim[2]) // 2), device=device)
+    ang = torch.cat([ang_t, rest], dim=-1)
+    cos_g, sin_g = rope_3d_angles(grid, axes_dim, device=device)
+    return (torch.cat([torch.cos(ang), cos_g], dim=0),
+            torch.cat([torch.sin(ang), sin_g], dim=0))
+
+
+def joint_attention(q, k, v, rope_cos, rope_sin, *, grid, grid_slice,
+                    ripple: RippleConfig, step, total_steps):
+    """q/k/v: (B, N, H, hd), q and k already normed; RoPE on q and k, one
+    dispatch call on the (B, H, N, hd) views (the fused Δ-check reads q
+    and k in place; the ripple kernel takes a contiguous v); returns
+    (B, N, H * hd)."""
+    q = apply_rope_precomputed(q, rope_cos, rope_sin)
+    k = apply_rope_precomputed(k, rope_cos, rope_sin)
+    out = attention_dispatch(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2).contiguous(), grid=grid,
+                             cfg=ripple, step=step, total_steps=total_steps,
+                             grid_slice=grid_slice)
+    B, H, N, hd = out.shape
+    return out.transpose(1, 2).reshape(B, N, H * hd)
+
+
+class MMDiT(nn.Module):
+    """MMDiT parameters (leaf names of the JAX ``mmdit_defs``; the
+    layer-stacked ``double.img``, ``double.txt`` and ``single`` trees as
+    per-layer lists) and the forward pass, plain loops over blocks.  The
+    ``double`` subtree lives in ``double_blocks`` (``nn.Module.double``
+    is a method); ``leaf_aliases`` maps the leaf path's name to it."""
+
+    leaf_aliases = {"double": "double_blocks"}
+
+    def __init__(self, cfg: MMDiTConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        d, p = cfg.d_model, cfg.patch
+        in_dim = p * p * cfg.in_channels
+        self.img_in = Linear(in_dim, d, device, dtype)
+        self.txt_in = Linear(cfg.txt_dim, d, device, dtype)
+        self.t_mlp1 = Linear(256, d, device, dtype)
+        self.t_mlp2 = Linear(d, d, device, dtype)
+        self.vec_in = Linear(768, d, device, dtype)
+        self.double_blocks = Double(cfg, device, dtype)
+        self.single = nn.ModuleList(
+            Single(d, cfg.num_heads, cfg.mlp_ratio, device, dtype)
+            for _ in range(cfg.n_single_blocks))
+        self.final_mod = Linear(d, 2 * d, device, dtype)
+        self.final = Linear(d, in_dim, device, dtype)
+
+    def _qkv(self, blk: Stream, h):
+        dt = h.dtype
+        q, k, v = torch.chunk(torch.matmul(h, blk.wqkv.to(dt)), 3, dim=-1)
+        H = self.cfg.num_heads
+        return (rmsnorm(blk.q_norm.scale, _heads(q, H)),
+                rmsnorm(blk.k_norm.scale, _heads(k, H)), _heads(v, H))
+
+    @staticmethod
+    def _post(blk: Stream, x, attn, mods):
+        dt = x.dtype
+        g, sh2, sc2, g2 = mods
+        x = x + g[:, None] * torch.matmul(attn, blk.wo.to(dt))
+        h = _modulate(x, sh2, sc2)
+        m = gelu_tanh(linear(blk.mlp_in, blk.mlp_in_b, h))
+        return x + g2[:, None] * linear(blk.mlp_out, blk.mlp_out_b, m)
+
+    @torch.no_grad()
+    def forward(self, latents: torch.Tensor, t: torch.Tensor,
+                txt: torch.Tensor, vec: torch.Tensor, *,
+                ripple: RippleConfig = _RIPPLE_OFF,
+                step: Optional[int] = None, total_steps: Optional[int] = None,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """latents (B, H_lat, W_lat, C); t (B,) rectified-flow time in [0,
+        1]; txt (B, L, txt_dim) text embeddings; vec (B, 768) pooled
+        conditioning.  Returns the velocity (B, H_lat, W_lat, C) in
+        ``compute_dtype``."""
+        cfg = self.cfg
+        dt = compute_dtype
+        B, Hl, Wl, C = latents.shape
+        p = cfg.patch
+        h, w = Hl // p, Wl // p
+        grid = (1, h, w)
+        L = txt.shape[1]
+        n_img = h * w
+        attn_kw = dict(grid=grid, grid_slice=(L, n_img), ripple=ripple,
+                       step=step, total_steps=total_steps)
+
+        img = patch_embed(self.img_in.w, self.img_in.b, latents.to(dt), p)
+        txt_x = self.txt_in(txt.to(dt))
+        temb = sincos_timestep_embed(t, 256).to(dt)
+        c = self.t_mlp2(F.silu(self.t_mlp1(temb)))
+        c = F.silu(c + self.vec_in(vec.to(dt)))
+        sc = F.silu(c)  # every modulation reads silu(c)
+        rope = joint_rope(L, grid, cfg.axes_dim, latents.device)
+
+        for ti, im in zip(self.double_blocks.txt, self.double_blocks.img):
+            t_sh, t_sc, *t_mods = torch.chunk(ti.mod(sc), 6, dim=-1)
+            i_sh, i_sc, *i_mods = torch.chunk(im.mod(sc), 6, dim=-1)
+            tq, tk, tv = self._qkv(ti, _modulate(txt_x, t_sh, t_sc))
+            iq, ik, iv = self._qkv(im, _modulate(img, i_sh, i_sc))
+            out = joint_attention(torch.cat([tq, iq], dim=1),
+                                  torch.cat([tk, ik], dim=1),
+                                  torch.cat([tv, iv], dim=1), *rope,
+                                  **attn_kw)
+            txt_x = self._post(ti, txt_x, out[:, :L], t_mods)
+            img = self._post(im, img, out[:, L:], i_mods)
+
+        x = torch.cat([txt_x, img], dim=1)
+        d = cfg.d_model
+        H = cfg.num_heads
+        for blk in self.single:
+            sh, s_sc, g = torch.chunk(blk.mod(sc), 3, dim=-1)
+            fused = linear(blk.lin1, blk.lin1_b, _modulate(x, sh, s_sc))
+            q, k, v = torch.split(fused[..., :3 * d], d, dim=-1)
+            attn = joint_attention(rmsnorm(blk.q_norm.scale, _heads(q, H)),
+                                   rmsnorm(blk.k_norm.scale, _heads(k, H)),
+                                   _heads(v, H), *rope, **attn_kw)
+            both = torch.cat([attn, gelu_tanh(fused[..., 3 * d:])], dim=-1)
+            x = x + g[:, None] * linear(blk.lin2, blk.lin2_b, both)
+
+        sh, f_sc = torch.chunk(self.final_mod(sc), 2, dim=-1)
+        out = self.final(_modulate(x[:, L:], sh, f_sc))
+        return unpatchify(out, p, h, w, C)
+
+
+def mmdit_apply(model: MMDiT, latents: torch.Tensor, t: torch.Tensor,
+                txt: torch.Tensor, vec: torch.Tensor,
+                cfg: Optional[MMDiTConfig] = None, *,
+                ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
+                total_steps: Optional[int] = None,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Functional form mirroring the JAX ``mmdit_apply``."""
+    if cfg is not None and cfg != model.cfg:
+        raise ValueError("cfg does not match the model's config")
+    return model(latents, t, txt, vec, ripple=ripple, step=step,
+                 total_steps=total_steps, compute_dtype=compute_dtype)

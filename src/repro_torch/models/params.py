@@ -1,24 +1,26 @@
 """Parameters of the port's models.
 
-The vDiT's, the DiT's and the UNet's parameters carry the leaf names and
-per-layer shapes of the JAX package's ``vdit_defs``
-(``repro/models/vdit.py``), ``dit_defs`` (``repro/models/dit.py``) and
-``unet_defs`` (``repro/models/unet.py``), in its (d_in, d_out) weight
-layout, so a parameter tree crosses between the two packages leaf by
-leaf.  The one layout that differs is a convolution's weight: (k, k,
-c_in, c_out) in JAX, (c_out, c_in, k, k) in the port (:func:`to_port`).
+The vDiT's, the DiT's, the MMDiT's and the UNet's parameters carry the
+leaf names and per-layer shapes of the JAX package's ``vdit_defs``
+(``repro/models/vdit.py``), ``dit_defs`` (``repro/models/dit.py``),
+``mmdit_defs`` (``repro/models/mmdit.py``) and ``unet_defs``
+(``repro/models/unet.py``), in its (d_in, d_out) weight layout, so a
+parameter tree crosses between the two packages leaf by leaf.  The one
+layout that differs is a convolution's weight: (k, k, c_in, c_out) in
+JAX, (c_out, c_in, k, k) in the port (:func:`to_port`).
 
 * :func:`vdit_param_specs` / :func:`dit_param_specs` /
-  :func:`unet_param_specs` — every leaf's path (lists of levels and
-  blocks give integer steps), JAX shape and initializer;
-* :func:`init_vdit` / :func:`init_dit` / :func:`init_unet` — a seeded
-  initialization on a device, with ``torch.Generator`` draws in the JAX
-  layout;
+  :func:`mmdit_param_specs` / :func:`unet_param_specs` — every leaf's
+  path (lists of levels and blocks give integer steps), JAX shape and
+  initializer;
+* :func:`init_vdit` / :func:`init_dit` / :func:`init_mmdit` /
+  :func:`init_unet` — a seeded initialization on a device, with
+  ``torch.Generator`` draws in the JAX layout;
 * :func:`params_from_numpy` — the JAX param tree, passed through numpy
   (``jax.tree_util.tree_map(np.asarray, params)``), as the port's model
-  of the config's family.  The JAX tree stacks the (v)DiT blocks' leaves
-  on a leading ``num_layers`` dim (scan-over-layers); here it is split
-  per layer.
+  of the config's family.  The JAX tree stacks the (v)DiT blocks' and
+  the MMDiT's double and single blocks' leaves on a leading layer dim
+  (scan-over-layers); here it is split per layer.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.config.base import DiTConfig, UNetConfig, VDiTConfig
+from repro_torch.config.base import (DiTConfig, MMDiTConfig, UNetConfig,
+                                     VDiTConfig)
 from repro_torch.utils.device import resolve_device
 
 # Initializer kinds, as in the JAX defs: 'fan_in' (normal, std
@@ -98,6 +101,54 @@ def dit_param_specs(cfg: DiTConfig) -> Dict:
         "blocks": dit_block_specs(cfg),
         "final_ada": {"w": ((d, 2 * d), "zeros"), "b": ((2 * d,), "zeros")},
         "final": _linear(d, p * p * out_ch, init="zeros"),
+    }
+
+
+def mmdit_stream_specs(cfg: MMDiTConfig) -> Dict:
+    """One stream of a double block (the JAX ``_stream_defs``)."""
+    d = cfg.d_model
+    hd = d // cfg.num_heads
+    ff = int(d * cfg.mlp_ratio)
+    return {
+        "mod": _linear(d, 6 * d, init="zeros"),
+        "wqkv": ((d, 3 * d), "fan_in"), "wo": ((d, d), "fan_in"),
+        "mlp_in": ((d, ff), "fan_in"), "mlp_in_b": ((ff,), "zeros"),
+        "mlp_out": ((ff, d), "fan_in"), "mlp_out_b": ((d,), "zeros"),
+        "q_norm": {"scale": ((hd,), "ones")},
+        "k_norm": {"scale": ((hd,), "ones")},
+    }
+
+
+def mmdit_single_specs(cfg: MMDiTConfig) -> Dict:
+    """A single-stream block (the JAX ``_single_defs``)."""
+    d = cfg.d_model
+    hd = d // cfg.num_heads
+    ff = int(d * cfg.mlp_ratio)
+    return {
+        "mod": _linear(d, 3 * d, init="zeros"),
+        "lin1": ((d, 3 * d + ff), "fan_in"), "lin1_b": ((3 * d + ff,), "zeros"),
+        "lin2": ((d + ff, d), "fan_in"), "lin2_b": ((d,), "zeros"),
+        "q_norm": {"scale": ((hd,), "ones")},
+        "k_norm": {"scale": ((hd,), "ones")},
+    }
+
+
+def mmdit_param_specs(cfg: MMDiTConfig) -> Dict:
+    """Nested dict of (shape, init) per leaf; ``double.img``,
+    ``double.txt`` and ``single`` are per layer."""
+    d, p = cfg.d_model, cfg.patch
+    in_dim = p * p * cfg.in_channels
+    return {
+        "img_in": _linear(in_dim, d),
+        "txt_in": _linear(cfg.txt_dim, d),
+        "t_mlp1": _linear(256, d),
+        "t_mlp2": _linear(d, d),
+        "vec_in": _linear(768, d),
+        "double": {"img": mmdit_stream_specs(cfg),
+                   "txt": mmdit_stream_specs(cfg)},
+        "single": mmdit_single_specs(cfg),
+        "final_mod": _linear(d, 2 * d, init="zeros"),
+        "final": _linear(d, in_dim, init="zeros"),
     }
 
 
@@ -171,11 +222,15 @@ def unet_param_specs(cfg: UNetConfig) -> Dict:
     return specs
 
 
-ModelConfig = Union[VDiTConfig, DiTConfig, UNetConfig]
+ModelConfig = Union[VDiTConfig, DiTConfig, MMDiTConfig, UNetConfig]
 
 
 def _family(cfg: ModelConfig):
     """(model class, param specs) of a model config's family."""
+    if isinstance(cfg, MMDiTConfig):
+        from repro_torch.models.mmdit import MMDiT
+
+        return MMDiT, mmdit_param_specs(cfg)
     if isinstance(cfg, UNetConfig):
         from repro_torch.models.unet import UNet
 
@@ -189,6 +244,28 @@ def _family(cfg: ModelConfig):
 
         return VDiT, vdit_param_specs(cfg)
     raise TypeError(f"no port model for config {type(cfg).__name__}")
+
+
+def _stacked(cfg: ModelConfig) -> Tuple[Tuple, ...]:
+    """Spec path prefixes of the subtrees the JAX tree stacks on a leading
+    layer dim (the port's module there is a per-layer list)."""
+    if isinstance(cfg, MMDiTConfig):
+        return (("double", "img"), ("double", "txt"), ("single",))
+    if isinstance(cfg, (VDiTConfig, DiTConfig)):
+        return (("blocks",),)
+    return ()
+
+
+def _leaves(model, cfg: ModelConfig, specs):
+    """(path, spec, tensors, stacked) of every leaf: under a stacked
+    subtree its tensor in each layer, else its one tensor."""
+    for path, spec in iter_specs(specs):
+        pre = next((p for p in _stacked(cfg) if path[:len(p)] == p), None)
+        if pre is None:
+            yield path, spec, [_get(model, path)], False
+        else:
+            yield path, spec, [_get(blk, path[len(pre):])
+                               for blk in _get(model, pre)], True
 
 
 def iter_specs(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
@@ -234,12 +311,9 @@ def _init(cfg: ModelConfig, seed: int, device, dtype, zero_init: bool):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
-        for path, (shape, init) in iter_specs(specs):
-            if path[0] == "blocks":
-                for blk in model.blocks:
-                    _fill(_get(blk, path[1:]), shape, init, gen, zero_init)
-            else:
-                _fill(_get(model, path), shape, init, gen, zero_init)
+        for _, (shape, init), tensors, _ in _leaves(model, cfg, specs):
+            for t in tensors:
+                _fill(t, shape, init, gen, zero_init)
     return model
 
 
@@ -260,6 +334,15 @@ def init_dit(cfg: DiTConfig, *, seed: int = 0, device=None,
     return _init(cfg, seed, device, dtype, zero_init)
 
 
+def init_mmdit(cfg: MMDiTConfig, *, seed: int = 0, device=None,
+               dtype=torch.float32, zero_init: bool = True):
+    """A seeded MMDiT on ``device`` (default CUDA).  ``zero_init=True``
+    follows the JAX defs, whose zero ``mod``, ``final_mod`` and
+    ``final`` leaves make the output 0; served and chip runs use
+    ``False``, which randomizes every leaf."""
+    return _init(cfg, seed, device, dtype, zero_init)
+
+
 def init_unet(cfg: UNetConfig, *, seed: int = 0, device=None,
               dtype=torch.float32, zero_init: bool = True):
     """A seeded UNet on ``device`` (default CUDA).  ``zero_init=True``
@@ -269,39 +352,40 @@ def init_unet(cfg: UNetConfig, *, seed: int = 0, device=None,
 
 
 def _get(module, path) -> torch.Tensor:
+    """The tensor (or module) at a leaf path; a module's ``leaf_aliases``
+    names the attribute that holds a path step whose name it cannot
+    take."""
     obj = module
     for p in path:
-        obj = obj[p] if isinstance(p, int) else getattr(obj, p)
+        if isinstance(p, int):
+            obj = obj[p]
+        else:
+            obj = getattr(obj, getattr(obj, "leaf_aliases", {}).get(p, p))
     return obj
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = torch.float32):
     """The JAX param tree (numpy leaves, float32) as the port's model of
-    ``cfg``'s family (VDiT, DiT or UNet).  Leaves are copied verbatim
+    ``cfg``'s family (VDiT, DiT, MMDiT or UNet).  Leaves are copied verbatim
     (convolution weights transposed to the port's layout), then cast to
     ``dtype`` on ``device`` (default CUDA)."""
     cls, specs = _family(cfg)
     model = cls(cfg, device=resolve_device(device), dtype=dtype)
     with torch.no_grad():
-        for path, (shape, _) in iter_specs(specs):
-            leaf = tree
+        for path, (shape, _), tensors, stacked in _leaves(model, cfg,
+                                                          specs):
+            arr = tree
             for p in path:
-                leaf = leaf[p]
-            arr = np.asarray(leaf)
-            if path[0] == "blocks":
-                if arr.shape != (cfg.num_layers,) + tuple(shape):
-                    raise ValueError(f"{_name(path)}: shape {arr.shape} "
-                                     f"!= {(cfg.num_layers,) + shape}")
-                for i, blk in enumerate(model.blocks):
-                    _get(blk, path[1:]).copy_(torch.from_numpy(
-                        np.ascontiguousarray(arr[i], np.float32)))
-            else:
-                if arr.shape != tuple(shape):
-                    raise ValueError(f"{_name(path)}: shape {arr.shape} "
-                                     f"!= {shape}")
-                _get(model, path).copy_(to_port(torch.from_numpy(
-                    np.ascontiguousarray(arr, np.float32))))
+                arr = arr[p]
+            arr = np.asarray(arr)
+            want = ((len(tensors),) if stacked else ()) + tuple(shape)
+            if arr.shape != want:
+                raise ValueError(f"{_name(path)}: shape {arr.shape} != "
+                                 f"{want}")
+            for t, a in zip(tensors, arr if stacked else (arr,)):
+                a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                t.copy_(a if stacked else to_port(a))
     return model
 
 
