@@ -48,6 +48,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    kinds of case at unet-sd15's head dims 40, 80 and 160 (tensor cores,
    asserted), the CUDA cores at d 160 and 256, and the UNet's four served
    calls all-FULL and on a constructed spatial_local map with its bias;
+5a. the dispatch mesh, kernel side: ``sparse[carry]`` (the sparse
+   kernel's ring carry on both paths at (1, 24, 8192, 128), spatial and
+   temporal heads: chains of 2, 4 and 8 hops over whole key tiles bit
+   for bit one call, output and state; held to the oracle and the plain
+   version; a fully masked row zeros; all-SKIP hops not launched; one
+   call and a chain of 4 timed by device time beside SDPA), then
+   ``ring[svg]`` and ``ring[ripple]`` (``attention_dispatch`` at that
+   shape on grid (8, 32, 32), unsharded and on 2 and 4 seq shards of the
+   one card: svg within the bf16 bar, its elided hops counted from the
+   unsharded block map, shards x hops - elided sparse launches; ripple
+   bit for bit), the port's kernel-bench ring section on 8 shards, and
+   with more than one card ``ring[svg]`` one shard a card;
 5b. holds the dense flash attention kernel against f32 dense softmax
    (rounding p where the bf16 kernel rounds it) on the reference tests'
    four shapes (d != dv, Nq != Nk, unaligned), odd head dims, a ragged
@@ -135,7 +147,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (``serve[launcher]``: 8 layers, 6 requests over 3 mixed buckets,
    streamed every 4 steps, each request's latency and TTFF, its
    summary file, each result bit-equal to its batch run again in one
-   piece, no degradation, retry, quarantine or watchdog trip);
+   piece, no degradation, retry, quarantine or watchdog trip), and
+   ``serve[mesh]``: the same with a seventh request and ``--mesh 2x2``
+   on 4 shards of the one card (results bit-equal, plans at batch 2 and
+   1, 4x the launches);
 8e. (after 8d, on the launcher's 8-layer vDiT) the serving control
    plane: ``serve[slo]`` (one warm batch gives the service-time
    estimator its lower bound L; a fresh engine sharing it sheds exactly
@@ -535,11 +550,11 @@ def theta_sweep_checks(res):
                                  "in the θ sweep")
 
 
-def device_time_ms(fn, kernel=None, iters=20, flush=None):
+def device_time_ms(fn, kernel=None, iters=20, flush=None, per_call=1):
     """Device time a call of ``fn`` and host time a call.  Device: the
     durations of the kernels whose name holds ``kernel`` (each call must
-    launch exactly one; None: every kernel of the call, each name a whole
-    number of times a call) over ``iters`` calls recorded by
+    launch exactly ``per_call``; None: every kernel of the call, each name
+    a whole number of times a call) over ``iters`` calls recorded by
     torch.profiler after a warm-up round outside it, with the L2 cache
     evicted before each call when ``flush`` (from :func:`l2_flush`) is
     given.  Host: the host clock over ``iters`` calls with no synchronise
@@ -588,7 +603,7 @@ def device_time_ms(fn, kernel=None, iters=20, flush=None):
             if ev.name not in skip and (kernel is None or kernel in ev.name):
                 durs.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
         counts = {name: len(v) for name, v in durs.items()}
-        if (durs and (kernel is None or sum(counts.values()) == iters)
+        if (durs and (kernel is None or sum(counts.values()) == iters * per_call)
                 and not any(n % iters for n in counts.values())):
             return sum(sum(v) for v in durs.values()) / iters / 1e3, host_ms
         log(f"profiler saw {counts} launches of {kernel or 'the call'}, not {iters} "
@@ -3810,6 +3825,432 @@ def serve_resume():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The dispatch mesh (slice 15): the sparse kernel's carry, ring attention,
+# batch/head sharding through the launcher
+# ---------------------------------------------------------------------------
+
+RING_GRID = (8, 32, 32)           # the vDiT's served grid, no text prefix
+RING_QKV = (1, 24, 8 * 32 * 32, 128)
+RING_STEP = (10, 12)              # step 10 of 12 snaps at θ = 0.2, as served
+
+
+@contextlib.contextmanager
+def forced_devices(n):
+    """``REPRO_TORCH_FORCE_DEVICE_COUNT=n`` for the duration (n mesh
+    shards on the first card; None: the cards as they are)."""
+    from repro_torch.launch.mesh import FORCE_DEVICE_COUNT_ENV
+
+    old = os.environ.pop(FORCE_DEVICE_COUNT_ENV, None)
+    if n is not None:
+        os.environ[FORCE_DEVICE_COUNT_ENV] = str(n)
+    try:
+        yield
+    finally:
+        os.environ.pop(FORCE_DEVICE_COUNT_ENV, None)
+        if old is not None:
+            os.environ[FORCE_DEVICE_COUNT_ENV] = old
+
+
+def verdicts(label, checks):
+    """One ``ok`` / ``FAIL`` line a check; any failure fails the run."""
+    for what, ok in checks.items():
+        log(f"{label}: {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit(f"{label} failed")
+
+
+def mixed_svg_call(dtype, seeds):
+    """Operands at the ring's shape and an SVG map with both kinds of
+    head: the first 12 spatial (FULL and SKIP tiles), the other 12
+    temporal (PARTIAL tiles), with its -inf bias; query row 5 of head 0
+    keeps no key at all (its output must be zeros, never NaN)."""
+    import torch
+    from repro_torch.core.svg_mask import spatial_mask, temporal_mask
+    from repro_torch.kernels.sparse.ops import block_map_from_keep
+
+    B, H, N, _ = RING_QKV
+    keep = torch.empty((B, H, N, N), dtype=torch.bool, device="cuda")
+    keep[:, :H // 2] = torch.from_numpy(spatial_mask(RING_GRID)).cuda()
+    keep[:, H // 2:] = torch.from_numpy(temporal_mask(RING_GRID)).cuda()
+    keep[0, 0, 5] = False
+    bmap = block_map_from_keep(keep, 128, 128)
+    bias = torch.where(keep, 0.0, float("-inf")).float()
+    del keep
+    q, k, v = (correlated(RING_QKV, dtype, s) for s in seeds)
+    return q, k, v, bias, bmap
+
+
+def hop_pieces(k, v, bias, bmap, blk, hops):
+    """Each hop's contiguous key slice, value slice, bias and map columns
+    for a chain of ``hops`` calls over whole key tiles."""
+    per = k.shape[2] // hops
+    if per % blk:
+        raise SystemExit(f"{hops} hops of {per} keys are not whole {blk}-key tiles")
+    return [(k[:, :, lo:lo + per].contiguous(), v[:, :, lo:lo + per].contiguous(),
+             bias[..., lo:lo + per].contiguous(),
+             bmap[..., lo // blk:(lo + per) // blk].contiguous())
+            for lo in range(0, k.shape[2], per)]
+
+
+def run_chain(q, pieces, blk):
+    from repro_torch.kernels.sparse.ops import sparse_attention
+
+    state = out = None
+    for kh, vh, bh, mh in pieces:
+        out, state = sparse_attention(q, kh, vh, bias=bh, block_map=mh, block_q=blk,
+                                      block_k=blk, carry=state, return_state=True)
+    return out, state
+
+
+def sparse_carry_phase():
+    """``sparse[carry]``: the carry of both kernel paths, bf16 on the
+    tensor cores and f32 on the CUDA cores, at (1, 24, 8192, 128) (the
+    vDiT's grid without text; f32 is kernel_bench's wide shape) on a map
+    with FULL, PARTIAL and SKIP tiles: chains of 2, 4 and 8 hops over
+    whole key tiles equal one call bit for bit (output and state), the
+    output and the state's acc / l held to the oracle at the kernel's bar
+    and m to the plain version's, a fully masked row gives zeros, and an
+    all-SKIP hop, elided as the ring elides it, launches nothing.  Times a
+    chain of 4 against one call by device time, SDPA with the same f32
+    mask beside.  Returns the bf16 times."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.sparse import ops as sparse_ops
+    from repro_torch.kernels.sparse.ref import SKIP, finalize, sparse_attention_ref
+
+    out_times = {}
+    for dt, seeds in ((torch.bfloat16, (51, 52, 53)), (torch.float32, (54, 55, 56))):
+        name = str(dt).replace("torch.", "")
+        q, k, v, bias, bmap = mixed_svg_call(dt, seeds)
+        blk = 128
+        kw = dict(bias=bias, block_map=bmap, block_q=blk, block_k=blk)
+        one = sparse_ops.sparse_attention(q, k, v, **kw)
+        one_s, state1 = sparse_ops.sparse_attention(q, k, v, return_state=True, **kw)
+        checks = {"an output with the state equals one without, bit for bit":
+                  torch.equal(one, one_s)}
+        for hops in (2, 4, 8):
+            out, state = run_chain(q, hop_pieces(k, v, bias, bmap, blk, hops), blk)
+            checks[f"{hops} hops equal one call bit for bit (out, m, l, acc)"] = (
+                torch.equal(out, one) and all(torch.equal(a, b)
+                                              for a, b in zip(state, state1)))
+        m, l, acc = state1
+        checks["a fully masked row: zeros, l 0, everything finite"] = (
+            bool((one[0, 0, 5] == 0).all()) and float(l[0, 0, 5]) == 0.0
+            and bool(torch.isfinite(one.float()).all()))
+        ref = sparse_oracle(q, k, v, bias, bmap, blk, round_p=dt == torch.bfloat16,
+                            exact=dt == torch.float32)
+        slack = f32_logit_slack(q, k, v) if dt == torch.float32 else 0.0
+        tol = attn_tol(name, ref) + slack
+        err = (one.to(ref.dtype) - ref).abs().max().item()
+        err_state = (finalize(acc, l, torch.float32).to(ref.dtype) - ref).abs().max().item()
+        plain_out, (pm, pl, pacc) = sparse_attention_ref(
+            q, k, v, scale=float(1.0 / 128 ** 0.5), return_state=True, **kw)
+        # m is the row's largest scaled logit: the plain version rounds the
+        # bf16 product to bf16 before scaling (half an ulp, at most 2^-8 of
+        # it), the kernel keeps it in f32; 2^-7 leaves room for the f32
+        # sums.  A row with no live key keeps the fresh -1e30 on both.
+        live = pl > 0
+        m_tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-6) * pm[live].abs().max().item()
+        err_m = (m - pm)[live].abs().max().item()
+        checks["m of the fully masked row is the fresh -1e30 on both"] = (
+            float(m[0, 0, 5]) == float(pm[0, 0, 5]) == torch.tensor(-1e30).item())
+        err_plain = (plain_out.to(ref.dtype) - ref).abs().max().item()
+        checks[f"out within {tol:.3g} of the oracle ({err:.3e})"] = err <= tol
+        checks[f"the state's acc / l within {tol:.3g} ({err_state:.3e})"] = err_state <= tol
+        checks[f"m within {m_tol:.3g} of the plain version's ({err_m:.3e})"] = err_m <= m_tol
+        # Two implementations each within tol of the oracle: the kernel is
+        # held to its plain version at twice that.
+        err_kp = (one.float() - plain_out.float()).abs().max().item()
+        checks[f"the plain version within {tol:.3g} of the oracle ({err_plain:.3e})"] = \
+            err_plain <= tol
+        checks[f"the kernel within {2 * tol:.3g} of its plain version ({err_kp:.3e})"] = \
+            err_kp <= 2 * tol
+        del ref, plain_out, pm, pl, pacc
+        # The ring's elision: the query rows of frame 2 on the spatial heads,
+        # their keys chained a frame a hop.  Their map keeps frames 0 and 2
+        # only, so the other hops are all-SKIP and are not called, and the
+        # chain still equals one call on those rows.
+        T, nf, hs = RING_GRID[0], RING_GRID[1] * RING_GRID[2], RING_QKV[1] // 2
+        qr = q[:, :hs, 2 * nf:3 * nf].contiguous()
+        br = bias[:, :hs, 2 * nf:3 * nf]
+        mr = bmap[:, :hs, 2 * nf // blk:3 * nf // blk]
+        kh, vh = k[:, :hs].contiguous(), v[:, :hs].contiguous()
+        pieces = hop_pieces(kh, vh, br, mr, blk, T)
+        skip_hop = [i for i, p in enumerate(pieces) if bool((p[3] == SKIP).all())]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out_e, _ = run_chain(qr, [p for i, p in enumerate(pieces) if i not in skip_hop],
+                             blk)
+        torch.cuda.synchronize()
+        n_launch = launch_counts()["sparse_attention"]
+        whole = sparse_ops.sparse_attention(qr, kh, vh, bias=br, block_map=mr,
+                                            block_q=blk, block_k=blk)
+        checks[f"all-SKIP hops {skip_hop} of {T} launch nothing ({n_launch} launches), "
+               f"and the chain equals one call bit for bit"] = (
+            skip_hop == [h for h in range(T) if h not in (0, 2)]
+            and n_launch == T - len(skip_hop) and torch.equal(out_e, whole))
+        del qr, br, mr, kh, vh, pieces, out_e, whole
+        path = "tensor cores" if sparse_ops.uses_tensor_cores(q, v) else "CUDA cores"
+        checks[f"path: {path}"] = (path == "tensor cores") == (dt == torch.bfloat16)
+        pieces4 = hop_pieces(k, v, bias, bmap, blk, 4)
+        one_ms, _ = device_time_ms(lambda: sparse_ops.sparse_attention(q, k, v, **kw),
+                                   "sparse_", iters=10)
+        chain_ms, _ = device_time_ms(lambda: run_chain(q, pieces4, blk), "sparse_",
+                                     iters=10, per_call=4)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias,
+                                           scale=float(1.0 / 128 ** 0.5)), iters=3)
+        bound, by, _, _ = sparse_bound(q, v, bias, bmap, blk)
+        log(f"time sparse[carry] {name} {RING_QKV} ({tile_shares(bmap)}; {path}): one "
+            f"call {one_ms:.4f} ms, a chain of 4 hops with the carry {chain_ms:.4f} ms "
+            f"({chain_ms / one_ms:.3f}x: the carry's cost), sdpa with the f32 mask "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); device times; {CARD}")
+        verdicts(f"sparse[carry] {name}", checks)
+        out_times[name] = {"one_ms": one_ms, "chain4_ms": chain_ms, "sdpa_ms": lib_ms,
+                           "bound_ms": bound, "max_abs_err": err}
+        del q, k, v, bias, bmap, one, one_s, state1, pieces4, live, kw
+        torch.cuda.empty_cache()
+    return out_times
+
+
+def expected_elided(bmap, shards):
+    """Ring hops whose block-map slice is all-SKIP, counted on the
+    unsharded map: shard ``me``'s rows against shard ``src``'s keys, in
+    every batch row and head."""
+    from repro_torch.kernels.sparse.ref import SKIP
+
+    t = bmap.shape[-1] // shards
+    skip = bmap == SKIP
+    return sum(bool(skip[..., me * t:(me + 1) * t, src * t:(src + 1) * t].all())
+               for me in range(shards) for src in range(shards))
+
+
+def ring_dispatch(label, q, k, v, cfg, policy, backend, mesh):
+    """One cached ``attention_dispatch`` call (a refresh step) under
+    ``mesh`` (None: unsharded), with the launch counters set to 0 just
+    before and read just after, and the peak memory."""
+    import torch
+    from repro_torch.core import dispatch as dispatch_lib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with dispatch_lib.dispatch_mesh(mesh):
+        plan = dispatch_lib.resolve_plan(q.shape, v.shape, cfg, on_cuda=True,
+                                         backend=backend, policy=policy, grid=RING_GRID)
+        out, state = dispatch_lib.attention_dispatch(
+            q, k, v, grid=RING_GRID, cfg=cfg, step=RING_STEP[0],
+            total_steps=RING_STEP[1], policy=policy, backend=backend,
+            return_decision=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"ring[{label}]: {plan.summary()}: {wall * 1e3:.1f} ms, launches {counts}, "
+        f"peak {peak:.2f} GiB; {CARD}")
+    return out, state, plan, counts
+
+
+def ring_phase(multi_card=False):
+    """``ring[svg]`` and ``ring[ripple]``: ``attention_dispatch`` at the
+    vDiT's width on its grid without a text prefix, (1, 24, 8192, 128)
+    bf16, unsharded and under ``1x1x2`` and ``1x1x4`` meshes whose
+    shards share the one card (``multi_card``: one shard per card).  svg
+    within the sparse kernel's bf16 bar of the unsharded call, its
+    elided hops equal to the count from the unsharded block map and its
+    sparse launches shards x hops - elided; ripple (the reference
+    backend, decisions on the halo slab) bit for bit.  Then the port's
+    kernel-bench ring section under 8 shards.  Returns the sparse
+    launches of the svg ring runs and the kernel-bench row."""
+    import torch
+    from repro_torch.config.base import RippleConfig
+    from repro_torch.core.policy import get_policy
+    from repro_torch.launch import kernel_bench
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    bf16 = torch.bfloat16
+    q, k, v = (correlated(RING_QKV, bf16, s) for s in (61, 62, 63))
+    ring_launches = 0
+    for policy, backend in (("svg", None), ("ripple", "reference")):
+        cfg = RippleConfig(enabled=True, policy=policy)
+        pol = get_policy(policy)
+        ref, _, plan0, c0 = ring_dispatch(f"{policy} unsharded", q, k, v, cfg, policy,
+                                          backend, None)
+        bmap = None
+        if policy == "svg":
+            d = pol.decide(q, k, grid=RING_GRID, cfg=cfg,
+                           thetas=pol.thetas_for(cfg, *RING_STEP), block_shape=(128, 128))
+            bmap = d.block_map
+            del d
+        # One shard a card: the most cards (8, 4 or 2) whose count divides
+        # the grid's 8 frames.
+        cards = max(n for n in (8, 4, 2, 1) if n <= torch.cuda.device_count())
+        ways = ((cards, None),) if multi_card else ((2, 2), (4, 4))
+        for shards, forced in ways:
+            tag = f"{policy} x{shards}{' one shard a card' if multi_card else ''}"
+            with forced_devices(forced):
+                mesh = parse_mesh_spec(f"1x1x{shards}")
+            out, state, plan, counts = ring_dispatch(tag, q, k, v, cfg, policy, backend,
+                                                     mesh)
+            checks = {f"plan rings {shards} ways": plan.seq_shards == shards}
+            if policy == "svg":
+                tol = attn_tol("bfloat16", ref.float())
+                err = (out.float() - ref.float()).abs().max().item()
+                elided = int(state.elided.sum())
+                want = expected_elided(bmap, shards)
+                sparse = counts.get("sparse_attention", 0)
+                ring_launches += sparse
+                checks[f"within {tol:.3g} of the unsharded call ({err:.3e})"] = err <= tol
+                checks[f"elided hops {elided} = {want} from the unsharded block map"] = \
+                    elided == want
+                checks[f"sparse launches {sparse} = {shards} x {shards} hops - "
+                       f"{elided} elided"] = sparse == shards * shards - elided
+            else:
+                checks["bit for bit the unsharded call"] = torch.equal(out, ref)
+                checks["the reference backend launches no attention kernel"] = \
+                    "ripple_attention" not in counts
+            checks["finite"] = bool(torch.isfinite(out.float()).all())
+            verdicts(f"ring[{tag}]", checks)
+            del out, state
+        del ref, bmap
+        torch.cuda.empty_cache()
+    del q, k, v
+    torch.cuda.empty_cache()
+    if multi_card:
+        return ring_launches, None
+    with forced_devices(8):
+        r = kernel_bench.ring_sweep(device="cuda")
+    if r is None or not r["ring"] or r["elided_hops"] <= 0:
+        raise SystemExit(f"kernel_bench ring section: {r}")
+    log(f"{kernel_bench.ring_row(r)} (8 shards on one card; {CARD})")
+    return ring_launches, r
+
+
+def mesh_phases():
+    """The kernel-level phases of the mesh: ``sparse[carry]``, then
+    ``ring[svg]`` / ``ring[ripple]`` on shards of the one card and the
+    kernel-bench ring section, then, with more than one card, ``ring[svg]``
+    again with one shard a card."""
+    import torch
+
+    carry = sparse_carry_phase()
+    ring_launches, bench = ring_phase()
+    if torch.cuda.device_count() > 1:
+        ring_phase(multi_card=True)
+    else:
+        log("ring[svg] with one shard a card: not run (1 card visible)")
+    return carry, ring_launches, bench
+
+
+def serve_mesh(launcher_done):
+    """``serve[mesh]``: the launcher's ``main`` with ``serve[launcher]``'s
+    argv, one request more (7: bucket 0 then runs a batch of 2 and one of
+    1) and ``--mesh 2x2`` on 4 shards of the one card, with the launch
+    counters set to 0 just before and read just after.  Requests 0-5
+    equal ``serve[launcher]``'s bit for bit; request 6 equals its batch
+    run again in one piece without the mesh; each bucket's plan line
+    reads ``shard=batch2xheads2`` at batch 2 and ``shard=batch1xheads2``
+    (the replicated batch axis) at batch 1; fused_reuse and ripple
+    launch once a shard where one run launches them once (4x); the quiet
+    counters stay 0.  Returns the launch counts."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serving import engine as engine_lib
+
+    seen, plans = {}, []
+
+    def keeping(name):
+        def make(orig):
+            def f(*a, **kw):
+                seen[name] = out = orig(*a, **kw)
+                return out
+            return f
+        return make
+
+    def plan_lines(orig):
+        def f(arch, sp, **kw):
+            out = orig(arch, sp, **kw)
+            plans.append((sp.name, kw.get("batch", 1), serve_lib.plans_summary(out)))
+            return out
+        return f
+
+    argv = list(LAUNCHER_ARGV)
+    argv[argv.index("--requests") + 1] = "7"
+    argv += ["--mesh", "2x2"]
+    log(f"serve[mesh]: python -m repro_torch.launch.serve {' '.join(argv)} "
+        f"(REPRO_TORCH_FORCE_DEVICE_COUNT=4: 4 shards on the one card)")
+    with tempfile.TemporaryDirectory() as tmp, forced_devices(4):
+        path = os.path.join(tmp, "summary.json")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with wrapped(serve_lib, "make_sampler_factory", keeping("factory")), \
+                wrapped(serve_lib, "mixed_request_stream", keeping("traffic")), \
+                wrapped(serve_lib, "attention_plans", plan_lines), \
+                plain_guard(vdit_plain_versions()) as plain:
+            done = serve_lib.main(argv + ["--summary-json", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(path, encoding="utf-8") as f:
+            summary = json.load(f)
+    done = {r.request_id: r for r in done}
+    # Request 6's batch again, in one piece, without the mesh (main has
+    # restored the previous, absent one).
+    factory = seen["factory"][0]
+    req = {r.request_id: r for _, r in seen["traffic"]}[6]
+    fn = factory(req.latent_shape, req.steps, req.policy, req.reuse_every, None)
+    noise = engine_lib.request_noise(req.seed, req.latent_shape, "cuda")[None]
+    txt = torch.from_numpy(np.asarray(req.txt)[None]).float().cuda()
+    out = fn(noise, txt, [req.seed])
+    alone = (out[0] if isinstance(out, tuple) else out).float().cpu().numpy()[0]
+    del factory, fn, seen
+    steps = {0: 12, 1: 12, 2: 6}
+    batches = {}
+    for rid, r in done.items():
+        batches[r.batch_index] = steps[rid % 3]
+        base = launcher_done.get(rid)
+        log(f"serve[mesh]: request {rid} latency {r.latency_s:.3f}s (serve[launcher] "
+            f"{'-' if base is None else f'{base.latency_s:.3f}s'}), ttff "
+            f"{r.ttff_s:.3f}s, batch {r.batch_index} served in {r.walltime_s:.3f}s; {CARD}")
+    layer_steps = LAUNCHER_LAYERS * sum(batches.values())
+    shards = 4
+    for name, batch, line in plans:
+        log(f"serve[mesh]: plan of {name} at batch {batch}: {line}")
+    checks = {
+        "all 7 requests completed": sorted(done) == list(range(7))
+        and not summary["errors"],
+        "requests 0-5 equal serve[launcher]'s bit for bit": all(
+            np.array_equal(done[i].latents, launcher_done[i].latents) for i in range(6)),
+        "request 6 (a batch of 1) equals its run without the mesh bit for bit":
+            np.array_equal(done[6].latents, alone),
+        "plan lines: shard=batch2xheads2 at batch 2, shard=batch1xheads2 at batch 1":
+            bool(plans) and all(
+                ("shard=batch2xheads2" in line) if b % 2 == 0 else
+                ("shard=batch1xheads2" in line) for _, b, line in plans),
+        "a batch of 2 and a batch of 1 both planned":
+            {b for _, b, _ in plans} >= {1, 2},
+        f"fused_reuse twice and ripple once a layer-step on each of {shards} shards":
+            counts["fused_reuse"] == shards * 2 * layer_steps
+            and counts["ripple_attention"] == shards * layer_steps,
+        "no degradation, retry, quarantine or watchdog trip": quiet_counters(summary),
+        "no plain version ran on the card": not any(plain.values()),
+    }
+    log(f"serve[mesh]: launches {counts}; {wall:.1f}s with the model's init; {CARD}")
+    report("mesh", checks)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def ripple_ranges():
     """The ripple wrapper's collapse-flag pass (plain PyTorch, on the key
     operand) and the policy's snap step (the fused_reuse kernel and any
@@ -4285,6 +4726,8 @@ def main() -> int:
     unet_sparse = unet_sparse_checks(res_u)
     log(f"kernel sparse_attention at unet-sd15's head dims: {sum(res_u)}/{len(res_u)} "
         f"cases within tolerance")
+    # 5a. the carry, and ring attention on the one card (slice 15)
+    carry_times, ring_launches, ring_bench = mesh_phases()
 
     # 5b. kernels 5 (flash) and 6 (reuse_snap) vs their plain versions ------
     flash_checks()
@@ -4417,6 +4860,8 @@ def main() -> int:
     del model, served_lat
     torch.cuda.empty_cache()
     counts_la, launcher_done = serve_launcher()
+    # The launcher again with --mesh 2x2: 4 shards on the one card.
+    counts_mesh = serve_mesh(launcher_done)
     # The serving control plane on the launcher's 8-layer model (8e).
     serve_slo()
     serve_failover()
@@ -4571,7 +5016,9 @@ def main() -> int:
          # flux-dev: its launches in serve[flux-dev] and serve[flux-launcher],
          # and its served call (4, 24, 4608, 128), 512 text tokens, T = 1.
          "launches_flux": counts_f["fused_reuse"],
-         "launches_flux_launcher": counts_fl["fused_reuse"], "flux": t1f},
+         "launches_flux_launcher": counts_fl["fused_reuse"], "flux": t1f,
+         # serve[mesh]: the launcher under --mesh 2x2, 4 shards on one card.
+         "launches_mesh": counts_mesh["fused_reuse"]},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",
@@ -4587,7 +5034,8 @@ def main() -> int:
          "launches_crash_restart": counts_cr.get("ripple_attention", 0),
          "unet": unet_times,
          "launches_flux": counts_f["ripple_attention"],
-         "launches_flux_launcher": counts_fl["ripple_attention"], "flux": flux_ripple},
+         "launches_flux_launcher": counts_fl["ripple_attention"], "flux": flux_ripple,
+         "launches_mesh": counts_mesh["ripple_attention"]},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",
          "replaces": "src/repro/kernels/sparse/kernel.py:120",
@@ -4602,7 +5050,13 @@ def main() -> int:
          "launches_policies": counts_pol["sparse_attention"],
          "launches_unet_svg": counts_us["sparse_attention"],
          "launches_guardrail": counts_gr.get("sparse_attention", 0),
-         "unet": unet_sparse_times},
+         "unet": unet_sparse_times,
+         # The ring: sparse launches of ring[svg] at 2 and 4 shards (hops
+         # not elided), the carry's chain of 4 against one call by device
+         # time (sparse[carry], (1, 24, 8192, 128), both paths) and the
+         # kernel-bench ring row.
+         "launches_ring": ring_launches, "carry": carry_times,
+         "ring_bench": ring_bench},
         # No single PyTorch call computes LayerNorm-and-modulate: the time
         # of F.layer_norm with its two elementwise ops is in the log line.
         {"name": "adaln", "route": "cuda",

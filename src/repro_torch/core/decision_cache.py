@@ -16,7 +16,8 @@ is a :class:`CachedDecision`:
     are, so a cache hit skips the head classification entirely,
   * ``ref_stat`` — the sampled-channel Δ statistic recorded when the
     decision was made, per (batch, head) cell,
-  * ``hits`` / ``refreshes`` — per-cell counters for serving telemetry.
+  * ``hits`` / ``refreshes`` — per-cell counters for serving telemetry,
+  * ``elided`` — the ring's elided-hop counters (DESIGN.md §14).
 
 A decision is made again when ``step % cfg.reuse_every == 0``, on the
 final denoising step, or, with ``cfg.drift_tol > 0``, when the drift
@@ -52,8 +53,12 @@ __all__ = ["CachedDecision", "bump_hit", "cache_from_decision",
 @dataclasses.dataclass
 class CachedDecision:
     """The plan half of one reuse decision (see the module doc).  Every
-    tensor keeps the operands' leading (batch, head) dims.  ``elided``
-    (ring attention) is not ported and stays None.  The guardrail
+    tensor keeps the operands' leading (batch, head) dims but
+    ``elided``: on the context-parallel ring (``core.ring``) each seq
+    shard's running count of ring hops it skipped as all-SKIP, int32 of
+    shape (S,) (one entry a shard, as the reference's), None elsewhere;
+    there ``ref_stat`` / ``hits`` / ``refreshes`` are (..., S), a
+    column a shard.  The guardrail
     sentinels (``core.guardrail.attach_sentinel``, with ``cfg.sentinel``
     on) fill ``nonfinite``, the running count of non-finite attention
     outputs, and ``probe_err``, the largest dense-probe relative error;

@@ -35,10 +35,27 @@ model targets (DESIGN.md §8).
 
 The plan cache is shared by every engine thread of a process (router
 replicas on one card) and guarded by a lock.
+
+When a mesh is active (:func:`dispatch_mesh` / :func:`set_dispatch_mesh`;
+the launcher's ``--mesh`` installs one), plan resolution also records
+**batch/head sharding**: the leading batch dim shards over the (pod,
+data) axes and the heads dim over ``model`` whenever they divide, and
+the whole pipeline — the Δ-checks included — runs once per shard under
+``distributed.spmd.shard_map``, each shard in a thread of its own on its
+own device and stream, while the model around it runs once on the first
+device.  The reuse windows run along t/x/y, never along batch or heads,
+so the halo of the sharded axes is zero and each shard's result is bit
+for bit the single-device one (DESIGN.md §10).  Indivisible shapes
+replicate.  A mesh with a third ``seq`` axis also shards the **token
+axis**: context-parallel ring attention (``core.ring``, DESIGN.md §14)
+for policies that declare ``will_seq_shard``, on shapes whose grid covers
+the whole sequence with T divisible by the seq degree; anything else
+replicates the token axis, and the plan line says which was chosen.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -52,12 +69,15 @@ from repro_torch.config.base import RippleConfig
 from repro_torch.core.collapse import collapsed_attention
 from repro_torch.core.policy import (ReuseDecision, ReusePolicy, get_policy,
                                      list_policies, register_policy)
+from repro_torch.distributed import sharding
+from repro_torch.distributed.spmd import P
 from repro_torch.kernels.ripple.ops import TILE_PAIRS, attention_scale
 
 __all__ = [
-    "attention_dispatch", "DispatchPlan", "ReuseDecision", "ReusePolicy",
-    "dense_attention", "get_policy", "list_policies", "register_policy",
-    "resolve_backend", "resolve_plan", "shape_bucket", "time_best",
+    "active_dispatch_mesh", "attention_dispatch", "DispatchPlan",
+    "ReuseDecision", "ReusePolicy", "dense_attention", "dispatch_mesh",
+    "get_policy", "list_policies", "register_policy", "resolve_backend",
+    "resolve_plan", "set_dispatch_mesh", "shape_bucket", "time_best",
 ]
 
 BACKENDS = ("auto", "dense", "reference", "collapse", "pallas", "sparse")
@@ -80,13 +100,30 @@ class DispatchPlan:
     block_k: int = TILE_PAIRS
     fused_mask: bool = False
     bucket: Tuple[int, ...] = ()
+    # Mesh sharding (DESIGN.md §10): the mesh axes that shard the leading
+    # batch dim / the heads dim; () / None is replicated execution.
+    batch_axes: Tuple[str, ...] = ()
+    head_axis: Optional[str] = None
+    batch_shards: int = 1
+    head_shards: int = 1
+    # Context-parallel ring attention (DESIGN.md §14): the mesh axis that
+    # shards the token axis, None when the tokens stay replicated.
+    seq_axis: Optional[str] = None
+    seq_shards: int = 1
+
+    @property
+    def sharded(self) -> bool:
+        return self.batch_shards * self.head_shards * self.seq_shards > 1
 
     def summary(self) -> str:
         blk = (f" block={self.block_q}x{self.block_k}"
                if self.backend in ("pallas", "sparse") else "")
         mask = " fused-mask" if self.fused_mask else ""
-        return (f"attention[{self.policy}/{self.backend}{blk}{mask} "
-                f"bucket={self.bucket}]")
+        shard = (f" shard=batch{self.batch_shards}x"
+                 f"heads{self.head_shards}" if self.sharded else "")
+        ring = f" ring=seq{self.seq_shards}" if self.seq_axis else ""
+        return (f"attention[{self.policy}/{self.backend}{blk}{mask}{shard}"
+                f"{ring} bucket={self.bucket}]")
 
 
 def dense_attention(q, k, v, scale: float, bias=None):
@@ -137,6 +174,88 @@ def shape_bucket(n: int) -> int:
     return max(64, 1 << max(0, math.ceil(math.log2(max(n, 1)))))
 
 
+# ---------------------------------------------------------------------------
+# The active mesh (installed by the launcher; read by plan resolution)
+# ---------------------------------------------------------------------------
+
+_ACTIVE_MESH = None
+
+
+def set_dispatch_mesh(mesh):
+    """Install ``mesh`` (a ``launch.mesh.Mesh``) as the dispatch mesh;
+    returns the previous one.  None restores single-device execution."""
+    global _ACTIVE_MESH
+    prev = _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+    return prev
+
+
+def active_dispatch_mesh():
+    return _ACTIVE_MESH
+
+
+@contextlib.contextmanager
+def dispatch_mesh(mesh):
+    """Scoped :func:`set_dispatch_mesh` (tests, benchmarks)."""
+    prev = set_dispatch_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_dispatch_mesh(prev)
+
+
+def _mesh_key(mesh) -> Optional[Tuple]:
+    if mesh is None:
+        return None
+    return tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
+
+
+def _resolve_sharding(mesh, q_shape) -> Tuple:
+    """(batch_axes, head_axis, batch_shards, head_shards) for q_shape: a
+    greedy prefix of the (pod, data) axes that divides the leading batch
+    dim; heads (dim 1 of a 4-D operand) over ``model`` when they divide.
+    Anything indivisible stays replicated — never an error."""
+    if mesh is None or len(q_shape) < 3:
+        return (), None, 1, 1
+    b_axes = []
+    b_shards = 1
+    B = q_shape[0]
+    for a in sharding.batch_axes(mesh):
+        n = sharding.axis_size(mesh, a)
+        if n > 1 and B % (b_shards * n) == 0:
+            b_axes.append(a)
+            b_shards *= n
+    head_axis, h_shards = None, 1
+    if len(q_shape) >= 4 and "model" in mesh.axis_names:
+        n = sharding.axis_size(mesh, "model")
+        if n > 1 and q_shape[1] % n == 0:
+            head_axis, h_shards = "model", n
+    return tuple(b_axes), head_axis, b_shards, h_shards
+
+
+def _resolve_seq_sharding(mesh, q_shape, resolved: str, cfg: RippleConfig,
+                          pol: ReusePolicy, grid, grid_slice
+                          ) -> Tuple[Optional[str], int]:
+    """(seq_axis, seq_shards): is the context-parallel ring eligible
+    (DESIGN.md §14)?  It needs a ``seq`` axis above 1, a ring-capable
+    backend (reference or sparse), 4-D operands, a grid covering the
+    whole sequence (no text prefix: ``grid_slice`` None after the
+    full-range normalisation), a policy that declares ``will_seq_shard``
+    and T divisible by the seq degree.  Anything else replicates the
+    token axis — the reference's fallback, never an error."""
+    if (mesh is None or "seq" not in mesh.axis_names or grid is None
+            or grid_slice is not None or len(q_shape) < 4
+            or resolved not in ("reference", "sparse")
+            or not pol.will_seq_shard(cfg)):
+        return None, 1
+    s = sharding.axis_size(mesh, "seq")
+    T = int(grid[0])
+    n = math.prod(int(g) for g in grid)
+    if s <= 1 or n != q_shape[-2] or T % s != 0:
+        return None, 1
+    return "seq", s
+
+
 def resolve_backend(cfg: RippleConfig, backend: Optional[str], *,
                     has_bias: bool, n_tokens: int, on_cuda: bool,
                     policy: Optional[ReusePolicy] = None) -> str:
@@ -178,19 +297,35 @@ def _fused_requested(cfg: RippleConfig, on_cuda: bool) -> bool:
 
 def resolve_plan(q_shape, v_shape, cfg: RippleConfig, *, on_cuda: bool,
                  backend: Optional[str] = None, has_bias: bool = False,
-                 policy=None) -> DispatchPlan:
-    """Shape-bucketed, cached plan resolution."""
+                 policy=None, mesh=None, grid=None,
+                 grid_slice=None) -> DispatchPlan:
+    """Shape-bucketed, cached plan resolution.
+
+    ``mesh`` defaults to the active dispatch mesh; with one, the key also
+    holds the exact leading dims (sharding eligibility is a divisibility
+    property, not a bucket property), the mesh shape, the grid and
+    whether there is a grid slice, as the reference's does.  ``grid`` /
+    ``grid_slice`` feed ring eligibility: a caller that knows only
+    shapes never gets a ring plan."""
+    if mesh is None:
+        mesh = _ACTIVE_MESH
+    if grid_slice is not None and tuple(grid_slice) == (0, q_shape[-2]):
+        grid_slice = None  # a full-range slice is no slice at all
     pol = get_policy(policy if policy is not None else cfg.policy)
     *lead, n, d = q_shape
     resolved = resolve_backend(cfg, backend, has_bias=has_bias, n_tokens=n,
                                on_cuda=on_cuda, policy=pol)
     bh = math.prod(lead) if lead else 1
-    # The policy's plan token (a pattern artifact's version) is in the key
-    # only to match the reference's key: no field of a DispatchPlan comes
-    # from the artifact, so it splits plans that are the same.
+    # The reference's key, then the device kind.  The policy's plan token
+    # (a pattern artifact's version) is in it only to match the
+    # reference's: no field of a DispatchPlan comes from the artifact.
     key = (resolved, shape_bucket(bh), shape_bucket(n), d, v_shape[-1],
-           pol.name, pol.plan_token(cfg), cfg.fused_mask, cfg.window,
-           cfg.granularity, on_cuda)
+           pol.name, cfg.fused_mask, cfg.window, cfg.granularity,
+           pol.plan_token(cfg))
+    if mesh is not None:
+        key = key + (_mesh_key(mesh), tuple(q_shape[:-2]), grid,
+                     grid_slice is None)
+    key = key + (on_cuda,)
     with _PLAN_LOCK:
         plan = _PLAN_CACHE.get(key)
         if plan is not None:
@@ -198,10 +333,18 @@ def resolve_plan(q_shape, v_shape, cfg: RippleConfig, *, on_cuda: bool,
             return plan
         blocks = (_SPARSE_BLOCKS if resolved == "sparse"
                   else (TILE_PAIRS,) * 2)
+        b_axes, h_axis, b_shards, h_shards = (
+            _resolve_sharding(mesh, q_shape) if resolved != "dense"
+            else ((), None, 1, 1))
+        seq_axis, seq_shards = _resolve_seq_sharding(
+            mesh, q_shape, resolved, cfg, pol, grid, grid_slice)
         plan = DispatchPlan(backend=resolved, policy=pol.name,
                             block_q=blocks[0], block_k=blocks[1],
                             fused_mask=_fused_requested(cfg, on_cuda),
-                            bucket=key[1:3])
+                            bucket=key[1:3], batch_axes=b_axes,
+                            head_axis=h_axis, batch_shards=b_shards,
+                            head_shards=h_shards, seq_axis=seq_axis,
+                            seq_shards=seq_shards)
         _PLAN_CACHE[key] = plan
         while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
             _PLAN_CACHE.popitem(last=False)
@@ -238,12 +381,14 @@ def _execute_backend(d: ReuseDecision, v, scale: float, *,
     return dense_attention(d.q, d.k, v, scale, d.bias)
 
 
-def _inject_attn_nan(out: torch.Tensor, step) -> torch.Tensor:
+def _inject_attn_nan(out: torch.Tensor, step, count: bool = True
+                     ) -> torch.Tensor:
     """The ``attn_nan`` fault (``serving.faults``): with the fault armed,
     this call's output becomes NaN at the spec's denoising step.  Only
     the non-dense pipelines call this, so the ladder's dense rung clears
     the fault as it would clear a sparse-kernel bug.  Each flipped call
-    counts one ``fault_attn_nan``."""
+    counts one ``fault_attn_nan`` (``count``: a sharded call's shards
+    flip their pieces, its first shard counts)."""
     if step is None:
         return out
     from repro_torch.serving import faults as fault_lib
@@ -252,14 +397,29 @@ def _inject_attn_nan(out: torch.Tensor, step) -> torch.Tensor:
     spec = fault.spec("attn_nan") if fault is not None else None
     if spec is None or int(step) != int(spec.param("step", 0)):
         return out
-    fault.note_fired("attn_nan")
+    if count:
+        fault.note_fired("attn_nan")
     return torch.full_like(out, float("nan"))
+
+
+def _run_pipeline(q, k, v, thetas, scale: float, bias, *,
+                  plan: DispatchPlan, grid, cfg: RippleConfig, grid_slice,
+                  policy: ReusePolicy):
+    """Fig. 6 steps ①-④ for one resolved plan: the policy's decision,
+    then the planned backend on it.  Shard-oblivious: it runs the same on
+    the whole operands or on one batch/head shard (decisions look only
+    along t/x/y, DESIGN.md §10)."""
+    d = policy.decide(q, k, grid=grid, cfg=cfg, thetas=thetas, bias=bias,
+                      grid_slice=grid_slice, fused=plan.fused_mask,
+                      **_decide_extra(plan, policy, cfg))
+    return _execute_backend(d, v, scale, plan=plan, cfg=cfg)
 
 
 def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
                          plan: DispatchPlan, grid, cfg: RippleConfig,
                          grid_slice, policy: ReusePolicy, step: int, cached,
-                         total_steps: Optional[int] = None):
+                         total_steps: Optional[int] = None,
+                         count_fault: bool = True):
     """The cross-step decision-cache pipeline (DESIGN.md §13): decide
     anew when the cadence or the drift guard says the cached plan is
     stale (or there is none yet), otherwise re-apply the carried plan to
@@ -300,13 +460,102 @@ def _run_pipeline_cached(q, k, v, thetas, scale: float, *,
                                   **_decide_extra(plan, policy, cfg))
         new_cache = dc.bump_hit(cached)
     out = _inject_attn_nan(_execute_backend(d, v, scale, plan=plan, cfg=cfg),
-                           step)
+                           step, count_fault)
     if cfg.sentinel:
         from repro_torch.core import guardrail
 
         new_cache = guardrail.attach_sentinel(new_cache, out, q, k, v, scale,
                                               step, cfg)
     return out, new_cache
+
+
+def _operand_spec(plan: DispatchPlan, ndim: int) -> P:
+    """Partition spec of a (..., N, d) attention operand under ``plan``."""
+    entries: list = [None] * ndim
+    if plan.batch_axes:
+        entries[0] = (plan.batch_axes if len(plan.batch_axes) > 1
+                      else plan.batch_axes[0])
+    if plan.head_axis is not None and ndim >= 4:
+        entries[1] = plan.head_axis
+    if plan.seq_axis is not None and ndim >= 3:
+        entries[ndim - 2] = plan.seq_axis
+    return P(*entries)
+
+
+def _lead_spec(plan: DispatchPlan, ndim: int) -> P:
+    """Partition spec of a decision-cache leaf: every leaf keeps the
+    operands' leading (batch, head) dims (DESIGN.md §13), whatever its
+    trailing rank.  ``plan.head_axis`` is set for 4-D operands only, so
+    dim 1 is always the heads here."""
+    entries: list = [None] * ndim
+    if plan.batch_axes and ndim >= 1:
+        entries[0] = (plan.batch_axes if len(plan.batch_axes) > 1
+                      else plan.batch_axes[0])
+    if plan.head_axis is not None and ndim >= 2:
+        entries[1] = plan.head_axis
+    return P(*entries)
+
+
+def _sharded_pipeline(q, k, v, thetas, scale: float, *, plan: DispatchPlan,
+                      mesh, grid, cfg: RippleConfig, grid_slice,
+                      policy: ReusePolicy, step=None, cached=None,
+                      want_cache: bool = False, total_steps=None):
+    """The pipeline once per shard of the plan's mesh axes
+    (``spmd.shard_map``).  Batch/head shards run :func:`_run_pipeline` /
+    :func:`_run_pipeline_cached` with no collective: the sharded axes
+    carry no reuse window, so each shard's decision is self-contained
+    and the result bit for bit the replicated one.  With ``want_cache``
+    the decision cache rides along: every leaf keeps the operands'
+    leading dims, so each shard carries and refreshes its own slice.  A
+    ``seq`` axis runs ``core.ring`` instead.  Returns ``out`` or ``(out,
+    new_cache)``."""
+    from repro_torch.distributed.spmd import first_shard, shard_map
+
+    spec = _operand_spec(plan, q.ndim)
+    in_specs = (spec, spec, spec)
+    if plan.seq_axis is not None:
+        from repro_torch.core import ring as ring_lib
+
+        if not want_cache:
+            def ring_body(qs, ks, vs):
+                return ring_lib.ring_pipeline(
+                    qs, ks, vs, thetas, scale, plan=plan, grid=grid,
+                    cfg=cfg, policy=policy)
+
+            return shard_map(ring_body, mesh, in_specs, spec)(q, k, v)
+        cache_specs = ring_lib.ring_cache_specs(plan, cfg)
+
+        def ring_cached(qs, ks, vs, cache=None):
+            return ring_lib.ring_pipeline(
+                qs, ks, vs, thetas, scale, plan=plan, grid=grid, cfg=cfg,
+                policy=policy, step=step, cached=cache, want_cache=True,
+                total_steps=total_steps)
+
+        args = (q, k, v) + ((cached,) if cached is not None else ())
+        specs = in_specs + ((cache_specs,) if cached is not None else ())
+        return shard_map(ring_cached, mesh, specs,
+                         (spec, cache_specs))(*args)
+
+    if not want_cache:
+        def body(qs, ks, vs):
+            return _run_pipeline(qs, ks, vs, thetas, scale, None, plan=plan,
+                                 grid=grid, cfg=cfg, grid_slice=grid_slice,
+                                 policy=policy)
+
+        return shard_map(body, mesh, in_specs, spec)(q, k, v)
+
+    def lead(leaf):
+        return _lead_spec(plan, leaf.ndim)
+
+    def body_cached(qs, ks, vs, cache=None):
+        return _run_pipeline_cached(
+            qs, ks, vs, thetas, scale, plan=plan, grid=grid, cfg=cfg,
+            grid_slice=grid_slice, policy=policy, step=step, cached=cache,
+            total_steps=total_steps, count_fault=first_shard())
+
+    args = (q, k, v) + ((cached,) if cached is not None else ())
+    specs = in_specs + ((lead,) if cached is not None else ())
+    return shard_map(body_cached, mesh, specs, (spec, lead))(*args)
 
 
 def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -318,7 +567,7 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        grid_slice: Optional[Tuple[int, int]] = None,
                        backend: Optional[str] = None,
                        policy=None, cached_decision=None,
-                       return_decision: bool = False):
+                       return_decision: bool = False, mesh=None):
     """Attention with TimeRipple reuse behind one dispatch seam.
 
     q, k, v: (..., N, head_dim), post-RoPE.  ``policy`` overrides
@@ -336,14 +585,21 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``cached_decision``) returns ``(out, new CachedDecision)``.  Caching
     needs an active cache-capable policy, a concrete ``step`` and no
     external ``bias``.
+
+    ``mesh`` overrides the active dispatch mesh; when the resolved plan
+    shards, the pipeline runs once per shard (:func:`_sharded_pipeline`,
+    DESIGN.md §10, §14) and the output is gathered onto q's device.
     """
+    if mesh is None:
+        mesh = _ACTIVE_MESH
     if grid_slice is not None and tuple(grid_slice) == (0, q.shape[-2]):
         grid_slice = None
     pol = get_policy(policy if policy is not None else cfg.policy)
     scale = attention_scale(q.shape[-1])
     plan = resolve_plan(q.shape, v.shape, cfg, on_cuda=q.is_cuda,
                         backend=backend, has_bias=bias is not None,
-                        policy=pol)
+                        policy=pol, mesh=mesh, grid=grid,
+                        grid_slice=grid_slice)
     want_cache = return_decision or cached_decision is not None
     if want_cache:
         if plan.backend == "dense" or not pol.will_cache_decisions(cfg):
@@ -362,13 +618,22 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if plan.backend == "dense":
         return dense_attention(q, k, v, scale, bias)
     thetas = pol.thetas_for(cfg, step, total_steps, thetas)
+    # An external bias would need a spec of its own: it stays replicated.
+    if mesh is not None and plan.sharded and bias is None:
+        res = _sharded_pipeline(q, k, v, thetas, scale, plan=plan,
+                                mesh=mesh, grid=grid, cfg=cfg,
+                                grid_slice=grid_slice, policy=pol,
+                                step=step, cached=cached_decision,
+                                want_cache=want_cache,
+                                total_steps=total_steps)
+        # The cached body injects faults inside its shards; the plain
+        # sharded path returns the bare output, so inject here.
+        return res if want_cache else _inject_attn_nan(res, step)
     if want_cache:
         return _run_pipeline_cached(
             q, k, v, thetas, scale, plan=plan, grid=grid, cfg=cfg,
             grid_slice=grid_slice, policy=pol, step=step,
             cached=cached_decision, total_steps=total_steps)
-    d = pol.decide(q, k, grid=grid, cfg=cfg, thetas=thetas, bias=bias,
-                   grid_slice=grid_slice, fused=plan.fused_mask,
-                   **_decide_extra(plan, pol, cfg))
-    return _inject_attn_nan(_execute_backend(d, v, scale, plan=plan, cfg=cfg),
-                            step)
+    return _inject_attn_nan(_run_pipeline(
+        q, k, v, thetas, scale, bias, plan=plan, grid=grid, cfg=cfg,
+        grid_slice=grid_slice, policy=pol), step)

@@ -31,9 +31,10 @@ with; the policies' ``plan_token`` (the version) keys the dispatch plan
 and the serving bucket, so traffic after a swap gets a sampler of its
 own.
 
-Not ported yet: ``StaticPatternPolicy.ring_bias_rows`` and the
-policies' ``will_seq_shard`` wait for the ring (multi-GPU,
-``core/ring.py``).
+On the context-parallel ring (``core/ring.py``, DESIGN.md §14)
+``static`` renders each shard's bias rows itself
+(:meth:`StaticPatternPolicy.ring_bias_rows`); ``rainfusion`` does not
+ring (``will_seq_shard`` False) and replicates the token axis.
 """
 
 from __future__ import annotations
@@ -905,6 +906,28 @@ class StaticPatternPolicy(_ArtifactPolicy, ReusePolicy):
             specs.append(a.spec if a is not None else None)
         return specs
 
+    def will_seq_shard(self, cfg):
+        # Constant masks are row-separable: each shard renders its own
+        # bias rows (ring_bias_rows), and all-SKIP ring hops fall out of
+        # the constant map.
+        return True
+
+    def ring_bias_rows(self, q, k, *, grid, cfg, row_offset: int,
+                       n_rows: int) -> torch.Tensor:
+        """A ring shard's bias rows: rows ``row_offset`` to ``row_offset
+        + n_rows`` of the constant (H, N, N) bias (built once per key, as
+        every constant plan), broadcast over q's leading dims.  No
+        collectives: the mask is position-determined."""
+        n = int(np.prod(grid))
+        plan = _constant_plan(
+            self.name, self._specs(_n_heads(q), tuple(grid)),
+            None if self.artifact() is None else self.artifact().version,
+            tuple(grid), n, None, self.layer, None, q.device,
+            bias_always=True)
+        rows = plan.bias[:, row_offset:row_offset + n_rows]
+        lead = q.shape[:-2] if q.ndim >= 4 else (q.shape[0],)
+        return rows.expand(tuple(lead) + tuple(rows.shape[-2:]))
+
     def decide(self, q, k, *, grid, cfg, thetas, bias=None, grid_slice=None,
                fused=False, block_shape=None, want_plan=False):
         plan = self._plan(q, self._specs(_n_heads(q), tuple(grid)), grid,
@@ -946,6 +969,11 @@ class RainFusionPolicy(_ArtifactPolicy, RipplePolicy):
 
     def will_emit_block_map(self, cfg):
         return True
+
+    def will_seq_shard(self, cfg):
+        # Mixing the mask and snap paths on the ring would need both
+        # fused shard-locally, which the ring does not do.
+        return False
 
     def _specs(self, n_heads, grid):
         art = self.artifact()

@@ -132,6 +132,14 @@ class ReusePolicy:
         and calls :meth:`apply_decision` on cache hits, only then."""
         return self.caches_decisions
 
+    def will_seq_shard(self, cfg: RippleConfig) -> bool:
+        """Does the context-parallel ring (``core.ring``, DESIGN.md §14)
+        know how to run this policy's decision shard-locally when the
+        token axis is sharded over a ``seq`` mesh axis?  Policies that
+        return False fall back to the replicated token axis (batch/head
+        sharding still applies): the ring never guesses."""
+        return False
+
     def plan_token(self, cfg: Optional[RippleConfig] = None):
         """Hashable token of the outside state this policy's decisions
         depend on (the pattern artifact's version, DESIGN.md §16).  The
@@ -287,6 +295,12 @@ class RipplePolicy(ReusePolicy):
         # happens; the pair-collapse win is traded away).
         return self.emits_block_map or cfg.svg_mask
 
+    def will_seq_shard(self, cfg):
+        # Pure snapping shards cleanly (the halo exchange covers the
+        # window); the +SVG combination would need the mask and snap
+        # paths fused on the ring, which the ring does not do.
+        return not cfg.svg_mask
+
     def thetas_for(self, cfg, step, total_steps, thetas=None):
         if thetas is None:
             if step is None or total_steps is None:
@@ -432,6 +446,12 @@ class SVGPolicy(ReusePolicy):
     snaps_operands = False
     emits_block_map = True
     caches_decisions = True
+
+    def will_seq_shard(self, cfg):
+        # Head classification has a sharded twin (classify_heads_sharded)
+        # and the masks are row-separable, so each shard rebuilds its own
+        # bias rows exactly.
+        return True
 
     def decide(self, q, k, *, grid, cfg, thetas, bias=None, grid_slice=None,
                fused=False, block_shape=None, want_plan=False):

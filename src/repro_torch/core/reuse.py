@@ -198,7 +198,8 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
                   window: int = 2, granularity: str = "channel",
                   channel_groups: Sequence[float] = (0.125, 0.4375, 0.4375),
                   protect_axis: Optional[str] = None,
-                  want_src: bool = False) -> ReuseResult:
+                  want_src: bool = False,
+                  t_valid: Optional[torch.Tensor] = None) -> ReuseResult:
     """Full TimeRipple reuse for one operand (Q or K).
 
     x: (..., N, d) with N == T*H*W tokens in (t, y, x) row-major order.
@@ -215,8 +216,13 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
     ``want_src`` also returns ``ReuseResult.src_idx``, the per-entry
     snap-source map the decision cache replays with one gather:
     ``torch.gather(x, -2, src_idx)`` equals ``snapped`` bit for bit (both
-    copy the representative's entries).  ``t_valid`` (ring attention)
-    is not ported.
+    copy the representative's entries).
+
+    ``t_valid`` is a (T,) bool gating the temporal axis only: frames
+    where it is False never t-snap (their x/y checks still apply).  The
+    context-parallel ring (``core.ring``, DESIGN.md §14) uses it to
+    disqualify windows that reach past the global frame count when
+    reuse runs on a halo-extended shard-local slab.
     """
     T, H, W = grid
     *lead, N, d = x.shape
@@ -242,6 +248,11 @@ def compute_reuse(x: torch.Tensor, grid: Tuple[int, int, int],
     for axis in axes:
         mask, rep = axis_reuse_mask(x_grid, axis, thetas[axis], window,
                                     granularity, channel_groups)
+        if axis == "t" and t_valid is not None:
+            shape = [1] * x_grid.ndim
+            shape[_AXIS_DIM["t"] % x_grid.ndim] = T
+            mask = mask & t_valid.to(device=x.device,
+                                     dtype=torch.bool).reshape(shape)
         if protected is not None and axis != protect_axis:
             mask = mask & ~protected
         axis_masks[axis] = mask

@@ -77,6 +77,61 @@ def classify_heads(q: torch.Tensor, k: torch.Tensor, grid,
     return mass_sp >= mass_tm
 
 
+def classify_heads_sharded(q: torch.Tensor, k: torch.Tensor, grid,
+                           axis_name: str, sample_rows: int = 64,
+                           scale=None) -> torch.Tensor:
+    """:func:`classify_heads` when the token axis is sharded over the
+    mesh axis ``axis_name`` (the context-parallel ring, DESIGN.md §14).
+    ``q`` / ``k`` are one shard's (..., N_loc, d) token slice; the sampled
+    rows are assembled with ``psum`` and the softmax row statistics
+    reduced with ``pmax`` / ``psum`` (``distributed.spmd``), so every
+    shard returns the same per-head verdict, equal to the single-device
+    one up to the cross-shard summation order.  Called from inside
+    ``spmd.shard_map``, every step on the ring path (collectives never
+    sit inside the decision cache's refresh choice)."""
+    from repro_torch.distributed import spmd
+
+    *lead, n_loc, d = q.shape
+    T, H, W = grid
+    n = T * H * W
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    off = spmd.axis_index(axis_name) * n_loc
+    rows = np.linspace(0, n - 1, min(sample_rows, n)).astype(np.int32)
+    r = torch.from_numpy(rows.astype(np.int64)).to(q.device)
+    # Each shard contributes the sampled rows it owns; psum fills in the
+    # rest.
+    owned = (r >= off) & (r < off + n_loc)
+    local = (r - off).clamp(0, n_loc - 1)
+    qs = torch.where(owned[:, None], q.index_select(-2, local),
+                     q.new_zeros(()))
+    qs = spmd.psum(qs, axis_name)
+    logits = torch.matmul(qs, k.transpose(-1, -2)).float() * float(scale)
+    m = spmd.pmax(logits.amax(dim=-1), axis_name)
+    p = torch.exp(logits - m[..., None])
+    denom = spmd.psum(p.sum(dim=-1), axis_name)            # (..., R)
+    sp, tm = _device_masks(tuple(grid), q.device)
+    zero = p.new_zeros(())
+
+    def mass(full_mask):
+        cols = full_mask.index_select(0, r)[:, off:off + n_loc]
+        num = spmd.psum(torch.where(cols, p, zero).sum(dim=-1), axis_name)
+        return (num / denom).sum(dim=-1)
+
+    return mass(sp) >= mass(tm)
+
+
+def svg_keep_rows(is_spatial: torch.Tensor, grid, row_offset: int,
+                  n_rows: int) -> torch.Tensor:
+    """A shard's slice of the classified keep-mask: the ``n_rows`` query
+    rows from ``row_offset``, against all N key columns — (..., n_rows,
+    N) for per-head verdicts ``is_spatial``."""
+    sp, tm = _device_masks(tuple(grid), is_spatial.device)
+    sp_rows = sp[row_offset:row_offset + n_rows]
+    tm_rows = tm[row_offset:row_offset + n_rows]
+    return torch.where(is_spatial[..., None, None], sp_rows, tm_rows)
+
+
 def _classified_mask(q: torch.Tensor, k: torch.Tensor, grid):
     """(keep-mask (..., N, N), per-head verdicts (...)) of the SVG choice."""
     is_spatial = classify_heads(q, k, grid)

@@ -12,7 +12,17 @@
 //               where the mask drops a key) is added to the scores.
 // With f32 running (m, l, acc) states per query row, m starting at the
 // finite -1e30 of the JAX kernel (so a row whose keys are all -inf stays
-// finite) and rows that end with l == 0 emitting 0.  Scores accumulate in
+// finite) and rows that end with l == 0 emitting 0.
+//
+// The ring's carry (DESIGN.md §14; the JAX kernel's `carry` and
+// `with_state`): given m_in, l_in ((BH, Nq) f32) and acc_in ((BH, Nq, dv)
+// f32), a block starts its rows from that state instead of the fresh one;
+// given m_out, l_out and acc_out it stores the f32 state after its last
+// tile, beside the normalised output.  m is in logit units (the scaled
+// scores) on both paths, so a state stored by one call and loaded by the
+// next is the kernel's own register state, and a chain of calls over
+// whole key tiles equals one call bit for bit.  Rows past Nq are never
+// loaded or stored (they keep the fresh state).  Scores accumulate in
 // f32 and are then multiplied by the scale; probabilities are rounded to
 // v's dtype before the PV product, as the JAX kernel rounds them.  A
 // block walks its map row in ascending key-tile order, the JAX kernel's
@@ -94,6 +104,12 @@ struct Args {
   void* out;          // (BH, Nq, dv)
   const float* bias;  // rows of Nk floats at bias + b*bias_sb + h*bias_sh; may be null
   const int* bmap;    // (BH, nq, nk)
+  const float* m_in;  // the carry, (BH, Nq), (BH, Nq), (BH, Nq, dv); may be null
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;       // the state after the last tile, same shapes; may be null
+  float* l_out;
+  float* acc_out;
   int H, Nq, Nk, d, dv, bq, bk, nq, nk, sub;
   long long bias_sb, bias_sh;
   float scale;
@@ -175,7 +191,8 @@ template <int D, bool BIAS, int NK, int K0>
 __device__ __forceinline__ void consume_keys(
     RowState<D>& st, uint32_t q_tile, uint32_t k_tile, uint32_t v_tile,
     const float* bias, int slot_row, uint32_t v_bar, uint32_t parity,
-    uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale_log2) {
+    uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale,
+    float scale_log2) {
   using R = Ring<D>;
   constexpr int NS = NK / 2;
   const int lane = threadIdx.x % 32;
@@ -189,8 +206,9 @@ __device__ __forceinline__ void consume_keys(
   pin<NS>(st.s);
 
   // Entry i is column K0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1) of the
-  // stage, row slot_row + 8 * ((i >> 1) & 1).
-  float sc = scale_log2;
+  // stage, row slot_row + 8 * ((i >> 1) & 1).  s times scn is a logit,
+  // s times sc the logit in log2 units.
+  float sc = scale_log2, scn = scale;
   if (BIAS && bias != nullptr) {
     mbar_wait(b_bar, b_parity);
 #pragma unroll
@@ -198,10 +216,11 @@ __device__ __forceinline__ void consume_keys(
       const int row = slot_row + 8 * ((i >> 1) & 1);
       const int col = K0 + (i / 4) * 8 + (lane % 4) * 2;
       const float2 b = *reinterpret_cast<const float2*>(bias + bias_at(row, col));
-      st.s[i] = fmaf(st.s[i], scale_log2, b.x * kLog2e);
-      st.s[i + 1] = fmaf(st.s[i + 1], scale_log2, b.y * kLog2e);
+      st.s[i] = fmaf(st.s[i], scale, b.x);
+      st.s[i + 1] = fmaf(st.s[i + 1], scale, b.y);
     }
-    sc = 1.f;
+    sc = kLog2e;
+    scn = 1.f;
   }
   if (key0 + K0 + NK > key_end) {
 #pragma unroll
@@ -210,8 +229,9 @@ __device__ __forceinline__ void consume_keys(
       if (key0 + col >= key_end) st.s[i] = -INFINITY;
     }
   }
-  // The running max in log2 units: the scale is positive, so the max of
-  // the raw scores scales to it.
+  // The running max in logit units: the scale is positive, so the max of
+  // the raw scores scales to it.  Exponents are taken in log2 units, the
+  // max scaled to them once a row.
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < NS; ++i)
@@ -221,10 +241,10 @@ __device__ __forceinline__ void consume_keys(
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(st.m[h], mx[h] * sc);
-    alpha[h] = exp2_ftz(st.m[h] - m_new);
+    const float m_new = fmaxf(st.m[h], mx[h] * scn);
+    alpha[h] = exp2_ftz((st.m[h] - m_new) * kLog2e);
     st.m[h] = m_new;
-    neg_m[h] = -m_new;
+    neg_m[h] = -m_new * kLog2e;
   }
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
@@ -279,13 +299,15 @@ template <int D, bool BIAS>
 __device__ __forceinline__ void consume_stage(
     RowState<D>& st, uint32_t q_tile, uint32_t k_tile, uint32_t v_tile,
     const float* bias, int slot_row, uint32_t v_bar, uint32_t parity,
-    uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale_log2) {
+    uint32_t b_bar, uint32_t b_parity, int key0, int key_end, float scale,
+    float scale_log2) {
   constexpr int NK = Ring<D>::PASS;
   consume_keys<D, BIAS, NK, 0>(st, q_tile, k_tile, v_tile, bias, slot_row, v_bar,
-                               parity, b_bar, b_parity, key0, key_end, scale_log2);
+                               parity, b_bar, b_parity, key0, key_end, scale,
+                               scale_log2);
   if constexpr (NK < kKeys)
     consume_keys<D, BIAS, NK, NK>(st, q_tile, k_tile, v_tile, bias, slot_row, v_bar,
-                                  parity, b_bar, b_parity, key0, key_end,
+                                  parity, b_bar, b_parity, key0, key_end, scale,
                                   scale_log2);
 }
 
@@ -428,12 +450,31 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
     RowState<D> st;
 #pragma unroll
     for (int i = 0; i < R::DP / 2; ++i) st.o[i] = 0.f;
-    st.m[0] = st.m[1] = kMInit * kLog2e;
+    st.m[0] = st.m[1] = kMInit;
     st.l[0] = st.l[1] = 0.f;
     const uint32_t q_tile = q_tiles + wg * R::Q_BYTES;
     const int t = threadIdx.x % 128;
-    // This thread's rows r0 and r0 + 8 of the block (accumulator layout).
+    // This thread's rows r0 and r0 + 8 of the block (accumulator layout),
+    // columns (t % 4) * 2 + {0, 1} of each 8-column chunk.
     const int r0 = wg * kWgRows + (t / 32) * 16 + (t % 32) / 4;
+    const int col0 = (t % 4) * 2;
+    if (a.m_in != nullptr) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row_lo + r0 + 8 * h;
+        if (row >= row_hi) continue;
+        const long sr = (long)bh * a.Nq + row;
+        st.m[h] = a.m_in[sr];
+        st.l[h] = a.l_in[sr];
+#pragma unroll
+        for (int c = 0; c < R::DP / 8; ++c) {
+          if (c * 8 >= D) continue;
+          const float2 o = *reinterpret_cast<const float2*>(a.acc_in + sr * D + c * 8 + col0);
+          st.o[c * 4 + 2 * h] = o.x;
+          st.o[c * 4 + 2 * h + 1] = o.y;
+        }
+      }
+    }
     const unsigned char* slot_mem = smem_raw + (slots - raw);
     mbar_wait(q_full, 0);
     Pos pos;
@@ -454,18 +495,30 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
         }
         consume_stage<D, BIAS>(st, q_tile, slot(kv.slot), slot(kv.slot) + R::KV_BYTES,
                          bias, r0, v_full(kv.slot), kv.phase, b_full(pos.slot),
-                         pos.phase, key0, key_end, scale_log2);
+                         pos.phase, key0, key_end, a.scale, scale_log2);
         mbar_arrive(empty(kv.slot));
         if (partial) mbar_arrive(empty(pos.slot));
       }
     }
 
     __nv_bfloat16* oh = static_cast<__nv_bfloat16*>(a.out) + (long)bh * a.Nq * D;
-    const int col0 = (t % 4) * 2;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row_lo + r0 + 8 * h;
       if (row >= row_hi) continue;
+      if (a.m_out != nullptr) {
+        const long sr = (long)bh * a.Nq + row;
+        if (t % 4 == 0) {  // the quad's four threads hold the same m and l
+          a.m_out[sr] = st.m[h];
+          a.l_out[sr] = st.l[h];
+        }
+#pragma unroll
+        for (int c = 0; c < R::DP / 8; ++c) {
+          if (c * 8 >= D) continue;
+          *reinterpret_cast<float2*>(a.acc_out + sr * D + c * 8 + col0) =
+              make_float2(st.o[c * 4 + 2 * h], st.o[c * 4 + 2 * h + 1]);
+        }
+      }
       // l == 0: every tile of the row was skipped or fully masked.
       const float inv_l = st.l[h] > 0.f ? 1.f / st.l[h] : 0.f;
       __nv_bfloat16* dst = oh + (long)row * D + col0;
@@ -487,8 +540,12 @@ constexpr int kFmaRows = 64;  // query rows per block
 constexpr int kFmaThreads = 256;
 
 // NJ: output columns a lane holds (lane + 32 j), 4 up to dv 128, else 8.
+// At least one block an SM: without the bound ptxas held the NJ = 8
+// instances to 128 registers and spilled; with it they keep their 8 x 8
+// accumulators in 167-181.  Their shared memory (up to 210 KB) fits one
+// block an SM anyway.
 template <typename T, int NJ>
-__global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
+__global__ void __launch_bounds__(kFmaThreads, 1) sparse_fma_kernel(Args a) {
   constexpr int VS = 32 * NJ;  // V row stride
   extern __shared__ float sm[];
   const int d = a.d, dv = a.dv;
@@ -524,9 +581,14 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
   }
   for (int i = tid; i < kChunk * VS; i += kFmaThreads) Vs[i] = 0.f;
   for (int r = tid; r < kFmaRows; r += kFmaThreads) {
-    m_s[r] = kMInit;
-    l_s[r] = 0.f;
+    const int row = row_lo + r;
+    const bool carried = a.m_in != nullptr && row < row_hi;
+    m_s[r] = carried ? a.m_in[bh * a.Nq + row] : kMInit;
+    l_s[r] = carried ? a.l_in[bh * a.Nq + row] : 0.f;
   }
+  // A block whose map row is all SKIP runs no tile (and no barrier in
+  // the loop), yet stores m_s and l_s, which other warps wrote.
+  __syncthreads();
 
   // Score micro-tile: rows ty + 16*i, keys tx + 16*j.
   const int ty = tid / 16, tx = tid % 16;
@@ -534,9 +596,16 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
   const int warp = tid / 32, lane = tid % 32;
   float acc[8][NJ];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int row = row_lo + warp + 8 * i;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) {
+      const int col = lane + 32 * j;
+      acc[i][j] = a.acc_in != nullptr && row < row_hi && col < dv
+                      ? a.acc_in[(bh * a.Nq + row) * dv + col]
+                      : 0.f;
+    }
+  }
 
   for (int kj = 0; kj < a.nk; ++kj) {
     const int state = mrow[kj];  // uniform over the block
@@ -645,10 +714,17 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_fma_kernel(Args a) {
     if (row >= row_hi) continue;
     // l == 0: every tile of the row was skipped or fully masked.
     const float inv_l = l_s[r] > 0.f ? 1.f / l_s[r] : 0.f;
+    const long sr = bh * a.Nq + row;
+    if (a.m_out != nullptr && lane == 0) {
+      a.m_out[sr] = m_s[r];
+      a.l_out[sr] = l_s[r];
+    }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = lane + 32 * j;
-      if (col < dv) from_f(oh + (long)row * dv + col, acc[i][j] * inv_l);
+      if (col >= dv) continue;
+      from_f(oh + (long)row * dv + col, acc[i][j] * inv_l);
+      if (a.acc_out != nullptr) a.acc_out[sr * dv + col] = acc[i][j];
     }
   }
 }
@@ -742,6 +818,9 @@ bool tensor_cores(int is_bf16, int d, int dv) {
 
 // q: (BH, Nq, d); k: (BH, Nk, d); v: (BH, Nk, dv); out: (BH, Nq, dv); all
 // contiguous, float32 (is_bf16 = 0) or bfloat16, 16-byte aligned.
+// m_in, l_in, acc_in: null, or the carry to start from (f32, (BH, Nq),
+// (BH, Nq), (BH, Nq, dv), contiguous; all three or none); m_out, l_out,
+// acc_out: null, or where to store the state after the last tile.
 // bmap: (BH, ceil(Nq/bq), ceil(Nk/bk)) int32 states.  bias: null, or f32
 // rows of Nk floats, row `row` of head (b, h) = bh / H, bh % H at
 // bias + b*bias_sb + h*bias_sh + row*Nk.  Returns the CUDA error of the
@@ -749,12 +828,16 @@ bool tensor_cores(int is_bf16, int d, int dv) {
 // tensor-map encode.
 extern "C" int sparse_attention_launch(const void* q, const void* k, const void* v,
                                        void* out, const void* bias, const void* bmap,
-                                       int is_bf16, int BH, int H, int Nq, int Nk,
+                                       const void* m_in, const void* l_in,
+                                       const void* acc_in, void* m_out, void* l_out,
+                                       void* acc_out, int is_bf16, int BH, int H, int Nq, int Nk,
                                        int d, int dv, int bq, int bk,
                                        long long bias_sb, long long bias_sh,
                                        float scale, void* stream) {
   if (BH < 1 || BH > 65535 || H < 1 || BH % H || Nq < 1 || Nk < 1 || d < 1 ||
-      d > kMaxDim || dv < 1 || dv > kMaxDim || bq < 1 || bk < 1)
+      d > kMaxDim || dv < 1 || dv > kMaxDim || bq < 1 || bk < 1 ||
+      (m_in == nullptr) != (l_in == nullptr) || (m_in == nullptr) != (acc_in == nullptr) ||
+      (m_out == nullptr) != (l_out == nullptr) || (m_out == nullptr) != (acc_out == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -763,6 +846,12 @@ extern "C" int sparse_attention_launch(const void* q, const void* k, const void*
   a.out = out;
   a.bias = static_cast<const float*>(bias);
   a.bmap = static_cast<const int*>(bmap);
+  a.m_in = static_cast<const float*>(m_in);
+  a.l_in = static_cast<const float*>(l_in);
+  a.acc_in = static_cast<const float*>(acc_in);
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
+  a.acc_out = static_cast<float*>(acc_out);
   a.H = H;
   a.Nq = Nq;
   a.Nk = Nk;

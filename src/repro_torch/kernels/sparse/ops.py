@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import LAUNCH_LOCK, _build
 from repro_torch.kernels.sparse.ref import (FULL, PARTIAL, SKIP,
+                                            fresh_state,
                                             sparse_attention_ref,
                                             sparse_grid)
 
@@ -82,7 +83,25 @@ def _check_operands(q, k, v):
         raise ValueError(f"sparse kernel takes head dims <= {_MAX_DIM}")
 
 
-def _launch(q, k, v, bias, block_map, block_q: int, block_k: int):
+def _check_state(carry, B: int, H: int, Nq: int, dv: int, device):
+    """The carry as the kernel reads it: float32, contiguous, on the
+    operands' card, (B, H, Nq) twice and (B, H, Nq, dv)."""
+    if len(carry) != 3:
+        raise ValueError("carry is a (m, l, acc) triple")
+    want = ((B, H, Nq), (B, H, Nq), (B, H, Nq, dv))
+    out = []
+    for name, t, shape in zip(("m", "l", "acc"), carry, want):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape:
+            raise ValueError(f"carry {name} must have shape {shape}")
+        if t.device != device:
+            raise ValueError(f"carry {name} is on {t.device}, the operands "
+                             f"on {device}")
+        out.append(t.to(torch.float32).contiguous())
+    return out
+
+
+def _launch(q, k, v, bias, block_map, block_q: int, block_k: int,
+            carry=None, return_state: bool = False):
     global launches
     _check_operands(q, k, v)
     B, H, Nq, d = q.shape
@@ -104,16 +123,21 @@ def _launch(q, k, v, bias, block_map, block_q: int, block_k: int):
         if bias.stride(3) != 1 or bias.stride(2) != Nk:
             bias = bias.contiguous()
         sb, sh = bias.stride(0), bias.stride(1)
+    state_in = (None,) * 3 if carry is None else \
+        _check_state(carry, B, H, Nq, dv, q.device)
+    state_out = fresh_state((B, H), Nq, dv, q.device) if return_state \
+        else (None,) * 3
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
     fn = _build.function("sparse_attention", "sparse_attention_launch",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                          + [ctypes.c_longlong] * 2
                          + [ctypes.c_float, ctypes.c_void_p])
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with _build.on_device(q):  # launch on the operands' card
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bias.data_ptr() if bias is not None else None,
-                bmap.data_ptr(), _DTYPES[q.dtype], B * H, H, Nq, Nk, d, dv,
-                bq, bk, sb, sh, float(1.0 / (d ** 0.5)),
+                ptr(bias), bmap.data_ptr(), *map(ptr, state_in),
+                *map(ptr, state_out), _DTYPES[q.dtype], B * H, H, Nq, Nk,
+                d, dv, bq, bk, sb, sh, float(1.0 / (d ** 0.5)),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sparse attention kernel launch failed: CUDA "
@@ -121,7 +145,7 @@ def _launch(q, k, v, bias, block_map, block_q: int, block_k: int):
     with LAUNCH_LOCK:
         launches += 1
         launches_by_shape[(Nq, d)] = launches_by_shape.get((Nq, d), 0) + 1
-    return out
+    return (out, tuple(state_out)) if return_state else out
 
 
 def uses_tensor_cores(q: torch.Tensor, v: torch.Tensor) -> bool:
@@ -136,7 +160,7 @@ def uses_tensor_cores(q: torch.Tensor, v: torch.Tensor) -> bool:
 def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      bias=None, block_map=None, block_q: int = 128,
                      block_k: int = 128, carry=None,
-                     return_state: bool = False) -> torch.Tensor:
+                     return_state: bool = False):
     """q, k, v: (B, H, N, d) -> (B, H, Nq, dv).
 
     ``block_map``: (..., nq, nk) int states broadcastable over (B, H),
@@ -149,17 +173,21 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     both).  The scale is the JAX wrapper's ``1 / d ** 0.5`` (a Python
     double, rounded to f32 by the kernel).
 
-    ``carry`` / ``return_state`` (the ring's cross-hop accumulator)
-    are not ported yet and raise.
+    Ring-hop chaining (DESIGN.md §14), the JAX wrapper's contract: with
+    ``return_state=True`` the call also returns the online-softmax state
+    ``(m, l, acc)`` ((B, H, Nq) f32 twice, (B, H, Nq, dv) f32); fed back
+    as ``carry`` on the next call, against the next key slice, it
+    resumes the accumulation, so a chain of calls over whole key tiles
+    equals one call (bit for bit on each path).  ``out`` is the
+    normalised prefix result.  A missing carry starts from m = -1e30,
+    l = 0, acc = 0; a row with l == 0 gives zeros, never NaN.
     """
-    if carry is not None or return_state:
-        raise NotImplementedError(
-            "the sparse kernel's carry / return_state contract waits for "
-            "the multi-GPU slice (ring attention)")
     if q.device.type == "cpu":
         return sparse_attention_ref(q, k, v, bias=bias, block_map=block_map,
                                     block_q=block_q, block_k=block_k,
-                                    scale=float(1.0 / (q.shape[-1] ** 0.5)))
+                                    scale=float(1.0 / (q.shape[-1] ** 0.5)),
+                                    carry=carry, return_state=return_state)
     if q.device.type != "cuda":
         raise ValueError(f"sparse kernel runs on CUDA, not {q.device}")
-    return _launch(q, k, v, bias, block_map, block_q, block_k)
+    return _launch(q, k, v, bias, block_map, block_q, block_k, carry,
+                   return_state)

@@ -28,10 +28,15 @@ Sections:
 * :func:`static_pattern_sweep` — searched static patterns against
   adaptive ripple: the per-step replay cost of each, the block map's
   stability over the schedule, and the output quality of each at the
-  same savings.
+  same savings;
+* :func:`ring_sweep` — context-parallel ring attention (DESIGN.md §14)
+  under a ``1x1xS`` mesh: the ring hops whose block-map slice is
+  all-SKIP, so the shard skips the hop's kernel launch.  Skipped, with
+  a log line, when no ring mesh can be built (fewer than two visible
+  devices: ``REPRO_TORCH_FORCE_DEVICE_COUNT``, ``launch/mesh.py``).
 
-The reference's other sections wait for their modules: the dispatch
-autotune cache (``autotune_sweep``) and ring attention (``ring_sweep``).
+The reference's dispatch autotune cache (``autotune_sweep``) is not
+ported: the port's plans take fixed tiles.
 """
 
 from __future__ import annotations
@@ -327,6 +332,92 @@ def decision_amortization(grid=None, d=64, heads=2, cadences=(1, 2, 4, 8),
     return rows
 
 
+def ring_sweep(grid=None, d=64, heads=2, policy="svg", steps=2, seq=None,
+               *, device="cuda"):
+    """Context-parallel ring attention (DESIGN.md §14) at a vdit_paper
+    style latent grid, the reference's ``ring_sweep``: ``steps`` cached
+    dispatch calls under a ``1x1xS`` mesh (the active dispatch mesh when
+    it has a ``seq`` axis, else one over the visible devices), reading
+    the ring's telemetry off the carried decision state:
+
+      * ``elided_hops`` — ring hops whose block-map slice was all-SKIP
+        (the shard skipped the hop's kernel launch),
+      * ``hops`` — every hop (steps × S shards × S hops),
+      * ``elided_frac`` — the realized structural saving; the K/V
+        rotation still runs every hop, so the matching communication
+        saving is modelled, not realized.
+
+    Returns None when no ring mesh can be built (one visible device, or
+    the seq degree does not divide the frame axis)."""
+    from repro_torch.core import dispatch as dispatch_lib
+    from repro_torch.launch.mesh import parse_mesh_spec, visible_devices
+
+    device = resolve_device(device)
+    if grid is None:
+        grid = make_config().model.grid(frames=32, img_res=256)  # (8,16,16)
+    mesh = dispatch_lib.active_dispatch_mesh()
+    if mesh is None or "seq" not in mesh.axis_names \
+            or int(mesh.shape["seq"]) < 2:
+        if seq is None:
+            n_dev = len(visible_devices(device))
+            seq = max((s for s in (8, 4, 2)
+                       if s <= n_dev and grid[0] % s == 0), default=1)
+        if seq < 2:
+            return None
+        mesh = parse_mesh_spec(f"1x1x{seq}", device=device)
+    S = int(mesh.shape["seq"])
+    if grid[0] % S:
+        return None
+
+    n = grid[0] * grid[1] * grid[2]
+    # Random operands: uncorrelated data classifies every head spatial
+    # (the 2/T-vs-3/HW margin, DESIGN.md §12), whose local + sink mask is
+    # what makes whole ring hops elidable.
+    q, k, v = (torch.randn((1, heads, n, d), generator=_generator(31 + i,
+                                                                   device),
+                           device=device) for i in range(3))
+    cfg = RippleConfig(enabled=True, policy=policy, reuse_every=2)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with dispatch_lib.dispatch_mesh(mesh):
+        plan = dispatch_lib.resolve_plan(q.shape, v.shape, cfg,
+                                         on_cuda=device.type == "cuda",
+                                         backend="sparse", policy=policy,
+                                         grid=grid)
+
+        def step_fn(step, state):
+            return dispatch_lib.attention_dispatch(
+                q, k, v, grid=grid, cfg=cfg, step=step,
+                total_steps=steps + 1, backend="sparse", policy=policy,
+                cached_decision=state, return_decision=True)
+
+        # A warm-up call outside the timed loop; its state is dropped so
+        # the elided counters cover the timed steps only.
+        step_fn(0, None)
+        sync()
+        state = None
+        t0 = time.perf_counter()
+        for s in range(steps):
+            out, state = step_fn(s, state)
+        sync()
+        us = (time.perf_counter() - t0) * 1e6 / steps
+
+    elided = 0 if state.elided is None else int(state.elided.sum())
+    hops = steps * S * S
+    frac = elided / hops
+    return {
+        "grid": grid, "d": d, "heads": heads, "policy": policy,
+        "seq": S, "steps": steps, "ring": plan.seq_shards == S,
+        "elided_hops": elided, "hops": hops,
+        "elided_frac": round(frac, 3),
+        "modeled_attn_speedup": round(1.0 / max(1.0 - frac, 1e-9), 2),
+        "us_per_step": round(us, 1),
+    }
+
+
 def static_pattern_sweep(grid=None, d=64, heads=2, steps=4, *,
                          device="cuda"):
     """Searched static patterns (DESIGN.md §16) against adaptive ripple at
@@ -475,6 +566,16 @@ def amortization_row(r) -> str:
             f"{per};{red}")
 
 
+def ring_row(r) -> str:
+    return (f"kernel_bench[ring@{r['policy']}x{r['seq']}seq"
+            f"_vdit_paper{_gname(r['grid'])}xd{r['d']}],"
+            f"{r['us_per_step']:.0f},"
+            f"elided_hops={r['elided_hops']};hops={r['hops']};"
+            f"elided_frac={r['elided_frac']};"
+            f"modeled_attn_speedup={r['modeled_attn_speedup']};"
+            f"ring={r['ring']};steps={r['steps']}")
+
+
 def static_pattern_row(sp) -> str:
     return (f"kernel_bench[static_pattern@vdit_paper"
             f"{_gname(sp['grid'])}xd{sp['d']}],"
@@ -530,7 +631,14 @@ def main(argv: Optional[Sequence[str]] = None):
 
     sp = static_pattern_sweep(device=device)
     print(static_pattern_row(sp), flush=True)
-    return rows + [m, s] + amort + [sp]
+
+    ring = ring_sweep(device=device)
+    if ring is None:
+        print("# ring_sweep skipped: needs 2+ visible devices and seq | "
+              "frames (set REPRO_TORCH_FORCE_DEVICE_COUNT=N)", flush=True)
+    else:
+        print(ring_row(ring), flush=True)
+    return rows + [m, s] + amort + [sp] + ([ring] if ring else [])
 
 
 if __name__ == "__main__":

@@ -57,6 +57,18 @@ chunk boundary inside the run, and new request ids start above the
 journaled ones.  SIGTERM drains gracefully (exit 143: the queue stays
 journaled, the clean-shutdown marker is written); the ``crash`` fault
 SIGKILLs the process once a checkpoint of work in flight is on disk.
+
+The dispatch mesh (DESIGN.md §10, §14): ``--mesh DxM`` or ``--mesh
+DxMxS`` builds a (data, model[, seq]) mesh over the visible cards (the
+CPU with ``--device cpu``; ``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` places N
+shards on the first device, ``launch/mesh.py``) and installs it for the
+run: attention shards over batch and heads wherever they divide (the
+model runs once, on the first device), and a third component shards the
+token axis for ring attention where a grid covers the whole sequence.
+Each bucket logs its plan at every batch size it runs (``shard=
+batchNxheadsM``, ``ring=seqS``), and the bucket key's fifth entry is the
+seq degree.  A mesh larger than the visible devices raises.  Multi-host
+serving (the reference's ``--distributed``) is not ported.
 """
 
 from __future__ import annotations
@@ -84,6 +96,7 @@ from repro_torch.core.guardrail import DegradationLadder
 from repro_torch.core.policy import get_policy, list_policies
 from repro_torch.diffusion.sampler import ddim_sample, euler_flow_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
+from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           latent_shape_for,
                                           mixed_gen_shapes,
@@ -358,14 +371,16 @@ def model_summary(arch) -> str:
     return f"{m.num_layers} layers"
 
 
-def attention_plans(arch, shape, *, on_cuda: bool, policy=None):
+def attention_plans(arch, shape, *, on_cuda: bool, policy=None,
+                    batch: int = 1):
     """``(tokens, head dim, plan)`` of each distinct self-attention call of
     a forward (:func:`attention_shapes`: one for the (v)DiT, one per
-    attention level for the unet), each resolved at batch 1."""
+    attention level for the unet), each resolved at ``batch`` requests
+    under the active dispatch mesh."""
     m = arch.model
     out = []
     for n, hd in attention_shapes(arch, shape):
-        qk = (1, m.num_heads, n, hd)
+        qk = (batch, m.num_heads, n, hd)
         out.append((n, hd, dispatch_lib.resolve_plan(
             qk, qk, arch.ripple, on_cuda=on_cuda, policy=policy)))
     return out
@@ -492,6 +507,11 @@ def main(argv=None):
                          "its half resolution and its half schedule")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke config, 64x64, 3 steps")
+    ap.add_argument("--mesh", default=None, metavar="DxMxS",
+                    help="(data, model[, seq]) dispatch mesh, e.g. 2, 2x2 "
+                         "or 1x1x2: attention shards over batch and heads "
+                         "(a third component: the token axis, ring "
+                         "attention)")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--steps", type=int, default=None,
                     help="denoising steps of the base shape, before the "
@@ -605,6 +625,49 @@ def main(argv=None):
                         format="%(asctime)s %(name)s: %(message)s")
 
     device = resolve_device(args.device)
+    mesh = parse_mesh_spec(args.mesh, device=device) if args.mesh else None
+    if mesh is None:
+        return _serve(args, ap, device, None)
+    # The mesh is the run's: installed for it, the previous one restored.
+    prev = dispatch_lib.set_dispatch_mesh(mesh)
+    log.info("dispatch mesh: %s on %s", mesh.shape,
+             sorted({str(d) for d in mesh.devices}))
+    try:
+        return _serve(args, ap, device, mesh)
+    finally:
+        dispatch_lib.set_dispatch_mesh(prev)
+
+
+def _plan_logging(factory, arch, shapes, on_cuda: bool):
+    """``factory`` whose samplers log the bucket's attention plans at each
+    batch size they first run: under a mesh the sharding depends on the
+    batch (``shard=batch2xheads2`` where it divides, the replicated
+    batch axis where not)."""
+    by_bucket = {(tuple(latent_shape_for(arch, sp)), sp.steps): sp
+                 for sp in shapes}
+
+    def logged(latent_shape, steps, policy=None, reuse_every=None,
+               stream_every=None):
+        fn = factory(latent_shape, steps, policy, reuse_every, stream_every)
+        sp = by_bucket[(tuple(latent_shape), steps)]
+        seen = set()
+
+        def run(x, txt, seeds=None, **kw):
+            if x.shape[0] not in seen:
+                seen.add(x.shape[0])
+                log.info("bucket %s at batch %d: plan %s", sp.name,
+                         x.shape[0], plans_summary(attention_plans(
+                             arch, sp, on_cuda=on_cuda, policy=policy,
+                             batch=x.shape[0])))
+            return fn(x, txt, seeds, **kw)
+
+        return run
+
+    return logged
+
+
+def _serve(args, ap, device, mesh):
+    """The launcher's body after the device and the mesh are set."""
     if args.policy_module:
         importlib.import_module(args.policy_module)
     if args.pattern_artifact is not None:
@@ -668,6 +731,9 @@ def main(argv=None):
     factory, _ = make_sampler_factory(
         arch, shapes, model, use_ripple=not args.no_ripple, device=device,
         sentinel=guardrail)
+    if mesh is not None:
+        factory = _plan_logging(factory, arch, shapes,
+                                device.type == "cuda")
 
     # Crash safety: scan before the journal opens (opening it removes the
     # clean-shutdown marker).

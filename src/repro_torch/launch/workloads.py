@@ -1,5 +1,5 @@
 """Serving helpers of the port: per-request latent shapes, attention
-call shapes, mixed generate shapes, a deterministic request stream,
+call shapes and a cell's attention plan, mixed generate shapes, a deterministic request stream,
 per-request class labels, one denoiser forward (vdit, dit, mmdit and
 unet families) and the vdit's per-layer decision-cache state."""
 
@@ -59,6 +59,32 @@ def attention_shapes(arch: ArchConfig,
                     m.ch * m.ch_mult[-1] // m.num_heads))
         return list(dict.fromkeys(out))
     raise ValueError(f"family {arch.family!r} is not ported yet")
+
+
+def _cfg_factor(arch: ArchConfig) -> int:
+    """The reference workloads' classifier-free-guidance batch factor:
+    flux-dev is guidance-distilled (one pass), the others x2."""
+    return 1 if arch.family == "mmdit" else 2
+
+
+def attention_plan(arch: ArchConfig, shape: ShapeSpec, mesh=None,
+                   policy: Optional[str] = None, *, on_cuda: bool = True):
+    """The resolved dispatch plan of the cell's joint self-attention call
+    at the reference workloads' batch (the shape's batch times the
+    guidance factor), under ``mesh`` (default: the active dispatch mesh)
+    so that its batch/head sharding is what a sharded run executes
+    (DESIGN.md §10).  Metadata only; None for the unet, whose attention
+    runs at several resolutions (``launch.serve.attention_plans`` gives
+    each)."""
+    from repro_torch.core import dispatch as dispatch_lib
+
+    if arch.family == "unet":
+        return None
+    n, hd = attention_shapes(arch, shape)[0]
+    b = max(shape.batch, 1) * _cfg_factor(arch)
+    qk = (b, arch.model.num_heads, n, hd)
+    return dispatch_lib.resolve_plan(qk, qk, arch.ripple, on_cuda=on_cuda,
+                                     policy=policy, mesh=mesh)
 
 
 def request_label(seed: int, num_classes: int) -> int:

@@ -6,8 +6,9 @@ Requests are keyed into a **bucket** by the reference's 9-tuple
 ``(latent_shape, steps, policy, reuse_every, seq_shards, txt_shape,
 stream_every, pattern_token, resume_step)``, so one sampler invocation
 never pads or mixes shapes, reuse policies, decision-cache cadences,
-streaming cadences or resume points.  ``seq_shards`` is 1 (the port has
-no context parallelism yet).  ``resume_step`` is 0 for fresh traffic
+streaming cadences or resume points.  ``seq_shards`` is the ``seq``
+degree of the active dispatch mesh (1 without one: :func:`_seq_shards`).
+``resume_step`` is 0 for fresh traffic
 and the checkpoint's step for a request resuming mid-flight: batchmates
 share one step range, but the sampler LRU is keyed on ``key[:8]``, so a
 resumed request runs on its fresh bucket's sampler.  The pattern token
@@ -109,6 +110,17 @@ BucketKey = Tuple
 
 # A queued request: (enqueue time, request, the policy its sampler runs).
 Entry = Tuple[float, "GenRequest", Any]
+
+
+def _seq_shards() -> int:
+    """Seq-shard degree of the active dispatch mesh (1 = no context
+    parallelism), the reference engine's fifth key entry."""
+    from repro_torch.core import dispatch as dispatch_lib
+
+    mesh = dispatch_lib.active_dispatch_mesh()
+    if mesh is not None and "seq" in mesh.axis_names:
+        return int(mesh.shape["seq"])
+    return 1
 
 
 def _bucket_policy(policy_name: Optional[str]) -> Tuple[Any, Optional[str]]:
@@ -577,7 +589,8 @@ class DiffusionEngine:
                  else self.default_reuse_every)
         # Plain Python literals only: a checkpoint stores repr(key[:8]).
         return (tuple(int(d) for d in req.latent_shape), int(req.steps),
-                name, reuse, 1, tuple(np.shape(req.txt)), req.stream_every,
+                name, reuse, _seq_shards(), tuple(np.shape(req.txt)),
+                req.stream_every,
                 token, int(req.resume["step"]) if req.resume else 0), policy
 
     def _bucket_key(self, req: GenRequest) -> BucketKey:

@@ -188,11 +188,22 @@ def test_edge_padding_never_makes_partial():
 
 
 def test_carry_and_return_state_raise():
+    """The carry is a (m, l, acc) triple of the operands' state shapes:
+    a malformed one raises on every path instead of running (CPU here,
+    the kernel wrapper's own check for CUDA tensors)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 64))
-    with pytest.raises(NotImplementedError, match="carry"):
-        sparse_attention(q, k, v, carry=(None, None, None))
-    with pytest.raises(NotImplementedError, match="carry"):
-        sparse_attention(q, k, v, return_state=True)
+    good = ref.fresh_state((1, 2), 64, 32)
+    with pytest.raises(ValueError, match="carry"):
+        sparse_attention(q, k, v, carry=(good[0], good[1], good[2][..., :8]))
+    with pytest.raises(ValueError, match="carry"):
+        ops._check_state(good[:2], 1, 2, 64, 32, q.device)
+    with pytest.raises(ValueError, match="carry m must have shape"):
+        ops._check_state((good[1][..., :8],) + good[1:], 1, 2, 64, 32,
+                         q.device)
+    out, state = sparse_attention(q, k, v, carry=good, return_state=True)
+    assert torch.equal(out, sparse_attention(q, k, v))
+    assert [tuple(t.shape) for t in state] == \
+        [(1, 2, 64), (1, 2, 64), (1, 2, 64, 32)]
 
 
 def test_raises_off_cpu_and_cuda():
