@@ -177,16 +177,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ``serve[resume]`` (a resume at a decision-cache hit step, bit-equal
    with equal cache counters; a checkpointed router failover, bit-equal
    to the fault-free run);
+8g. (after 8a'', with ``reuse[vit]`` in the kernel section: fused_reuse
+   bit for bit at vit-l16's call (128, 16, 197, 64), the cls token before
+   a (1, 14, 14) grid, bf16 and f32, and its device time there) the
+   vision family at full width and depth: ``classify[vit-l16]`` at
+   serve_b1 and serve_b128 (224², bf16) through the classify workload
+   (ripple off: no kernel of the port), ``classify[vit-l16 ripple]``
+   (``vit_apply`` at a fixed θ 0.2 from step 0: 48 fused_reuse launches
+   a forward and no ripple launch, as 197 tokens are odd; the snap
+   fraction of Q and K and the logits' relative L2 against ripple off)
+   and ``classify[efficientnet-b7]``, each with its time a batch,
+   images/s and peak memory, and profiles of one serve_b128 forward;
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT, UNet (also under svg) and MMDiT (12 Euler steps), and of static
-   and rainfusion, on the card against the same trajectory on the CPU.
+   and rainfusion, on the card against the same trajectory on the CPU,
+   and the smoke ViT's (ripple off and at the fixed θ) and
+   EfficientNet's forwards in f32 the same way.
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
 mismatch or error exits non-zero.  It needs one card and no network.
 ``--layers N`` cuts the vDiT's served depth (default: all 40 layers);
-the DiT, the UNet and flux-dev always run at full depth.  ``--baseline DIR`` runs none of the above:
+the DiT, the UNet, flux-dev and the vision models always run at full
+depth.  ``--baseline DIR`` runs none of the above:
 it times the snap step of the checkout at DIR (for example an earlier
 commit unpacked by ``git archive``) against this checkout's, in turns,
 each in a process of its own (:func:`snap_ab`).
@@ -198,6 +212,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -2733,6 +2748,241 @@ def serve_flux_launcher():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The vision family: vit-l16 and efficientnet-b7 (slice 16)
+# ---------------------------------------------------------------------------
+
+
+VIT_GRID = (1, 14, 14)          # 224² at patch 16
+VIT_SNAP = (128, 16, 196, 64)   # the ViT's Q/K grid tokens at serve_b128
+VIT_TEXT = (1, 0)               # the cls token before them: 197 tokens
+# The fixed threshold of DESIGN.md §6 from step 0, under which entries
+# snap (the config's ramp alone gives θ 0 at the ViT's step 0 of 2).
+VIT_RIPPLE = ("ripple.enabled=true", "ripple.i_min=0", "ripple.fixed_threshold=0.2")
+CLASSIFY_SHAPES = ("serve_b1", "serve_b128")
+
+
+def vit_kernel_phase(flush):
+    """reuse[vit]: fused_reuse bit for bit against its plain version at
+    vit-l16's served call, (128, 16, 197, 64) with the cls token before a
+    (1, 14, 14) grid (slice (1, 196): an odd token count and start),
+    axes x/y, θ 0.2, bf16 and f32 on the contiguous operand
+    ``mha_attention`` hands over and bf16 on a transposed one; then its
+    device time there against the bytes bound.  Returns the times."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    res = []
+    for dt, view in ((bf16, "contiguous"), (f32, "contiguous"), (bf16, "transposed")):
+        check_reuse(res, VIT_SNAP, VIT_GRID, dt, "channel", (0.2,) * 3, axes=("x", "y"),
+                    view=view, text=VIT_TEXT)
+    log(f"reuse[vit]: {sum(res)}/{len(res)} checks bit-equal")
+    x = reuse_operand(VIT_SNAP, bf16, 46, 0.6, text=VIT_TEXT)
+    out = time_fused_reuse(x, VIT_GRID, ("x", "y"), (VIT_TEXT[0], VIT_SNAP[2]),
+                           "vit-l16 served call, serve_b128", flush)
+    return {"shape": [VIT_SNAP[0], VIT_SNAP[1], VIT_TEXT[0] + VIT_SNAP[2], VIT_SNAP[3]],
+            **out}
+
+
+def vision_model(name):
+    """(arch, model) of a vision arch at full width and depth, every leaf
+    drawn from a seeded generator (bf16 on the card)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_model
+
+    arch = get_config(name)
+    t0 = time.perf_counter()
+    model = init_model(arch.model, seed=0, device="cuda", dtype=torch.bfloat16,
+                       zero_init=False)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"classify: {name} {arch.model}; {n / 1e6:.3f} M params (bf16, every leaf drawn "
+        f"from a seeded generator, the zero-initialised bias and norm leaves too) in "
+        f"{time.perf_counter() - t0:.1f}s; no cut: full width and depth")
+    return arch, model
+
+
+def vision_images(shape, seed=0):
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randn((shape.batch, shape.img_res, shape.img_res, 3), generator=g,
+                       device="cuda")
+
+
+def classify_cell(label, shape, call, base, *, launched=None, spy=None, iters=10):
+    """One classify cell: ``call`` once with the launch counters set to 0
+    just before and read just after (the path's run; ``launched`` the
+    exact count of each kernel, None: none may launch), with the plain
+    versions watched; then its time a batch by CUDA events after
+    warm-up, images/s and the peak device memory of the timed calls,
+    also less ``base``, the bytes earlier phases left allocated.
+    Returns (logits of the counted run, launch counts, ms a batch)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_guard(vdit_plain_versions()) as plain, \
+            (spy() if spy is not None else contextlib.nullcontext()):
+        logits = call()
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(call, iters=iters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {n: (launched or {}).get(n, 0) for n in counts}
+    log(f"classify[{label}]: {shape.name} batch {shape.batch} at {shape.img_res}²: "
+        f"{ms:.3f} ms a batch (CUDA events, {iters} batches after warm-up), "
+        f"{shape.batch / ms * 1e3:.1f} images/s, peak device memory {peak:.2f} GiB "
+        f"({peak - base / 2**30:.2f} GiB above what earlier phases left); launches "
+        f"{counts}; {CARD}")
+    report(label, {
+        f"finite logits of ({shape.batch}, 1000)":
+            tuple(logits.shape) == (shape.batch, 1000)
+            and bool(torch.isfinite(logits.float()).all()),
+        f"launches {dict((n, c) for n, c in want.items() if c) or 'none'} exactly":
+            counts == want,
+        "no plain version ran on the card": not any(plain.values()),
+    }, kind="classify")
+    return logits, counts, ms
+
+
+def classify_vit():
+    """classify[vit-l16] at serve_b1 and serve_b128 through the classify
+    workload (ripple off: plain attention, no kernel of the port), then
+    classify[vit-l16 ripple]: ``vit_apply`` under the fixed threshold at
+    both batches (fused_reuse twice a layer, 48 a forward; N = 197 is
+    odd, so ``auto`` leaves the ripple kernel out: 0 launches), with the
+    snap fraction of Q and K and the logits' relative L2 against ripple
+    off; then profiles one serve_b128 forward of each.  Returns the
+    launch counts of a serve_b128 forward under ripple."""
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.core import dispatch as dispatch_lib
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.launch.workloads import classify_step
+    from repro_torch.models import common as common_lib
+    from repro_torch.models import vit as vit_lib
+
+    # The forward's own families: its LayerNorms (f32), MLPs (GEMMs and
+    # tanh GELU) and plain attention (two GEMMs and an f32 softmax); the
+    # Q/K/V/O projections stay in gemm.
+    ranges = [(vit_lib, "layernorm", "layernorm"), (common_lib.MLP, "forward", "mlp"),
+              (dispatch_lib, "dense_attention", "attention")]
+    base = torch.cuda.memory_allocated()
+    arch, model = vision_model("vit-l16")
+    rip = apply_overrides(arch, VIT_RIPPLE).ripple
+    layers = arch.model.num_layers
+    for name in CLASSIFY_SHAPES:
+        shape = arch.shape(name)
+        images = vision_images(shape)
+        step = classify_step(arch, shape, model)
+
+        def off_call():
+            return step(images)
+
+        def ripple_call():
+            return vit_lib.vit_apply(model, images, arch.model, ripple=rip)
+
+        off, _, off_ms = classify_cell("vit-l16", shape, off_call, base)
+        snapped = {"q": [], "k": []}
+
+        def spy():
+            def make(orig):
+                def decide(self, q, k, **kw):
+                    d = orig(self, q, k, **kw)
+                    snapped["q"].append(d.q_mask.float().mean())
+                    snapped["k"].append(d.k_mask.float().mean())
+                    return d
+                return decide
+            return wrapped(policy_lib.RipplePolicy, "decide", make)
+
+        on, counts, on_ms = classify_cell("vit-l16 ripple", shape, ripple_call, base,
+                                          launched={"fused_reuse": 2 * layers}, spy=spy)
+        frac = {a: torch.stack(v).mean().item() for a, v in snapped.items()}
+        rel = ((on.float() - off.float()).norm() / off.float().norm()).item()
+        log(f"classify[vit-l16 ripple]: {name}: {' '.join(VIT_RIPPLE)}; snapped Q "
+            f"{frac['q']:.4f} K {frac['k']:.4f} over the {layers} layers; logits' "
+            f"relative L2 against ripple off {rel:.4e}; {on_ms:.3f} ms against "
+            f"{off_ms:.3f} ms off")
+        report("vit-l16 ripple", {"entries snapped": frac["q"] > 0 and frac["k"] > 0,
+                                  "the logits moved": rel > 0}, kind="classify")
+        if name == "serve_b128":
+            desc = f"{name} batch {shape.batch}, {layers} layers, 197 tokens"
+            profile_call("vit-l16", off_call, {}, annotate=ranges, desc=desc)
+            profile_call("vit-l16 ripple", ripple_call, {},
+                         annotate=ranges + ripple_ranges()[1:], desc=desc)
+        del images
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def classify_effnet():
+    """classify[efficientnet-b7] at serve_b1 and serve_b128 through the
+    classify workload (cuDNN convolutions, batch statistics; no kernel of
+    the port), then one serve_b128 forward profiled."""
+    import torch
+    from repro_torch.launch.workloads import classify_step
+    from repro_torch.models import efficientnet as eff_lib
+
+    base = torch.cuda.memory_allocated()
+    arch, model = vision_model("efficientnet-b7")
+    for name in CLASSIFY_SHAPES:
+        shape = arch.shape(name)
+        images = vision_images(shape)
+        fn = classify_step(arch, shape, model)
+        classify_cell("efficientnet-b7", shape, lambda: fn(images), base)
+        if name == "serve_b128":
+            profile_call(
+                "efficientnet-b7", lambda: fn(images), {},
+                annotate=[(eff_lib, "conv2d", "conv"), (eff_lib, "batchnorm", "batchnorm")],
+                desc=f"{name} batch {shape.batch}, 55 MBConv blocks")
+        del images
+    del model
+    torch.cuda.empty_cache()
+
+
+def vision_reference_check(label, name, overrides=()):
+    """The smoke config's forward in f32, batch 2, through the kernels on
+    the card against the same forward through the plain versions on the
+    CPU, same params and images; with ripple on, fused_reuse must launch
+    twice a layer on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.efficientnet import effnet_apply
+    from repro_torch.models.params import init_model
+    from repro_torch.models.vit import vit_apply
+
+    arch = apply_overrides(get_smoke_config(name), overrides)
+    m = arch.model
+    images = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, m.img_res, m.img_res, 3)).astype(np.float32))
+    fwd = (functools.partial(vit_apply, ripple=arch.ripple) if arch.family == "vit"
+           else effnet_apply)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = init_model(m, seed=1, device="cpu", zero_init=False).to(dev)
+        reset_launch_counts()
+        outs[dev] = fwd(model, images.to(dev), m, compute_dtype=torch.float32).float().cpu()
+        if dev == "cuda":
+            launched = launch_counts()["fused_reuse"]
+    want = 2 * m.num_layers if arch.ripple.enabled else 0
+    diff = ((outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()).item()
+    ok = bool(torch.isfinite(outs["cuda"]).all()) and diff < 1e-3 and launched == want
+    log(f"reference[{label}]: {arch.name} forward, f32, batch 2 at {m.img_res}², card "
+        f"kernels vs CPU plain versions: relative L2 {diff:.3e} (tol 1e-3); fused_reuse "
+        f"launches on the card {launched} (expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("card forward disagrees with the CPU reference")
+
+
 PATTERN_DIR = os.path.join(ROOT, "build", "patterns")
 # The default template at the served grid (8, 32, 32) + 256 text tokens,
 # frame_diag(window=1, sink=1) in 128 x 128 tiles: (FULL, PARTIAL, SKIP).
@@ -3226,11 +3476,11 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def report(label, checks):
+def report(label, checks, kind="serve"):
     for what, ok in checks.items():
-        log(f"serve[{label}]: {what}: {'ok' if ok else 'FAIL'}")
+        log(f"{kind}[{label}]: {what}: {'ok' if ok else 'FAIL'}")
     if not all(checks.values()):
-        raise SystemExit(f"serve[{label}] failed")
+        raise SystemExit(f"{kind}[{label}] failed")
 
 
 def serve_slo():
@@ -4278,8 +4528,6 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     ``family`` (the innermost range wins), a kernel family of
     ``families`` included."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.launch.serve import model_summary
     from repro_torch.launch.workloads import _denoise_call
@@ -4311,6 +4559,18 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
         if keep_state is not None:
             keep_state[:] = st
         return out
+
+    return profile_call(label, fwd, families, annotate, keep_state,
+                        f"batch {batch}, {model_summary(arch)}, step {step} of {total}")
+
+
+def profile_call(label, fwd, families, annotate=(), keep_state=None, desc=""):
+    """One call of ``fwd`` under torch.profiler, read as
+    :func:`profile_forward` says (``desc`` names the call in the log):
+    a classifier's forward comes here directly."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     def family(name):
         name = name.lower()
@@ -4390,8 +4650,7 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
     if busy_ms <= 0:
         raise SystemExit(f"profile[{label}]: the profiler reported no device time")
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items())
-    log(f"profile[{label}]: one forward, batch {batch}, "
-        f"{model_summary(arch)}, step {step} of {total}: wall {wall_ms:.3f} ms, "
+    log(f"profile[{label}]: one forward, {desc}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
         f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
         f"{peak:.2f} GiB")
@@ -4780,6 +5039,8 @@ def main() -> int:
     del xu
     # reuse[flux]: both kernels at flux-dev's served joint-attention call.
     t1f, flux_ripple = flux_kernel_phase(flush)
+    # reuse[vit]: fused_reuse at vit-l16's call, 197 tokens (slice 16).
+    t1v = vit_kernel_phase(flush)
 
     # adaLN at the DiT's main-path shape, shift/scale chunks of the
     # projection as the model passes them.
@@ -4958,6 +5219,12 @@ def main() -> int:
     counts_f = serve_flux()
     counts_fl = serve_flux_launcher()
 
+    # 8g. the vision family at full width and depth: vit-l16 (ripple off
+    # and on) and efficientnet-b7 classify, counters set to 0 just before
+    # each run and read just after ---------------------------------------
+    counts_v = classify_vit()
+    classify_effnet()
+
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
     counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
@@ -4980,6 +5247,11 @@ def main() -> int:
     # The smoke MMDiT (d 64, 4 heads of 16, 2 + 2 blocks, text 8 x 64), 12
     # Euler steps over 8 text + 16 image tokens.
     small_reference_check("flux-dev", name="flux-dev")
+    # The vision family's smoke forwards: the ViT (4 x 4 grid behind the
+    # cls token) off and at the fixed threshold, and EfficientNet.
+    vision_reference_check("vit-l16", "vit-l16")
+    vision_reference_check("vit-l16 ripple", "vit-l16", VIT_RIPPLE)
+    vision_reference_check("efficientnet-b7", "efficientnet-b7")
     # The offline-pattern policies: static on the default template, and
     # rainfusion under the artifact pattern_search[vdit] wrote.
     from repro_torch.core import patterns
@@ -5018,7 +5290,10 @@ def main() -> int:
          "launches_flux": counts_f["fused_reuse"],
          "launches_flux_launcher": counts_fl["fused_reuse"], "flux": t1f,
          # serve[mesh]: the launcher under --mesh 2x2, 4 shards on one card.
-         "launches_mesh": counts_mesh["fused_reuse"]},
+         "launches_mesh": counts_mesh["fused_reuse"],
+         # vit-l16: its launches in one serve_b128 forward of classify[vit-l16
+         # ripple] and its call there, (128, 16, 197, 64), the cls token first.
+         "launches_vit": counts_v["fused_reuse"], "vit": t1v},
         {"name": "ripple_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/ripple_attention.cu",
          "replaces": "src/repro/kernels/ripple/kernel.py:125",
@@ -5035,7 +5310,10 @@ def main() -> int:
          "unet": unet_times,
          "launches_flux": counts_f["ripple_attention"],
          "launches_flux_launcher": counts_fl["ripple_attention"], "flux": flux_ripple,
-         "launches_mesh": counts_mesh["ripple_attention"]},
+         "launches_mesh": counts_mesh["ripple_attention"],
+         # 197 tokens are odd: auto leaves the ViT's snapped operands to the
+         # reference backend.
+         "launches_vit": counts_v["ripple_attention"]},
         {"name": "sparse_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/sparse_attention.cu",
          "replaces": "src/repro/kernels/sparse/kernel.py:120",

@@ -3,8 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, with the same
 field names and defaults as the JAX package's ``repro.config.base``, so
 that one config (and one ``key=value`` override string) means the same
-thing in both packages.  The vDiT, DiT, MMDiT and UNet families are
-carried over so far.
+thing in both packages.  The vDiT, DiT, MMDiT, UNet, ViT and
+EfficientNet families are carried over so far.
 """
 
 from __future__ import annotations
@@ -155,6 +155,29 @@ class UNetConfig:
     in_channels: int = 4
     num_heads: int = 8
     ctx_tokens: int = 77
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    img_res: int
+    patch: int
+    num_layers: int
+    d_model: int
+    num_heads: int
+    d_ff: int
+    num_classes: int = 1000
+    in_channels: int = 3
+    pool: str = "cls"  # 'cls' | 'gap'
+
+
+@dataclass(frozen=True)
+class EffNetConfig:
+    img_res: int
+    width_mult: float
+    depth_mult: float
+    num_classes: int = 1000
+    dropout: float = 0.5
+    in_channels: int = 3
 
 
 @dataclass(frozen=True)

@@ -1,16 +1,18 @@
 """Architecture registry of the port: ``vdit-paper``, ``dit-xl2``,
-``dit-b2``, ``unet-sd15`` and ``flux-dev`` so far."""
+``dit-b2``, ``unet-sd15``, ``flux-dev``, ``vit-l16`` and
+``efficientnet-b7`` so far."""
 
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.config.base import ArchConfig
-from repro_torch.configs import (dit_b2, dit_xl2, flux_dev, unet_sd15,
-                                 vdit_paper)
+from repro_torch.configs import (dit_b2, dit_xl2, efficientnet_b7, flux_dev,
+                                 unet_sd15, vdit_paper, vit_l16)
 
 _MODULES = {"vdit-paper": vdit_paper, "dit-xl2": dit_xl2, "dit-b2": dit_b2,
-            "unet-sd15": unet_sd15, "flux-dev": flux_dev}
+            "unet-sd15": unet_sd15, "flux-dev": flux_dev, "vit-l16": vit_l16,
+            "efficientnet-b7": efficientnet_b7}
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

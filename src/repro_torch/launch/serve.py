@@ -498,7 +498,10 @@ def _recover(args, store):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="vdit-paper", choices=ALL_ARCHS)
+    # The generating families; the vision classifiers have no launcher.
+    ap.add_argument("--arch", default="vdit-paper",
+                    choices=[a for a in ALL_ARCHS
+                             if get_config(a).family in MODEL_INIT])
     ap.add_argument("--shape", default=None,
                     help="single-shape traffic from this named generate "
                          "shape; default: mixed-shape traffic over the "
@@ -512,7 +515,7 @@ def main(argv=None):
                          "or 1x1x2: attention shards over batch and heads "
                          "(a third component: the token axis, ring "
                          "attention)")
-    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--steps", type=int, default=None,
                     help="denoising steps of the base shape, before the "
                          "mixed variants are made (default: the shape's)")

@@ -1,7 +1,8 @@
 """Serving helpers of the port: per-request latent shapes, attention
 call shapes and a cell's attention plan, mixed generate shapes, a deterministic request stream,
 per-request class labels, one denoiser forward (vdit, dit, mmdit and
-unet families) and the vdit's per-layer decision-cache state."""
+unet families), the vdit's per-layer decision-cache state, and the
+vision family's classify step (vit and effnet)."""
 
 from __future__ import annotations
 
@@ -198,3 +199,31 @@ def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
     if arch.family == "vdit":
         return model(x, t, cond["txt"], decision_state=dstate, **kw)
     raise ValueError(f"family {arch.family!r} is not ported yet")
+
+
+def classify_step(arch: ArchConfig, shape: ShapeSpec, model):
+    """The classify workload of a vision arch (the JAX workloads'
+    ``_vision_serve``): ``fn(images)`` for one ``classify`` cell, images
+    (batch, res, res, channels) float32 on any device, moved to the
+    model's, to bf16 logits (batch, num_classes).  The ViT runs with
+    ripple off, as the reference's step does."""
+    from repro_torch.models.efficientnet import effnet_apply
+    from repro_torch.models.vit import vit_apply
+
+    if arch.family not in ("vit", "effnet") or shape.kind != "classify":
+        raise ValueError(f"no classify workload for family {arch.family!r} "
+                         f"at a {shape.kind!r} shape")
+    m = arch.model
+    want = (shape.batch, shape.img_res, shape.img_res, m.in_channels)
+    device = next(model.parameters()).device
+
+    def fn(images: torch.Tensor) -> torch.Tensor:
+        if tuple(images.shape) != want:
+            raise ValueError(f"{shape.name} takes images {want}, not "
+                             f"{tuple(images.shape)}")
+        x = images.to(device)
+        if arch.family == "vit":
+            return vit_apply(model, x, m)
+        return effnet_apply(model, x, m)
+
+    return fn

@@ -1,7 +1,8 @@
 """Shared layers: norms, linear, gated and plain MLPs, RoPE (factorized
 3-D), patch embedding and the sinusoidal timestep and 2-D position
-embeddings.  Functions on tensors, and the ``Linear`` module the models
-share; weights are kept in the JAX package's (d_in, d_out) layout."""
+embeddings.  Functions on tensors, and the ``Linear``, ``Norm`` and
+``MLP`` modules the models share; weights are kept in the JAX package's
+(d_in, d_out) layout."""
 
 from __future__ import annotations
 
@@ -22,12 +23,19 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return (out * scale.float()).to(x.dtype)
 
 
-def layernorm(x: torch.Tensor, eps: float = 1e-6):
-    """Parameter-free LayerNorm in float32, cast back to x's dtype."""
+def layernorm(x: torch.Tensor, eps: float = 1e-6,
+              scale: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None):
+    """LayerNorm in float32, cast back to x's dtype; parameter-free, or
+    with the affine ``scale`` and ``bias`` (a :class:`Norm`'s leaves)
+    applied in float32 before the cast."""
     x32 = x.float()
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
-    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
 
 
 def linear(w: torch.Tensor, b: Optional[torch.Tensor], x: torch.Tensor):
@@ -43,6 +51,16 @@ def param(*shape, device=None, dtype=None) -> nn.Parameter:
     train)."""
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
                         requires_grad=False)
+
+
+class Norm(nn.Module):
+    """A norm's affine leaves ``scale`` and ``bias`` (c,): LayerNorm,
+    GroupNorm and batch normalization."""
+
+    def __init__(self, c: int, device=None, dtype=None):
+        super().__init__()
+        self.scale = param(c, device=device, dtype=dtype)
+        self.bias = param(c, device=device, dtype=dtype)
 
 
 class Linear(nn.Module):
@@ -75,6 +93,21 @@ def mlp_bias(wi, bi, wo, bo, x: torch.Tensor, act=F.silu):
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+class MLP(nn.Module):
+    """Non-gated MLP with biases (leaves wi, bi, wo, bo) and tanh GELU:
+    the DiT's and the ViT's."""
+
+    def __init__(self, d: int, d_ff: int, device=None, dtype=None):
+        super().__init__()
+        self.wi = param(d, d_ff, device=device, dtype=dtype)
+        self.bi = param(d_ff, device=device, dtype=dtype)
+        self.wo = param(d_ff, d, device=device, dtype=dtype)
+        self.bo = param(d, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return mlp_bias(self.wi, self.bi, self.wo, self.bo, x, act=gelu_tanh)
 
 
 def rope_freqs(dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:

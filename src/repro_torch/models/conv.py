@@ -1,15 +1,17 @@
-"""Convolution substrate of the UNet, NHWC throughout as in the JAX
-package's ``repro/models/conv.py``.
+"""Convolution substrate of the UNet and EfficientNet, NHWC throughout as
+in the JAX package's ``repro/models/conv.py``.
 
 :class:`Conv` keeps its weight ``w`` in PyTorch's (c_out, c_in, k, k)
 layout, the JAX package's (k, k, c_in, c_out) HWIO leaf transposed
-(``models.params`` converts), and its bias ``b``.  :func:`conv2d` runs
+(``models.params`` converts); a depthwise convolution's (k, k, 1, C)
+leaf becomes (C, 1, k, k), run with C groups.  The bias ``b`` is
+optional, as in the JAX ``conv_defs``.  :func:`conv2d` runs
 ``F.conv2d`` on the NHWC activation seen as a channels-last NCHW tensor
 (a view: no copy), with the reference's ``"SAME"`` padding;
-:func:`groupnorm` and :func:`upsample_nearest` are plain tensor ops, as
-the reference computes them in jnp.  The reference leaves all three to
-XLA outside any Pallas kernel, so they have no kernel of their own here
-either.
+:func:`groupnorm`, :func:`batchnorm`, :func:`global_avg_pool` and
+:func:`upsample_nearest` are plain tensor ops, as the reference computes
+them in jnp.  The reference leaves all of them to XLA outside any Pallas
+kernel, so they have no kernel of their own here either.
 """
 
 from __future__ import annotations
@@ -20,27 +22,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import param
+from repro_torch.models.common import Norm, param
 
 
 class Conv(nn.Module):
-    """A k x k convolution: ``w`` (c_out, c_in, k, k) and ``b`` (c_out,)."""
+    """A k x k convolution: ``w`` (c_out, c_in, k, k), or (c_in, 1, k, k)
+    with ``depthwise`` (c_out == c_in, one group a channel), and ``b``
+    (c_out,) unless ``bias=False``."""
 
     def __init__(self, k: int, c_in: int, c_out: int, device=None,
-                 dtype=None):
+                 dtype=None, bias: bool = True, depthwise: bool = False):
         super().__init__()
-        self.w = param(c_out, c_in, k, k, device=device, dtype=dtype)
-        self.b = param(c_out, device=device, dtype=dtype)
-
-
-class Norm(nn.Module):
-    """A GroupNorm's or LayerNorm's affine leaves ``scale`` and ``bias``
-    (c,)."""
-
-    def __init__(self, c: int, device=None, dtype=None):
-        super().__init__()
-        self.scale = param(c, device=device, dtype=dtype)
-        self.bias = param(c, device=device, dtype=dtype)
+        self.groups = c_in if depthwise else 1
+        self.w = param(c_out, c_in // self.groups, k, k, device=device,
+                       dtype=dtype)
+        self.b = param(c_out, device=device, dtype=dtype) if bias else None
 
 
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -54,18 +50,19 @@ def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 def conv2d(conv: Conv, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x: (B, H, W, c_in) -> (B, H', W', c_out) in x's dtype, ``"SAME"``
-    padded; the bias is added by the convolution."""
+    padded; the bias, where there is one, is added by the convolution."""
     w = conv.w.to(x.dtype)
+    b = conv.b.to(x.dtype) if conv.b is not None else None
     k = w.shape[-1]
     xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor
     ph = same_padding(x.shape[1], k, stride)
     pw = same_padding(x.shape[2], k, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        out = F.conv2d(xc, w, conv.b.to(x.dtype), stride=stride,
-                       padding=(ph[0], pw[0]))
+        out = F.conv2d(xc, w, b, stride=stride, padding=(ph[0], pw[0]),
+                       groups=conv.groups)
     else:
         xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
-        out = F.conv2d(xc, w, conv.b.to(x.dtype), stride=stride)
+        out = F.conv2d(xc, w, b, stride=stride, groups=conv.groups)
     return out.permute(0, 2, 3, 1)
 
 
@@ -82,6 +79,23 @@ def groupnorm(gn: Norm, x: torch.Tensor, groups: int = 32,
     var, mu = torch.var_mean(x32, dim=(1, 3), unbiased=False, keepdim=True)
     out = ((x32 - mu) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
     return (out * gn.scale.float() + gn.bias.float()).to(x.dtype)
+
+
+def batchnorm(bn: Norm, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Batch-statistics normalization of NHWC x: float32 mean and
+    population variance over (N, H, W), the affine leaves, one rounding
+    back to x's dtype.  No running statistics: an image's output depends
+    on its batch, as in the reference."""
+    x32 = x.float()
+    var, mu = torch.var_mean(x32, dim=(0, 1, 2), unbiased=False,
+                             keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * bn.scale.float() + bn.bias.float()).to(x.dtype)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, C): the mean over the spatial dims."""
+    return torch.mean(x, dim=(1, 2))
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

@@ -21,25 +21,11 @@ from torch import nn
 from repro_torch.config.base import DiTConfig, RippleConfig
 from repro_torch.kernels.adaln.ops import adaln_modulate
 from repro_torch.models.attention import Attention, mha_attention
-from repro_torch.models.common import (Linear, gelu_tanh, mlp_bias, param,
-                                       patch_embed, sincos_pos_embed_2d,
+from repro_torch.models.common import (MLP, Linear, param, patch_embed,
+                                       sincos_pos_embed_2d,
                                        sincos_timestep_embed, unpatchify)
 
 _RIPPLE_OFF = RippleConfig()
-
-
-class MLP(nn.Module):
-    """Non-gated MLP with biases (leaves wi, bi, wo, bo) and tanh GELU."""
-
-    def __init__(self, d: int, d_ff: int, device=None, dtype=None):
-        super().__init__()
-        self.wi = param(d, d_ff, device=device, dtype=dtype)
-        self.bi = param(d_ff, device=device, dtype=dtype)
-        self.wo = param(d_ff, d, device=device, dtype=dtype)
-        self.bo = param(d, device=device, dtype=dtype)
-
-    def forward(self, x):
-        return mlp_bias(self.wi, self.bi, self.wo, self.bo, x, act=gelu_tanh)
 
 
 class Block(nn.Module):

@@ -1,26 +1,32 @@
 """Parameters of the port's models.
 
-The vDiT's, the DiT's, the MMDiT's and the UNet's parameters carry the
-leaf names and per-layer shapes of the JAX package's ``vdit_defs``
-(``repro/models/vdit.py``), ``dit_defs`` (``repro/models/dit.py``),
-``mmdit_defs`` (``repro/models/mmdit.py``) and ``unet_defs``
-(``repro/models/unet.py``), in its (d_in, d_out) weight layout, so a
-parameter tree crosses between the two packages leaf by leaf.  The one
-layout that differs is a convolution's weight: (k, k, c_in, c_out) in
-JAX, (c_out, c_in, k, k) in the port (:func:`to_port`).
+The vDiT's, the DiT's, the MMDiT's, the UNet's, the ViT's and
+EfficientNet's parameters carry the leaf names and per-layer shapes of
+the JAX package's ``vdit_defs`` (``repro/models/vdit.py``), ``dit_defs``
+(``repro/models/dit.py``), ``mmdit_defs`` (``repro/models/mmdit.py``),
+``unet_defs`` (``repro/models/unet.py``), ``vit_defs``
+(``repro/models/vit.py``) and ``effnet_defs``
+(``repro/models/efficientnet.py``), in its (d_in, d_out) weight layout,
+so a parameter tree crosses between the two packages leaf by leaf.  The
+one layout that differs is a convolution's weight: (k, k, c_in, c_out)
+in JAX, (c_out, c_in, k, k) in the port, a depthwise (k, k, 1, C) leaf
+(C, 1, k, k) (:func:`to_port`).
 
 * :func:`vdit_param_specs` / :func:`dit_param_specs` /
-  :func:`mmdit_param_specs` / :func:`unet_param_specs` — every leaf's
+  :func:`mmdit_param_specs` / :func:`unet_param_specs` /
+  :func:`vit_param_specs` / :func:`effnet_param_specs` — every leaf's
   path (lists of levels and blocks give integer steps), JAX shape and
   initializer;
-* :func:`init_vdit` / :func:`init_dit` / :func:`init_mmdit` /
-  :func:`init_unet` — a seeded initialization on a device, with
-  ``torch.Generator`` draws in the JAX layout;
+* :func:`init_model` — a seeded initialization of any config's family
+  on a device, with ``torch.Generator`` draws in the JAX layout;
+  :func:`init_vdit` / :func:`init_dit` / :func:`init_mmdit` /
+  :func:`init_unet` / :func:`init_vit` / :func:`init_effnet` — the same
+  for one family;
 * :func:`params_from_numpy` — the JAX param tree, passed through numpy
   (``jax.tree_util.tree_map(np.asarray, params)``), as the port's model
-  of the config's family.  The JAX tree stacks the (v)DiT blocks' and
-  the MMDiT's double and single blocks' leaves on a leading layer dim
-  (scan-over-layers); here it is split per layer.
+  of the config's family.  The JAX tree stacks the (v)DiT's and the
+  ViT's blocks' and the MMDiT's double and single blocks' leaves on a
+  leading layer dim (scan-over-layers); here it is split per layer.
 """
 
 from __future__ import annotations
@@ -30,8 +36,8 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.config.base import (DiTConfig, MMDiTConfig, UNetConfig,
-                                     VDiTConfig)
+from repro_torch.config.base import (DiTConfig, EffNetConfig, MMDiTConfig,
+                                     UNetConfig, VDiTConfig, ViTConfig)
 from repro_torch.utils.device import resolve_device
 
 # Initializer kinds, as in the JAX defs: 'fan_in' (normal, std
@@ -152,8 +158,12 @@ def mmdit_param_specs(cfg: MMDiTConfig) -> Dict:
     }
 
 
-def _conv(k, c_in, c_out) -> Dict[str, Spec]:
-    return {"w": ((k, k, c_in, c_out), "fan_in"), "b": ((c_out,), "zeros")}
+def _conv(k, c_in, c_out, bias=True, depthwise=False) -> Dict[str, Spec]:
+    out = {"w": ((k, k, 1, c_in) if depthwise else (k, k, c_in, c_out),
+                 "fan_in")}
+    if bias:
+        out["b"] = ((c_out,), "zeros")
+    return out
 
 
 def _norm(c) -> Dict[str, Spec]:
@@ -222,7 +232,61 @@ def unet_param_specs(cfg: UNetConfig) -> Dict:
     return specs
 
 
-ModelConfig = Union[VDiTConfig, DiTConfig, MMDiTConfig, UNetConfig]
+def vit_param_specs(cfg: ViTConfig) -> Dict:
+    """Nested dict of (shape, init) per leaf; ``blocks`` is per layer."""
+    d, p = cfg.d_model, cfg.patch
+    return {
+        "patch": _linear(p * p * cfg.in_channels, d),
+        "cls": ((1, 1, d), "normal"),
+        "blocks": {
+            "ln1": _norm(d),
+            "attn": {n: ((d, d), "fan_in") for n in ("wq", "wk", "wv", "wo")},
+            "ln2": _norm(d),
+            "mlp": {"wi": ((d, cfg.d_ff), "fan_in"),
+                    "wo": ((cfg.d_ff, d), "fan_in"),
+                    "bi": ((cfg.d_ff,), "zeros"), "bo": ((d,), "zeros")},
+        },
+        "ln_f": _norm(d),
+        "head": _linear(d, cfg.num_classes),
+    }
+
+
+def _mbconv_specs(c_in, c_out, expand, kernel) -> Dict:
+    c_mid = c_in * expand
+    c_se = max(1, c_in // 4)
+    out: Dict = {}
+    if expand != 1:
+        out["expand"] = _conv(1, c_in, c_mid, bias=False)
+        out["bn0"] = _norm(c_mid)
+    out.update(dw=_conv(kernel, c_mid, c_mid, bias=False, depthwise=True),
+               bn1=_norm(c_mid), se_reduce=_conv(1, c_mid, c_se),
+               se_expand=_conv(1, c_se, c_mid),
+               project=_conv(1, c_mid, c_out, bias=False), bn2=_norm(c_out))
+    return out
+
+
+def effnet_param_specs(cfg: EffNetConfig) -> Dict:
+    """Nested dict of (JAX shape, init) per leaf, ``stages`` a list of
+    stages, each a list of blocks (the JAX ``effnet_defs``)."""
+    from repro_torch.models.efficientnet import effnet_stages, round_filters
+
+    stem_c = round_filters(32, cfg.width_mult)
+    head_c = round_filters(1280, cfg.width_mult)
+    stages = effnet_stages(cfg)
+    return {
+        "stem": _conv(3, cfg.in_channels, stem_c, bias=False),
+        "stem_bn": _norm(stem_c),
+        "stages": [[_mbconv_specs(c_in if i == 0 else c_out, c_out, expand, k)
+                    for i in range(repeats)]
+                   for expand, c_in, c_out, repeats, _, k in stages],
+        "head": _conv(1, stages[-1][2], head_c, bias=False),
+        "head_bn": _norm(head_c),
+        "classifier": _linear(head_c, cfg.num_classes),
+    }
+
+
+ModelConfig = Union[VDiTConfig, DiTConfig, MMDiTConfig, UNetConfig, ViTConfig,
+                    EffNetConfig]
 
 
 def _family(cfg: ModelConfig):
@@ -243,6 +307,14 @@ def _family(cfg: ModelConfig):
         from repro_torch.models.vdit import VDiT
 
         return VDiT, vdit_param_specs(cfg)
+    if isinstance(cfg, ViTConfig):
+        from repro_torch.models.vit import ViT
+
+        return ViT, vit_param_specs(cfg)
+    if isinstance(cfg, EffNetConfig):
+        from repro_torch.models.efficientnet import EfficientNet
+
+        return EfficientNet, effnet_param_specs(cfg)
     raise TypeError(f"no port model for config {type(cfg).__name__}")
 
 
@@ -251,7 +323,7 @@ def _stacked(cfg: ModelConfig) -> Tuple[Tuple, ...]:
     layer dim (the port's module there is a per-layer list)."""
     if isinstance(cfg, MMDiTConfig):
         return (("double", "img"), ("double", "txt"), ("single",))
-    if isinstance(cfg, (VDiTConfig, DiTConfig)):
+    if isinstance(cfg, (VDiTConfig, DiTConfig, ViTConfig)):
         return (("blocks",),)
     return ()
 
@@ -280,8 +352,8 @@ def iter_specs(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Spec]]:
 
 def to_port(arr: torch.Tensor) -> torch.Tensor:
     """A leaf in the JAX layout as the port keeps it: a (k, k, c_in,
-    c_out) convolution weight as (c_out, c_in, k, k); any other leaf as
-    it is."""
+    c_out) convolution weight as (c_out, c_in, k, k) (a depthwise (k, k,
+    1, C) one as (C, 1, k, k)); any other leaf as it is."""
     return arr.permute(3, 2, 0, 1) if arr.dim() == 4 else arr
 
 
@@ -304,7 +376,11 @@ def _fill(t: torch.Tensor, shape, init: str, generator: torch.Generator,
         t.fill_(1.0)
 
 
-def _init(cfg: ModelConfig, seed: int, device, dtype, zero_init: bool):
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
+               dtype=torch.float32, zero_init: bool = True):
+    """A seeded model of ``cfg``'s family on ``device`` (default CUDA);
+    the per-family ``init_*`` below are this call with that family's
+    config.  ``zero_init`` as theirs."""
     cls, specs = _family(cfg)
     device = resolve_device(device)
     model = cls(cfg, device=device, dtype=dtype)
@@ -322,7 +398,8 @@ def init_vdit(cfg: VDiTConfig, *, seed: int = 0, device=None,
     """A seeded vDiT on ``device`` (default CUDA).  ``zero_init=True``
     follows the JAX defs (zero adaLN, final and bias leaves); ``False``
     randomizes every leaf so the network is not the identity at init."""
-    return _init(cfg, seed, device, dtype, zero_init)
+    return init_model(cfg, seed=seed, device=device, dtype=dtype,
+                      zero_init=zero_init)
 
 
 def init_dit(cfg: DiTConfig, *, seed: int = 0, device=None,
@@ -331,7 +408,8 @@ def init_dit(cfg: DiTConfig, *, seed: int = 0, device=None,
     follows the JAX defs, whose zero adaLN-zero and final leaves make
     every block the identity; served and chip runs use ``False``, which
     randomizes every leaf."""
-    return _init(cfg, seed, device, dtype, zero_init)
+    return init_model(cfg, seed=seed, device=device, dtype=dtype,
+                      zero_init=zero_init)
 
 
 def init_mmdit(cfg: MMDiTConfig, *, seed: int = 0, device=None,
@@ -340,7 +418,8 @@ def init_mmdit(cfg: MMDiTConfig, *, seed: int = 0, device=None,
     follows the JAX defs, whose zero ``mod``, ``final_mod`` and
     ``final`` leaves make the output 0; served and chip runs use
     ``False``, which randomizes every leaf."""
-    return _init(cfg, seed, device, dtype, zero_init)
+    return init_model(cfg, seed=seed, device=device, dtype=dtype,
+                      zero_init=zero_init)
 
 
 def init_unet(cfg: UNetConfig, *, seed: int = 0, device=None,
@@ -348,7 +427,26 @@ def init_unet(cfg: UNetConfig, *, seed: int = 0, device=None,
     """A seeded UNet on ``device`` (default CUDA).  ``zero_init=True``
     follows the JAX defs (zero biases, unit norm scales); served and chip
     runs use ``False``, which randomizes every leaf."""
-    return _init(cfg, seed, device, dtype, zero_init)
+    return init_model(cfg, seed=seed, device=device, dtype=dtype,
+                      zero_init=zero_init)
+
+
+def init_vit(cfg: ViTConfig, *, seed: int = 0, device=None,
+             dtype=torch.float32, zero_init: bool = True):
+    """A seeded ViT on ``device`` (default CUDA).  ``zero_init=True``
+    follows the JAX defs (zero biases, unit norm scales); chip runs use
+    ``False``, which randomizes every leaf."""
+    return init_model(cfg, seed=seed, device=device, dtype=dtype,
+                      zero_init=zero_init)
+
+
+def init_effnet(cfg: EffNetConfig, *, seed: int = 0, device=None,
+                dtype=torch.float32, zero_init: bool = True):
+    """A seeded EfficientNet on ``device`` (default CUDA).
+    ``zero_init=True`` follows the JAX defs (zero biases, unit norm
+    scales); chip runs use ``False``, which randomizes every leaf."""
+    return init_model(cfg, seed=seed, device=device, dtype=dtype,
+                      zero_init=zero_init)
 
 
 def _get(module, path) -> torch.Tensor:
@@ -367,9 +465,10 @@ def _get(module, path) -> torch.Tensor:
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = torch.float32):
     """The JAX param tree (numpy leaves, float32) as the port's model of
-    ``cfg``'s family (VDiT, DiT, MMDiT or UNet).  Leaves are copied verbatim
-    (convolution weights transposed to the port's layout), then cast to
-    ``dtype`` on ``device`` (default CUDA)."""
+    ``cfg``'s family (VDiT, DiT, MMDiT, UNet, ViT or EfficientNet).
+    Leaves are copied verbatim (convolution weights transposed to the
+    port's layout), then cast to ``dtype`` on ``device`` (default
+    CUDA)."""
     cls, specs = _family(cfg)
     model = cls(cfg, device=resolve_device(device), dtype=dtype)
     with torch.no_grad():

@@ -251,6 +251,52 @@ def test_main_refuses_to_run_without_a_card(monkeypatch):
         serve_lib.main(["--smoke", "--requests", "1"])
 
 
+class _Parsed(Exception):
+    """Raised by the patched ``parse_args`` to stop ``main`` with its
+    parser built."""
+
+
+def _launcher_parser(main, monkeypatch):
+    """The ``ArgumentParser`` a launcher's ``main`` builds, caught at its
+    ``parse_args`` before anything is served."""
+    import argparse
+
+    seen = []
+
+    def capture(self, *args, **kwargs):
+        seen.append(self)
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(_Parsed):
+            main([])
+    return seen[0]
+
+
+def test_launcher_flag_defaults_equal_the_jax_launchers(monkeypatch):
+    """Every flag both launchers take has the JAX launcher's default
+    (``--requests`` 6: two requests a bucket of the mixed traffic)."""
+    from repro.launch import serve as j_serve
+
+    def defaults(parser):
+        return {a.dest: a.default for a in parser._actions if a.dest != "help"}
+
+    port = defaults(_launcher_parser(serve_lib.main, monkeypatch))
+    ref = defaults(_launcher_parser(j_serve.main, monkeypatch))
+    shared = sorted(set(port) & set(ref))
+    assert "requests" in shared and len(shared) > 20
+    assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}
+
+
+def test_bare_launcher_serves_two_requests_a_bucket():
+    done = serve_lib.main(["--device", "cpu", "--smoke", "--override",
+                           "model.num_layers=1"])
+    assert [r.request_id for r in done] == list(range(6))
+    shapes = [r.latents.shape for r in done]
+    assert len(set(shapes)) == 2 and all(shapes.count(s) >= 2 for s in shapes)
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
