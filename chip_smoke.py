@@ -65,9 +65,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    four shapes (d != dv, Nq != Nk, unaligned), odd head dims, a ragged
    Nq != Nk with d != dv, extreme
    logits and both serving shapes, f32 on CUDA cores and bf16 on tensor
-   cores, and the single-axis pair-snap kernel bit for bit against its
-   plain version (the reference tests' cases, bf16 and f32, and the vDiT
-   serving shape);
+   cores; head dims above 128 (slice 17): d 192, d 256, d 256 with dv
+   128 and d 130 with dv 250, ragged Nq != Nk, both paths, and gemma3-4b's
+   global-layer head shape (1, 8, 4096, 256) in bf16 (timed in 6 beside
+   SDPA and its bound); and the single-axis pair-snap kernel bit for bit
+   against its plain version (the reference tests' cases, bf16 and f32,
+   and the vDiT serving shape);
 6. times the kernels at the shapes their paths give them (ripple also
    as a factor of SDPA's time and a share of its bound), their plain
    versions and, for attention, ``scaled_dot_product_attention`` (for
@@ -188,19 +191,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    fraction of Q and K and the logits' relative L2 against ripple off)
    and ``classify[efficientnet-b7]``, each with its time a batch,
    images/s and peak memory, and profiles of one serve_b128 forward;
+8h. (after 8g) the LM family, with every launch counter set to 0 just
+   before each run and still 0 just after (no kernel of the port lies on
+   its path): ``lm[gemma3-4b prefill_32k]`` (full width and depth, 34
+   layers, 2 prompts of 32768 tokens through the prefill workload, then
+   a profile of one prompt's prefill by kernel family),
+   ``lm[gemma3-4b decode_32k]`` (``LMEngine.generate`` greedy, 8 prompts
+   of 1024 tokens, a 32768-position cache, 32 new tokens; the first two
+   decoded positions' logits against ``lm_apply`` over prompt + token
+   within the CPU tests' bf16 bar), ``lm[qwen2-moe-a2.7b]`` (full width
+   and depth through the dense MoE path, 2 x 4096 prompt tokens, 16 new,
+   the router's aux) and ``lm[qwen3-32b 16 layers]`` /
+   ``lm[phi3.5-moe-42b-a6.6b 8 layers]`` (full width, cut depth, 1 x 1024,
+   8 new), each with its time, tokens/s, ms a token step and peak memory;
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT, UNet (also under svg) and MMDiT (12 Euler steps), and of static
    and rainfusion, on the card against the same trajectory on the CPU,
    and the smoke ViT's (ripple off and at the fixed θ) and
-   EfficientNet's forwards in f32 the same way.
+   EfficientNet's forwards in f32 the same way, and the four smoke LMs'
+   greedy ``LMEngine.generate`` in f32 (token ids equal, logits within
+   the CPU tests' f32 bar).
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
 mismatch or error exits non-zero.  It needs one card and no network.
 ``--layers N`` cuts the vDiT's served depth (default: all 40 layers);
-the DiT, the UNet, flux-dev and the vision models always run at full
-depth.  ``--baseline DIR`` runs none of the above:
+the DiT, the UNet, flux-dev, the vision models, gemma3-4b and
+qwen2-moe-a2.7b always run at full depth (qwen3-32b and phi3.5-moe at
+16 and 8 layers: their full-depth bf16 weights, 65.5 and 84 GB, leave no
+room for a cache on one 80 GB card).  ``--baseline DIR`` runs none of the above:
 it times the snap step of the checkout at DIR (for example an earlier
 commit unpacked by ``git archive``) against this checkout's, in turns,
 each in a process of its own (:func:`snap_ab`).
@@ -1528,6 +1548,14 @@ def time_unet_sparse(served):
 FLASH_TEST_SHAPES = ((1, 1, 128, 128, 64, 64), (2, 3, 256, 256, 32, 32),
                      (1, 2, 200, 333, 16, 48), (1, 1, 64, 512, 128, 128))
 FLASH_SERVE_SHAPES = ((1, 24, 8448, 8448, 128, 128), (4, 16, 4096, 4096, 72, 72))
+# (B, H, Nq, Nk, d, dv) above 128 channels, ragged Nq != Nk: d 192, d 256,
+# d 256 with dv 128, and odd dims padded to 192 / 256 (d 130, dv 250).
+FLASH_WIDE_SHAPES = (((1, 2, 200, 333, 192, 192), " d 192, ragged Nq != Nk"),
+                     ((1, 2, 200, 333, 256, 256), " d 256, ragged Nq != Nk"),
+                     ((2, 2, 130, 77, 256, 128), " d 256 dv 128, ragged Nq != Nk"),
+                     ((1, 1, 100, 150, 130, 250), " d 130 dv 250 (padded), ragged"))
+# gemma3-4b's global-layer head shape (8 heads of 256) at 4096 tokens.
+FLASH_D256_SHAPE = (1, 8, 4096, 4096, 256, 256)
 
 
 def flash_oracle(q, k, v, round_p, exact=False):
@@ -1602,7 +1630,8 @@ def check_flash_operands(results, q, k, v, label="", slack=None, **kw):
 
 def flash_checks():
     """Every flash case on seeded operands (the kernel_bench phase holds
-    the kernel on its own operands too)."""
+    the kernel on its own operands too); returns the max abs error at
+    FLASH_D256_SHAPE."""
     import torch
 
     res = []
@@ -1615,8 +1644,15 @@ def flash_checks():
         check_flash(res, (1, 3, 200, 333, 72, 40), dt, 60, " ragged Nq != Nk, d != dv")
     check_flash(res, FLASH_SERVE_SHAPES[0], torch.bfloat16, 57, " (vDiT serving shape)")
     check_flash(res, FLASH_SERVE_SHAPES[1], torch.bfloat16, 58, " (dit-xl2 serving shape)")
+    # Head dims above 128 (slice 17): the wide instantiations, both paths.
+    for dt in (torch.float32, torch.bfloat16):
+        for i, (shape, label) in enumerate(FLASH_WIDE_SHAPES):
+            check_flash(res, shape, dt, 64 + i, label)
+    d256_err = check_flash(res, FLASH_D256_SHAPE, torch.bfloat16, 68,
+                           " (gemma3-4b's global-layer head shape, unmasked)")
     torch.cuda.empty_cache()
     log(f"kernel flash_attention: {sum(res)}/{len(res)} cases within tolerance")
+    return d256_err
 
 
 def flash_bound(B, H, Nq, Nk, d, dv, dtype_name):
@@ -2981,6 +3017,345 @@ def vision_reference_check(label, name, overrides=()):
         f"launches on the card {launched} (expected {want}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("card forward disagrees with the CPU reference")
+
+
+# ---------------------------------------------------------------------------
+# 8h. the LM family (slice 17): prefill and decode through the port's
+# workloads and LMEngine; no kernel of the port lies on this path
+# ---------------------------------------------------------------------------
+
+LM_PREFILL_BATCH = 2   # prefill_32k's 32 sequences cut to 2: 4.56 GB of cache each
+LM_DECODE = (8, 1024, 32)   # decode_32k's 128 sequences cut to 8: prompt, new tokens
+LM_MOE = (2, 4096, 16)      # qwen2-moe-a2.7b: batch, prompt, new tokens
+# Full width at cut depth: full-depth bf16 weights are 65.5 GB and 84 GB.
+LM_CUT = (("qwen3-32b", 16), ("phi3.5-moe-42b-a6.6b", 8))
+LM_CUT_RUN = (1, 1024, 8)
+# tests/test_torch_lm.py's bars: BF16_REL (relative L2 of bf16 logits,
+# two implementations) and F32_REL (max abs error over the reference's
+# max abs, float32).
+LM_BF16_REL = 3e-2
+LM_F32_REL = 1e-5
+LM_SMOKE = ("gemma3-4b", "qwen3-32b", "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")
+
+
+def lm_model(name, layers=None):
+    """(arch, model) of an LM at full width (depth cut to ``layers``),
+    bf16 weights from the seeded init on the card."""
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_model
+
+    arch = get_config(name)
+    if layers is not None:
+        arch = apply_overrides(arch, (f"model.num_layers={layers}",))
+    t0 = time.perf_counter()
+    model = init_model(arch.model, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    cut = (f"depth cut from {get_config(name).model.num_layers} to {layers}"
+           if layers is not None else "full width and depth")
+    log(f"lm: {name} {arch.model}; {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB in bf16 "
+        f"(seeded init) in {time.perf_counter() - t0:.1f}s; {cut}")
+    return arch, model
+
+
+def lm_tokens(batch, length, vocab, seed):
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randint(0, vocab, (batch, length), generator=g, device="cuda")
+
+
+@contextlib.contextmanager
+def no_kernel_launches(label):
+    """Every launch counter set to 0 before the block and still 0 after:
+    no kernel of the port lies on the LM path."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    yield
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    report(label, {f"no kernel of the port launched ({counts})":
+                   not any(counts.values())}, kind="lm")
+
+
+def timed(fn):
+    """(result, seconds) of one call, the card synchronised around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_prefill_phase():
+    """lm[gemma3-4b prefill_32k]: ``lm_prefill`` through the prefill
+    workload on LM_PREFILL_BATCH prompts of the shape's 32768 tokens,
+    then a profile of one prompt's prefill by kernel family.  Returns
+    (arch, model) for the decode phase."""
+    import torch
+    from repro_torch.launch.workloads import lm_serve_steps
+
+    label = "gemma3-4b prefill_32k"
+    arch, model = lm_model("gemma3-4b")
+    m, shape = arch.model, arch.shape("prefill_32k")
+    prefill, _ = lm_serve_steps(arch, shape, model)
+    B, S = LM_PREFILL_BATCH, shape.seq_len
+    tokens = lm_tokens(B, S, m.vocab_size, 70)
+    timed(lambda: prefill(tokens[:1, :1024]))  # warm-up: cuBLAS, the allocator
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with no_kernel_launches(label):
+        (logits, cache), sec = timed(lambda: prefill(tokens))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kv_gb = sum(c.numel() * c.element_size() for c in cache) / 1e9
+    want = (m.num_layers, B, S, m.num_kv_heads, m.resolved_head_dim)
+    log(f"lm[{label}]: lm_prefill of {B} x {S} tokens (batch cut from "
+        f"{shape.global_batch}): {sec:.3f} s, {B * S / sec:.1f} tokens/s, peak device "
+        f"memory {peak:.2f} GiB ({peak - base / 2**30:.2f} GiB above the weights), KV "
+        f"cache {kv_gb:.2f} GB in bf16; {CARD}")
+    report(label, {
+        f"finite last logits of ({B}, 1, {m.vocab_size})":
+            tuple(logits.shape) == (B, 1, m.vocab_size)
+            and bool(torch.isfinite(logits.float()).all()),
+        f"a K and a V cache of {want}, the last position written":
+            all(tuple(c.shape) == want for c in cache)
+            and all(bool(c[:, :, -1].abs().sum(-1).gt(0).all()) for c in cache),
+    }, kind="lm")
+    del logits, cache
+    torch.cuda.empty_cache()
+    profile_call(label, lambda: prefill(tokens[:1]),
+                 {"elementwise": "elementwise", "reduce": "reduce_kernel",
+                  "softmax": "softmax"},
+                 desc=f"lm_prefill of 1 x {S} tokens, {m.num_layers} layers")
+    torch.cuda.empty_cache()
+    return arch, model
+
+
+def lm_decode_phase(arch, model):
+    """lm[gemma3-4b decode_32k]: ``LMEngine.generate`` greedy on the
+    decode workload (cache of the shape's 32768 positions), its prefill
+    timed apart, ms a decoded token; then the first two decoded
+    positions' logits against ``lm_apply`` over prompt + token (two of
+    the prompts), within LM_BF16_REL."""
+    import torch
+    from repro_torch.launch.workloads import lm_serve_steps
+    from repro_torch.models.transformer_lm import lm_apply
+    from repro_torch.serving.engine import LMEngine
+
+    label = "gemma3-4b decode_32k"
+    m, shape = arch.model, arch.shape("decode_32k")
+    B, P, new = LM_DECODE
+    prefill, decode = lm_serve_steps(arch, shape, model)
+    rec = {"logits": [], "prefill_s": 0.0}
+
+    def prefill_rec(t):
+        (logits, cache), sec = timed(lambda: prefill(t))
+        rec["prefill_s"] = sec
+        rec["logits"].append(logits[:, -1].float())
+        return logits, cache
+
+    def decode_rec(t, c, i):
+        logits, c = decode(t, c, i)
+        if len(rec["logits"]) < 2:
+            rec["logits"].append(logits[:, -1].float())
+        rec["cache"] = c
+        return logits, c
+
+    eng = LMEngine(prefill_rec, decode_rec, max_len=shape.seq_len)
+    tokens = lm_tokens(B, P, m.vocab_size, 71)
+    eng.generate(tokens[:1, :64], 2)  # warm-up
+    rec["logits"].clear()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with no_kernel_launches(label):
+        out, sec = timed(lambda: eng.generate(tokens, new))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dec = sec - rec["prefill_s"]
+    ms_tok = dec / (new - 1) * 1e3  # the first token comes from the prefill
+    kv_gb = 2 * m.num_layers * B * shape.seq_len * m.num_kv_heads * \
+        m.resolved_head_dim * 2 / 1e9
+    log(f"lm[{label}]: LMEngine.generate greedy, {B} prompts of {P} tokens (batch cut "
+        f"from {shape.global_batch}), max_len {shape.seq_len}, {new} new tokens: "
+        f"{sec:.3f} s; prefill {rec['prefill_s']:.3f} s ({B * P / rec['prefill_s']:.1f} "
+        f"tokens/s); decode {ms_tok:.3f} ms a token step ({(new - 1) * B / dec:.1f} "
+        f"tokens/s over the batch); peak device memory {peak:.2f} GiB ({peak - base / 2**30:.2f} "
+        f"GiB above the weights; KV cache {kv_gb:.2f} GB); {CARD}")
+    # One more decode step, at the next free position: the host
+    # synchronisations in it (CUDA's sync debug mode), then by kernel family.
+    import warnings
+
+    from repro_torch.models import attention as attn_lib
+
+    last = out[:, -1:]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            decode(last, rec["cache"], P + new - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0][:80] for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"lm[{label}]: host synchronisations in one decode step: {len(syncs)} "
+        f"{sorted(set(syncs))}")
+    profile_call(f"{label} step", lambda: decode(last, rec["cache"], P + new - 1),
+                 {"elementwise": "elementwise", "reduce": "reduce_kernel",
+                  "softmax": "softmax"},
+                 annotate=[(attn_lib, "_gqa_core_dense", "attention_core")],
+                 desc=f"one decode step, batch {B}, a cache of {shape.seq_len} positions")
+    del rec["cache"]
+    torch.cuda.empty_cache()
+    first = [r[:2] for r in rec["logits"]]
+    seq = torch.cat([tokens[:2], out[:2, :1]], dim=1)
+    full, _, _ = lm_apply(model, seq, m, logits_mode="all")
+    errs = [((a - full[:, P - 1 + j].float()).norm()
+             / full[:, P - 1 + j].float().norm()).item() for j, a in enumerate(first)]
+    log(f"lm[{label}]: decoded positions {P - 1} and {P} against lm_apply over prompt + "
+        f"token (2 prompts): relative L2 {errs[0]:.3e}, {errs[1]:.3e} (bar {LM_BF16_REL})")
+    del full
+    report(label, {
+        f"({B}, {new}) token ids in the vocabulary": tuple(out.shape) == (B, new)
+        and bool(((out >= 0) & (out < m.vocab_size)).all()),
+        "first two decoded positions' logits within the bf16 bar":
+            len(errs) == 2 and max(errs) < LM_BF16_REL,
+    }, kind="lm")
+    torch.cuda.empty_cache()
+    return {"prefill_s": rec["prefill_s"], "ms_per_token": ms_tok, "peak_gib": peak}
+
+
+def lm_generate_phase(label, arch, model, batch, prompt, new, aux_of=None):
+    """``LMEngine.generate`` greedy on the decode_32k workload (cache of
+    32768 positions): its prefill timed apart, ms a decoded token, peak
+    memory; ``aux_of`` (the MoE module) sums the router aux of the
+    prefill's layers."""
+    import torch
+    from repro_torch.launch.workloads import lm_serve_steps
+    from repro_torch.serving.engine import LMEngine
+
+    m, shape = arch.model, arch.shape("decode_32k")
+    prefill, decode = lm_serve_steps(arch, shape, model)
+    rec = {"prefill_s": 0.0, "aux": []}
+
+    def prefill_rec(t):
+        (out, sec) = timed(lambda: prefill(t))
+        rec["prefill_s"] = sec
+        return out
+
+    eng = LMEngine(prefill_rec, decode, max_len=shape.seq_len)
+    tokens = lm_tokens(batch, prompt, m.vocab_size, 72)
+    eng.generate(tokens[:1, :64], 2)  # warm-up
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def aux_rec(orig):
+        def f(*a, **kw):
+            out, aux = orig(*a, **kw)
+            if a[1].shape[1] > 1:  # the prefill's calls
+                rec["aux"].append(aux)
+            return out, aux
+        return f
+
+    with (wrapped(aux_of, "moe_ffn", aux_rec) if aux_of is not None
+          else contextlib.nullcontext()), no_kernel_launches(label):
+        out, sec = timed(lambda: eng.generate(tokens, new))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dec = sec - rec["prefill_s"]
+    ms_tok = dec / (new - 1) * 1e3
+    aux = float(sum(a.float() for a in rec["aux"])) if rec["aux"] else None
+    log(f"lm[{label}]: LMEngine.generate greedy, {batch} x {prompt} prompt tokens, max_len "
+        f"{shape.seq_len}, {new} new tokens: {sec:.3f} s; prefill {rec['prefill_s']:.3f} s "
+        f"({batch * prompt / rec['prefill_s']:.1f} tokens/s); decode {ms_tok:.3f} ms a token "
+        f"step; peak device memory {peak:.2f} GiB ({peak - base / 2**30:.2f} GiB above the "
+        f"weights)" + (f"; router aux of the prefill (sum over {len(rec['aux'])} layers) "
+                       f"{aux:.6f}" if aux is not None else "") + f"; {CARD}")
+    checks = {f"({batch}, {new}) token ids in the vocabulary":
+              tuple(out.shape) == (batch, new)
+              and bool(((out >= 0) & (out < m.vocab_size)).all())}
+    if aux_of is not None:
+        checks[f"a finite positive router aux from each of {m.num_layers} layers"] = \
+            len(rec["aux"]) == m.num_layers and aux is not None and 0 < aux < float("inf")
+    report(label, checks, kind="lm")
+    torch.cuda.empty_cache()
+    return {"prefill_s": rec["prefill_s"], "ms_per_token": ms_tok, "peak_gib": peak,
+            "aux": aux}
+
+
+def lm_phases():
+    """8h: gemma3-4b's prefill_32k and decode_32k cells at full width and
+    depth, qwen2-moe-a2.7b through the dense MoE path at full width and
+    depth, and qwen3-32b and phi3.5-moe at full width, cut depth."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+
+    torch.cuda.empty_cache()
+    out = {}
+    arch, model = lm_prefill_phase()
+    out["gemma3-4b decode_32k"] = lm_decode_phase(arch, model)
+    del model
+    torch.cuda.empty_cache()
+    arch, model = lm_model("qwen2-moe-a2.7b")
+    out["qwen2-moe-a2.7b"] = lm_generate_phase("qwen2-moe-a2.7b", arch, model, *LM_MOE,
+                                               aux_of=moe_lib)
+    del model
+    torch.cuda.empty_cache()
+    for name, layers in LM_CUT:
+        arch, model = lm_model(name, layers)
+        out[name] = lm_generate_phase(f"{name} {layers} layers", arch, model, *LM_CUT_RUN,
+                                      aux_of=moe_lib if arch.model.moe else None)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_reference_check(name):
+    """The smoke config's greedy ``LMEngine.generate`` in f32 on the card
+    against the same on the CPU, same params and prompts: token ids
+    equal, every step's logits within LM_F32_REL, no kernel launched."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer_lm as lm
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import LMEngine
+
+    m = get_smoke_config(name).model
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(0, m.vocab_size, (2, 12)))
+    toks, logits = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = init_model(m, seed=1, device="cpu").to(dev)
+        rec = []
+
+        def keep(out):
+            rec.append(out[0][:, -1].float().cpu())
+            return out
+
+        eng = LMEngine(
+            lambda t: keep(lm.lm_prefill(model, t, m, 32, compute_dtype=torch.float32)),
+            lambda t, c, i: keep(lm.lm_decode_step(model, t, c, i, m,
+                                                   compute_dtype=torch.float32)),
+            max_len=32)
+        with no_kernel_launches(f"{name} smoke on {dev}"):
+            toks[dev] = eng.generate(prompt.to(dev), 8).cpu()
+        logits[dev] = torch.stack(rec)
+    err = ((logits["cuda"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    ok = torch.equal(toks["cuda"], toks["cpu"]) and err <= LM_F32_REL
+    log(f"reference[lm {name}]: smoke config, f32 greedy generate of 8 tokens on 2 x 12 "
+        f"prompts, card vs CPU: token ids equal {torch.equal(toks['cuda'], toks['cpu'])}, "
+        f"logits max abs error / max abs {err:.3e} (tol {LM_F32_REL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("card LM trajectory disagrees with the CPU reference")
 
 
 PATTERN_DIR = os.path.join(ROOT, "build", "patterns")
@@ -4989,7 +5364,7 @@ def main() -> int:
     carry_times, ring_launches, ring_bench = mesh_phases()
 
     # 5b. kernels 5 (flash) and 6 (reuse_snap) vs their plain versions ------
-    flash_checks()
+    fl256_err = flash_checks()
     snap_err = snap_checks()
 
     # 6. times at the serving shapes (bf16) ---------------------------------
@@ -5074,6 +5449,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_flash(FLASH_SERVE_SHAPES[0], "vDiT serving shape")
     time_flash(FLASH_SERVE_SHAPES[1], "dit-xl2 serving shape")
+    fl256 = time_flash(FLASH_D256_SHAPE, "gemma3-4b's global-layer head shape, unmasked: "
+                       "not the LM path's call, which masks")
     sn_ms, sn_host, sn_plain, sn_bound, sn_by = time_snap(flush)
     del flush
 
@@ -5225,6 +5602,11 @@ def main() -> int:
     counts_v = classify_vit()
     classify_effnet()
 
+    # 8h. the LM family: gemma3-4b prefill_32k and decode_32k, qwen2-moe
+    # at full width and depth, qwen3-32b and phi3.5-moe at cut depth; every
+    # launch counter 0 before each run and still 0 after --------------------
+    lm_phases()
+
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
     counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
@@ -5252,6 +5634,9 @@ def main() -> int:
     vision_reference_check("vit-l16", "vit-l16")
     vision_reference_check("vit-l16 ripple", "vit-l16", VIT_RIPPLE)
     vision_reference_check("efficientnet-b7", "efficientnet-b7")
+    # The LM family's smoke configs: greedy generate in f32, card vs CPU.
+    for name in LM_SMOKE:
+        lm_reference_check(name)
     # The offline-pattern policies: static on the default template, and
     # rainfusion under the artifact pattern_search[vdit] wrote.
     from repro_torch.core import patterns
@@ -5350,7 +5735,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash/kernel.py:61",
          "launches": counts_kb["flash_attention"], "max_abs_err": fl_err,
          "ms": fl_ms, "plain_ms": fl_plain, "bound_ms": fl_bound,
-         "bound_by": fl_by, "library_ms": fl_lib},
+         "bound_by": fl_by, "library_ms": fl_lib,
+         # Head dims up to 256 (slice 17), bf16 at gemma3-4b's global-layer
+         # head shape, unmasked (on no path: the LM masks its logits).
+         "head_dims": "d and dv up to 256, apart",
+         "d256": {"shape": list(FLASH_D256_SHAPE), "dtype": "bfloat16",
+                  "max_abs_err": fl256_err, "ms": fl256[0], "plain_ms": fl256[1],
+                  "library_ms": fl256[2], "bound_ms": fl256[3], "bound_by": fl256[4]}},
         # No single PyTorch call computes the pair snap: the time of an
         # eager composite is in the log line.
         {"name": "reuse_snap", "route": "cuda",

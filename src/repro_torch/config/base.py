@@ -3,8 +3,8 @@
 The port keeps its own copy of the dataclasses it needs, with the same
 field names and defaults as the JAX package's ``repro.config.base``, so
 that one config (and one ``key=value`` override string) means the same
-thing in both packages.  The vDiT, DiT, MMDiT, UNet, ViT and
-EfficientNet families are carried over so far.
+thing in both packages.  The vDiT, DiT, MMDiT, UNet, ViT, EfficientNet
+and LM (dense and MoE) families are carried over so far.
 """
 
 from __future__ import annotations
@@ -178,6 +178,44 @@ class EffNetConfig:
     num_classes: int = 1000
     dropout: float = 0.5
     in_channels: int = 3
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 2
+    expert_ffw_dim: int = 0
+    # Token-capacity factor for fixed-shape dispatch at scale.
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """Decoder-only transformer LM (dense or MoE)."""
+
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    # Sliding-window attention: window size for local layers, and the
+    # local:global interleave pattern (gemma3: 5 local then 1 global).
+    sliding_window: int = 0
+    local_global_pattern: int = 0  # N -> every (N+1)th layer is global
+    rms_eps: float = 1e-6
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
 
 
 @dataclass(frozen=True)

@@ -17,12 +17,13 @@ from repro_torch.kernels.flash.ref import attention_ref, default_scale
 
 launches = 0
 
-_MAX_DIM = 128
+_MAX_DIM = 256  # d and dv apart
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(q, k, v):
-    global launches
+def _check_operands(q, k, v):
+    """Raise unless the kernel takes these operands (dtypes, layout,
+    shapes, head dims up to ``_MAX_DIM``)."""
     B, H, Nq, d = q.shape
     Nk, dv = k.shape[2], v.shape[3]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -41,6 +42,13 @@ def _launch(q, k, v):
         raise ValueError("flash kernel needs at least one query and key")
     if d > _MAX_DIM or dv > _MAX_DIM:
         raise ValueError(f"flash kernel takes head dims <= {_MAX_DIM}")
+
+
+def _launch(q, k, v):
+    global launches
+    _check_operands(q, k, v)
+    B, H, Nq, d = q.shape
+    Nk, dv = k.shape[2], v.shape[3]
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
     fn = _build.function("flash_attention", "flash_attention_launch",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -59,7 +67,7 @@ def _launch(q, k, v):
 
 def uses_tensor_cores(q: torch.Tensor) -> bool:
     """Does a CUDA call on these operands take the kernel's tensor-core
-    path?  The library decides (bf16, any head dims up to 128)."""
+    path?  The library decides (bf16, any head dims up to 256)."""
     lib = _build.load("flash_attention")
     return bool(lib.flash_uses_tensor_cores(int(q.dtype == torch.bfloat16)))
 

@@ -1,8 +1,9 @@
 """Serving helpers of the port: per-request latent shapes, attention
 call shapes and a cell's attention plan, mixed generate shapes, a deterministic request stream,
 per-request class labels, one denoiser forward (vdit, dit, mmdit and
-unet families), the vdit's per-layer decision-cache state, and the
-vision family's classify step (vit and effnet)."""
+unet families), the vdit's per-layer decision-cache state, the vision
+family's classify step (vit and effnet), and the LM family's prefill and
+decode steps."""
 
 from __future__ import annotations
 
@@ -227,3 +228,33 @@ def classify_step(arch: ArchConfig, shape: ShapeSpec, model):
         return effnet_apply(model, x, m)
 
     return fn
+
+
+def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model):
+    """The LM serving workloads of one ``prefill`` or ``decode`` cell (the
+    JAX workloads' ``_lm_prefill`` / ``_lm_decode``), on the model's
+    device with no mesh: ``(prefill_fn, decode_fn)`` for
+    :class:`~repro_torch.serving.engine.LMEngine`, in bf16 as the
+    reference's steps run.  The KV cache holds ``shape.seq_len``
+    positions; the batch is the caller's (the shapes' global batches of
+    32 and 128 sequences do not fit one card's cache at 32768
+    positions).  ``prefill_fn(tokens (B, S))`` -> (logits (B, 1, V),
+    cache); ``decode_fn(token (B, 1), cache, index)`` -> (logits (B, 1,
+    V), cache), the cache written in place.  Tokens on any device are
+    moved to the model's."""
+    from repro_torch.models import transformer_lm as lm_lib
+
+    if arch.family != "lm" or shape.kind not in ("prefill", "decode"):
+        raise ValueError(f"no LM serving workload for family "
+                         f"{arch.family!r} at a {shape.kind!r} shape")
+    cfg, max_len = arch.model, shape.seq_len
+    device = next(model.parameters()).device
+
+    def prefill_fn(tokens: torch.Tensor):
+        return lm_lib.lm_prefill(model, tokens.to(device), cfg, max_len)
+
+    def decode_fn(token: torch.Tensor, cache, index: int):
+        return lm_lib.lm_decode_step(model, token.to(device), cache, index,
+                                     cfg)
+
+    return prefill_fn, decode_fn

@@ -1,22 +1,31 @@
-"""Bidirectional multi-head attention through the dispatch layer.
+"""Attention layers.
 
-:func:`mha_attention` projects Q/K/V, applies qk-RMSNorm where the
-weights have it (the vDiT; not the DiT), then the precomputed factorized
-RoPE where given, and hands the (B, H, N, hd) operands to
-``core.dispatch.attention_dispatch``, where an active
-:class:`RippleConfig` routes Q/K through the reuse pipeline.
+* :func:`gqa_attention` — the LM family's decoder attention: grouped-query
+  heads, optional qk-norm, 1-D RoPE, causal / sliding-window masks,
+  prefill and decode against a KV cache.  Plain PyTorch: the JAX
+  package computes it with einsums outside any Pallas kernel.
+* :func:`mha_attention` — bidirectional attention through the dispatch
+  layer: it projects Q/K/V, applies qk-RMSNorm where the weights have it
+  (the vDiT; not the DiT), then the precomputed factorized RoPE where
+  given, and hands the (B, H, N, hd) operands to
+  ``core.dispatch.attention_dispatch``, where an active
+  :class:`RippleConfig` routes Q/K through the reuse pipeline.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.config.base import RippleConfig
 from repro_torch.core.dispatch import attention_dispatch
-from repro_torch.models.common import apply_rope_precomputed, rmsnorm
+from repro_torch.models.common import (apply_rope_1d, apply_rope_precomputed,
+                                       rmsnorm)
+
+_NEG = -2.3819763e38  # the JAX package's mask constant (XLA's)
 
 
 class Scale(nn.Module):
@@ -31,10 +40,12 @@ class Scale(nn.Module):
 class Attention(nn.Module):
     """Self-attention weights: leaves wq, wk, wv, wo in (d_in, d_out)
     layout, and q_norm.scale, k_norm.scale with ``qk_norm`` (as the JAX
-    ``attention_defs(qk_norm=...)``); without it both norms are None."""
+    ``attention_defs(qk_norm=...)``); without it both norms are None.
+    ``n_kv`` (default ``n_heads``) is the number of K/V heads."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
-                 device=None, dtype=None, qk_norm: bool = True):
+                 device=None, dtype=None, qk_norm: bool = True,
+                 n_kv: Optional[int] = None):
         super().__init__()
 
         def w(a, b):
@@ -42,8 +53,9 @@ class Attention(nn.Module):
                                 requires_grad=False)
 
         inner = n_heads * head_dim
-        self.wq, self.wk, self.wv = w(d_model, inner), w(d_model, inner), \
-            w(d_model, inner)
+        kv = (n_kv or n_heads) * head_dim
+        self.wq, self.wk, self.wv = w(d_model, inner), w(d_model, kv), \
+            w(d_model, kv)
         self.wo = w(inner, d_model)
         self.q_norm = Scale(head_dim, device, dtype) if qk_norm else None
         self.k_norm = Scale(head_dim, device, dtype) if qk_norm else None
@@ -97,3 +109,152 @@ def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     out = out.transpose(1, 2).reshape(B, N, n_heads * head_dim)
     out = torch.matmul(out, p.wo.to(dt))
     return (out, new_cache) if want_cache else out
+
+
+# --- LM attention ------------------------------------------------------------
+
+# Above this many logits per (batch·head) the core runs query chunks of
+# _Q_CHUNK rows, so a 32k-token prefill never holds an (S, S) map.
+_CHUNK_LOGIT_BUDGET = 4096 * 8192
+_Q_CHUNK = 1024
+
+# A mask: an additive float32 tensor (B|1, 1, S|1, S_kv), or a function
+# of a query row range (r0, r1) giving those rows of one.
+Mask = Union[torch.Tensor, Callable[[int, int], torch.Tensor]]
+
+
+def _project(p: Attention, x: torch.Tensor, n_heads: int, n_kv: int,
+             head_dim: int):
+    dt = x.dtype
+    B, S, _ = x.shape
+    q = torch.matmul(x, p.wq.to(dt)).reshape(B, S, n_heads, head_dim)
+    k = torch.matmul(x, p.wk.to(dt)).reshape(B, S, n_kv, head_dim)
+    v = torch.matmul(x, p.wv.to(dt)).reshape(B, S, n_kv, head_dim)
+    if p.q_norm is not None:
+        q = rmsnorm(p.q_norm.scale, q)
+        k = rmsnorm(p.k_norm.scale, k)
+    return q, k, v
+
+
+def causal_mask(S_q: int, S_kv: int, q_offset: int, sliding_window: int = 0,
+                device=None) -> torch.Tensor:
+    """Additive causal (+ sliding window) mask (1, 1, S_q, S_kv), float32.
+
+    ``q_offset`` is the absolute position of query row 0; a
+    ``sliding_window`` <= 0 disables the window."""
+    qi = torch.arange(S_q, device=device)[:, None] + int(q_offset)
+    kj = torch.arange(S_kv, device=device)[None, :]
+    ok = kj <= qi
+    if sliding_window > 0:
+        ok = ok & (kj > qi - sliding_window)
+    return _additive(ok)[None, None]
+
+
+def valid_mask(S_q: int, S_kv: int, kv_len, device=None) -> torch.Tensor:
+    """Mask (B|1, 1, 1, S_kv) of keys below ``kv_len`` (an int or a (B,)
+    tensor), for attention against a partly filled cache.  An int is
+    filled in on the device (a copy from the host would wait for the
+    stream at every decode step)."""
+    if isinstance(kv_len, torch.Tensor):
+        kv_len = kv_len.to(device).reshape(-1)
+    else:
+        kv_len = torch.full((1,), int(kv_len), device=device)
+    kj = torch.arange(S_kv, device=kv_len.device)[None, :]
+    return _additive(kj < kv_len[:, None])[:, None, None]
+
+
+def _additive(ok: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, 0.0, _NEG).float()
+
+
+def _rows(mask: Mask, r0: int, r1: int) -> torch.Tensor:
+    """Query rows r0 .. r1 - 1 of a mask."""
+    if isinstance(mask, torch.Tensor):
+        return mask if mask.shape[2] == 1 else mask[:, :, r0:r1]
+    return mask(r0, r1)
+
+
+def _gqa_core_dense(q, k, v, mask: torch.Tensor):
+    """q (B, S, Hq, hd), k (B, S_kv, Hkv, hd), v (B, S_kv, Hkv, dv), mask
+    additive (B|1, 1, S|1, S_kv) -> (B, S, Hq, dv).
+
+    The JAX package repeats K/V to Hq heads; here each K/V head serves its
+    G = Hq / Hkv query heads in one product, rows in (query, group)
+    order, with no copy of K or V.  The arithmetic is the reference's:
+    products in the operands' dtype, float32 logits divided by sqrt(hd),
+    the additive mask, the float32 softmax cast to V's dtype."""
+    B, S, Hq, hd = q.shape
+    S_kv, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    G = Hq // Hkv
+    root = torch.full((), float(np.sqrt(np.float32(hd))), device=q.device)
+    m = mask[:, 0, :, None, :]  # (B|1, S|1, 1, S_kv)
+    out = torch.empty((B, S, Hkv, G, dv), dtype=v.dtype, device=q.device)
+    for j in range(Hkv):
+        qj = q[:, :, j * G:(j + 1) * G].reshape(B, S * G, hd)
+        logits = torch.matmul(qj, k[:, :, j].transpose(1, 2))
+        # mask + float32(logits) / sqrt(hd), each op rounded to float32 as
+        # in the reference, in one pass.
+        logits = torch.addcdiv(m, logits.view(B, S, G, S_kv), root)
+        probs = torch.softmax(logits.view(B, S * G, S_kv), dim=-1).to(v.dtype)
+        del logits
+        out[:, :, j] = torch.matmul(probs, v[:, :, j]).view(B, S, G, dv)
+        del probs
+    return out.view(B, S, Hq, dv)
+
+
+def _gqa_core(q, k, v, mask: Mask):
+    """q (B, S, Hq, hd); k, v (B, S_kv, Hkv, hd).  Above the logit budget,
+    with S a multiple of ``_Q_CHUNK``, query chunks of ``_Q_CHUNK`` rows
+    run one after another (each row's values as in one pass)."""
+    B, S, Hq, _ = q.shape
+    S_kv = k.shape[1]
+    if S * S_kv <= _CHUNK_LOGIT_BUDGET or S % _Q_CHUNK != 0:
+        return _gqa_core_dense(q, k, v, _rows(mask, 0, S))
+    out = torch.empty((B, S, Hq, v.shape[3]), dtype=v.dtype, device=q.device)
+    for r0 in range(0, S, _Q_CHUNK):
+        r1 = r0 + _Q_CHUNK
+        out[:, r0:r1] = _gqa_core_dense(q[:, r0:r1], k, v, _rows(mask, r0, r1))
+    return out
+
+
+def gqa_attention(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
+                  head_dim: int, positions: torch.Tensor,
+                  rope_theta: float = 10000.0, sliding_window: int = 0,
+                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  cache_index: Optional[int] = None):
+    """LM attention. x: (B, S, d).
+
+    * prefill without a cache (``cache is None``): causal self-attention;
+      returns (out, (k, v));
+    * with ``cache=(k_cache, v_cache)`` of shape (B, S_max, Hkv, hd) and
+      ``cache_index`` the filled length: K/V of the S new positions are
+      written into the cache in place at ``cache_index`` (the JAX
+      package returns an updated copy), and the queries attend to the
+      cache's first ``cache_index + S`` keys under the causal (and
+      window) mask.  Returns (out, cache).
+
+    The mask is built one query chunk at a time."""
+    B, S, _ = x.shape
+    q, k, v = _project(p, x, n_heads, n_kv, head_dim)
+    q = apply_rope_1d(q, positions, rope_theta)
+    k = apply_rope_1d(k, positions, rope_theta)
+    dev = x.device
+    if cache is None:
+        out = _gqa_core(q, k, v, lambda r0, r1: causal_mask(
+            r1 - r0, S, r0, sliding_window, dev))
+        new_cache = (k, v)
+    else:
+        k_cache, v_cache = cache
+        start = int(cache_index)
+        S_kv = k_cache.shape[1]
+        if not 0 <= start <= S_kv - S:
+            raise ValueError(f"cache_index {start} + {S} new positions "
+                             f"exceeds the cache's {S_kv}")
+        k_cache[:, start:start + S] = k.to(k_cache.dtype)
+        v_cache[:, start:start + S] = v.to(v_cache.dtype)
+        valid = valid_mask(S, S_kv, start + S, dev)
+        out = _gqa_core(q, k_cache, v_cache, lambda r0, r1: valid + causal_mask(
+            r1 - r0, S_kv, start + r0, sliding_window, dev))
+        new_cache = (k_cache, v_cache)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return torch.matmul(out, p.wo.to(x.dtype)), new_cache

@@ -1,8 +1,8 @@
-"""Shared layers: norms, linear, gated and plain MLPs, RoPE (factorized
-3-D), patch embedding and the sinusoidal timestep and 2-D position
-embeddings.  Functions on tensors, and the ``Linear``, ``Norm`` and
-``MLP`` modules the models share; weights are kept in the JAX package's
-(d_in, d_out) layout."""
+"""Shared layers: norms, linear, gated and plain MLPs, RoPE (1-D and
+factorized 3-D), patch embedding and the sinusoidal timestep and 2-D
+position embeddings.  Functions on tensors, and the ``Linear``,
+``Norm``, ``MLP`` and ``GatedMLP`` modules the models share; weights are
+kept in the JAX package's (d_in, d_out) layout."""
 
 from __future__ import annotations
 
@@ -90,6 +90,20 @@ def mlp_bias(wi, bi, wo, bo, x: torch.Tensor, act=F.silu):
     return torch.matmul(h, wo.to(dt)) + bo.to(dt)
 
 
+class GatedMLP(nn.Module):
+    """Gated MLP without biases (leaves wi_gate, wi_up, wo) and SiLU: the
+    vDiT's and the LM family's."""
+
+    def __init__(self, d: int, d_ff: int, device=None, dtype=None):
+        super().__init__()
+        self.wi_gate = param(d, d_ff, device=device, dtype=dtype)
+        self.wi_up = param(d, d_ff, device=device, dtype=dtype)
+        self.wo = param(d_ff, d, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return mlp(self.wi_gate, self.wi_up, self.wo, x)
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
@@ -113,6 +127,15 @@ class MLP(nn.Module):
 def rope_freqs(dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
     return 1.0 / (theta ** exps)
+
+
+def apply_rope_1d(x: torch.Tensor, positions: torch.Tensor,
+                  theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) int.  Split-half rotation
+    in float32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    return apply_rope_precomputed(x, torch.cos(angles), torch.sin(angles))
 
 
 def rope_3d_angles(grid: Tuple[int, int, int], axes_dim: Sequence[int],

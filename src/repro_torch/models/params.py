@@ -1,12 +1,13 @@
 """Parameters of the port's models.
 
-The vDiT's, the DiT's, the MMDiT's, the UNet's, the ViT's and
-EfficientNet's parameters carry the leaf names and per-layer shapes of
-the JAX package's ``vdit_defs`` (``repro/models/vdit.py``), ``dit_defs``
-(``repro/models/dit.py``), ``mmdit_defs`` (``repro/models/mmdit.py``),
-``unet_defs`` (``repro/models/unet.py``), ``vit_defs``
-(``repro/models/vit.py``) and ``effnet_defs``
-(``repro/models/efficientnet.py``), in its (d_in, d_out) weight layout,
+The vDiT's, the DiT's, the MMDiT's, the UNet's, the ViT's,
+EfficientNet's and the LM's parameters carry the leaf names and
+per-layer shapes of the JAX package's ``vdit_defs``
+(``repro/models/vdit.py``), ``dit_defs`` (``repro/models/dit.py``),
+``mmdit_defs`` (``repro/models/mmdit.py``), ``unet_defs``
+(``repro/models/unet.py``), ``vit_defs`` (``repro/models/vit.py``),
+``effnet_defs`` (``repro/models/efficientnet.py``) and ``lm_defs``
+(``repro/models/transformer_lm.py``), in its (d_in, d_out) weight layout,
 so a parameter tree crosses between the two packages leaf by leaf.  The
 one layout that differs is a convolution's weight: (k, k, c_in, c_out)
 in JAX, (c_out, c_in, k, k) in the port, a depthwise (k, k, 1, C) leaf
@@ -14,7 +15,8 @@ in JAX, (c_out, c_in, k, k) in the port, a depthwise (k, k, 1, C) leaf
 
 * :func:`vdit_param_specs` / :func:`dit_param_specs` /
   :func:`mmdit_param_specs` / :func:`unet_param_specs` /
-  :func:`vit_param_specs` / :func:`effnet_param_specs` — every leaf's
+  :func:`vit_param_specs` / :func:`effnet_param_specs` /
+  :func:`lm_param_specs` — every leaf's
   path (lists of levels and blocks give integer steps), JAX shape and
   initializer;
 * :func:`init_model` — a seeded initialization of any config's family
@@ -24,9 +26,10 @@ in JAX, (c_out, c_in, k, k) in the port, a depthwise (k, k, 1, C) leaf
   for one family;
 * :func:`params_from_numpy` — the JAX param tree, passed through numpy
   (``jax.tree_util.tree_map(np.asarray, params)``), as the port's model
-  of the config's family.  The JAX tree stacks the (v)DiT's and the
-  ViT's blocks' and the MMDiT's double and single blocks' leaves on a
-  leading layer dim (scan-over-layers); here it is split per layer.
+  of the config's family.  The JAX tree stacks the (v)DiT's, the ViT's
+  and the LM's blocks' and the MMDiT's double and single blocks' leaves
+  on a leading layer dim (scan-over-layers); here it is split per
+  layer.
 """
 
 from __future__ import annotations
@@ -36,13 +39,16 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.config.base import (DiTConfig, EffNetConfig, MMDiTConfig,
-                                     UNetConfig, VDiTConfig, ViTConfig)
+from repro_torch.config.base import (DiTConfig, EffNetConfig, LMConfig,
+                                     MMDiTConfig, UNetConfig, VDiTConfig,
+                                     ViTConfig)
 from repro_torch.utils.device import resolve_device
 
 # Initializer kinds, as in the JAX defs: 'fan_in' (normal, std
 # sqrt(1/fan_in) with fan_in the product of all but the last dim),
-# 'normal' (std 0.02: the DiT's label embedding), 'zeros', 'ones'.
+# 'fan_in_1' (the same with fan_in dim 1: the MoE's (E, d_in, d_out)
+# expert weights), 'normal' (std 0.02: the DiT's label embedding, the
+# LM's embedding, head and routers), 'zeros', 'ones'.
 Spec = Tuple[Tuple[int, ...], str]
 
 
@@ -285,8 +291,49 @@ def effnet_param_specs(cfg: EffNetConfig) -> Dict:
     }
 
 
+def lm_block_specs(cfg: LMConfig) -> Dict:
+    """One LM block (the JAX ``_block_defs``)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    inner, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    attn: Dict = {"wq": ((d, inner), "fan_in"), "wk": ((d, kv), "fan_in"),
+                  "wv": ((d, kv), "fan_in"), "wo": ((inner, d), "fan_in")}
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": ((hd,), "ones")}
+        attn["k_norm"] = {"scale": ((hd,), "ones")}
+    out: Dict = {"attn_norm": {"scale": ((d,), "ones")}, "attn": attn,
+                 "mlp_norm": {"scale": ((d,), "ones")}}
+    m = cfg.moe
+    if m is None:
+        out["mlp"] = {"wi_gate": ((d, cfg.d_ff), "fan_in"),
+                      "wi_up": ((d, cfg.d_ff), "fan_in"),
+                      "wo": ((cfg.d_ff, d), "fan_in")}
+        return out
+    E, Fw = m.num_experts, m.expert_ffw_dim
+    out["moe"] = {"router": ((d, E), "normal"),
+                  "wi_gate": ((E, d, Fw), "fan_in_1"),
+                  "wi_up": ((E, d, Fw), "fan_in_1"),
+                  "wo": ((E, Fw, d), "fan_in_1")}
+    if m.num_shared_experts:
+        Fs = Fw * m.num_shared_experts
+        out["moe"]["shared"] = {"wi_gate": ((d, Fs), "fan_in"),
+                                "wi_up": ((d, Fs), "fan_in"),
+                                "wo": ((Fs, d), "fan_in"),
+                                "gate": ((d, 1), "normal")}
+    return out
+
+
+def lm_param_specs(cfg: LMConfig) -> Dict:
+    """Nested dict of (shape, init) per leaf; ``blocks`` is per layer."""
+    specs = {"embed": ((cfg.vocab_size, cfg.d_model), "normal"),
+             "blocks": lm_block_specs(cfg),
+             "final_norm": {"scale": ((cfg.d_model,), "ones")}}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((cfg.d_model, cfg.vocab_size), "normal")
+    return specs
+
+
 ModelConfig = Union[VDiTConfig, DiTConfig, MMDiTConfig, UNetConfig, ViTConfig,
-                    EffNetConfig]
+                    EffNetConfig, LMConfig]
 
 
 def _family(cfg: ModelConfig):
@@ -315,6 +362,10 @@ def _family(cfg: ModelConfig):
         from repro_torch.models.efficientnet import EfficientNet
 
         return EfficientNet, effnet_param_specs(cfg)
+    if isinstance(cfg, LMConfig):
+        from repro_torch.models.transformer_lm import TransformerLM
+
+        return TransformerLM, lm_param_specs(cfg)
     raise TypeError(f"no port model for config {type(cfg).__name__}")
 
 
@@ -323,7 +374,7 @@ def _stacked(cfg: ModelConfig) -> Tuple[Tuple, ...]:
     layer dim (the port's module there is a per-layer list)."""
     if isinstance(cfg, MMDiTConfig):
         return (("double", "img"), ("double", "txt"), ("single",))
-    if isinstance(cfg, (VDiTConfig, DiTConfig, ViTConfig)):
+    if isinstance(cfg, (VDiTConfig, DiTConfig, ViTConfig, LMConfig)):
         return (("blocks",),)
     return ()
 
@@ -363,9 +414,12 @@ def _fill(t: torch.Tensor, shape, init: str, generator: torch.Generator,
     ``zero_init=False`` the leaves the JAX defs initialize to zeros or
     ones are drawn too, at fan-in scale (offset by 1 for norm scales), so
     no block is the identity."""
-    fan = int(np.prod(shape[:-1])) if len(shape) > 1 else int(shape[0])
+    if init == "fan_in_1":
+        fan = int(shape[1])
+    else:
+        fan = int(np.prod(shape[:-1])) if len(shape) > 1 else int(shape[0])
     std = 0.02 if init == "normal" else (1.0 / max(fan, 1)) ** 0.5
-    if init in ("fan_in", "normal") or not zero_init:
+    if init in ("fan_in", "fan_in_1", "normal") or not zero_init:
         noise = torch.randn(shape, generator=generator, device=t.device,
                             dtype=torch.float32) * std
         base = 1.0 if init == "ones" else 0.0
@@ -465,7 +519,8 @@ def _get(module, path) -> torch.Tensor:
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = torch.float32):
     """The JAX param tree (numpy leaves, float32) as the port's model of
-    ``cfg``'s family (VDiT, DiT, MMDiT, UNet, ViT or EfficientNet).
+    ``cfg``'s family (VDiT, DiT, MMDiT, UNet, ViT, EfficientNet or
+    TransformerLM).
     Leaves are copied verbatim (convolution weights transposed to the
     port's layout), then cast to ``dtype`` on ``device`` (default
     CUDA)."""

@@ -1,0 +1,171 @@
+"""Decoder-only transformer LM family, as the JAX package's
+``repro/models/transformer_lm.py``: one implementation for the four LM
+archs through :class:`LMConfig`.
+
+* qwen3-32b      — dense, GQA (64q/8kv), qk-norm
+* gemma3-4b      — dense, GQA (8q/4kv), qk-norm, 5:1 local:global window
+* qwen2-moe      — 60 routed experts (padded to 64) top-4 + 4 shared
+* phi3.5-moe     — 16 routed experts top-2
+
+The reference scans over layers stacked on a leading axis; here the
+blocks are a per-layer list and the forward is a loop over them.  The
+KV cache is (L, B, S_max, Hkv, hd) per K and V, written in place.
+TimeRipple does not apply to 1-D text tokens.  Training (``lm_loss``,
+remat) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config.base import LMConfig
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.attention import Attention, Scale, gqa_attention
+from repro_torch.models.common import GatedMLP, param, rmsnorm
+
+Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+class Block(nn.Module):
+    """Leaves of the JAX ``_block_defs``: attn_norm, attn, mlp_norm, and
+    ``moe`` (MoE configs) or ``mlp`` (dense ones)."""
+
+    def __init__(self, cfg: LMConfig, device=None, dtype=None):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_norm = Scale(d, device, dtype)
+        self.attn = Attention(d, cfg.num_heads, cfg.resolved_head_dim, device,
+                              dtype, qk_norm=cfg.qk_norm,
+                              n_kv=cfg.num_kv_heads)
+        self.mlp_norm = Scale(d, device, dtype)
+        if cfg.moe is not None:
+            self.moe = moe_lib.MoE(d, cfg.moe, device, dtype)
+        else:
+            self.mlp = GatedMLP(d, cfg.d_ff, device, dtype)
+
+
+class TransformerLM(nn.Module):
+    """The LM's parameters (leaf names of the JAX ``lm_defs``; blocks as a
+    per-layer list): embed (V, d), blocks, final_norm, and lm_head (d, V)
+    unless the embedding is tied."""
+
+    def __init__(self, cfg: LMConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = param(cfg.vocab_size, cfg.d_model, device=device,
+                           dtype=dtype)
+        self.blocks = nn.ModuleList(Block(cfg, device, dtype)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = Scale(cfg.d_model, device, dtype)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        param(cfg.d_model, cfg.vocab_size, device=device,
+                              dtype=dtype))
+
+
+def layer_windows(cfg: LMConfig) -> np.ndarray:
+    """Per-layer sliding window (0 = global). gemma3: every (N+1)-th
+    layer is global, the rest local."""
+    if cfg.sliding_window <= 0 or cfg.local_global_pattern <= 0:
+        return np.zeros((cfg.num_layers,), np.int32)
+    pat = cfg.local_global_pattern
+    win = np.full((cfg.num_layers,), cfg.sliding_window, np.int32)
+    win[pat::pat + 1] = 0  # every (pat+1)-th layer global
+    return win
+
+
+def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
+           cache: Optional[Cache] = None, cache_index: Optional[int] = None):
+    h = rmsnorm(bp.attn_norm.scale, x)
+    attn_out, new_cache = gqa_attention(
+        bp.attn, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, positions=positions,
+        rope_theta=cfg.rope_theta, sliding_window=window, cache=cache,
+        cache_index=cache_index)
+    x = x + attn_out
+    h = rmsnorm(bp.mlp_norm.scale, x)
+    if cfg.moe is not None:
+        ffn_out, aux = moe_lib.moe_ffn(bp.moe, h, cfg.moe)
+    else:
+        ffn_out = bp.mlp(h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ffn_out, new_cache, aux
+
+
+@torch.no_grad()
+def lm_apply(model: TransformerLM, tokens: torch.Tensor,
+             cfg: Optional[LMConfig] = None, *,
+             compute_dtype: torch.dtype = torch.bfloat16,
+             cache: Optional[Cache] = None, cache_index: Optional[int] = None,
+             logits_mode: str = "all"):
+    """Forward pass. tokens: (B, S) integer, on the model's device.
+
+    With ``cache=(k, v)`` of shape (L, B, S_max, Hkv, hd) this is a
+    prefill or decode step writing the cache in place at ``cache_index``.
+    ``logits_mode``: 'all' (B, S, V), 'last' (B, 1, V), or 'none' (the
+    final-normed hidden states).  Returns (logits-or-hidden, cache,
+    aux_loss)."""
+    if cfg is not None and cfg != model.cfg:
+        raise ValueError("cfg does not match the model's config")
+    if logits_mode not in ("all", "last", "none"):
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    cfg = model.cfg
+    dt = compute_dtype
+    B, S = tokens.shape
+    x = F.embedding(tokens, model.embed).to(dt)
+    offset = 0 if cache is None else int(cache_index)
+    positions = offset + torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
+        layer_cache = None if cache is None else (cache[0][i], cache[1][i])
+        x, _, a = _block(cfg, x, blk, int(window), positions, layer_cache,
+                         cache_index)
+        aux = aux + a
+    x = rmsnorm(model.final_norm.scale, x)
+    if logits_mode == "none":
+        return x, cache, aux
+    if logits_mode == "last":
+        x = x[:, -1:]
+    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    return torch.matmul(x, head.to(dt)), cache, aux
+
+
+# --- KV cache / serving ------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
+    """Zero K and V caches, each (L, batch, max_len, Hkv, hd)."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
+               max_len: int, *, compute_dtype: torch.dtype = torch.bfloat16):
+    """Prefill: run the prompt into a fresh cache of ``max_len``
+    positions; returns (last logits (B, 1, V), cache at length S)."""
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
+    cache = init_cache(cfg, B, max_len, compute_dtype, tokens.device)
+    logits, cache, _ = lm_apply(model, tokens, cfg,
+                                compute_dtype=compute_dtype, cache=cache,
+                                cache_index=0, logits_mode="last")
+    return logits, cache
+
+
+def lm_decode_step(model: TransformerLM, token: torch.Tensor, cache: Cache,
+                   cache_index: int, cfg: LMConfig, *,
+                   compute_dtype: torch.dtype = torch.bfloat16):
+    """One decode step. token: (B, 1); returns (logits (B, 1, V), cache),
+    the cache written in place at ``cache_index``."""
+    logits, cache, _ = lm_apply(model, token, cfg,
+                                compute_dtype=compute_dtype, cache=cache,
+                                cache_index=cache_index, logits_mode="last")
+    return logits, cache

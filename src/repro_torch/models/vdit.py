@@ -18,21 +18,10 @@ from torch import nn
 
 from repro_torch.config.base import RippleConfig, VDiTConfig
 from repro_torch.models.attention import Attention, mha_attention
-from repro_torch.models.common import (Linear, layernorm, mlp, param,
+from repro_torch.models.common import (GatedMLP, Linear, layernorm,
                                        rope_3d_angles, sincos_timestep_embed)
 
 _RIPPLE_OFF = RippleConfig()
-
-
-class MLP(nn.Module):
-    def __init__(self, d: int, d_ff: int, device=None, dtype=None):
-        super().__init__()
-        self.wi_gate = param(d, d_ff, device=device, dtype=dtype)
-        self.wi_up = param(d, d_ff, device=device, dtype=dtype)
-        self.wo = param(d_ff, d, device=device, dtype=dtype)
-
-    def forward(self, x):
-        return mlp(self.wi_gate, self.wi_up, self.wo, x)
 
 
 class Block(nn.Module):
@@ -41,7 +30,7 @@ class Block(nn.Module):
         d = cfg.d_model
         self.attn = Attention(d, cfg.num_heads, d // cfg.num_heads,
                               device, dtype)
-        self.mlp = MLP(d, int(d * cfg.mlp_ratio), device, dtype)
+        self.mlp = GatedMLP(d, int(d * cfg.mlp_ratio), device, dtype)
         self.ada = Linear(d, 6 * d, device, dtype)
 
 

@@ -1,6 +1,7 @@
-"""Serving engine: shape-bucketed continuous batching for video and
+"""Serving engines: shape-bucketed continuous batching for video and
 image generation, with deadline-aware scheduling, admission control and
-the guardrail escalation chain.
+the guardrail escalation chain (:class:`DiffusionEngine`), and prefill +
+decode for the LM family (:class:`LMEngine`).
 
 Requests are keyed into a **bucket** by the reference's 9-tuple
 ``(latent_shape, steps, policy, reuse_every, seq_shards, txt_shape,
@@ -1078,3 +1079,52 @@ class DiffusionEngine:
             fault = fault_lib.active_faults()
             if fault is not None:
                 fault.maybe_corrupt_artifact(self._batches_served)
+
+
+class LMEngine:
+    """Prefill + decode serving for the LM family.
+
+    ``prefill_fn(tokens)`` gives (logits (B, S|1, V), cache) and
+    ``decode_fn(token (B, 1), cache, index)`` (logits (B, 1, V), cache),
+    as the port's ``launch.workloads.lm_serve_steps`` returns them."""
+
+    def __init__(self, prefill_fn: Callable, decode_fn: Callable,
+                 max_len: int):
+        self.prefill_fn = prefill_fn
+        self.decode_fn = decode_fn
+        self.max_len = max_len
+
+    @torch.no_grad()
+    def generate(self, tokens: torch.Tensor, num_new: int,
+                 temperature: float = 0.0,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """tokens: (B, S) prompt -> (B, num_new) continuations, greedy
+        (argmax) or sampled at ``temperature`` from the softmax of the
+        float32 logits.  Sampling needs an explicit ``rng``, a
+        ``torch.Generator`` on the logits' device; the draws differ from
+        the JAX engine's by design, greedy tokens do not.  ``prompt +
+        num_new`` must fit ``max_len``.  The decode step after the last
+        token, whose logits the JAX engine computes and drops, is not
+        run."""
+        B, S = tokens.shape
+        if S + num_new > self.max_len:
+            raise ValueError(
+                f"prompt ({S}) + num_new ({num_new}) = {S + num_new} "
+                f"exceeds max_len={self.max_len}; the KV cache was "
+                f"allocated for max_len positions")
+        if temperature > 0 and rng is None:
+            raise ValueError("temperature > 0 requires an explicit rng "
+                             "(a torch.Generator)")
+        logits, cache = self.prefill_fn(tokens)
+        out = []
+        for i in range(num_new):
+            last = logits[:, -1]
+            if temperature > 0:
+                probs = torch.softmax(last.float() / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=rng)[:, 0]
+            else:
+                nxt = torch.argmax(last, dim=-1)
+            out.append(nxt)
+            if i + 1 < num_new:
+                logits, cache = self.decode_fn(nxt[:, None], cache, S + i)
+        return torch.stack(out, dim=1)

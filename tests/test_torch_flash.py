@@ -20,6 +20,10 @@ torch.set_num_threads(2)
 # Nq != Nk, unaligned in both).
 SHAPES = [(1, 1, 128, 128, 64, 64), (2, 3, 256, 256, 32, 32),
           (1, 2, 200, 333, 16, 48), (1, 1, 64, 512, 128, 128)]
+# Head dims above 128 (the kernel takes d and dv up to 256 apart): d 192,
+# d 256 (gemma3-4b's), d 256 with dv 128, ragged Nq != Nk.
+WIDE_SHAPES = [(1, 2, 96, 150, 192, 192), (1, 1, 130, 200, 256, 256),
+               (2, 1, 77, 140, 256, 128)]
 
 
 def _tol(dtype):
@@ -47,6 +51,27 @@ def test_matches_jax_kernel(B, H, Nq, Nk, d, dv, dtype):
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(j_out.astype(jnp.float32)),
                                atol=_tol(dtype), rtol=1e-2)
+
+
+@pytest.mark.parametrize("B,H,Nq,Nk,d,dv", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dims_match_jax_kernel(B, H, Nq, Nk, d, dv, dtype):
+    test_matches_jax_kernel(B, H, Nq, Nk, d, dv, dtype)
+
+
+def test_kernel_takes_head_dims_up_to_256():
+    """The CUDA wrapper's operand check accepts d and dv up to 256, apart,
+    and refuses 257 (the plain version on the CPU takes any)."""
+    def qkv(d, dv):
+        return (torch.zeros(1, 1, 8, d), torch.zeros(1, 1, 8, d),
+                torch.zeros(1, 1, 8, dv))
+
+    for d, dv in ((256, 256), (256, 128), (192, 192), (64, 256), (129, 129)):
+        flash_ops._check_operands(*qkv(d, dv))
+    for d, dv in ((257, 128), (128, 257), (257, 257)):
+        with pytest.raises(ValueError, match="head dims <= 256"):
+            flash_ops._check_operands(*qkv(d, dv))
+    assert flash_attention(*qkv(257, 257)).shape == (1, 1, 8, 257)
 
 
 @pytest.mark.parametrize("B,H,Nq,Nk,d,dv", SHAPES)

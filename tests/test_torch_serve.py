@@ -289,6 +289,24 @@ def test_launcher_flag_defaults_equal_the_jax_launchers(monkeypatch):
     assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}
 
 
+def test_registry_holds_the_lms_and_the_launcher_the_generating_families(
+        monkeypatch):
+    """``ALL_ARCHS`` is the JAX registry's, the four LMs included; the
+    launcher's ``--arch`` choices stay exactly the generating families
+    (the reference's launcher cannot serve an LM either)."""
+    from repro.configs import ALL_ARCHS as J_ALL_ARCHS
+    from repro_torch.configs import ALL_ARCHS, get_config
+
+    assert sorted(ALL_ARCHS) == sorted(J_ALL_ARCHS)
+    lms = [a for a in ALL_ARCHS if get_config(a).family == "lm"]
+    assert sorted(lms) == sorted(["qwen3-32b", "gemma3-4b", "qwen2-moe-a2.7b",
+                                  "phi3.5-moe-42b-a6.6b"])
+    parser = _launcher_parser(serve_lib.main, monkeypatch)
+    arch = next(a for a in parser._actions if a.dest == "arch")
+    assert set(arch.choices) == {a for a in ALL_ARCHS if get_config(a).family
+                                 in ("vdit", "dit", "mmdit", "unet")}
+
+
 def test_bare_launcher_serves_two_requests_a_bucket():
     done = serve_lib.main(["--device", "cpu", "--smoke", "--override",
                            "model.num_layers=1"])
