@@ -204,6 +204,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the router's aux) and ``lm[qwen3-32b 16 layers]`` /
    ``lm[phi3.5-moe-42b-a6.6b 8 layers]`` (full width, cut depth, 1 x 1024,
    8 new), each with its time, tokens/s, ms a token step and peak memory;
+8i. (after 8h; ``adaln[grad]`` sits with the adaLN timings in 6: the
+   kernel's autograd Function against autograd of its plain version at
+   the DiT's (4, 256, 1152) and (4, 4096, 1152), f32 and bf16) training
+   through ``repro_torch.launch.train``: ``train[dit-xl2 grads]`` (one
+   f32 step's gradients of a 2-layer dit-xl2 at d 144, every leaf random,
+   through the kernel against the CPU, every leaf non-zero),
+   ``train[dit-xl2]`` (``main`` at full width and depth, train_256, batch
+   256 in 8 micro-batches, bf16 compute: per step the loss, grad_norm,
+   lr, ms by CUDA events and exactly 456 adaLN launches and no other
+   kernel's; samples/s and peak memory; then ``profile[train dit-xl2]``,
+   one step on one micro-batch of 32 by kernel family),
+   ``train[vdit-paper 3 layers]``
+   (full width, 8192 + 256 tokens, batch 64 cut to 1, depth 40 cut to 3),
+   ``train[vit-l16]`` and ``train[efficientnet-b7]`` (cls_224, batch
+   256, remat) and ``train[vdit-example]`` (the JAX package's
+   examples/train_vdit.py configuration, 100 steps from 8 seeds against
+   the JAX example's losses on the CPU, then a run killed after step 60
+   and resumed from its step-50 checkpoint against the uninterrupted
+   one);
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT, UNet (also under svg) and MMDiT (12 Euler steps), and of static
@@ -211,7 +230,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and the smoke ViT's (ripple off and at the fixed θ) and
    EfficientNet's forwards in f32 the same way, and the four smoke LMs'
    greedy ``LMEngine.generate`` in f32 (token ids equal, logits within
-   the CPU tests' f32 bar).
+   the CPU tests' f32 bar), and two of the training launcher's AdamW
+   steps on the smoke dit-b2 in f32 (params within 1e-5).
 
 It prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -583,6 +603,26 @@ def theta_sweep_checks(res):
             if not ok:
                 raise SystemExit("fused_reuse kernel disagrees with its plain version "
                                  "in the θ sweep")
+
+
+def host_ab_ms(fns, rounds=5, iters=200):
+    """Host time a call of each of ``fns``: the median over ``rounds``
+    alternating rounds of ``iters`` calls each, synchronised between
+    rounds only, so that the shared host's drift falls on all alike."""
+    import torch
+
+    times = [[] for _ in fns]
+    for fn in fns:
+        fn()
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            t.append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return [sorted(t)[len(t) // 2] for t in times]
 
 
 def device_time_ms(fn, kernel=None, iters=20, flush=None, per_call=1):
@@ -4939,10 +4979,11 @@ def profile_forward(label, arch, model, lat_shape, families, annotate=(),
                         f"batch {batch}, {model_summary(arch)}, step {step} of {total}")
 
 
-def profile_call(label, fwd, families, annotate=(), keep_state=None, desc=""):
+def profile_call(label, fwd, families, annotate=(), keep_state=None, desc="",
+                 what="one forward"):
     """One call of ``fwd`` under torch.profiler, read as
-    :func:`profile_forward` says (``desc`` names the call in the log):
-    a classifier's forward comes here directly."""
+    :func:`profile_forward` says (``what`` and ``desc`` name the call in
+    the log): a classifier's forward comes here directly."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -5025,7 +5066,7 @@ def profile_call(label, fwd, families, annotate=(), keep_state=None, desc=""):
     if busy_ms <= 0:
         raise SystemExit(f"profile[{label}]: the profiler reported no device time")
     parts = ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items())
-    log(f"profile[{label}]: one forward, {desc}: wall {wall_ms:.3f} ms, "
+    log(f"profile[{label}]: {what}, {desc}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms (sum of events {sum_ms:.3f} ms; idle "
         f"share {1 - busy_ms / wall_ms:.4f}); {parts}; peak device memory "
         f"{peak:.2f} GiB")
@@ -5210,6 +5251,445 @@ def small_reference_check(label, name="vdit-paper", policy=None, overrides=()):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Training (slice 18)
+# ---------------------------------------------------------------------------
+
+ADALN_GRAD_SHAPES = ((4, 256, 1152), (4, 4096, 1152))  # the DiT's (B, N, d)
+# adaln[grad]: f32 is the closed form against autograd's chain, both in
+# f32 (reassociation only); bf16 rounds each gradient once, the plain
+# version's chain at other places: a few elements one bf16 ulp apart.
+ADALN_GRAD_BAR = {"float32": 1e-5, "bfloat16": 1e-2}
+# train[dit-xl2 grads]: d_model 144 (2 heads of 72), 2 layers, 32² images
+# (a (1, 2, 2) grid), f32 compute, every leaf random.
+DIT_GRADS_CUT = ("model.d_model=144", "model.num_heads=2", "model.num_layers=2")
+DIT_GRADS_BAR = 1e-4   # tree relative L2, card against the CPU (f32, no TF32)
+TRAIN_DIT_STEPS = 4
+TRAIN_VDIT_LAYERS = 3  # of 40: about 16 GB a layer at 8448 tokens
+TRAIN_VDIT_STEPS = 3
+TRAIN_VISION_STEPS = 3
+# train[vdit-example]: the JAX package's examples/train_vdit.py, 100 steps
+# with a checkpoint every 50, from VDIT_EXAMPLE_SEEDS seeds.  Its loss on
+# the CPU from scripts/reference_vdit_example_losses.py --seeds 8: the
+# means over steps 0-19 and 80-99, averaged over the seeds, and of seed
+# 0 (the example itself).
+VDIT_EXAMPLE_STEPS = 100
+VDIT_EXAMPLE_SEEDS = 8
+VDIT_EXAMPLE_JAX = (0.7342202058061957, 0.26086535506183284)
+VDIT_EXAMPLE_JAX_SEED0 = (0.716935034096241, 0.2274967030622065)
+VDIT_EXAMPLE_DROP = 0.5      # last-20 mean at most half the first-20 mean
+VDIT_EXAMPLE_TO_JAX = 0.25   # last-20 mean within 25% of the JAX run's
+VDIT_EXAMPLE_KILL = 60       # killed after step 60, resumed from step 50
+VDIT_EXAMPLE_RESUME_BAR = 1e-3  # params, resumed against uninterrupted
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def adaln_grad_phase():
+    """adaln[grad]: the autograd Function (the kernel forward, the
+    closed-form backward) against autograd of the plain version on the
+    card, at the DiT's shapes, f32 and bf16; shift and scale are chunks
+    of an adaLN projection, as the model passes them.  Returns the
+    largest relative L2 error."""
+    import torch
+    from repro_torch.kernels.adaln.ops import adaln_modulate
+    from repro_torch.kernels.adaln.ref import adaln_modulate_ref
+
+    worst = 0.0
+    g = torch.Generator(device="cuda")
+    g.manual_seed(29)
+    with torch.enable_grad():
+        for B, N, d in ADALN_GRAD_SHAPES:
+            for dt in (torch.float32, torch.bfloat16):
+                x = (2 * torch.randn((B, N, d), generator=g, device="cuda") + 0.5).to(dt)
+                ada = torch.randn((B, 6 * d), generator=g, device="cuda").to(dt)
+                gout = torch.randn((B, N, d), generator=g, device="cuda").to(dt)
+                grads = []
+                for fn in (adaln_modulate, adaln_modulate_ref):
+                    xi = x.clone().requires_grad_(True)
+                    ai = ada.clone().requires_grad_(True)
+                    sh, sc = torch.chunk(ai, 6, dim=-1)[:2]
+                    fn(xi, sh, sc).backward(gout)
+                    grads.append((xi.grad, ai.grad[:, :d], ai.grad[:, d:2 * d]))
+                torch.cuda.synchronize()
+                name = str(dt).split(".")[-1]
+                errs = [rel_err(a, b) for a, b in zip(*grads)]
+                ok = all(e <= ADALN_GRAD_BAR[name] for e in errs) and all(
+                    bool(torch.isfinite(a).all()) for a in grads[0])
+                worst = max(worst, *errs)
+                log(f"adaln[grad]: {(B, N, d)} {name}: dx {errs[0]:.3e}, dshift "
+                    f"{errs[1]:.3e}, dscale {errs[2]:.3e} relative L2 against autograd "
+                    f"of the plain version (bar {ADALN_GRAD_BAR[name]:.0e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("adaln[grad]: the Function's gradient disagrees")
+    return worst
+
+
+def train_grads_phase():
+    """train[dit-xl2 grads]: one step's gradients of a small dit-xl2 (every
+    leaf random) through the adaLN kernel against the same step on the
+    CPU (plain versions), f32 compute, the same batch, noise and t; every
+    leaf's gradient non-zero on the card."""
+    import copy
+
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataSpec, batch_generator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import workloads
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.params import init_model
+
+    arch = apply_overrides(get_config("dit-xl2"), DIT_GRADS_CUT
+                           + ("train.compute_dtype=float32",))
+    shape = dataclasses.replace(arch.shape("train_256"), img_res=32, batch=4)
+    base = init_model(arch.model, seed=3, device="cpu", zero_init=False)
+    loss_fn = workloads.train_loss_fn(arch)
+    grads, counts = {}, {}
+    with torch.enable_grad():
+        for dev in ("cuda", "cpu"):
+            model = copy.deepcopy(base).to(dev)
+            for p in model.parameters():
+                p.requires_grad_(True)
+            batch = make_batch_fn(arch, shape, dev)(DataSpec(seed=0), 0)
+            reset_launch_counts()
+            loss, _ = loss_fn(model, batch, batch_generator(0, 0, 0))
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            grads[dev] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    num = sum(float((grads["cuda"][n] - g).double().norm() ** 2) for n, g in grads["cpu"].items())
+    den = sum(float(g.double().norm() ** 2) for g in grads["cpu"].values())
+    tree = (num / den) ** 0.5
+    zero = [n for n, g in grads["cuda"].items() if not bool((g != 0).any())]
+    want = 2 * arch.model.num_layers + 1
+    checks = {f"gradient tree relative L2 card vs CPU {tree:.3e} (bar {DIT_GRADS_BAR:.0e})":
+              tree <= DIT_GRADS_BAR,
+              f"every one of {len(grads['cuda'])} leaves has a non-zero gradient "
+              f"(zero: {zero})": not zero,
+              f"adaln launched {counts.get('adaln')} times in the forward (want {want})":
+              counts.get("adaln") == want}
+    report("dit-xl2 grads", checks, kind="train")
+    return tree
+
+
+@contextlib.contextmanager
+def timed_train_steps(records):
+    """Wrap the launcher's train step: CUDA events around each step, its
+    metrics and the launch counters after it."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import workloads
+
+    def make(orig):
+        def make_step(arch, shape, model):
+            step = orig(arch, shape, model)
+
+            def timed(state, batch, seed):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, m = step(state, batch, seed)
+                e1.record()
+                torch.cuda.synchronize()
+                records.append({"ms": e0.elapsed_time(e1), "counts": launch_counts(),
+                                **{k: float(v) for k, v in m.items()}})
+                return state, m
+            return timed
+        return make_step
+
+    with wrapped(workloads, "train_step", make):
+        yield
+
+
+def train_cell(label, argv, batch, adaln_per_step=0):
+    """train[label]: ``repro_torch.launch.train.main(argv)`` on the card,
+    the launch counters set to 0 just before and read just after; per
+    step the loss, grad_norm, lr, ms (CUDA events) and launches; after
+    the first step the mean ms, samples/s; the peak memory.  Every step
+    must launch ``adaln_per_step`` adaLN kernels and no other."""
+    import math
+
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_lib
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # what earlier phases keep
+    records = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_train_steps(records):
+        state, _ = train_lib.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sum(p.numel() for p in state.params.parameters())
+    del state
+    torch.cuda.empty_cache()
+    prev = {k: 0 for k in counts}
+    per_step = []
+    for i, r in enumerate(records):
+        step = {k: r["counts"][k] - prev[k] for k in counts}
+        prev = r["counts"]
+        per_step.append(step)
+        log(f"train[{label}]: step {i}: loss {r['loss']:.6f}, grad_norm "
+            f"{r['grad_norm']:.6f}, lr {r['lr']:.6e}, {r['ms']:.3f} ms, launches "
+            f"{ {k: v for k, v in step.items() if v} }")
+    later = [r["ms"] for r in records[1:]]
+    ms = sum(later) / len(later)
+    log(f"train[{label}]: {n / 1e9:.4f} B params; {len(records)} steps of batch {batch} in "
+        f"{wall:.1f}s (init, data and first step included); {ms:.3f} ms a step after "
+        f"the first ({', '.join(f'{x:.3f}' for x in later)}), {batch / ms * 1e3:.1f} "
+        f"samples/s; peak {peak:.2f} GiB, {peak - held:.2f} of it the run's ({held:.2f} "
+        f"held before it); {CARD}")
+    want = {k: (adaln_per_step if k == "adaln" else 0) for k in counts}
+    checks = {f"every step's loss and grad_norm finite": all(
+                  math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in records),
+              f"every step launched {want} (counts over the run {counts})":
+                  all(s == want for s in per_step)
+                  and counts["adaln"] == adaln_per_step * len(records)}
+    report(label, checks, kind="train")
+    return {"steps": len(records), "ms": ms, "samples_per_s": batch / ms * 1e3,
+            "peak_gib": peak, "own_peak_gib": peak - held, "launches": counts,
+            "loss": [r["loss"] for r in records]}
+
+
+def profile_train_dit():
+    """profile[train dit-xl2]: one AdamW step of dit-xl2 at full width and
+    depth on one micro-batch (32 images, grad_accum 1), by kernel family:
+    the adaLN kernel, softmax, the AdamW ``_foreach`` passes, reductions,
+    GEMMs and the rest."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataSpec, batch_generator
+    from repro_torch.launch import workloads
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.params import init_model
+    from repro_torch.training import train_loop
+
+    arch = get_config("dit-xl2")
+    arch = dataclasses.replace(arch, train=dataclasses.replace(arch.train, grad_accum=1))
+    shape = dataclasses.replace(arch.shape("train_256"), batch=32)
+    model = init_model(arch.model, seed=0, device="cuda")
+    step = workloads.train_step(arch, shape, model)
+    box = [train_loop.train_state_init(model, arch.train)]
+    batch = make_batch_fn(arch, shape, "cuda")(DataSpec(seed=0), 0)
+
+    def call():
+        box[0], _ = step(box[0], batch, 0)
+
+    out = profile_call("train dit-xl2", call,
+                       {"adaln": "adaln", "softmax": "softmax", "adamw": "multi_tensor",
+                        "reduce": "reduce"},
+                       what="one train step", desc="batch 32 (one micro-batch of "
+                       "train_256): forward, backward and AdamW, bf16 compute")
+    del box, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def vdit_example_arch(steps):
+    """The JAX package's examples/train_vdit.py configuration in the
+    port's dataclasses: a ~35 M video DiT (6 layers, width 384), lr 1e-3,
+    warmup 20, remat off, batch 4 of 64² x 16 frames."""
+    from repro_torch.config.base import ShapeSpec, VDiTConfig
+    from repro_torch.configs import get_config
+
+    model = VDiTConfig(frames=16, img_res=64, patch=2, t_patch=1, num_layers=6,
+                       d_model=384, num_heads=6, in_channels=8, vae_factor=8,
+                       t_vae_factor=4, txt_tokens=16, txt_dim=256, axes_dim=(16, 24, 24))
+    base = get_config("vdit-paper")
+    return dataclasses.replace(
+        base, name="vdit-example", model=model,
+        shapes=(ShapeSpec(name="train_64", kind="train", img_res=64, batch=4,
+                          steps=1000),),
+        train=dataclasses.replace(base.train, learning_rate=1e-3, warmup_steps=20,
+                                  total_steps=steps, remat=False))
+
+
+class _Killed(Exception):
+    """Stops a training run mid-way, as a crash would."""
+
+
+def vdit_example_run(device, steps, ckpt_dir=None, kill_after=None, seed=0):
+    """The example's run on ``device`` from ``seed``: the reference init
+    from seed, data seed seed, step seed seed + 1 (seed 0: the example's
+    own 0, 0 and 1); with ``ckpt_dir`` a checkpoint every 50 steps (keep
+    2) and auto-resume from the newest valid one.  Returns (state,
+    {step: loss}, start step); ``kill_after`` steps stops the run by an
+    exception once that many steps are done (the step-50 checkpoint
+    committed)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.synthetic import DataSpec, batch_iterator
+    from repro_torch.launch import workloads
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.params import init_model
+    from repro_torch.training import train_loop
+
+    arch = vdit_example_arch(steps)
+    shape = arch.shape("train_64")
+    model = init_model(arch.model, seed=seed, device="cpu").to(device)
+    step_fn = workloads.train_step(arch, shape, model)
+    state = train_loop.train_state_init(model, arch.train)
+    ckpt, start = None, 0
+    if ckpt_dir:
+        ckpt = Checkpointer(ckpt_dir, keep=2)
+        found, arrays, _ = ckpt.restore_latest()
+        if found is not None:
+            state = train_loop.load_state_tree(state, arrays)
+            start = found
+    losses = {}
+
+    def on_step(i, m):
+        losses[i] = float(m["loss"])
+        if kill_after is not None and i + 1 == kill_after:
+            raise _Killed
+
+    it = batch_iterator(make_batch_fn(arch, shape, device), DataSpec(seed=seed),
+                        start_index=start)
+    try:
+        state, _ = train_loop.run_train_loop(
+            step_fn, state, it, steps, seed=seed + 1, checkpointer=ckpt,
+            checkpoint_every=50, log_every=0,
+            start_step=start, on_step=on_step)
+    except _Killed:
+        pass
+    if ckpt:
+        ckpt.wait()
+    return state, losses, start
+
+
+def vdit_example_phase():
+    """train[vdit-example]: the example's 100 steps on the card from
+    VDIT_EXAMPLE_SEEDS seeds (seed 0: the example's own, with a
+    checkpoint every 50 steps).  The mean loss over steps 80-99 must fall
+    to at most VDIT_EXAMPLE_DROP of the mean over steps 0-19, and,
+    averaged over the seeds, lie within 25% of the JAX example's on the
+    CPU averaged over as many seeds: one run's 20-step mean moves by
+    about +-30% with its draws of t alone (the port replaying the JAX
+    example's own draws on the CPU gives its means to 5 digits).  Then a
+    run killed after step 60 and restarted from its step-50 checkpoint
+    must end on the uninterrupted run's parameters (bar
+    VDIT_EXAMPLE_RESUME_BAR; cuBLAS and atomics need not be bitwise
+    deterministic on the card)."""
+    import shutil
+
+    import torch
+
+    root = os.path.join(ROOT, "build", "train_vdit_example")
+    shutil.rmtree(root, ignore_errors=True)
+    means = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for seed in range(VDIT_EXAMPLE_SEEDS):
+        state, losses, _ = vdit_example_run(
+            "cuda", VDIT_EXAMPLE_STEPS, os.path.join(root, "full") if seed == 0 else None,
+            seed=seed)
+        traj = [losses[i] for i in range(VDIT_EXAMPLE_STEPS)]
+        means.append((sum(traj[:20]) / 20, sum(traj[-20:]) / 20))
+        if seed == 0:
+            full = state
+            log(f"train[vdit-example]: seed 0 loss every 10th step "
+                f"{[round(traj[i], 4) for i in range(0, VDIT_EXAMPLE_STEPS, 10)]}")
+        else:
+            del state
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first = sum(m[0] for m in means) / len(means)
+    last = sum(m[1] for m in means) / len(means)
+    j_first, j_last = VDIT_EXAMPLE_JAX
+    log(f"train[vdit-example]: {VDIT_EXAMPLE_SEEDS} runs of {VDIT_EXAMPLE_STEPS} steps in "
+        f"{wall:.1f}s; means over steps 0-19 / 80-99 by seed "
+        f"{[(round(a, 4), round(b, 4)) for a, b in means]}, averaged {first:.4f} / "
+        f"{last:.4f}; the JAX example on the CPU averaged over as many seeds "
+        f"{j_first:.4f} / {j_last:.4f} (its seed 0 {VDIT_EXAMPLE_JAX_SEED0[0]:.4f} / "
+        f"{VDIT_EXAMPLE_JAX_SEED0[1]:.4f}; the port's seed 0 against it "
+        f"{means[0][1] / VDIT_EXAMPLE_JAX_SEED0[1] - 1:+.1%}); {CARD}")
+    d = os.path.join(root, "killed")
+    _, part, _ = vdit_example_run("cuda", VDIT_EXAMPLE_STEPS, d,
+                                  kill_after=VDIT_EXAMPLE_KILL)
+    resumed, rest, start = vdit_example_run("cuda", VDIT_EXAMPLE_STEPS, d)
+    got = {n: p.detach() for n, p in resumed.params.named_parameters()}
+    want = {n: p.detach() for n, p in full.params.named_parameters()}
+    num = sum(float((got[n] - w).double().norm() ** 2) for n, w in want.items())
+    den = sum(float(w.double().norm() ** 2) for w in want.values())
+    err = (num / den) ** 0.5
+    bitwise = all(bits_equal(got[n], w) for n, w in want.items())
+    checks = {
+        f"every run's loss falls: mean 80-99 <= {VDIT_EXAMPLE_DROP} x mean 0-19":
+            all(b <= VDIT_EXAMPLE_DROP * a for a, b in means),
+        f"mean 80-99 averaged over seeds {last:.4f} within {VDIT_EXAMPLE_TO_JAX:.0%} of "
+        f"the JAX example's {j_last:.4f} ({last / j_last - 1:+.1%})":
+            abs(last / j_last - 1) <= VDIT_EXAMPLE_TO_JAX,
+        f"killed after step {max(part) + 1}, resumed from step {start} (want 50), ran "
+        f"steps {min(rest)}-{max(rest)}": start == 50 and min(rest) == 50
+            and max(rest) == VDIT_EXAMPLE_STEPS - 1,
+        f"resumed parameters against the uninterrupted run's: relative L2 {err:.3e} "
+        f"(bar {VDIT_EXAMPLE_RESUME_BAR:.0e}), bit-equal {bitwise}":
+            err <= VDIT_EXAMPLE_RESUME_BAR}
+    report("vdit-example", checks, kind="train")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"first20": first, "last20": last, "by_seed": means,
+            "resume_rel_l2": err, "bit_equal": bitwise}
+
+
+def train_reference_check():
+    """reference[train dit-b2 smoke]: the launcher's steps in f32 compute
+    on the card against the same steps on the CPU (the same CPU-drawn
+    init, batches, noise and t): params within 1e-5 relative L2."""
+    import torch
+    from repro_torch.launch import train as train_lib
+
+    argv = ["--arch", "dit-b2", "--shape", "train_256", "--smoke", "--batch-override",
+            "4", "--steps", "2", "train.compute_dtype=float32"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state, hist = train_lib.main(argv + ["--device", dev])
+        out[dev] = ({n: p.detach().cpu() for n, p in state.params.named_parameters()},
+                    hist[-1]["loss"])
+    num = sum(float((out["cuda"][0][n] - p).double().norm() ** 2)
+              for n, p in out["cpu"][0].items())
+    den = sum(float(p.double().norm() ** 2) for p in out["cpu"][0].values())
+    err = (num / den) ** 0.5
+    ok = err <= 1e-5
+    log(f"reference[train dit-b2 smoke]: 2 AdamW steps, f32 compute, card vs CPU: params "
+        f"relative L2 {err:.3e} (tol 1e-5), loss {out['cuda'][1]:.6f} vs "
+        f"{out['cpu'][1]:.6f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("card training step disagrees with the CPU reference")
+
+
+def train_phases():
+    """The training cells, each through the launcher's main: dit-xl2 at full
+    width and depth (batch 256, grad_accum 8, bf16 compute), vdit-paper at
+    full width and TRAIN_VDIT_LAYERS layers (batch 64 cut to 1),
+    vit-l16 and efficientnet-b7 at cls_224 (batch 256, remat), then the
+    vdit example with its kill and resume."""
+    out = {"dit-xl2 grads": train_grads_phase()}
+    out["dit-xl2"] = train_cell(
+        "dit-xl2", ["--arch", "dit-xl2", "--shape", "train_256", "--steps",
+                    str(TRAIN_DIT_STEPS)], 256, adaln_per_step=8 * (2 * 28 + 1))
+    out["profile dit-xl2"] = profile_train_dit()
+    out["vdit-paper"] = train_cell(
+        f"vdit-paper {TRAIN_VDIT_LAYERS} layers",
+        ["--arch", "vdit-paper", "--shape", "train_256", "--steps", str(TRAIN_VDIT_STEPS),
+         "--batch-override", "1", f"model.num_layers={TRAIN_VDIT_LAYERS}"], 1)
+    for name in ("vit-l16", "efficientnet-b7"):
+        out[name] = train_cell(name, ["--arch", name, "--shape", "cls_224", "--steps",
+                                      str(TRAIN_VISION_STEPS)], 256)
+    out["vdit-example"] = vdit_example_phase()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=40,
@@ -5238,6 +5718,9 @@ def main() -> int:
     os.environ["REPRO_PATTERN_ARTIFACT"] = os.path.join(PATTERN_DIR, "active.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Serving and the kernel checks build no autograd graph; the training
+    # phases take gradients with grad mode on where they need it.
+    torch.set_grad_enabled(False)
 
     global CARD
     card = CARD = card_line()
@@ -5430,6 +5913,15 @@ def main() -> int:
     a_ms, a_host = device_time_ms(lambda: adaln_modulate(xa, sha, sca), "adaln_kernel",
                                   flush=flush)
     a_wrap = cuda_time_ms(lambda: adaln_modulate(xa, sha, sca), iters=20)
+    # The wrapper's host cost served (a direct launch) against training (x
+    # requires grad: the autograd Function), in alternating rounds.
+    xg = xa.detach().requires_grad_(True)
+
+    def train_call():
+        with torch.enable_grad():
+            adaln_modulate(xg, sha, sca)
+
+    a_host_ab = host_ab_ms([lambda: adaln_modulate(xa, sha, sca), train_call])
     a_plain = cuda_time_ms(lambda: adaln_modulate_ref(xa, sha, sca), iters=10)
     layer_norm = torch.nn.functional.layer_norm
     a_lib = cuda_time_ms(lambda: layer_norm(xa, (1152,), eps=1e-6)
@@ -5441,12 +5933,15 @@ def main() -> int:
         else "operations"
     log(f"time adaln bf16 {tuple(xa.shape)}: device {a_ms:.4f} ms a call (L2 flushed; "
         f"{a_bytes / a_ms / 1e6:.1f} GB/s, {a_bound / a_ms:.3f} of the bound), host "
-        f"{a_host:.4f} ms a wrapper call, wrapper time back to back {a_wrap:.4f} ms; "
-        f"plain {a_plain:.4f} ms, F.layer_norm and two elementwise ops {a_lib:.4f} ms "
+        f"{a_host:.4f} ms a wrapper call (alternating rounds: served {a_host_ab[0]:.4f}, "
+        f"through the autograd Function {a_host_ab[1]:.4f}), wrapper time back to back "
+        f"{a_wrap:.4f} ms; plain {a_plain:.4f} ms, F.layer_norm and two elementwise ops {a_lib:.4f} ms "
         f"(no single PyTorch call), bound {a_bound:.4f} ms ({a_by}: "
         f"{a_bytes / 1e6:.1f} MB); {CARD}")
-    del xa, ada, sha, sca
+    del xa, xg, ada, sha, sca
     torch.cuda.empty_cache()
+    # adaln[grad]: the kernel under autograd, against the plain version's.
+    adaln_grad_err = adaln_grad_phase()
     time_flash(FLASH_SERVE_SHAPES[0], "vDiT serving shape")
     time_flash(FLASH_SERVE_SHAPES[1], "dit-xl2 serving shape")
     fl256 = time_flash(FLASH_D256_SHAPE, "gemma3-4b's global-layer head shape, unmasked: "
@@ -5607,6 +6102,12 @@ def main() -> int:
     # launch counter 0 before each run and still 0 after --------------------
     lm_phases()
 
+    # 8i. training (slice 18): the adaLN kernel's gradient through a small
+    # dit-xl2, then the launcher's main on dit-xl2 (full width and depth),
+    # vdit-paper (full width, cut depth), vit-l16 and efficientnet-b7, and
+    # the JAX package's training example with a kill and a resume --------
+    train_out = train_phases()
+
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
     counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
@@ -5637,6 +6138,8 @@ def main() -> int:
     # The LM family's smoke configs: greedy generate in f32, card vs CPU.
     for name in LM_SMOKE:
         lm_reference_check(name)
+    # The launcher's AdamW steps on the smoke dit-b2 in f32, card vs CPU.
+    train_reference_check()
     # The offline-pattern policies: static on the default template, and
     # rainfusion under the artifact pattern_search[vdit] wrote.
     from repro_torch.core import patterns
@@ -5727,7 +6230,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/adaln/kernel.py:38",
          "launches": counts_d["adaln"], "max_abs_err": adaln_err,
          "ms": a_ms, "host_ms": a_host, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": a_by, "library_ms": None},
+         "bound_by": a_by, "library_ms": None,
+         # Training (slice 18): its launches in train[dit-xl2] (forward only;
+         # the backward is PyTorch ops) and its gradient's largest relative
+         # L2 error against autograd of the plain version (adaln[grad]).
+         "launches_train": train_out["dit-xl2"]["launches"]["adaln"],
+         "host_served_ms": a_host_ab[0], "host_function_ms": a_host_ab[1],
+         "grad_max_rel_err": adaln_grad_err},
         # f32 at (1, 24, 8192, 128), as its path (the kernel_bench sweep)
         # launches it; the bf16 times at the serving shapes are log lines.
         {"name": "flash_attention", "route": "cuda",

@@ -4,7 +4,8 @@ The port keeps its own copy of the dataclasses it needs, with the same
 field names and defaults as the JAX package's ``repro.config.base``, so
 that one config (and one ``key=value`` override string) means the same
 thing in both packages.  The vDiT, DiT, MMDiT, UNet, ViT, EfficientNet
-and LM (dense and MoE) families are carried over so far.
+and LM (dense and MoE) families are carried over, with the training
+(``TrainConfig``) and checkpoint (``CheckpointConfig``) settings.
 """
 
 from __future__ import annotations
@@ -232,12 +233,46 @@ class ShapeSpec:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"  # 'cosine' | 'linear' | 'constant'
+    grad_accum: int = 1
+    ema_decay: float = 0.0  # 0 disables EMA
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    # 'full' | 'dots' (the LM family's; not acted on by the port yet).
+    remat_policy: str = "full"
+    # Mesh settings of the reference, kept so configs stay
+    # interchangeable: the port trains on one card.
+    seq_parallel: bool = False
+    grad_compression: bool = False
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "/tmp/repro_ckpt"
+    interval_steps: int = 100
+    keep: int = 3
+    async_save: bool = True
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
     model: Any
     shapes: Tuple[ShapeSpec, ...]
     ripple: RippleConfig = field(default_factory=RippleConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     source: str = ""
 
     def shape(self, name: str) -> ShapeSpec:

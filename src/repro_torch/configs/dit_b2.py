@@ -4,7 +4,8 @@ n_heads=12.  Same values as the JAX package's ``repro.configs.dit_b2``
 
 TimeRipple: 2-D mode (x/y axes)."""
 
-from repro_torch.config.base import ArchConfig, DiTConfig, RippleConfig
+from repro_torch.config.base import (ArchConfig, DiTConfig, RippleConfig,
+                                     TrainConfig)
 from repro_torch.configs.dit_xl2 import DIFFUSION_SHAPES
 
 
@@ -15,6 +16,7 @@ def make_config() -> ArchConfig:
                           theta_min=0.2, theta_max=0.5, i_min=10, i_max=20)
     return ArchConfig(name="dit-b2", family="dit", model=model,
                       shapes=DIFFUSION_SHAPES, ripple=ripple,
+                      train=TrainConfig(grad_accum=8),
                       source="arXiv:2212.09748; paper")
 
 

@@ -5,7 +5,7 @@ n_heads=16 (head dim 72).  Same values as the JAX package's
 TimeRipple: 2-D mode (x/y axes; an image DiT has no temporal axis)."""
 
 from repro_torch.config.base import (ArchConfig, DiTConfig, RippleConfig,
-                                     ShapeSpec)
+                                     ShapeSpec, TrainConfig)
 
 # The JAX package's ``configs.lm_shapes.DIFFUSION_SHAPES``.
 DIFFUSION_SHAPES = (
@@ -27,6 +27,7 @@ def make_config() -> ArchConfig:
                           theta_min=0.2, theta_max=0.5, i_min=10, i_max=20)
     return ArchConfig(name="dit-xl2", family="dit", model=model,
                       shapes=DIFFUSION_SHAPES, ripple=ripple,
+                      train=TrainConfig(grad_accum=8),
                       source="arXiv:2212.09748; paper")
 
 

@@ -6,7 +6,8 @@ MMDiT rectified-flow.  Same values as the JAX package's
 TimeRipple: 2-D mode on the image-token stream of the joint attention
 (text tokens never snapped)."""
 
-from repro_torch.config.base import ArchConfig, MMDiTConfig, RippleConfig
+from repro_torch.config.base import (ArchConfig, MMDiTConfig, RippleConfig,
+                                     TrainConfig)
 from repro_torch.configs.dit_xl2 import DIFFUSION_SHAPES
 
 
@@ -19,6 +20,7 @@ def make_config() -> ArchConfig:
                           theta_min=0.2, theta_max=0.5, i_min=10, i_max=20)
     return ArchConfig(name="flux-dev", family="mmdit", model=model,
                       shapes=DIFFUSION_SHAPES, ripple=ripple,
+                      train=TrainConfig(grad_accum=16),
                       source="BFL tech report; unverified")
 
 

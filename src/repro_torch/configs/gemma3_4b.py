@@ -5,7 +5,8 @@ d_ff=10240 vocab=262144, qk-norm, 5:1 local:global sliding window of
 
 TimeRipple: inapplicable (1-D text tokens)."""
 
-from repro_torch.config.base import ArchConfig, LMConfig, RippleConfig
+from repro_torch.config.base import (ArchConfig, LMConfig, RippleConfig,
+                                     TrainConfig)
 from repro_torch.configs.lm_shapes import LM_SHAPES
 
 
@@ -18,6 +19,7 @@ def make_config() -> ArchConfig:
     )
     return ArchConfig(name="gemma3-4b", family="lm", model=model,
                       shapes=LM_SHAPES, ripple=RippleConfig(enabled=False),
+                      train=TrainConfig(grad_accum=8),
                       source="hf:google/gemma-3-1b-pt; unverified")
 
 

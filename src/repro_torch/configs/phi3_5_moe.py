@@ -6,7 +6,7 @@ values as the JAX package's ``repro.configs.phi3_5_moe``
 TimeRipple: inapplicable (1-D text tokens)."""
 
 from repro_torch.config.base import (ArchConfig, LMConfig, MoEConfig,
-                                     RippleConfig)
+                                     RippleConfig, TrainConfig)
 from repro_torch.configs.lm_shapes import LM_SHAPES
 
 
@@ -19,6 +19,7 @@ def make_config() -> ArchConfig:
     )
     return ArchConfig(name="phi3.5-moe-42b-a6.6b", family="lm", model=model,
                       shapes=LM_SHAPES, ripple=RippleConfig(enabled=False),
+                      train=TrainConfig(grad_accum=16),
                       source="hf:microsoft/Phi-3.5-MoE-instruct; hf")
 
 

@@ -6,7 +6,7 @@ plus 4 shared experts.  Same values as the JAX package's
 TimeRipple: inapplicable (1-D text tokens)."""
 
 from repro_torch.config.base import (ArchConfig, LMConfig, MoEConfig,
-                                     RippleConfig)
+                                     RippleConfig, TrainConfig)
 from repro_torch.configs.lm_shapes import LM_SHAPES
 
 
@@ -19,6 +19,7 @@ def make_config() -> ArchConfig:
     )
     return ArchConfig(name="qwen2-moe-a2.7b", family="lm", model=model,
                       shapes=LM_SHAPES, ripple=RippleConfig(enabled=False),
+                      train=TrainConfig(grad_accum=8),
                       source="hf:Qwen/Qwen1.5-MoE-A2.7B; hf")
 
 

@@ -4,7 +4,8 @@ d_ff=25600 vocab=151936, qk-norm.  Same values as the JAX package's
 
 TimeRipple: inapplicable (1-D text tokens)."""
 
-from repro_torch.config.base import ArchConfig, LMConfig, RippleConfig
+from repro_torch.config.base import (ArchConfig, LMConfig, RippleConfig,
+                                     TrainConfig)
 from repro_torch.configs.lm_shapes import LM_SHAPES
 
 
@@ -16,6 +17,7 @@ def make_config() -> ArchConfig:
     )
     return ArchConfig(name="qwen3-32b", family="lm", model=model,
                       shapes=LM_SHAPES, ripple=RippleConfig(enabled=False),
+                      train=TrainConfig(grad_accum=16),
                       source="hf:Qwen/Qwen3-8B; hf")
 
 

@@ -6,7 +6,8 @@ JAX package's ``repro.configs.unet_sd15`` [arXiv:2112.10752; paper].
 TimeRipple: 2-D mode in the self-attention of the transformer blocks at
 each attention resolution; cross-attention untouched."""
 
-from repro_torch.config.base import ArchConfig, RippleConfig, UNetConfig
+from repro_torch.config.base import (ArchConfig, RippleConfig, TrainConfig,
+                                     UNetConfig)
 from repro_torch.configs.dit_xl2 import DIFFUSION_SHAPES
 
 
@@ -19,6 +20,7 @@ def make_config() -> ArchConfig:
                           theta_min=0.2, theta_max=0.5, i_min=10, i_max=20)
     return ArchConfig(name="unet-sd15", family="unet", model=model,
                       shapes=DIFFUSION_SHAPES, ripple=ripple,
+                      train=TrainConfig(grad_accum=8),
                       source="arXiv:2112.10752; paper")
 
 

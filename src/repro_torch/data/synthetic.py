@@ -1,8 +1,9 @@
 """Seeded synthetic data of the port.
 
-No datasets ship with the repository, so benchmarks draw latent videos
-from a Gauss-Markov model whose knobs set how much spatio-temporal
-redundancy TimeRipple can reuse.  Randomness comes from a caller's
+No datasets ship with the repository, so benchmarks and the trainer draw
+latent videos from a Gauss-Markov model whose knobs set how much
+spatio-temporal redundancy TimeRipple can reuse, and the vision family
+class-conditional textures.  Randomness comes from a caller's
 ``torch.Generator`` (whose device the data lands on); the deterministic
 part is :func:`smooth_ar_latents`, a function of the base noise alone,
 so the same noise gives the JAX package's latents.
@@ -10,9 +11,11 @@ so the same noise gives the JAX package's latents.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Iterator, Tuple
 
+import numpy as np
 import torch
 
 
@@ -48,3 +51,69 @@ def correlated_video_latents(generator: torch.Generator, batch: int,
                        device=generator.device)
     return smooth_ar_latents(base, temporal_rho=temporal_rho,
                              spatial_smooth=spatial_smooth)
+
+
+# --- training batches ---------------------------------------------------------
+#
+# The JAX package's ``data/synthetic.py`` pipelines, drawn from a CPU
+# generator seeded by (seed + the reference's per-pipeline offset, index,
+# shard): a batch depends on its index only, on every device, so an
+# iterator resumed at ``start_index`` replays the same batches (the
+# values differ from the JAX draws, as ``torch`` and ``jax.random`` do).
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpec:
+    seed: int = 0
+    shard: int = 0
+    num_shards: int = 1
+
+
+def batch_generator(seed: int, index: int, shard: int = 0) -> torch.Generator:
+    """The CPU generator of one batch: a function of (seed, index, shard).
+    The train step draws a micro-batch's noise from (seed, step, micro)."""
+    state = np.random.SeedSequence([seed, index, shard]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator()
+    gen.manual_seed(int(state))
+    return gen
+
+
+def latent_video_batch(spec: DataSpec, index: int, batch: int,
+                       grid: Tuple[int, int, int], channels: int,
+                       txt_tokens: int = 0, txt_dim: int = 0,
+                       device=None) -> dict:
+    """``latents`` (B, T, H, W, C) Gauss-Markov latents and, with
+    ``txt_tokens``, ``txt`` (B, L, txt_dim) text embeddings of std 0.05,
+    float32 on ``device`` (default the CPU)."""
+    gen = batch_generator(spec.seed + 7, index, spec.shard)
+    out = {"latents": correlated_video_latents(gen, batch, grid, channels)}
+    if txt_tokens:
+        out["txt"] = 0.05 * torch.randn((batch, txt_tokens, txt_dim),
+                                        generator=gen)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def image_batch(spec: DataSpec, index: int, batch: int, res: int,
+                channels: int = 3, num_classes: int = 1000,
+                device=None) -> dict:
+    """Class-conditional band-limited textures (classifiable): ``images``
+    (B, res, res, C) float32 and ``labels`` (B,) int64 on ``device``."""
+    gen = batch_generator(spec.seed + 13, index, spec.shard)
+    labels = torch.randint(0, num_classes, (batch,), generator=gen)
+    freq = 1.0 + (labels % 8).float()
+    xx = torch.linspace(0, 2 * math.pi, res)
+    pattern = torch.sin(freq[:, None, None] * xx[None, :, None]
+                        + freq[:, None, None] * 0.5 * xx[None, None, :])
+    noise = 0.3 * torch.randn((batch, res, res, channels), generator=gen)
+    images = pattern[..., None] + noise
+    return {"images": images.to(device), "labels": labels.to(device)}
+
+
+def batch_iterator(make_batch, spec: DataSpec,
+                   start_index: int = 0) -> Iterator:
+    """Infinite deterministic iterator with a resumable cursor."""
+    i = start_index
+    while True:
+        yield make_batch(spec, i)
+        i += 1

@@ -8,6 +8,11 @@ modulation kernel; each wrapper counts the launches of its kernel in a
 plain module-level integer (the ripple and sparse wrappers also by
 shape), under :data:`LAUNCH_LOCK`, since router replicas launch from
 several engine threads of one process.
+
+Only the adaLN kernel has a gradient (``adaln.ops``: the kernel forward
+under an autograd Function, a closed-form backward in PyTorch ops); the
+others have none, as their TPU kernels had none, and refuse a CUDA
+operand that needs one (:func:`refuse_grad`) rather than detach it.
 """
 
 from __future__ import annotations
@@ -15,7 +20,24 @@ from __future__ import annotations
 import threading
 from typing import Dict, Tuple
 
+import torch
+
 LAUNCH_LOCK = threading.Lock()
+
+
+def refuse_grad(kernel: str, **operands) -> None:
+    """Raise when grad mode is on and an operand requires grad: the
+    kernel's output would have no ``grad_fn``, so its gradient would
+    silently stop there."""
+    if not torch.is_grad_enabled():
+        return
+    needs = [n for n, t in operands.items()
+             if isinstance(t, torch.Tensor) and t.requires_grad]
+    if needs:
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward: its operand(s) "
+            f"{', '.join(needs)} require grad, and the gradient would stop "
+            f"here; call it under torch.no_grad() or detach them")
 
 
 def _counters() -> Dict[str, Tuple[object, str]]:

@@ -6,6 +6,16 @@ conditioning vectors of each sample.  On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor, and only there, it runs the plain
 version (``ref.py``).  Rows are independent, so any N is taken as it is.
 ``launches`` counts kernel launches.
+
+On CUDA, when an operand requires grad under grad mode, the kernel runs
+inside an autograd Function (``_AdaLN``), so a training step's gradients
+pass through it (serving launches it directly, without the Function's
+host cost): the forward is the kernel,
+the backward the closed-form gradient of LayerNorm-then-modulate in
+PyTorch ops (:func:`adaln_modulate_grads`), recomputing mean and rstd
+from the saved x.  The JAX package has no backward kernel (its
+``kernels/adaln`` has no ``custom_vjp``, and its DiT modulates inline),
+so none is written here.
 """
 
 from __future__ import annotations
@@ -72,6 +82,44 @@ def _launch(x, shift, scale, eps: float):
     return out
 
 
+def adaln_modulate_grads(x: torch.Tensor, scale: torch.Tensor,
+                         g: torch.Tensor, eps: float = 1e-6):
+    """(dx, dshift, dscale) of ``LayerNorm(x) * (1 + scale) + shift``
+    for the output gradient g (B, N, d), in float32 and rounded to each
+    operand's dtype: with n̂ = (x − mean) · rstd and g′ = g · (1 + scale),
+    dshift = Σ_N g, dscale = Σ_N g · n̂ and
+    dx = rstd · (g′ − mean_d(g′) − n̂ · mean_d(g′ · n̂))."""
+    x32, g32 = x.float(), g.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    rstd = torch.rsqrt(var + eps)
+    nhat = (x32 - mu) * rstd
+    dshift = g32.sum(dim=1)
+    dscale = (g32 * nhat).sum(dim=1)
+    gp = g32 * (1.0 + scale[:, None, :].float())
+    dx = rstd * (gp - gp.mean(dim=-1, keepdim=True)
+                 - nhat * (gp * nhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dshift.to(scale.dtype), dscale.to(scale.dtype)
+
+
+class _AdaLN(torch.autograd.Function):
+    """The kernel as the forward; :func:`adaln_modulate_grads` as the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        ctx.shift_dtype = shift.dtype
+        return _launch(x, shift, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dshift, dscale = adaln_modulate_grads(x, scale, g, ctx.eps)
+        return dx, dshift.to(ctx.shift_dtype), dscale, None
+
+
 def adaln_modulate(x: torch.Tensor, shift: torch.Tensor,
                    scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (B, N, d); shift/scale: (B, d) -> (B, N, d) in x's dtype."""
@@ -81,4 +129,7 @@ def adaln_modulate(x: torch.Tensor, shift: torch.Tensor,
         return adaln_modulate_ref(x, shift, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"adaln kernel runs on CUDA, not {x.device}")
-    return _launch(x, shift, scale, float(eps))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, shift, scale)):
+        return _AdaLN.apply(x, shift, scale, float(eps))
+    return _launch(x, shift, scale, float(eps))  # serving: no graph

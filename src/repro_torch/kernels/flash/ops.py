@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build
+from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
 from repro_torch.kernels.flash.ref import attention_ref, default_scale
 
 launches = 0
@@ -87,4 +87,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA, not {q.device}")
+    refuse_grad("flash_attention", q=q, k=k, v=v)
     return _launch(q, k, v)

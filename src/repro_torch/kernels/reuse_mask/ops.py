@@ -26,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build
+from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
 from repro_torch.kernels.reuse_mask.ref import fused_reuse_ref, reuse_snap_plain
 
 launches = 0
@@ -91,6 +91,7 @@ def reuse_snap(x: torch.Tensor, theta: float):
         return reuse_snap_plain(x, theta)
     if x.device.type != "cuda":
         raise ValueError(f"reuse snap kernel runs on CUDA, not {x.device}")
+    refuse_grad("reuse_snap", x=x)
     return _snap_launch(x, round_to(theta, x.dtype))
 
 
@@ -200,6 +201,7 @@ def fused_reuse_snap(x: torch.Tensor, thetas: Sequence[float], *,
                                want_src=want_src)
     if x.device.type != "cuda":
         raise ValueError(f"fused reuse kernel runs on CUDA, not {x.device}")
+    refuse_grad("fused_reuse", x=x)
     return _launch(x, thetas, grid, tuple(axes), granularity, (s, n),
                    want_src)
 

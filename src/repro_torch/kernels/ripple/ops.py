@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build
+from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
 from repro_torch.kernels.ripple.ref import (block_flags, full_block_flags,
                                             ripple_attention_ref, split_pairs)
 
@@ -116,6 +116,7 @@ def ripple_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ripple_attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"ripple kernel runs on CUDA, not {q.device}")
+    refuse_grad("ripple_attention", q=q, k=k, v=v)
     return _launch(q, k, v, float(scale))
 
 

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build
+from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
 from repro_torch.kernels.sparse.ref import (FULL, PARTIAL, SKIP,
                                             fresh_state,
                                             sparse_attention_ref,
@@ -189,5 +189,6 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     carry=carry, return_state=return_state)
     if q.device.type != "cuda":
         raise ValueError(f"sparse kernel runs on CUDA, not {q.device}")
+    refuse_grad("sparse_attention", q=q, k=k, v=v, bias=bias)
     return _launch(q, k, v, bias, block_map, block_q, block_k, carry,
                    return_state)

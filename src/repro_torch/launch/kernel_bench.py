@@ -592,6 +592,7 @@ def static_pattern_row(sp) -> str:
             f"psnr_delta_db={sp['psnr_delta_db']}")
 
 
+@torch.no_grad()
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,

@@ -1,9 +1,12 @@
-"""Serving helpers of the port: per-request latent shapes, attention
-call shapes and a cell's attention plan, mixed generate shapes, a deterministic request stream,
-per-request class labels, one denoiser forward (vdit, dit, mmdit and
-unet families), the vdit's per-layer decision-cache state, the vision
-family's classify step (vit and effnet), and the LM family's prefill and
-decode steps."""
+"""Workloads of the port.  Serving: per-request latent shapes, attention
+call shapes and a cell's attention plan, mixed generate shapes, a
+deterministic request stream, per-request class labels, one denoiser
+forward (vdit, dit, mmdit and unet families), the vdit's per-layer
+decision-cache state, the vision family's classify step (vit and
+effnet), and the LM family's prefill and decode steps, each under
+``no_grad``.  Training: the diffusion and vision losses of the JAX
+workloads' ``_diffusion_train`` and ``_vision_train``, and
+:func:`train_step`, one AdamW step of a train cell."""
 
 from __future__ import annotations
 
@@ -218,6 +221,7 @@ def classify_step(arch: ArchConfig, shape: ShapeSpec, model):
     want = (shape.batch, shape.img_res, shape.img_res, m.in_channels)
     device = next(model.parameters()).device
 
+    @torch.no_grad()
     def fn(images: torch.Tensor) -> torch.Tensor:
         if tuple(images.shape) != want:
             raise ValueError(f"{shape.name} takes images {want}, not "
@@ -250,11 +254,131 @@ def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model):
     cfg, max_len = arch.model, shape.seq_len
     device = next(model.parameters()).device
 
+    @torch.no_grad()
     def prefill_fn(tokens: torch.Tensor):
         return lm_lib.lm_prefill(model, tokens.to(device), cfg, max_len)
 
+    @torch.no_grad()
     def decode_fn(token: torch.Tensor, cache, index: int):
         return lm_lib.lm_decode_step(model, token.to(device), cache, index,
                                      cfg)
 
     return prefill_fn, decode_fn
+
+
+# --- training workloads --------------------------------------------------------
+
+DIFFUSION_FAMILIES = ("dit", "mmdit", "unet", "vdit")
+VISION_FAMILIES = ("vit", "effnet")
+
+
+def diffusion_loss(arch: ArchConfig, model, batch: dict,
+                   noise: torch.Tensor, t: torch.Tensor, *,
+                   compute_dtype: torch.dtype = torch.bfloat16):
+    """The loss of the JAX workloads' ``_diffusion_train`` for given
+    ``noise`` (shaped like ``batch["latents"]``) and timesteps ``t``:
+    DDPM (``t`` int in [0, num_train_steps), ``add_noise``, a noise
+    target) or, for the mmdit, rectified flow (``t`` in [0, 1],
+    ``interpolate``, a velocity target); one forward with ripple off
+    (the dit's sigma channels dropped) and the float32 MSE.  Returns
+    (loss, {"mse": loss})."""
+    from repro_torch.diffusion.schedule import (DDPMSchedule,
+                                                RectifiedFlowSchedule)
+
+    x0 = batch["latents"]
+    if arch.family == "mmdit":
+        rf = RectifiedFlowSchedule()
+        xt = rf.interpolate(x0, noise, t)
+        target = rf.velocity_target(x0, noise)
+        pred = _denoise_call(arch, model, xt, t, batch, None, None,
+                             use_ripple=False, compute_dtype=compute_dtype)
+    else:
+        xt = DDPMSchedule().add_noise(x0, noise, t)
+        target = noise
+        pred = _denoise_call(arch, model, xt, t.float(), batch, None, None,
+                             use_ripple=False, compute_dtype=compute_dtype)
+    loss = torch.mean(torch.square(pred.float() - target.float()))
+    return loss, {"mse": loss}
+
+
+def draw_diffusion_noise(arch: ArchConfig, x0: torch.Tensor,
+                         generator: torch.Generator):
+    """(noise, t) of one micro-batch from a CPU ``generator``, moved to
+    x0's device: standard normal noise, then t as the family's schedule
+    samples it (uniform integers below ``num_train_steps``; the mmdit's
+    rectified-flow ``sample_t``)."""
+    from repro_torch.diffusion.schedule import (DDPMSchedule,
+                                                RectifiedFlowSchedule)
+
+    B = x0.shape[0]
+    noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype)
+    if arch.family == "mmdit":
+        t = RectifiedFlowSchedule().sample_t(generator, B)
+    else:
+        t = torch.randint(0, DDPMSchedule().num_train_steps, (B,),
+                          generator=generator)
+    return noise.to(x0.device), t.to(x0.device)
+
+
+def vision_loss(arch: ArchConfig, model, batch: dict, *,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False):
+    """The loss of the JAX workloads' ``_vision_train``: the float32
+    cross-entropy (logsumexp minus the gold logit) averaged over the
+    batch, and the accuracy.  Returns (loss, {"acc": acc})."""
+    from repro_torch.models.efficientnet import effnet_apply
+    from repro_torch.models.vit import vit_apply
+
+    apply = vit_apply if arch.family == "vit" else effnet_apply
+    logits = apply(model, batch["images"], arch.model,
+                   compute_dtype=compute_dtype, remat=remat).float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, labels[:, None])[:, 0]
+    loss = torch.mean(logz - gold)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, {"acc": acc}
+
+
+def train_loss_fn(arch: ArchConfig):
+    """``loss_fn(model, batch, generator) -> (loss, metrics)`` of a train
+    cell, at the config's ``train.compute_dtype`` (the reference's
+    bfloat16 default): the diffusion loss on noise and t drawn from the
+    generator, or the vision loss with ``train.remat``."""
+    tc = arch.train
+    dt = getattr(torch, tc.compute_dtype)
+    if arch.family in DIFFUSION_FAMILIES:
+        def loss_fn(model, batch, generator):
+            noise, t = draw_diffusion_noise(arch, batch["latents"],
+                                            generator)
+            return diffusion_loss(arch, model, batch, noise, t,
+                                  compute_dtype=dt)
+    elif arch.family in VISION_FAMILIES:
+        def loss_fn(model, batch, generator):
+            return vision_loss(arch, model, batch, compute_dtype=dt,
+                               remat=tc.remat)
+    elif arch.family == "lm":
+        raise NotImplementedError(
+            "LM training (lm_loss, remat_policy, _lm_train, token_batch) "
+            "is the port's next slice")
+    else:
+        raise ValueError(f"no train workload for family {arch.family!r}")
+    return loss_fn
+
+
+def train_step(arch: ArchConfig, shape: ShapeSpec, model):
+    """The train workload of one ``train`` cell (the JAX workloads'
+    ``_diffusion_train`` / ``_vision_train`` with no mesh) for ``model``:
+    ``step(state, batch, seed) -> (state, metrics)``, one AdamW step
+    over ``train.grad_accum`` micro-batches of ``shape.batch``, on the
+    model ``state.params`` (which must be ``model``'s config)."""
+    from repro_torch.training.train_loop import make_train_step
+
+    if model.cfg != arch.model:
+        raise ValueError("the model's config is not the arch's")
+    if shape.kind != "train":
+        raise ValueError(f"{shape.name} is a {shape.kind!r} shape, not a "
+                         f"train shape")
+    # the reference clamps grad_accum to the batch shards of its mesh;
+    # the port trains on one card, so the config's value stands
+    return make_train_step(train_loss_fn(arch), arch.train)

@@ -12,6 +12,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -47,10 +48,22 @@ def linear(w: torch.Tensor, b: Optional[torch.Tensor], x: torch.Tensor):
 
 
 def param(*shape, device=None, dtype=None) -> nn.Parameter:
-    """An uninitialised, frozen parameter (the port serves; it does not
-    train)."""
+    """An uninitialised parameter, created with ``requires_grad=False``:
+    whether it trains is its caller's choice (the trainer's
+    ``train_state_init`` turns it on; a served forward builds no
+    graph)."""
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
                         requires_grad=False)
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` and grad mode on, its activations are
+    recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 class Norm(nn.Module):

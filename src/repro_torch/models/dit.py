@@ -7,7 +7,9 @@ position embeddings; patchify by reshape + matmul.  TimeRipple runs in
 driven by the sampler's denoising step.  Every LayerNorm-and-modulate
 goes through the fused adaLN kernel (``kernels/adaln``), which rounds
 once to the working type where the JAX model rounds after the norm and
-after each modulation op (the same values in float32).
+after each modulation op (the same values in float32).  The kernel
+trains too: its wrapper is an autograd Function with a closed-form
+backward.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.config.base import DiTConfig, RippleConfig
 from repro_torch.kernels.adaln.ops import adaln_modulate
 from repro_torch.models.attention import Attention, mha_attention
 from repro_torch.models.common import (MLP, Linear, param, patch_embed,
-                                       sincos_pos_embed_2d,
+                                       remat_call, sincos_pos_embed_2d,
                                        sincos_timestep_embed, unpatchify)
 
 _RIPPLE_OFF = RippleConfig()
@@ -64,15 +66,17 @@ class DiT(nn.Module):
         c = c + self.label_embed.to(dt)[labels]
         return F.silu(c)  # (B, d)
 
-    @torch.no_grad()
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 labels: torch.Tensor, *, ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
         """latents (B, H_lat, W_lat, C); t (B,) diffusion time; labels (B,)
         int class ids.  Returns the predicted noise (and sigma channels
         with ``learn_sigma``): (B, H_lat, W_lat, out_ch) in
-        ``compute_dtype``."""
+        ``compute_dtype``.  ``remat`` recomputes each block's activations
+        in the backward pass (the reference's ``jax.checkpoint`` of the
+        scan body)."""
         cfg = self.cfg
         dt = compute_dtype
         B, H, W, C = latents.shape
@@ -86,7 +90,7 @@ class DiT(nn.Module):
         c = self._conditioning(t, labels, dt)
         hd = cfg.d_model // cfg.num_heads
 
-        for blk in self.blocks:
+        def body(x, blk):
             sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(blk.ada(c), 6, dim=-1)
             h_ = adaln_modulate(x, sh1, sc1)
             attn = mha_attention(
@@ -94,7 +98,10 @@ class DiT(nn.Module):
                 ripple=ripple, step=step, total_steps=total_steps)
             x = x + g1[:, None] * attn
             h_ = adaln_modulate(x, sh2, sc2)
-            x = x + g2[:, None] * blk.mlp(h_)
+            return x + g2[:, None] * blk.mlp(h_)
+
+        for blk in self.blocks:
+            x = remat_call(remat, body, x, blk)
 
         sh, sc = torch.chunk(self.final_ada(c), 2, dim=-1)
         x = adaln_modulate(x, sh, sc)
@@ -107,9 +114,11 @@ def dit_apply(model: DiT, latents: torch.Tensor, t: torch.Tensor,
               labels: torch.Tensor, cfg: Optional[DiTConfig] = None, *,
               ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
               total_steps: Optional[int] = None,
-              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              compute_dtype: torch.dtype = torch.bfloat16,
+              remat: bool = False) -> torch.Tensor:
     """Functional form mirroring the JAX ``dit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, labels, ripple=ripple, step=step,
-                 total_steps=total_steps, compute_dtype=compute_dtype)
+                 total_steps=total_steps, compute_dtype=compute_dtype,
+                 remat=remat)

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import EffNetConfig
-from repro_torch.models.common import Linear, Norm
+from repro_torch.models.common import Linear, Norm, remat_call
 from repro_torch.models.conv import Conv, batchnorm, conv2d, global_avg_pool
 
 # (expand_ratio, channels, layers, stride, kernel) — EfficientNet-B0 base
@@ -118,25 +118,29 @@ class EfficientNet(nn.Module):
         self.head_bn = Norm(head_c, **kw)
         self.classifier = Linear(head_c, cfg.num_classes, **kw)
 
-    @torch.no_grad()
     def forward(self, images: torch.Tensor, *,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
         """images (B, H, W, C) -> logits (B, num_classes) in
-        ``compute_dtype``."""
+        ``compute_dtype``.  ``remat`` recomputes each MBConv block's
+        activations in the backward pass (the reference's
+        ``jax.checkpoint`` of ``_mbconv``); the batch statistics are
+        recomputed from the same inputs, so they are the same."""
         x = images.to(compute_dtype)
         x = F.silu(batchnorm(self.stem_bn, conv2d(self.stem, x, stride=2)))
         for (_, _, _, _, stride, _), blocks in zip(effnet_stages(self.cfg),
                                                    self.stages):
             for i, blk in enumerate(blocks):
-                x = blk(x, stride if i == 0 else 1)
+                x = remat_call(remat, blk, x, stride if i == 0 else 1)
         x = F.silu(batchnorm(self.head_bn, conv2d(self.head, x)))
         return self.classifier(global_avg_pool(x))
 
 
 def effnet_apply(model: EfficientNet, images: torch.Tensor,
                  cfg: Optional[EffNetConfig] = None, *,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False) -> torch.Tensor:
     """Functional form mirroring the JAX ``effnet_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
-    return model(images, compute_dtype=compute_dtype)
+    return model(images, compute_dtype=compute_dtype, remat=remat)

@@ -27,7 +27,8 @@ from repro_torch.core.dispatch import attention_dispatch
 from repro_torch.models.attention import Scale
 from repro_torch.models.common import (Linear, apply_rope_precomputed,
                                        gelu_tanh, layernorm, linear, param,
-                                       patch_embed, rmsnorm, rope_3d_angles,
+                                       patch_embed, remat_call, rmsnorm,
+                                       rope_3d_angles,
                                        sincos_timestep_embed, unpatchify)
 
 _RIPPLE_OFF = RippleConfig()
@@ -162,16 +163,18 @@ class MMDiT(nn.Module):
         m = gelu_tanh(linear(blk.mlp_in, blk.mlp_in_b, h))
         return x + g2[:, None] * linear(blk.mlp_out, blk.mlp_out_b, m)
 
-    @torch.no_grad()
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 txt: torch.Tensor, vec: torch.Tensor, *,
                 ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
         """latents (B, H_lat, W_lat, C); t (B,) rectified-flow time in [0,
         1]; txt (B, L, txt_dim) text embeddings; vec (B, 768) pooled
         conditioning.  Returns the velocity (B, H_lat, W_lat, C) in
-        ``compute_dtype``."""
+        ``compute_dtype``.  ``remat`` recomputes each double and single
+        block's activations in the backward pass (the reference's
+        ``jax.checkpoint`` of both scan bodies)."""
         cfg = self.cfg
         dt = compute_dtype
         B, Hl, Wl, C = latents.shape
@@ -191,7 +194,7 @@ class MMDiT(nn.Module):
         sc = F.silu(c)  # every modulation reads silu(c)
         rope = joint_rope(L, grid, cfg.axes_dim, latents.device)
 
-        for ti, im in zip(self.double_blocks.txt, self.double_blocks.img):
+        def double_body(txt_x, img, ti, im):
             t_sh, t_sc, *t_mods = torch.chunk(ti.mod(sc), 6, dim=-1)
             i_sh, i_sc, *i_mods = torch.chunk(im.mod(sc), 6, dim=-1)
             tq, tk, tv = self._qkv(ti, _modulate(txt_x, t_sh, t_sc))
@@ -200,13 +203,17 @@ class MMDiT(nn.Module):
                                   torch.cat([tk, ik], dim=1),
                                   torch.cat([tv, iv], dim=1), *rope,
                                   **attn_kw)
-            txt_x = self._post(ti, txt_x, out[:, :L], t_mods)
-            img = self._post(im, img, out[:, L:], i_mods)
+            return (self._post(ti, txt_x, out[:, :L], t_mods),
+                    self._post(im, img, out[:, L:], i_mods))
+
+        for ti, im in zip(self.double_blocks.txt, self.double_blocks.img):
+            txt_x, img = remat_call(remat, double_body, txt_x, img, ti, im)
 
         x = torch.cat([txt_x, img], dim=1)
         d = cfg.d_model
         H = cfg.num_heads
-        for blk in self.single:
+
+        def single_body(x, blk):
             sh, s_sc, g = torch.chunk(blk.mod(sc), 3, dim=-1)
             fused = linear(blk.lin1, blk.lin1_b, _modulate(x, sh, s_sc))
             q, k, v = torch.split(fused[..., :3 * d], d, dim=-1)
@@ -214,7 +221,10 @@ class MMDiT(nn.Module):
                                    rmsnorm(blk.k_norm.scale, _heads(k, H)),
                                    _heads(v, H), *rope, **attn_kw)
             both = torch.cat([attn, gelu_tanh(fused[..., 3 * d:])], dim=-1)
-            x = x + g[:, None] * linear(blk.lin2, blk.lin2_b, both)
+            return x + g[:, None] * linear(blk.lin2, blk.lin2_b, both)
+
+        for blk in self.single:
+            x = remat_call(remat, single_body, x, blk)
 
         sh, f_sc = torch.chunk(self.final_mod(sc), 2, dim=-1)
         out = self.final(_modulate(x[:, L:], sh, f_sc))
@@ -226,9 +236,11 @@ def mmdit_apply(model: MMDiT, latents: torch.Tensor, t: torch.Tensor,
                 cfg: Optional[MMDiTConfig] = None, *,
                 ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
                 total_steps: Optional[int] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
     """Functional form mirroring the JAX ``mmdit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, txt, vec, ripple=ripple, step=step,
-                 total_steps=total_steps, compute_dtype=compute_dtype)
+                 total_steps=total_steps, compute_dtype=compute_dtype,
+                 remat=remat)

@@ -29,7 +29,11 @@ in JAX, (c_out, c_in, k, k) in the port, a depthwise (k, k, 1, C) leaf
   of the config's family.  The JAX tree stacks the (v)DiT's, the ViT's
   and the LM's blocks' and the MMDiT's double and single blocks' leaves
   on a leading layer dim (scan-over-layers); here it is split per
-  layer.
+  layer;
+* :func:`jax_tree` / :func:`load_jax_arrays` — the way back and its
+  inverse for a checkpoint: a model's leaves (or a tensor kept per
+  parameter, such as an optimizer moment) as the JAX tree, and a flat
+  ``path -> array`` map of such a tree copied into them.
 """
 
 from __future__ import annotations
@@ -524,24 +528,77 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device=None,
     Leaves are copied verbatim (convolution weights transposed to the
     port's layout), then cast to ``dtype`` on ``device`` (default
     CUDA)."""
-    cls, specs = _family(cfg)
+    cls, _ = _family(cfg)
     model = cls(cfg, device=resolve_device(device), dtype=dtype)
-    with torch.no_grad():
-        for path, (shape, _), tensors, stacked in _leaves(model, cfg,
-                                                          specs):
-            arr = tree
-            for p in path:
-                arr = arr[p]
-            arr = np.asarray(arr)
-            want = ((len(tensors),) if stacked else ()) + tuple(shape)
-            if arr.shape != want:
-                raise ValueError(f"{_name(path)}: shape {arr.shape} != "
-                                 f"{want}")
-            for t, a in zip(tensors, arr if stacked else (arr,)):
-                a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-                t.copy_(a if stacked else to_port(a))
+    load_jax_arrays(model, {"/".join(str(p) for p in path): np.asarray(a)
+                            for path, a in iter_specs(tree)})
     return model
 
 
-def _name(path) -> str:
-    return ".".join(str(p) for p in path)
+def from_port(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_port`: a convolution weight back in the
+    JAX (k, k, c_in, c_out) layout (a view); any other leaf as it is."""
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def _nest(flat: Dict[Tuple, torch.Tensor]):
+    """{path: leaf} -> nested dicts, a level whose keys are 0..n-1 a
+    list."""
+    root: Dict = {}
+    for path, leaf in flat.items():
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def jax_tree(model, tensor_of=None) -> Dict:
+    """The model's leaves as the JAX param tree of its config's family:
+    its paths, its layout (convolution weights as views in the JAX
+    layout) and, under a stacked subtree, the per-layer tensors stacked
+    on a leading dim into a new CPU tensor.  ``tensor_of(param)`` gives
+    the tensor to place for each parameter instead of the parameter
+    itself (an optimizer moment or EMA copy of the same shape)."""
+    cfg = model.cfg
+    _, specs = _family(cfg)
+    pick = tensor_of or (lambda t: t)
+    flat = {}
+    for path, _, tensors, stacked in _leaves(model, cfg, specs):
+        ts = [pick(t).detach() for t in tensors]
+        flat[path] = (torch.stack([t.to("cpu") for t in ts]) if stacked
+                      else from_port(ts[0]))
+    return _nest(flat)
+
+
+def load_jax_arrays(model, arrays: Dict[str, np.ndarray], prefix: str = "",
+                    tensor_of=None) -> None:
+    """Copy a flat ``path -> array`` map of a JAX param tree (keys
+    ``prefix/`` + the leaf path joined by ``/``, as a checkpoint stores
+    them) into the model's leaves, or into ``tensor_of(param)`` for each
+    parameter.  Every leaf must be present, at the JAX shape."""
+    cfg = model.cfg
+    _, specs = _family(cfg)
+    pick = tensor_of or (lambda t: t)
+    with torch.no_grad():
+        for path, (shape, _), tensors, stacked in _leaves(model, cfg,
+                                                          specs):
+            key = "/".join([prefix] * bool(prefix) + [str(p) for p in path])
+            if key not in arrays:
+                raise KeyError(f"missing leaf {key!r}")
+            arr = np.asarray(arrays[key])
+            want = ((len(tensors),) if stacked else ()) + tuple(shape)
+            if arr.shape != want:
+                raise ValueError(f"{key}: shape {arr.shape} != {want}")
+            for t, a in zip(tensors, arr if stacked else (arr,)):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+                pick(t).copy_(a if stacked else to_port(a))

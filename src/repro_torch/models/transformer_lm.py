@@ -10,8 +10,9 @@ archs through :class:`LMConfig`.
 The reference scans over layers stacked on a leading axis; here the
 blocks are a per-layer list and the forward is a loop over them.  The
 KV cache is (L, B, S_max, Hkv, hd) per K and V, written in place.
-TimeRipple does not apply to 1-D text tokens.  Training (``lm_loss``,
-remat) is not ported yet.
+TimeRipple does not apply to 1-D text tokens.  ``lm_apply`` builds a
+graph under grad mode; its training (``lm_loss``, remat) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -96,7 +97,6 @@ def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
     return x + ffn_out, new_cache, aux
 
 
-@torch.no_grad()
 def lm_apply(model: TransformerLM, tokens: torch.Tensor,
              cfg: Optional[LMConfig] = None, *,
              compute_dtype: torch.dtype = torch.bfloat16,
@@ -146,10 +146,12 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+@torch.no_grad()
 def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
                max_len: int, *, compute_dtype: torch.dtype = torch.bfloat16):
     """Prefill: run the prompt into a fresh cache of ``max_len``
-    positions; returns (last logits (B, 1, V), cache at length S)."""
+    positions; returns (last logits (B, 1, V), cache at length S).
+    Serving: runs under ``no_grad``."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
@@ -160,11 +162,13 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
     return logits, cache
 
 
+@torch.no_grad()
 def lm_decode_step(model: TransformerLM, token: torch.Tensor, cache: Cache,
                    cache_index: int, cfg: LMConfig, *,
                    compute_dtype: torch.dtype = torch.bfloat16):
     """One decode step. token: (B, 1); returns (logits (B, 1, V), cache),
-    the cache written in place at ``cache_index``."""
+    the cache written in place at ``cache_index``.  Serving: runs under
+    ``no_grad``."""
     logits, cache, _ = lm_apply(model, token, cfg,
                                 compute_dtype=compute_dtype, cache=cache,
                                 cache_index=cache_index, logits_mode="last")

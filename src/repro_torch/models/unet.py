@@ -17,6 +17,7 @@ matmul and float32 softmax, as in the reference, and is never snapped
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -27,7 +28,7 @@ from repro_torch.config.base import RippleConfig, UNetConfig
 from repro_torch.models import conv as conv_lib
 from repro_torch.models.attention import Attention, mha_attention
 from repro_torch.models.common import (Linear, gelu_tanh, param,
-                                       sincos_timestep_embed)
+                                       remat_call, sincos_timestep_embed)
 from repro_torch.models.conv import Conv, Norm
 
 _RIPPLE_OFF = RippleConfig()
@@ -205,15 +206,18 @@ class UNet(nn.Module):
         self.norm_out = Norm(ch, **kw)
         self.conv_out = Conv(3, ch, cfg.in_channels, **kw)
 
-    @torch.no_grad()
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 ctx_tokens: torch.Tensor, *,
                 ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
         """latents (B, H_lat, W_lat, C); t (B,) diffusion time;
         ctx_tokens (B, L, ctx_dim) text embeddings.  Returns the
-        predicted noise (B, H_lat, W_lat, C) in ``compute_dtype``."""
+        predicted noise (B, H_lat, W_lat, C) in ``compute_dtype``.
+        ``remat`` recomputes each res block's and transformer block's
+        activations in the backward pass (the reference's
+        ``jax.checkpoint`` of ``_resblock`` and ``_xformer``)."""
         cfg = self.cfg
         dt = compute_dtype
         x = latents.to(dt)
@@ -222,27 +226,34 @@ class UNet(nn.Module):
         temb = self.t_mlp2(F.silu(self.t_mlp1(temb)))
         attn_kw = dict(ripple=ripple, step=step, total_steps=total_steps)
 
+        def res(rb, h):
+            return remat_call(remat, rb, h, temb)
+
+        def xformer(attn, h):
+            return remat_call(remat, functools.partial(
+                attn, ctx_tokens=ctx_tokens, **attn_kw), h)
+
         h = conv_lib.conv2d(self.conv_in, x)
         skips = [h]
         for level in self.down:
             for i, rb in enumerate(level.res):
-                h = rb(h, temb)
+                h = res(rb, h)
                 if len(level.attn):
-                    h = level.attn[i](h, ctx_tokens, **attn_kw)
+                    h = xformer(level.attn[i], h)
                 skips.append(h)
             if hasattr(level, "down"):
                 h = conv_lib.conv2d(level.down, h, stride=2)
                 skips.append(h)
 
-        h = self.mid.res1(h, temb)
-        h = self.mid.attn(h, ctx_tokens, **attn_kw)
-        h = self.mid.res2(h, temb)
+        h = res(self.mid.res1, h)
+        h = xformer(self.mid.attn, h)
+        h = res(self.mid.res2, h)
 
         for level in self.up:
             for i, rb in enumerate(level.res):
-                h = rb(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = res(rb, torch.cat([h, skips.pop()], dim=-1))
                 if len(level.attn):
-                    h = level.attn[i](h, ctx_tokens, **attn_kw)
+                    h = xformer(level.attn[i], h)
             if hasattr(level, "up"):
                 h = conv_lib.conv2d(level.up,
                                     conv_lib.upsample_nearest(h, 2))
@@ -255,9 +266,11 @@ def unet_apply(model: UNet, latents: torch.Tensor, t: torch.Tensor,
                ctx_tokens: torch.Tensor, cfg: Optional[UNetConfig] = None, *,
                ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
                total_steps: Optional[int] = None,
-               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+               compute_dtype: torch.dtype = torch.bfloat16,
+               remat: bool = False) -> torch.Tensor:
     """Functional form mirroring the JAX ``unet_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, ctx_tokens, ripple=ripple, step=step,
-                 total_steps=total_steps, compute_dtype=compute_dtype)
+                 total_steps=total_steps, compute_dtype=compute_dtype,
+                 remat=remat)

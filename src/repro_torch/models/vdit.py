@@ -19,7 +19,8 @@ from torch import nn
 from repro_torch.config.base import RippleConfig, VDiTConfig
 from repro_torch.models.attention import Attention, mha_attention
 from repro_torch.models.common import (GatedMLP, Linear, layernorm,
-                                       rope_3d_angles, sincos_timestep_embed)
+                                       remat_call, rope_3d_angles,
+                                       sincos_timestep_embed)
 
 _RIPPLE_OFF = RippleConfig()
 
@@ -84,15 +85,16 @@ class VDiT(nn.Module):
         self.final_ada = Linear(d, 2 * d, device, dtype)
         self.final = Linear(d, in_dim, device, dtype)
 
-    @torch.no_grad()
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 txt: torch.Tensor, *, ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                decision_state: Optional[List] = None):
+                decision_state: Optional[List] = None, remat: bool = False):
         """latents (B, T, H, W, C); t (B,) diffusion time; txt (B, L, txt_dim)
         precomputed text embeddings.  Returns (B, T, H, W, C) in
-        ``compute_dtype``.
+        ``compute_dtype``.  ``remat`` recomputes each block's activations
+        in the backward pass (the reference's ``jax.checkpoint`` of the
+        scan body); it does not apply while a decision state is threaded.
 
         ``decision_state`` is the per-layer cross-step decision-cache state
         (DESIGN.md §13): a list with one entry per layer, each a
@@ -126,21 +128,27 @@ class VDiT(nn.Module):
         if threads and len(decision_state) != len(self.blocks):
             raise ValueError(f"decision_state has {len(decision_state)} "
                              f"layers, the model {len(self.blocks)}")
-        for i, blk in enumerate(self.blocks):
+        def body(x, blk, cached=None):
             sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(blk.ada(c), 6, dim=-1)
             h = layernorm(x) * (1 + sc1[:, None]) + sh1[:, None]
             attn = mha_attention(
                 blk.attn, h, n_heads=cfg.num_heads, head_dim=hd, grid=grid,
                 ripple=ripple, step=step, total_steps=total_steps,
                 rope_cos=rope_cos, rope_sin=rope_sin,
-                grid_slice=(L_txt, n_img),
-                cached_decision=decision_state[i] if threads else None,
+                grid_slice=(L_txt, n_img), cached_decision=cached,
                 return_decision=threads)
             if threads:
-                attn, decision_state[i] = attn
+                attn, cached = attn
             x = x + g1[:, None] * attn
             h = layernorm(x) * (1 + sc2[:, None]) + sh2[:, None]
             x = x + g2[:, None] * blk.mlp(h)
+            return (x, cached) if threads else x
+
+        for i, blk in enumerate(self.blocks):
+            if threads:
+                x, decision_state[i] = body(x, blk, decision_state[i])
+            else:
+                x = remat_call(remat, body, x, blk)
 
         sh, sc = torch.chunk(self.final_ada(c), 2, dim=-1)
         x = layernorm(x[:, L_txt:]) * (1 + sc[:, None]) + sh[:, None]
@@ -154,10 +162,10 @@ def vdit_apply(model: VDiT, latents: torch.Tensor, t: torch.Tensor,
                ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
                total_steps: Optional[int] = None,
                compute_dtype: torch.dtype = torch.bfloat16,
-               decision_state: Optional[List] = None):
+               decision_state: Optional[List] = None, remat: bool = False):
     """Functional form mirroring the JAX ``vdit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, txt, ripple=ripple, step=step,
                  total_steps=total_steps, compute_dtype=compute_dtype,
-                 decision_state=decision_state)
+                 decision_state=decision_state, remat=remat)

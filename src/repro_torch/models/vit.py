@@ -18,7 +18,8 @@ from torch import nn
 from repro_torch.config.base import RippleConfig, ViTConfig
 from repro_torch.models.attention import Attention, mha_attention
 from repro_torch.models.common import (MLP, Linear, Norm, layernorm, param,
-                                       patch_embed, sincos_pos_embed_2d)
+                                       patch_embed, remat_call,
+                                       sincos_pos_embed_2d)
 
 _RIPPLE_OFF = RippleConfig()
 
@@ -49,12 +50,14 @@ class ViT(nn.Module):
         self.ln_f = Norm(d, device, dtype)
         self.head = Linear(d, cfg.num_classes, device, dtype)
 
-    @torch.no_grad()
     def forward(self, images: torch.Tensor, *,
                 ripple: RippleConfig = _RIPPLE_OFF,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
         """images (B, H, W, C) -> logits (B, num_classes) in
-        ``compute_dtype``."""
+        ``compute_dtype``.  ``remat`` recomputes each block's activations
+        in the backward pass (the reference's ``jax.checkpoint`` of the
+        scan body)."""
         cfg = self.cfg
         dt = compute_dtype
         B, H, W, _ = images.shape
@@ -65,13 +68,17 @@ class ViT(nn.Module):
         cls = self.cls.to(dt).expand(B, 1, cfg.d_model)
         x = torch.cat([cls, x], dim=1)
         hd = cfg.d_model // cfg.num_heads
-        for blk in self.blocks:
+
+        def body(x, blk):
             x = x + mha_attention(
                 blk.attn, layernorm(x, scale=blk.ln1.scale, bias=blk.ln1.bias),
                 n_heads=cfg.num_heads, head_dim=hd, grid=(1, h, w),
                 ripple=ripple, step=0, total_steps=2, grid_slice=(1, h * w))
-            x = x + blk.mlp(layernorm(x, scale=blk.ln2.scale,
-                                      bias=blk.ln2.bias))
+            return x + blk.mlp(layernorm(x, scale=blk.ln2.scale,
+                                         bias=blk.ln2.bias))
+
+        for blk in self.blocks:
+            x = remat_call(remat, body, x, blk)
         x = layernorm(x, scale=self.ln_f.scale, bias=self.ln_f.bias)
         feat = x[:, 0] if cfg.pool == "cls" else torch.mean(x[:, 1:], dim=1)
         return self.head(feat)
@@ -80,8 +87,10 @@ class ViT(nn.Module):
 def vit_apply(model: ViT, images: torch.Tensor,
               cfg: Optional[ViTConfig] = None, *,
               ripple: RippleConfig = _RIPPLE_OFF,
-              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              compute_dtype: torch.dtype = torch.bfloat16,
+              remat: bool = False) -> torch.Tensor:
     """Functional form mirroring the JAX ``vit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
-    return model(images, ripple=ripple, compute_dtype=compute_dtype)
+    return model(images, ripple=ripple, compute_dtype=compute_dtype,
+                 remat=remat)

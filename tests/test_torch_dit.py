@@ -79,6 +79,9 @@ def test_config_matches_jax():
         assert [dataclasses.asdict(s) for s in j.shapes] == \
             [dataclasses.asdict(s) for s in t.shapes]
         assert (j.family, j.source) == (t.family, t.source)
+        assert dataclasses.asdict(j.train) == dataclasses.asdict(t.train)
+        assert dataclasses.asdict(j.checkpoint) == \
+            dataclasses.asdict(t.checkpoint)
     m = get_config("dit-xl2").model
     assert m.d_model // m.num_heads == 72
     assert m.num_tokens(1024) == 64 * 64

@@ -96,6 +96,9 @@ def test_configs_equal_the_reference(name, smoke):
     assert [dataclasses.asdict(s) for s in port.shapes] == \
         [dataclasses.asdict(s) for s in ref.shapes]
     assert dataclasses.asdict(port.ripple) == dataclasses.asdict(ref.ripple)
+    assert dataclasses.asdict(port.train) == dataclasses.asdict(ref.train)
+    assert dataclasses.asdict(port.checkpoint) == \
+        dataclasses.asdict(ref.checkpoint)
 
 
 def test_lm_shapes_equal_the_reference():
