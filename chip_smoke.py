@@ -223,6 +223,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the JAX example's losses on the CPU, then a run killed after step 60
    and resumed from its step-50 checkpoint against the uninterrupted
    one);
+8j. (after 8i) the LM family's training, with every launch counter set
+   to 0 just before each run and still 0 just after (no kernel of the
+   port lies on its path): ``train[gemma3-4b grads]`` (the loss and
+   gradients of a 2-layer gemma3-4b at full width, f32, 1 x 1024 tokens
+   through the chunked cross entropy, on the card against the CPU),
+   ``train[gemma3-4b]`` (``main`` at train_4k, full width and all 34
+   layers, or the deepest of LM_TRAIN_DEPTHS that fits; the global batch
+   256 cut to 8, micro-batch 1; per step the loss, nll, grad_norm, lr
+   and ms, tokens/s, the peak, the first nll against ln V; then
+   ``profile[train gemma3-4b]`` on one micro-batch), ``train[qwen2-moe-
+   a2.7b 4 layers]`` (full width, 4 of 24 layers, the router's aux) and
+   ``train[lm-smoke learn]`` (the smoke gemma3-4b at 8 x 256 tokens, 100
+   steps from 8 seeds against the JAX launcher's nll on the CPU, then a
+   run killed after step 60 and resumed from step 50, bit-equal to the
+   uninterrupted one);
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT, UNet (also under svg) and MMDiT (12 Euler steps), and of static
@@ -240,7 +255,8 @@ mismatch or error exits non-zero.  It needs one card and no network.
 the DiT, the UNet, flux-dev, the vision models, gemma3-4b and
 qwen2-moe-a2.7b always run at full depth (qwen3-32b and phi3.5-moe at
 16 and 8 layers: their full-depth bf16 weights, 65.5 and 84 GB, leave no
-room for a cache on one 80 GB card).  ``--baseline DIR`` runs none of the above:
+room for a cache on one 80 GB card); in training, qwen2-moe-a2.7b runs 4
+of its 24 layers and the LM cells 8 of train_4k's 256 sequences a step.  ``--baseline DIR`` runs none of the above:
 it times the snap step of the checkout at DIR (for example an earlier
 commit unpacked by ``git archive``) against this checkout's, in turns,
 each in a process of its own (:func:`snap_ab`).
@@ -3786,6 +3802,10 @@ QUIET_COUNTERS = ("degraded_count", "dense_fallbacks", "batch_retries",
                   "quarantined", "watchdog_trips")
 CONTROL_CUT = ("model.frames=32", f"model.num_layers={LAUNCHER_LAYERS}")
 HANG_TIMEOUT_S = 8.0  # serve[failover]'s --batch-timeout: ~4x a batch here
+# The hung batch's sleep: past the watchdog, then it runs and ends.  Its
+# worker holds the replica's model until then (about 8 GiB at 8 layers),
+# so the phase waits for it.
+HANG_SLEEP_S = 20.0
 
 
 def quiet_counters(summary) -> bool:
@@ -4034,12 +4054,14 @@ def serve_failover():
     then with ``kill_replica:after=1`` (the deeper replica is failed
     after the first result and its unserved requests requeue), then with
     ``hang:count=1`` under ``--batch-timeout 8`` (the first batch sleeps
-    before its sampler runs; the watchdog trips once and takes that
-    replica down).  Every request completes without an error, and each
+    HANG_SLEEP_S before its sampler runs; the watchdog trips once and
+    takes that replica down; the phase ends once the hung worker has).  Every request completes without an error, and each
     result equals the fault-free run's bit for bit where its batch has
     the same members, else within relative L2 1e-3.  The latencies of
     the fault runs share the card with the zombie batch of the failed
     replica."""
+    import threading
+
     import numpy as np
 
     base = ["--arch", "vdit-paper", "--steps", "12", "--requests", "6",
@@ -4051,9 +4073,18 @@ def serve_failover():
               "fault-free: no degradation, retry, quarantine or watchdog trip":
               quiet_counters(ref["summary"])}
     for label, extra in (("kill_replica", ["--inject-faults", "kill_replica:after=1"]),
-                         ("hang", ["--inject-faults", "hang:count=1",
+                         ("hang", ["--inject-faults",
+                                   f"hang:count=1,seconds={HANG_SLEEP_S:g}",
                                    "--batch-timeout", str(HANG_TIMEOUT_S)])):
         rec = run_launcher(f"failover {label}", base + extra)
+        if label == "hang":  # the engine's batch workers run ``work``
+            t0 = time.perf_counter()
+            for t in threading.enumerate():
+                if t.name.endswith("(work)"):
+                    t.join(timeout=HANG_SLEEP_S + 120)
+            log(f"serve[failover hang]: waited {time.perf_counter() - t0:.1f}s for the "
+                f"hung worker; batch workers left "
+                f"{sum(t.name.endswith('(work)') for t in threading.enumerate())}")
         c = rec["summary"]["counters"]
         bitwise, close, worst = [], [], 0.0
         for rid, r in sorted(rec["done"].items()):
@@ -5407,12 +5438,14 @@ def timed_train_steps(records):
         yield
 
 
-def train_cell(label, argv, batch, adaln_per_step=0):
+def train_cell(label, argv, batch, adaln_per_step=0, unit="samples", keep=False):
     """train[label]: ``repro_torch.launch.train.main(argv)`` on the card,
     the launch counters set to 0 just before and read just after; per
-    step the loss, grad_norm, lr, ms (CUDA events) and launches; after
-    the first step the mean ms, samples/s; the peak memory.  Every step
-    must launch ``adaln_per_step`` adaLN kernels and no other."""
+    step the loss (and the LM's nll and aux), grad_norm, lr, ms (CUDA
+    events) and launches; after the first step the mean ms and ``batch``
+    ``unit`` a second; the peak memory.  Every step must launch
+    ``adaln_per_step`` adaLN kernels and no other.  With ``keep`` the
+    result holds the trained state under ``state``."""
     import math
 
     import torch
@@ -5432,23 +5465,25 @@ def train_cell(label, argv, batch, adaln_per_step=0):
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = sum(p.numel() for p in state.params.parameters())
-    del state
-    torch.cuda.empty_cache()
+    if not keep:
+        del state
+        torch.cuda.empty_cache()
     prev = {k: 0 for k in counts}
     per_step = []
     for i, r in enumerate(records):
         step = {k: r["counts"][k] - prev[k] for k in counts}
         prev = r["counts"]
         per_step.append(step)
-        log(f"train[{label}]: step {i}: loss {r['loss']:.6f}, grad_norm "
+        lm = "".join(f", {k} {r[k]:.6f}" for k in ("nll", "aux") if k in r)
+        log(f"train[{label}]: step {i}: loss {r['loss']:.6f}{lm}, grad_norm "
             f"{r['grad_norm']:.6f}, lr {r['lr']:.6e}, {r['ms']:.3f} ms, launches "
             f"{ {k: v for k, v in step.items() if v} }")
     later = [r["ms"] for r in records[1:]]
     ms = sum(later) / len(later)
-    log(f"train[{label}]: {n / 1e9:.4f} B params; {len(records)} steps of batch {batch} in "
+    log(f"train[{label}]: {n / 1e9:.4f} B params; {len(records)} steps of {batch} {unit} in "
         f"{wall:.1f}s (init, data and first step included); {ms:.3f} ms a step after "
         f"the first ({', '.join(f'{x:.3f}' for x in later)}), {batch / ms * 1e3:.1f} "
-        f"samples/s; peak {peak:.2f} GiB, {peak - held:.2f} of it the run's ({held:.2f} "
+        f"{unit}/s; peak {peak:.2f} GiB, {peak - held:.2f} of it the run's ({held:.2f} "
         f"held before it); {CARD}")
     want = {k: (adaln_per_step if k == "adaln" else 0) for k in counts}
     checks = {f"every step's loss and grad_norm finite": all(
@@ -5458,9 +5493,12 @@ def train_cell(label, argv, batch, adaln_per_step=0):
                   all(s == want for s in per_step)
                   and counts["adaln"] == adaln_per_step * len(records)}
     report(label, checks, kind="train")
-    return {"steps": len(records), "ms": ms, "samples_per_s": batch / ms * 1e3,
-            "peak_gib": peak, "own_peak_gib": peak - held, "launches": counts,
-            "loss": [r["loss"] for r in records]}
+    out = {"steps": len(records), "ms": ms, f"{unit}_per_s": batch / ms * 1e3,
+           "peak_gib": peak, "own_peak_gib": peak - held, "launches": counts,
+           "loss": [r["loss"] for r in records], "records": records}
+    if keep:
+        out["state"] = state
+    return out
 
 
 def profile_train_dit():
@@ -5520,14 +5558,15 @@ class _Killed(Exception):
     """Stops a training run mid-way, as a crash would."""
 
 
-def vdit_example_run(device, steps, ckpt_dir=None, kill_after=None, seed=0):
-    """The example's run on ``device`` from ``seed``: the reference init
-    from seed, data seed seed, step seed seed + 1 (seed 0: the example's
-    own 0, 0 and 1); with ``ckpt_dir`` a checkpoint every 50 steps (keep
-    2) and auto-resume from the newest valid one.  Returns (state,
-    {step: loss}, start step); ``kill_after`` steps stops the run by an
-    exception once that many steps are done (the step-50 checkpoint
-    committed)."""
+def example_run(arch, shape, device, steps, ckpt_dir=None, kill_after=None, seed=0,
+                loop_seed=None, metric="loss"):
+    """A training run of ``arch`` at ``shape`` on ``device`` through the
+    launcher's pieces: the reference init from ``seed`` drawn on the CPU,
+    data seed ``seed``, step seed ``loop_seed`` (default ``seed``); with
+    ``ckpt_dir`` a checkpoint every 50 steps (keep 2) and auto-resume from
+    the newest valid one.  Returns (state, {step: metric}, start step);
+    ``kill_after`` steps stops the run by an exception once that many
+    steps are done (the step-50 checkpoint committed)."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.data.synthetic import DataSpec, batch_iterator
     from repro_torch.launch import workloads
@@ -5535,8 +5574,6 @@ def vdit_example_run(device, steps, ckpt_dir=None, kill_after=None, seed=0):
     from repro_torch.models.params import init_model
     from repro_torch.training import train_loop
 
-    arch = vdit_example_arch(steps)
-    shape = arch.shape("train_64")
     model = init_model(arch.model, seed=seed, device="cpu").to(device)
     step_fn = workloads.train_step(arch, shape, model)
     state = train_loop.train_state_init(model, arch.train)
@@ -5547,10 +5584,10 @@ def vdit_example_run(device, steps, ckpt_dir=None, kill_after=None, seed=0):
         if found is not None:
             state = train_loop.load_state_tree(state, arrays)
             start = found
-    losses = {}
+    values = {}
 
     def on_step(i, m):
-        losses[i] = float(m["loss"])
+        values[i] = float(m[metric])
         if kill_after is not None and i + 1 == kill_after:
             raise _Killed
 
@@ -5558,14 +5595,23 @@ def vdit_example_run(device, steps, ckpt_dir=None, kill_after=None, seed=0):
                         start_index=start)
     try:
         state, _ = train_loop.run_train_loop(
-            step_fn, state, it, steps, seed=seed + 1, checkpointer=ckpt,
-            checkpoint_every=50, log_every=0,
+            step_fn, state, it, steps, seed=seed if loop_seed is None else loop_seed,
+            checkpointer=ckpt, checkpoint_every=50, log_every=0,
             start_step=start, on_step=on_step)
     except _Killed:
         pass
     if ckpt:
         ckpt.wait()
-    return state, losses, start
+    return state, values, start
+
+
+def vdit_example_run(device, steps, ckpt_dir=None, kill_after=None, seed=0):
+    """The example's run (:func:`example_run`) from ``seed``: the
+    reference init from seed, data seed seed, step seed seed + 1 (seed 0:
+    the example's own 0, 0 and 1)."""
+    arch = vdit_example_arch(steps)
+    return example_run(arch, arch.shape("train_64"), device, steps, ckpt_dir,
+                       kill_after, seed, loop_seed=seed + 1)
 
 
 def vdit_example_phase():
@@ -5687,6 +5733,321 @@ def train_phases():
         out[name] = train_cell(name, ["--arch", name, "--shape", "cls_224", "--steps",
                                       str(TRAIN_VISION_STEPS)], 256)
     out["vdit-example"] = vdit_example_phase()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8j. LM training (slice 19): gemma3-4b and qwen2-moe-a2.7b through the
+# launcher; no kernel of the port lies on this path
+# ---------------------------------------------------------------------------
+
+# train[gemma3-4b grads]: full width, 2 of 34 layers, f32 compute, 1 x 1024
+# tokens: 1024 x 262144 logit cells exceed the budget, so the cross entropy
+# runs in two 512-token chunks.
+LM_GRADS_CUT = ("model.num_layers=2", "train.compute_dtype=float32")
+LM_GRADS_TOKENS = 1024
+LM_GRADS_BAR = 1e-4   # tree relative L2, card against the CPU (f32, no TF32)
+# train[gemma3-4b]: train_4k (4096 tokens) through the launcher, the global
+# batch 256 cut to 8, so grad_accum 8 takes micro-batches of 1 sequence;
+# all 34 layers, else the deepest of these that fits.
+LM_TRAIN_BATCH = 8
+LM_TRAIN_STEPS = 3
+LM_TRAIN_DEPTHS = (34, 28, 22, 16)
+# The first step's nll within 2% of its value at the reference init: the
+# head's N(0, 0.02^2) weights against the final RMSNorm's unit-RMS
+# output give logits of variance d_model * 0.02^2 (1.02 at gemma3-4b's
+# width), and the mean cross entropy of V such logits is ln V + var / 2
+# (12.989), not ln V (12.477): a near-uniform softmax only at small width.
+LM_FIRST_NLL_BAR = 0.02
+MOE_TRAIN_LAYERS = 4      # of 24: about 49 GB of f32 params, gradients, moments
+# train[lm-smoke learn]: gemma3-4b's smoke config, train_4k cut to 8 x 256
+# tokens, 100 steps from 8 seeds, a checkpoint every 50.  The JAX
+# launcher's nll at the same cut on the CPU, from
+# scripts/reference_lm_smoke_losses.py --steps 100 --seeds 8: the means
+# over steps 0-19 and 80-99, averaged over the seeds.
+LM_LEARN_SHAPE = (8, 256)   # (global batch, tokens)
+LM_LEARN_STEPS = 100
+LM_LEARN_SEEDS = 8
+LM_LEARN_JAX = (5.544715601205826, 4.904278343915939)
+LM_LEARN_TO_JAX = 0.25      # the last-20 average within 25% of the JAX one
+LM_LEARN_KILL = 60          # killed after step 60, resumed from step 50
+
+
+def lm_train_grads_phase():
+    """train[gemma3-4b grads]: the LM loss and its gradients of a 2-layer
+    gemma3-4b at full width (every leaf random) on the card against the
+    same on the CPU, f32 compute, the same 1 x 1024 token batch, through
+    the chunked cross entropy; every leaf's gradient non-zero on the
+    card and no kernel of the port launched."""
+    import copy
+
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataSpec, batch_generator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import workloads
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer_lm
+    from repro_torch.models.params import init_model
+
+    arch = apply_overrides(get_config("gemma3-4b"), LM_GRADS_CUT)
+    shape = dataclasses.replace(arch.shape("train_4k"), seq_len=LM_GRADS_TOKENS,
+                                global_batch=1)
+    base = init_model(arch.model, seed=5, device="cuda", zero_init=False)  # drawn fast
+    n = sum(p.numel() for p in base.parameters())
+    loss_fn = workloads.train_loss_fn(arch)
+    grads, nll, secs, chunks = {}, {}, {}, {"cuda": [], "cpu": []}
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        def spy(orig, dev=dev):
+            def f(h, t, head):
+                chunks[dev].append(h.shape[1])
+                return orig(h, t, head)
+            return f
+
+        model = base if dev == "cuda" else copy.deepcopy(base).to(dev)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        batch = make_batch_fn(arch, shape, dev)(DataSpec(seed=0), 0)
+        reset_launch_counts()
+        with torch.enable_grad(), wrapped(transformer_lm, "_chunk_ce", spy):
+            (loss, m), secs[dev] = timed(lambda: loss_fn(model, batch, batch_generator(0, 0, 0)))
+            _, back = timed(loss.backward)
+        secs[dev] += back
+        if dev == "cuda":
+            counts = launch_counts()
+        nll[dev] = float(m["nll"])
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        del model, loss, m, batch
+    del base
+    torch.cuda.empty_cache()
+    num = sum(float((grads["cuda"][n] - g).double().norm() ** 2) for n, g in grads["cpu"].items())
+    den = sum(float(g.double().norm() ** 2) for g in grads["cpu"].values())
+    tree = (num / den) ** 0.5
+    zero = [k for k, g in grads["cuda"].items() if not bool((g != 0).any())]
+    log(f"train[gemma3-4b grads]: {n / 1e9:.3f} B params (2 of 34 layers, full width), 1 x "
+        f"{LM_GRADS_TOKENS} tokens, f32: nll card {nll['cuda']:.6f} / CPU {nll['cpu']:.6f}; "
+        f"loss and backward {secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s on the CPU; "
+        f"cross-entropy chunks of {chunks['cuda']} tokens (forward, then recomputed); {CARD}")
+    checks = {f"gradient tree relative L2 card vs CPU {tree:.3e} (bar {LM_GRADS_BAR:.0e})":
+              tree <= LM_GRADS_BAR,
+              f"every one of {len(grads['cuda'])} leaves has a non-zero gradient "
+              f"(zero: {zero})": not zero,
+              f"the chunked cross entropy ran: two 512-token chunks, each recomputed "
+              f"(card {chunks['cuda']}, CPU {chunks['cpu']})":
+              chunks["cuda"] == chunks["cpu"] == [512] * 4,
+              f"no kernel of the port launched ({counts})": not any(counts.values())}
+    report("gemma3-4b grads", checks, kind="train")
+    return tree
+
+
+def lm_train_argv(name, layers):
+    return ["--arch", name, "--shape", "train_4k", "--steps", str(LM_TRAIN_STEPS),
+            "--batch-override", str(LM_TRAIN_BATCH), f"model.num_layers={layers}"]
+
+
+def lm_train_gemma():
+    """train[gemma3-4b]: the launcher's ``main`` at train_4k, full width,
+    micro-batch 1 of LM_TRAIN_BATCH sequences (grad_accum 8), at the
+    first depth of LM_TRAIN_DEPTHS that fits (34 layers: 72.8 GB of f32
+    params, gradients and AdamW moments); the first step's nll against
+    ln V; then ``profile[train gemma3-4b]`` on the trained state."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+
+    full = get_config("gemma3-4b").model
+    for layers in LM_TRAIN_DEPTHS:
+        label = "gemma3-4b" if layers == full.num_layers else f"gemma3-4b {layers} layers"
+        try:
+            out = train_cell(label, lm_train_argv("gemma3-4b", layers),
+                             LM_TRAIN_BATCH * 4096, unit="tokens", keep=True)
+            break
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"train[gemma3-4b]: {layers} layers do not fit: out of memory at a peak of "
+                f"{peak:.2f} GiB; trying fewer layers")
+        gc.collect()  # the failed run's frames go with the exception
+        torch.cuda.empty_cache()
+    else:
+        raise SystemExit(f"train[gemma3-4b]: no depth of {LM_TRAIN_DEPTHS} fits")
+    first = out["records"][0]["nll"]
+    uniform = math.log(full.vocab_size)
+    want = uniform + full.d_model * 0.02 ** 2 / 2
+    depth = (f"{layers} of {full.num_layers} layers" if layers < full.num_layers
+             else f"all {layers} layers")
+    log(f"train[{label}]: cuts: global batch 256 -> {LM_TRAIN_BATCH} (micro-batch 1, "
+        f"grad_accum 8), {depth}; first nll {first:.6f} against ln {full.vocab_size} = "
+        f"{uniform:.6f} ({first / uniform - 1:+.2%}) and ln V + d_model * 0.02^2 / 2 = "
+        f"{want:.6f} ({first / want - 1:+.2%})")
+    report(label, {f"the first step's nll within {LM_FIRST_NLL_BAR:.0%} of ln V + "
+                   f"d_model * 0.02^2 / 2": abs(first / want - 1) <= LM_FIRST_NLL_BAR},
+           kind="train")
+    out["layers"] = layers
+    out["profile"] = profile_train_lm(out.pop("state"), layers)
+    return out
+
+
+def profile_train_lm(state, layers):
+    """profile[train gemma3-4b]: one AdamW step on one micro-batch (1 x
+    4096 tokens, grad_accum 1) of the trained state, by kernel family:
+    GEMMs, elementwise, softmax and reduction kernels, the cross-entropy
+    chunks (their forward and recompute) and the AdamW update."""
+    import torch
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataSpec
+    from repro_torch.launch import workloads
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import transformer_lm
+    from repro_torch.training import train_loop
+
+    arch = apply_overrides(get_config("gemma3-4b"), (f"model.num_layers={layers}",
+                                                     "train.grad_accum=1"))
+    shape = dataclasses.replace(arch.shape("train_4k"), global_batch=1)
+    step = workloads.train_step(arch, shape, state.params)
+    box = [state]
+    batch = make_batch_fn(arch, shape, "cuda")(DataSpec(seed=0), 0)
+
+    def call():
+        box[0], _ = step(box[0], batch, 0)
+
+    out = profile_call("train gemma3-4b", call,
+                       {"softmax": "softmax", "reduce": "reduce", "elementwise": "elementwise"},
+                       annotate=[(transformer_lm, "_chunk_ce", "ce_chunks"),
+                                 (train_loop, "adamw_update", "adamw")],
+                       what="one train step", desc=f"1 x 4096 tokens (one micro-batch of "
+                       f"train_4k), {layers} layers: forward, backward and AdamW, bf16 compute, "
+                       f"remat; ce_chunks counts the chunks' forward and recompute only")
+    del box, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_moe():
+    """train[qwen2-moe-a2.7b 4 layers]: the launcher's ``main`` at train_4k,
+    full width, MOE_TRAIN_LAYERS of 24 layers, micro-batch 1 of
+    LM_TRAIN_BATCH sequences; the router's aux (summed over the layers)
+    of each step."""
+    from repro_torch.configs import get_config
+
+    full = get_config("qwen2-moe-a2.7b").model
+    label = f"qwen2-moe-a2.7b {MOE_TRAIN_LAYERS} layers"
+    out = train_cell(label, lm_train_argv("qwen2-moe-a2.7b", MOE_TRAIN_LAYERS),
+                     LM_TRAIN_BATCH * 4096, unit="tokens")
+    aux = [r["aux"] for r in out["records"]]
+    log(f"train[{label}]: cuts: global batch 256 -> {LM_TRAIN_BATCH} (micro-batch 1, "
+        f"grad_accum 8), depth {full.num_layers} -> {MOE_TRAIN_LAYERS}; router aux summed over "
+        f"the layers, mean over the micro-batches, by step {[round(a, 6) for a in aux]}; "
+        f"first nll {out['records'][0]['nll']:.6f}")
+    report(label, {"the router's aux loss positive and finite every step":
+                   all(0 < a < float("inf") for a in aux)}, kind="train")
+    return out
+
+
+def lm_learn_arch():
+    """(arch, shape): gemma3-4b's smoke config with train_4k cut to
+    LM_LEARN_SHAPE."""
+    from repro_torch.configs import get_smoke_config
+
+    arch = get_smoke_config("gemma3-4b")
+    batch, tokens = LM_LEARN_SHAPE
+    shape = dataclasses.replace(arch.shape("train_4k"), seq_len=tokens, global_batch=batch)
+    return dataclasses.replace(arch, shapes=tuple(
+        shape if s.name == shape.name else s for s in arch.shapes)), shape
+
+
+def lm_learn_phase():
+    """train[lm-smoke learn]: the smoke gemma3-4b trained LM_LEARN_STEPS
+    steps on the card from LM_LEARN_SEEDS seeds (seed 0 with a checkpoint
+    every 50 steps).  Each run's mean nll over steps 80-99 must lie below
+    its mean over steps 0-19, and averaged over the seeds within 25% of
+    the JAX launcher's on the CPU averaged over as many seeds (one run
+    moves with its draws).  Then a run killed after step 60 and
+    restarted from its step-50 checkpoint must end on the uninterrupted
+    run's parameters and moments bit for bit."""
+    import shutil
+
+    import torch
+
+    arch, shape = lm_learn_arch()
+    root = os.path.join(ROOT, "build", "train_lm_learn")
+    shutil.rmtree(root, ignore_errors=True)
+    means = []
+    with no_kernel_launches("lm-smoke learn"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for seed in range(LM_LEARN_SEEDS):
+            state, nll, _ = example_run(
+                arch, shape, "cuda", LM_LEARN_STEPS,
+                os.path.join(root, "full") if seed == 0 else None, seed=seed, metric="nll")
+            traj = [nll[i] for i in range(LM_LEARN_STEPS)]
+            means.append((sum(traj[:20]) / 20, sum(traj[-20:]) / 20))
+            if seed == 0:
+                full = state
+                log(f"train[lm-smoke learn]: seed 0 nll every 10th step "
+                    f"{[round(traj[i], 4) for i in range(0, LM_LEARN_STEPS, 10)]}")
+            else:
+                del state
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = os.path.join(root, "killed")
+        _, part, _ = example_run(arch, shape, "cuda", LM_LEARN_STEPS, d,
+                                 kill_after=LM_LEARN_KILL, metric="nll")
+        resumed, rest, start = example_run(arch, shape, "cuda", LM_LEARN_STEPS, d,
+                                           metric="nll")
+    first = sum(m[0] for m in means) / len(means)
+    last = sum(m[1] for m in means) / len(means)
+    j_first, j_last = LM_LEARN_JAX
+    log(f"train[lm-smoke learn]: {LM_LEARN_SEEDS} runs of {LM_LEARN_STEPS} steps of "
+        f"{shape.global_batch} x {shape.seq_len} tokens in {wall:.1f}s "
+        f"({wall / LM_LEARN_SEEDS / LM_LEARN_STEPS * 1e3:.1f} ms a step); mean nll over steps "
+        f"0-19 / 80-99 by seed {[(round(a, 4), round(b, 4)) for a, b in means]}, averaged "
+        f"{first:.4f} / {last:.4f}; the JAX launcher on the CPU averaged over as many seeds "
+        f"{j_first:.4f} / {j_last:.4f}; {CARD}")
+    tensors = lambda st: ([p.detach() for p in st.params.parameters()]
+                          + list(st.opt.mu) + list(st.opt.nu))
+    bitwise = all(bits_equal(a, b) for a, b in zip(tensors(resumed), tensors(full)))
+    checks = {
+        "every run's nll falls: mean 80-99 below mean 0-19": all(b < a for a, b in means),
+        f"mean 80-99 averaged over seeds {last:.4f} within {LM_LEARN_TO_JAX:.0%} of the JAX "
+        f"launcher's {j_last:.4f} ({last / j_last - 1:+.1%})":
+            abs(last / j_last - 1) <= LM_LEARN_TO_JAX,
+        f"killed after step {max(part) + 1}, resumed from step {start} (want 50), ran "
+        f"steps {min(rest)}-{max(rest)}": start == 50 and min(rest) == 50
+            and max(rest) == LM_LEARN_STEPS - 1,
+        "resumed parameters and AdamW moments bit-equal to the uninterrupted run's": bitwise}
+    report("lm-smoke learn", checks, kind="train")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"first20": first, "last20": last, "by_seed": means, "bit_equal": bitwise}
+
+
+def lm_train_phases():
+    """8j: the LM family's training cells, each with every launch counter
+    set to 0 first: gemma3-4b's gradients card against CPU, gemma3-4b
+    through the launcher (full width, the deepest that fits of 34
+    layers) with its profile, qwen2-moe-a2.7b at 4 layers, and the smoke
+    gemma3-4b's learning and resume."""
+    import gc
+
+    import torch
+    from repro_torch.core import patterns
+
+    held = torch.cuda.memory_allocated() / 2**30
+    patterns.clear_plans()  # the pattern policies' stored plans (up to 8 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train[lm]: {held:.2f} GiB held by earlier phases, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after dropping the stored "
+        f"pattern plans")
+    out = {"gemma3-4b grads": lm_train_grads_phase()}
+    out["gemma3-4b"] = lm_train_gemma()
+    out["qwen2-moe-a2.7b"] = lm_train_moe()
+    out["lm-smoke learn"] = lm_learn_phase()
     return out
 
 
@@ -5891,6 +6252,7 @@ def main() -> int:
     del q, k, v, dit_q, dit_k, dit_v
     unet_times = time_unet_ripple(unet_served)
     unet_sparse_times = time_unet_sparse(unet_sparse)
+    del unet_served, unet_sparse  # frees their operands and maps on the card
     xu = correlated(UNET_QK[0][0], bf16, 24)
     t1u = time_fused_reuse(xu, UNET_QK[0][1], ("x", "y"), None, "unet-sd15 served call",
                            flush)
@@ -6107,6 +6469,11 @@ def main() -> int:
     # vdit-paper (full width, cut depth), vit-l16 and efficientnet-b7, and
     # the JAX package's training example with a kill and a resume --------
     train_out = train_phases()
+
+    # 8j. LM training (slice 19): gemma3-4b's gradients card vs CPU, the
+    # launcher on gemma3-4b (train_4k, full width) and qwen2-moe-a2.7b (4
+    # layers), the smoke gemma3-4b's learning and resume; no kernel launches
+    lm_train_phases()
 
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------

@@ -2,9 +2,10 @@
 
 No datasets ship with the repository, so benchmarks and the trainer draw
 latent videos from a Gauss-Markov model whose knobs set how much
-spatio-temporal redundancy TimeRipple can reuse, and the vision family
-class-conditional textures.  Randomness comes from a caller's
-``torch.Generator`` (whose device the data lands on); the deterministic
+spatio-temporal redundancy TimeRipple can reuse, the vision family
+class-conditional textures and the LM family Zipf token streams.
+Randomness comes from a caller's ``torch.Generator`` (whose device the
+data lands on); the deterministic
 part is :func:`smooth_ar_latents`, a function of the base noise alone,
 so the same noise gives the JAX package's latents.
 """
@@ -77,6 +78,24 @@ def batch_generator(seed: int, index: int, shard: int = 0) -> torch.Generator:
     gen = torch.Generator()
     gen.manual_seed(int(state))
     return gen
+
+
+def token_batch(spec: DataSpec, index: int, batch: int, seq_len: int,
+                vocab: int, device=None) -> dict:
+    """Zipf tokens with 8-token motif repetition (next-token learnable):
+    ids ``vocab ** u - 1`` for u uniform in [1e-6, 1), truncated and
+    clipped to [0, vocab); every odd 8-token window repeats the window
+    before it.  ``tokens`` are the ids without the last and ``targets``
+    without the first, each padded with one 0 column: (B, S) int64 on
+    ``device``."""
+    gen = batch_generator(spec.seed, index, spec.shard)
+    u = 1e-6 + (1.0 - 1e-6) * torch.rand((batch, seq_len), generator=gen)
+    ids = torch.clip(torch.pow(float(vocab), u) - 1, 0, vocab - 1).long()
+    gate = (torch.arange(seq_len) // 8) % 2 == 1
+    ids = torch.where(gate[None, :], torch.roll(ids, 8, dims=1), ids)
+    pad = torch.zeros((batch, 1), dtype=torch.long)
+    return {"tokens": torch.cat([ids[:, :-1], pad], 1).to(device),
+            "targets": torch.cat([ids[:, 1:], pad], 1).to(device)}
 
 
 def latent_video_batch(spec: DataSpec, index: int, batch: int,

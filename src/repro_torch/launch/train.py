@@ -6,13 +6,12 @@
 Wires: config -> seeded model (the reference's zero init, drawn on the
 CPU) -> train state
 (float32 params and AdamW moments) -> synthetic data pipeline -> the
-cell's train step (``launch.workloads.train_step``: the diffusion or
-vision loss, ``train.grad_accum`` micro-batches, bfloat16 compute) ->
-host loop with async checkpointing and auto-resume (restart the same
-command after a crash and it continues from the newest valid
+cell's train step (``launch.workloads.train_step``: the diffusion,
+vision or LM loss, ``train.grad_accum`` micro-batches, bfloat16
+compute) -> host loop with async checkpointing and auto-resume (restart
+the same command after a crash and it continues from the newest valid
 checkpoint, drawing the batches and the noise the uninterrupted run
-would have drawn).  Runs on the card unless ``--device cpu``; the LM
-family raises (its training is the next slice).
+would have drawn).  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -37,16 +36,17 @@ log = logging.getLogger("repro_torch.launch.train")
 
 def make_batch_fn(arch, shape: ShapeSpec, device=None):
     """``batch_fn(spec, index) -> batch`` of a train cell, on ``device``:
-    the reference launcher's batches for the dit (latents and class
-    labels), mmdit (latents, text and a pooled vector), unet (latents
-    and text context), vdit (latent videos and text) and vision (images
-    and labels) families."""
+    the reference launcher's batches for the lm (``global_batch`` token
+    sequences and their targets), dit (latents and class labels), mmdit
+    (latents, text and a pooled vector), unet (latents and text
+    context), vdit (latent videos and text) and vision (images and
+    labels) families."""
     fam = arch.family
     m = arch.model
     if fam == "lm":
-        raise NotImplementedError(
-            "LM training (token_batch, lm_loss, _lm_train) is the port's "
-            "next slice")
+        return lambda spec, i: synthetic.token_batch(
+            spec, i, shape.global_batch, shape.seq_len, m.vocab_size,
+            device=device)
     if fam in workloads.DIFFUSION_FAMILIES:
         def diff_batch(spec, i):
             if fam == "dit":

@@ -4,9 +4,9 @@ deterministic request stream, per-request class labels, one denoiser
 forward (vdit, dit, mmdit and unet families), the vdit's per-layer
 decision-cache state, the vision family's classify step (vit and
 effnet), and the LM family's prefill and decode steps, each under
-``no_grad``.  Training: the diffusion and vision losses of the JAX
-workloads' ``_diffusion_train`` and ``_vision_train``, and
-:func:`train_step`, one AdamW step of a train cell."""
+``no_grad``.  Training: the diffusion, vision and LM losses of the JAX
+workloads' ``_diffusion_train``, ``_vision_train`` and ``_lm_train``,
+and :func:`train_step`, one AdamW step of a train cell."""
 
 from __future__ import annotations
 
@@ -344,7 +344,9 @@ def train_loss_fn(arch: ArchConfig):
     """``loss_fn(model, batch, generator) -> (loss, metrics)`` of a train
     cell, at the config's ``train.compute_dtype`` (the reference's
     bfloat16 default): the diffusion loss on noise and t drawn from the
-    generator, or the vision loss with ``train.remat``."""
+    generator, the vision loss with ``train.remat``, or the LM's
+    next-token loss (``lm_loss``) with ``train.remat`` and
+    ``train.remat_policy``."""
     tc = arch.train
     dt = getattr(torch, tc.compute_dtype)
     if arch.family in DIFFUSION_FAMILIES:
@@ -358,9 +360,12 @@ def train_loss_fn(arch: ArchConfig):
             return vision_loss(arch, model, batch, compute_dtype=dt,
                                remat=tc.remat)
     elif arch.family == "lm":
-        raise NotImplementedError(
-            "LM training (lm_loss, remat_policy, _lm_train, token_batch) "
-            "is the port's next slice")
+        from repro_torch.models.transformer_lm import lm_loss
+
+        def loss_fn(model, batch, generator):
+            return lm_loss(model, batch["tokens"], batch["targets"],
+                           arch.model, compute_dtype=dt, remat=tc.remat,
+                           remat_policy=tc.remat_policy)
     else:
         raise ValueError(f"no train workload for family {arch.family!r}")
     return loss_fn
@@ -368,10 +373,12 @@ def train_loss_fn(arch: ArchConfig):
 
 def train_step(arch: ArchConfig, shape: ShapeSpec, model):
     """The train workload of one ``train`` cell (the JAX workloads'
-    ``_diffusion_train`` / ``_vision_train`` with no mesh) for ``model``:
-    ``step(state, batch, seed) -> (state, metrics)``, one AdamW step
-    over ``train.grad_accum`` micro-batches of ``shape.batch``, on the
-    model ``state.params`` (which must be ``model``'s config)."""
+    ``_diffusion_train`` / ``_vision_train`` / ``_lm_train`` with no
+    mesh) for ``model``: ``step(state, batch, seed) -> (state,
+    metrics)``, one AdamW step over ``train.grad_accum`` micro-batches of
+    the batch (``shape.batch``; an LM's ``shape.global_batch`` sequences
+    of ``shape.seq_len`` tokens), on the model ``state.params`` (which
+    must be ``model``'s config)."""
     from repro_torch.training.train_loop import make_train_step
 
     if model.cfg != arch.model:

@@ -56,13 +56,36 @@ def param(*shape, device=None, dtype=None) -> nn.Parameter:
                         requires_grad=False)
 
 
-def remat_call(remat: bool, fn, *args):
+# The products whose outputs ``remat_policy="dots"`` keeps: a weight
+# product (B, S, d) @ (d, F) folds to a 2-D ``mm``; a batched product
+# (the attention's, the experts') is a ``bmm`` and is recomputed.
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_weight_products(ctx, op, *args, **kwargs):
+    policy = torch.utils.checkpoint.CheckpointPolicy
+    return (policy.MUST_SAVE if op in _WEIGHT_PRODUCTS
+            else policy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _keep_weight_products)
+
+
+def remat_call(remat: bool, fn, *args, policy: str = "full"):
     """``fn(*args)``; with ``remat`` and grad mode on, its activations are
     recomputed in the backward pass instead of kept
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+    ``policy="dots"`` keeps the outputs of the weight products and
+    recomputes the rest, as the reference's
+    ``dots_with_no_batch_dims_saveable``; ``"full"`` keeps nothing."""
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
     if remat and torch.is_grad_enabled():
+        ctx = {"context_fn": _dots_contexts} if policy == "dots" else {}
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False, **ctx)
     return fn(*args)
 
 

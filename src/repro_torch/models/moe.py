@@ -5,7 +5,10 @@ Routed experts with softmax top-k gating (weights renormalised over the
 k chosen) plus optional always-on shared experts behind a sigmoid gate.
 The ``dense`` path computes every expert on every token and combines
 them with the gate weights: exact, no capacity drops.  The router's aux
-loss is the Switch load-balance loss plus 1e-3 of the router z-loss.
+loss is the Switch load-balance loss plus 1e-3 of the router z-loss,
+times ``aux_loss_weight``.  Under autograd the top-k gate weights (the
+sorted probabilities) carry gradient into the router, as ``lax.top_k``'s
+do; the chosen indices carry none.
 
 Expert parallelism (the reference's ``impl="ep"``: ``_ep_moe`` and
 ``_local_dispatch_ffn`` over a mesh ``model`` axis) is not ported yet;

@@ -10,9 +10,9 @@ archs through :class:`LMConfig`.
 The reference scans over layers stacked on a leading axis; here the
 blocks are a per-layer list and the forward is a loop over them.  The
 KV cache is (L, B, S_max, Hkv, hd) per K and V, written in place.
-TimeRipple does not apply to 1-D text tokens.  ``lm_apply`` builds a
-graph under grad mode; its training (``lm_loss``, remat) is not ported
-yet.
+TimeRipple does not apply to 1-D text tokens.  Training: ``lm_loss``,
+the next-token cross entropy (sequence-chunked above a cell budget),
+with each block recomputed in the backward pass under ``remat``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from torch import nn
 from repro_torch.config.base import LMConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import Attention, Scale, gqa_attention
-from repro_torch.models.common import GatedMLP, param, rmsnorm
+from repro_torch.models.common import GatedMLP, param, remat_call, rmsnorm
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -97,9 +97,15 @@ def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
     return x + ffn_out, new_cache, aux
 
 
+def _head(model: TransformerLM) -> torch.Tensor:
+    """The (d, V) output projection: the embedding's transpose if tied."""
+    return model.embed.T if model.cfg.tie_embeddings else model.lm_head
+
+
 def lm_apply(model: TransformerLM, tokens: torch.Tensor,
              cfg: Optional[LMConfig] = None, *,
              compute_dtype: torch.dtype = torch.bfloat16,
+             remat: bool = False, remat_policy: str = "full",
              cache: Optional[Cache] = None, cache_index: Optional[int] = None,
              logits_mode: str = "all"):
     """Forward pass. tokens: (B, S) integer, on the model's device.
@@ -107,8 +113,10 @@ def lm_apply(model: TransformerLM, tokens: torch.Tensor,
     With ``cache=(k, v)`` of shape (L, B, S_max, Hkv, hd) this is a
     prefill or decode step writing the cache in place at ``cache_index``.
     ``logits_mode``: 'all' (B, S, V), 'last' (B, 1, V), or 'none' (the
-    final-normed hidden states).  Returns (logits-or-hidden, cache,
-    aux_loss)."""
+    final-normed hidden states).  ``remat`` recomputes each block in the
+    backward pass (without a cache, under grad mode), keeping nothing
+    (``remat_policy="full"``) or the weight products' outputs
+    (``"dots"``).  Returns (logits-or-hidden, cache, aux_loss)."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     if logits_mode not in ("all", "last", "none"):
@@ -120,18 +128,75 @@ def lm_apply(model: TransformerLM, tokens: torch.Tensor,
     offset = 0 if cache is None else int(cache_index)
     positions = offset + torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, blk, window):
+        x, _, a = _block(cfg, x, blk, window, positions)
+        return x, a
+
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
-        layer_cache = None if cache is None else (cache[0][i], cache[1][i])
-        x, _, a = _block(cfg, x, blk, int(window), positions, layer_cache,
-                         cache_index)
+        if cache is None:
+            x, a = remat_call(remat, body, x, blk, int(window),
+                              policy=remat_policy)
+        else:
+            x, _, a = _block(cfg, x, blk, int(window), positions,
+                             (cache[0][i], cache[1][i]), cache_index)
         aux = aux + a
     x = rmsnorm(model.final_norm.scale, x)
     if logits_mode == "none":
         return x, cache, aux
     if logits_mode == "last":
         x = x[:, -1:]
-    head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return torch.matmul(x, head.to(dt)), cache, aux
+    return torch.matmul(x, _head(model).to(dt)), cache, aux
+
+
+# Sequence-chunked cross entropy: above this many (token x vocab) cells
+# the logits never exist for the whole sequence at once; each chunk's are
+# recomputed in the backward pass.  Read at call time.
+_CE_CELL_BUDGET = 2048 * 65536
+_CE_CHUNK = 512
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Summed cross entropy in float32: logsumexp minus the gold logit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def _chunk_ce(h: torch.Tensor, targets: torch.Tensor,
+              head: torch.Tensor) -> torch.Tensor:
+    """One sequence chunk's summed cross entropy: its logits h @ head."""
+    return _ce(torch.matmul(h, head), targets)
+
+
+def lm_loss(model: TransformerLM, tokens: torch.Tensor,
+            targets: torch.Tensor, cfg: Optional[LMConfig] = None, *,
+            compute_dtype: torch.dtype = torch.bfloat16, remat: bool = True,
+            remat_policy: str = "full"):
+    """Next-token cross entropy. tokens/targets: (B, S) integer.  The
+    summed float32 cross entropy over B·S plus the router's aux loss;
+    returns (loss, {"nll", "aux"}).  Above ``_CE_CELL_BUDGET`` (S · V)
+    with S a multiple of ``_CE_CHUNK``, the head product and the cross
+    entropy run one ``_CE_CHUNK``-token chunk at a time, each recomputed
+    in the backward pass."""
+    B, S = tokens.shape
+    targets = targets.long()
+    kw = dict(compute_dtype=compute_dtype, remat=remat,
+              remat_policy=remat_policy)
+    if S * model.cfg.vocab_size <= _CE_CELL_BUDGET or S % _CE_CHUNK != 0:
+        logits, _, aux = lm_apply(model, tokens, cfg, **kw)
+        nll = _ce(logits, targets) / (B * S)
+    else:
+        hidden, _, aux = lm_apply(model, tokens, cfg, logits_mode="none",
+                                  **kw)
+        head = _head(model).to(compute_dtype)
+        c = _CE_CHUNK
+        totals = [remat_call(True, _chunk_ce, hidden[:, i:i + c],
+                             targets[:, i:i + c], head)
+                  for i in range(0, S, c)]
+        nll = torch.sum(torch.stack(totals)) / (B * S)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # --- KV cache / serving ------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's training launcher on the CPU: the JAX launcher's flags and
 defaults, a smoke run with checkpoints, auto-resume that ends bit-equal
 to the uninterrupted run, checkpoints that the JAX package restores into
-its own ``TrainState``, and the refusals (no card, the LM family)."""
+its own ``TrainState``, the refusal without a card, and one LM step."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ from repro.models.params import init_params  # noqa: E402
 from repro.training import train_loop as j_loop  # noqa: E402
 from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.training.train_loop import state_tree  # noqa: E402
+from test_torch_lm_train_launcher import LM_SMOKE, short_smoke  # noqa: E402
 from test_torch_serve import _launcher_parser  # noqa: E402
 
 torch.set_num_threads(2)
@@ -94,7 +95,10 @@ def test_main_refuses_to_run_without_a_card(monkeypatch):
                         "--smoke", "--steps", "1"])
 
 
-def test_lm_training_is_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        train_lib.main(["--arch", "gemma3-4b", "--shape", "train_4k",
-                        "--smoke", "--steps", "1", "--device", "cpu"])
+def test_lm_training_is_the_next_slice(monkeypatch):
+    """The LM family, once refused here as the next slice, trains: one
+    step of the smoke gemma3-4b (``train_4k`` cut to 64 tokens)."""
+    short_smoke(monkeypatch)
+    state, history = train_lib.main(LM_SMOKE + ["--steps", "1"])
+    assert state.opt.step == 1 and [h["step"] for h in history] == [0]
+    assert np.isfinite(history[0]["nll"]) and history[0]["grad_norm"] > 0
