@@ -82,15 +82,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    beside the host time of a wrapper call (the host clock over 20 calls
    without a synchronise) and the back-to-back wrapper time;
 7. serves 3 requests of vdit-paper at full width through the port's
-   DiffusionEngine three times - the ripple policy, ``--policy svg`` and
-   ripple with ``svg_mask`` - each with the launch counters set to 0 just
-   before and read just after, profiles one forward of the ripple and
-   the SVG paths (the ripple wrapper's collapse-flag pass, the policy's
-   snap step and the SVG mask building as families of their own), then
-   serves the ripple path under the decision cache (``reuse_every`` 4,
-   24 steps: fused_reuse with its source map on the 7 refresh steps
-   only, the plain snap never on the card, the hit steps replaying
-   snaps) and profiles one refresh and one hit forward, serves ``svg``
+   DiffusionEngine three times - the ripple policy (40 layers),
+   ``--policy svg`` and ripple with ``svg_mask`` (the first SVG_LAYERS,
+   10, of the same model's layers: a cut that pays for slice 20's
+   phases) - each with the launch counters set to 0 just before and read
+   just after, profiles one forward of the ripple and the SVG paths (the
+   ripple wrapper's collapse-flag pass, the policy's snap step and the
+   SVG mask building as families of their own), then serves the ripple
+   path under the decision cache (``reuse_every`` 4, 24 steps, the first
+   CACHE_LAYERS, 10, layers: fused_reuse with its source map on the 7
+   refresh steps only, the plain snap never on the card, the hit steps
+   replaying snaps) and profiles one refresh and one hit forward, serves ``svg``
    under the cache at 2 layers (mask building on refresh steps only),
    then holds the sparse
    kernel against its plain semantics on one served SVG call at its
@@ -137,7 +139,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    one plan build) and under ``--policy rainfusion`` with the searched
    artifact (fused_reuse and the sparse kernel); and (after 8a) serves 2
    requests of unet-sd15 at full width and depth under ``--policy svg``
-   (800 sparse launches, each on the tensor cores at d 40, 80 or 160);
+   (20 of 50 steps: 320 sparse launches, each on the tensor cores at d 40,
+   80 or 160);
 8d. (inside 7, after 8c) serves four requests alternating ripple and
    static through one engine built by the launcher's
    ``make_sampler_factory`` on the loaded model (``serve[policies]``:
@@ -153,7 +156,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    piece, no degradation, retry, quarantine or watchdog trip), and
    ``serve[mesh]``: the same with a seventh request and ``--mesh 2x2``
    on 4 shards of the one card (results bit-equal, plans at batch 2 and
-   1, 4x the launches);
+   1, 4x the launches); then ``dist[serve]`` (slice 20): the same argv
+   under ``--distributed`` at one rank (``--coordinator`` a free local
+   port): an NCCL group, an all-reduce on the card, every request
+   bit-equal to ``serve[launcher]``'s with the same launches;
 8e. (after 8d, on the launcher's 8-layer vDiT) the serving control
    plane: ``serve[slo]`` (one warm batch gives the service-time
    estimator its lower bound L; a fresh engine sharing it sheds exactly
@@ -204,6 +210,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the router's aux) and ``lm[qwen3-32b 16 layers]`` /
    ``lm[phi3.5-moe-42b-a6.6b 8 layers]`` (full width, cut depth, 1 x 1024,
    8 new), each with its time, tokens/s, ms a token step and peak memory;
+   and on the qwen2-moe-a2.7b model already built ``lm[qwen2-moe-a2.7b ep]``
+   (slice 20): ``lm_serve_steps(mesh=1x4)``, expert parallelism over 4
+   model shards of the one card, 2 x 1024 prompt tokens and 3 decoded
+   positions: with the capacity raised to 64 nothing drops; the bf16
+   logits' distance from the dense path's is printed (the reference's
+   own EP drifts from its dense path in bf16 as much,
+   ``tests/test_torch_moe_ep.py``), and in float32, on one prompt, EP is
+   held within 1e-4 of the dense path; at the config's 1.25 the dropped
+   slots are printed; the first 2 layers in f32 on the card and on 4 CPU
+   shards keep bit-equal slots;
 8i. (after 8h; ``adaln[grad]`` sits with the adaLN timings in 6: the
    kernel's autograd Function against autograd of its plain version at
    the DiT's (4, 256, 1152) and (4, 4096, 1152), f32 and bf16) training
@@ -211,9 +227,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    f32 step's gradients of a 2-layer dit-xl2 at d 144, every leaf random,
    through the kernel against the CPU, every leaf non-zero),
    ``train[dit-xl2]`` (``main`` at full width and depth, train_256, batch
-   256 in 8 micro-batches, bf16 compute: per step the loss, grad_norm,
-   lr, ms by CUDA events and exactly 456 adaLN launches and no other
-   kernel's; samples/s and peak memory; then ``profile[train dit-xl2]``,
+   256 in 8 micro-batches, bf16 compute, 3 steps: per step the loss,
+   grad_norm, lr, ms by CUDA events and exactly 456 adaLN launches and no
+   other kernel's; samples/s and peak memory; then ``dist[train
+   dit-xl2]`` (slice 20: ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 chip_smoke.py --train-worker`` running the
+   launcher's ``main`` with the same argv, NCCL at one rank, the state
+   under ``distributed.fsdp`` (at one rank its pieces are the
+   parameters): per-step losses and the checkpoint's params within 1e-6
+   of the in-process run, the same adaLN launches, its ms a step by
+   CUDA events beside that run's; again with ``train.grad_compression=true``, and one
+   micro-batch's gradients compressed on the card bit-equal to the CPU);
+   then ``profile[train dit-xl2]``,
    one step on one micro-batch of 32 by kernel family),
    ``train[vdit-paper 3 layers]``
    (full width, 8192 + 256 tokens, batch 64 cut to 1, depth 40 cut to 3),
@@ -270,6 +295,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -295,6 +321,15 @@ REUSE_OPS_PER_ELEM = 3 * 9 / 2 + 3 + 3
 SERVE_OVERRIDES = ("model.frames=32",)  # 128 frames cut to 32: grid (8, 32, 32)
 SERVE_STEPS = 12                        # step 10 snaps at θ=0.2, step 11 dense
 SERVE_REQUESTS = 3
+# Depth cuts that pay for the multi-process phases (slice 20): serve[svg]
+# and serve[ripple+svg] (with profile[svg]) run the first 10 of the
+# served model's 40 layers, serve[ripple-cache] (with its profiles) the
+# first 10; the other vDiT phases keep all 40.  Beside them:
+# serve[unet-svg] 50 -> UNET_SVG_STEPS DDIM steps, serve[flux-dev ripple
+# off] 12 -> FLUX_OFF_STEPS Euler steps, the vision training cells 3 -> 2
+# steps.
+SVG_LAYERS = 10
+CACHE_LAYERS = 10
 DIT_SHAPE = "gen_1024"  # (128, 128, 4) latents: a (1, 64, 64) grid, 50 steps
 DIT_REQUESTS = 4         # the shape's batch
 UNET_SHAPE = "gen_1024"  # (128, 128, 4) latents, 50 DDIM steps
@@ -2023,6 +2058,23 @@ def wrapped(obj, name, make):
             delattr(obj, name)
 
 
+def depth_view(arch, model, layers: int):
+    """(arch, model) cut to the first ``layers`` blocks of ``model``: a
+    view sharing its weights (no new init), with the config's depth
+    cut to match."""
+    import copy
+
+    from torch import nn
+
+    if layers >= len(model.blocks):
+        return arch, model
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    view.blocks = nn.ModuleList(list(model.blocks)[:layers])
+    view.cfg = dataclasses.replace(model.cfg, num_layers=layers)
+    return dataclasses.replace(arch, model=view.cfg), view
+
+
 def load_served_model(layers: int):
     import torch
     from repro_torch.config.base import apply_overrides
@@ -2552,6 +2604,7 @@ def serve_unet():
 
 
 UNET_SVG_REQUESTS = 2  # svg's dense (B, 8, N, N) f32 bias: 17.2 GB at batch 2
+UNET_SVG_STEPS = 20    # of gen_1024's 50 DDIM steps (slice 20's cut)
 
 
 def sparse_recorder(shapes, maps=None, biases=None):
@@ -2602,10 +2655,10 @@ def serve_unet_svg():
     from repro_torch.models.params import init_unet
 
     arch = get_config("unet-sd15")
-    shape = serving_shape(arch, UNET_SHAPE, smoke=False)
+    shape = serving_shape(arch, UNET_SHAPE, smoke=False, steps=UNET_SVG_STEPS)
     log(f"serve: unet-sd15 full width and depth under svg, {shape.name}, "
-        f"{shape.steps} DDIM steps, {UNET_SVG_REQUESTS} requests; cut: batch 4 -> "
-        f"{UNET_SVG_REQUESTS} (the dense f32 bias)")
+        f"{shape.steps} DDIM steps, {UNET_SVG_REQUESTS} requests; cuts: batch 4 -> "
+        f"{UNET_SVG_REQUESTS} (the dense f32 bias), steps 50 -> {UNET_SVG_STEPS}")
     model = init_unet(arch.model, seed=0, device="cuda", dtype=torch.bfloat16,
                       zero_init=False)
     calls = 1 + sum(len(level.attn) for level in (*model.down, *model.up))
@@ -2643,6 +2696,7 @@ def serve_unet_svg():
 
 FLUX_SHAPE = "gen_1024"   # (128, 128, 16) latents: a (1, 64, 64) grid
 FLUX_REQUESTS = 4         # the shape's batch
+FLUX_OFF_STEPS = 6        # serve[flux-dev ripple off]: 12 -> 6 Euler steps
 FLUX_GRID = (1, 64, 64)
 FLUX_SNAP = (FLUX_REQUESTS, 24, 64 * 64, 128)  # flux's Q/K grid tokens
 FLUX_TEXT = (512, 0)                           # 512 text tokens before them
@@ -2764,7 +2818,8 @@ def serve_flux():
     }
     report("flux-dev", checks)
     off = dataclasses.replace(arch, ripple=dataclasses.replace(arch.ripple, enabled=False))
-    serve_phase("flux-dev ripple off", off, shape, model, requests=FLUX_REQUESTS,
+    serve_phase("flux-dev ripple off", off, dataclasses.replace(shape, steps=FLUX_OFF_STEPS),
+                model, requests=FLUX_REQUESTS,
                 absent=("fused_reuse", "ripple_attention", "sparse_attention", "adaln"))
     profile_forward("flux-dev", arch, model, lat_shape,
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
@@ -3346,6 +3401,207 @@ def lm_generate_phase(label, arch, model, batch, prompt, new, aux_of=None):
             "aux": aux}
 
 
+# lm[qwen2-moe-a2.7b ep] (slice 20): expert parallelism on a 1x4 dispatch
+# mesh (4 model shards of the one card) on the model 8h built.
+EP_MESH = "1x4"
+EP_RUN = (2, 1024, 4)     # prompts, prompt tokens, decoded positions
+EP_CACHE = 2048           # KV positions (decode_32k's 32768 cut: 0.4 GB)
+EP_NO_DROP = 64.0         # capacity factor: C = N·k a shard, nothing drops
+# EP against the dense path at full depth, nothing dropped, in float32 on
+# one prompt (the model converted in place after its bf16 uses: 60.6 GB).
+# In bf16 EP and the dense path round differently and the difference
+# grows with depth (measured on an H100: hidden states equal after 1
+# layer, 2.9e-6 apart after 2, 1.4e-2 after 4, 4.6e-2 after 24); the
+# reference's own EP drifts from its dense path as far (4.6e-2 at 4
+# layers of the smoke config, tests/test_torch_moe_ep.py), so the bf16
+# distance is reported, not held.
+EP_F32_BAR = 1e-4
+EP_CPU = (2, 256)         # card vs 4 CPU shards: layers, tokens (f32)
+
+
+def with_moe(arch, model, capacity):
+    """(arch, model) with the MoE's capacity factor replaced: a view of
+    ``model`` sharing its weights."""
+    import copy
+
+    cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+        model.cfg.moe, capacity_factor=capacity))
+    view = copy.copy(model)
+    view.cfg = cfg
+    return dataclasses.replace(arch, model=cfg), view
+
+
+def ep_slot_recorder():
+    """A ``wrapped`` maker for ``moe.dispatch_slots`` recording each
+    shard's kept-slot mask by (first expert, call number), and the kept
+    and routed slot counts."""
+    import threading
+
+    rec = {"keep": {}, "kept": 0, "routed": 0}
+    lock = threading.Lock()
+
+    def make(orig):
+        def f(topk_idx, e_lo, E_loc, C):
+            keep, dest_e, dest_c = orig(topk_idx, e_lo, E_loc, C)
+            mine = ((topk_idx >= e_lo) & (topk_idx < e_lo + E_loc)).sum()
+            kept = keep.cpu()
+            with lock:
+                n = sum(1 for (e, _) in rec["keep"] if e == e_lo)
+                rec["keep"][(e_lo, n)] = kept
+                rec["kept"] += int(kept.sum())
+                rec["routed"] += int(mine)
+            return keep, dest_e, dest_c
+        return f
+
+    return rec, make
+
+
+def lm_ep_phase(arch, model):
+    """``lm[qwen2-moe-a2.7b ep]``: ``lm_serve_steps(mesh=1x4)`` on the full
+    qwen2-moe-a2.7b that ``lm[qwen2-moe-a2.7b]`` built, every MoE layer
+    through ``moe_ffn(impl="auto")`` -> expert parallelism over the 4
+    model shards (16 of the 64 experts each).  In bf16: at the config's
+    capacity 1.25 the dropped slots and the prefill time, and with the
+    capacity raised so nothing drops the distance of the prefill's and
+    EP_RUN decoded positions' logits (the dense run's tokens fed to both)
+    to the dense path.  The first EP_CPU layers in float32, on the card
+    and on 4 CPU shards: every shard's kept-slot mask bit-equal.  Then
+    the model in float32 (converted in place; the caller frees it): EP
+    without drops within EP_F32_BAR of the dense path at full depth.  No
+    kernel of the port launches."""
+    import copy
+
+    import torch
+    from repro_torch.distributed.sharding import ShardCtx, decode_act_rules
+    from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.launch.workloads import lm_serve_steps
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer_lm import lm_apply
+
+    B, S, new = EP_RUN
+    with forced_devices(4):
+        mesh = parse_mesh_spec(EP_MESH, device="cuda")
+    shape = dataclasses.replace(arch.shape("decode_32k"), seq_len=EP_CACHE)
+    m = arch.model
+    tokens = lm_tokens(B, S, m.vocab_size, 74)
+    label = "qwen2-moe-a2.7b ep"
+
+    def run(capacity, use_mesh, feed=None, dtype=torch.bfloat16, toks=tokens):
+        a, view = with_moe(arch, model, capacity)
+        prefill, decode = lm_serve_steps(a, shape, view, mesh=mesh if use_mesh else None)
+        if dtype != torch.bfloat16:  # the serving steps run bf16; f32 compute here
+            def prefill(t, a=a, view=view):
+                from repro_torch.models.transformer_lm import lm_prefill
+                return lm_prefill(view, t, a.model, EP_CACHE, compute_dtype=dtype,
+                                  ctx=ShardCtx(mesh, decode_act_rules(mesh))
+                                  if use_mesh else ShardCtx())
+
+            def decode(t, c, i, a=a, view=view):
+                from repro_torch.models.transformer_lm import lm_decode_step
+                return lm_decode_step(view, t, c, i, a.model, compute_dtype=dtype,
+                                      ctx=ShardCtx(mesh, decode_act_rules(mesh))
+                                      if use_mesh else ShardCtx())
+        (logits, cache), sec = timed(lambda: prefill(toks))
+        steps, fed = [logits], []
+        for i in range(new - 1):
+            tok = logits.argmax(-1) if feed is None else feed[i]
+            fed.append(tok)
+            logits, cache = decode(tok, cache, toks.shape[1] + i)
+            steps.append(logits)
+        del cache
+        return torch.cat(steps, 1).float(), sec, fed
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    with no_kernel_launches(label):
+        dense, dense_s, fed = run(EP_NO_DROP, False)
+        rec, make = ep_slot_recorder()
+        with wrapped(moe_lib, "dispatch_slots", make):
+            ep, ep_s, _ = run(EP_NO_DROP, True, fed)
+        bf16_rel = rel(ep, dense)
+        del ep, dense
+        rec2, make2 = ep_slot_recorder()
+        a, view = with_moe(arch, model, m.moe.capacity_factor)
+        prefill, _ = lm_serve_steps(a, shape, view, mesh=mesh)
+        with wrapped(moe_lib, "dispatch_slots", make2):
+            (_, c), drop_s = timed(lambda: prefill(tokens))
+        del c, view
+    torch.cuda.empty_cache()
+    dropped = rec2["routed"] - rec2["kept"]
+    log(f"lm[{label}]: bf16, {B} x {S} prompt tokens + {new - 1} decoded positions, mesh "
+        f"{mesh.shape} (4 shards of the one card, 16 experts each): capacity "
+        f"{EP_NO_DROP:g} kept {rec['kept']} of {rec['routed']} routed slots, logits "
+        f"relative L2 {bf16_rel:.3e} against the dense path (reported, not held: bf16 rounding); "
+        f"prefill {ep_s:.3f} s EP, {dense_s:.3f} s dense; at the config's capacity "
+        f"{m.moe.capacity_factor:g}: {dropped} of {rec2['routed']} slots dropped "
+        f"({dropped / max(rec2['routed'], 1):.4%}), prefill {drop_s:.3f} s; {CARD}")
+    # The first layers in float32, card against 4 CPU shards.
+    layers, n_tok = EP_CPU
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules)
+    cut.blocks = torch.nn.ModuleList(list(model.blocks)[:layers])
+    cut.cfg = dataclasses.replace(model.cfg, num_layers=layers)
+    card32 = copy.deepcopy(cut).float()
+    cpu32 = copy.deepcopy(card32).cpu()
+    del cut
+    toks = tokens[:1, :n_tok]
+    with forced_devices(4):
+        cpu_mesh = parse_mesh_spec(EP_MESH, device="cpu")
+    keeps, hidden = {}, {}
+    for where, mdl, msh, tk in (("card", card32, mesh, toks),
+                                ("cpu", cpu32, cpu_mesh, toks.cpu())):
+        r, mk = ep_slot_recorder()
+        with wrapped(moe_lib, "dispatch_slots", mk), no_kernel_launches(label):
+            h, _, _ = lm_apply(mdl, tk, ctx=ShardCtx(msh, decode_act_rules(msh)),
+                               compute_dtype=torch.float32, logits_mode="none")
+        keeps[where], hidden[where] = r, h.cpu()
+    del card32, cpu32
+    torch.cuda.empty_cache()
+    kc, kp = keeps["card"]["keep"], keeps["cpu"]["keep"]
+    same = sorted(kc) == sorted(kp) and all(torch.equal(kc[k], kp[k]) for k in kc)
+    h_rel = rel(hidden["card"], hidden["cpu"])
+    log(f"lm[{label}]: the first {layers} layers in float32, 1 x {n_tok} tokens, EP on "
+        f"the card and on 4 CPU shards: {len(kc)} shard masks, kept {keeps['card']['kept']} "
+        f"/ {keeps['cpu']['kept']} of {keeps['card']['routed']} routed slots; masks "
+        f"bit-equal {same}; hidden states relative L2 {h_rel:.3e}")
+    # Full depth in float32: the model converted in place.
+    t0 = time.perf_counter()
+    model.float()
+    torch.cuda.synchronize()
+    log(f"lm[{label}]: the model converted to float32 in place in "
+        f"{time.perf_counter() - t0:.1f}s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"held)")
+    with no_kernel_launches(label):
+        d32, d32_s, fed32 = run(EP_NO_DROP, False, dtype=torch.float32, toks=tokens[:1])
+        rec3, make3 = ep_slot_recorder()
+        with wrapped(moe_lib, "dispatch_slots", make3):
+            e32, e32_s, _ = run(EP_NO_DROP, True, fed32, dtype=torch.float32,
+                                toks=tokens[:1])
+    f32_rel = rel(e32, d32)
+    same_tokens = bool(torch.equal(e32.argmax(-1), d32.argmax(-1)))
+    del e32, d32
+    torch.cuda.empty_cache()
+    log(f"lm[{label}]: float32 at full depth, 1 x {S} prompt tokens + {new - 1} decoded "
+        f"positions, nothing dropped ({rec3['kept']} of "
+        f"{rec3['routed']} slots): logits relative L2 {f32_rel:.3e} against the dense path "
+        f"(tol {EP_F32_BAR:g}), greedy tokens equal {same_tokens}; prefill {e32_s:.3f} s "
+        f"EP, {d32_s:.3f} s dense; {CARD}")
+    checks = {
+        f"nothing dropped at capacity {EP_NO_DROP:g}": rec["routed"] > 0
+        and rec["kept"] == rec["routed"] and rec3["kept"] == rec3["routed"],
+        f"float32 EP logits within {EP_F32_BAR:g} of the dense path at full depth":
+            f32_rel <= EP_F32_BAR and same_tokens,
+        f"{m.num_layers} EP layers x 4 shards a forward": len(rec["keep"]) ==
+        4 * m.num_layers * new,
+        "the kept slots of each shard bit-equal card vs 4 CPU shards": same
+        and len(kc) == 4 * layers,
+    }
+    report(label, checks, kind="lm")
+    return {"bf16_rel_l2": bf16_rel, "f32_rel_l2": f32_rel, "dropped": dropped,
+            "routed": rec2["routed"], "prefill_s": ep_s, "dense_prefill_s": dense_s,
+            "cpu_masks_equal": same}
+
 def lm_phases():
     """8h: gemma3-4b's prefill_32k and decode_32k cells at full width and
     depth, qwen2-moe-a2.7b through the dense MoE path at full width and
@@ -3362,6 +3618,7 @@ def lm_phases():
     arch, model = lm_model("qwen2-moe-a2.7b")
     out["qwen2-moe-a2.7b"] = lm_generate_phase("qwen2-moe-a2.7b", arch, model, *LM_MOE,
                                                aux_of=moe_lib)
+    out["qwen2-moe-a2.7b ep"] = lm_ep_phase(arch, model)
     del model
     torch.cuda.empty_cache()
     for name, layers in LM_CUT:
@@ -4947,6 +5204,63 @@ def serve_mesh(launcher_done):
     return counts
 
 
+def dist_serve(launcher_done, counts_la):
+    """``dist[serve]``: the launcher's ``main`` with ``serve[launcher]``'s
+    argv under ``--distributed`` at one rank (``--coordinator`` a free
+    local port, ``--num-processes 1 --process-id 0``): the process joins
+    an NCCL group before touching the card, then serves as one process
+    does.  Every request equals ``serve[launcher]``'s bit for bit, with
+    the same launches; an all-reduce over the group runs on the card.
+    The group is destroyed after."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    argv = LAUNCHER_ARGV + ["--distributed", "--coordinator", f"127.0.0.1:{port}",
+                            "--num-processes", "1", "--process-id", "0"]
+    log(f"dist[serve]: python -m repro_torch.launch.serve {' '.join(argv)}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        done = {r.request_id: r for r in serve_lib.main(argv)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        backend, world = dist.get_backend(), dist.get_world_size()
+        one = torch.ones(4, device="cuda")
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        reduced = bool((one == 1).all())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for rid, r in sorted(done.items()):
+        log(f"dist[serve]: request {rid} latency {r.latency_s:.3f}s (serve[launcher] "
+            f"{launcher_done[rid].latency_s:.3f}s), ttff {r.ttff_s:.3f}s; {CARD}")
+    log(f"dist[serve]: backend {backend}, {world} rank(s); launches {counts}; "
+        f"{wall:.1f}s with the group's and the model's init; {CARD}")
+    checks = {
+        "the group is NCCL at one rank and all-reduces on the card":
+            backend == "nccl" and world == 1 and reduced,
+        "all 6 requests completed": sorted(done) == sorted(launcher_done),
+        "every request equals serve[launcher]'s bit for bit": all(
+            np.array_equal(done[i].latents, launcher_done[i].latents) for i in done),
+        "the same fused_reuse and ripple launches as serve[launcher]": all(
+            counts[k] == counts_la[k] for k in ("fused_reuse", "ripple_attention")),
+    }
+    report("serve", checks, kind="dist")
+    return counts
+
+
 def ripple_ranges():
     """The ripple wrapper's collapse-flag pass (plain PyTorch, on the key
     operand) and the policy's snap step (the fused_reuse kernel and any
@@ -5295,10 +5609,10 @@ ADALN_GRAD_BAR = {"float32": 1e-5, "bfloat16": 1e-2}
 # (a (1, 2, 2) grid), f32 compute, every leaf random.
 DIT_GRADS_CUT = ("model.d_model=144", "model.num_heads=2", "model.num_layers=2")
 DIT_GRADS_BAR = 1e-4   # tree relative L2, card against the CPU (f32, no TF32)
-TRAIN_DIT_STEPS = 4
+TRAIN_DIT_STEPS = 3
 TRAIN_VDIT_LAYERS = 3  # of 40: about 16 GB a layer at 8448 tokens
 TRAIN_VDIT_STEPS = 3
-TRAIN_VISION_STEPS = 3
+TRAIN_VISION_STEPS = 2
 # train[vdit-example]: the JAX package's examples/train_vdit.py, 100 steps
 # with a checkpoint every 50, from VDIT_EXAMPLE_SEEDS seeds.  Its loss on
 # the CPU from scripts/reference_vdit_example_losses.py --seeds 8: the
@@ -5418,8 +5732,8 @@ def timed_train_steps(records):
     from repro_torch.launch import workloads
 
     def make(orig):
-        def make_step(arch, shape, model):
-            step = orig(arch, shape, model)
+        def make_step(arch, shape, model, mesh=None):
+            step = orig(arch, shape, model, mesh=mesh)
 
             def timed(state, batch, seed):
                 e0 = torch.cuda.Event(enable_timing=True)
@@ -5714,16 +6028,268 @@ def train_reference_check():
         raise SystemExit("card training step disagrees with the CPU reference")
 
 
+# ---------------------------------------------------------------------------
+# dist[train dit-xl2] (slice 20): the training launcher under torchrun
+# ---------------------------------------------------------------------------
+
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+DIST_REL = 1e-6   # per-step losses and final params, against the plain run
+
+
+def train_worker(out, argv):
+    """``chip_smoke.py --train-worker OUT ARGV...``, the process torchrun
+    starts for ``dist[train ...]``: ``repro_torch.launch.train.main(ARGV)``
+    with every step timed as ``train_cell`` times it (CUDA events,
+    :func:`timed_train_steps`); rank 0 writes the steps' records, the
+    run's launch counts, the rank count and the backend to OUT as JSON."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_lib
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s] %(message)s")
+    records = []
+    reset_launch_counts()
+    with timed_train_steps(records):
+        train_lib.main(argv)
+    torch.cuda.synchronize()
+    if dist.get_rank() == 0:
+        with open(out, "w", encoding="utf-8") as f:
+            json.dump({"steps": records, "launches": launch_counts(),
+                       "ranks": dist.get_world_size(),
+                       "backend": dist.get_backend()}, f, indent=1)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def torchrun_start(label, out, argv):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 chip_smoke.py --train-worker OUT ARGV`` from the
+    checkout (its host threads as many as this process's: torchrun would
+    set 1); returns (process, start time)."""
+    import torch
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"),
+           "--train-worker", out, *argv]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
+    log(f"dist[{label}]: {' '.join(cmd[1:])}")
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def torchrun_until(started, marker):
+    """Read a :func:`torchrun_start` process's output until a line holds
+    ``marker`` (or the output ends); the lines read are kept with it."""
+    proc = started[0]
+    seen = started[2] if len(started) > 2 else []
+    for line in proc.stdout:
+        seen.append(line.rstrip("\n"))
+        if marker in line:
+            break
+    return (proc, started[1], seen)
+
+
+def torchrun_finish(label, started, timeout=600):
+    """Join a :func:`torchrun_start` process: its exit code must be 0;
+    returns (wall seconds, its log lines)."""
+    proc, t0 = started[:2]
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    lines = (started[2] if len(started) > 2 else []) + text.strip().splitlines()
+    if proc.returncode != 0:
+        for ln in lines[-40:]:
+            log(f"dist[{label}]: | {ln}")
+        raise SystemExit(f"dist[{label}]: exit {proc.returncode}")
+    for ln in lines:
+        if "rank mesh" in ln or "training done" in ln:
+            log(f"dist[{label}]: | {ln.strip()}")
+    log(f"dist[{label}]: exit 0 after {wall:.1f}s (process start, NCCL and the "
+        f"model's CPU init included)")
+    return wall, lines
+
+
+def _summary_ms(summary):
+    later = [r["ms"] for r in summary["steps"][1:]]
+    return sum(later) / len(later)
+
+
+def dist_train_phase(plain):
+    """``dist[train dit-xl2]``: the launcher under torchrun at one rank
+    over NCCL, dit-xl2 at full width and depth on train_256 (batch 256 in
+    8 micro-batches), TRAIN_DIT_STEPS steps with the parameters,
+    gradients and AdamW state sharded by the rule tables
+    (``distributed.fsdp``); its per-step losses and final params (from
+    its checkpoint) within DIST_REL relative of ``train[dit-xl2]``'s
+    (``plain``, the same seed, its state kept), with the same adaLN
+    launches, and its ms a step beside that run's (both by CUDA events
+    around each step, :func:`train_worker`).  Then the same with
+    ``train.grad_compression=true`` (started once the first has logged
+    its last step): its first loss within DIST_REL of the plain run's,
+    every loss finite, the same launches.  Before the runs, one
+    micro-batch's gradients of the kept model are compressed on the card,
+    from a non-zero residual, bit-equal to ``compress_grads`` on the CPU
+    applied to the same tensors."""
+    import json
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointer as ckpt_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataSpec, batch_generator
+    from repro_torch.distributed.collectives import (CompressionState,
+                                                     compress_grads)
+    from repro_torch.launch import workloads
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.params import load_jax_arrays
+
+    ck = os.path.join(DIST_DIR, "ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", "dit-xl2", "--shape", "train_256", "--steps", str(TRAIN_DIT_STEPS)]
+    runs = (("dit-xl2", ["--ckpt-dir", ck, "--ckpt-every", str(TRAIN_DIT_STEPS)], []),
+            ("dit-xl2 int8", [], ["train.grad_compression=true"]))
+    paths = {n: os.path.join(DIST_DIR, f"{n.replace(' ', '_')}.json") for n, _, _ in runs}
+
+    def argv(name, extra, over):
+        return base + extra + over
+
+    # One micro-batch's gradients of the kept model, compressed on the card
+    # and on the CPU from the same residual (before the runs: three
+    # processes' worth of dit-xl2 training does not fit the card).
+    model = plain["state"].params
+    arch = get_config("dit-xl2")
+    shape = dataclasses.replace(arch.shape("train_256"), batch=32)
+    batch = make_batch_fn(arch, shape, "cuda")(DataSpec(seed=0), 0)
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    with torch.enable_grad():
+        loss, _ = workloads.train_loss_fn(arch)(model, batch, batch_generator(0, 0, 0))
+        loss.backward()
+    grads = [p.grad.detach() for p in params]
+    for p in params:
+        p.grad = None
+    # A residual of a quarter of another leaf's scale: q(dq(g) + e) with e != 0.
+    errs = [0.25 * torch.roll(g.float(), 1) for g in grads]
+    cpu_grads, cpu_errs = [g.cpu() for g in grads], [e.cpu() for e in errs]
+    t0 = time.perf_counter()
+    out_card, st_card = compress_grads(grads, CompressionState(errs))
+    torch.cuda.synchronize()
+    out_cpu, st_cpu = compress_grads(cpu_grads, CompressionState(cpu_errs))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(out_card, out_cpu)) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(st_card.error, st_cpu.error))
+    n_elems = sum(g.numel() for g in grads)
+    log(f"dist[train dit-xl2 int8]: one micro-batch's gradients ({n_elems / 1e6:.1f} M "
+        f"elements, {len(grads)} tensors, loss {float(loss):.6f}) compressed from a "
+        f"non-zero residual on the card and on the CPU: gradients and residuals bit-equal "
+        f"{same} ({time.perf_counter() - t0:.1f}s)")
+    del grads, errs, cpu_grads, cpu_errs, out_card, out_cpu, st_card, st_cpu, batch
+    torch.cuda.empty_cache()
+    # The second run starts once the first has logged its last step: its
+    # CPU init overlaps the first's checkpoint write, not its steps.
+    first = torchrun_until(torchrun_start("train dit-xl2", paths["dit-xl2"],
+                                          argv(*runs[0])),
+                           f"step {TRAIN_DIT_STEPS - 1} loss")
+    second = torchrun_start("train dit-xl2 int8", paths["dit-xl2 int8"],
+                            argv(*runs[1]))
+    done = {"dit-xl2": torchrun_finish("train dit-xl2", first)}
+    done["dit-xl2 int8"] = torchrun_finish("train dit-xl2 int8", second)
+    plain_ms = plain["ms"]
+    out = {}
+    for name, _, _ in runs:
+        with open(paths[name], encoding="utf-8") as f:
+            summ = json.load(f)
+        wall, lines = done[name]
+        losses = [r["loss"] for r in summ["steps"]]
+        ms = _summary_ms(summ)
+        norms = ", ".join(f"{r['grad_norm']:.6f}" for r in summ["steps"])
+        later = ", ".join(f"{r['ms']:.3f}" for r in summ["steps"][1:])
+        fired = {k: v for k, v in summ["launches"].items() if v}
+        log(f"dist[train {name}]: per step loss {', '.join(f'{x:.6f}' for x in losses)} "
+            f"(train[dit-xl2]: {', '.join(f'{x:.6f}' for x in plain['loss'])}); "
+            f"grad_norm {norms}; {ms:.3f} ms a step after the first ({later}) by CUDA "
+            f"events around each step, train[dit-xl2] {plain_ms:.3f} ms the same way "
+            f"({ms / plain_ms:.4f}x); launches {fired}; {summ['ranks']} rank over "
+            f"{summ['backend']}; {CARD}")
+        out[name] = {"loss": losses, "ms": ms, "plain_ms": plain_ms,
+                     "launches": summ["launches"], "wall_s": wall,
+                     "ranks": summ["ranks"], "nccl": summ["backend"] == "nccl"}
+    # Final params: the torchrun run's checkpoint against the kept state,
+    # leaf by leaf on the card.
+    step = ckpt_lib.Checkpointer(ck, async_save=False).list_steps()[-1]
+    params = list(model.parameters())
+    of = {id(p): i for i, p in enumerate(params)}
+    whole = [torch.empty_like(p) for p in params]
+    with np.load(os.path.join(ckpt_lib._step_dir(ck, step), ckpt_lib._ARRAYS)) as z:
+        load_jax_arrays(model, z, "params", lambda p: whole[of[id(p)]])
+    num = sum(float(torch.sum((p.double() - w.double()) ** 2))
+              for p, w in zip(params, whole))
+    den = sum(float(torch.sum(p.double() ** 2)) for p in params)
+    param_rel = math.sqrt(num / den)
+    del whole
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(out["dit-xl2"]["loss"],
+                                                      plain["loss"]))
+    log(f"dist[train dit-xl2]: checkpoint step {step}: params relative L2 {param_rel:.3e} "
+        f"against train[dit-xl2]'s state, per-step losses within {loss_rel:.3e} (tol "
+        f"{DIST_REL:g})")
+    ad = plain["launches"]["adaln"]
+    comp = out["dit-xl2 int8"]
+    checks = {
+        f"per-step losses within {DIST_REL:g} of train[dit-xl2]'s": loss_rel <= DIST_REL
+        and len(out["dit-xl2"]["loss"]) == len(plain["loss"]),
+        f"final params within {DIST_REL:g} relative L2 (checkpoint of step {step})":
+            param_rel <= DIST_REL and step == TRAIN_DIT_STEPS,
+        f"the same adaLN launches ({ad}) and no other kernel's":
+            out["dit-xl2"]["launches"] == plain["launches"],
+        "one rank over NCCL": all(
+            out[n]["ranks"] == 1 and out[n]["nccl"] for n in ("dit-xl2", "dit-xl2 int8")),
+        f"compressed: first loss within {DIST_REL:g} of the plain run's, every loss "
+        "finite, the same launches":
+            abs(comp["loss"][0] - plain["loss"][0]) <= DIST_REL * abs(plain["loss"][0])
+        and all(math.isfinite(x) for x in comp["loss"])
+        and comp["launches"] == plain["launches"],
+        "compressed gradients and residuals bit-equal card vs CPU": same,
+    }
+    report("train dit-xl2", checks, kind="dist")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    out["params_rel"], out["loss_rel"] = param_rel, loss_rel
+    return out
+
+
 def train_phases():
     """The training cells, each through the launcher's main: dit-xl2 at full
     width and depth (batch 256, grad_accum 8, bf16 compute), vdit-paper at
     full width and TRAIN_VDIT_LAYERS layers (batch 64 cut to 1),
     vit-l16 and efficientnet-b7 at cls_224 (batch 256, remat), then the
-    vdit example with its kill and resume."""
+    vdit example with its kill and resume; and, on the kept dit-xl2
+    state, ``dist[train dit-xl2]``."""
+    import torch
+
     out = {"dit-xl2 grads": train_grads_phase()}
+    import shutil
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
     out["dit-xl2"] = train_cell(
         "dit-xl2", ["--arch", "dit-xl2", "--shape", "train_256", "--steps",
-                    str(TRAIN_DIT_STEPS)], 256, adaln_per_step=8 * (2 * 28 + 1))
+                    str(TRAIN_DIT_STEPS)], 256,
+        adaln_per_step=8 * (2 * 28 + 1), keep=True)
+    out["dist dit-xl2"] = dist_train_phase(out["dit-xl2"])
+    del out["dit-xl2"]["state"]
+    torch.cuda.empty_cache()
     out["profile dit-xl2"] = profile_train_dit()
     out["vdit-paper"] = train_cell(
         f"vdit-paper {TRAIN_VDIT_LAYERS} layers",
@@ -6059,6 +6625,8 @@ def main() -> int:
                     help="only time the snap step of the checkout at DIR against "
                          "this one's, in turns (see snap_ab)")
     ap.add_argument("--snap-times", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--train-worker", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)  # OUT ARGV...: dist[train ...]'s child
     args = ap.parse_args()
 
     try:
@@ -6082,6 +6650,8 @@ def main() -> int:
     # Serving and the kernel checks build no autograd graph; the training
     # phases take gradients with grad mode on where they need it.
     torch.set_grad_enabled(False)
+    if args.train_worker:
+        return train_worker(args.train_worker[0], args.train_worker[1:])
 
     global CARD
     card = CARD = card_line()
@@ -6328,22 +6898,29 @@ def main() -> int:
                     {"ripple_attention": "ripple", "fused_reuse": "fused_reuse"},
                     annotate=ripple_ranges())
     served = {}
-    counts_s = serve_svg("svg", arch, shape, model, policy="svg",
+    arch_s, model_s = depth_view(arch, model, SVG_LAYERS)
+    log(f"serve[svg], serve[ripple+svg], profile[svg]: the first {len(model_s.blocks)} "
+        f"of the served model's {len(model.blocks)} layers")
+    counts_s = serve_svg("svg", arch_s, shape, model_s, policy="svg",
                          launched=("sparse_attention",),
                          absent=("ripple_attention", "fused_reuse"), capture=served)
-    profile_forward("svg", apply_overrides(arch, ("ripple.policy=svg",)), model,
+    profile_forward("svg", apply_overrides(arch_s, ("ripple.policy=svg",)), model_s,
                     lat_shape, {"sparse_attention": "sparse"},
                     annotate=[(get_policy("svg"), "decide", "svg_mask")])
-    serve_svg("ripple+svg", apply_overrides(arch, ("ripple.svg_mask=true",)), shape,
-              model, policy=None, launched=("fused_reuse", "sparse_attention"),
+    serve_svg("ripple+svg", apply_overrides(arch_s, ("ripple.svg_mask=true",)), shape,
+              model_s, policy=None, launched=("fused_reuse", "sparse_attention"),
               absent=("ripple_attention",))
-    # The decision cache: ripple at full depth, then svg at 2 layers (its
+    del model_s
+    # The decision cache: ripple at CACHE_LAYERS, then svg at 2 layers (its
     # dense per-layer bias does not fit 40 layers on one card).
     cache_cut = (f"ripple.reuse_every={CACHE_EVERY}",)
-    arch_c = apply_overrides(arch, cache_cut)
+    arch_c, model_c = depth_view(apply_overrides(arch, cache_cut), model, CACHE_LAYERS)
+    log(f"serve[ripple-cache], profile[ripple-cache ...]: the first "
+        f"{len(model_c.blocks)} of the served model's {len(model.blocks)} layers")
     counts_c, _ = serve_ripple_cache(arch_c, dataclasses.replace(shape, steps=CACHE_STEPS),
-                                     model)
-    profile_cache(arch_c, model, lat_shape, 12, 13, CACHE_STEPS)
+                                     model_c)
+    profile_cache(arch_c, model_c, lat_shape, 12, 13, CACHE_STEPS)
+    del model_c
     # The offline-pattern policies: the search at the served grid, then
     # static (no artifact) and rainfusion (the searched artifact).
     art_path = pattern_search_phase()
@@ -6357,6 +6934,8 @@ def main() -> int:
     counts_la, launcher_done = serve_launcher()
     # The launcher again with --mesh 2x2: 4 shards on the one card.
     counts_mesh = serve_mesh(launcher_done)
+    # The launcher again under --distributed at one rank, over NCCL (slice 20).
+    dist_serve(launcher_done, counts_la)
     # The serving control plane on the launcher's 8-layer model (8e).
     serve_slo()
     serve_failover()
@@ -6602,6 +7181,9 @@ def main() -> int:
          # the backward is PyTorch ops) and its gradient's largest relative
          # L2 error against autograd of the plain version (adaln[grad]).
          "launches_train": train_out["dit-xl2"]["launches"]["adaln"],
+         # Slice 20: its launches in dist[train dit-xl2], the launcher under
+         # torchrun at one rank with the state sharded by the rule tables.
+         "launches_dist_train": train_out["dist dit-xl2"]["dit-xl2"]["launches"]["adaln"],
          "host_served_ms": a_host_ab[0], "host_function_ms": a_host_ab[1],
          "grad_max_rel_err": adaln_grad_err},
         # f32 at (1, 24, 8192, 128), as its path (the kernel_bench sweep)

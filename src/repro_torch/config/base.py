@@ -274,6 +274,12 @@ class ArchConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     source: str = ""
+    # decode-time sharding: replicate the q-heads so the KV cache's
+    # sequence dim owns the model axis without resharding.
+    decode_replicate_heads: bool = False
+    # decode-time weights: plain tensor parallelism (replicated over the
+    # batch axes) instead of FSDP.
+    decode_no_fsdp: bool = False
 
     def shape(self, name: str) -> ShapeSpec:
         for s in self.shapes:

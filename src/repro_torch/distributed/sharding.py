@@ -1,14 +1,30 @@
-"""What the dispatcher and the launcher read of a mesh's axes (the JAX
-package's ``distributed/sharding.py``, its first two helpers).  The
-logical-axis rule tables and ``ShardCtx`` are GSPMD constraints for
-training and are not ported."""
+"""Logical-axis sharding: where logical names meet the mesh (the JAX
+package's ``distributed/sharding.py``).
+
+Parameters carry logical axes (``models.params``: ``embed``, ``heads``,
+``kv``, ``mlp``, ``vocab``, ``expert``, None) and a workload picks a
+rule table that maps each logical name to mesh axes.  The rule tables
+read only a mesh's ``axis_names`` and its ``shape`` (axis -> size), so
+they take the port's dispatch :class:`~repro_torch.launch.mesh.Mesh` and
+its rank mesh (:class:`~repro_torch.launch.mesh.RankMesh`) alike; a spec
+is a :class:`~repro_torch.distributed.spmd.P`.
+
+The production mesh comes in two shapes, single-pod ``(data, model)``
+and multi-pod ``(pod, data, model)``; the batch axis absorbs ``pod``
+only where it exists.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
-__all__ = ["axis_size", "batch_axes"]
+from repro_torch.distributed.spmd import P
+
+__all__ = ["NULL_CTX", "ShardCtx", "axis_size", "batch_axes",
+           "decode_act_rules", "param_rules", "param_sharding_tree",
+           "seqpar_act_rules", "spec_from_axes", "train_act_rules"]
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -27,3 +43,148 @@ def axis_size(mesh, axes: Optional[object]) -> int:
     if isinstance(axes, str):
         axes = (axes,)
     return math.prod(int(mesh.shape[a]) for a in axes)
+
+
+# --- parameter rules ---------------------------------------------------------
+
+def param_rules(mesh, fsdp: bool = True) -> Dict[Any, Any]:
+    """Logical param axis -> mesh axes.  FSDP shards the ``embed`` dim of
+    weights over the batch axes (ZeRO-3 style); tensor dims over
+    ``model``."""
+    bd = batch_axes(mesh)
+    return {
+        "embed": bd if fsdp else None,
+        "heads": "model",
+        "kv": "model",
+        "mlp": "model",
+        "vocab": "model",
+        "expert": "model",
+        "layers": None,
+        None: None,
+    }
+
+
+def spec_from_axes(axes: Sequence[Optional[str]], rules: Dict[Any, Any],
+                   shape: Optional[Tuple[int, ...]] = None,
+                   mesh=None) -> P:
+    """Map a logical-axis tuple to a partition spec, dropping assignments
+    that do not divide the dimension (e.g. kv heads 8 on a model axis of
+    16 fall back to replicated) and any mesh axis already used by an
+    earlier dim; trailing replicated dims are dropped."""
+    entries = []
+    used = set()
+    for i, a in enumerate(axes):
+        target = rules.get(a, None)
+        if target is not None and mesh is not None and shape is not None:
+            if shape[i] % axis_size(mesh, target) != 0:
+                target = None
+        flat = (target,) if isinstance(target, str) else tuple(target or ())
+        if any(t in used for t in flat):
+            target = None
+        else:
+            used.update(flat)
+        entries.append(target)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def param_sharding_tree(logical_tree, mesh, rules: Dict[Any, Any],
+                        shapes=None):
+    """The spec of every leaf of a logical-axes tree (nested dicts and
+    lists whose leaves are axis tuples); with ``shapes`` (the same tree
+    with shape tuples) dims that the mesh does not divide replicate."""
+    def is_axes(x):
+        return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                            for a in x)
+
+    def walk(axes, shp):
+        if is_axes(axes):
+            return spec_from_axes(axes, rules, shp, mesh if shp else None)
+        if isinstance(axes, dict):
+            return {k: walk(v, None if shp is None else shp[k])
+                    for k, v in axes.items()}
+        return [walk(v, None if shp is None else shp[i])
+                for i, v in enumerate(axes)]
+
+    return walk(logical_tree, shapes)
+
+
+# --- activation rules / ShardCtx ---------------------------------------------
+
+
+def train_act_rules(mesh, seq_parallel: bool = False) -> Dict[Any, Any]:
+    bd = batch_axes(mesh)
+    return {
+        "batch": bd, "seq": "model" if seq_parallel else None,
+        "embed": None,
+        "heads": "model", "kv": None, "mlp": "model", "vocab": "model",
+        "expert": "model", "kv_seq": None, None: None,
+        # attention operands always need the full sequence per head:
+        "attn_seq": None,
+    }
+
+
+def decode_act_rules(mesh, long_context: bool = False,
+                     replicate_heads: bool = False) -> Dict[Any, Any]:
+    bd = batch_axes(mesh)
+    rules = train_act_rules(mesh)
+    # KV cache sequence shards over 'model' (flash-decode combine); for
+    # 512k single-request decode it spreads over every axis.
+    rules["kv_seq"] = (*bd, "model") if long_context else "model"
+    if long_context:
+        rules["batch"] = ()
+    if replicate_heads:
+        # decode attention FLOPs are tiny; replicating q-heads avoids the
+        # heads<->kv_seq resharding ping-pong on the model axis.
+        rules["heads"] = None
+    return rules
+
+
+def seqpar_act_rules(mesh, batch: int) -> Dict[Any, Any]:
+    """Inference sequence-parallel rules for small-batch diffusion and
+    vision: the batch takes the largest prefix of (pod, data) that
+    divides it and the leftover axes go to the token dim."""
+    bd = list(batch_axes(mesh))
+    b_axes, s_axes = [], []
+    remaining = batch
+    for a in bd:
+        n = mesh.shape[a] if mesh else 1
+        if remaining % n == 0 and remaining >= n:
+            b_axes.append(a)
+            remaining //= n
+        else:
+            s_axes.append(a)
+    rules = train_act_rules(mesh)
+    rules["batch"] = tuple(b_axes)
+    rules["seq"] = tuple(s_axes)
+    # inference sequence parallelism shards attention rows too
+    rules["attn_seq"] = tuple(s_axes)
+    return rules
+
+
+@dataclasses.dataclass
+class ShardCtx:
+    """Threaded through model code: the mesh and the activation rules a
+    workload runs under.  ``mesh`` is what the MoE reads to choose expert
+    parallelism (``models.moe.moe_ffn``).
+
+    :meth:`c` returns ``x`` unchanged: the reference's
+    ``with_sharding_constraint`` tells GSPMD where an activation should
+    live and changes no value, and the port's tensors are whole on each
+    process (a shard_map body gets its piece explicitly), so there is
+    nothing to constrain."""
+
+    mesh: Optional[Any] = None
+    rules: Optional[Dict[Any, Any]] = None
+    # The ranks that split a training batch (``distributed.fsdp``), over
+    # which batch statistics such as the MoE router's are averaged.
+    batch_group: Optional[Any] = None
+
+    def c(self, x, axes: Sequence[Optional[str]]):
+        """Constrain activation ``x`` whose dims carry logical ``axes``:
+        the identity (see the class docstring)."""
+        return x
+
+
+NULL_CTX = ShardCtx()

@@ -6,9 +6,9 @@ collectives of ``jax.lax`` that the attention pipeline uses.
 coordinate, each in a thread of its own, bound to that coordinate's
 device and (on a card) a CUDA stream of its own, and gathers the
 outputs back onto the first device.  Inside the body,
-:func:`axis_index`, :func:`ppermute`, :func:`all_gather`, :func:`psum`
-and :func:`pmax` behave as their ``jax.lax`` namesakes over one mesh
-axis: each is a barrier among the shards of that axis, then a hand-off
+:func:`axis_index`, :func:`ppermute`, :func:`all_gather`, :func:`psum`,
+:func:`pmean` and :func:`pmax` behave as their ``jax.lax`` namesakes
+over one mesh axis (``psum`` and ``pmean`` also over a tuple of axes): each is a barrier among the shards of that axis, then a hand-off
 of the tensors, copied to the receiver's device when it is another one.
 So the same code runs as several CPU shards, as several shards on one
 card, and as one shard per card; no ``torch.distributed`` process group
@@ -32,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["P", "all_gather", "axis_index", "axis_size", "first_shard",
-           "pmax", "ppermute", "psum", "shard_map"]
+           "pmax", "pmean", "ppermute", "psum", "shard_map"]
 
 
 class P(tuple):
@@ -165,14 +165,24 @@ def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     return torch.cat(_exchange(axis, x), dim=dim)
 
 
-def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum over the group, in axis order on every shard (so every shard
-    holds the same bits)."""
-    got = _exchange(axis, x)
-    out = got[0]
-    for t in got[1:]:
-        out = out + t
-    return out
+    holds the same bits); over a tuple of axes one axis after another."""
+    for a in ((axis,) if isinstance(axis, str) else tuple(axis)):
+        got = _exchange(a, x)
+        x = got[0]
+        for t in got[1:]:
+            x = x + t
+    return x
+
+
+def pmean(x: torch.Tensor, axis) -> torch.Tensor:
+    """:func:`psum` divided by the group's size."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    n = 1
+    for a in axes:
+        n *= axis_size(a)
+    return psum(x, axes) / n
 
 
 def pmax(x: torch.Tensor, axis: str) -> torch.Tensor:

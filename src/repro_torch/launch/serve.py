@@ -67,8 +67,17 @@ model runs once, on the first device), and a third component shards the
 token axis for ring attention where a grid covers the whole sequence.
 Each bucket logs its plan at every batch size it runs (``shard=
 batchNxheadsM``, ``ring=seqS``), and the bucket key's fifth entry is the
-seq degree.  A mesh larger than the visible devices raises.  Multi-host
-serving (the reference's ``--distributed``) is not ported.
+seq degree.  A mesh larger than the visible devices raises.
+
+Several processes (DESIGN.md §15.4): ``--distributed`` joins the
+``torch.distributed`` process group before anything touches a device
+(``launch.mesh.init_distributed``: ``env://`` under torchrun, else
+``--coordinator HOST:PORT`` with ``--num-processes`` and
+``--process-id``; NCCL on cards, each process on ``cuda:LOCAL_RANK``,
+gloo with ``--device cpu``), then serves as one process does: each
+process runs its own router in front of its own replicas.  A coordinator
+that cannot be reached raises; the launcher never carries on as a
+single process.
 """
 
 from __future__ import annotations
@@ -96,7 +105,8 @@ from repro_torch.core.guardrail import DegradationLadder
 from repro_torch.core.policy import get_policy, list_policies
 from repro_torch.diffusion.sampler import ddim_sample, euler_flow_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
-from repro_torch.launch.mesh import parse_mesh_spec
+from repro_torch.launch.mesh import (init_distributed, parse_mesh_spec,
+                                     process_device)
 from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           latent_shape_for,
                                           mixed_gen_shapes,
@@ -510,6 +520,14 @@ def main(argv=None):
                          "its half resolution and its half schedule")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke config, 64x64, 3 steps")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the torch.distributed process group before "
+                         "touching devices (several processes, DESIGN.md "
+                         "§15.4); reads --coordinator/--num-processes/"
+                         "--process-id, else torchrun's environment")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--mesh", default=None, metavar="DxMxS",
                     help="(data, model[, seq]) dispatch mesh, e.g. 2, 2x2 "
                          "or 1x1x2: attention shards over batch and heads "
@@ -627,7 +645,15 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
 
-    device = resolve_device(args.device)
+    if args.distributed:
+        init_distributed(coordinator_address=args.coordinator,
+                         num_processes=args.num_processes,
+                         process_id=args.process_id, device=args.device)
+        device = process_device(args.device)
+        log.info("process %d of %d on %s", torch.distributed.get_rank(),
+                 torch.distributed.get_world_size(), device)
+    else:
+        device = resolve_device(args.device)
     mesh = parse_mesh_spec(args.mesh, device=device) if args.mesh else None
     if mesh is None:
         return _serve(args, ap, device, None)

@@ -12,6 +12,16 @@ compute) -> host loop with async checkpointing and auto-resume (restart
 the same command after a crash and it continues from the newest valid
 checkpoint, drawing the batches and the noise the uninterrupted run
 would have drawn).  Runs on the card unless ``--device cpu``.
+
+Several processes: started by torchrun (``python -m
+torch.distributed.run --nproc_per_node N -m repro_torch.launch.train
+...``), each process joins the process group (``launch.mesh.
+init_distributed``: NCCL on cards, gloo with ``--device cpu``), lays the
+ranks out as a (data, model) rank mesh and trains with parameters,
+gradients and AdamW state sharded over ``data`` by the rule tables
+(``distributed.fsdp``): each rank draws the whole batch and keeps its
+rows of every micro-batch.  Checkpoints hold whole arrays, written by
+rank 0, and a restore at any number of ranks takes each rank's pieces.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from repro_torch.config.base import ShapeSpec, apply_overrides
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.data import synthetic
 from repro_torch.launch import workloads
+from repro_torch.launch.mesh import (init_distributed, launched_by_torchrun,
+                                     make_rank_mesh, process_device)
 from repro_torch.models.params import init_model
 from repro_torch.training import train_loop
 from repro_torch.utils.device import resolve_device
@@ -102,7 +114,17 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*",
                     help="config overrides like train.learning_rate=1e-4")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = None
+    if launched_by_torchrun():
+        init_distributed(device=args.device)
+        mesh = make_rank_mesh(device=args.device)
+        device = mesh.device
+        log.info("rank %d of %d on %s (%s): rank mesh %s", mesh.batch_index(),
+                 mesh.size, device, torch.distributed.get_backend(),
+                 mesh.shape)
+    else:
+        device = resolve_device(args.device)
+    writer = mesh is None or mesh.batch_index() == 0
 
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.overrides)
@@ -116,11 +138,14 @@ def main(argv=None):
     batch_fn = make_batch_fn(arch, shape, device)
 
     # Drawn on the CPU, so a run's initial weights (like its batches and
-    # noise) are the same on every device.
+    # noise) are the same on every device and every rank; on several
+    # ranks only each rank's pieces go to its device (train_state_init).
     model = init_model(arch.model, seed=args.seed, device="cpu",
-                       dtype=getattr(torch, arch.train.param_dtype)).to(device)
-    step_fn = workloads.train_step(arch, shape, model)
-    state = train_loop.train_state_init(model, arch.train)
+                       dtype=getattr(torch, arch.train.param_dtype))
+    if mesh is None:
+        model = model.to(device)
+    step_fn = workloads.train_step(arch, shape, model, mesh=mesh)
+    state = train_loop.train_state_init(model, arch.train, mesh=mesh)
 
     ckpt = None
     start_step = 0
@@ -138,7 +163,7 @@ def main(argv=None):
     state, history = train_loop.run_train_loop(
         step_fn, state, it, args.steps, seed=args.seed,
         checkpointer=ckpt, checkpoint_every=args.ckpt_every if ckpt else 0,
-        start_step=start_step)
+        start_step=start_step, writer=writer)
     if ckpt:
         ckpt.wait()
     final = history[-1] if history else {}
@@ -150,3 +175,6 @@ if __name__ == "__main__":
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s] %(message)s")
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()

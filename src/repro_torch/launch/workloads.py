@@ -234,10 +234,10 @@ def classify_step(arch: ArchConfig, shape: ShapeSpec, model):
     return fn
 
 
-def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model):
+def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
     """The LM serving workloads of one ``prefill`` or ``decode`` cell (the
     JAX workloads' ``_lm_prefill`` / ``_lm_decode``), on the model's
-    device with no mesh: ``(prefill_fn, decode_fn)`` for
+    device: ``(prefill_fn, decode_fn)`` for
     :class:`~repro_torch.serving.engine.LMEngine`, in bf16 as the
     reference's steps run.  The KV cache holds ``shape.seq_len``
     positions; the batch is the caller's (the shapes' global batches of
@@ -245,7 +245,14 @@ def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model):
     positions).  ``prefill_fn(tokens (B, S))`` -> (logits (B, 1, V),
     cache); ``decode_fn(token (B, 1), cache, index)`` -> (logits (B, 1,
     V), cache), the cache written in place.  Tokens on any device are
-    moved to the model's."""
+    moved to the model's.  Under a dispatch ``mesh`` they run with the
+    reference's contexts, ``ShardCtx(mesh, decode_act_rules(mesh))`` for
+    the prefill and, for a decode step, the rules with
+    ``replicate_heads=arch.decode_replicate_heads`` (and the long-context
+    layout from 262144 positions): a MoE then shards its experts over
+    the mesh's ``model`` axis."""
+    from repro_torch.distributed.sharding import (NULL_CTX, ShardCtx,
+                                                  decode_act_rules)
     from repro_torch.models import transformer_lm as lm_lib
 
     if arch.family != "lm" or shape.kind not in ("prefill", "decode"):
@@ -253,15 +260,22 @@ def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model):
                          f"{arch.family!r} at a {shape.kind!r} shape")
     cfg, max_len = arch.model, shape.seq_len
     device = next(model.parameters()).device
+    pre_ctx = dec_ctx = NULL_CTX
+    if mesh is not None:
+        pre_ctx = ShardCtx(mesh, decode_act_rules(mesh))
+        dec_ctx = ShardCtx(mesh, decode_act_rules(
+            mesh, long_context=max_len >= 262144,
+            replicate_heads=arch.decode_replicate_heads))
 
     @torch.no_grad()
     def prefill_fn(tokens: torch.Tensor):
-        return lm_lib.lm_prefill(model, tokens.to(device), cfg, max_len)
+        return lm_lib.lm_prefill(model, tokens.to(device), cfg, max_len,
+                                 ctx=pre_ctx)
 
     @torch.no_grad()
     def decode_fn(token: torch.Tensor, cache, index: int):
         return lm_lib.lm_decode_step(model, token.to(device), cache, index,
-                                     cfg)
+                                     cfg, ctx=dec_ctx)
 
     return prefill_fn, decode_fn
 
@@ -322,16 +336,23 @@ def draw_diffusion_noise(arch: ArchConfig, x0: torch.Tensor,
 
 def vision_loss(arch: ArchConfig, model, batch: dict, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False):
+                remat: bool = False, batch_group=None):
     """The loss of the JAX workloads' ``_vision_train``: the float32
     cross-entropy (logsumexp minus the gold logit) averaged over the
-    batch, and the accuracy.  Returns (loss, {"acc": acc})."""
+    batch, and the accuracy.  Returns (loss, {"acc": acc}).  An
+    EfficientNet's batch statistics cover the ranks of ``batch_group``
+    (a ViT has none)."""
     from repro_torch.models.efficientnet import effnet_apply
     from repro_torch.models.vit import vit_apply
 
-    apply = vit_apply if arch.family == "vit" else effnet_apply
-    logits = apply(model, batch["images"], arch.model,
-                   compute_dtype=compute_dtype, remat=remat).float()
+    if arch.family == "vit":
+        logits = vit_apply(model, batch["images"], arch.model,
+                           compute_dtype=compute_dtype, remat=remat)
+    else:
+        logits = effnet_apply(model, batch["images"], arch.model,
+                              compute_dtype=compute_dtype, remat=remat,
+                              batch_group=batch_group)
+    logits = logits.float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, 1, labels[:, None])[:, 0]
@@ -340,45 +361,86 @@ def vision_loss(arch: ArchConfig, model, batch: dict, *,
     return loss, {"acc": acc}
 
 
-def train_loss_fn(arch: ArchConfig):
-    """``loss_fn(model, batch, generator) -> (loss, metrics)`` of a train
-    cell, at the config's ``train.compute_dtype`` (the reference's
-    bfloat16 default): the diffusion loss on noise and t drawn from the
-    generator, the vision loss with ``train.remat``, or the LM's
-    next-token loss (``lm_loss``) with ``train.remat`` and
-    ``train.remat_policy``."""
+def train_loss_fn(arch: ArchConfig, ctx=None):
+    """``loss_fn(model, batch, generator, rows=None) -> (loss, metrics)``
+    of a train cell, at the config's ``train.compute_dtype`` (the
+    reference's bfloat16 default): the diffusion loss on noise and t
+    drawn from the generator, the vision loss with ``train.remat``, or
+    the LM's next-token loss (``lm_loss``) with ``train.remat`` and
+    ``train.remat_policy``.  ``rows`` (a slice) keeps those rows of the
+    micro-batch, after the noise and t are drawn for all of it: a rank's
+    piece of a micro-batch draws what the whole one draws there.  ``ctx``
+    (a ``ShardCtx``) goes to ``lm_loss``; its ``batch_group`` also to an
+    EfficientNet's batch statistics."""
+    from repro_torch.distributed.sharding import NULL_CTX
+
+    ctx = ctx or NULL_CTX
     tc = arch.train
     dt = getattr(torch, tc.compute_dtype)
+
+    def keep(batch, rows):
+        return batch if rows is None else {k: v[rows]
+                                           for k, v in batch.items()}
+
     if arch.family in DIFFUSION_FAMILIES:
-        def loss_fn(model, batch, generator):
+        def loss_fn(model, batch, generator, rows=None):
             noise, t = draw_diffusion_noise(arch, batch["latents"],
                                             generator)
-            return diffusion_loss(arch, model, batch, noise, t,
+            if rows is not None:
+                noise, t = noise[rows], t[rows]
+            return diffusion_loss(arch, model, keep(batch, rows), noise, t,
                                   compute_dtype=dt)
     elif arch.family in VISION_FAMILIES:
-        def loss_fn(model, batch, generator):
-            return vision_loss(arch, model, batch, compute_dtype=dt,
-                               remat=tc.remat)
+        def loss_fn(model, batch, generator, rows=None):
+            return vision_loss(arch, model, keep(batch, rows),
+                               compute_dtype=dt, remat=tc.remat,
+                               batch_group=ctx.batch_group)
     elif arch.family == "lm":
         from repro_torch.models.transformer_lm import lm_loss
 
-        def loss_fn(model, batch, generator):
+        def loss_fn(model, batch, generator, rows=None):
+            batch = keep(batch, rows)
             return lm_loss(model, batch["tokens"], batch["targets"],
-                           arch.model, compute_dtype=dt, remat=tc.remat,
-                           remat_policy=tc.remat_policy)
+                           arch.model, ctx=ctx, compute_dtype=dt,
+                           remat=tc.remat, remat_policy=tc.remat_policy)
     else:
         raise ValueError(f"no train workload for family {arch.family!r}")
     return loss_fn
 
 
-def train_step(arch: ArchConfig, shape: ShapeSpec, model):
+def _effective_accum(accum: int, global_batch: int, mesh) -> int:
+    """Clamp grad accumulation so each micro-batch still divides the
+    batch shards: the largest accum' <= accum with (B / accum') a
+    multiple of the batch axes' size (on the 2x16x16 mesh the batch axis
+    is 32-way, so micro-batches keep >= 32 samples)."""
+    from repro_torch.distributed.sharding import axis_size, batch_axes
+
+    if mesh is None:
+        return accum
+    shards = axis_size(mesh, batch_axes(mesh)) or 1
+    a = min(accum, max(global_batch // shards, 1))
+    while a > 1 and (global_batch % a or (global_batch // a) % shards):
+        a -= 1
+    return max(a, 1)
+
+
+def train_step(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
     """The train workload of one ``train`` cell (the JAX workloads'
-    ``_diffusion_train`` / ``_vision_train`` / ``_lm_train`` with no
-    mesh) for ``model``: ``step(state, batch, seed) -> (state,
-    metrics)``, one AdamW step over ``train.grad_accum`` micro-batches of
-    the batch (``shape.batch``; an LM's ``shape.global_batch`` sequences
-    of ``shape.seq_len`` tokens), on the model ``state.params`` (which
-    must be ``model``'s config)."""
+    ``_diffusion_train`` / ``_vision_train`` / ``_lm_train``) for
+    ``model``: ``step(state, batch, seed) -> (state, metrics)``, one
+    AdamW step over ``train.grad_accum`` micro-batches of the batch
+    (``shape.batch``; an LM's ``shape.global_batch`` sequences of
+    ``shape.seq_len`` tokens), on the model ``state.params`` (which must
+    be ``model``'s config).  Under a rank ``mesh`` the accumulation is
+    clamped so every micro-batch splits over the batch axes (the
+    reference's ``_effective_accum``) and the state must be sharded over
+    that mesh (``train_state_init(..., mesh=mesh)``); the vision cells
+    keep ``grad_accum`` as the reference's do.  The loss's ``ShardCtx``
+    carries the rank mesh's batch group (the MoE router's and an
+    EfficientNet's batch statistics cover the whole batch) and no
+    dispatch mesh: the rank mesh's experts
+    are not sharded, so the MoE runs its dense path."""
+    from repro_torch.distributed.sharding import ShardCtx
     from repro_torch.training.train_loop import make_train_step
 
     if model.cfg != arch.model:
@@ -386,6 +448,10 @@ def train_step(arch: ArchConfig, shape: ShapeSpec, model):
     if shape.kind != "train":
         raise ValueError(f"{shape.name} is a {shape.kind!r} shape, not a "
                          f"train shape")
-    # the reference clamps grad_accum to the batch shards of its mesh;
-    # the port trains on one card, so the config's value stands
-    return make_train_step(train_loss_fn(arch), arch.train)
+    tc = arch.train
+    if arch.family not in VISION_FAMILIES:  # the reference's vision cell
+        batch = shape.global_batch if arch.family == "lm" else shape.batch
+        tc = dataclasses.replace(tc, grad_accum=_effective_accum(
+            tc.grad_accum, batch, mesh))
+    ctx = None if mesh is None else ShardCtx(batch_group=mesh.batch_group())
+    return make_train_step(train_loss_fn(arch, ctx), tc)

@@ -6,6 +6,8 @@ kept in the JAX package's (d_in, d_out) layout."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -73,20 +75,47 @@ def _dots_contexts():
         _keep_weight_products)
 
 
+# Set by ``block_hook``: ``hook(call, modules) -> call()``, around every
+# call ``remat_call`` makes (the sharded trainer's per-block gathers).
+_BLOCK_HOOK = contextvars.ContextVar("block_hook", default=None)
+
+
+@contextlib.contextmanager
+def block_hook(hook):
+    """Within this scope ``remat_call(remat, fn, *args)`` returns
+    ``hook(call, modules)``: ``call()`` runs the block as it would, and
+    ``modules`` are the ``nn.Module`` s among ``fn`` (or a partial's
+    function) and ``args``."""
+    token = _BLOCK_HOOK.set(hook)
+    try:
+        yield
+    finally:
+        _BLOCK_HOOK.reset(token)
+
+
 def remat_call(remat: bool, fn, *args, policy: str = "full"):
     """``fn(*args)``; with ``remat`` and grad mode on, its activations are
     recomputed in the backward pass instead of kept
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
     ``policy="dots"`` keeps the outputs of the weight products and
     recomputes the rest, as the reference's
-    ``dots_with_no_batch_dims_saveable``; ``"full"`` keeps nothing."""
+    ``dots_with_no_batch_dims_saveable``; ``"full"`` keeps nothing.
+    Under :func:`block_hook` the hook runs the call."""
     if policy not in ("full", "dots"):
         raise ValueError(f"unknown remat policy {policy!r}")
-    if remat and torch.is_grad_enabled():
-        ctx = {"context_fn": _dots_contexts} if policy == "dots" else {}
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False, **ctx)
-    return fn(*args)
+
+    def call():
+        if remat and torch.is_grad_enabled():
+            ctx = {"context_fn": _dots_contexts} if policy == "dots" else {}
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False, **ctx)
+        return fn(*args)
+
+    hook = _BLOCK_HOOK.get()
+    if hook is None:
+        return call()
+    return hook(call, [m for m in (fn, getattr(fn, "func", None), *args)
+                       if isinstance(m, nn.Module)])
 
 
 class Norm(nn.Module):

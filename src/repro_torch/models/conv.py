@@ -81,14 +81,29 @@ def groupnorm(gn: Norm, x: torch.Tensor, groups: int = 32,
     return (out * gn.scale.float() + gn.bias.float()).to(x.dtype)
 
 
-def batchnorm(bn: Norm, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+def batchnorm(bn: Norm, x: torch.Tensor, eps: float = 1e-3,
+              group=None) -> torch.Tensor:
     """Batch-statistics normalization of NHWC x: float32 mean and
     population variance over (N, H, W), the affine leaves, one rounding
     back to x's dtype.  No running statistics: an image's output depends
-    on its batch, as in the reference."""
+    on its batch, as in the reference.  With a process ``group`` whose
+    ranks each hold an equal share of the batch's rows, the statistics
+    cover every rank's rows (two differentiable all-reduces: the mean,
+    then the squared deviations from it)."""
     x32 = x.float()
-    var, mu = torch.var_mean(x32, dim=(0, 1, 2), unbiased=False,
-                             keepdim=True)
+    if group is None:
+        var, mu = torch.var_mean(x32, dim=(0, 1, 2), unbiased=False,
+                                 keepdim=True)
+    else:
+        import torch.distributed as dist
+        from torch.distributed.nn import functional as dist_fn
+
+        n = x32[..., 0].numel() * dist.get_world_size(group)
+        mu = dist_fn.all_reduce(torch.sum(x32, dim=(0, 1, 2), keepdim=True),
+                                op=dist.ReduceOp.SUM, group=group) / n
+        var = dist_fn.all_reduce(
+            torch.sum(torch.square(x32 - mu), dim=(0, 1, 2), keepdim=True),
+            op=dist.ReduceOp.SUM, group=group) / n
     out = (x32 - mu) * torch.rsqrt(var + eps)
     return (out * bn.scale.float() + bn.bias.float()).to(x.dtype)
 

@@ -81,16 +81,19 @@ class MBConv(nn.Module):
         self.project = Conv(1, c_mid, c_out, bias=False, **kw)
         self.bn2 = Norm(c_out, **kw)
 
-    def forward(self, x: torch.Tensor, stride: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stride: int,
+                group=None) -> torch.Tensor:
         h = x
         if self.expand is not None:
-            h = F.silu(batchnorm(self.bn0, conv2d(self.expand, h)))
-        h = F.silu(batchnorm(self.bn1, conv2d(self.dw, h, stride=stride)))
+            h = F.silu(batchnorm(self.bn0, conv2d(self.expand, h),
+                                 group=group))
+        h = F.silu(batchnorm(self.bn1, conv2d(self.dw, h, stride=stride),
+                             group=group))
         # squeeze-excitation
         se = torch.mean(h, dim=(1, 2), keepdim=True)
         se = F.silu(conv2d(self.se_reduce, se))
         h = h * torch.sigmoid(conv2d(self.se_expand, se))
-        h = batchnorm(self.bn2, conv2d(self.project, h))
+        h = batchnorm(self.bn2, conv2d(self.project, h), group=group)
         if stride == 1 and x.shape[-1] == h.shape[-1]:
             h = h + x
         return h
@@ -120,27 +123,33 @@ class EfficientNet(nn.Module):
 
     def forward(self, images: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, batch_group=None) -> torch.Tensor:
         """images (B, H, W, C) -> logits (B, num_classes) in
         ``compute_dtype``.  ``remat`` recomputes each MBConv block's
         activations in the backward pass (the reference's
         ``jax.checkpoint`` of ``_mbconv``); the batch statistics are
-        recomputed from the same inputs, so they are the same."""
+        recomputed from the same inputs, so they are the same.  With a
+        ``batch_group`` (ranks that split the batch) the batch statistics
+        cover every rank's images, as the reference's over its sharded
+        batch."""
+        g = batch_group
         x = images.to(compute_dtype)
-        x = F.silu(batchnorm(self.stem_bn, conv2d(self.stem, x, stride=2)))
+        x = F.silu(batchnorm(self.stem_bn, conv2d(self.stem, x, stride=2),
+                             group=g))
         for (_, _, _, _, stride, _), blocks in zip(effnet_stages(self.cfg),
                                                    self.stages):
             for i, blk in enumerate(blocks):
-                x = remat_call(remat, blk, x, stride if i == 0 else 1)
-        x = F.silu(batchnorm(self.head_bn, conv2d(self.head, x)))
+                x = remat_call(remat, blk, x, stride if i == 0 else 1, g)
+        x = F.silu(batchnorm(self.head_bn, conv2d(self.head, x), group=g))
         return self.classifier(global_avg_pool(x))
 
 
 def effnet_apply(model: EfficientNet, images: torch.Tensor,
                  cfg: Optional[EffNetConfig] = None, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, batch_group=None) -> torch.Tensor:
     """Functional form mirroring the JAX ``effnet_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
-    return model(images, compute_dtype=compute_dtype, remat=remat)
+    return model(images, compute_dtype=compute_dtype, remat=remat,
+                 batch_group=batch_group)

@@ -10,13 +10,29 @@ times ``aux_loss_weight``.  Under autograd the top-k gate weights (the
 sorted probabilities) carry gradient into the router, as ``lax.top_k``'s
 do; the chosen indices carry none.
 
-Expert parallelism (the reference's ``impl="ep"``: ``_ep_moe`` and
-``_local_dispatch_ffn`` over a mesh ``model`` axis) is not ported yet;
-``impl="ep"`` raises.
+The ``ep`` path is expert parallelism over the ``model`` axis of a
+dispatch mesh (``ShardCtx.mesh``), through the port's
+``distributed.spmd.shard_map``.  Token activations are replicated over
+``model`` (split over the batch axes where they divide), so each model
+shard selects the tokens routed to its own slab of experts locally: no
+all-to-all; the combine is a ``psum`` over ``model``.  Tokens beyond a
+(shard, expert) capacity are dropped in the reference's slot order (the
+cumulative count of slots routed to the expert, token-major), as
+GShard/Switch do at scale.  ``auto`` takes it exactly where the
+reference's does: a mesh with a ``model`` axis that divides the experts.
+EP under autograd is not ported (ROADMAP §1): the trainer's rank mesh
+is not a dispatch mesh, so training runs the dense path.
+
+Under data parallelism over several processes (the trainer's rank mesh)
+``ShardCtx.batch_group`` names the ranks that split the batch: the
+router's load-balance and z-loss statistics are then averaged over them
+(a differentiable all-reduce), so the aux loss is the whole batch's, as
+at one rank.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Tuple
 
 import torch
@@ -24,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import MoEConfig
+from repro_torch.distributed.sharding import NULL_CTX, ShardCtx
 from repro_torch.models.common import mlp, param
 
 
@@ -61,8 +78,10 @@ def _expert_ffn(w_gate, w_up, w_out, x):
     return torch.matmul(h, w_out)
 
 
-def _router(p: MoE, x: torch.Tensor, cfg: MoEConfig):
-    """(topk_idx (N, k), topk_w (N, k) float32, aux scalar). x: (N, d)."""
+def _router(p: MoE, x: torch.Tensor, cfg: MoEConfig, group=None):
+    """(topk_idx (N, k), topk_w (N, k) float32, aux scalar). x: (N, d).
+    With ``group`` (the ranks that split the batch) the aux loss's token
+    means are averaged over the ranks."""
     logits = torch.matmul(x, p.router.to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k: equal values in index order (bf16 logits tie often).
@@ -72,15 +91,30 @@ def _router(p: MoE, x: torch.Tensor, cfg: MoEConfig):
     E = cfg.num_experts
     me = probs.mean(0)
     ce = F.one_hot(topk_idx, E).sum(1).float().mean(0) / cfg.top_k
-    lb = E * torch.sum(me * ce)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if group is not None:
+        me, ce, z = _batch_mean(group, me, ce, z)
+    lb = E * torch.sum(me * ce)
     aux = cfg.aux_loss_weight * (lb + 1e-3 * z)
     return topk_idx, topk_w, aux
 
 
-def _dense_moe(p: MoE, x_flat: torch.Tensor, cfg: MoEConfig):
+def _batch_mean(group, me, ce, z):
+    """The token means over every rank's rows (equal row counts): one
+    differentiable all-reduce of the three statistics."""
+    import torch.distributed as dist
+    from torch.distributed.nn import functional as dist_fn
+
+    E = me.shape[0]
+    total = dist_fn.all_reduce(torch.cat([me, ce, z[None]]),
+                               op=dist.ReduceOp.SUM, group=group)
+    total = total / dist.get_world_size(group)
+    return total[:E], total[E:2 * E], total[2 * E]
+
+
+def _dense_moe(p: MoE, x_flat: torch.Tensor, cfg: MoEConfig, group=None):
     """All-experts compute, gate-weighted combine. x_flat: (N, d)."""
-    topk_idx, topk_w, aux = _router(p, x_flat, cfg)
+    topk_idx, topk_w, aux = _router(p, x_flat, cfg, group)
     N, d = x_flat.shape
     E = cfg.num_experts
     gates = torch.zeros((N, E), device=x_flat.device).scatter_(
@@ -93,21 +127,126 @@ def _dense_moe(p: MoE, x_flat: torch.Tensor, cfg: MoEConfig):
     return out, aux
 
 
-def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig,
-            impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss).  ``auto`` and ``dense`` run the
-    dense path (the port has no ``model`` mesh axis to shard experts
-    over); ``ep`` raises."""
+def dispatch_slots(topk_idx: torch.Tensor, e_lo: int, E_loc: int, C: int):
+    """One model shard's slots: ``(keep, dest_e, dest_c)`` over the N·k
+    routed slots (token-major).  A slot is this shard's when its expert
+    lies in [e_lo, e_lo + E_loc); its position in its expert's queue is
+    the count of earlier slots routed there (the reference's cumulative
+    one-hot sum), and it is kept when that position is below the
+    capacity ``C``.  Dropped and foreign slots point at the trash expert
+    ``E_loc``, position 0."""
+    slot_e = topk_idx.reshape(-1)
+    mine = (slot_e >= e_lo) & (slot_e < e_lo + E_loc)
+    local_e = torch.where(mine, slot_e - e_lo, torch.full_like(slot_e, E_loc))
+    onehot = F.one_hot(local_e, E_loc + 1).to(torch.int32)
+    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(1)
+    keep = mine & (pos < C)
+    dest_e = torch.where(keep, local_e, torch.full_like(local_e, E_loc))
+    dest_c = torch.where(keep, pos, torch.zeros_like(pos))
+    return keep, dest_e, dest_c
+
+
+def _local_dispatch_ffn(w_gate, w_up, w_out, x, topk_idx, topk_w, e_lo: int,
+                        E_loc: int, C: int, dt):
+    """One model shard's expert work: the tokens routed to its experts,
+    up to ``C`` a expert, through their FFN and back, weighted by their
+    gates.  x: (N, d), replicated over ``model``; the weights are this
+    shard's (E_loc, ...) slab.  Returns the (N, d) partial output (zero
+    for tokens this shard does not serve), to be summed over ``model``.
+    The dispatch is the reference's scatter-add into a (E_loc + 1, C, d)
+    buffer whose last expert collects the dropped and foreign slots
+    (zeros), so no step waits for the host; the combine rounds as the
+    reference's does, each slot's output times its gate in ``dt`` and
+    added into zeros slot by slot."""
+    N, d = x.shape
+    k = topk_idx.shape[1]
+    keep, dest_e, dest_c = dispatch_slots(topk_idx, e_lo, E_loc, C)
+    slot_tok = torch.arange(N * k, device=x.device) // k
+    buf = torch.zeros((E_loc + 1, C, d), dtype=dt, device=x.device)
+    rows = torch.where(keep[:, None], x[slot_tok].to(dt), torch.zeros((), dtype=dt,
+                                                                     device=x.device))
+    buf.index_put_((dest_e, dest_c), rows, accumulate=True)
+    y = _expert_ffn(w_gate.to(dt), w_up.to(dt), w_out.to(dt), buf[:E_loc])
+    y = torch.cat([y, torch.zeros((1, C, d), dtype=y.dtype, device=y.device)])
+    gathered = y[dest_e, dest_c]                       # (N·k, d)
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    gathered = (gathered * topk_w.reshape(-1)[:, None].to(dt)).view(N, k, d)
+    out = gathered[:, 0]
+    for j in range(1, k):
+        out = out + gathered[:, j]
+    return out
+
+
+def _ep_moe(p: MoE, x_flat: torch.Tensor, cfg: MoEConfig, ctx: ShardCtx):
+    """Expert parallelism over ``ctx.mesh``'s ``model`` axis (the
+    reference's ``_ep_moe``): tokens split over the batch axes where they
+    divide, experts over ``model``; the aux averaged over both."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import axis_size, batch_axes
+
+    mesh = ctx.mesh
+    E_loc = cfg.num_experts // mesh.shape["model"]
+    N = x_flat.shape[0]
+    bd = batch_axes(mesh)
+    n_tok = axis_size(mesh, bd)
+    N_loc = N // n_tok if N % n_tok == 0 else N
+    tok_spec = bd if N % n_tok == 0 else ()
+    C = max(int(N_loc * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 8)
+
+    def body(x_loc, router_w, wi_gate, wi_up, wo):
+        e_lo = spmd.axis_index("model") * E_loc
+        topk_idx, topk_w, aux = _router(types.SimpleNamespace(router=router_w),
+                                        x_loc, cfg)
+        partial = _local_dispatch_ffn(wi_gate, wi_up, wo, x_loc, topk_idx,
+                                      topk_w, e_lo, E_loc, C, x_loc.dtype)
+        out = spmd.psum(partial, "model")
+        aux = spmd.pmean(aux, "model")
+        if tok_spec:
+            aux = spmd.pmean(aux, tok_spec)
+        return out, aux
+
+    P = spmd.P
+    slab = P("model", None, None)
+    return spmd.shard_map(
+        body, mesh,
+        in_specs=(P(tok_spec or None, None), P(None, None), slab, slab, slab),
+        out_specs=(P(tok_spec or None, None), P()),
+    )(x_flat, p.router, p.wi_gate, p.wi_up, p.wo)
+
+
+def _use_ep(impl: str, cfg: MoEConfig, ctx: ShardCtx) -> bool:
+    """The reference's choice: ``ep`` when asked, and under ``auto`` when
+    the mesh has a ``model`` axis that divides the experts."""
     if impl == "ep":
-        raise NotImplementedError(
-            "moe_ffn(impl='ep'): expert parallelism (the JAX package's "
-            "_ep_moe / _local_dispatch_ffn over a mesh 'model' axis) is not "
-            "ported yet")
-    if impl not in ("auto", "dense"):
+        return True
+    mesh = ctx.mesh
+    return (impl == "auto" and mesh is not None
+            and "model" in mesh.axis_names
+            and cfg.num_experts % mesh.shape["model"] == 0)
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig, ctx: ShardCtx = NULL_CTX,
+            impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss).  ``dense`` computes every expert;
+    ``ep`` shards experts over ``ctx.mesh``'s ``model`` axis (it needs a
+    dispatch mesh, and raises under autograd); ``auto`` picks ``ep``
+    where the reference does."""
+    if impl not in ("auto", "dense", "ep"):
         raise ValueError(f"unknown MoE impl {impl!r}")
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
-    out, aux = _dense_moe(p, x_flat, cfg)
+    if _use_ep(impl, cfg, ctx):
+        if ctx.mesh is None or "model" not in ctx.mesh.axis_names:
+            raise ValueError("moe_ffn(impl='ep') needs ctx.mesh with a "
+                             "'model' axis (a dispatch mesh)")
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in (p.router, p.wi_gate, p.wi_up, p.wo))):
+            raise NotImplementedError(
+                "moe_ffn(impl='ep') under autograd: expert parallelism "
+                "serves only; its backward is not ported (ROADMAP §1)")
+        out, aux = _ep_moe(p, x_flat, cfg, ctx)
+    else:
+        out, aux = _dense_moe(p, x_flat, cfg, ctx.batch_group)
     if p.shared is not None:
         sh = p.shared
         s_out = mlp(sh.wi_gate, sh.wi_up, sh.wo, x_flat)

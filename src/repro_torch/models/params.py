@@ -52,163 +52,198 @@ from repro_torch.utils.device import resolve_device
 # sqrt(1/fan_in) with fan_in the product of all but the last dim),
 # 'fan_in_1' (the same with fan_in dim 1: the MoE's (E, d_in, d_out)
 # expert weights), 'normal' (std 0.02: the DiT's label embedding, the
-# LM's embedding, head and routers), 'zeros', 'ones'.
-Spec = Tuple[Tuple[int, ...], str]
+# LM's embedding, head and routers), 'zeros', 'ones'.  The third entry
+# is the leaf's logical axes (``distributed.sharding``), one a dim of
+# its JAX shape: the JAX def's axes without the stacked ``layers`` dim.
+Axes = Tuple[Optional[str], ...]
+Spec = Tuple[Tuple[int, ...], str, Axes]
+
+_R = (None,)  # a replicated 1-D leaf (norm scales, adaLN biases)
 
 
-def _linear(d_in, d_out, init="fan_in", bias=True) -> Dict[str, Spec]:
-    out = {"w": ((d_in, d_out), init)}
+def _linear(d_in, d_out, init="fan_in", bias=True,
+            axes: Axes = ("embed", "mlp")) -> Dict[str, Spec]:
+    """The JAX ``linear_defs``: the bias takes the weight's output axis."""
+    out = {"w": ((d_in, d_out), init, axes)}
     if bias:
-        out["b"] = ((d_out,), "zeros")
+        out["b"] = ((d_out,), "zeros", (axes[1],))
     return out
+
+
+def _attn(d, inner, kv, qk_norm_dim=0) -> Dict[str, Spec]:
+    """The JAX ``attention_defs`` (wq, wk, wv, wo; RMS q/k norms)."""
+    out: Dict = {"wq": ((d, inner), "fan_in", ("embed", "heads")),
+                 "wk": ((d, kv), "fan_in", ("embed", "kv")),
+                 "wv": ((d, kv), "fan_in", ("embed", "kv")),
+                 "wo": ((inner, d), "fan_in", ("heads", "embed"))}
+    if qk_norm_dim:
+        out["q_norm"] = {"scale": ((qk_norm_dim,), "ones", _R)}
+        out["k_norm"] = {"scale": ((qk_norm_dim,), "ones", _R)}
+    return out
+
+
+def _gated_mlp(d, ff) -> Dict[str, Spec]:
+    return {"wi_gate": ((d, ff), "fan_in", ("embed", "mlp")),
+            "wi_up": ((d, ff), "fan_in", ("embed", "mlp")),
+            "wo": ((ff, d), "fan_in", ("mlp", "embed"))}
+
+
+def _mlp_bias(d, ff) -> Dict[str, Spec]:
+    return {"wi": ((d, ff), "fan_in", ("embed", "mlp")),
+            "wo": ((ff, d), "fan_in", ("mlp", "embed")),
+            "bi": ((ff,), "zeros", ("mlp",)), "bo": ((d,), "zeros", ("embed",))}
+
+
+def _ada(d, n) -> Dict[str, Spec]:
+    return {"w": ((d, n * d), "zeros", ("embed", None)),
+            "b": ((n * d,), "zeros", _R)}
 
 
 def vdit_block_specs(cfg: VDiTConfig) -> Dict:
     d = cfg.d_model
-    hd = d // cfg.num_heads
-    ff = int(d * cfg.mlp_ratio)
-    return {
-        "attn": {"wq": ((d, d), "fan_in"), "wk": ((d, d), "fan_in"),
-                 "wv": ((d, d), "fan_in"), "wo": ((d, d), "fan_in"),
-                 "q_norm": {"scale": ((hd,), "ones")},
-                 "k_norm": {"scale": ((hd,), "ones")}},
-        "mlp": {"wi_gate": ((d, ff), "fan_in"), "wi_up": ((d, ff), "fan_in"),
-                "wo": ((ff, d), "fan_in")},
-        "ada": {"w": ((d, 6 * d), "zeros"), "b": ((6 * d,), "zeros")},
-    }
+    return {"attn": _attn(d, d, d, qk_norm_dim=d // cfg.num_heads),
+            "mlp": _gated_mlp(d, int(d * cfg.mlp_ratio)),
+            "ada": _ada(d, 6)}
 
 
 def vdit_param_specs(cfg: VDiTConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf; ``blocks`` is per layer."""
+    """Nested dict of (shape, init, axes) per leaf; ``blocks`` is per
+    layer."""
     d = cfg.d_model
     in_dim = cfg.t_patch * cfg.patch * cfg.patch * cfg.in_channels
     return {
-        "patch": _linear(in_dim, d),
-        "txt_proj": _linear(cfg.txt_dim, d),
+        "patch": _linear(in_dim, d, axes=(None, "embed")),
+        "txt_proj": _linear(cfg.txt_dim, d, axes=(None, "embed")),
         "t_mlp1": _linear(256, d),
-        "t_mlp2": _linear(d, d),
+        "t_mlp2": _linear(d, d, axes=("mlp", "embed")),
         "blocks": vdit_block_specs(cfg),
-        "final_ada": {"w": ((d, 2 * d), "zeros"), "b": ((2 * d,), "zeros")},
-        "final": _linear(d, in_dim, init="zeros"),
+        "final_ada": _ada(d, 2),
+        "final": _linear(d, in_dim, init="zeros", axes=("embed", None)),
     }
 
 
 def dit_block_specs(cfg: DiTConfig) -> Dict:
     d = cfg.d_model
-    ff = int(d * cfg.mlp_ratio)
-    return {
-        "attn": {"wq": ((d, d), "fan_in"), "wk": ((d, d), "fan_in"),
-                 "wv": ((d, d), "fan_in"), "wo": ((d, d), "fan_in")},
-        "mlp": {"wi": ((d, ff), "fan_in"), "wo": ((ff, d), "fan_in"),
-                "bi": ((ff,), "zeros"), "bo": ((d,), "zeros")},
-        "ada": {"w": ((d, 6 * d), "zeros"), "b": ((6 * d,), "zeros")},
-    }
+    return {"attn": _attn(d, d, d),
+            "mlp": _mlp_bias(d, int(d * cfg.mlp_ratio)),
+            "ada": _ada(d, 6)}
 
 
 def dit_param_specs(cfg: DiTConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf; ``blocks`` is per layer."""
+    """Nested dict of (shape, init, axes) per leaf; ``blocks`` is per
+    layer."""
     d, p = cfg.d_model, cfg.patch
     out_ch = cfg.in_channels * (2 if cfg.learn_sigma else 1)
     return {
-        "patch": _linear(p * p * cfg.in_channels, d),
+        "patch": _linear(p * p * cfg.in_channels, d, axes=(None, "embed")),
         "t_mlp1": _linear(256, d),
-        "t_mlp2": _linear(d, d),
-        "label_embed": ((cfg.num_classes + 1, d), "normal"),
+        "t_mlp2": _linear(d, d, axes=("mlp", "embed")),
+        "label_embed": ((cfg.num_classes + 1, d), "normal", (None, "embed")),
         "blocks": dit_block_specs(cfg),
-        "final_ada": {"w": ((d, 2 * d), "zeros"), "b": ((2 * d,), "zeros")},
-        "final": _linear(d, p * p * out_ch, init="zeros"),
+        "final_ada": _ada(d, 2),
+        "final": _linear(d, p * p * out_ch, init="zeros", axes=("embed", None)),
     }
+
+
+def _qk_norms(hd) -> Dict:
+    return {"q_norm": {"scale": ((hd,), "ones", _R)},
+            "k_norm": {"scale": ((hd,), "ones", _R)}}
 
 
 def mmdit_stream_specs(cfg: MMDiTConfig) -> Dict:
     """One stream of a double block (the JAX ``_stream_defs``)."""
     d = cfg.d_model
-    hd = d // cfg.num_heads
     ff = int(d * cfg.mlp_ratio)
     return {
-        "mod": _linear(d, 6 * d, init="zeros"),
-        "wqkv": ((d, 3 * d), "fan_in"), "wo": ((d, d), "fan_in"),
-        "mlp_in": ((d, ff), "fan_in"), "mlp_in_b": ((ff,), "zeros"),
-        "mlp_out": ((ff, d), "fan_in"), "mlp_out_b": ((d,), "zeros"),
-        "q_norm": {"scale": ((hd,), "ones")},
-        "k_norm": {"scale": ((hd,), "ones")},
+        "mod": _linear(d, 6 * d, init="zeros", axes=("embed", None)),
+        "wqkv": ((d, 3 * d), "fan_in", ("embed", "heads")),
+        "wo": ((d, d), "fan_in", ("heads", "embed")),
+        "mlp_in": ((d, ff), "fan_in", ("embed", "mlp")),
+        "mlp_in_b": ((ff,), "zeros", ("mlp",)),
+        "mlp_out": ((ff, d), "fan_in", ("mlp", "embed")),
+        "mlp_out_b": ((d,), "zeros", ("embed",)),
+        **_qk_norms(d // cfg.num_heads),
     }
 
 
 def mmdit_single_specs(cfg: MMDiTConfig) -> Dict:
     """A single-stream block (the JAX ``_single_defs``)."""
     d = cfg.d_model
-    hd = d // cfg.num_heads
     ff = int(d * cfg.mlp_ratio)
     return {
-        "mod": _linear(d, 3 * d, init="zeros"),
-        "lin1": ((d, 3 * d + ff), "fan_in"), "lin1_b": ((3 * d + ff,), "zeros"),
-        "lin2": ((d + ff, d), "fan_in"), "lin2_b": ((d,), "zeros"),
-        "q_norm": {"scale": ((hd,), "ones")},
-        "k_norm": {"scale": ((hd,), "ones")},
+        "mod": _linear(d, 3 * d, init="zeros", axes=("embed", None)),
+        "lin1": ((d, 3 * d + ff), "fan_in", ("embed", "heads")),
+        "lin1_b": ((3 * d + ff,), "zeros", ("heads",)),
+        "lin2": ((d + ff, d), "fan_in", ("heads", "embed")),
+        "lin2_b": ((d,), "zeros", ("embed",)),
+        **_qk_norms(d // cfg.num_heads),
     }
 
 
 def mmdit_param_specs(cfg: MMDiTConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf; ``double.img``,
+    """Nested dict of (shape, init, axes) per leaf; ``double.img``,
     ``double.txt`` and ``single`` are per layer."""
     d, p = cfg.d_model, cfg.patch
     in_dim = p * p * cfg.in_channels
     return {
-        "img_in": _linear(in_dim, d),
-        "txt_in": _linear(cfg.txt_dim, d),
-        "t_mlp1": _linear(256, d),
-        "t_mlp2": _linear(d, d),
-        "vec_in": _linear(768, d),
+        "img_in": _linear(in_dim, d, axes=(None, "embed")),
+        "txt_in": _linear(cfg.txt_dim, d, axes=(None, "embed")),
+        "t_mlp1": _linear(256, d, axes=(None, "embed")),
+        "t_mlp2": _linear(d, d, axes=("embed", "embed")),
+        "vec_in": _linear(768, d, axes=(None, "embed")),
         "double": {"img": mmdit_stream_specs(cfg),
                    "txt": mmdit_stream_specs(cfg)},
         "single": mmdit_single_specs(cfg),
-        "final_mod": _linear(d, 2 * d, init="zeros"),
-        "final": _linear(d, in_dim, init="zeros"),
+        "final_mod": _linear(d, 2 * d, init="zeros", axes=("embed", None)),
+        "final": _linear(d, in_dim, init="zeros", axes=("embed", None)),
     }
 
 
 def _conv(k, c_in, c_out, bias=True, depthwise=False) -> Dict[str, Spec]:
     out = {"w": ((k, k, 1, c_in) if depthwise else (k, k, c_in, c_out),
-                 "fan_in")}
+                 "fan_in", (None, None, None, "heads"))}
     if bias:
-        out["b"] = ((c_out,), "zeros")
+        out["b"] = ((c_out,), "zeros", ("heads",))
     return out
 
 
 def _norm(c) -> Dict[str, Spec]:
-    return {"scale": ((c,), "ones"), "bias": ((c,), "zeros")}
+    return {"scale": ((c,), "ones", _R), "bias": ((c,), "zeros", _R)}
 
 
 def _resblock_specs(c_in, c_out, t_dim) -> Dict:
     out = {"norm1": _norm(c_in), "conv1": _conv(3, c_in, c_out),
-           "temb": _linear(t_dim, c_out), "norm2": _norm(c_out),
-           "conv2": _conv(3, c_out, c_out)}
+           "temb": _linear(t_dim, c_out, axes=(None, None)),
+           "norm2": _norm(c_out), "conv2": _conv(3, c_out, c_out)}
     if c_in != c_out:
         out["skip"] = _conv(1, c_in, c_out)
     return out
 
 
 def _xformer_specs(c, ctx_dim) -> Dict:
-    w = {n: ((c, c), "fan_in") for n in ("wq", "wk", "wv", "wo")}
     return {"norm": _norm(c), "proj_in": _conv(1, c, c), "ln1": _norm(c),
-            "self_attn": w, "ln2": _norm(c),
-            "cross_q": ((c, c), "fan_in"), "cross_k": ((ctx_dim, c), "fan_in"),
-            "cross_v": ((ctx_dim, c), "fan_in"),
-            "cross_o": ((c, c), "fan_in"), "ln3": _norm(c),
-            "ff1": ((c, 8 * c), "fan_in"), "ff2": ((4 * c, c), "fan_in"),
+            "self_attn": _attn(c, c, c), "ln2": _norm(c),
+            "cross_q": ((c, c), "fan_in", ("embed", "heads")),
+            "cross_k": ((ctx_dim, c), "fan_in", (None, "heads")),
+            "cross_v": ((ctx_dim, c), "fan_in", (None, "heads")),
+            "cross_o": ((c, c), "fan_in", ("heads", "embed")),
+            "ln3": _norm(c),
+            "ff1": ((c, 8 * c), "fan_in", ("embed", "mlp")),
+            "ff2": ((4 * c, c), "fan_in", ("mlp", "embed")),
             "proj_out": _conv(1, c, c)}
 
 
 def unet_param_specs(cfg: UNetConfig) -> Dict:
-    """Nested dict of (JAX shape, init) per leaf, ``down`` / ``up`` and
-    each level's ``res`` / ``attn`` as lists (the JAX ``unet_defs``)."""
+    """Nested dict of (JAX shape, init, axes) per leaf, ``down`` / ``up``
+    and each level's ``res`` / ``attn`` as lists (the JAX
+    ``unet_defs``)."""
     from repro_torch.models.unet import skip_channels
 
     ch = cfg.ch
     t_dim = 4 * ch
     chans = [ch * m for m in cfg.ch_mult]
-    specs: Dict = {"t_mlp1": _linear(ch, t_dim), "t_mlp2": _linear(t_dim, t_dim),
+    specs: Dict = {"t_mlp1": _linear(ch, t_dim, axes=(None, None)),
+                   "t_mlp2": _linear(t_dim, t_dim, axes=(None, None)),
                    "conv_in": _conv(3, cfg.in_channels, ch), "down": [], "up": []}
     c_cur = ch
     for lvl, c_out in enumerate(chans):
@@ -243,21 +278,16 @@ def unet_param_specs(cfg: UNetConfig) -> Dict:
 
 
 def vit_param_specs(cfg: ViTConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf; ``blocks`` is per layer."""
+    """Nested dict of (shape, init, axes) per leaf; ``blocks`` is per
+    layer."""
     d, p = cfg.d_model, cfg.patch
     return {
-        "patch": _linear(p * p * cfg.in_channels, d),
-        "cls": ((1, 1, d), "normal"),
-        "blocks": {
-            "ln1": _norm(d),
-            "attn": {n: ((d, d), "fan_in") for n in ("wq", "wk", "wv", "wo")},
-            "ln2": _norm(d),
-            "mlp": {"wi": ((d, cfg.d_ff), "fan_in"),
-                    "wo": ((cfg.d_ff, d), "fan_in"),
-                    "bi": ((cfg.d_ff,), "zeros"), "bo": ((d,), "zeros")},
-        },
+        "patch": _linear(p * p * cfg.in_channels, d, axes=(None, "embed")),
+        "cls": ((1, 1, d), "normal", (None, None, "embed")),
+        "blocks": {"ln1": _norm(d), "attn": _attn(d, d, d), "ln2": _norm(d),
+                   "mlp": _mlp_bias(d, cfg.d_ff)},
         "ln_f": _norm(d),
-        "head": _linear(d, cfg.num_classes),
+        "head": _linear(d, cfg.num_classes, axes=("embed", "vocab")),
     }
 
 
@@ -276,8 +306,8 @@ def _mbconv_specs(c_in, c_out, expand, kernel) -> Dict:
 
 
 def effnet_param_specs(cfg: EffNetConfig) -> Dict:
-    """Nested dict of (JAX shape, init) per leaf, ``stages`` a list of
-    stages, each a list of blocks (the JAX ``effnet_defs``)."""
+    """Nested dict of (JAX shape, init, axes) per leaf, ``stages`` a list
+    of stages, each a list of blocks (the JAX ``effnet_defs``)."""
     from repro_torch.models.efficientnet import effnet_stages, round_filters
 
     stem_c = round_filters(32, cfg.width_mult)
@@ -291,48 +321,42 @@ def effnet_param_specs(cfg: EffNetConfig) -> Dict:
                    for expand, c_in, c_out, repeats, _, k in stages],
         "head": _conv(1, stages[-1][2], head_c, bias=False),
         "head_bn": _norm(head_c),
-        "classifier": _linear(head_c, cfg.num_classes),
+        "classifier": _linear(head_c, cfg.num_classes, axes=(None, "vocab")),
     }
 
 
 def lm_block_specs(cfg: LMConfig) -> Dict:
     """One LM block (the JAX ``_block_defs``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    inner, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    attn: Dict = {"wq": ((d, inner), "fan_in"), "wk": ((d, kv), "fan_in"),
-                  "wv": ((d, kv), "fan_in"), "wo": ((inner, d), "fan_in")}
-    if cfg.qk_norm:
-        attn["q_norm"] = {"scale": ((hd,), "ones")}
-        attn["k_norm"] = {"scale": ((hd,), "ones")}
-    out: Dict = {"attn_norm": {"scale": ((d,), "ones")}, "attn": attn,
-                 "mlp_norm": {"scale": ((d,), "ones")}}
+    out: Dict = {"attn_norm": {"scale": ((d,), "ones", _R)},
+                 "attn": _attn(d, cfg.num_heads * hd, cfg.num_kv_heads * hd,
+                               qk_norm_dim=hd if cfg.qk_norm else 0),
+                 "mlp_norm": {"scale": ((d,), "ones", _R)}}
     m = cfg.moe
     if m is None:
-        out["mlp"] = {"wi_gate": ((d, cfg.d_ff), "fan_in"),
-                      "wi_up": ((d, cfg.d_ff), "fan_in"),
-                      "wo": ((cfg.d_ff, d), "fan_in")}
+        out["mlp"] = _gated_mlp(d, cfg.d_ff)
         return out
     E, Fw = m.num_experts, m.expert_ffw_dim
-    out["moe"] = {"router": ((d, E), "normal"),
-                  "wi_gate": ((E, d, Fw), "fan_in_1"),
-                  "wi_up": ((E, d, Fw), "fan_in_1"),
-                  "wo": ((E, Fw, d), "fan_in_1")}
+    out["moe"] = {"router": ((d, E), "normal", ("embed", None)),
+                  "wi_gate": ((E, d, Fw), "fan_in_1", ("expert", "embed", None)),
+                  "wi_up": ((E, d, Fw), "fan_in_1", ("expert", "embed", None)),
+                  "wo": ((E, Fw, d), "fan_in_1", ("expert", None, "embed"))}
     if m.num_shared_experts:
-        Fs = Fw * m.num_shared_experts
-        out["moe"]["shared"] = {"wi_gate": ((d, Fs), "fan_in"),
-                                "wi_up": ((d, Fs), "fan_in"),
-                                "wo": ((Fs, d), "fan_in"),
-                                "gate": ((d, 1), "normal")}
+        out["moe"]["shared"] = {**_gated_mlp(d, Fw * m.num_shared_experts),
+                                "gate": ((d, 1), "normal", ("embed", None))}
     return out
 
 
 def lm_param_specs(cfg: LMConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf; ``blocks`` is per layer."""
-    specs = {"embed": ((cfg.vocab_size, cfg.d_model), "normal"),
+    """Nested dict of (shape, init, axes) per leaf; ``blocks`` is per
+    layer."""
+    specs = {"embed": ((cfg.vocab_size, cfg.d_model), "normal",
+                       ("vocab", "embed")),
              "blocks": lm_block_specs(cfg),
-             "final_norm": {"scale": ((cfg.d_model,), "ones")}}
+             "final_norm": {"scale": ((cfg.d_model,), "ones", _R)}}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ((cfg.d_model, cfg.vocab_size), "normal")
+        specs["lm_head"] = ((cfg.d_model, cfg.vocab_size), "normal",
+                            ("embed", "vocab"))
     return specs
 
 
@@ -445,7 +469,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
-        for _, (shape, init), tensors, _ in _leaves(model, cfg, specs):
+        for _, (shape, init, _), tensors, _ in _leaves(model, cfg, specs):
             for t in tensors:
                 _fill(t, shape, init, gen, zero_init)
     return model
@@ -590,7 +614,7 @@ def load_jax_arrays(model, arrays: Dict[str, np.ndarray], prefix: str = "",
     _, specs = _family(cfg)
     pick = tensor_of or (lambda t: t)
     with torch.no_grad():
-        for path, (shape, _), tensors, stacked in _leaves(model, cfg,
+        for path, (shape, _, _), tensors, stacked in _leaves(model, cfg,
                                                           specs):
             key = "/".join([prefix] * bool(prefix) + [str(p) for p in path])
             if key not in arrays:
@@ -602,3 +626,37 @@ def load_jax_arrays(model, arrays: Dict[str, np.ndarray], prefix: str = "",
             for t, a in zip(tensors, arr if stacked else (arr,)):
                 a = torch.from_numpy(np.ascontiguousarray(a))
                 pick(t).copy_(a if stacked else to_port(a))
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """The logical-axes tree of ``cfg``'s family (the JAX
+    ``logical_axes(defs)``, each stacked leaf's leading ``layers`` axis
+    dropped: the port keeps a list of layers), in the JAX layout."""
+    _, specs = _family(cfg)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree[2]
+
+    return walk(specs)
+
+
+def port_axes(axes: Axes) -> Axes:
+    """A leaf's logical axes in the port's layout (:func:`to_port`: a
+    convolution weight's (k, k, c_in, c_out) axes as (c_out, c_in, k,
+    k))."""
+    return tuple(axes[i] for i in (3, 2, 0, 1)) if len(axes) == 4 else axes
+
+
+def param_axes(model) -> list:
+    """The logical axes of each of ``model.parameters()``, in order and in
+    the port's layout (what a rule table shards a parameter by)."""
+    _, specs = _family(model.cfg)
+    by_id = {}
+    for _, (_, _, axes), tensors, _ in _leaves(model, model.cfg, specs):
+        for t in tensors:
+            by_id[id(t)] = port_axes(axes)
+    return [by_id[id(p)] for p in model.parameters()]

@@ -12,7 +12,10 @@ blocks are a per-layer list and the forward is a loop over them.  The
 KV cache is (L, B, S_max, Hkv, hd) per K and V, written in place.
 TimeRipple does not apply to 1-D text tokens.  Training: ``lm_loss``,
 the next-token cross entropy (sequence-chunked above a cell budget),
-with each block recomputed in the backward pass under ``remat``.
+with each block recomputed in the backward pass under ``remat``.  Every
+entry point takes the reference's ``ctx`` (a ``ShardCtx``) and hands it
+to the MoE, which runs expert parallelism on its mesh's ``model`` axis;
+its activation constraints change no value (``distributed.sharding``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config.base import LMConfig
+from repro_torch.distributed.sharding import NULL_CTX, ShardCtx
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import Attention, Scale, gqa_attention
 from repro_torch.models.common import GatedMLP, param, remat_call, rmsnorm
@@ -80,7 +84,8 @@ def layer_windows(cfg: LMConfig) -> np.ndarray:
 
 
 def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
-           cache: Optional[Cache] = None, cache_index: Optional[int] = None):
+           cache: Optional[Cache] = None, cache_index: Optional[int] = None,
+           ctx: ShardCtx = NULL_CTX):
     h = rmsnorm(bp.attn_norm.scale, x)
     attn_out, new_cache = gqa_attention(
         bp.attn, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -90,7 +95,7 @@ def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
     x = x + attn_out
     h = rmsnorm(bp.mlp_norm.scale, x)
     if cfg.moe is not None:
-        ffn_out, aux = moe_lib.moe_ffn(bp.moe, h, cfg.moe)
+        ffn_out, aux = moe_lib.moe_ffn(bp.moe, h, cfg.moe, ctx=ctx)
     else:
         ffn_out = bp.mlp(h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -103,7 +108,7 @@ def _head(model: TransformerLM) -> torch.Tensor:
 
 
 def lm_apply(model: TransformerLM, tokens: torch.Tensor,
-             cfg: Optional[LMConfig] = None, *,
+             cfg: Optional[LMConfig] = None, *, ctx: ShardCtx = NULL_CTX,
              compute_dtype: torch.dtype = torch.bfloat16,
              remat: bool = False, remat_policy: str = "full",
              cache: Optional[Cache] = None, cache_index: Optional[int] = None,
@@ -130,7 +135,7 @@ def lm_apply(model: TransformerLM, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, blk, window):
-        x, _, a = _block(cfg, x, blk, window, positions)
+        x, _, a = _block(cfg, x, blk, window, positions, ctx=ctx)
         return x, a
 
     for i, (blk, window) in enumerate(zip(model.blocks, layer_windows(cfg))):
@@ -139,7 +144,7 @@ def lm_apply(model: TransformerLM, tokens: torch.Tensor,
                               policy=remat_policy)
         else:
             x, _, a = _block(cfg, x, blk, int(window), positions,
-                             (cache[0][i], cache[1][i]), cache_index)
+                             (cache[0][i], cache[1][i]), cache_index, ctx)
         aux = aux + a
     x = rmsnorm(model.final_norm.scale, x)
     if logits_mode == "none":
@@ -172,6 +177,7 @@ def _chunk_ce(h: torch.Tensor, targets: torch.Tensor,
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             targets: torch.Tensor, cfg: Optional[LMConfig] = None, *,
+            ctx: ShardCtx = NULL_CTX,
             compute_dtype: torch.dtype = torch.bfloat16, remat: bool = True,
             remat_policy: str = "full"):
     """Next-token cross entropy. tokens/targets: (B, S) integer.  The
@@ -182,7 +188,7 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     in the backward pass."""
     B, S = tokens.shape
     targets = targets.long()
-    kw = dict(compute_dtype=compute_dtype, remat=remat,
+    kw = dict(ctx=ctx, compute_dtype=compute_dtype, remat=remat,
               remat_policy=remat_policy)
     if S * model.cfg.vocab_size <= _CE_CELL_BUDGET or S % _CE_CHUNK != 0:
         logits, _, aux = lm_apply(model, tokens, cfg, **kw)
@@ -213,7 +219,8 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
-               max_len: int, *, compute_dtype: torch.dtype = torch.bfloat16):
+               max_len: int, *, ctx: ShardCtx = NULL_CTX,
+               compute_dtype: torch.dtype = torch.bfloat16):
     """Prefill: run the prompt into a fresh cache of ``max_len``
     positions; returns (last logits (B, 1, V), cache at length S).
     Serving: runs under ``no_grad``."""
@@ -221,7 +228,7 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
     cache = init_cache(cfg, B, max_len, compute_dtype, tokens.device)
-    logits, cache, _ = lm_apply(model, tokens, cfg,
+    logits, cache, _ = lm_apply(model, tokens, cfg, ctx=ctx,
                                 compute_dtype=compute_dtype, cache=cache,
                                 cache_index=0, logits_mode="last")
     return logits, cache
@@ -230,11 +237,12 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
 @torch.no_grad()
 def lm_decode_step(model: TransformerLM, token: torch.Tensor, cache: Cache,
                    cache_index: int, cfg: LMConfig, *,
+                   ctx: ShardCtx = NULL_CTX,
                    compute_dtype: torch.dtype = torch.bfloat16):
     """One decode step. token: (B, 1); returns (logits (B, 1, V), cache),
     the cache written in place at ``cache_index``.  Serving: runs under
     ``no_grad``."""
-    logits, cache, _ = lm_apply(model, token, cfg,
+    logits, cache, _ = lm_apply(model, token, cfg, ctx=ctx,
                                 compute_dtype=compute_dtype, cache=cache,
                                 cache_index=cache_index, logits_mode="last")
     return logits, cache

@@ -120,10 +120,13 @@ def _update_pass(g, mu, nu, params, clip, lr, bc1, bc2, cfg: TrainConfig):
 
 @torch.no_grad()
 def adamw_update(grads: List[Optional[torch.Tensor]], state: AdamWState,
-                 params: List[torch.Tensor], cfg: TrainConfig):
+                 params: List[torch.Tensor], cfg: TrainConfig,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step with global-norm clipping, on ``params`` in place.
     Returns (new state, metrics): ``grad_norm`` (before clipping) and
-    ``lr``, float32 scalars on the gradients' device.
+    ``lr``, float32 scalars on the gradients' device.  ``grad_norm``
+    given is the whole tree's norm when ``grads`` and ``params`` are one
+    rank's pieces of it (``distributed.fsdp``).
 
     The norm and the clip factor cover the whole tree; the update runs
     over groups of ``_GROUP_ELEMS`` elements (flat ranges of the
@@ -133,7 +136,7 @@ def adamw_update(grads: List[Optional[torch.Tensor]], state: AdamWState,
     ``.grad`` dropped."""
     if not params:
         raise ValueError("adamw_update needs at least one parameter")
-    gnorm = tree_global_norm(grads)
+    gnorm = tree_global_norm(grads) if grad_norm is None else grad_norm
     if cfg.grad_clip > 0:
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     else:

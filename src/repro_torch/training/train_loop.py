@@ -2,8 +2,10 @@
 package's ``training/train_loop.py`` composes them.
 
 ``make_train_step`` composes: loss -> gradients (``backward()``, with
-optional micro-batch accumulation) -> AdamW (in place) -> optional EMA,
-into one function whose signature is the same for every family::
+optional micro-batch accumulation) -> optional int8 error-feedback
+compression (``distributed.collectives``) -> AdamW (in place) ->
+optional EMA, into one function whose signature is the same for every
+family::
 
     train_step(state, batch, seed) -> (state, metrics)
 
@@ -13,6 +15,14 @@ the draws do not depend on the device, and a run resumed from a
 checkpoint at step s draws what the uninterrupted run drew there.  The
 reference restarts its key chain from the seed on resume instead, so
 its resumed run draws other noise (a deliberate difference).
+
+On several ranks (a train state made with a rank mesh) the parameters,
+gradients, moments, residual and EMA are sharded over the batch axes
+(``distributed.fsdp``: a block's parameters are whole only while it
+runs and for its backward pass): each rank runs its rows of every micro-batch
+(after drawing the micro-batch's noise whole), the gradients are
+averaged over the ranks, and the clip norm and the compression scales
+cover the whole tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +37,9 @@ from torch import nn
 
 from repro_torch.config.base import TrainConfig
 from repro_torch.data.synthetic import batch_generator
+from repro_torch.distributed.collectives import (CompressionState,
+                                                 compress_grads,
+                                                 compression_init)
 from repro_torch.training.optimizer import (AdamWState, adamw_init,
                                             adamw_update)
 
@@ -36,36 +49,40 @@ log = logging.getLogger("repro_torch.train")
 class TrainState(NamedTuple):
     """``params`` is the model, trained in place; ``opt`` holds the AdamW
     moments aligned with ``list(params.parameters())``; ``compression``
-    is always None (no cross-pod int8 compression on one card); ``ema``
-    a float copy of each parameter, or None."""
+    the int8 residuals when ``train.grad_compression`` is on; ``ema`` a
+    float copy of each parameter, or None.  With ``shards`` (a
+    ``distributed.fsdp.ParamShards``) the moments, residuals and EMA are
+    this rank's pieces and the model's parameters live in
+    ``shards.local`` between steps."""
 
     params: nn.Module
     opt: AdamWState
-    compression: None
+    compression: Optional[CompressionState]
     ema: Optional[List[torch.Tensor]]
+    shards: Optional[Any] = None
 
 
-def _no_compression(cfg: TrainConfig) -> None:
-    if cfg.grad_compression:
-        raise NotImplementedError(
-            "grad_compression (the reference's int8 error-feedback "
-            "compression, distributed/collectives.py) is not ported: "
-            "ROADMAP queue 3")
-
-
-def train_state_init(model: nn.Module, cfg: TrainConfig) -> TrainState:
-    """Zero moments and step 0; every parameter set to require grad."""
-    _no_compression(cfg)
+def train_state_init(model: nn.Module, cfg: TrainConfig,
+                     mesh=None) -> TrainState:
+    """Zero moments (and residuals) and step 0; every parameter set to
+    require grad.  With a rank ``mesh`` the state is sharded over its
+    batch axes."""
     params = list(model.parameters())
     for p in params:
         p.requires_grad_(True)
+    shards = None
+    if mesh is not None:
+        from repro_torch.distributed.fsdp import ParamShards
+
+        shards = ParamShards(model, mesh)
+        params = shards.local
     ema = ([p.detach().clone() for p in params] if cfg.ema_decay
            else None)
-    return TrainState(model, adamw_init(params), None, ema)
+    comp = compression_init(params) if cfg.grad_compression else None
+    return TrainState(model, adamw_init(params), comp, ema, shards)
 
 
-LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], torch.Generator],
-                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 def make_train_step(loss_fn: LossFn, cfg: TrainConfig) -> Callable:
@@ -76,32 +93,46 @@ def make_train_step(loss_fn: LossFn, cfg: TrainConfig) -> Callable:
     the float32 gradients of the micro-batches are summed, then divided
     by A, and the loss and metrics averaged, as the reference's scan
     does.  Gradients are taken with grad mode on whatever the caller's
-    mode."""
-    _no_compression(cfg)
+    mode.  On a sharded state rank r of N runs ``loss_fn(model,
+    micro_batch, generator, rows=slice)`` on the r-th of N equal pieces
+    of each micro-batch's rows, as GSPMD shards the reference's (A, B/A)
+    reshape over ``data``; the loss must draw its randomness for the
+    whole micro-batch before it keeps ``rows``."""
     accum = max(cfg.grad_accum, 1)
 
-    def compute_grads(model, params, batch, seed, step):
+    def compute_grads(model, params, batch, seed, step, shards=None):
         for p in params:
             p.grad = None
-        if accum > 1:
+        micros, rows = [batch], None
+        if accum > 1 or shards is not None:
             sizes = {v.shape[0] for v in batch.values()}
             if len(sizes) != 1 or next(iter(sizes)) % accum:
                 raise ValueError(f"batch sizes {sorted(sizes)} do not split "
                                  f"into grad_accum={accum} micro-batches")
             per = next(iter(sizes)) // accum
+        if accum > 1:
             micros = [{k: v[i * per:(i + 1) * per] for k, v in batch.items()}
                       for i in range(accum)]
-        else:
-            micros = [batch]
+        if shards is not None:
+            if per % shards.n:
+                raise ValueError(f"micro-batches of {per} rows do not split "
+                                 f"over {shards.n} ranks")
+            m = per // shards.n
+            rows = slice(shards.index * m, (shards.index + 1) * m)
         losses, metrics = [], []
         with torch.enable_grad():
             for i, mb in enumerate(micros):
-                loss, m = loss_fn(model, mb, batch_generator(seed, step, i))
+                gen = batch_generator(seed, step, i)
+                loss, m = (loss_fn(model, mb, gen) if rows is None else
+                           loss_fn(model, mb, gen, rows=rows))
                 loss.backward()
+                if shards is not None:
+                    shards.end_micro_batch()
                 losses.append(loss.detach())
                 metrics.append({k: v.detach() for k, v in m.items()})
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        grads = (shards.take_grads() if shards is not None else
+                 [p.grad if p.grad is not None else torch.zeros_like(p)
+                  for p in params])
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
             mean = {k: torch.mean(torch.stack([m[k] for m in metrics]))
@@ -111,11 +142,26 @@ def make_train_step(loss_fn: LossFn, cfg: TrainConfig) -> Callable:
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model = state.params
+        model, sh = state.params, state.shards
         params = list(model.parameters())
-        loss, metrics, grads = compute_grads(model, params, batch, seed,
-                                             state.opt.step)
-        opt, opt_metrics = adamw_update(grads, state.opt, params, cfg)
+        gnorm = reduce_max = None
+        if sh is None:
+            loss, metrics, grads = compute_grads(model, params, batch, seed,
+                                                 state.opt.step)
+        else:
+            with sh.step():
+                loss, metrics, grads = compute_grads(model, params, batch,
+                                                     seed, state.opt.step, sh)
+            loss = sh.mean(loss)
+            metrics = {k: sh.mean(v) for k, v in metrics.items()}
+            params, reduce_max = sh.local, sh.reduce_max
+        comp = state.compression
+        if comp is not None:
+            grads, comp = compress_grads(grads, comp, reduce_max)
+        if sh is not None:
+            gnorm = sh.global_norm(grads)
+        opt, opt_metrics = adamw_update(grads, state.opt, params, cfg,
+                                        grad_norm=gnorm)
         for p in params:
             p.grad = None
         ema = state.ema
@@ -125,7 +171,7 @@ def make_train_step(loss_fn: LossFn, cfg: TrainConfig) -> Callable:
                 for e, p in zip(ema, params):
                     e.copy_(d * e + (1 - d) * p.to(e.dtype))
         metrics = {**metrics, **opt_metrics, "loss": loss}
-        return TrainState(model, opt, None, ema), metrics
+        return TrainState(model, opt, comp, ema, sh), metrics
 
     return step
 
@@ -138,37 +184,63 @@ def _per_param(model: nn.Module):
     return lambda seq: (lambda p: seq[index[id(p)]])
 
 
+def _per_param_lists(state: TrainState):
+    """(name, per-parameter list) of every part of the state a checkpoint
+    holds beside the step, in the JAX ``TrainState``'s order."""
+    out = [("params", state.shards.local if state.shards is not None
+            else list(state.params.parameters())),
+           ("opt/mu", state.opt.mu), ("opt/nu", state.opt.nu)]
+    if state.compression is not None:
+        out.append(("compression/error", state.compression.error))
+    if state.ema is not None:
+        out.append(("ema", state.ema))
+    return out
+
+
 def state_tree(state: TrainState) -> Dict[str, Any]:
     """The tree a checkpoint stores, with the JAX ``TrainState``'s paths
     and layout (``params/…``, ``opt/step``, ``opt/mu/…``, ``opt/nu/…``,
-    ``ema/…``; the JAX param tree of the model's family under each), so
-    either package resumes from the other's training checkpoints."""
+    ``compression/error/…``, ``ema/…``; the JAX param tree of the model's
+    family under each), so either package resumes from the other's
+    training checkpoints.  On a sharded state the leaves are gathered
+    whole (a collective: every rank calls it)."""
     from repro_torch.models.params import jax_tree
 
-    model = state.params
+    model, sh = state.params, state.shards
     of = _per_param(model)
-    tree = {"params": jax_tree(model),
-            "opt": {"step": np.asarray(state.opt.step, np.int32),
-                    "mu": jax_tree(model, of(state.opt.mu)),
-                    "nu": jax_tree(model, of(state.opt.nu))}}
-    if state.ema is not None:
-        tree["ema"] = jax_tree(model, of(state.ema))
+    tree: Dict[str, Any] = {"opt": {"step": np.asarray(state.opt.step,
+                                                       np.int32)}}
+    for name, seq in _per_param_lists(state):
+        if sh is not None:
+            seq = sh.gather_full(seq)
+        sub = jax_tree(model, of(seq))
+        node = tree
+        *head, last = name.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = sub
     return tree
 
 
 def load_state_tree(state: TrainState, arrays: Dict[str, np.ndarray]
                     ) -> TrainState:
     """Copy a checkpoint's ``path -> array`` map (:func:`state_tree`'s
-    paths) into ``state`` in place; returns it with the restored step."""
+    paths) into ``state`` in place; returns it with the restored step.
+    On a sharded state each rank keeps its pieces of the whole arrays,
+    whatever the number of ranks that wrote them (the reference's
+    ``distributed/elastic.py::reshard_state``)."""
     from repro_torch.models.params import load_jax_arrays
 
-    model = state.params
+    model, sh = state.params, state.shards
     of = _per_param(model)
-    load_jax_arrays(model, arrays, "params")
-    load_jax_arrays(model, arrays, "opt/mu", of(state.opt.mu))
-    load_jax_arrays(model, arrays, "opt/nu", of(state.opt.nu))
-    if state.ema is not None:
-        load_jax_arrays(model, arrays, "ema", of(state.ema))
+    for name, seq in _per_param_lists(state):
+        if sh is None:
+            load_jax_arrays(model, arrays, name, of(seq))
+            continue
+        whole = [torch.empty(shape, dtype=t.dtype)
+                 for shape, t in zip(sh.shapes, seq)]
+        load_jax_arrays(model, arrays, name, of(whole))
+        sh.scatter_full(whole, seq)
     opt = state.opt._replace(step=int(arrays["opt/step"]))
     return state._replace(opt=opt)
 
@@ -176,11 +248,12 @@ def load_state_tree(state: TrainState, arrays: Dict[str, np.ndarray]
 def run_train_loop(step_fn, state: TrainState, batch_iter, num_steps: int,
                    *, seed: int, checkpointer=None, checkpoint_every: int = 0,
                    log_every: int = 10, start_step: int = 0,
-                   on_step: Optional[Callable[[int, Dict], None]] = None
-                   ) -> Tuple[TrainState, list]:
+                   on_step: Optional[Callable[[int, Dict], None]] = None,
+                   writer: bool = True) -> Tuple[TrainState, list]:
     """Host loop: data feeding, metrics, periodic (async) checkpoints of
     :func:`state_tree`; ``on_step(i, metrics)`` is called after every
-    step (a caller's timer or logger)."""
+    step (a caller's timer or logger).  On a sharded state every rank
+    gathers the checkpoint's tree and only the ``writer`` saves it."""
     history = []
     t0 = time.time()
     for i in range(start_step, num_steps):
@@ -195,5 +268,7 @@ def run_train_loop(step_fn, state: TrainState, batch_iter, num_steps: int,
                      m.get("loss", float("nan")), time.time() - t0)
         if checkpointer is not None and checkpoint_every and \
                 (i + 1) % checkpoint_every == 0:
-            checkpointer.save(i + 1, state_tree(state))
+            tree = state_tree(state)
+            if writer:
+                checkpointer.save(i + 1, tree)
     return state, history

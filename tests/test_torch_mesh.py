@@ -9,8 +9,10 @@ seed."""
 
 import dataclasses
 import logging
+import os
 import threading
 import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -111,14 +113,37 @@ def test_make_host_mesh_and_sharding_helpers(shards):
 
 
 def test_multi_host_init_is_not_ported():
-    """``init_distributed`` / ``--distributed`` wait for a later slice:
-    neither the mesh module nor the launcher has them."""
+    """Multi-process init was refused here until it was ported: now the
+    mesh module has ``init_distributed`` (a no-op returning False once
+    the group exists is held in ``tests/test_torch_distributed.py``), it
+    refuses to guess a rendezvous, and the serving launcher takes the
+    reference's ``--distributed`` flags with its defaults."""
+    import argparse
+
     from repro_torch.launch import serve
 
-    assert not hasattr(mesh_lib, "init_distributed")
-    assert not hasattr(serve, "init_distributed")
-    src = open(serve.__file__, encoding="utf-8").read()
-    assert "--distributed" not in src.replace("``--distributed``", "")
+    assert callable(mesh_lib.init_distributed)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+    with mock.patch.dict(os.environ, env, clear=True):
+        assert not mesh_lib.launched_by_torchrun()
+        with pytest.raises(RuntimeError, match="torchrun"):
+            mesh_lib.init_distributed(device="cpu")
+    seen = {}
+
+    def parse(self, argv=None):
+        ns = orig(self, argv)
+        seen.update(vars(ns))
+        raise SystemExit(0)
+
+    orig = argparse.ArgumentParser.parse_args
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", parse):
+        with pytest.raises(SystemExit):
+            serve.main(["--device", "cpu"])
+    assert {k: seen[k] for k in ("distributed", "coordinator",
+                                 "num_processes", "process_id")} == {
+        "distributed": False, "coordinator": None, "num_processes": None,
+        "process_id": None}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ package's ``repro.models.moe`` on the CPU: the router (top-k indices
 equal; weights and aux loss in float32 within ``F32_REL``), the
 expert-batched FFN, and ``moe_ffn`` on the dense path with and without
 shared experts (float32 within ``F32_REL``, bf16 within relative L2
-``BF16_REL``); ``impl="ep"`` raises.  Bars are
+``BF16_REL``); ``impl="ep"`` without a mesh or under autograd raises
+(expert parallelism itself: ``tests/test_torch_moe_ep.py``).  Bars are
 ``tests/test_torch_lm.py``'s."""
 
 import dataclasses
@@ -139,14 +140,28 @@ def test_shared_experts_are_gated_in():
 
 
 def test_ep_raises_and_never_runs_dense():
+    """``impl="ep"`` (ported since expert parallelism was) needs a
+    dispatch mesh with a ``model`` axis and serves only: without a mesh
+    it raises, under autograd it raises naming ROADMAP, and neither falls
+    back to the dense path."""
+    from repro_torch.distributed.sharding import ShardCtx, train_act_rules
+    from repro_torch.launch.mesh import Mesh
+
     cfg = CASES["phi3.5-moe-smoke"]
     _, _, port = _pair(cfg)
+    mesh = Mesh(("data", "model"), (1, 2), (torch.device("cpu"),) * 2)
+    ctx = ShardCtx(mesh, train_act_rules(mesh))
     calls = []
     orig = moe._dense_moe
     try:
         moe._dense_moe = lambda *a: calls.append(1) or orig(*a)
-        with pytest.raises(NotImplementedError, match="_ep_moe"):
+        with pytest.raises(ValueError, match="needs ctx.mesh"):
             moe.moe_ffn(port, torch.zeros(1, 2, D), cfg, impl="ep")
+        x = torch.zeros(1, 2, D, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            moe.moe_ffn(port, x, cfg, ctx=ctx, impl="ep")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            moe.moe_ffn(port, x, cfg, ctx=ctx)  # auto picks ep on the mesh
         with pytest.raises(ValueError, match="unknown MoE impl"):
             moe.moe_ffn(port, torch.zeros(1, 2, D), cfg, impl="sparse")
     finally:

@@ -271,50 +271,100 @@ def test_train_loss_fn_draws_from_the_generator():
     assert 0 <= int(t.min()) and int(t.max()) < 1000
 
 
-@pytest.mark.parametrize("accum,ema", [(1, 0.0), (2, 0.0), (2, 0.9)],
-                         ids=["accum1", "accum2", "accum2+ema"])
-def test_make_train_step_matches_the_reference(accum, ema):
+def _coef(shape):
+    """A float32 coefficient tensor of ``shape``: small multiples of 1/64
+    from -125/64 to 125/64, the same in both packages."""
+    n = int(np.prod(shape))
+    c = ((np.arange(n, dtype=np.int64) * 7919 + n) % 251 - 125) / 64.0
+    return c.astype(np.float32).reshape(shape)
+
+
+@pytest.mark.parametrize("accum,ema,comp", [(1, 0.0, False), (2, 0.0, False),
+                                            (2, 0.9, False), (2, 0.0, True)],
+                         ids=["accum1", "accum2", "accum2+ema",
+                              "accum2+compression"])
+def test_make_train_step_matches_the_reference(accum, ema, comp):
     """Three steps of the dit with the noise carried in the batch dict:
-    params, AdamW moments, EMA and metrics against the reference's
-    ``make_train_step`` (float32 compute).  The bars are f32 summation
-    order, amplified by Adam's normalised first steps where a gradient
-    is near zero."""
+    params, AdamW moments, EMA, the int8 compression residuals and
+    metrics against the reference's ``make_train_step`` (float32
+    compute).  The bars are f32 summation order, amplified by Adam's
+    normalised first steps where a gradient is near zero.
+
+    The compressed case trains on a loss linear in the parameters,
+    ``sum(leaf * s * coef(leaf))`` with ``s`` a micro-batch's own power
+    of two, so each micro-batch's gradient ``s * coef`` and their mean
+    are exact in both packages however XLA contracts the products and
+    sums, and no element of g + e can sit at an int8 rounding boundary
+    in one package and not the other: its residuals are held bit for
+    bit at every step (compression after the accumulation, with the
+    scale, the error carried into the next step), its params and
+    moments to 1e-5."""
     arch, jarch, model, params = _setup("dit")
     kw = dict(learning_rate=1e-3, warmup_steps=1, grad_accum=accum,
-              ema_decay=ema)
+              ema_decay=ema, grad_compression=comp)
     tcfg = dataclasses.replace(arch.train, **kw)
     jcfg = dataclasses.replace(jarch.train, **kw)
 
+    coefs = {id(p): torch.from_numpy(_coef(tuple(p.shape)))
+             for p in model.parameters()}
+    j_coefs = jax.tree_util.tree_leaves(_np_tree(jax_tree(
+        model, lambda p: coefs[id(p)])))
+
     def j_fn(p, b, rng):
-        loss = j_loss("dit", jarch, p, b, jnp.float32)
+        if comp:
+            loss = sum(jnp.sum(leaf * (b["s"][0] * c)) for leaf, c in
+                       zip(jax.tree_util.tree_leaves(p), j_coefs))
+        else:
+            loss = j_loss("dit", jarch, p, b, jnp.float32)
         return loss, {"mse": loss}
 
     def t_fn(m, b, gen):
+        if comp:
+            loss = sum(torch.sum(p * (b["s"][0] * coefs[id(p)]))
+                       for p in m.parameters())
+            return loss, {"mse": loss.detach()}
         return workloads.diffusion_loss(arch, m, b, b["noise"], b["t"],
                                         compute_dtype=torch.float32)
 
     j_step = jax.jit(j_loop.make_train_step(j_fn, jcfg))
     t_step = train_loop.make_train_step(t_fn, tcfg)
+    bar = {"loss": 1e-5, "mse": 1e-5, "grad_norm": 1e-5, "lr": 1e-5,
+           "params": 1e-5, "moments": 1e-4}
     j_state = j_loop.train_state_init(params, jcfg)
     t_state = train_loop.train_state_init(model, tcfg)
     for i in range(3):
         nb = _batch("dit", arch, seed=10 + i)
         nb = {k: np.concatenate([v, v[::-1]]) for k, v in nb.items()}
+        if comp:
+            nb = {"s": np.float32(2.0) ** np.random.default_rng(i).integers(
+                -2, 3, (4,)).astype(np.float32)}
         j_state, j_m = j_step(j_state, jax.tree_util.tree_map(
             jnp.asarray, nb), jax.random.PRNGKey(i))
         t_state, t_m = t_step(t_state, _torch_batch(nb), 0)
         for k in ("loss", "mse", "grad_norm", "lr"):
-            assert _rel(float(t_m[k]), float(j_m[k])) <= 1e-5, (i, k)
+            assert _rel(float(t_m[k]), float(j_m[k])) <= bar[k], (i, k)
+        if comp:
+            err = dict(zip(coefs, t_state.compression.error))
+            got_e = jax.tree_util.tree_leaves(_np_tree(jax_tree(
+                model, lambda p: err[id(p)])))
+            want_e = jax.tree_util.tree_leaves(j_state.compression.error)
+            assert len(got_e) == len(want_e)
+            for g, w in zip(got_e, want_e):
+                np.testing.assert_array_equal(g, np.asarray(w))
+            assert any(np.any(g) for g in got_e)
     tree = train_loop.state_tree(t_state)
     assert int(tree["opt"]["step"]) == int(j_state.opt.step) == 3
     got = _np_tree(tree["params"])
-    assert _tree_rel(got, j_state.params) <= 1e-5
-    assert _tree_rel(_np_tree(tree["opt"]["mu"]), j_state.opt.mu) <= 1e-4
-    assert _tree_rel(_np_tree(tree["opt"]["nu"]), j_state.opt.nu) <= 1e-4
+    assert _tree_rel(got, j_state.params) <= bar["params"]
+    for k in ("mu", "nu"):
+        assert _tree_rel(_np_tree(tree["opt"][k]), getattr(j_state.opt, k)) \
+            <= bar["moments"]
     if ema:
         assert _tree_rel(_np_tree(tree["ema"]), j_state.ema) <= 1e-5
     else:
         assert "ema" not in tree and j_state.ema is None
+    if not comp:
+        assert "compression" not in tree and j_state.compression is None
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
@@ -344,10 +394,52 @@ def test_train_and_checkpoint_configs_equal_the_reference(smoke):
 
 
 def test_grad_compression_is_refused():
-    cfg = dataclasses.replace(get_smoke_config("dit-b2").train,
-                              grad_compression=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        train_loop.make_train_step(lambda m, b, g: None, cfg)
+    """``train.grad_compression`` was refused until the int8
+    error-feedback compression was ported; now the state carries a
+    float32 residual a parameter, zero at init, the checkpoint tree has
+    the reference's ``compression/error/...`` paths, and a step moves
+    the residual (the reference's tree from ``init_params`` of the same
+    config)."""
+    arch, jarch, model, params = _setup("dit")
+    tcfg = dataclasses.replace(arch.train, grad_compression=True,
+                               learning_rate=1e-3, warmup_steps=1)
+    state = train_loop.train_state_init(model, tcfg)
+    errs = state.compression.error
+    assert [e.shape for e in errs] == [p.shape for p in model.parameters()]
+    assert all(e.dtype == torch.float32 and not e.any() for e in errs)
+    j_state = j_loop.train_state_init(
+        params, dataclasses.replace(jarch.train, grad_compression=True))
+    want = {k: np.asarray(v).shape for k, v in
+            _flat_paths(j_state._asdict()).items()}
+    got = {k: tuple(np.asarray(v).shape) for k, v in
+           _flat_paths(train_loop.state_tree(state)).items()}
+    assert got == want
+
+    def t_fn(m, b, gen):
+        return workloads.diffusion_loss(arch, m, b, b["noise"], b["t"],
+                                        compute_dtype=torch.float32)
+
+    step = train_loop.make_train_step(t_fn, tcfg)
+    state, _ = step(state, _torch_batch(_batch("dit", arch, seed=3)), 0)
+    assert any(e.any() for e in state.compression.error)
+
+
+def _flat_paths(tree, prefix=""):
+    """``path -> leaf`` of nested dicts, lists and NamedTuples, the
+    checkpointers' ``/``-joined keys."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        if v is not None:
+            out.update(_flat_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
