@@ -295,28 +295,12 @@ import ctypes
 import dataclasses
 import functools
 import json
-import logging
 import os
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# NVIDIA H100 SXM data-sheet peaks (dense): device memory and arithmetic.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# Exponentials: 16 ex2 results a clock per SM on the special-function
-# units, at the clock that gives the data-sheet bf16 peak (4096 dense
-# FLOP a clock per SM on 132 SMs: 1.83 GHz), 3.86e12 a second.  It counts
-# neither exponentials evaluated as polynomials on the FMA pipes nor
-# boost clocks above 1.83 GHz, so it is an estimate, not a strict floor.
-SM_COUNT = 132
-CLOCK_HZ = PEAK_FLOPS["bfloat16"] / (SM_COUNT * 4096)
-EXP2_PER_S = SM_COUNT * 16 * CLOCK_HZ
-# Float ops per element of the Δ-check: three window-2 Δ (9 ops each,
-# shared by 2 elements), three compares, the first-wins select chain.
-REUSE_OPS_PER_ELEM = 3 * 9 / 2 + 3 + 3
 
 SERVE_OVERRIDES = ("model.frames=32",)  # 128 frames cut to 32: grid (8, 32, 32)
 SERVE_STEPS = 12                        # step 10 snaps at θ=0.2, step 11 dense
@@ -762,17 +746,12 @@ def event_time_ms(fn, iters=20, flush=None):
 
 
 def reuse_bound(x, grid, want_src=False):
-    """(bound ms, bound by, bytes) of one fused_reuse call on x: every
-    element read once and written once with its mask byte, over the whole
-    sequence, plus 4 bytes of source map a grid element with
-    ``want_src``; the Δ arithmetic on the grid elements at the float32
-    peak."""
-    n_grid = x.numel() // x.shape[-2] * grid[0] * grid[1] * grid[2]
-    nbytes = x.numel() * (2 * x.element_size() + 1) + (4 * n_grid if want_src else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = n_grid * REUSE_OPS_PER_ELEM / PEAK_FLOPS["float32"]
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            nbytes)
+    """(bound ms, bound by, bytes) of one fused_reuse call on x
+    (``launch.roofline.reuse_work``)."""
+    from repro_torch.launch import roofline
+
+    w = roofline.reuse_work(x.shape, x.element_size(), grid, want_src)
+    return (*w.bound(), w.nbytes)
 
 
 def time_fused_reuse(x, grid, axes, grid_slice, label, flush, want_src=False):
@@ -956,21 +935,15 @@ def unet_ripple_checks(results):
 
 def ripple_bound(q, k, dv):
     """(bound ms, bound by, flops, exponentials, bytes) of one ripple call
-    on these operands: the score and PV products these operands need (the
-    rows and keys a collapsed tile leaves, :func:`ripple_tile_stats`) at
-    the bf16 tensor peak, one exponential per score at the SFU rate, and
-    q, k, v read and the output written once; the largest of the three
-    (an exponential bound is one of operations, on the SFU)."""
+    on these operands (``launch.roofline.ripple_work``), with the score
+    and PV products the operands need: the rows and keys a collapsed tile
+    leaves (:func:`ripple_tile_stats`)."""
     from repro_torch.kernels.ripple import ops as ripple_ops
+    from repro_torch.launch import roofline
 
     _, _, flops = ripple_ops.ripple_tile_stats(q, k, dv)
-    exps = flops / (2 * (q.shape[-1] + dv))
-    nbytes = (3 * q.numel() + q.numel() // q.shape[-1] * dv) * q.element_size()
-    t = {"bytes": nbytes / HBM_BYTES_PER_S,
-         "operations": flops / PEAK_FLOPS["bfloat16"],
-         "exponentials": exps / EXP2_PER_S}
-    by = max(t, key=t.get)
-    return t[by] * 1e3, by, flops, exps, nbytes
+    w = roofline.ripple_work(q.shape, dv, q.element_size(), flops)
+    return (*w.bound(), w.ops, w.exps, w.nbytes)
 
 
 def time_unet_ripple(served):
@@ -984,6 +957,7 @@ def time_unet_ripple(served):
     import torch
     from repro_torch.kernels.ripple import ops as ripple_ops
     from repro_torch.kernels.ripple.ref import ripple_attention_ref
+    from repro_torch.launch import roofline
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
@@ -999,9 +973,8 @@ def time_unet_ripple(served):
         lib, _ = device_time_ms(lambda: sdpa(q, k, v, scale=scale))
         lib_wrap = cuda_time_ms(lambda: sdpa(q, k, v, scale=scale), iters=10)
         bound, by, flops, exps, nbytes = ripple_bound(q, k, d)
-        parts = {"operations": flops / PEAK_FLOPS["bfloat16"] * 1e3,
-                 "exponentials": exps / EXP2_PER_S * 1e3,
-                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        parts = {k_: t * 1e3 for k_, t in roofline.ripple_work(
+            q.shape, d, q.element_size(), flops).terms().items()}
         qf, kf, _ = ripple_ops.ripple_tile_stats(q, k, d)
         log(f"time ripple_attention bf16 {qk} (unet-sd15, d {d}, tensor cores "
             f"{ripple_ops.uses_tensor_cores(q, v)}; tiles collapsed q {qf:.3f} k "
@@ -1404,37 +1377,18 @@ def sparse_checks(serve_grid, n_txt):
 
 
 def sparse_bound(q, v, bias, bmap, blk):
-    """(bound ms, 'bytes' or 'operations', flops, bytes) of one call: the
-    products of the non-SKIP tiles (2*(d + dv) flops per score) at the
-    peak of the operands' dtype against q, k, v and the output once, the
-    map, and the f32 bias of the PARTIAL tiles at the memory rate."""
-    import torch
-    from repro_torch.kernels.sparse.ops import PARTIAL, SKIP, sparse_grid
+    """(bound ms, 'bytes' or 'operations', flops, bytes) of one call
+    (``launch.roofline.sparse_work``) on the tiles this map leaves
+    (``sparse_areas``)."""
+    from repro_torch.launch import roofline
 
-    B, H, Nq, d = q.shape
-    Nk, dv = v.shape[2], v.shape[3]
-    bq, bk, nq, nk = sparse_grid(Nq, Nk, blk, blk)
-    rows = torch.tensor([min(bq, Nq - i * bq) for i in range(nq)], dtype=torch.float64)
-    keys = torch.tensor([min(bk, Nk - j * bk) for j in range(nk)], dtype=torch.float64)
-    area = rows[:, None] * keys[None, :]
-    bm = bmap.expand(B, H, nq, nk).cpu()
-    live = ((bm != SKIP).double() * area).sum().item()
-    # The bias is read once: a slab broadcast over batch rows or heads
-    # counts the tiles that are PARTIAL in any map that reads it.
-    pm = bm == PARTIAL
-    if bias is not None:
-        for dim in (0, 1):
-            if bias.shape[dim] == 1:
-                pm = pm.any(dim, keepdim=True)
-    partial = (pm.double() * area).sum().item()
-    elt = q.element_size()
-    flops = 2.0 * (d + dv) * live
-    nbytes = (elt * (B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)) + 4 * bm.numel()
-              + (4 * partial if bias is not None else 0))
-    t_ops = flops / PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
-        flops, nbytes
+    bshape = None if bias is None else tuple(bias.shape)
+    live, partial, n_map = roofline.sparse_areas(bmap, q.shape, v.shape[2], blk,
+                                                 bshape)
+    w = roofline.sparse_work(q.shape, v.shape[2], v.shape[3], q.dtype, blk,
+                             live=live, partial=partial, map_numel=n_map,
+                             bias_shape=bshape)
+    return (*w.bound(), w.ops, w.nbytes)
 
 
 def spatial_local_keep(grid, radius):
@@ -1747,14 +1701,12 @@ def flash_checks():
 
 
 def flash_bound(B, H, Nq, Nk, d, dv, dtype_name):
-    """(bound ms, 'bytes' or 'operations', flops, bytes) of one call."""
-    flops = 2.0 * B * H * Nq * Nk * (d + dv)
-    elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = elt * B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            flops, nbytes)
+    """(bound ms, 'bytes' or 'operations', flops, bytes) of one call
+    (``launch.roofline.flash_work``)."""
+    from repro_torch.launch import roofline
+
+    w = roofline.flash_work(B, H, Nq, Nk, d, dv, dtype_name)
+    return (*w.bound(), w.ops, w.nbytes)
 
 
 def time_flash(shape, label):
@@ -1866,6 +1818,7 @@ def time_snap(flush):
     import torch
     from repro_torch.kernels.reuse_mask.ops import reuse_snap
     from repro_torch.kernels.reuse_mask.ref import reuse_snap_plain
+    from repro_torch.launch import roofline
 
     g = torch.Generator(device="cuda")
     g.manual_seed(77)
@@ -1875,11 +1828,9 @@ def time_snap(flush):
     wrap = cuda_time_ms(lambda: reuse_snap(x, 0.3), iters=20)
     plain = cuda_time_ms(lambda: reuse_snap_plain(x, 0.3), iters=10)
     comp = cuda_time_ms(lambda: snap_composite(x, th), iters=10)
-    nbytes = x.numel() * (2 + 2 + 1)
-    ops = 4 * x.numel() / 2  # per pair-channel: sub, abs, mul, compare
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_FLOPS["float32"] \
-        else "operations"
+    work = roofline.snap_work(x.shape, x.element_size())
+    bound, by = work.bound()
+    nbytes = work.nbytes
     log(f"time reuse_snap bf16 {SNAP_SERVE_SHAPE}: device {ms:.4f} ms a call (L2 "
         f"flushed; {nbytes / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bound), host "
         f"{host:.4f} ms a wrapper call, wrapper time back to back {wrap:.4f} ms; plain "
@@ -2505,7 +2456,8 @@ def serve_dit():
     of 72) on gen_1024: 4 requests in one batch through the ripple
     policy.  The adaLN, fused_reuse and ripple kernels must launch, the
     sparse kernel must not, and every ripple call must take the tensor
-    cores; then one forward at step 10 is profiled."""
+    cores; then one forward at step 10 is profiled.  Returns the run's
+    launch counts, the profile and the steps a request."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serving_shape
@@ -2532,13 +2484,13 @@ def serve_dit():
         launched=("adaln", "fused_reuse", "ripple_attention"))
     if not paths or not all(tc for *_, tc in paths):
         raise SystemExit("serve[dit-xl2]: the ripple kernel left the tensor cores")
-    profile_forward("dit-xl2", arch, model, lat_shape,
-                    {"ripple_attention": "ripple", "fused_reuse": "fused_reuse",
-                     "adaln": "adaln"}, annotate=ripple_ranges(),
-                    batch=DIT_REQUESTS, total=shape.steps)
+    prof = profile_forward("dit-xl2", arch, model, lat_shape,
+                           {"ripple_attention": "ripple", "fused_reuse": "fused_reuse",
+                            "adaln": "adaln"}, annotate=ripple_ranges(),
+                           batch=DIT_REQUESTS, total=shape.steps)
     del model
     torch.cuda.empty_cache()
-    return counts
+    return counts, prof, shape.steps
 
 
 def serve_unet():
@@ -6049,8 +6001,6 @@ def train_worker(out, argv):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_lib
 
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s] %(message)s")
     records = []
     reset_launch_counts()
     with timed_train_steps(records):
@@ -6617,6 +6567,180 @@ def lm_train_phases():
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 8k. the launch tools (slice 21): the dry run's counts against the card
+# ---------------------------------------------------------------------------
+
+# The dry run (``repro_torch.launch.dryrun``) counts one rank's step on fake
+# tensors with the H100's constants.  Host processes started after the
+# build (``--dryrun-worker``, one a cell, CUDA hidden from them, at a lower
+# priority) count train[dit-xl2]'s configuration, train[gemma3-4b]'s at the
+# first two depths it tries and one serve[dit-xl2] forward while the card
+# runs its phases; 8k, last, holds each count against what those phases
+# measured.
+DRYRUN_GEMMA_DEPTHS = LM_TRAIN_DEPTHS[:2]
+DRYRUN_PEAK_BAR = 0.10     # predicted peak against the run's own, relative
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_WAIT_S = 300        # the longest 8k waits for the host processes
+
+
+def lm_train_arch(name, layers):
+    """The arch ``repro_torch.launch.train`` trains under
+    :func:`lm_train_argv`: ``layers`` layers, train_4k's global batch cut to
+    LM_TRAIN_BATCH."""
+    from repro_torch.config.base import apply_overrides
+    from repro_torch.configs import get_config
+
+    arch = apply_overrides(get_config(name), (f"model.num_layers={layers}",))
+    shape = dataclasses.replace(arch.shape("train_4k"), global_batch=LM_TRAIN_BATCH)
+    return dataclasses.replace(arch, shapes=tuple(
+        shape if s.name == shape.name else s for s in arch.shapes))
+
+
+def dryrun_cells():
+    """label -> (arch, shape name) of each cell the host processes count."""
+    from repro_torch.configs import get_config
+
+    dit = get_config("dit-xl2")
+    cells = {"train dit-xl2": (dit, "train_256"), "generate dit-xl2": (dit, DIT_SHAPE)}
+    for layers in DRYRUN_GEMMA_DEPTHS:
+        cells[f"train gemma3-4b {layers}"] = (lm_train_arch("gemma3-4b", layers), "train_4k")
+    return cells
+
+
+def dryrun_worker(out, label):
+    """``chip_smoke.py --dryrun-worker OUT LABEL``: the cell ``label`` of
+    :func:`dryrun_cells` counted by the dry run on the host, its row
+    written to OUT as JSON."""
+    from repro_torch.launch.dryrun import run_cell
+
+    os.nice(10)  # the card's phases are host-paced: they come first
+    arch, shape = dryrun_cells()[label]
+    row = run_cell(arch.name, shape, arch=arch, verbose=False).row()
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(row, f, indent=1)
+    return 0
+
+
+def dryrun_start():
+    """Start :func:`dryrun_worker` for each cell, a process each, CUDA
+    hidden from them and one CPU thread each; they are killed at exit if
+    still running.  Returns {label: (process, its JSON path)} and the
+    start time."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(DRYRUN_OUT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = {}
+    for i, label in enumerate(dryrun_cells()):
+        out = os.path.join(DRYRUN_OUT, f"cell{i}.json")
+        with open(os.path.join(DRYRUN_OUT, f"cell{i}.log"), "w", encoding="utf-8") as logf:
+            procs[label] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dryrun-worker", out, label],
+                env=env, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT), out)
+    atexit.register(lambda: [p.kill() for p, _ in procs.values() if p.poll() is None])
+    log(f"dryrun: counting {list(procs)} on the host, a process each")
+    return procs, time.perf_counter()
+
+
+def dryrun_rows(dryrun):
+    """The host processes' rows, once they have ended."""
+    procs, t0 = dryrun
+    rows, deadline = {}, time.perf_counter() + DRYRUN_WAIT_S
+    for label, (proc, out) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            with open(out[:-len(".json")] + ".log", encoding="utf-8") as f:
+                log(f.read()[-3000:])
+            raise SystemExit(f"dryrun: the host process of {label} "
+                             f"{'failed (rc %s)' % rc if rc is not None else 'did not end'}")
+        with open(out, encoding="utf-8") as f:
+            rows[label] = json.load(f)
+    log(f"dryrun: the host processes ended within {time.perf_counter() - t0:.1f}s of their start "
+        f"(8k waited {time.perf_counter() - deadline + DRYRUN_WAIT_S:.1f}s)")
+    return rows
+
+
+def dryrun_train(label, row, run):
+    """dryrun[label]: a train cell's predicted per-rank peak against the
+    run's own (its peak less what earlier phases held), and its bound
+    against the run's ms a step; the ratio of the two and the share of the
+    bf16 peak that the step's model FLOPs reach."""
+    from repro_torch.launch import roofline
+
+    pred = row["peak_mem_gb"] * 1e9 / 2**30
+    own = run["own_peak_gib"]
+    bound_ms = row["bound_s"] * 1e3
+    ms = run["ms"]
+    share = row["model_flops"] / (ms / 1e3) / roofline.PEAK_FLOPS["bfloat16"]
+    log(f"dryrun[{label}]: predicted peak {pred:.2f} GiB against the run's own "
+        f"{own:.2f} GiB ({pred / own - 1:+.2%}); bound {bound_ms:.3f} ms "
+        f"(compute {row['compute_s'] * 1e3:.3f}, memory {row['memory_s'] * 1e3:.3f} ms: "
+        f"{row['hlo_flops']:.4e} FLOP, {row['hlo_bytes']:.4e} bytes; {row['dominant']}) "
+        f"against {ms:.3f} ms a "
+        f"step: {bound_ms / ms:.3f} of it; model FLOPs {row['model_flops']:.4e} reach "
+        f"{share:.4f} of the bf16 peak; kernel calls {row['kernel_calls']}; {CARD}")
+    report(label, {f"predicted peak within {DRYRUN_PEAK_BAR:.0%} of the run's own":
+                   abs(pred / own - 1) <= DRYRUN_PEAK_BAR,
+                   "the bound does not exceed the measured step": bound_ms <= ms},
+           kind="dryrun")
+    return {"pred_peak_gib": pred, "own_peak_gib": own, "bound_ms": bound_ms, "ms": ms,
+            "bound_share": bound_ms / ms, "model_flops_share": share}
+
+
+def dryrun_phases(dryrun, train_out, lm_out, counts_d, prof_d, steps_d):
+    """8k: dryrun[train dit-xl2], dryrun[train gemma3-4b] at the depth
+    train[gemma3-4b] ran (with the predicted peaks at each depth of
+    DRYRUN_GEMMA_DEPTHS beside the card's memory) and dryrun[generate
+    dit-xl2]: its counted kernel calls equal to serve[dit-xl2]'s launches a
+    forward, its bound within profile[dit-xl2]'s device busy time."""
+    import torch
+    from repro_torch.launch.dryrun import run_cell
+
+    rows = dryrun_rows(dryrun)
+    out = {"train dit-xl2": dryrun_train("train dit-xl2", rows["train dit-xl2"],
+                                         train_out["dit-xl2"])}
+    gemma = lm_out["gemma3-4b"]
+    layers = gemma["layers"]
+    key = f"train gemma3-4b {layers}"
+    if key not in rows:  # a depth the host process did not count
+        rows[key] = run_cell("gemma3-4b", "train_4k", arch=lm_train_arch("gemma3-4b", layers),
+                             verbose=False).row()
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    log("dryrun[train gemma3-4b]: predicted peaks " + ", ".join(
+        f"{d} layers {rows[f'train gemma3-4b {d}']['peak_mem_gb'] * 1e9 / 2**30:.2f} GiB"
+        for d in DRYRUN_GEMMA_DEPTHS if f"train gemma3-4b {d}" in rows)
+        + f" against the card's {card_gib:.2f} GiB; train[gemma3-4b] ran {layers} layers")
+    out["train gemma3-4b"] = dryrun_train("train gemma3-4b", rows[key], gemma)
+    out["train gemma3-4b"]["layers"] = layers
+    row = rows["generate dit-xl2"]
+    per_forward = {k: v // steps_d for k, v in counts_d.items() if v}
+    whole = all(v % steps_d == 0 for v in counts_d.values())
+    bound_ms, busy = row["bound_s"] * 1e3, prof_d["busy"]
+    log(f"dryrun[generate dit-xl2]: one denoiser forward at batch {DIT_REQUESTS}: kernel "
+        f"calls {row['kernel_calls']} against serve[dit-xl2]'s launches a forward "
+        f"{per_forward} ({counts_d} in {steps_d} steps); bound {bound_ms:.3f} ms (compute "
+        f"{row['compute_s'] * 1e3:.3f}, memory {row['memory_s'] * 1e3:.3f}) against "
+        f"profile[dit-xl2]'s device busy {busy:.3f} ms: {bound_ms / busy:.3f} of it; {CARD}")
+    report("generate dit-xl2", {
+        "the counted kernel calls equal the card's launches a forward":
+            whole and row["kernel_calls"] == per_forward,
+        "the bound does not exceed the device busy time": bound_ms <= busy},
+        kind="dryrun")
+    out["generate dit-xl2"] = {"kernel_calls": row["kernel_calls"], "bound_ms": bound_ms,
+                               "busy_ms": busy}
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=40,
@@ -6627,6 +6751,8 @@ def main() -> int:
     ap.add_argument("--snap-times", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--train-worker", nargs=argparse.REMAINDER,
                     help=argparse.SUPPRESS)  # OUT ARGV...: dist[train ...]'s child
+    ap.add_argument("--dryrun-worker", nargs=2, metavar=("OUT", "LABEL"),
+                    help=argparse.SUPPRESS)  # a dryrun[...] cell's host process
     args = ap.parse_args()
 
     try:
@@ -6634,15 +6760,17 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not importable", file=sys.stderr)
         return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
     src = args.snap_times or os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    if args.dryrun_worker:  # on the host only: CUDA is hidden from it
+        return dryrun_worker(*args.dryrun_worker)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
     # The pattern policies read only artifacts this run writes or installs.
     os.environ["REPRO_PATTERN_ARTIFACT"] = os.path.join(PATTERN_DIR, "active.json")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6677,6 +6805,8 @@ def main() -> int:
         own = " ".join(_build.SOURCE_FLAGS.get(name, ())) or "none"
         log(f"build: {name} (own flags: {own}): {info['path']} "
             f"({info['seconds']:.1f}s) {' | '.join(regs)}")
+    # The dry run's cells, counted on the host while the card runs (8k).
+    dryrun = dryrun_start()
 
     from repro_torch.kernels.reuse_mask import ops as reuse_ops
     from repro_torch.kernels.ripple import ops as ripple_ops
@@ -6836,6 +6966,7 @@ def main() -> int:
     # projection as the model passes them.
     from repro_torch.kernels.adaln.ops import adaln_modulate
     from repro_torch.kernels.adaln.ref import adaln_modulate_ref
+    from repro_torch.launch import roofline
 
     g = torch.Generator(device="cuda")
     g.manual_seed(23)
@@ -6858,11 +6989,9 @@ def main() -> int:
     layer_norm = torch.nn.functional.layer_norm
     a_lib = cuda_time_ms(lambda: layer_norm(xa, (1152,), eps=1e-6)
                          * (1 + sca[:, None]) + sha[:, None], iters=20)
-    a_bytes = 2 * xa.numel() * 2 + 2 * sha.numel() * 2
-    a_ops = 10 * xa.numel()
-    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_ops / PEAK_FLOPS["float32"]) * 1e3
-    a_by = "bytes" if a_bytes / HBM_BYTES_PER_S >= a_ops / PEAK_FLOPS["float32"] \
-        else "operations"
+    a_work = roofline.adaln_work(xa.shape, xa.element_size())
+    a_bound, a_by = a_work.bound()
+    a_bytes = a_work.nbytes
     log(f"time adaln bf16 {tuple(xa.shape)}: device {a_ms:.4f} ms a call (L2 flushed; "
         f"{a_bytes / a_ms / 1e6:.1f} GB/s, {a_bound / a_ms:.3f} of the bound), host "
         f"{a_host:.4f} ms a wrapper call (alternating rounds: served {a_host_ab[0]:.4f}, "
@@ -7013,7 +7142,7 @@ def main() -> int:
 
     # 8. dit-xl2 at full width and depth, with the counters set to 0 just
     # before it and read just after ----------------------------------------
-    counts_d = serve_dit()
+    counts_d, prof_d, steps_d = serve_dit()
 
     # 8a. unet-sd15 at full width and depth, with the counters set to 0 just
     # before it and read just after ----------------------------------------
@@ -7052,7 +7181,7 @@ def main() -> int:
     # 8j. LM training (slice 19): gemma3-4b's gradients card vs CPU, the
     # launcher on gemma3-4b (train_4k, full width) and qwen2-moe-a2.7b (4
     # layers), the smoke gemma3-4b's learning and resume; no kernel launches
-    lm_train_phases()
+    lm_out = lm_train_phases()
 
     # 8b. the kernel micro-bench and the public pair-snap wrapper, each
     # with the counters set to 0 just before and read just after ----------
@@ -7094,6 +7223,12 @@ def main() -> int:
     patterns.install_artifact(art_path)
     small_reference_check("rainfusion", policy="rainfusion")
     patterns.set_active_artifact(None)
+
+    # 8k. the launch tools (slice 21): the dry run's counts of train[dit-xl2],
+    # train[gemma3-4b] at the depth it ran and one serve[dit-xl2] forward,
+    # made on the host beside the phases above, against their readings; last,
+    # so the host processes have the whole run to finish ----------------------
+    dryrun_phases(dryrun, train_out, lm_out, counts_d, prof_d, steps_d)
 
     kernels = [
         # Device times (torch.profiler, L2 flushed before each call) for

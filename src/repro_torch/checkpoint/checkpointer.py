@@ -21,7 +21,6 @@ reads a tensor that the next training step updates in place.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import shutil
 import threading
@@ -31,9 +30,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils.logging import get_logger
 from repro_torch.utils.pytree import tree_items
 
-log = logging.getLogger("repro_torch.ckpt")
+log = get_logger("ckpt")
 _MANIFEST = "MANIFEST.json"
 _ARRAYS = "arrays.npz"
 

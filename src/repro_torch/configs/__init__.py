@@ -20,6 +20,11 @@ _MODULES = {"qwen3-32b": qwen3_32b, "gemma3-4b": gemma3_4b,
             "efficientnet-b7": efficientnet_b7}
 
 ALL_ARCHS: List[str] = list(_MODULES)
+# The reference's assigned archs, in its order: all but the paper's vDiT.
+ASSIGNED_ARCHS: List[str] = ["qwen3-32b", "gemma3-4b", "qwen2-moe-a2.7b",
+                             "phi3.5-moe-42b-a6.6b", "dit-xl2", "dit-b2",
+                             "flux-dev", "unet-sd15", "vit-l16",
+                             "efficientnet-b7"]
 
 
 def get_config(name: str) -> ArchConfig:

@@ -71,6 +71,7 @@ from repro_torch.core.policy import (ReuseDecision, ReusePolicy, get_policy,
                                      list_policies, register_policy)
 from repro_torch.distributed import sharding
 from repro_torch.distributed.spmd import P
+from repro_torch.kernels import on_card
 from repro_torch.kernels.ripple.ops import TILE_PAIRS, attention_scale
 
 __all__ = [
@@ -596,7 +597,7 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         grid_slice = None
     pol = get_policy(policy if policy is not None else cfg.policy)
     scale = attention_scale(q.shape[-1])
-    plan = resolve_plan(q.shape, v.shape, cfg, on_cuda=q.is_cuda,
+    plan = resolve_plan(q.shape, v.shape, cfg, on_cuda=on_card(q),
                         backend=backend, has_bias=bias is not None,
                         policy=pol, mesh=mesh, grid=grid,
                         grid_slice=grid_slice)

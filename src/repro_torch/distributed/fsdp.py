@@ -35,6 +35,7 @@ collective on them is the identity and the step is the unsharded one.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import weakref
 from typing import List, Optional, Sequence
 
@@ -63,6 +64,14 @@ def block_units(model: nn.Module) -> List[nn.Module]:
             out.extend(c for c in m if not any(
                 isinstance(x, nn.ModuleList) for x in c.modules()))
     return out
+
+
+def _move(model: nn.Module, device: torch.device) -> None:
+    """``model.to(device)`` unless its parameters and buffers are all there
+    already (a dry run's fake parameters cannot be moved in place)."""
+    if any(t.device != device for t in itertools.chain(model.parameters(),
+                                                      model.buffers())):
+        model.to(device)
 
 
 def _tensors(out):
@@ -104,7 +113,7 @@ class ParamShards:
             for spec in self.specs]
         self.grads: Optional[List[torch.Tensor]] = None
         if self.n == 1:
-            model.to(self.device)
+            _move(model, self.device)
             self.local = list(model.parameters())
             return
         with torch.no_grad():
@@ -129,7 +138,7 @@ class ParamShards:
         self._reduced = set()  # indices reduced in this micro-batch
         self._active = False
         self._release(range(len(self.params)))
-        model.to(self.device)  # buffers; the parameters are empty there
+        _move(model, self.device)  # buffers; the parameters are empty there
 
     # -- pieces and whole tensors ------------------------------------------
 

@@ -13,16 +13,69 @@ Only the adaLN kernel has a gradient (``adaln.ops``: the kernel forward
 under an autograd Function, a closed-form backward in PyTorch ops); the
 others have none, as their TPU kernels had none, and refuse a CUDA
 operand that needs one (:func:`refuse_grad`) rather than detach it.
+
+The dry run (``launch.dryrun``) counts a step on fake tensors, which no
+kernel can read.  Inside :func:`counting_kernels`, which only the dry run
+opens, a fake tensor stands for one on the card (:func:`on_card`), and a
+wrapper handed one records the call with its kernel's operations and
+bytes (``launch.roofline``'s formula, :func:`count_call`) and returns an
+empty fake output in place of the launch.  A real tensor takes its path
+unchanged, inside the context or out: on the CPU the plain version, on
+the card the kernel or an error.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 LAUNCH_LOCK = threading.Lock()
+_COUNTED: contextvars.ContextVar = contextvars.ContextVar("counted_kernels",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def counting_kernels():
+    """The dry run's scope: yields the list that every kernel call on
+    fake tensors inside it appends ``(kernel name, KernelWork)`` to."""
+    calls: List = []
+    token = _COUNTED.set(calls)
+    try:
+        yield calls
+    finally:
+        _COUNTED.reset(token)
+
+
+def counts(t) -> bool:
+    """Is ``t`` a fake tensor inside :func:`counting_kernels`?"""
+    if _COUNTED.get() is None:
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Does ``t`` take the card's path: a CUDA tensor, or a fake tensor
+    that a counted step stands in for one on the card?"""
+    return t.is_cuda or counts(t)
+
+
+def misaligned(t: torch.Tensor, nbytes: int) -> bool:
+    """Is ``t``'s data not ``nbytes``-aligned?  A counted fake tensor has
+    no data, so never."""
+    return not counts(t) and t.data_ptr() % nbytes != 0
+
+
+def count_call(name: str, work) -> None:
+    """Record one call of kernel ``name`` doing ``work`` (a
+    ``launch.roofline.KernelWork``); the wrapper then returns empty
+    outputs (fake, like its operands) in place of the launch's."""
+    _COUNTED.get().append((name, work))
 
 
 def refuse_grad(kernel: str, **operands) -> None:

@@ -24,8 +24,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build
+from repro_torch.kernels import (LAUNCH_LOCK, _build, count_call, counts,
+                                 misaligned, on_card)
 from repro_torch.kernels.adaln.ref import adaln_modulate_ref
+from repro_torch.launch.roofline import adaln_work
 
 launches = 0
 
@@ -38,7 +40,7 @@ def _cond(t: torch.Tensor, x: torch.Tensor):
     a row of x (a chunk of the adaLN projection already is; anything else
     is copied)."""
     B, d = t.shape
-    if t.stride(-1) != 1 or t.data_ptr() % (4 * x.element_size()) or \
+    if t.stride(-1) != 1 or misaligned(t, 4 * x.element_size()) or \
             (B > 1 and (t.stride(0) % 4 or t.stride(0) < d)):
         t = t.contiguous()
     return t, t.stride(0) if B > 1 else d
@@ -59,8 +61,11 @@ def _launch(x, shift, scale, eps: float):
     if x.dtype not in _DTYPES:
         raise TypeError(f"adaln kernel takes float32 or bfloat16, not "
                         f"{x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % (4 * x.element_size()):
+    if not x.is_contiguous() or misaligned(x, 4 * x.element_size()):
         raise ValueError("adaln kernel needs a contiguous, aligned x")
+    if counts(x):  # a dry run's fake operand: counted, not launched
+        count_call("adaln", adaln_work(x.shape, x.element_size()))
+        return torch.empty_like(x)
     lib = _build.load("adaln")
     if d % 4 or d > lib.adaln_max_dim():
         raise ValueError(f"adaln kernel takes d % 4 == 0 and d <= "
@@ -125,9 +130,9 @@ def adaln_modulate(x: torch.Tensor, shift: torch.Tensor,
     """x: (B, N, d); shift/scale: (B, d) -> (B, N, d) in x's dtype."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, d), not {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not counts(x):
         return adaln_modulate_ref(x, shift, scale, eps)
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"adaln kernel runs on CUDA, not {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, shift, scale)):

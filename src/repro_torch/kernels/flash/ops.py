@@ -12,8 +12,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
+from repro_torch.kernels import (LAUNCH_LOCK, _build, count_call, counts,
+                                 misaligned, on_card, refuse_grad)
 from repro_torch.kernels.flash.ref import attention_ref, default_scale
+from repro_torch.launch.roofline import flash_work
 
 launches = 0
 
@@ -30,7 +32,7 @@ def _check_operands(q, k, v):
         if t.dtype != q.dtype or t.dtype not in _DTYPES:
             raise TypeError(f"flash kernel takes float32 or bfloat16 "
                             f"operands of one dtype; {name} is {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or misaligned(t, 16):
             raise ValueError(f"flash kernel needs contiguous, 16-byte "
                              f"aligned operands; {name} is not")
         if t.device != q.device:
@@ -50,6 +52,10 @@ def _launch(q, k, v):
     B, H, Nq, d = q.shape
     Nk, dv = k.shape[2], v.shape[3]
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
+    if counts(q):  # a dry run's fake operands: counted, not launched
+        count_call("flash_attention", flash_work(
+            B, H, Nq, Nk, d, dv, str(q.dtype).replace("torch.", "")))
+        return out
     fn = _build.function("flash_attention", "flash_attention_launch",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                          + [ctypes.c_float, ctypes.c_void_p])
@@ -83,9 +89,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block sizes must be positive: {block_q}, "
                          f"{block_k}")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not counts(q):
         return attention_ref(q, k, v)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"flash kernel runs on CUDA, not {q.device}")
     refuse_grad("flash_attention", q=q, k=k, v=v)
     return _launch(q, k, v)

@@ -26,8 +26,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
+from repro_torch.kernels import (LAUNCH_LOCK, _build, count_call, counts,
+                                 misaligned, on_card, refuse_grad)
 from repro_torch.kernels.reuse_mask.ref import fused_reuse_ref, reuse_snap_plain
+from repro_torch.launch.roofline import reuse_work, snap_work
 
 launches = 0
 snap_launches = 0
@@ -61,11 +63,14 @@ def _snap_launch(x: torch.Tensor, theta: float):
     if x.dtype not in _DTYPES:
         raise TypeError(f"reuse snap kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if not x.is_contiguous() or misaligned(x, 16):
         raise ValueError("reuse snap kernel needs a contiguous, 16-byte "
                          "aligned operand")
     out = torch.empty_like(x)
     mask = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if counts(x):  # a dry run's fake operand: counted, not launched
+        count_call("reuse_snap", snap_work(x.shape, x.element_size()))
+        return out, mask
     fn = _build.function("reuse_snap", "reuse_snap_launch", _SNAP_ARGS)
     with _build.on_device(x):  # launch on the operand's card
         rc = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(),
@@ -87,9 +92,9 @@ def reuse_snap(x: torch.Tensor, theta: float):
     if x.dim() != 4 or x.shape[2] % 2:
         raise ValueError(f"reuse_snap takes (B, H, N, d) with N even, not "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not counts(x):
         return reuse_snap_plain(x, theta)
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"reuse snap kernel runs on CUDA, not {x.device}")
     refuse_grad("reuse_snap", x=x)
     return _snap_launch(x, round_to(theta, x.dtype))
@@ -161,6 +166,10 @@ def _launch(x: torch.Tensor, thetas: Sequence[float], grid, axes,
     mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
     src = (torch.empty((*x.shape[:-2], grid_slice[1], d), dtype=torch.int32,
                        device=x.device) if want_src else None)
+    if counts(x):  # a dry run's fake operand: counted, not launched
+        count_call("fused_reuse", reuse_work(x.shape, x.element_size(), grid,
+                                             want_src))
+        return (out, mask) + ((src,) if want_src else ())
     fn = _build.function("fused_reuse", "fused_reuse_launch", _FUSED_ARGS)
     with _build.on_device(x):  # launch on the operand's card
         rc = fn(x.data_ptr(), out.data_ptr(), mask.data_ptr(),
@@ -195,11 +204,11 @@ def fused_reuse_snap(x: torch.Tensor, thetas: Sequence[float], *,
     if n != T * H * W or s < 0 or s + n > N:
         raise ValueError(f"grid slice {(s, n)} of {N} tokens does not hold "
                          f"grid {grid}")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not counts(x):
         return fused_reuse_ref(x, grid, dict(zip("txy", thetas)), axes=axes,
                                granularity=granularity, grid_slice=grid_slice,
                                want_src=want_src)
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"fused reuse kernel runs on CUDA, not {x.device}")
     refuse_grad("fused_reuse", x=x)
     return _launch(x, thetas, grid, tuple(axes), granularity, (s, n),

@@ -20,7 +20,9 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
+from repro_torch.kernels import (LAUNCH_LOCK, _build, count_call, counts,
+                                 on_card, refuse_grad)
+from repro_torch.launch.roofline import ripple_work
 from repro_torch.kernels.ripple.ref import (block_flags, full_block_flags,
                                             ripple_attention_ref, split_pairs)
 
@@ -65,11 +67,15 @@ def _launch(q, k, v, scale: float):
         raise ValueError("pair-collapse needs an even token count")
     if d > _MAX_DIM or dv > _MAX_DIM:
         raise ValueError(f"ripple kernel takes head dims <= {_MAX_DIM}")
+    BH = B * H
+    kflags = block_flags(k.reshape(BH, N, d), TILE_PAIRS).contiguous()
+    if counts(q):  # a dry run's fake operands: counted with no tile collapsed
+        count_call("ripple_attention", ripple_work(q.shape, dv,
+                                                   q.element_size()))
+        return torch.empty((B, H, N, dv), dtype=q.dtype, device=q.device)
     lib = _build.load("ripple_attention")
     if lib.ripple_tile_pairs() != TILE_PAIRS:
         raise RuntimeError("ripple kernel tile does not match TILE_PAIRS")
-    BH = B * H
-    kflags = block_flags(k.reshape(BH, N, d), TILE_PAIRS).contiguous()
     qflags = None
     if not lib.ripple_uses_tensor_cores(_DTYPES[q.dtype], d, dv):
         qflags = block_flags(q.reshape(BH, N, d), TILE_PAIRS).contiguous()
@@ -112,9 +118,9 @@ def ripple_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("the ripple kernel implements window 2 only")
     if scale is None:
         scale = attention_scale(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not counts(q):
         return ripple_attention_ref(q, k, v, scale)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"ripple kernel runs on CUDA, not {q.device}")
     refuse_grad("ripple_attention", q=q, k=k, v=v)
     return _launch(q, k, v, float(scale))

@@ -18,7 +18,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK, _build, refuse_grad
+from repro_torch.kernels import (LAUNCH_LOCK, _build, count_call, counts,
+                                 misaligned, on_card, refuse_grad)
+from repro_torch.launch.roofline import sparse_work
 from repro_torch.kernels.sparse.ref import (FULL, PARTIAL, SKIP,
                                             fresh_state,
                                             sparse_attention_ref,
@@ -69,7 +71,7 @@ def _check_operands(q, k, v):
         if t.dtype != q.dtype or t.dtype not in _DTYPES:
             raise TypeError(f"sparse kernel takes float32 or bfloat16 "
                             f"operands of one dtype; {name} is {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or misaligned(t, 16):
             raise ValueError(f"sparse kernel needs contiguous, 16-byte "
                              f"aligned operands; {name} is not")
         if t.device != q.device:
@@ -128,6 +130,12 @@ def _launch(q, k, v, bias, block_map, block_q: int, block_k: int,
     state_out = fresh_state((B, H), Nq, dv, q.device) if return_state \
         else (None,) * 3
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
+    if counts(q):  # a dry run's fake operands: counted with no tile skipped
+        count_call("sparse_attention", sparse_work(
+            q.shape, Nk, dv, q.dtype, bq, map_numel=bmap.numel(),
+            bias_shape=None if bias is None else (
+                1 if sb == 0 else B, 1 if sh == 0 else H)))
+        return (out, tuple(state_out)) if return_state else out
     fn = _build.function("sparse_attention", "sparse_attention_launch",
                          [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                          + [ctypes.c_longlong] * 2
@@ -182,12 +190,12 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     normalised prefix result.  A missing carry starts from m = -1e30,
     l = 0, acc = 0; a row with l == 0 gives zeros, never NaN.
     """
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not counts(q):
         return sparse_attention_ref(q, k, v, bias=bias, block_map=block_map,
                                     block_q=block_q, block_k=block_k,
                                     scale=float(1.0 / (q.shape[-1] ** 0.5)),
                                     carry=carry, return_state=return_state)
-    if q.device.type != "cuda":
+    if not on_card(q):
         raise ValueError(f"sparse kernel runs on CUDA, not {q.device}")
     refuse_grad("sparse_attention", q=q, k=k, v=v, bias=bias)
     return _launch(q, k, v, bias, block_map, block_q, block_k, carry,

@@ -86,7 +86,6 @@ import argparse
 import dataclasses
 import importlib
 import json
-import logging
 import os
 import signal
 import sys
@@ -122,8 +121,9 @@ from repro_torch.serving.router import Router
 from repro_torch.serving.slo import ServiceEstimator, ShedError
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.diskio import atomic_write_text
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.launch.serve")
+log = get_logger("launch.serve")
 
 
 def build_sampler(arch, shape, model, *, use_ripple: bool = True,
@@ -642,8 +642,6 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*", metavar="KEY=VALUE",
                     help="config overrides, as --override")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s: %(message)s")
 
     if args.distributed:
         init_distributed(coordinator_address=args.coordinator,

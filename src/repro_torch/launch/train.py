@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import logging
 
 import torch
 
@@ -42,8 +41,9 @@ from repro_torch.launch.mesh import (init_distributed, launched_by_torchrun,
 from repro_torch.models.params import init_model
 from repro_torch.training import train_loop
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.launch.train")
+log = get_logger("launch.train")
 
 
 def make_batch_fn(arch, shape: ShapeSpec, device=None):
@@ -172,8 +172,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s] %(message)s")
     main()
     if torch.distributed.is_initialized():
         torch.distributed.barrier()

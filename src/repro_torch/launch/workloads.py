@@ -6,7 +6,9 @@ decision-cache state, the vision family's classify step (vit and
 effnet), and the LM family's prefill and decode steps, each under
 ``no_grad``.  Training: the diffusion, vision and LM losses of the JAX
 workloads' ``_diffusion_train``, ``_vision_train`` and ``_lm_train``,
-and :func:`train_step`, one AdamW step of a train cell."""
+and :func:`train_step`, one AdamW step of a train cell.  The dry run:
+:func:`build_workload`, one rank's step of any cell with its model and
+inputs made."""
 
 from __future__ import annotations
 
@@ -455,3 +457,105 @@ def train_step(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
             tc.grad_accum, batch, mesh))
     ctx = None if mesh is None else ShardCtx(batch_group=mesh.batch_group())
     return make_train_step(train_loss_fn(arch, ctx), tc)
+
+
+# --- one cell's step, for the dry run ----------------------------------------
+
+@dataclasses.dataclass
+class Workload:
+    """One (arch x shape) cell as the port runs it: ``fn(*args)`` is one
+    rank's step (a train step, a prefill, a decode step, a classify
+    batch, or one denoiser forward of a generate request's sampler, which
+    runs ``steps_multiplier`` of them), on a model and inputs already
+    made.  The counterpart of the JAX workloads' ``Workload``, whose
+    ``fn`` is lowered instead of called."""
+
+    arch: ArchConfig
+    shape: ShapeSpec
+    fn: object
+    args: tuple
+    steps_multiplier: int = 1
+
+
+def build_workload(arch: ArchConfig, shape_name: str, mesh=None, *,
+                   device=None, seed: int = 0) -> Workload:
+    """The cell's step on ``device`` (default CUDA; a rank ``mesh``'s
+    device), with a seeded model and seeded inputs.
+
+    * train: :func:`train_step` on the launcher's first batch
+      (``launch.train.make_batch_fn``) and its train state, sharded over
+      ``mesh``'s ranks; params in ``train.param_dtype``;
+    * generate: one ``_denoise_call`` with ripple on at the first step
+      whose θ schedule snaps (``ripple.i_min``), on zero latents and
+      conditioning, float32 params as the serving launcher's; the port's
+      samplers run no classifier-free guidance, so the batch is the
+      shape's, not doubled;
+    * prefill / decode / classify: :func:`lm_serve_steps` (the decode
+      step at the cache's last position) and :func:`classify_step`, bf16
+      params as their serving runs.
+
+    Serving holds whole weights on each rank, so under a mesh of N ranks
+    a serving cell's step is the busiest rank's: ceil(batch / N) rows."""
+    from repro_torch.models.params import init_model
+    from repro_torch.utils.device import resolve_device
+
+    shape = arch.shape(shape_name)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    ranks = 1 if mesh is None else mesh.size
+    if shape.kind == "train":
+        from repro_torch.data.synthetic import DataSpec
+        from repro_torch.launch.train import make_batch_fn
+        from repro_torch.training.train_loop import train_state_init
+
+        model = init_model(arch.model, seed=seed,
+                           device=dev if mesh is None else "cpu",
+                           dtype=getattr(torch, arch.train.param_dtype))
+        step = train_step(arch, shape, model, mesh=mesh)
+        state = train_state_init(model, arch.train, mesh=mesh)
+        batch = make_batch_fn(arch, shape, dev)(DataSpec(seed=seed), 0)
+        return Workload(arch, shape, step, (state, batch, seed))
+    field = "global_batch" if arch.family == "lm" else "batch"
+    rows = -(-getattr(shape, field) // ranks)
+    shape = dataclasses.replace(shape, **{field: rows})
+    m = arch.model
+    if shape.kind == "generate":
+        model = init_model(m, seed=seed, device=dev)
+        x = torch.zeros((rows, *latent_shape_for(arch, shape)), device=dev)
+        t = torch.zeros((rows,), device=dev)
+        if arch.family == "dit":
+            cond = {"labels": torch.zeros((rows,), dtype=torch.long,
+                                          device=dev)}
+        elif arch.family == "unet":
+            cond = {"ctx": torch.zeros((rows, m.ctx_tokens, m.ctx_dim),
+                                       device=dev)}
+        else:
+            cond = {"txt": torch.zeros((rows, m.txt_tokens, m.txt_dim),
+                                       device=dev)}
+            if arch.family == "mmdit":
+                cond["vec"] = torch.zeros((rows, 768), device=dev)
+        steps = shape.steps or 50
+        step = arch.ripple.i_min if arch.ripple.i_min < steps else 0
+
+        @torch.no_grad()
+        def denoise(x, t, cond):
+            return _denoise_call(arch, model, x, t, cond, step, steps,
+                                 use_ripple=True)
+
+        return Workload(arch, shape, denoise, (x, t, cond),
+                        steps_multiplier=steps)
+    model = init_model(m, seed=seed, device=dev, dtype=torch.bfloat16)
+    if shape.kind == "classify":
+        images = torch.zeros((rows, shape.img_res, shape.img_res,
+                              m.in_channels), device=dev)
+        return Workload(arch, shape, classify_step(arch, shape, model),
+                        (images,))
+    prefill_fn, decode_fn = lm_serve_steps(arch, shape, model)
+    if shape.kind == "prefill":
+        tokens = torch.zeros((rows, shape.seq_len), dtype=torch.long,
+                             device=dev)
+        return Workload(arch, shape, prefill_fn, (tokens,))
+    from repro_torch.models.transformer_lm import init_cache
+
+    cache = init_cache(m, rows, shape.seq_len, torch.bfloat16, dev)
+    token = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+    return Workload(arch, shape, decode_fn, (token, cache, shape.seq_len - 1))

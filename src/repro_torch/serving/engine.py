@@ -75,7 +75,6 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-import logging
 import threading
 import time
 from collections import OrderedDict, deque
@@ -90,8 +89,9 @@ from repro_torch.serving import faults as fault_lib
 from repro_torch.serving import slo as slo_lib
 from repro_torch.serving.slo import ServiceEstimator, ShedError
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.serve")
+log = get_logger("serve")
 
 # Error-message markers that mean "the replica failed, not the request":
 # the router requeues such failures onto a healthy replica.

@@ -56,13 +56,14 @@ randomized placement later and is mixed into nothing today.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import threading
 import time
 from typing import Dict, List, Optional
 
-log = logging.getLogger("repro_torch.serve.faults")
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("serve.faults")
 
 __all__ = ["ENV_VAR", "FaultPlan", "FaultSpec", "active_faults",
            "clear_faults", "install_faults", "install_from_env",

@@ -54,7 +54,6 @@ import ast
 import base64
 import dataclasses
 import json
-import logging
 import os
 import struct
 import threading
@@ -66,8 +65,9 @@ import numpy as np
 import torch
 
 from repro_torch.utils.diskio import atomic_write_bytes
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.serve.journal")
+log = get_logger("serve.journal")
 
 __all__ = ["CheckpointStore", "Journal", "RecoveryState", "recover",
            "request_from_dict", "request_to_dict", "scan_records"]

@@ -37,7 +37,6 @@ engine's resume path: the same latents, only the remaining steps paid.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import threading
 import time
 from typing import Dict, Iterator, List, Optional
@@ -47,8 +46,9 @@ import numpy as np
 from repro_torch.serving.engine import (DiffusionEngine, GenRequest,
                                         GenResult, is_failover_error)
 from repro_torch.serving.slo import ShedError
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.serve.router")
+log = get_logger("serve.router")
 
 __all__ = ["Router"]
 

@@ -27,7 +27,6 @@ cover the whole tensors.
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -42,8 +41,9 @@ from repro_torch.distributed.collectives import (CompressionState,
                                                  compression_init)
 from repro_torch.training.optimizer import (AdamWState, adamw_init,
                                             adamw_update)
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.train")
+log = get_logger("train")
 
 
 class TrainState(NamedTuple):
