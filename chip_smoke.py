@@ -159,7 +159,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    1, 4x the launches); then ``dist[serve]`` (slice 20): the same argv
    under ``--distributed`` at one rank (``--coordinator`` a free local
    port): an NCCL group, an all-reduce on the card, every request
-   bit-equal to ``serve[launcher]``'s with the same launches;
+   bit-equal to ``serve[launcher]``'s with the same launches; then
+   ``dist[serve mesh]``: ``serve[mesh]``'s argv under
+   ``--distributed`` in two processes on the one card, each joined to a
+   gloo group of 2 ranks before it calls the launcher
+   (``chip_smoke.py --serve-mesh-worker``) with 2 shards a rank, so the
+   ``--mesh 2x2`` spans the ranks: each rank's 7 completions bit-equal
+   to ``serve[mesh]``'s, the ranks' fused_reuse and ripple launches
+   summing to its, each request's latency beside its and each rank's
+   peak memory (NCCL between ranks needs a card a rank: not run);
 8e. (after 8d, on the launcher's 8-layer vDiT) the serving control
    plane: ``serve[slo]`` (one warm batch gives the service-time
    estimator its lower bound L; a fresh engine sharing it sheds exactly
@@ -4047,9 +4055,9 @@ def run_launcher(label, argv):
     rec = {"attempts": [], "published": [], "aux": [], "trips": []}
 
     def attempts(orig):
-        def f(self, key, batch, policy, pub, abandoned):
+        def f(self, key, batch, policy, pub, abandoned, *budget):
             before = launch_counts()
-            out = orig(self, key, batch, policy, pub, abandoned)
+            out = orig(self, key, batch, policy, pub, abandoned, *budget)
             after = launch_counts()
             rec["attempts"].append((key[2], sorted(r.request_id for _, r, _ in batch),
                                     {k: after[k] - before[k] for k in after
@@ -5061,7 +5069,8 @@ def serve_mesh(launcher_done):
     reads ``shard=batch2xheads2`` at batch 2 and ``shard=batch1xheads2``
     (the replicated batch axis) at batch 1; fused_reuse and ripple
     launch once a shard where one run launches them once (4x); the quiet
-    counters stay 0.  Returns the launch counts."""
+    counters stay 0.  Returns the launch counts and the results by
+    request id."""
     import json
     import tempfile
 
@@ -5088,9 +5097,7 @@ def serve_mesh(launcher_done):
             return out
         return f
 
-    argv = list(LAUNCHER_ARGV)
-    argv[argv.index("--requests") + 1] = "7"
-    argv += ["--mesh", "2x2"]
+    argv = list(MESH_ARGV)
     log(f"serve[mesh]: python -m repro_torch.launch.serve {' '.join(argv)} "
         f"(REPRO_TORCH_FORCE_DEVICE_COUNT=4: 4 shards on the one card)")
     with tempfile.TemporaryDirectory() as tmp, forced_devices(4):
@@ -5153,7 +5160,182 @@ def serve_mesh(launcher_done):
     log(f"serve[mesh]: launches {counts}; {wall:.1f}s with the model's init; {CARD}")
     report("mesh", checks)
     torch.cuda.empty_cache()
-    return counts
+    return counts, done
+
+
+# serve[mesh]'s argv: serve[launcher]'s with a seventh request (bucket 0
+# then runs a batch of 2 and one of 1) and --mesh 2x2.
+MESH_ARGV = [("7" if a == "6" and LAUNCHER_ARGV[i - 1] == "--requests" else a)
+             for i, a in enumerate(LAUNCHER_ARGV)] + ["--mesh", "2x2"]
+MESH_RANKS = 2   # dist[serve mesh]: gloo ranks on the one card, 2 shards each
+
+
+def serve_mesh_worker(out, rank, port):
+    """``chip_smoke.py --serve-mesh-worker OUT RANK PORT``, one rank of
+    ``dist[serve mesh]``: joins a gloo group of ``MESH_RANKS`` at a local
+    port itself (the launcher's ``init_distributed`` then finds it and
+    returns False), makes 2 mesh shards visible on the card and runs the
+    launcher's ``main`` with ``serve[mesh]``'s argv under
+    ``--distributed``, the launch counters set to 0 just before and read
+    just after; writes its latents to OUT.npz and its launches,
+    latencies, peak memory, plain-version calls, the host wall of its
+    cross-rank all-gathers (``spmd.all_gather_ranks``: the copies to and
+    from pinned memory and gloo's transfer, waiting for the peer
+    included) and summary to OUT.json."""
+    import json
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_lib
+
+    exchange = {"calls": 0, "s": 0.0, "bytes": 0}
+
+    def timing(orig):
+        def f(pg, t, device):
+            t0 = time.perf_counter()
+            out = orig(pg, t, device)
+            exchange["calls"] += 1
+            exchange["s"] += time.perf_counter() - t0
+            exchange["bytes"] += t.numel() * t.element_size()
+            return out
+        return f
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=MESH_RANKS, rank=int(rank),
+                            timeout=timedelta(seconds=300))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with forced_devices(2), plain_guard(vdit_plain_versions()) as plain, \
+            wrapped(spmd, "all_gather_ranks", timing):
+        done = serve_lib.main(MESH_ARGV + ["--distributed", "--summary-json",
+                                           out + ".summary.json"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    np.savez(out + ".npz", **{str(r.request_id): r.latents for r in done})
+    with open(out + ".summary.json", encoding="utf-8") as f:
+        summary = json.load(f)
+    with open(out + ".json", "w", encoding="utf-8") as f:
+        json.dump({"launches": counts, "wall_s": wall, "plain": plain,
+                   "exchange": exchange,
+                   "backend": dist.get_backend(), "ranks": dist.get_world_size(),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "latency": {str(r.request_id): r.latency_s for r in done},
+                   "ttff": {str(r.request_id): r.ttff_s for r in done},
+                   "summary": summary}, f, indent=1)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_serve_mesh(mesh_done, counts_mesh):
+    """``dist[serve mesh]``: ``MESH_RANKS`` processes on the one card, each
+    a rank of a gloo group (:func:`serve_mesh_worker`), serve
+    ``serve[mesh]``'s 7 requests with ``--mesh 2x2`` spanning the ranks
+    (data across ranks, model within one; CUDA tensors cross through
+    pinned host memory, as gloo needs).  Each rank's completions equal
+    ``serve[mesh]``'s bit for bit, the ranks' fused_reuse and ripple
+    launches sum to its, the completion digests agree, and no plain
+    version ran on the card; each request's latency beside
+    ``serve[mesh]``'s, each rank's peak memory.  NCCL between ranks
+    needs a card a rank: not measured here."""
+    import json
+    import socket
+
+    import numpy as np
+    import torch
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    outs = [os.path.join(DIST_DIR, f"serve-mesh-{r}") for r in range(MESH_RANKS)]
+    # The card's host threads split between the ranks.
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS=str(max(1, torch.get_num_threads() // MESH_RANKS)))
+    log(f"dist[serve mesh]: {MESH_RANKS} x chip_smoke.py --serve-mesh-worker: "
+        f"python -m repro_torch.launch.serve {' '.join(MESH_ARGV)} --distributed, "
+        f"a gloo group of {MESH_RANKS} ranks, REPRO_TORCH_FORCE_DEVICE_COUNT=2 each")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--serve-mesh-worker", outs[r], str(r), str(port)],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        lines = text.strip().splitlines()
+        for ln in lines:
+            if "dispatch mesh" in ln or "completions equal" in ln or "process " in ln:
+                log(f"dist[serve mesh]: rank {r} | {ln.strip()}")
+        if p.returncode != 0:
+            for ln in lines[-40:]:
+                log(f"dist[serve mesh]: rank {r} | {ln}")
+            raise SystemExit(f"dist[serve mesh]: rank {r} exit {p.returncode}")
+    got = []
+    for o in outs:
+        with open(o + ".json", encoding="utf-8") as f:
+            rec = json.load(f)
+        rec["latents"] = dict(np.load(o + ".npz"))
+        got.append(rec)
+    for rid in sorted(mesh_done):
+        lat = ", ".join(f"rank {r} {g['latency'][str(rid)]:.3f}s" for r, g in enumerate(got))
+        log(f"dist[serve mesh]: request {rid} latency {lat} (serve[mesh] "
+            f"{mesh_done[rid].latency_s:.3f}s); {CARD}")
+    for r, g in enumerate(got):
+        log(f"dist[serve mesh]: rank {r}: launches fused_reuse "
+            f"{g['launches']['fused_reuse']}, ripple_attention "
+            f"{g['launches']['ripple_attention']}; peak {g['peak_gib']:.2f} GiB; "
+            f"{g['wall_s']:.1f}s in main with the model's init, of which "
+            f"{g['exchange']['s']:.1f}s in {g['exchange']['calls']} cross-rank "
+            f"all-gathers sending {g['exchange']['bytes'] / 1e9:.2f} GB; {CARD}")
+    log(f"dist[serve mesh]: {wall:.1f}s with the processes' start; serve[mesh] "
+        f"launches fused_reuse {counts_mesh['fused_reuse']}, ripple_attention "
+        f"{counts_mesh['ripple_attention']}; NCCL between ranks: not measured "
+        f"(one card cannot host two NCCL ranks)")
+    checks = {
+        f"a gloo group of {MESH_RANKS} ranks": all(
+            g["backend"] == "gloo" and g["ranks"] == MESH_RANKS for g in got),
+        "every rank completed all 7 requests": all(
+            sorted(g["summary"]["completed"]) == list(range(7))
+            and not g["summary"]["errors"] for g in got),
+        "every rank's completions equal serve[mesh]'s bit for bit": all(
+            sorted(g["latents"], key=int) == [str(i) for i in sorted(mesh_done)]
+            and all(np.array_equal(g["latents"][str(i)], mesh_done[i].latents)
+                    for i in mesh_done) for g in got),
+        "the completion digests agree over the ranks": all(
+            g["summary"].get("completion_digests") == got[0]["summary"]
+            .get("completion_digests") for g in got)
+        and len(got[0]["summary"].get("completion_digests", {})) == 7,
+        "the ranks' fused_reuse and ripple launches sum to serve[mesh]'s": all(
+            sum(g["launches"][k] for g in got) == counts_mesh[k]
+            for k in ("fused_reuse", "ripple_attention")),
+        "each rank launched half": all(
+            g["launches"][k] * MESH_RANKS == counts_mesh[k]
+            for g in got for k in ("fused_reuse", "ripple_attention")),
+        "no degradation, retry, quarantine or watchdog trip": all(
+            quiet_counters(g["summary"]) for g in got),
+        "no plain version ran on the card": not any(
+            v for g in got for v in g["plain"].values()),
+    }
+    report("serve mesh", checks, kind="dist")
 
 
 def dist_serve(launcher_done, counts_la):
@@ -6753,6 +6935,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # OUT ARGV...: dist[train ...]'s child
     ap.add_argument("--dryrun-worker", nargs=2, metavar=("OUT", "LABEL"),
                     help=argparse.SUPPRESS)  # a dryrun[...] cell's host process
+    ap.add_argument("--serve-mesh-worker", nargs=3, metavar=("OUT", "RANK", "PORT"),
+                    help=argparse.SUPPRESS)  # a rank of dist[serve mesh]
     args = ap.parse_args()
 
     try:
@@ -6780,6 +6964,8 @@ def main() -> int:
     torch.set_grad_enabled(False)
     if args.train_worker:
         return train_worker(args.train_worker[0], args.train_worker[1:])
+    if args.serve_mesh_worker:
+        return serve_mesh_worker(*args.serve_mesh_worker)
 
     global CARD
     card = CARD = card_line()
@@ -7062,9 +7248,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_la, launcher_done = serve_launcher()
     # The launcher again with --mesh 2x2: 4 shards on the one card.
-    counts_mesh = serve_mesh(launcher_done)
+    counts_mesh, mesh_done = serve_mesh(launcher_done)
     # The launcher again under --distributed at one rank, over NCCL (slice 20).
     dist_serve(launcher_done, counts_la)
+    # --mesh 2x2 over two gloo ranks on the one card.
+    dist_serve_mesh(mesh_done, counts_mesh)
+    del mesh_done
     # The serving control plane on the launcher's 8-layer model (8e).
     serve_slo()
     serve_failover()

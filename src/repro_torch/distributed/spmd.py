@@ -21,6 +21,27 @@ alive by ``record_stream`` or by the call until it ends), and the
 caller's streams wait for every shard before the outputs are gathered.
 An exception in one shard aborts every barrier, so the others stop at
 their next collective, and reaches the caller; it never hangs.
+
+A mesh that spans processes (``Mesh.ranks``, built by
+``launch.mesh.parse_mesh_spec`` once a process group exists): every
+rank calls the function with the same global arguments, runs the
+threads of its own coordinates only, and returns the same global
+outputs.  An axis group whose members lie on several ranks exchanges in
+two steps: its local members meet at their barrier, then one of them
+(the lowest axis index) runs the ``torch.distributed`` collective of
+their stacked pieces on the group's own process group (made with the
+mesh) and hands each local member its copy.  ``all_gather``, ``psum``,
+``pmean`` and ``pmax`` are an all-gather followed by the local reduction
+in axis order, so every rank holds the same bits (an ``all_reduce``'s
+order depends on the backend's algorithm); ``ppermute`` sends only the
+pieces the permutation moves, by paired sends and receives.  On a gloo
+group CUDA tensors go through pinned host memory (gloo's all-gather and
+point-to-point take CPU tensors); the choice follows the group's backend.
+After the threads end the ranks all-gather a status flag, so a shard's
+exception on one rank raises on every rank, and then the outputs, so
+that each rank fills the slices the others hold.  A rank waiting in a
+collective for a rank whose shard failed raises when the group's timeout
+(``init_distributed(timeout_s=)``) runs out.
 """
 
 from __future__ import annotations
@@ -31,8 +52,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["P", "all_gather", "axis_index", "axis_size", "first_shard",
-           "pmax", "pmean", "ppermute", "psum", "shard_map"]
+from repro_torch.launch.mesh import axis_group
+
+__all__ = ["P", "all_gather", "all_gather_ranks", "axis_index", "axis_size",
+           "first_shard", "pmax", "pmean", "ppermute", "psum", "shard_map"]
 
 
 class P(tuple):
@@ -103,37 +126,161 @@ def axis_size(axis: str) -> int:
 
 
 def first_shard() -> bool:
-    """Is the caller the shard at mesh coordinate 0 on every axis?"""
+    """Is the caller the shard at mesh coordinate 0 on every axis?  Over
+    a mesh that spans processes only rank 0 holds it, so what counts on
+    it (a fault's firings) counts on rank 0 alone."""
     return all(i == 0 for i in _ctx().coords.values())
 
 
-def _exchange(axis: str, x: torch.Tensor) -> List[torch.Tensor]:
+def _exchange(axis: str, x: torch.Tensor,
+              perm: Optional[Sequence[Tuple[int, int]]] = None
+              ) -> List[Optional[torch.Tensor]]:
     """Every shard of this shard's ``axis`` group deposits ``x``; after
     the group's barrier each gets all of them, in axis order, on its own
-    device and ordered after their producers on its stream."""
+    device and ordered after their producers on its stream.  Across
+    ranks only the pieces that ``perm``'s pairs move reach another rank
+    when a permutation is given (the others are None there)."""
     ctx = _ctx()
     run = ctx.run
-    n = run.mesh.shape[axis]
+    mesh = run.mesh
+    n = mesh.shape[axis]
     me = ctx.coords[axis]
-    group = (axis,) + tuple(sorted((a, i) for a, i in ctx.coords.items()
-                                   if a != axis))
+    group = axis_group(ctx.coords, axis)
     seq = ctx.seq.get(group, 0)
     ctx.seq[group] = seq + 1
     event = None
     if ctx.stream is not None:
         event = torch.cuda.Event()
         event.record(ctx.stream)
+    key = group + (seq,)
     with run.lock:
-        slots = run.board.setdefault(group + (seq,), [None] * n)
+        slots = run.board.setdefault(key, [None] * n)
         slots[me] = (x, event)
-    run.barrier(group, n).wait()
+    pg = mesh.groups.get(group)
+    if pg is None:
+        run.barrier(group, n).wait()
+        with run.lock:
+            slots = list(run.board[key])
+        return [_receive(ctx, t, ev) for t, ev in slots]
+    holder = [mesh.rank_at({**ctx.coords, axis: i}) for i in range(n)]
+    local = [i for i in range(n) if holder[i] == mesh.rank]
+    bar = run.barrier(group, len(local))
+    bar.wait()
+    if me == local[0]:
+        # The group's one exchanging thread on this rank.
+        try:
+            with run.lock:
+                mine = {i: run.board[key][i] for i in local}
+            got = _across_ranks(ctx, pg, holder, mine, perm)
+        except BaseException:
+            run.abort()
+            raise
+        with run.lock:
+            run.board[key] = got
+    bar.wait()
     with run.lock:
-        slots = list(run.board[group + (seq,)])
-    return [_receive(ctx, t, ev) for t, ev in slots]
+        slots = list(run.board[key])
+    return [None if s is None else _receive(ctx, *s) for s in slots]
+
+
+def _backend(pg) -> str:
+    import torch.distributed as dist
+
+    return str(dist.get_backend(pg)).lower()
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of a CUDA tensor, made on the current stream
+    (and complete when this returns: gloo reads it next)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def all_gather_ranks(pg, t: torch.Tensor, device: torch.device
+                     ) -> List[torch.Tensor]:
+    """``t`` of every rank of ``pg``, in group-rank order, on ``device``
+    (the current stream ordered after the transfer).  A gloo group moves
+    CUDA tensors through pinned host memory."""
+    import torch.distributed as dist
+
+    stage = t.is_cuda and _backend(pg) == "gloo"
+    send = _to_host(t) if stage else t.contiguous()
+    outs = [torch.empty(send.shape, dtype=send.dtype, device=send.device,
+                        pin_memory=stage)
+            for _ in range(dist.get_world_size(pg))]
+    dist.all_gather(outs, send, group=pg)
+    if stage:
+        return [o.to(device, non_blocking=True) for o in outs]
+    return outs
+
+
+def _across_ranks(ctx: _Shard, pg, holder: List[int],
+                  mine: Dict[int, Tuple], perm) -> List[Optional[Tuple]]:
+    """The cross-rank step of :func:`_exchange`, on the exchanging
+    thread: ``mine`` holds this rank's (tensor, event) pieces by axis
+    index; returns the group's pieces by axis index as (tensor, event)
+    (None where a permutation moves nothing here)."""
+    import torch.distributed as dist
+
+    me = dist.get_rank()
+    cuda = ctx.stream is not None
+    if cuda:
+        for _, ev in mine.values():
+            ctx.stream.wait_event(ev)
+    got: List[Optional[Tuple]] = [None] * len(holder)
+    for i, piece in mine.items():
+        got[i] = piece
+    if perm is None:
+        ranks = sorted(set(holder))
+        held = {r: [i for i, h in enumerate(holder) if h == r] for r in ranks}
+        width = max(len(v) for v in held.values())
+        x = next(iter(mine.values()))[0]
+        rows = [mine[i][0] for i in held[me]]
+        rows += [torch.zeros_like(x)] * (width - len(rows))
+        blocks = all_gather_ranks(pg, torch.stack(rows), ctx.device)
+        for r, block in zip(ranks, blocks):
+            if r != me:
+                for j, i in enumerate(held[r]):
+                    got[i] = (block[j], None)
+    else:
+        gloo = _backend(pg) == "gloo"
+        ops, recvs = [], []
+        for tag, (src, dst) in enumerate(perm):
+            if holder[src] == me and holder[dst] != me:
+                t = mine[src][0]
+                t = _to_host(t) if (cuda and gloo) else t.contiguous()
+                ops.append(("send", t, holder[dst], tag))
+            elif holder[dst] == me and holder[src] != me:
+                x = next(iter(mine.values()))[0]
+                buf = torch.empty(x.shape, dtype=x.dtype,
+                                  device="cpu" if gloo else x.device,
+                                  pin_memory=cuda and gloo)
+                ops.append(("recv", buf, holder[src], tag))
+                recvs.append((src, buf))
+        if gloo:
+            works = [(dist.isend if kind == "send" else dist.irecv)(
+                t, peer, group=pg, tag=tag) for kind, t, peer, tag in ops]
+        else:
+            works = dist.batch_isend_irecv([dist.P2POp(
+                dist.isend if kind == "send" else dist.irecv, t, peer,
+                group=pg, tag=tag) for kind, t, peer, tag in ops]) \
+                if ops else []
+        for w in works:
+            w.wait()
+        for src, buf in recvs:
+            got[src] = (buf.to(ctx.device, non_blocking=True)
+                        if buf.device != ctx.device else buf, None)
+    if cuda:
+        ev = torch.cuda.Event()
+        ev.record(ctx.stream)
+        got = [g if g is None or g[1] is not None else (g[0], ev)
+               for g in got]
+    return got
 
 
 def _receive(ctx: _Shard, t: torch.Tensor, event) -> torch.Tensor:
-    if ctx.stream is None:
+    if ctx.stream is None or event is None:
         return t if t.device == ctx.device else t.to(ctx.device)
     if t.device == ctx.device:
         ctx.stream.wait_event(event)
@@ -151,7 +298,7 @@ def ppermute(x: torch.Tensor, axis: str,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """``jax.lax.ppermute``: shard ``dst`` receives shard ``src``'s ``x``
     for each (src, dst) pair; a shard that receives nothing gets zeros."""
-    got = _exchange(axis, x)
+    got = _exchange(axis, x, perm=list(perm))
     me = axis_index(axis)
     for src, dst in perm:
         if dst == me:
@@ -306,9 +453,10 @@ def _run(fn, mesh, in_specs, out_specs, args):
         if t.device.type != kind:
             raise ValueError(f"shard_map over a {kind} mesh got an operand "
                              f"on {t.device}")
-    main = mesh.devices[0]
+    main = mesh.main_device
     cuda = kind == "cuda"
-    coords = mesh.coords()
+    # This process's coordinates: all of them unless the mesh spans ranks.
+    coords = mesh.local_coords()
     run = _Run(mesh)
 
     # The pieces of every argument, each a dense tensor of its own (as a
@@ -366,13 +514,56 @@ def _run(fn, mesh, in_specs, out_specs, args):
                   and not isinstance(e, threading.BrokenBarrierError)), None)
     if first is None:
         first = next((e for e in errors if e is not None), None)
+    if mesh.spans_ranks:
+        try:
+            _agree(mesh, first, main)
+        except BaseException:
+            # This rank's own failure is the one to report; the status
+            # exchange may have timed out waiting for a peer.
+            if first is None:
+                raise
     if first is not None:
         raise first
     if cuda:
         for i, c in enumerate(coords):
             for dev in {mesh.device_at(c), main}:
                 torch.cuda.current_stream(dev).wait_event(done[i])
-    return _gather(mesh, coords, outs, out_specs, main)
+    if mesh.spans_ranks:
+        outs = _from_every_rank(mesh, outs, main)
+    return _gather(mesh, mesh.coords(), outs, out_specs, main)
+
+
+def _agree(mesh, error: Optional[BaseException], main: torch.device) -> None:
+    """Every rank's verdict on the call, all-gathered: a rank whose
+    shards all ran raises when another's did not."""
+    flag = torch.tensor([0 if error is None else 1], dtype=torch.int64,
+                        device=main)
+    failed = [r for r, f in enumerate(all_gather_ranks(
+        mesh.groups[("*",)], flag, main)) if int(f.item())]
+    if failed and error is None:
+        raise RuntimeError(f"shard_map: a shard on rank(s) {failed} failed")
+
+
+def _from_every_rank(mesh, outs: List[Any], main: torch.device) -> List[Any]:
+    """The outputs of every coordinate, in row-major order: this rank's
+    own, and the others' all-gathered leaf by leaf (each rank stacks its
+    coordinates' pieces of a leaf; non-tensor leaves are this rank's)."""
+    local = [_leaves(o) for o in outs]
+    full: Dict[int, List[torch.Tensor]] = {}
+    layout = mesh.layout()
+    for j in range(len(local[0])):
+        blocks = all_gather_ranks(mesh.groups[("*",)],
+                                  torch.stack([leaves[j] for leaves in local]),
+                                  main)
+        for r, block in zip(sorted(layout), blocks):
+            for k, c in enumerate(layout[r]):
+                full.setdefault(mesh.flat_index(c), []).append(block[k])
+    out = []
+    for c in mesh.coords():
+        it = iter(full[mesh.flat_index(c)])
+        out.append(_map(lambda t, s: next(it) if isinstance(t, torch.Tensor)
+                        else t, outs[0], None))
+    return out
 
 
 def _gather(mesh, coords, outs, out_specs, main):

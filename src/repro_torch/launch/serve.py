@@ -77,13 +77,23 @@ Several processes (DESIGN.md §15.4): ``--distributed`` joins the
 gloo with ``--device cpu``), then serves as one process does: each
 process runs its own router in front of its own replicas.  A coordinator
 that cannot be reached raises; the launcher never carries on as a
-single process.
+single process.  A ``--mesh`` larger than one rank's own devices spans
+the ranks (``launch/mesh.py``; on the CPU ``REPRO_TORCH_FORCE_DEVICE_COUNT``
+on every rank, e.g. 2 ranks x 2 for ``--mesh 2x2``): every rank loads
+the same model, serves the same batches in lockstep with rank 0
+(``serving/lockstep.py``) and holds the same global latents, and the
+launcher logs the mesh's coordinates by rank, checks every completion's
+digest against the other ranks' (a mismatch raises on every rank) and
+adds them to the summary (``completion_digests``).  ``--replicas``
+above 1, ``--journal`` / ``--resume`` and fault injection are refused
+there (each rank would decide on its own clock or disk).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import importlib
 import json
 import os
@@ -93,6 +103,7 @@ import threading
 import time
 import types
 
+import numpy as np
 import torch
 
 from repro_torch.config.base import apply_overrides
@@ -104,8 +115,8 @@ from repro_torch.core.guardrail import DegradationLadder
 from repro_torch.core.policy import get_policy, list_policies
 from repro_torch.diffusion.sampler import ddim_sample, euler_flow_sample
 from repro_torch.diffusion.schedule import DDPMSchedule
-from repro_torch.launch.mesh import (init_distributed, parse_mesh_spec,
-                                     process_device)
+from repro_torch.launch.mesh import (group_timeout_s, init_distributed,
+                                     parse_mesh_spec, process_device)
 from repro_torch.launch.workloads import (_denoise_call, attention_shapes,
                                           latent_shape_for,
                                           mixed_gen_shapes,
@@ -117,6 +128,7 @@ from repro_torch.models.params import (init_dit, init_mmdit, init_unet,
 from repro_torch.serving import faults as fault_lib
 from repro_torch.serving import journal as journal_lib
 from repro_torch.serving.engine import DiffusionEngine, request_noise
+from repro_torch.serving.lockstep import Lockstep, LockstepError
 from repro_torch.serving.router import Router
 from repro_torch.serving.slo import ServiceEstimator, ShedError
 from repro_torch.utils.device import resolve_device
@@ -659,10 +671,26 @@ def main(argv=None):
     prev = dispatch_lib.set_dispatch_mesh(mesh)
     log.info("dispatch mesh: %s on %s", mesh.shape,
              sorted({str(d) for d in mesh.devices}))
+    if mesh.spans_ranks:
+        for r, cs in sorted(mesh.layout().items()):
+            log.info("dispatch mesh: rank %d holds %s", r,
+                     [tuple(c.values()) for c in cs])
     try:
         return _serve(args, ap, device, mesh)
     finally:
         dispatch_lib.set_dispatch_mesh(prev)
+
+
+def _check_completions(lockstep, done) -> dict:
+    """Every completion's latents digest, checked against every other
+    rank's (a mismatch raises on every rank); request id -> digest."""
+    digests = {str(r.request_id): hashlib.sha256(
+        np.ascontiguousarray(r.latents).tobytes()).hexdigest()[:16]
+        for r in done}
+    lockstep.check("completions", json.dumps(digests, sort_keys=True))
+    log.info("completions equal on every one of %d ranks: %s",
+             lockstep.world, digests)
+    return digests
 
 
 def _plan_logging(factory, arch, shapes, on_cuda: bool):
@@ -715,6 +743,15 @@ def _serve(args, ap, device, mesh):
             ap.error(str(e))
     if args.resume and not args.journal:
         ap.error("--resume requires --journal DIR")
+    if mesh is not None and mesh.spans_ranks:
+        for flag, on in (("--replicas above 1", args.replicas > 1),
+                         ("--journal", bool(args.journal)),
+                         ("fault injection (--inject-faults, "
+                          f"{fault_lib.ENV_VAR})", fault is not None)):
+            if on:
+                ap.error(f"{flag} is not supported under a dispatch mesh "
+                         f"that spans processes (ROADMAP §1): every rank "
+                         f"must serve rank 0's batches")
     if fault is not None and fault.spec("crash") is not None \
             and not args.journal:
         # A crash drill recovers from the journal; without one it would
@@ -786,6 +823,10 @@ def _serve(args, ap, device, mesh):
         rid_base = max(set(rec.pending) | set(rec.finished) | set(rec.shed),
                        default=-1) + 1
 
+    # Every rank of a mesh that spans processes serves rank 0's batches.
+    lockstep = (Lockstep(group_timeout_s())
+                if mesh is not None and mesh.spans_ranks else None)
+
     def make_engine():
         return DiffusionEngine(factory, device=device,
                                max_batch=args.max_batch,
@@ -794,7 +835,7 @@ def _serve(args, ap, device, mesh):
                                scheduler=args.scheduler, guardrail=ladder,
                                batch_timeout_s=args.batch_timeout,
                                estimator=estimator, journal=journal,
-                               checkpoint_store=store)
+                               checkpoint_store=store, lockstep=lockstep)
 
     if args.replicas > 1:
         front = Router([make_engine() for _ in range(args.replicas)],
@@ -862,6 +903,10 @@ def _serve(args, ap, device, mesh):
                 chunks = (sum(1 for _ in front.stream(req.request_id))
                           if req.stream_every else 0)
                 r = front.result(req.request_id)
+            except ShedError as e:  # rank 0 shed it (lockstep)
+                shed += 1
+                log.warning("%s", e)
+                continue
             except (RuntimeError, TimeoutError) as e:
                 errors[req.request_id] = str(e)
                 log.error("request %d failed: %s", req.request_id, e)
@@ -888,6 +933,11 @@ def _serve(args, ap, device, mesh):
         if journal is not None:
             journal.close(clean=True)
             atomic_write_text(est_path, estimator.to_json())
+    digests = None
+    if lockstep is not None:
+        if front.lockstep_error is not None:
+            raise LockstepError(front.lockstep_error)
+        digests = _check_completions(lockstep, done)
     counters = dict(front.metrics())
     if fault is not None:
         counters.update(fault.counters())
@@ -910,6 +960,8 @@ def _serve(args, ap, device, mesh):
             "counters": {k: (float(v) if isinstance(v, float) else int(v))
                          for k, v in counters.items()},
         }
+        if digests is not None:
+            summary["completion_digests"] = digests
         with open(args.summary_json, "w", encoding="utf-8") as f:
             json.dump(summary, f, indent=1, sort_keys=True)
         log.info("wrote summary to %s", args.summary_json)

@@ -64,6 +64,17 @@ bit-equal to the uninterrupted run by the chunked sampler's
 never journaled as finished, so a failed replica's requests stay
 pending for a warm restart.
 
+Lockstep (``serving.lockstep``): under a dispatch mesh that spans
+processes, every rank's engine gets a :class:`~repro_torch.serving.
+lockstep.Lockstep`.  Rank 0 drains, batches and sheds as above and
+broadcasts each batch (its key and request ids), each attempt's ladder
+policy and watchdog budget; the other ranks serve the same batches from
+their own queues and never shed.  Each attempt's verdict is agreed over
+the ranks, and each batch's digest is checked: a mismatch fails the
+batch and every queued request on every rank, stops the engine and sets
+``lockstep_error``.  A follower's request that rank 0 never batched fails
+when rank 0 stops.
+
 Per-request initial noise comes from a ``torch.Generator`` on the engine's
 device seeded with ``GenRequest.seed``, and the sampler gets every
 request's seed for its own draws (a DiT's class label), so a request's
@@ -87,6 +98,7 @@ from repro_torch.core import decision_cache
 from repro_torch.core.guardrail import DegradationLadder, GuardrailConfig
 from repro_torch.serving import faults as fault_lib
 from repro_torch.serving import slo as slo_lib
+from repro_torch.serving.lockstep import LockstepError, batch_digest
 from repro_torch.serving.slo import ServiceEstimator, ShedError
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
@@ -96,6 +108,11 @@ log = get_logger("serve")
 # Error-message markers that mean "the replica failed, not the request":
 # the router requeues such failures onto a healthy replica.
 FAILOVER_MARKERS = ("engine stopped", "watchdog")
+
+
+# A follower's result for a request rank 0 shed: its result() raises
+# ShedError with the rest of the text.
+SHED_BY_RANK_0 = "shed by rank 0: "
 
 
 def is_failover_error(msg: object) -> bool:
@@ -111,6 +128,13 @@ BucketKey = Tuple
 
 # A queued request: (enqueue time, request, the policy its sampler runs).
 Entry = Tuple[float, "GenRequest", Any]
+
+# Lockstep: rank 0 broadcasts an idle decision after this long without
+# traffic (a follower waits for it inside the group's timeout), and a
+# follower waits this long for a request rank 0 batched before it counts
+# it missing.
+LOCKSTEP_IDLE_S = 5.0
+LOCKSTEP_WAIT_S = 60.0
 
 
 def _seq_shards() -> int:
@@ -269,6 +293,10 @@ class DiffusionEngine:
     crash-safe (module doc); a sampler that takes ``resume=`` is handed
     a resumed batch's ``{"step", "dstate"}`` (the per-layer decision
     state) with its latents at that step in place of the noise.
+    ``lockstep`` (a :class:`~repro_torch.serving.lockstep.Lockstep`)
+    serves in step with the other ranks of a dispatch mesh that spans
+    processes (module doc); ``batch_digests`` then lists each served
+    batch's digest.
     """
 
     def __init__(self, sampler_factory: Callable, *, device=None,
@@ -287,7 +315,8 @@ class DiffusionEngine:
                  retry_backoff_s: float = 0.05,
                  bisect_on_error: bool = True,
                  journal: Any = None,
-                 checkpoint_store: Any = None):
+                 checkpoint_store: Any = None,
+                 lockstep: Any = None):
         if scheduler not in ("edf", "hottest"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self._factory = sampler_factory
@@ -348,6 +377,11 @@ class DiffusionEngine:
         self.recovered_count = 0    # journal-recovered resubmissions seen
         self.resumed_count = 0      # requests served from a checkpoint
         self.last_resume_step = 0   # deepest checkpoint step resumed from
+        self._lockstep = lockstep
+        self._shed_notices: List[Tuple[int, str]] = []  # rank 0's, unsent
+        self._shed_by_leader: Dict[int, str] = {}  # a follower's, by id
+        self.lockstep_error: Optional[str] = None
+        self.batch_digests: List[str] = []
         self._buckets: Dict[BucketKey, deque] = {}
         self._compiled: "OrderedDict[BucketKey, Callable]" = OrderedDict()
         self._compiled_lock = threading.Lock()
@@ -382,14 +416,7 @@ class DiffusionEngine:
         with self._lock:
             self._stop = True
             if not drain:
-                now = time.time()
-                for dq in self._buckets.values():
-                    for _, r, _ in dq:
-                        self._results[r.request_id] = GenResult(
-                            r.request_id, None, 0.0, error="engine stopped")
-                        self._error_expiry[r.request_id] = (
-                            now + self.error_ttl_s)
-                self._buckets.clear()
+                self._fail_queued("engine stopped")
             self._lock.notify_all()
         if self._thread:
             self._thread.join()
@@ -431,13 +458,19 @@ class DiffusionEngine:
             with self._lock:
                 if self._stop:
                     raise RuntimeError("engine is stopped")
-                if self.admission_control and req.deadline_s is not None:
+                if rid in self._shed_by_leader:
+                    raise ShedError(self._shed_by_leader[rid])
+                if self.admission_control and req.deadline_s is not None \
+                        and not self._following:
                     dq = self._buckets.get(key)
                     reason = slo_lib.admission_decision(
                         req.deadline_s, now, len(dq) if dq else 0,
                         self.max_batch, self.estimator.lower_bound(key))
                     if reason is not None:
                         self.shed_count += 1
+                        if self._lockstep is not None:
+                            self._shed_notices.append(
+                                (rid, f"request {rid} shed: {reason}"))
                         raise ShedError(f"request {rid} shed: {reason}")
                 self._buckets.setdefault(key, deque()).append(
                     (now, req, policy))
@@ -505,6 +538,8 @@ class DiffusionEngine:
                 self._error_expiry.setdefault(
                     request_id, time.time() + self.error_ttl_s)
         if res.error is not None:
+            if res.error.startswith(SHED_BY_RANK_0):
+                raise ShedError(res.error[len(SHED_BY_RANK_0):])
             raise RuntimeError(f"request {request_id} failed: {res.error}")
         return res
 
@@ -569,6 +604,19 @@ class DiffusionEngine:
 
     # -- batching loop ----------------------------------------------------------
 
+    def _fail_queued(self, why: str) -> None:
+        """Every queued request leaves its queue with the error ``why``
+        (the lock is reentrant: callers may hold it)."""
+        now = time.time()
+        with self._lock:
+            for dq in self._buckets.values():
+                for _, r, _ in dq:
+                    self._results[r.request_id] = GenResult(
+                        r.request_id, None, 0.0, error=why)
+                    self._error_expiry[r.request_id] = now + self.error_ttl_s
+            self._buckets.clear()
+            self._lock.notify_all()
+
     def _evict_expired_locked(self):
         # A record lives through its expiry instant (strictly after).
         now = time.time()
@@ -606,10 +654,12 @@ class DiffusionEngine:
             heads, time.time(), scheduler=self.scheduler,
             starve_after_s=self.starve_after_s, estimator=self.estimator)
 
-    def _take_batch(self):
+    def _take_batch(self, idle_s: Optional[float] = None):
         """Block for traffic, pick a bucket (:meth:`_next_bucket`) and
         linger for batch-mates from the same bucket; (None, None) once
-        stopped and drained."""
+        stopped and drained, and (None, []) after ``idle_s`` without
+        traffic."""
+        t_idle = None if idle_s is None else time.time() + idle_s
         with self._lock:
             while True:
                 key = self._next_bucket()
@@ -617,6 +667,8 @@ class DiffusionEngine:
                     break
                 if self._stop:
                     return None, None
+                if t_idle is not None and time.time() >= t_idle:
+                    return None, []
                 self._lock.wait(timeout=0.2)
             batch = [self._buckets[key].popleft()]
             deadline = time.time() + self.max_wait_s
@@ -629,6 +681,123 @@ class DiffusionEngine:
                     break
                 self._lock.wait(timeout=remaining)
         return key, batch
+
+    # -- lockstep over the ranks (serving.lockstep) --------------------------
+
+    @property
+    def _following(self) -> bool:
+        return self._lockstep is not None and not self._lockstep.leader
+
+    def _lockstep_batch(self):
+        """:meth:`_take_batch` in step with the other ranks: rank 0 takes
+        the batch and broadcasts it with its sheds; the others take the
+        same request ids from their own queues.  Each batch's digest is
+        checked on every rank.  (None, None) once rank 0 has stopped or
+        the ranks disagree, (None, []) when rank 0 was idle."""
+        ls = self._lockstep
+        if ls.leader:
+            key, batch = self._take_batch(idle_s=LOCKSTEP_IDLE_S)
+            with self._lock:
+                shed, self._shed_notices = self._shed_notices, []
+            ls.share({"stop": batch is None, "key": key, "shed": shed,
+                      "rids": [r.request_id for _, r, _ in batch or ()]})
+        else:
+            d = ls.share()
+            self._follow_sheds(d["shed"])
+            if d["stop"]:
+                self._fail_queued("rank 0 stopped without serving it")
+                return None, None
+            key, batch = d["key"], self._take_ids(d["rids"])
+        if batch is None:
+            return None, None
+        if not batch:
+            return None, []
+        missing = [e is None for e in batch]
+        digest = (f"missing request(s) at {missing}" if any(missing)
+                  else batch_digest(key, [r for _, r, _ in batch]))
+        try:
+            ls.check(f"batch of bucket {key}", digest)
+        except LockstepError as e:
+            self._lockstep_failed([b for b in batch if b is not None], e)
+            return None, None
+        self.batch_digests.append(digest)
+        return key, batch
+
+    def _follow_sheds(self, shed: List[Tuple[int, str]]) -> None:
+        """Rank 0's sheds: a request already queued here leaves the queue
+        and its result raises ShedError; one submitted later is shed at
+        its submit."""
+        if not shed:
+            return
+        gone = dict(shed)
+        now = time.time()
+        with self._lock:
+            self._shed_by_leader.update(gone)
+            self.shed_count += len(gone)
+            for dq in self._buckets.values():
+                for e in [e for e in dq if e[1].request_id in gone]:
+                    dq.remove(e)
+                    rid = e[1].request_id
+                    self._results[rid] = GenResult(
+                        rid, None, 0.0, error=SHED_BY_RANK_0 + gone[rid])
+                    self._error_expiry[rid] = now + self.error_ttl_s
+            self._lock.notify_all()
+
+    def _take_ids(self, rids: List[int]) -> List[Optional[Entry]]:
+        """The queued entries of ``rids`` in their order, waiting up to
+        ``LOCKSTEP_WAIT_S`` for any not submitted yet (None for those
+        still missing)."""
+        deadline = time.time() + LOCKSTEP_WAIT_S
+        with self._lock:
+            while True:
+                found = {e[1].request_id: (k, e)
+                         for k, dq in self._buckets.items() for e in dq
+                         if e[1].request_id in rids}
+                if len(found) == len(rids) or time.time() >= deadline:
+                    break
+                self._lock.wait(timeout=0.2)
+            out: List[Optional[Entry]] = []
+            for rid in rids:
+                if rid in found:
+                    k, e = found[rid]
+                    self._buckets[k].remove(e)
+                    out.append(e)
+                else:
+                    out.append(None)
+            return out
+
+    def _lockstep_failed(self, batch: List[Entry], err: Exception) -> None:
+        """The ranks disagree: the batch and every queued request fail on
+        this rank (as on every other), and the engine stops."""
+        log.error("lockstep: %s", err)
+        self.lockstep_error = str(err)
+        now = time.time()
+        with self._lock:
+            self._stop = True
+            for _, r, _ in batch:
+                self._results[r.request_id] = GenResult(
+                    r.request_id, None, 0.0, error=f"lockstep: {err}")
+                self._error_expiry[r.request_id] = now + self.error_ttl_s
+        self._fail_queued(f"lockstep: {err}")
+
+    def _agree(self, hung: bool, exc, sent) -> Tuple[bool, Any, Any]:
+        """One attempt's verdict over the ranks: each rank's outcome
+        all-gathered, the worst (hung, failed, sentinel trip, clean) taken
+        by all, the lowest rank's among equals."""
+        mine = (("hung", "") if hung else ("err", repr(exc)) if exc is not None
+                else ("sentinel", sent) if sent is not None else ("ok", ""))
+        order = {"hung": 0, "err": 1, "sentinel": 2, "ok": 3}
+        got = self._lockstep.gather(mine)
+        rank, (kind, what) = min(enumerate(got),
+                                 key=lambda rg: (order[rg[1][0]], rg[0]))
+        if kind == "hung":
+            return True, None, None
+        if kind == "err":
+            return False, exc if mine[0] == "err" else RuntimeError(
+                f"rank {rank}: {what}"), None
+        if kind == "sentinel":
+            return False, None, sent if mine[0] == "sentinel" else what
+        return False, None, None
 
     def _sampler(self, key: BucketKey, policy) -> Callable:
         """The bucket's sampler from the LRU (keyed on ``key[:8]``), built
@@ -832,7 +1001,8 @@ class DiffusionEngine:
                             r.request_id, e)
 
     def _run_batch(self, key: BucketKey, batch: List[Entry], policy,
-                   pub: Dict, abandoned: threading.Event):
+                   pub: Dict, abandoned: threading.Event,
+                   budget: Optional[float] = None):
         """One sampler invocation, under the watchdog when it is on.
         Returns ``(res, hung, budget)``: ``res`` holds ``lat`` / ``aux``,
         or ``err`` (the exception), or ``sentinel`` (a streamed chunk was
@@ -895,7 +1065,8 @@ class DiffusionEngine:
         if self.batch_timeout_s is None:
             work()
             return res, False, 0.0
-        budget = self.estimator.timeout_hint(key, self.batch_timeout_s)
+        if budget is None:
+            budget = self.estimator.timeout_hint(key, self.batch_timeout_s)
         worker = threading.Thread(target=work, daemon=True)
         worker.start()
         worker.join(timeout=budget)
@@ -925,14 +1096,7 @@ class DiffusionEngine:
                     deadline_met=False if r.deadline_s is not None
                     else None)
                 self._error_expiry[r.request_id] = now + self.error_ttl_s
-            for dq in self._buckets.values():
-                for _, r, _ in dq:
-                    self._results[r.request_id] = GenResult(
-                        r.request_id, None, 0.0,
-                        error="engine stopped (watchdog)")
-                    self._error_expiry[r.request_id] = now + self.error_ttl_s
-            self._buckets.clear()
-            self._lock.notify_all()
+            self._fail_queued("engine stopped (watchdog)")
 
     def _publish_batch(self, batch: List[Entry], lat: Optional[np.ndarray],
                        dt: float, pub: Dict, err: Optional[str],
@@ -996,25 +1160,34 @@ class DiffusionEngine:
         fam = self._family(key)
         attempt = 0
         while True:
-            eff_key, policy = key, batch[0][2]
+            eff_key, policy, eff_pol, budget = key, batch[0][2], base_pol, None
             if self._ladder is not None:
                 eff_pol, _probing = self._ladder.effective_policy(
                     fam, base_pol)
-                if eff_pol != base_pol:
-                    eff_key = self._rekey(key, eff_pol)
-                    policy = _bucket_policy(eff_pol)[0]
+            if self._lockstep is not None:
+                # Rank 0's rung and watchdog budget for this attempt.
+                eff_pol, budget = self._lockstep.share((eff_pol, None if (
+                    self.batch_timeout_s is None) else self.estimator
+                    .timeout_hint(key, self.batch_timeout_s)))
+            if eff_pol != base_pol:
+                eff_key = self._rekey(key, eff_pol)
+                policy = _bucket_policy(eff_pol)[0]
             res, hung, budget = self._run_batch(eff_key, batch, policy, pub,
-                                                abandoned)
+                                                abandoned, budget)
+            sent = exc = None
+            if not hung:
+                sent = res.get("sentinel")
+                exc = res.get("err")
+                if exc is None and sent is None and "lat" not in res:
+                    exc = RuntimeError("sampler worker produced no output")
+                if exc is None and sent is None and self._ladder is not None:
+                    sent = self._sentinel_verdict(res.get("lat"),
+                                                  res.get("aux"))
+            if self._lockstep is not None:
+                hung, exc, sent = self._agree(hung, exc, sent)
             if hung:
                 self._trip_watchdog(eff_key, batch, budget, abandoned)
                 return
-            sent = res.get("sentinel")
-            exc = res.get("err")
-            if exc is None and sent is None and "lat" not in res:
-                exc = RuntimeError("sampler worker produced no output")
-            if exc is None and sent is None and self._ladder is not None:
-                sent = self._sentinel_verdict(res.get("lat"),
-                                              res.get("aux"))
             if sent is not None and self._ladder is not None:
                 nxt = self._ladder.trip(fam, base_pol)
                 if nxt is not None:
@@ -1072,9 +1245,14 @@ class DiffusionEngine:
 
     def _loop(self):
         while True:
-            key, batch = self._take_batch()
-            if key is None:
+            if self._lockstep is None:
+                key, batch = self._take_batch()
+            else:
+                key, batch = self._lockstep_batch()
+            if batch is None:
                 return
+            if not batch:
+                continue
             self._serve(key, batch)
             fault = fault_lib.active_faults()
             if fault is not None:
