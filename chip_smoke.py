@@ -261,8 +261,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    port lies on its path): ``train[gemma3-4b grads]`` (the loss and
    gradients of a 2-layer gemma3-4b at full width, f32, 1 x 1024 tokens
    through the chunked cross entropy, on the card against the CPU),
-   ``train[gemma3-4b]`` (``main`` at train_4k, full width and all 34
-   layers, or the deepest of LM_TRAIN_DEPTHS that fits; the global batch
+   ``train[gemma3-4b 28 layers]`` (``main`` at train_4k, full width and
+   28 of 34 layers, or the deepest of LM_TRAIN_DEPTHS that fits; the global batch
    256 cut to 8, micro-batch 1; per step the loss, nll, grad_norm, lr
    and ms, tokens/s, the peak, the first nll against ln V; then
    ``profile[train gemma3-4b]`` on one micro-batch), ``train[qwen2-moe-
@@ -6447,10 +6447,12 @@ LM_GRADS_TOKENS = 1024
 LM_GRADS_BAR = 1e-4   # tree relative L2, card against the CPU (f32, no TF32)
 # train[gemma3-4b]: train_4k (4096 tokens) through the launcher, the global
 # batch 256 cut to 8, so grad_accum 8 takes micro-batches of 1 sequence;
-# all 34 layers, else the deepest of these that fits.
+# 28 of 34 layers, else the deepest of these that fits.  All 34 peak at
+# 75.45-75.51 GiB of the card's 79.18 and ran out of memory on one run; the
+# retry at 28 then cost a second CPU init (40-60 s), so the run starts there.
 LM_TRAIN_BATCH = 8
 LM_TRAIN_STEPS = 3
-LM_TRAIN_DEPTHS = (34, 28, 22, 16)
+LM_TRAIN_DEPTHS = (28, 22, 16)
 # The first step's nll within 2% of its value at the reference init: the
 # head's N(0, 0.02^2) weights against the final RMSNorm's unit-RMS
 # output give logits of variance d_model * 0.02^2 (1.02 at gemma3-4b's
@@ -6549,7 +6551,7 @@ def lm_train_argv(name, layers):
 def lm_train_gemma():
     """train[gemma3-4b]: the launcher's ``main`` at train_4k, full width,
     micro-batch 1 of LM_TRAIN_BATCH sequences (grad_accum 8), at the
-    first depth of LM_TRAIN_DEPTHS that fits (34 layers: 72.8 GB of f32
+    first depth of LM_TRAIN_DEPTHS that fits (28 layers: 63.8 GB of f32
     params, gradients and AdamW moments); the first step's nll against
     ln V; then ``profile[train gemma3-4b]`` on the trained state."""
     import gc
@@ -6751,6 +6753,302 @@ def lm_train_phases():
 
 
 # ---------------------------------------------------------------------------
+# 8m. the model axis in training (slice 23): the LM train step on a rank
+# mesh of (data 1, model 2), two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2            # the model axis: gloo ranks on the one card
+TP_LAYERS = 2           # of 34 (gemma3-4b) and 24 (qwen2-moe-a2.7b)
+TP_TOKENS = (1, 1024)   # train_4k's 256 x 4096 cut to one sequence of 1024
+TP_STEPS = 3
+TP_REL = 1e-5           # per-step losses and final params, ranks vs one process
+TP_CELLS = (("gemma3-4b", "tp"), ("qwen2-moe-a2.7b", "ep"))
+
+
+def tp_arch(name):
+    """``name`` at full width, ``TP_LAYERS`` layers, ``TP_TOKENS``, float32
+    compute, one micro-batch; the MoE at a capacity that drops no slot
+    (``EP_NO_DROP``), so EP and the one process's dense MoE compute the
+    same function."""
+    from repro_torch.configs import get_config
+
+    arch = get_config(name)
+    m = dataclasses.replace(arch.model, num_layers=TP_LAYERS)
+    if m.moe is not None:
+        m = dataclasses.replace(m, moe=dataclasses.replace(
+            m.moe, capacity_factor=EP_NO_DROP))
+    shape = dataclasses.replace(arch.shape("train_4k"), global_batch=TP_TOKENS[0],
+                                seq_len=TP_TOKENS[1])
+    return dataclasses.replace(arch, model=m, shapes=(shape,),
+                               train=dataclasses.replace(
+                                   arch.train, compute_dtype="float32", grad_accum=1))
+
+
+def tp_worker(out, name, rank, port):
+    """``chip_smoke.py --tp-worker OUT NAME RANK PORT``: ``TP_STEPS`` AdamW
+    steps of :func:`tp_arch`, drawn on the card from seed 0, through
+    ``workloads.train_step`` on the card,
+    as one process (RANK -1: it writes its final params to OUT.pt) or as
+    rank RANK of a gloo group of ``TP_RANKS`` on a rank mesh of (data 1,
+    model ``TP_RANKS``) (it holds its pieces against OUT's one-process
+    params).  The launch counters set to 0 just before the steps and read
+    just after; the model axis's collectives counted
+    (``distributed.tensor_parallel``); writes OUT.json."""
+    import json
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.synthetic import DataSpec
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import workloads
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.params import init_model
+    from repro_torch.training import train_loop
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    mesh = None
+    t0 = time.perf_counter()
+    if rank >= 0:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=TP_RANKS, rank=rank,
+                                timeout=timedelta(seconds=300))
+        mesh = make_rank_mesh(model_axis=TP_RANKS, device="cuda")
+    arch = tp_arch(name)
+    shape = arch.shape("train_4k")
+    # Drawn on the card from the seed (the one process and every rank draw
+    # the same weights; a CPU draw took 15-22 s a process).
+    model = init_model(arch.model, seed=0, device="cuda", dtype=torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+    step = workloads.train_step(arch, shape, model, mesh=mesh)
+    state = train_loop.train_state_init(model, arch.train, mesh=mesh)
+    init_s = time.perf_counter() - t0
+    batches = make_batch_fn(arch, shape, torch.device("cuda"))
+    moved = {"calls": 0, "bytes": 0.0, "wire": 0.0, "s": 0.0}
+
+    def counted(kind):
+        def wrap(orig):
+            def f(x, group, *a):
+                n = dist.get_world_size(group)
+                t = time.perf_counter()
+                y = orig(x, group, *a)
+                moved["s"] += time.perf_counter() - t
+                moved["calls"] += 1
+                size = x.numel() * x.element_size()
+                moved["bytes"] += size
+                # ring bytes on the wire a rank, as the dry run counts them
+                moved["wire"] += {"all-reduce": 2 * size * (n - 1) / n,
+                                  "all-gather": size * (n - 1),
+                                  "reduce-scatter": size * (n - 1) / n}[kind]
+                return y
+            return f
+        return wrap
+
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with wrapped(tpl, "all_reduce_", counted("all-reduce")), \
+            wrapped(tpl, "all_gather_dim", counted("all-gather")), \
+            wrapped(tpl, "reduce_scatter_dim", counted("reduce-scatter")):
+        for i in range(TP_STEPS):
+            batch = batches(DataSpec(seed=0), i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch, 0)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = (state.shards.local if state.shards is not None
+              else list(model.parameters()))
+    err = None
+    if mesh is None:
+        torch.save({n: p.detach().cpu() for n, p in zip(names, params)},
+                   out + ".pt")
+    else:
+        # Held on the host in f64: the card is shared with the other rank and
+        # the main process, and a f64 copy of gemma3-4b's embed piece is 2.7 GB.
+        whole = torch.load(out.rsplit("-", 1)[0] + "-plain.pt", mmap=True)
+        num = den = 0.0
+        with torch.no_grad():
+            for i, (n, p) in enumerate(zip(names, params)):
+                want = state.shards.piece(whole[n], i).double()
+                num += float(torch.sum((p.detach().cpu().double() - want) ** 2))
+                den += float(torch.sum(want ** 2))
+        err = (num / den) ** 0.5
+    rec = {"losses": losses, "ms": ms, "peak_gib": peak, "init_s": init_s,
+           "launches": counts, "param_rel": err, "moved": moved,
+           "params": sum(p.numel() for p in params),
+           "backend": dist.get_backend() if mesh else None,
+           "mesh": mesh.shape if mesh else None}
+    with open(out + ".json", "w", encoding="utf-8") as f:
+        json.dump(rec, f, indent=1)
+    if mesh is not None:
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_spawn(label, name, ranks):
+    """Run ``--tp-worker`` for ``name`` as one process (``ranks`` 0) or as
+    ``ranks`` gloo ranks; every process must exit 0 (a failed rank fails
+    the phase: nothing falls back to one process).  Returns (wall seconds,
+    the records)."""
+    import json
+    import socket
+
+    import torch
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    tag = "plain" if ranks == 0 else "rank"
+    outs = [os.path.join(DIST_DIR, f"tp-{name}-{tag}{r}" if ranks else
+                         f"tp-{name}-plain") for r in range(max(ranks, 1))]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS=str(max(1, torch.get_num_threads() // TP_RANKS)),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+                               o, name, str(r if ranks else -1), str(port)],
+                              env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r, o in enumerate(outs)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            lines = text.strip().splitlines()
+            raise RuntimeError(f"dist[{label}]: {tag} {r} exit {p.returncode}: "
+                               + " | ".join(lines[-30:]))
+    recs = []
+    for o in outs:
+        with open(o + ".json", encoding="utf-8") as f:
+            recs.append(json.load(f))
+    return wall, recs
+
+
+def tp_phases_start():
+    """Start 8m on a thread of its own: both cells' one process side by
+    side (24.88 + 29.38 GiB at their peaks), then each cell's
+    ``TP_RANKS`` ranks, one cell at a time (each process's card memory is
+    its own, and the main process keeps its own beside them: one cell's
+    ranks beside the other's one process, each rank holding a f64 copy of
+    its pieces on the card for its check, ran out of the card's memory).
+    The main thread carries on with checks that time nothing;
+    :func:`tp_phases_finish` joins it."""
+    import threading
+
+    import torch
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    torch.cuda.empty_cache()  # the main process's cached blocks
+    held = (torch.cuda.memory_allocated() / 2**30, torch.cuda.memory_reserved() / 2**30)
+    res = {}
+
+    def spawn(name, kind, ranks):
+        res[name if ranks else f"{name} plain"] = tp_spawn(
+            f"train {name} {kind}", name, ranks)
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            errors = []
+            plains = [threading.Thread(target=_catching, args=(errors, spawn, name, kind, 0))
+                      for name, kind in TP_CELLS]
+            for th in plains:
+                th.start()
+            for th in plains:
+                th.join()
+            if errors:
+                raise RuntimeError(errors[0])
+            for name, kind in TP_CELLS:
+                spawn(name, kind, TP_RANKS)
+            res["wall"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — reported by tp_phases_finish
+            res["error"] = repr(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    log(f"dist[train tp/ep]: started: {TP_RANKS} gloo ranks on the card at (data 1, "
+        f"model {TP_RANKS}) and one process each, chip_smoke.py --tp-worker: "
+        f"{', '.join(n for n, _ in TP_CELLS)} at full width, {TP_LAYERS} layers, "
+        f"{TP_TOKENS[0]} x {TP_TOKENS[1]} tokens, f32, {TP_STEPS} AdamW steps; the main "
+        f"process holds {held[0]:.2f} GiB allocated, {held[1]:.2f} GiB reserved")
+    return th, res
+
+
+def _catching(errors, fn, *args):
+    try:
+        fn(*args)
+    except Exception as e:  # noqa: BLE001 — re-raised by the caller
+        errors.append(repr(e))
+
+
+def tp_phases_finish(started):
+    """8m's checks, once its thread is done: for each cell every rank's
+    per-step losses within ``TP_REL`` of the one process's, its final
+    pieces within ``TP_REL`` of the one process's params (relative L2),
+    no kernel launch anywhere, a gloo group on the (1, TP_RANKS) mesh;
+    each rank's ms a step, peak memory and the model axis's bytes."""
+    th, res = started
+    th.join()
+    if "error" in res:
+        raise SystemExit(res["error"])
+    log(f"dist[train tp/ep]: {res['wall']:.1f}s wall for both cells with the "
+        f"processes' start and the models' CPU init")
+    for name, kind in TP_CELLS:
+        label = f"train {name} {kind}"
+        (pwall, (plain,)), (wall, ranks) = res[f"{name} plain"], res[name]
+        log(f"dist[{label}]: one process: losses {plain['losses']}, "
+            f"{', '.join(f'{x:.1f}' for x in plain['ms'])} ms a step, peak "
+            f"{plain['peak_gib']:.2f} GiB, {plain['params'] / 1e9:.3f} B params, "
+            f"{pwall:.1f}s with its start ({plain['init_s']:.1f}s init); {CARD}")
+        for r, g in enumerate(ranks):
+            mv = g["moved"]
+            log(f"dist[{label}]: rank {r} of {g['mesh']}: losses {g['losses']}, "
+                f"{', '.join(f'{x:.1f}' for x in g['ms'])} ms a step, peak "
+                f"{g['peak_gib']:.2f} GiB, {g['params'] / 1e9:.3f} B params held; the "
+                f"model axis moved {mv['bytes'] / 1e9:.3f} GB in {mv['calls']} "
+                f"collectives ({mv['wire'] / 1e9:.3f} GB ring bytes on the wire, "
+                f"{mv['s']:.2f}s host wall through pinned memory and gloo); final "
+                f"params rel L2 {g['param_rel']:.3e}; {CARD}")
+        log(f"dist[{label}]: {wall:.1f}s for the ranks with their start "
+            f"({max(g['init_s'] for g in ranks):.1f}s init); NCCL between cards: "
+            f"not measured (one card cannot host two NCCL ranks)")
+        rel = max(abs(a - b) / abs(b) for g in ranks
+                  for a, b in zip(g["losses"], plain["losses"]))
+        report(label, {
+            f"a gloo group of {TP_RANKS} ranks on a (data 1, model {TP_RANKS}) mesh":
+                all(g["backend"] == "gloo" and g["mesh"] == {"data": 1, "model": TP_RANKS}
+                    for g in ranks),
+            f"per-step losses within {TP_REL} of one process ({rel:.3e})":
+                rel <= TP_REL and all(len(g["losses"]) == TP_STEPS for g in ranks),
+            f"final params within {TP_REL} of one process": all(
+                g["param_rel"] <= TP_REL for g in ranks),
+            "each rank holds about half the params": all(
+                0.45 <= g["params"] / plain["params"] <= 0.55 for g in ranks),
+            "no kernel of the port launched": not any(
+                v for g in [plain, *ranks] for v in g["launches"].values()),
+            "the model axis moved bytes": all(g["moved"]["calls"] > 0 for g in ranks),
+        }, kind="dist")
+
+
+# ---------------------------------------------------------------------------
 # 8k. the launch tools (slice 21): the dry run's counts against the card
 # ---------------------------------------------------------------------------
 
@@ -6937,6 +7235,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # a dryrun[...] cell's host process
     ap.add_argument("--serve-mesh-worker", nargs=3, metavar=("OUT", "RANK", "PORT"),
                     help=argparse.SUPPRESS)  # a rank of dist[serve mesh]
+    ap.add_argument("--tp-worker", nargs=4, metavar=("OUT", "NAME", "RANK", "PORT"),
+                    help=argparse.SUPPRESS)  # a process of dist[train ... tp/ep]
     args = ap.parse_args()
 
     try:
@@ -6966,6 +7266,8 @@ def main() -> int:
         return train_worker(args.train_worker[0], args.train_worker[1:])
     if args.serve_mesh_worker:
         return serve_mesh_worker(*args.serve_mesh_worker)
+    if args.tp_worker:
+        return tp_worker(*args.tp_worker)
 
     global CARD
     card = CARD = card_line()
@@ -7377,6 +7679,12 @@ def main() -> int:
     counts_kb, (fl_err, fl_ms, fl_plain, fl_lib, fl_bound, fl_by) = kernel_bench_phase()
     counts_sn = snap_phase()
 
+    # 8m. the model axis in training (slice 23): gemma3-4b (TP) and
+    # qwen2-moe-a2.7b (TP with EP) on 2 gloo ranks of (data 1, model 2)
+    # against one process each, in processes of their own beside the
+    # card-vs-CPU checks of 9, which time nothing -------------------------
+    tp_started = tp_phases_start()
+
     # 9. small trajectories, card vs CPU ------------------------------------
     small_reference_check("ripple")
     small_reference_check("svg", policy="svg")
@@ -7412,6 +7720,7 @@ def main() -> int:
     patterns.install_artifact(art_path)
     small_reference_check("rainfusion", policy="rainfusion")
     patterns.set_active_artifact(None)
+    tp_phases_finish(tp_started)
 
     # 8k. the launch tools (slice 21): the dry run's counts of train[dit-xl2],
     # train[gemma3-4b] at the depth it ran and one serve[dit-xl2] forward,

@@ -30,6 +30,19 @@ whole parameters and gradients.  Without remat the backward pass also
 keeps what the forward saved, the bfloat16 casts of the weights among
 it.  At one rank the pieces are the parameters themselves, every
 collective on them is the identity and the step is the unsharded one.
+
+On a rank mesh with a ``model`` axis above 1 the pieces are 2-D: a
+parameter's spec may also put a dim on ``model`` (``heads``, ``kv``,
+``mlp``, ``vocab``, ``expert``), and that piece is never gathered here.
+"Whole" above then means whole over the batch axes: the gathers and the
+reductions run over the batch group (the ranks that share this rank's
+model index), and the model code computes with the model pieces
+(``distributed.tensor_parallel``, where the model axis's gradients are
+combined inside autograd).  With one rank on the batch axes the model
+pieces are the parameters themselves.  The clip norm counts every
+element once across both axes, and :meth:`ParamShards.gather_full` /
+:meth:`ParamShards.scatter_full` go between pieces and whole tensors
+over both.
 """
 
 from __future__ import annotations
@@ -45,6 +58,9 @@ from torch import nn
 from repro_torch.distributed.elastic import local_piece
 from repro_torch.distributed.sharding import (axis_size, batch_axes,
                                               param_rules, spec_from_axes)
+from repro_torch.distributed.tensor_parallel import (all_gather_dim,
+                                                     all_reduce_,
+                                                     reduce_scatter_dim)
 
 __all__ = ["ParamShards", "block_units"]
 
@@ -102,23 +118,39 @@ class ParamShards:
         bd = batch_axes(mesh)
         self.n = axis_size(mesh, bd)
         self.index = mesh.batch_index()
+        self.m = mesh.model_size
+        self.model_group = mesh.model_group()
+        self.model_index = mesh.model_index()
         rules = rules or param_rules(mesh)
         self.shapes = [tuple(p.shape) for p in self.params]
         self.coords = mesh.coordinate()
         self.specs = [spec_from_axes(axes, rules, tuple(p.shape), mesh)
                       for p, axes in zip(self.params, param_axes(model))]
-        # The dim each collective runs along: the one on the batch axes.
+        # The dim each collective runs along: the one on the batch axes;
+        # and the dim on ``model``, whose pieces stay local.
         self.dims: List[Optional[int]] = [
             next((i for i, e in enumerate(spec) if set(_flat(e)) & set(bd)), None)
             for spec in self.specs]
+        self.mdims: List[Optional[int]] = [
+            next((i for i, e in enumerate(spec) if "model" in _flat(e)), None)
+            for spec in self.specs]
         self.grads: Optional[List[torch.Tensor]] = None
         if self.n == 1:
+            if self.m > 1:
+                with torch.no_grad():
+                    for i, p in enumerate(self.params):
+                        p.data = self.piece(p.detach(), i).to(self.device,
+                                                              copy=True)
             _move(model, self.device)
             self.local = list(model.parameters())
             return
         with torch.no_grad():
             self.local = [self.piece(p.detach(), i).to(self.device, copy=True)
                           for i, p in enumerate(self.params)]
+        # Each parameter's shape while it is whole over the batch axes.
+        self.block_shapes = [
+            tuple(s * (self.n if k == d else 1) for k, s in enumerate(x.shape))
+            for x, d in zip(self.local, self.dims)]
         index = {id(p): i for i, p in enumerate(self.params)}
         me = weakref.ref(self)  # the hooks keep neither this nor its group
         self.units = {}   # id(block) -> its parameters' indices
@@ -148,14 +180,11 @@ class ParamShards:
         return local_piece(t, self.specs[i], self.mesh, self.coords)
 
     def _gather(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """A piece gathered over the batch axes (its model piece)."""
         d = self.dims[i]
         if d is None or self.n == 1:
             return x
-        y = x.movedim(d, 0).contiguous()
-        out = torch.empty((self.n * y.shape[0],) + tuple(y.shape[1:]),
-                          dtype=y.dtype, device=y.device)
-        self._dist.all_gather_into_tensor(out, y, group=self.group)
-        return out.movedim(0, d).contiguous()
+        return all_gather_dim(x, self.group, self.n, d)
 
     @torch.no_grad()
     def _gather_params(self, idx: Sequence[int]) -> None:
@@ -174,30 +203,31 @@ class ParamShards:
     def _reduce(self, idx: Sequence[int]) -> None:
         """Add the ranks' sum of each whole gradient's piece to this
         rank's gradient pieces and free the whole gradients."""
-        dist = self._dist
         for i in idx:
             p = self.params[i]
             g = p.grad if p.grad is not None else torch.zeros(
-                self.shapes[i], dtype=p.dtype, device=self.device)
+                self.block_shapes[i], dtype=p.dtype, device=self.device)
             p.grad = None
             self._reduced.add(i)
             d = self.dims[i]
             if d is None:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self.group)
+                all_reduce_(g, self.group)
             else:
-                y = g.movedim(d, 0).contiguous()
-                del g
-                piece = torch.empty((y.shape[0] // self.n,) + tuple(y.shape[1:]),
-                                    dtype=y.dtype, device=y.device)
-                dist.reduce_scatter_tensor(piece, y, op=dist.ReduceOp.SUM,
-                                           group=self.group)
-                g = piece.movedim(0, d)
+                g = reduce_scatter_dim(g, self.group, self.n, d)
             self.grads[i].add_(g)
+
+    def _full(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """A piece gathered over the batch axes, then over ``model``."""
+        x = self._gather(x, i)
+        d = self.mdims[i]
+        if d is None or self.m == 1:
+            return x
+        return all_gather_dim(x, self.model_group, self.m, d)
 
     def gather_full(self, pieces: List[torch.Tensor]) -> List[torch.Tensor]:
         """Whole CPU copies of per-parameter pieces (a moment, the EMA):
         a collective every rank calls."""
-        return [self._gather(x, i).cpu() for i, x in enumerate(pieces)]
+        return [self._full(x, i).cpu() for i, x in enumerate(pieces)]
 
     def scatter_full(self, whole: List[torch.Tensor],
                      into: List[torch.Tensor]) -> None:
@@ -294,30 +324,32 @@ class ParamShards:
     # -- the step's other collectives ----------------------------------------
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """A scalar metric averaged over the ranks."""
+        """A scalar metric averaged over the batch axes' ranks (the model
+        group's ranks hold the same value)."""
         x = x.detach().clone()
-        self._dist.all_reduce(x, op=self._dist.ReduceOp.SUM, group=self.group)
-        return x / self.n
+        if self.group is None:
+            return x
+        return all_reduce_(x, self.group) / self.n
 
     def reduce_max(self, x: torch.Tensor) -> torch.Tensor:
-        """The maximum over the ranks (the compression scale's ``max|g +
-        e|`` of a whole tensor)."""
-        x = x.clone()
-        self._dist.all_reduce(x, op=self._dist.ReduceOp.MAX, group=self.group)
-        return x
+        """The maximum over every rank (the compression scale's ``max|g +
+        e|`` of a whole tensor, whose pieces lie on both axes)."""
+        return all_reduce_(x.clone(), self._dist.group.WORLD,
+                           self._dist.ReduceOp.MAX)
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The float32 L2 norm of the whole gradient tree from its pieces:
-        the norm of every rank's per-piece norms (a replicated gradient
-        counted on the first rank only), in the order
-        ``utils.pytree.tree_global_norm`` takes at one rank."""
+        the norm of every rank's per-piece norms (a gradient replicated
+        over an axis counted on that axis's first rank only), in the
+        order ``utils.pytree.tree_global_norm`` takes at one rank."""
         norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
-        if self.index != 0:
-            keep = torch.tensor([d is not None for d in self.dims],
-                                device=norms.device)
+        if self.index != 0 or self.model_index != 0:
+            keep = torch.tensor(
+                [(d is not None or self.index == 0)
+                 and (md is not None or self.model_index == 0)
+                 for d, md in zip(self.dims, self.mdims)],
+                device=norms.device)
             norms = torch.where(keep, norms, torch.zeros_like(norms))
-        every = torch.empty((self.n * norms.numel(),), dtype=norms.dtype,
-                            device=norms.device)
-        self._dist.all_gather_into_tensor(every, norms.contiguous(),
-                                          group=self.group)
+        world = self._dist.get_world_size()
+        every = all_gather_dim(norms, self._dist.group.WORLD, world, 0)
         return torch.linalg.vector_norm(every)

@@ -167,7 +167,8 @@ def seqpar_act_rules(mesh, batch: int) -> Dict[Any, Any]:
 class ShardCtx:
     """Threaded through model code: the mesh and the activation rules a
     workload runs under.  ``mesh`` is what the MoE reads to choose expert
-    parallelism (``models.moe.moe_ffn``).
+    parallelism on a dispatch mesh (``models.moe.moe_ffn``); ``tp`` is
+    the trainer's tensor parallelism on a rank mesh.
 
     :meth:`c` returns ``x`` unchanged: the reference's
     ``with_sharding_constraint`` tells GSPMD where an activation should
@@ -180,6 +181,11 @@ class ShardCtx:
     # The ranks that split a training batch (``distributed.fsdp``), over
     # which batch statistics such as the MoE router's are averaged.
     batch_group: Optional[Any] = None
+    # This rank's tensor parallelism over the rank mesh's ``model`` axis
+    # (a ``distributed.tensor_parallel.TensorParallel``; None at 1): the
+    # LM's blocks, embedding, head and cross entropy then compute on the
+    # rank's pieces and combine them over the model group.
+    tp: Optional[Any] = None
 
     def c(self, x, axes: Sequence[Optional[str]]):
         """Constrain activation ``x`` whose dims carry logical ``axes``:

@@ -19,10 +19,17 @@ data, and counts it as it runs:
   ``launch.roofline``'s operations and bytes and returns an empty
   output; where a kernel's work depends on the data (ripple's collapsed
   pairs, sparse's SKIP tiles) the count has nothing skipped;
-* collectives: the ``c10d`` calls ``distributed/fsdp.py`` makes on one
-  rank of N (a fake process group of N ranks), as ring bytes on the wire
-  a rank: (N-1)/N of an all-gather's output or a reduce-scatter's input,
-  2(N-1)/N of an all-reduce; 0 at one rank;
+* collectives: the ``c10d`` calls of one rank of N (a fake process group
+  of N ranks, with a fake group for each of the rank's axis groups), as
+  ring bytes on the wire a rank over the call's group of n ranks: (n-1)/n
+  of an all-gather's output or a reduce-scatter's input, 2(n-1)/n of an
+  all-reduce; 0 at one rank.  Those over the model group (tensor
+  parallelism's all-reduces, EP's sum, the vocab-parallel cross
+  entropy's combine, the all-gathers of pieces that end mid-head, and
+  under ``train.seq_parallel`` the sequence all-gathers and
+  reduce-scatters) are counted apart from the batch axes' (FSDP's) as
+  ``model all-reduce``, ``model all-gather`` and ``model
+  reduce-scatter``;
 * the per-rank peak: the fake storages alive at once, by their bytes,
   from the start of the step (parameters or their pieces, gradients,
   AdamW moments, activations, caches) to its end.
@@ -40,15 +47,22 @@ The fake tensors are CPU tensors: autograd on fake CUDA tensors needs a
 CUDA build of torch, and the only choices on the step's path that
 depend on the device (which attention plan runs, and whether a kernel
 wrapper launches) take a counted fake tensor as a card's
-(``kernels.on_card``).  The port runs ranks over ``data`` with FSDP on
-``embed`` and a ``model`` axis of 1; a cell that needs a ``model`` axis
-above 1 is reported as not runnable, with its reason, and not costed.
-A serving cell on N ranks is the busiest rank's: ceil(batch / N) rows on
-whole weights.
+(``kernels.on_card``).  The ranks form a (data, model) mesh, data =
+ranks / ``--model-axis``: FSDP on ``embed`` over ``data`` and, on a
+``model`` axis above 1, the LM train step's tensor parallelism
+(``distributed.tensor_parallel``: heads, MLP and vocab on ``model``,
+EP for the MoEs, ``train.seq_parallel``).  ``--ranks 256 --model-axis
+16`` is the reference's own (data 16, model 16) production mesh
+(``make_production_mesh``).  On a ``model`` axis above 1 the serving
+cells and the non-LM train cells are not runnable (ROADMAP §1), and are
+reported with their reason, not costed.  A serving cell on N ranks is
+the busiest rank's: ceil(batch / N) rows on whole weights.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dit-xl2 \\
         --shape train_256 [--ranks N] [--json out.jsonl]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
+        --shape train_4k --ranks 256 --model-axis 16
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--ranks N]
 """
 
@@ -147,13 +161,13 @@ def _op_bytes(func, args, kwargs, out) -> int:
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts a step's ATen traffic and collectives on one rank of
-    ``ranks`` (while :attr:`counting`) and tracks the storages alive
-    (always), their peak since :meth:`start`."""
+    """Counts a step's ATen traffic and collectives on one rank (while
+    :attr:`counting`; those over ``model_group`` apart) and tracks the
+    storages alive (always), their peak since :meth:`start`."""
 
-    def __init__(self, ranks: int = 1):
+    def __init__(self, model_group=None):
         super().__init__()
-        self.ranks = ranks
+        self.model_group = model_group
         self.counting = False
         self.nbytes = 0.0
         self.collectives: Dict[str, float] = {}
@@ -192,17 +206,25 @@ class StepCounter(TorchDispatchMode):
             self.peak = max(self.peak, self.live_bytes)
 
     def _collective(self, func, args) -> None:
-        n = self.ranks
+        import torch.distributed as dist
+
         name = func.__name__.split(".")[0]
+        at = {"_allgather_base_": 2, "_reduce_scatter_base_": 2,
+              "allreduce_": 1}
+        if name not in at:
+            raise NotImplementedError(f"the dry run does not count {func}")
+        pg = dist.ProcessGroup.unbox(args[at[name]])
+        n = pg.size()
         if name == "_allgather_base_":      # (output, input, group, ...)
             kind, wire = "all-gather", _tensor_bytes(args[0]) * (n - 1) / n
         elif name == "_reduce_scatter_base_":  # (output, input, group, ...)
             kind, wire = "reduce-scatter", _tensor_bytes(args[1]) * (n - 1) / n
-        elif name == "allreduce_":          # ([tensors], group, ...)
+        else:                               # ([tensors], group, ...)
             kind = "all-reduce"
             wire = sum(map(_tensor_bytes, args[0])) * 2 * (n - 1) / n
-        else:
-            raise NotImplementedError(f"the dry run does not count {func}")
+        if self.model_group is not None and \
+                pg.group_name == self.model_group.group_name:
+            kind = "model " + kind
         self.collectives[kind] = self.collectives.get(kind, 0.0) + wire
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -255,20 +277,28 @@ class _Rank0:
         return [0] * self.ndim
 
 
-def _rank_mesh(ranks: int):
-    """Rank 0 of ``ranks`` data ranks as a (data, model=1) rank mesh on
-    the CPU."""
-    from repro_torch.launch.mesh import RankMesh
+def _rank_mesh(ranks: int, model_axis: int = 1, groups: bool = False):
+    """Rank 0 of ``ranks`` ranks as a (data, model) rank mesh on the CPU;
+    with ``groups``, inside :func:`_fake_ranks`, with its fake batch and
+    model groups (``launch.mesh.axis_groups``, each group made once)."""
+    import torch.distributed as dist
 
-    return RankMesh(("data", "model"), (ranks, 1), torch.device("cpu"),
-                    _Rank0(2))
+    from repro_torch.launch.mesh import RankMesh, axis_groups
+
+    shape = (ranks // model_axis, model_axis)
+    made = {}
+    if groups:
+        made = axis_groups(shape, 0, lambda rs: dist.new_group(rs) if 0 in rs
+                           else None)
+    return RankMesh(("data", "model"), shape, torch.device("cpu"), _Rank0(2),
+                    made)
 
 
 @contextlib.contextmanager
-def _fake_ranks(ranks: int):
+def _fake_ranks(ranks: int, model_axis: int = 1):
     """Rank 0 of a fake process group of ``ranks`` (its collectives do
-    nothing; the counter sees each call) and its rank mesh; None at one
-    rank."""
+    nothing; the counter sees each call) and its rank mesh of
+    (ranks / model_axis, model_axis); None at one rank."""
     if ranks == 1:
         yield None
         return
@@ -281,23 +311,38 @@ def _fake_ranks(ranks: int):
     dist.init_process_group("fake", rank=0, world_size=ranks,
                             store=FakeStore())
     try:
-        yield _rank_mesh(ranks)
+        yield _rank_mesh(ranks, model_axis, groups=True)
     finally:
         dist.destroy_process_group()
 
 
-def check_runnable(arch: ArchConfig, shape: ShapeSpec, ranks: int) -> None:
-    """Raise :class:`NotRunnable` for a cell that needs a ``model`` axis
-    above 1 or that the port's ranks cannot split."""
-    if shape.kind == "train" and arch.train.seq_parallel:
+def check_runnable(arch: ArchConfig, shape: ShapeSpec, ranks: int,
+                   model_axis: int = 1) -> None:
+    """Raise :class:`NotRunnable` for a cell that the port does not run on
+    ``ranks`` ranks with a ``model`` axis of ``model_axis``, or that they
+    cannot split."""
+    if ranks % model_axis:
+        raise NotRunnable(f"{ranks} ranks do not split over a model axis of "
+                          f"{model_axis}")
+    if model_axis > 1 and shape.kind != "train":
         raise NotRunnable(
-            "train.seq_parallel puts seq on the model axis (the reference's "
-            "distributed/sharding.py:105); the port's rank mesh has a model "
-            "axis of 1 (launch/mesh.py RankMesh.batch_group)")
+            f"serving ({shape.kind}) under a model axis above 1 is not "
+            f"ported (ROADMAP §1 item 5: decode_act_rules' kv_seq on model, "
+            f"decode_replicate_heads, decode_no_fsdp)")
+    if model_axis > 1 and arch.family != "lm":
+        raise NotRunnable(
+            f"the {arch.family} train step under a model axis above 1 is not "
+            f"ported (ROADMAP §1 item 4: heads on model, the reference's "
+            f"_attn_seq_fallback)")
+    if shape.kind == "train" and arch.train.seq_parallel and model_axis > 1 \
+            and shape.seq_len % model_axis:
+        raise NotRunnable(f"train.seq_parallel: {shape.seq_len} tokens do not "
+                          f"split over a model axis of {model_axis}")
     if shape.kind == "decode" and arch.decode_replicate_heads:
         raise NotRunnable(
             "decode_replicate_heads replicates the query heads over the "
-            "model axis; the port's rank mesh has a model axis of 1")
+            "model axis; the port's serving runs a model axis of 1 "
+            "(ROADMAP §1 item 5)")
     if shape.kind == "decode" and arch.decode_no_fsdp:
         raise NotRunnable(
             "decode_no_fsdp drops FSDP from the decode params; the port's "
@@ -307,23 +352,27 @@ def check_runnable(arch: ArchConfig, shape: ShapeSpec, ranks: int) -> None:
         from repro_torch.launch.workloads import (VISION_FAMILIES,
                                                   _effective_accum)
 
+        data = ranks // model_axis
         batch = shape.global_batch if arch.family == "lm" else shape.batch
         accum = max(arch.train.grad_accum, 1)
         if arch.family not in VISION_FAMILIES:
-            accum = _effective_accum(accum, batch, _rank_mesh(ranks))
-        if batch % accum or (batch // accum) % ranks:
+            accum = _effective_accum(accum, batch,
+                                     _rank_mesh(ranks, model_axis))
+        if batch % accum or (batch // accum) % data:
             raise NotRunnable(
                 f"micro-batches of {batch} / {accum} rows do not split over "
-                f"{ranks} ranks")
+                f"{data} data ranks")
 
 
 def run_cell(arch_name: str, shape_name: str, *, ranks: int = 1,
-             verbose: bool = True, cost_probe: bool = True,
+             model_axis: int = 1, verbose: bool = True,
+             cost_probe: bool = True,
              arch: Optional[ArchConfig] = None) -> CellReport:
-    """Count one rank's step of (arch x shape) on ``ranks`` ranks; return
-    its :class:`CellReport`.  Raises :class:`NotRunnable` for a cell the
-    port does not run.  ``cost_probe=False`` tracks the peak only (no
-    FLOP or byte counts)."""
+    """Count one rank's step of (arch x shape) on ``ranks`` ranks, a
+    (ranks / model_axis, model_axis) mesh; return its
+    :class:`CellReport`.  Raises :class:`NotRunnable` for a cell the port
+    does not run.  ``cost_probe=False`` tracks the peak only (no FLOP or
+    byte counts)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import counting_kernels
@@ -332,14 +381,15 @@ def run_cell(arch_name: str, shape_name: str, *, ranks: int = 1,
     if arch is None:
         arch = get_config(arch_name)
     shape = arch.shape(shape_name)
-    check_runnable(arch, shape, ranks)
+    check_runnable(arch, shape, ranks, model_axis)
     t0 = time.time()
-    counter = StepCounter(ranks)
     flops = flop_counter()
     # The FLOP counter sits below the byte counter, so its decompositions
     # of ops it has no formula for do not reach the byte counter.
-    with _fake_ranks(ranks) as mesh, FakeTensorMode(), \
-            flops if cost_probe else contextlib.nullcontext(), counter, \
+    with _fake_ranks(ranks, model_axis) as mesh, FakeTensorMode(), \
+            flops if cost_probe else contextlib.nullcontext(), \
+            StepCounter(None if mesh is None else
+                        mesh.model_group()) as counter, \
             counting_kernels() as calls:
         wl = build_workload(arch, shape_name, mesh, device="cpu")
         flops.flop_counts.clear()
@@ -358,7 +408,8 @@ def run_cell(arch_name: str, shape_name: str, *, ranks: int = 1,
     report = rl.analyze_values(
         float(flops.get_total_flops()), counter.nbytes + kernel_bytes,
         {k: int(v) for k, v in counter.collectives.items()}, arch, shape,
-        mesh_desc=f"{ranks}x1", chips=ranks, param_count=n_params,
+        mesh_desc=f"{ranks // model_axis}x{model_axis}", chips=ranks,
+        param_count=n_params,
         active_param_count=active, steps_multiplier=steps,
         kernel_s=kernel_s)
     report.peak_mem_bytes = float(peak)
@@ -399,13 +450,21 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true",
                     help="run every assigned (arch x shape) cell")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="data ranks (FSDP on embed); one rank is counted")
+                    help="ranks (FSDP on embed over ranks / model-axis of "
+                         "them); one rank is counted")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="the mesh's model axis (tensor parallelism of the "
+                         "LM train step); 16 with --ranks 256 is the "
+                         "reference's 16 x 16 mesh")
     ap.add_argument("--json", help="append reports to this JSON-lines file")
     ap.add_argument("--no-probe", action="store_true",
                     help="track the per-rank peak only, no FLOPs or bytes")
     args = ap.parse_args(argv)
-    if args.ranks < 1:
-        ap.error("--ranks must be at least 1")
+    if args.ranks < 1 or args.model_axis < 1:
+        ap.error("--ranks and --model-axis must be at least 1")
+    if args.ranks % args.model_axis:
+        ap.error("--model-axis must divide --ranks")
+    desc = f"{args.ranks // args.model_axis}x{args.model_axis}"
     cells = []
     if args.all:
         for a in ASSIGNED_ARCHS:
@@ -420,14 +479,15 @@ def main(argv=None):
     for arch_name, shape_name in cells:
         try:
             cell = run_cell(arch_name, shape_name, ranks=args.ranks,
+                            model_axis=args.model_axis,
                             cost_probe=not args.no_probe)
             row = cell.row()
         except NotRunnable as e:
-            print(f"--- {arch_name} x {shape_name} on {args.ranks}x1 ranks: "
+            print(f"--- {arch_name} x {shape_name} on {desc} ranks: "
                   f"not runnable: {e}")
             skipped.append((arch_name, shape_name))
             row = {"arch": arch_name, "shape": shape_name,
-                   "mesh": f"{args.ranks}x1", "not_runnable": str(e)}
+                   "mesh": desc, "not_runnable": str(e)}
         except Exception as e:  # noqa: BLE001 — report all failures at end
             traceback.print_exc()
             failures.append((arch_name, shape_name, repr(e)))
@@ -438,7 +498,7 @@ def main(argv=None):
 
     print(f"\n=== dry-run complete: {len(cells) - len(failures)}/{len(cells)} "
           f"cells passed ({len(skipped)} of them not runnable) on "
-          f"{args.ranks}x1 ranks")
+          f"{desc} ranks")
     for f_ in failures:
         print("FAILED:", f_)
     return 1 if failures else 0

@@ -6,10 +6,13 @@ terms and append a row to ``hillclimb.jsonl`` in the working directory.
 Usage: PYTHONPATH=src python -m repro_torch.launch.hillclimb [cell ...]
 Cells: qwen3_sp qwen3_dots qwen3_sp_dots flux_gen_b1 phi_decode phi_nofsdp
 
-The port costs ``qwen3_dots`` (``remat_policy="dots"``) and
-``flux_gen_b1`` (gen_1024 at batch 16).  The others need a ``model``
-axis above 1 or change nothing in the port, so each is written as a
-not-runnable row with its reason (``dryrun.check_runnable``).
+The qwen3 cells (``seq_parallel``, ``remat_policy="dots"`` and both)
+are costed as the reference costs them, on its production mesh: 256
+ranks of (data 16, model 16), the LM train step's tensor parallelism
+(``distributed.tensor_parallel``).  ``flux_gen_b1`` (gen_1024 at batch
+16) is costed at one rank.  The phi cells vary decode on the same mesh;
+serving under a ``model`` axis is not ported (ROADMAP §1), so each is
+written as a not-runnable row with its reason (``dryrun.check_runnable``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import NotRunnable, run_cell
 
 OUT = "hillclimb.jsonl"
+# The reference's make_production_mesh(): (data 16, model 16).
+RANKS, MODEL_AXIS = 256, 16
 
 
 def _write(row) -> None:
@@ -29,10 +34,12 @@ def _write(row) -> None:
         f.write(json.dumps(row) + "\n")
 
 
-def emit(tag, arch_name, shape_name, arch) -> None:
+def emit(tag, arch_name, shape_name, arch, ranks: int = 1,
+         model_axis: int = 1) -> None:
     """Cost one variant (or record why it cannot run) as a row."""
     try:
-        cell = run_cell(arch_name, shape_name, arch=arch, verbose=False)
+        cell = run_cell(arch_name, shape_name, arch=arch, ranks=ranks,
+                        model_axis=model_axis, verbose=False)
     except NotRunnable as e:
         _write({"tag": tag, "arch": arch_name, "shape": shape_name,
                 "not_runnable": str(e)})
@@ -56,7 +63,8 @@ def qwen3_variants(which: str) -> None:
     tag = {"sp": "seq_parallel", "dots": "remat_dots", "sp_dots": "sp+dots"}
     v = dataclasses.replace(base, train=dataclasses.replace(base.train,
                                                             **train))
-    emit(f"qwen3.train_4k.{tag[which]}", "qwen3-32b", "train_4k", v)
+    emit(f"qwen3.train_4k.{tag[which]}", "qwen3-32b", "train_4k", v,
+         RANKS, MODEL_AXIS)
 
 
 def flux_gen_variants() -> None:
@@ -72,11 +80,11 @@ def phi_decode_variants(which: str) -> None:
     if which == "nofsdp":
         v = dataclasses.replace(base, decode_no_fsdp=True)
         emit("phi.decode_32k.no_fsdp", "phi3.5-moe-42b-a6.6b", "decode_32k",
-             v)
+             v, RANKS, MODEL_AXIS)
     else:
         v = dataclasses.replace(base, decode_replicate_heads=True)
         emit("phi.decode_32k.replicate_heads", "phi3.5-moe-42b-a6.6b",
-             "decode_32k", v)
+             "decode_32k", v, RANKS, MODEL_AXIS)
 
 
 def main(argv=None) -> None:

@@ -45,7 +45,8 @@ import torch
 from repro_torch.utils.device import resolve_device
 
 __all__ = ["FORCE_DEVICE_COUNT_ENV", "Mesh", "RankMesh", "axis_group",
-           "group_timeout_s", "init_distributed", "launched_by_torchrun",
+           "axis_groups", "group_timeout_s", "init_distributed",
+           "launched_by_torchrun",
            "make_host_mesh", "make_rank_mesh", "own_devices",
            "parse_mesh_spec", "process_device", "visible_devices"]
 
@@ -369,13 +370,23 @@ def process_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
     """The ranks of the process group as a mesh with the reference's axis
-    names: what the rule tables read (``axis_names``, ``shape``) and the
-    collectives the trainer runs over its batch axes."""
+    names: what the rule tables read (``axis_names``, ``shape``), this
+    rank's coordinate (``device_mesh.get_coordinate()``, row-major over
+    the ranks), and the process groups the trainer runs its
+    collectives over: the batch group (the ranks that share this rank's
+    ``model`` index, over ``pod`` and ``data``), along which FSDP gathers
+    and reduces, and the model group (the ranks that share its batch
+    index), along which tensor parallelism combines its pieces
+    (``distributed.tensor_parallel``).  ``groups`` holds this rank's two
+    (``"batch"``, ``"model"``; None where the axis has one rank), made by
+    :func:`make_rank_mesh` in one order on every rank."""
 
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: torch.device
     device_mesh: Any = dataclasses.field(compare=False, repr=False)
+    groups: Dict[str, Any] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -385,20 +396,28 @@ class RankMesh:
     def size(self) -> int:
         return math.prod(self.axis_sizes)
 
+    @property
+    def model_size(self) -> int:
+        return self.shape.get("model", 1)
+
     def coordinate(self) -> Dict[str, int]:
         """This rank's coordinate on each axis."""
         return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
 
     def batch_group(self):
-        """The process group over the batch axes (``pod`` and ``data``):
-        every rank while the ``model`` axis is 1."""
+        """The process group over the batch axes (``pod`` and ``data``)
+        that holds this rank: every rank while the ``model`` axis is 1;
+        None when the batch axes have one rank."""
         import torch.distributed as dist
 
-        if self.shape.get("model", 1) != 1:
-            raise NotImplementedError(
-                "a rank mesh with a model axis above 1 (tensor parallelism "
-                "across processes) is not ported; ROADMAP §1")
-        return dist.group.WORLD
+        if "batch" in self.groups:
+            return self.groups["batch"]
+        return dist.group.WORLD if self.model_size == 1 else None
+
+    def model_group(self):
+        """The process group over the ``model`` axis that holds this rank
+        (None while the axis is 1)."""
+        return self.groups.get("model")
 
     def batch_index(self) -> int:
         """This rank's index along the batch axes, row-major."""
@@ -408,17 +427,78 @@ class RankMesh:
                 idx = idx * self.shape[a] + c[a]
         return idx
 
+    def model_index(self) -> int:
+        """This rank's index along the ``model`` axis."""
+        return self.coordinate().get("model", 0)
+
+    def tensor_parallel(self, seq_parallel: bool = False):
+        """The tensor parallelism of this rank over the ``model`` axis (a
+        ``distributed.tensor_parallel.TensorParallel``), None while the
+        axis is 1."""
+        from repro_torch.distributed.tensor_parallel import TensorParallel
+
+        if self.model_size == 1:
+            return None
+        return TensorParallel(self.model_group(), self.model_size,
+                              self.model_index(), seq_parallel)
+
     def __repr__(self) -> str:
         return f"RankMesh({self.shape}, device={self.device})"
+
+
+class _RowMajor:
+    """A rank's coordinate on a row-major mesh of ``shape`` (what
+    :class:`RankMesh` reads of its ``device_mesh``)."""
+
+    def __init__(self, shape: Sequence[int], rank: int):
+        self.coordinate = []
+        for n in reversed(shape):
+            self.coordinate.insert(0, rank % n)
+            rank //= n
+
+    def get_coordinate(self) -> List[int]:
+        return list(self.coordinate)
+
+
+def axis_groups(shape: Sequence[int], rank: int, new_group) -> Dict[str, Any]:
+    """This rank's batch and model groups on a row-major mesh of
+    ``shape`` whose last axis is ``model``: ``new_group(ranks)`` is called
+    for every group of every axis in one order (on a real process group
+    each call is collective over the whole world), and the two that hold
+    ``rank`` are kept.  A model axis of 1 makes none (the batch group is
+    the world); an axis of one rank has no group."""
+    m = shape[-1]
+    world = math.prod(shape)
+    if m == 1:
+        return {}
+    out: Dict[str, Any] = {}
+    n_batch = world // m
+    for b in range(n_batch):           # the model groups, batch-major
+        ranks = list(range(b * m, (b + 1) * m))
+        g = new_group(ranks) if n_batch > 1 else None
+        if rank in ranks:
+            out["model"] = g
+    if n_batch == 1:
+        import torch.distributed as dist
+
+        out["model"] = dist.group.WORLD
+        return out
+    for j in range(m):                 # the batch groups, one a model index
+        ranks = list(range(j, world, m))
+        g = new_group(ranks)
+        if rank in ranks:
+            out["batch"] = g
+    return out
 
 
 def make_rank_mesh(model_axis: int = 1, pods: int = 1, device=None) -> RankMesh:
     """The process group's ranks as a (data, model) mesh, or (pod, data,
     model) with ``pods`` > 1: the counterpart of the reference's
-    ``make_host_mesh()`` over ``jax.devices()`` once they span processes.
-    Needs :func:`init_distributed` first."""
+    ``make_host_mesh()`` over ``jax.devices()`` once they span processes,
+    row-major (a rank's model neighbours are consecutive ranks).  A
+    ``model_axis`` above 1 makes the batch and model groups
+    (:func:`axis_groups`).  Needs :func:`init_distributed` first."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError("make_rank_mesh needs init_distributed() first")
@@ -431,5 +511,9 @@ def make_rank_mesh(model_axis: int = 1, pods: int = 1, device=None) -> RankMesh:
     if pods > 1:
         shape, names = (pods,) + shape, ("pod",) + names
     dev = process_device(device)
-    dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
-    return RankMesh(names, shape, dev, dm)
+    dm = _RowMajor(shape, dist.get_rank())
+    timeout = (None if group_timeout_s() is None
+               else timedelta(seconds=group_timeout_s()))
+    groups = axis_groups(shape, dist.get_rank(),
+                         lambda ranks: dist.new_group(ranks, timeout=timeout))
+    return RankMesh(names, shape, dev, dm, groups)

@@ -124,7 +124,7 @@ def main(argv=None):
                  mesh.shape)
     else:
         device = resolve_device(args.device)
-    writer = mesh is None or mesh.batch_index() == 0
+    writer = mesh is None or torch.distributed.get_rank() == 0
 
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     arch = apply_overrides(arch, args.overrides)

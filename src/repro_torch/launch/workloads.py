@@ -440,8 +440,12 @@ def train_step(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
     keep ``grad_accum`` as the reference's do.  The loss's ``ShardCtx``
     carries the rank mesh's batch group (the MoE router's and an
     EfficientNet's batch statistics cover the whole batch) and no
-    dispatch mesh: the rank mesh's experts
-    are not sharded, so the MoE runs its dense path."""
+    dispatch mesh.  On a mesh with a ``model`` axis above 1 (the LM
+    family only) it also carries the rank's tensor parallelism
+    (``RankMesh.tensor_parallel``, with ``train.seq_parallel``): the LM
+    computes on the rank's model pieces and the MoE runs EP over the
+    model group; at a model axis of 1 the experts are not sharded and the
+    MoE runs its dense path."""
     from repro_torch.distributed.sharding import ShardCtx
     from repro_torch.training.train_loop import make_train_step
 
@@ -455,7 +459,15 @@ def train_step(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
         batch = shape.global_batch if arch.family == "lm" else shape.batch
         tc = dataclasses.replace(tc, grad_accum=_effective_accum(
             tc.grad_accum, batch, mesh))
-    ctx = None if mesh is None else ShardCtx(batch_group=mesh.batch_group())
+    ctx = None
+    if mesh is not None:
+        if mesh.model_size > 1 and arch.family != "lm":
+            raise NotImplementedError(
+                f"the {arch.family} train step under a model axis above 1 is "
+                f"not ported (ROADMAP §1 item 4: heads on model for the "
+                f"diffusion and vision train steps)")
+        ctx = ShardCtx(batch_group=mesh.batch_group(),
+                       tp=mesh.tensor_parallel(tc.seq_parallel))
     return make_train_step(train_loss_fn(arch, ctx), tc)
 
 

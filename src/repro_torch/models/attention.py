@@ -217,6 +217,66 @@ def _gqa_core(q, k, v, mask: Mask):
     return out
 
 
+def _kv_for(q0: int, q1: int, G: int):
+    """The K/V heads that query heads [q0, q1) attend with (G query heads a
+    K/V head): (first, last + 1, and the index into them of each query
+    head's, or None where each K/V head serves an equal run of the query
+    heads in order, as ``_gqa_core_dense`` groups them)."""
+    kv = [h // G for h in range(q0, q1)]
+    k0, k1 = kv[0], kv[-1] + 1
+    n, runs = q1 - q0, k1 - k0
+    grouped = n % runs == 0 and kv == [k0 + i // (n // runs) for i in range(n)]
+    return k0, k1, None if grouped else [h - k0 for h in kv]
+
+
+def gqa_attention_partial(p: Attention, x: torch.Tensor, *, n_heads: int,
+                          n_kv: int, head_dim: int, positions: torch.Tensor,
+                          tp, rope_theta: float = 10000.0,
+                          sliding_window: int = 0) -> torch.Tensor:
+    """This rank's share of :func:`gqa_attention` (causal, no cache) under
+    tensor parallelism (``tp``; ``x`` whole, from ``tp.enter``).
+
+    Where the model group divides the query heads, the rank attends with
+    its own run of them: Q column-parallel by whole heads, K and V for the
+    K/V heads those query heads map to, ``wo`` row-parallel on their rows.
+    Otherwise every rank computes every head and takes its even range of
+    ``wo``'s rows.  A projection whose model piece is not the columns the
+    rank needs (a piece that ends mid-head: qwen3-32b's kv at model 16) is
+    all-gathered over the group for the block (``tp.take``).  The ranks'
+    shares sum to the layer's output (``tp.leave``)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    inner = n_heads * head_dim
+    G = n_heads // n_kv
+    if n_heads % tp.size == 0:
+        q0, q1 = tp.span(n_heads)
+        r0, r1 = q0 * head_dim, q1 * head_dim
+    else:
+        q0, q1 = 0, n_heads
+        r0, r1 = tp.span(inner)
+    k0, k1, rep = _kv_for(q0, q1, G)
+    kv = n_kv * head_dim
+    wq = tp.take(p.wq, 1, inner, q0 * head_dim, q1 * head_dim)
+    wk = tp.take(p.wk, 1, kv, k0 * head_dim, k1 * head_dim)
+    wv = tp.take(p.wv, 1, kv, k0 * head_dim, k1 * head_dim)
+    q = torch.matmul(x, wq.to(dt)).reshape(B, S, q1 - q0, head_dim)
+    k = torch.matmul(x, wk.to(dt)).reshape(B, S, k1 - k0, head_dim)
+    v = torch.matmul(x, wv.to(dt)).reshape(B, S, k1 - k0, head_dim)
+    if p.q_norm is not None:
+        q = rmsnorm(tp.copy_to(p.q_norm.scale), q)
+        k = rmsnorm(tp.copy_to(p.k_norm.scale), k)
+    q = apply_rope_1d(q, positions, rope_theta)
+    k = apply_rope_1d(k, positions, rope_theta)
+    if rep is not None:
+        k, v = k[:, :, rep], v[:, :, rep]
+    out = _gqa_core(q, k, v, lambda a, b: causal_mask(
+        b - a, S, a, sliding_window, x.device))
+    out = out.reshape(B, S, (q1 - q0) * head_dim)
+    if (r0, r1) != (q0 * head_dim, q1 * head_dim):
+        out = out[..., r0:r1]
+    return torch.matmul(out, tp.take(p.wo, 0, inner, r0, r1).to(dt))
+
+
 def gqa_attention(p: Attention, x: torch.Tensor, *, n_heads: int, n_kv: int,
                   head_dim: int, positions: torch.Tensor,
                   rope_theta: float = 10000.0, sliding_window: int = 0,

@@ -148,6 +148,19 @@ def mlp(wi_gate, wi_up, wo, x: torch.Tensor):
     return torch.matmul(F.silu(g) * u, wo.to(dt))
 
 
+def mlp_partial(wi_gate, wi_up, wo, x: torch.Tensor, tp, d_ff: int):
+    """This rank's share of :func:`mlp` under tensor parallelism (``tp``,
+    a ``distributed.tensor_parallel.TensorParallel``; ``x`` whole, from
+    ``tp.enter``): its range of the ``d_ff`` hidden units, column-parallel
+    in ``wi_gate`` / ``wi_up`` and row-parallel in ``wo``.  The ranks'
+    shares sum to the MLP's output (``tp.leave``)."""
+    dt = x.dtype
+    lo, hi = tp.span(d_ff)
+    g = torch.matmul(x, tp.take(wi_gate, 1, d_ff, lo, hi).to(dt))
+    u = torch.matmul(x, tp.take(wi_up, 1, d_ff, lo, hi).to(dt))
+    return torch.matmul(F.silu(g) * u, tp.take(wo, 0, d_ff, lo, hi).to(dt))
+
+
 def mlp_bias(wi, bi, wo, bo, x: torch.Tensor, act=F.silu):
     """Non-gated MLP with biases: act(x @ wi + bi) @ wo + bo."""
     dt = x.dtype

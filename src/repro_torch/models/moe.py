@@ -20,8 +20,20 @@ all-to-all; the combine is a ``psum`` over ``model``.  Tokens beyond a
 cumulative count of slots routed to the expert, token-major), as
 GShard/Switch do at scale.  ``auto`` takes it exactly where the
 reference's does: a mesh with a ``model`` axis that divides the experts.
-EP under autograd is not ported (ROADMAP §1): the trainer's rank mesh
-is not a dispatch mesh, so training runs the dense path.
+On a dispatch mesh EP serves only (its shards are threads of one
+process).
+
+The trainer's EP runs on a rank mesh with a ``model`` axis above 1
+(``ShardCtx.tp``, ``distributed.tensor_parallel``), under autograd: the
+router runs on the model group's replicated tokens (this rank's rows of
+the batch), each rank's E/M experts (its model piece of the expert
+weights) take their slots through ``_local_dispatch_ffn`` in the
+reference's slot order and capacity, and the partial outputs are summed
+over the group by the caller (``tp.leave``).  The aux loss is this
+rank's tokens', as the reference's per-shard aux; the trainer averages
+it over the batch axes with the gradients.  At a model axis of 1 the
+trainer runs the dense path with the router's means over the ranks
+(below), a deliberate difference from the reference's EP there.
 
 Under data parallelism over several processes (the trainer's rank mesh)
 ``ShardCtx.batch_group`` names the ranks that split the batch: the
@@ -41,7 +53,7 @@ from torch import nn
 
 from repro_torch.config.base import MoEConfig
 from repro_torch.distributed.sharding import NULL_CTX, ShardCtx
-from repro_torch.models.common import mlp, param
+from repro_torch.models.common import mlp, mlp_partial, param
 
 
 class SharedExperts(nn.Module):
@@ -214,6 +226,43 @@ def _ep_moe(p: MoE, x_flat: torch.Tensor, cfg: MoEConfig, ctx: ShardCtx):
     )(x_flat, p.router, p.wi_gate, p.wi_up, p.wo)
 
 
+def _moe_partial(p: MoE, x_flat: torch.Tensor, cfg: MoEConfig, ctx: ShardCtx,
+                 impl: str):
+    """This rank's share of the MoE under tensor parallelism (``ctx.tp``;
+    ``x_flat`` (N, d) whole on the model group): EP over the group where
+    it divides the experts (``auto``, ``ep``), else (``dense``, or experts
+    the group does not divide) the dense MoE, which the group's first
+    rank contributes whole.  The shared experts are column- and
+    row-parallel.  Returns (the partial output, the aux loss)."""
+    tp = ctx.tp
+    E = cfg.num_experts
+    ep = impl == "ep" or (impl == "auto" and E % tp.size == 0)
+    if ep and E % tp.size:
+        raise ValueError(f"moe_ffn(impl='ep'): {E} experts do not split over "
+                         f"a model axis of {tp.size}")
+    dt = x_flat.dtype
+    if ep:
+        E_loc = E // tp.size
+        N = x_flat.shape[0]
+        C = max(int(N * cfg.top_k * cfg.capacity_factor / E), 8)
+        topk_idx, topk_w, aux = _router(
+            types.SimpleNamespace(router=tp.copy_to(p.router)), x_flat, cfg)
+        out = _local_dispatch_ffn(p.wi_gate, p.wi_up, p.wo, x_flat, topk_idx,
+                                  topk_w, tp.index * E_loc, E_loc, C, dt)
+    else:
+        whole = types.SimpleNamespace(**{k: tp.copy_to(getattr(p, k)) for k in
+                                         ("router", "wi_gate", "wi_up", "wo")})
+        out, aux = _dense_moe(whole, x_flat, cfg, ctx.batch_group)
+        out = out * (1.0 if tp.index == 0 else 0.0)
+    if p.shared is not None:
+        sh = p.shared
+        s_out = mlp_partial(sh.wi_gate, sh.wi_up, sh.wo, x_flat, tp,
+                            cfg.expert_ffw_dim * cfg.num_shared_experts)
+        s_gate = torch.sigmoid(torch.matmul(x_flat, tp.copy_to(sh.gate).to(dt)))
+        out = out + s_out * s_gate
+    return out, tp.once(aux)
+
+
 def _use_ep(impl: str, cfg: MoEConfig, ctx: ShardCtx) -> bool:
     """The reference's choice: ``ep`` when asked, and under ``auto`` when
     the mesh has a ``model`` axis that divides the experts."""
@@ -228,13 +277,19 @@ def _use_ep(impl: str, cfg: MoEConfig, ctx: ShardCtx) -> bool:
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig, ctx: ShardCtx = NULL_CTX,
             impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss).  ``dense`` computes every expert;
-    ``ep`` shards experts over ``ctx.mesh``'s ``model`` axis (it needs a
-    dispatch mesh, and raises under autograd); ``auto`` picks ``ep``
-    where the reference does."""
+    ``ep`` shards experts over ``ctx.mesh``'s ``model`` axis (a dispatch
+    mesh: it serves, and raises under autograd); ``auto`` picks ``ep``
+    where the reference does.  Under the trainer's tensor parallelism
+    (``ctx.tp``; ``x`` whole on the model group, from ``tp.enter``) it
+    returns this rank's partial output instead (:func:`_moe_partial`),
+    which the caller sums over the group (``tp.leave``)."""
     if impl not in ("auto", "dense", "ep"):
         raise ValueError(f"unknown MoE impl {impl!r}")
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
+    if ctx.tp is not None:
+        out, aux = _moe_partial(p, x_flat, cfg, ctx, impl)
+        return out.reshape(B, S, d), aux
     if _use_ep(impl, cfg, ctx):
         if ctx.mesh is None or "model" not in ctx.mesh.axis_names:
             raise ValueError("moe_ffn(impl='ep') needs ctx.mesh with a "
@@ -242,8 +297,10 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig, ctx: ShardCtx = NULL_CTX,
         if torch.is_grad_enabled() and (x.requires_grad or any(
                 t.requires_grad for t in (p.router, p.wi_gate, p.wi_up, p.wo))):
             raise NotImplementedError(
-                "moe_ffn(impl='ep') under autograd: expert parallelism "
-                "serves only; its backward is not ported (ROADMAP §1)")
+                "moe_ffn(impl='ep') under autograd on a dispatch mesh: its "
+                "shard threads serve only (ROADMAP §1); the trained EP runs "
+                "on a rank mesh with a model axis (ShardCtx.tp, launch.mesh."
+                "make_rank_mesh(model_axis=M))")
         out, aux = _ep_moe(p, x_flat, cfg, ctx)
     else:
         out, aux = _dense_moe(p, x_flat, cfg, ctx.batch_group)

@@ -16,6 +16,19 @@ with each block recomputed in the backward pass under ``remat``.  Every
 entry point takes the reference's ``ctx`` (a ``ShardCtx``) and hands it
 to the MoE, which runs expert parallelism on its mesh's ``model`` axis;
 its activation constraints change no value (``distributed.sharding``).
+
+Training on a rank mesh with a ``model`` axis (``ctx.tp``, a
+``distributed.tensor_parallel.TensorParallel``) computes on this rank's
+parameter pieces: each block's attention and MLP (or MoE) is a region
+whose partial outputs are summed over the model group; the embedding is
+vocab-parallel (tokens outside the rank's vocab range looked up as
+zeros, the lookups summed over the group) and so is the head (the tied
+embedding piece's transpose), with the cross entropy's max, sum of
+exponentials and target logit combined over the group in float32.  With
+``train.seq_parallel`` the residual stream between the regions holds
+this rank's piece of the sequence (all-gathered into each region,
+reduce-scattered out of it).  A vocab the group does not divide stays
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -30,8 +43,10 @@ from torch import nn
 from repro_torch.config.base import LMConfig
 from repro_torch.distributed.sharding import NULL_CTX, ShardCtx
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.attention import Attention, Scale, gqa_attention
-from repro_torch.models.common import GatedMLP, param, remat_call, rmsnorm
+from repro_torch.models.attention import (Attention, Scale, gqa_attention,
+                                          gqa_attention_partial)
+from repro_torch.models.common import (GatedMLP, mlp_partial, param,
+                                       remat_call, rmsnorm)
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -83,9 +98,36 @@ def layer_windows(cfg: LMConfig) -> np.ndarray:
     return win
 
 
+def _block_tp(cfg: LMConfig, x, bp: Block, window: int, positions,
+              ctx: ShardCtx):
+    """A training block under tensor parallelism: ``x`` is the residual
+    stream (whole, or this rank's sequence piece under sequence
+    parallelism); each region's partial outputs summed over the model
+    group."""
+    tp = ctx.tp
+    h = tp.enter(rmsnorm(tp.norm_scale(bp.attn_norm.scale), x))
+    x = x + tp.leave(gqa_attention_partial(
+        bp.attn, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, positions=positions, tp=tp,
+        rope_theta=cfg.rope_theta, sliding_window=window))
+    h = tp.enter(rmsnorm(tp.norm_scale(bp.mlp_norm.scale), x))
+    if cfg.moe is not None:
+        ffn_out, aux = moe_lib.moe_ffn(bp.moe, h, cfg.moe, ctx=ctx)
+    else:
+        ffn_out = mlp_partial(bp.mlp.wi_gate, bp.mlp.wi_up, bp.mlp.wo, h, tp,
+                              cfg.d_ff)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + tp.leave(ffn_out), None, aux
+
+
 def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
            cache: Optional[Cache] = None, cache_index: Optional[int] = None,
            ctx: ShardCtx = NULL_CTX):
+    if ctx.tp is not None:
+        if cache is not None:
+            raise NotImplementedError("LM serving under a model axis is not "
+                                      "ported (ROADMAP §1 item 5)")
+        return _block_tp(cfg, x, bp, window, positions, ctx)
     h = rmsnorm(bp.attn_norm.scale, x)
     attn_out, new_cache = gqa_attention(
         bp.attn, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -103,8 +145,33 @@ def _block(cfg: LMConfig, x, bp: Block, window: int, positions,
 
 
 def _head(model: TransformerLM) -> torch.Tensor:
-    """The (d, V) output projection: the embedding's transpose if tied."""
+    """The (d, V) output projection: the embedding's transpose if tied
+    (under tensor parallelism this rank's (d, V/M) piece of it, where the
+    group divides the vocab)."""
     return model.embed.T if model.cfg.tie_embeddings else model.lm_head
+
+
+def _vocab_parallel(cfg: LMConfig, tp) -> bool:
+    """Are the embedding and head split over the model group (the rule
+    tables' ``vocab`` on ``model``, where it divides)?"""
+    return cfg.vocab_size % tp.size == 0
+
+
+def _embed_tp(model: TransformerLM, tokens: torch.Tensor, tp, dt):
+    """The embedding under tensor parallelism: the residual stream
+    (whole, or this rank's sequence piece).  Vocab-parallel: each rank
+    looks up the tokens of its vocab range (zeros for the others) and the
+    lookups are summed over the group."""
+    cfg = model.cfg
+    if not _vocab_parallel(cfg, tp):
+        x = F.embedding(tokens, model.embed).to(dt)
+        return tp.split(x, 1) if tp.seq_parallel else x
+    lo, hi = tp.span(cfg.vocab_size)
+    mine = (tokens >= lo) & (tokens < hi)
+    x = F.embedding(torch.where(mine, tokens - lo, 0), model.embed).to(dt)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dt,
+                                                    device=x.device))
+    return tp.leave(x)
 
 
 def lm_apply(model: TransformerLM, tokens: torch.Tensor,
@@ -129,7 +196,17 @@ def lm_apply(model: TransformerLM, tokens: torch.Tensor,
     cfg = model.cfg
     dt = compute_dtype
     B, S = tokens.shape
-    x = F.embedding(tokens, model.embed).to(dt)
+    tp = ctx.tp
+    if tp is not None and logits_mode != "none":
+        raise NotImplementedError(
+            "under a model axis lm_apply returns the hidden states only "
+            "(logits_mode='none'; lm_loss takes the vocab-parallel head); "
+            "LM serving under a model axis is not ported "
+            "(ROADMAP §1 item 5)")
+    if tp is None:
+        x = F.embedding(tokens, model.embed).to(dt)
+    else:
+        x = _embed_tp(model, tokens, tp, dt)
     offset = 0 if cache is None else int(cache_index)
     positions = offset + torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -146,7 +223,8 @@ def lm_apply(model: TransformerLM, tokens: torch.Tensor,
             x, _, a = _block(cfg, x, blk, int(window), positions,
                              (cache[0][i], cache[1][i]), cache_index, ctx)
         aux = aux + a
-    x = rmsnorm(model.final_norm.scale, x)
+    scale = model.final_norm.scale
+    x = rmsnorm(scale if tp is None else tp.norm_scale(scale), x)
     if logits_mode == "none":
         return x, cache, aux
     if logits_mode == "last":
@@ -175,6 +253,61 @@ def _chunk_ce(h: torch.Tensor, targets: torch.Tensor,
     return _ce(torch.matmul(h, head), targets)
 
 
+def _ce_tp(logits: torch.Tensor, targets: torch.Tensor, lo: int,
+           tp) -> torch.Tensor:
+    """:func:`_ce` of vocab-parallel logits (this rank's vocab slice from
+    ``lo``): the max, the sum of exponentials and the target logit
+    combined over the model group, in float32."""
+    logits = logits.float()
+    top = tp.reduce_max(torch.amax(logits, dim=-1))
+    total = tp.reduce_from(torch.sum(torch.exp(logits - top[..., None]), -1))
+    logz = torch.log(total) + top
+    n = logits.shape[-1]
+    mine = (targets >= lo) & (targets < lo + n)
+    local = torch.gather(logits, -1, torch.where(mine, targets - lo,
+                                                 0)[..., None])[..., 0]
+    gold = tp.reduce_from(torch.where(mine, local, torch.zeros_like(local)))
+    return torch.sum(logz - gold)
+
+
+def _chunk_ce_tp(h: torch.Tensor, targets: torch.Tensor, head: torch.Tensor,
+                 lo: int, tp) -> torch.Tensor:
+    return _ce_tp(torch.matmul(h, head), targets, lo, tp)
+
+
+def _nll_tp(model: TransformerLM, hidden: torch.Tensor,
+            targets: torch.Tensor, tp, dt) -> torch.Tensor:
+    """The summed cross entropy of the final-normed ``hidden`` under
+    tensor parallelism: vocab-parallel on the whole sequence, or, with a
+    vocab the group does not divide, on whole logits (this rank's
+    sequence piece under sequence parallelism, summed over the group).
+    Chunked as :func:`lm_loss` chunks."""
+    cfg = model.cfg
+    head = _head(model)
+    vocab_par = _vocab_parallel(cfg, tp)
+    if vocab_par:
+        h = tp.enter(hidden)
+        lo, _ = tp.span(cfg.vocab_size)
+        fn, extra = _chunk_ce_tp, (head.to(dt), lo, tp)
+    else:
+        h = hidden
+        if tp.seq_parallel:
+            head = tp.copy_to(head)
+            targets = tp.split(targets, 1)
+        fn, extra = _chunk_ce, (head.to(dt),)
+    S = h.shape[1]
+    if S * cfg.vocab_size <= _CE_CELL_BUDGET or S % _CE_CHUNK != 0:
+        total = fn(h, targets, *extra)
+    else:
+        c = _CE_CHUNK
+        total = torch.sum(torch.stack([
+            remat_call(True, fn, h[:, i:i + c], targets[:, i:i + c], *extra)
+            for i in range(0, S, c)]))
+    if not vocab_par and tp.seq_parallel:
+        total = tp.reduce_from(total)
+    return total
+
+
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             targets: torch.Tensor, cfg: Optional[LMConfig] = None, *,
             ctx: ShardCtx = NULL_CTX,
@@ -190,7 +323,11 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     targets = targets.long()
     kw = dict(ctx=ctx, compute_dtype=compute_dtype, remat=remat,
               remat_policy=remat_policy)
-    if S * model.cfg.vocab_size <= _CE_CELL_BUDGET or S % _CE_CHUNK != 0:
+    if ctx.tp is not None:
+        hidden, _, aux = lm_apply(model, tokens, cfg, logits_mode="none",
+                                  **kw)
+        nll = _nll_tp(model, hidden, targets, ctx.tp, compute_dtype) / (B * S)
+    elif S * model.cfg.vocab_size <= _CE_CELL_BUDGET or S % _CE_CHUNK != 0:
         logits, _, aux = lm_apply(model, tokens, cfg, **kw)
         nll = _ce(logits, targets) / (B * S)
     else:

@@ -22,7 +22,10 @@ gradients, moments, residual and EMA are sharded over the batch axes
 runs and for its backward pass): each rank runs its rows of every micro-batch
 (after drawing the micro-batch's noise whole), the gradients are
 averaged over the ranks, and the clip norm and the compression scales
-cover the whole tensors.
+cover the whole tensors.  On a mesh with a ``model`` axis the pieces
+are 2-D: the ranks of a model group run the same rows, each with its
+model pieces (the loss's ``ShardCtx.tp``), and AdamW, the clip norm and
+the compression run on the pieces as they are.
 """
 
 from __future__ import annotations
@@ -93,11 +96,12 @@ def make_train_step(loss_fn: LossFn, cfg: TrainConfig) -> Callable:
     the float32 gradients of the micro-batches are summed, then divided
     by A, and the loss and metrics averaged, as the reference's scan
     does.  Gradients are taken with grad mode on whatever the caller's
-    mode.  On a sharded state rank r of N runs ``loss_fn(model,
-    micro_batch, generator, rows=slice)`` on the r-th of N equal pieces
-    of each micro-batch's rows, as GSPMD shards the reference's (A, B/A)
-    reshape over ``data``; the loss must draw its randomness for the
-    whole micro-batch before it keeps ``rows``."""
+    mode.  On a sharded state the rank of batch index r of N (the batch
+    axes' ranks) runs ``loss_fn(model, micro_batch, generator,
+    rows=slice)`` on the r-th of N equal pieces of each micro-batch's
+    rows, as GSPMD shards the reference's (A, B/A) reshape over ``data``;
+    the loss must draw its randomness for the whole micro-batch before it
+    keeps ``rows``."""
     accum = max(cfg.grad_accum, 1)
 
     def compute_grads(model, params, batch, seed, step, shards=None):

@@ -179,11 +179,116 @@ def test_fsdp_collectives_and_state_are_the_schedule(ranks):
     ({"decode_replicate_heads": "true"}, "decode"),
     ({"decode_no_fsdp": "true"}, "decode")])
 def test_cells_needing_a_model_axis_are_not_runnable(variant, kind):
+    """The decode variants are not runnable; ``train.seq_parallel`` (seq
+    on the model axis) is costed on a model axis, here the smoke qwen3's
+    train step at 4 ranks of (data 2, model 2)."""
     arch = apply_overrides(get_config("qwen3-32b"),
                            tuple(f"{k}={v}" for k, v in variant.items()))
     shape = next(s.name for s in arch.shapes if s.kind == kind)
+    if kind == "train":
+        small = _lm(shape, "qwen3-32b", tuple(f"{k}={v}" for k, v in
+                                              variant.items()),
+                    global_batch=4, seq_len=32)
+        cell = dryrun.run_cell(small.name, shape, arch=small, ranks=4,
+                               model_axis=2, verbose=False)
+        assert cell.row()["mesh"] == "2x2"
+        assert "model reduce-scatter" in cell.report.collective_breakdown
+        return
     with pytest.raises(dryrun.NotRunnable, match="model axis|whole weights"):
         dryrun.run_cell("qwen3-32b", shape, arch=arch)
+
+
+def test_two_d_pieces_are_the_whole_over_four():
+    """At 4 ranks of (data 2, model 2) a parameter whose spec puts one dim
+    on data and another on model holds a quarter of the whole on each
+    rank; the state at the step's start is every piece's bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    arch = _lm("train_4k", "qwen2-moe-a2.7b", global_batch=4, seq_len=32)
+    with dryrun._fake_ranks(4, 2) as mesh, FakeTensorMode():
+        wl = build_workload(arch, "train_4k", mesh, device="cpu")
+        sh = wl.args[0].shards
+        both = [i for i in range(len(sh.params))
+                if sh.dims[i] is not None and sh.mdims[i] is not None]
+        assert len(both) > 10
+        for i in both:
+            assert 4 * sh.local[i].numel() == math.prod(sh.shapes[i])
+        whole = sum(math.prod(s) for s in sh.shapes)
+        held = sum(x.numel() for x in sh.local)
+        assert whole / 4 <= held < whole / 2
+
+
+def test_model_axis_bytes_are_their_formula():
+    """The smoke gemma3-4b's step at (data 2, model 2), remat on: each of
+    the T = 2 x 32 tokens' (T, d) bfloat16 activations is all-reduced over
+    the model group once at the embedding, twice a layer in the forward,
+    once more in remat's recomputation (the attention's output: the
+    recomputation stops once what the backward needs is back, and the
+    MLP's summed output is not), twice a layer in the backward (the
+    regions' inputs), and once at the head's input in the backward; the
+    cross entropy combines the max, the sum of exponentials and the
+    target logit (T float32 each); the q/k norm scales' float32
+    gradients are summed; at model 2 the ring moves 2(M-1)/M = 1 of
+    each."""
+    arch = _lm("train_4k", global_batch=4, seq_len=32)
+    m = arch.model
+    cell = dryrun.run_cell(arch.name, "train_4k", arch=arch, ranks=4,
+                           model_axis=2, verbose=False)
+    T, L, hd = 2 * 32, m.num_layers, m.resolved_head_dim
+    want = (1 + 5 * L + 1) * T * m.d_model * 2 + 3 * T * 4 + L * 2 * hd * 4
+    got = cell.report.collective_breakdown
+    assert got["model all-reduce"] == want
+    assert "model all-gather" not in got  # whole heads a rank at model 2
+    assert cell.row()["mesh"] == "2x2" and cell.report.chips == 4
+
+
+def _one_layer_qwen3():
+    """qwen3-32b at its published widths, cut to one layer and to one
+    train_4k sequence a data rank of the 16 x 16 mesh (one micro-batch):
+    the cell the tests cost on the production mesh in seconds."""
+    full = get_config("qwen3-32b")
+    return _cut(dataclasses.replace(full, model=dataclasses.replace(
+        full.model, num_layers=1)), "train_4k", global_batch=16)
+
+
+def test_qwen3_train_on_the_production_mesh_gives_a_row(tmp_path, capsys):
+    """``--ranks 256 --model-axis 16`` (the reference's 16 x 16 mesh)
+    costs qwen3-32b's train_4k, here cut (``_one_layer_qwen3``): a row
+    with the model axis's collectives, among them the all-gathers of the kv
+    pieces that end mid-head (8 x 128 over 16: 64 columns)."""
+    import repro_torch.configs as configs
+
+    out = tmp_path / "rows.jsonl"
+    cut = _one_layer_qwen3()
+    orig = dryrun.get_config
+    dryrun.get_config = lambda name: cut if name == "qwen3-32b" else orig(name)
+    try:
+        rc = dryrun.main(["--arch", "qwen3-32b", "--shape", "train_4k",
+                          "--ranks", "256", "--model-axis", "16", "--json",
+                          str(out)])
+    finally:
+        dryrun.get_config = orig
+    assert rc == 0 and configs.get_config("qwen3-32b").model.num_layers == 64
+    row = json.loads(out.read_text())
+    assert row["mesh"] == "16x16" and row["ranks"] == 256
+    assert {"model all-reduce", "model all-gather", "all-gather",
+            "reduce-scatter"} <= set(row["collectives"])
+    assert row["peak_mem_gb"] > 0
+    assert "1/1 cells passed" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name,shape,why", [
+    ("qwen3-32b", "decode_32k", "ROADMAP §1 item 5"),
+    ("qwen3-32b", "prefill_32k", "ROADMAP §1 item 5"),
+    ("dit-xl2", "train_256", "ROADMAP §1 item 4"),
+    ("vit-l16", "train_224", "ROADMAP §1 item 4")])
+def test_serving_and_non_lm_train_on_a_model_axis_are_not_runnable(
+        name, shape, why):
+    arch = get_config(name)
+    if shape not in [s.name for s in arch.shapes]:
+        shape = next(s.name for s in arch.shapes if s.kind == "train")
+    with pytest.raises(dryrun.NotRunnable, match=why):
+        dryrun.run_cell(name, shape, ranks=256, model_axis=16)
 
 
 def test_cli_prints_a_row_and_the_passed_line(tmp_path, capsys):
@@ -205,11 +310,20 @@ def test_cli_prints_a_row_and_the_passed_line(tmp_path, capsys):
 
 
 def test_hillclimb_writes_not_runnable_rows(tmp_path, monkeypatch):
+    """The qwen3 cells are costed on the reference's 16 x 16 mesh (here
+    cut by ``_one_layer_qwen3``, so the test stays short); the phi decode
+    cells are written as not runnable, with their reason."""
     monkeypatch.chdir(tmp_path)
+    cut = _one_layer_qwen3()
+    monkeypatch.setattr(hillclimb, "get_config", lambda name: cut
+                        if name == "qwen3-32b" else get_config(name))
     hillclimb.main(["qwen3_sp", "qwen3_sp_dots", "phi_decode", "phi_nofsdp"])
     rows = [json.loads(ln) for ln in
             (tmp_path / "hillclimb.jsonl").read_text().splitlines()]
     assert [r["tag"] for r in rows] == [
         "qwen3.train_4k.seq_parallel", "qwen3.train_4k.sp+dots",
         "phi.decode_32k.replicate_heads", "phi.decode_32k.no_fsdp"]
-    assert all("not_runnable" in r for r in rows)
+    for r in rows[:2]:
+        assert "not_runnable" not in r and r["mesh"] == "16x16"
+        assert "model reduce-scatter" in r["collectives"]
+    assert all("ROADMAP" in r["not_runnable"] for r in rows[2:])

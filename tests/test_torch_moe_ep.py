@@ -288,3 +288,189 @@ def test_bf16_ep_drifts_from_dense_in_both_packages(tmp_path):
     assert ref["bfloat16"] > 3e-2, ref
     assert ref["bfloat16"] / 3 <= mine["bfloat16"] <= 3 * ref["bfloat16"], \
         (ref, mine)
+
+
+# The reference's EP under ``jax.value_and_grad`` on a (data 2, model 2)
+# mesh of 4 of the 8 virtual devices: loss = sum(out * w) + aux, the
+# gradients of the params and the tokens, and the kept-slot lines of each
+# (token shard, model shard) at 4 experts a shard.
+_JAX_EP_GRAD = r"""
+import sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh
+from repro.config.base import MoEConfig
+from repro.distributed.sharding import ShardCtx, train_act_rules
+from repro.models import moe as moe_lib
+from repro.models.params import init_params
+
+out = {}
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+ctx = ShardCtx(mesh, train_act_rules(mesh))
+x = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (2, 64, 16)))
+w = np.asarray(jax.random.normal(jax.random.PRNGKey(2), (2, 64, 16)))
+out["x"], out["w"] = x, w
+for name, cf in (("no-drop", 16.0), ("drops", 0.5)):
+    cfg = MoEConfig(num_experts=8, top_k=2, expert_ffw_dim=32,
+                    capacity_factor=cf)
+    params = init_params(moe_lib.moe_defs(16, cfg), jax.random.PRNGKey(0))
+    for k, v in params.items():
+        out[f"params/{k}"] = np.asarray(v)
+
+    def loss(p, x):
+        y, aux = moe_lib.moe_ffn(p, x, cfg, ctx=ctx, impl="ep")
+        return jnp.sum(y * w) + aux
+
+    val, (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))(
+        params, x)
+    out[f"{name}/loss"], out[f"{name}/grad/x"] = np.asarray(val), np.asarray(gx)
+    for k, v in gp.items():
+        out[f"{name}/grad/{k}"] = np.asarray(v)
+    C = max(int(64 * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 8)
+    for t in range(2):
+        idx, _, _ = moe_lib._router({"router": params["router"]},
+                                    jnp.asarray(x[t]), cfg)
+        for m in range(2):
+            slot_e = idx.reshape(-1)
+            mine = jnp.logical_and(slot_e >= 4 * m, slot_e < 4 * m + 4)
+            local_e = jnp.where(mine, slot_e - 4 * m, 4)
+            onehot = jax.nn.one_hot(local_e, 5, dtype=jnp.int32)
+            pos = jnp.sum((jnp.cumsum(onehot, axis=0) - 1) * onehot, axis=1)
+            out[f"{name}/keep/{t}/{m}"] = np.asarray(
+                jnp.logical_and(mine, pos < C))
+np.savez(sys.argv[1], **out)
+"""
+
+# One gloo rank of a (data 2, model 2) rank mesh: its token row, its 4
+# experts, the EP region under autograd (tp.enter, moe_ffn, tp.leave) and
+# loss = sum(out * w) + aux / 2 (the batch axes' mean of the aux); writes
+# its gradients and kept-slot lines.
+_PORT_EP_GRAD = r"""
+import sys
+import numpy as np, torch
+import torch.distributed as dist
+from repro_torch.config.base import MoEConfig
+from repro_torch.distributed.sharding import ShardCtx
+from repro_torch.launch.mesh import init_distributed, make_rank_mesh
+from repro_torch.models import moe
+
+torch.set_num_threads(1)
+init_distributed(device="cpu")
+mesh = make_rank_mesh(model_axis=2, device="cpu")
+t, m, tp = mesh.batch_index(), mesh.model_index(), mesh.tensor_parallel()
+want = np.load(sys.argv[1])
+out = {}
+for name, cf in (("no-drop", 16.0), ("drops", 0.5)):
+    cfg = MoEConfig(num_experts=8, top_k=2, expert_ffw_dim=32,
+                    capacity_factor=cf)
+    p = moe.MoE(16, cfg)
+    for k in ("router", "wi_gate", "wi_up", "wo"):
+        whole = torch.from_numpy(want[f"params/{k}"])
+        getattr(p, k).data = (whole if k == "router" else
+                              whole[4 * m:4 * m + 4]).clone()
+    for q in p.parameters():
+        q.requires_grad_(True)
+    x = torch.from_numpy(want["x"][t:t + 1]).requires_grad_(True)
+    part, aux = moe.moe_ffn(p, tp.enter(x), cfg, ctx=ShardCtx(tp=tp),
+                            impl="ep")
+    loss = torch.sum(tp.leave(part) * torch.from_numpy(want["w"][t:t + 1])) \
+        + aux / 2
+    loss.backward()
+    out[f"{name}/loss"] = loss.detach().numpy()
+    out[f"{name}/grad/x"] = x.grad.numpy()
+    for k in ("router", "wi_gate", "wi_up", "wo"):
+        out[f"{name}/grad/{k}"] = getattr(p, k).grad.numpy()
+    idx, _, _ = moe._router(p, torch.from_numpy(want["x"][t]), cfg)
+    C = max(int(64 * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 8)
+    keep, _, _ = moe.dispatch_slots(idx, 4 * m, 4, C)
+    out[f"{name}/keep"] = keep.numpy()
+    if name == "no-drop":
+        # impl="dense" under the model group: whole expert weights, the
+        # group's first rank contributing the output.
+        q = moe.MoE(16, cfg)
+        for k in ("router", "wi_gate", "wi_up", "wo"):
+            getattr(q, k).data = torch.from_numpy(want[f"params/{k}"]).clone()
+            getattr(q, k).requires_grad_(True)
+        x = torch.from_numpy(want["x"][t:t + 1]).requires_grad_(True)
+        part, aux = moe.moe_ffn(q, tp.enter(x), cfg, ctx=ShardCtx(tp=tp),
+                                impl="dense")
+        loss = torch.sum(tp.leave(part) *
+                         torch.from_numpy(want["w"][t:t + 1])) + aux / 2
+        loss.backward()
+        out["dense/grad/x"] = x.grad.numpy()
+        for k in ("router", "wi_gate", "wi_up", "wo"):
+            out[f"dense/grad/{k}"] = getattr(q, k).grad.numpy()
+np.savez(sys.argv[2] + f"-{t}-{m}.npz", **out)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def ep_grads(tmp_path_factory):
+    """(the reference's gradients, each rank's of the port's (2, 2) run)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_distributed import _env, _free_port, _join
+
+    d = tmp_path_factory.mktemp("epgrad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="src",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    res = subprocess.run([sys.executable, "-c", _JAX_EP_GRAD,
+                          str(d / "jax.npz")], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PORT_EP_GRAD, str(d / "jax.npz"),
+         str(d / "port")], cwd=root, env=_env(r, 4, port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    for rc, text in _join(procs)[0]:
+        assert rc == 0, text[-3000:]
+    ranks = {(t, m): np.load(d / f"port-{t}-{m}.npz")
+             for t in range(2) for m in range(2)}
+    return np.load(d / "jax.npz"), ranks
+
+
+@pytest.mark.parametrize("case", sorted(CAPACITY))
+def test_ep_gradients_match_jax_value_and_grad(ep_grads, case):
+    """EP under autograd on a (2, 2) rank mesh against ``jax.value_and_grad``
+    of the reference's ``moe_ffn(impl="ep")``: the summed loss, the
+    gradients of the router, the experts (each model rank's 4) and the
+    tokens within 1e-5 relative; the kept-slot masks bit-equal; slots
+    dropped at the capacity that drops and none at the other."""
+    want, ranks = ep_grads
+    loss = sum(float(r[f"{case}/loss"]) for (t, m), r in ranks.items()
+               if m == 0)
+    assert abs(loss - float(want[f"{case}/loss"])) <= \
+        1e-5 * abs(float(want[f"{case}/loss"]))
+
+    def close(got, ref):
+        err = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        assert err <= 1e-5, err
+
+    close(sum(ranks[(t, 0)][f"{case}/grad/router"] for t in range(2)),
+          want[f"{case}/grad/router"])
+    for k in ("wi_gate", "wi_up", "wo"):
+        got = np.concatenate([sum(ranks[(t, m)][f"{case}/grad/{k}"]
+                                  for t in range(2)) for m in range(2)])
+        close(got, want[f"{case}/grad/{k}"])
+    for m in range(2):
+        close(np.concatenate([ranks[(t, m)][f"{case}/grad/x"]
+                              for t in range(2)]), want[f"{case}/grad/x"])
+    kept = 0
+    for (t, m), r in ranks.items():
+        np.testing.assert_array_equal(r[f"{case}/keep"],
+                                      want[f"{case}/keep/{t}/{m}"])
+        kept += int(r[f"{case}/keep"].sum())
+    assert (kept == 2 * 64 * 2) == (case == "no-drop"), kept
+    if case == "no-drop":
+        # The dense MoE under the model group (whole experts, the first
+        # rank's output) has EP's gradients where EP drops nothing.
+        for k in ("router", "wi_gate", "wi_up", "wo"):
+            close(sum(ranks[(t, 0)][f"dense/grad/{k}"] for t in range(2)),
+                  want[f"{case}/grad/{k}"])
+        for m in range(2):
+            close(np.concatenate([ranks[(t, m)]["dense/grad/x"]
+                                  for t in range(2)]), want[f"{case}/grad/x"])
