@@ -248,7 +248,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    micro-batch's gradients compressed on the card bit-equal to the CPU);
    then ``profile[train dit-xl2]``,
    one step on one micro-batch of 32 by kernel family),
-   ``train[vdit-paper 3 layers]``
+   ``train[vdit-paper 2 layers]``
    (full width, 8192 + 256 tokens, batch 64 cut to 1, depth 40 cut to 3),
    ``train[vit-l16]`` and ``train[efficientnet-b7]`` (cls_224, batch
    256, remat) and ``train[vdit-example]`` (the JAX package's
@@ -271,6 +271,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    steps from 8 seeds against the JAX launcher's nll on the CPU, then a
    run killed after step 60 and resumed from step 50, bit-equal to the
    uninterrupted one);
+8m. (on a thread of its own beside 9) the model axis in training:
+   ``dist[train gemma3-4b tp]``, ``[qwen2-moe-a2.7b ep]`` (slice 23),
+   ``[dit-xl2 tp]`` and ``[vdit-paper tp]`` (slice 24), each 2 gloo
+   ranks at (data 1, model 2) on the card against one process
+   (``--tp-worker``), 3 AdamW steps in f32: losses and final pieces
+   within 1e-5 of the one process, the launches (adaLN's on the DiT
+   equal to the one process's on each rank, the plain adaLN never on
+   the card), and per rank ms a step, peak, params held and the model
+   axis's bytes;
 9. checks a small trajectory of each of the four paths, of the ripple
    path under the decision cache with its drift guard, of the smoke
    DiT, UNet (also under svg) and MMDiT (12 Euler steps), and of static
@@ -5744,7 +5753,9 @@ ADALN_GRAD_BAR = {"float32": 1e-5, "bfloat16": 1e-2}
 DIT_GRADS_CUT = ("model.d_model=144", "model.num_heads=2", "model.num_layers=2")
 DIT_GRADS_BAR = 1e-4   # tree relative L2, card against the CPU (f32, no TF32)
 TRAIN_DIT_STEPS = 3
-TRAIN_VDIT_LAYERS = 3  # of 40: about 16 GB a layer at 8448 tokens
+# Of 40 layers: about 16 GB a layer at 8448 tokens; 3 until slice 24, whose
+# dist[train vdit-paper tp] covers the train step at full width.
+TRAIN_VDIT_LAYERS = 2
 TRAIN_VDIT_STEPS = 3
 TRAIN_VISION_STEPS = 2
 # train[vdit-example]: the JAX package's examples/train_vdit.py, 100 steps
@@ -6753,8 +6764,9 @@ def lm_train_phases():
 
 
 # ---------------------------------------------------------------------------
-# 8m. the model axis in training (slice 23): the LM train step on a rank
-# mesh of (data 1, model 2), two gloo ranks sharing the card
+# 8m. the model axis in training (slices 23 and 24): the LM, DiT and vDiT
+# train steps on a rank mesh of (data 1, model 2), two gloo ranks sharing
+# the card
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2            # the model axis: gloo ranks on the one card
@@ -6762,23 +6774,36 @@ TP_LAYERS = 2           # of 34 (gemma3-4b) and 24 (qwen2-moe-a2.7b)
 TP_TOKENS = (1, 1024)   # train_4k's 256 x 4096 cut to one sequence of 1024
 TP_STEPS = 3
 TP_REL = 1e-5           # per-step losses and final params, ranks vs one process
-TP_CELLS = (("gemma3-4b", "tp"), ("qwen2-moe-a2.7b", "ep"))
+TP_CELLS = (("gemma3-4b", "tp"), ("qwen2-moe-a2.7b", "ep"), ("dit-xl2", "tp"),
+            ("vdit-paper", "tp"))
+# The diffusion cells at train_256: dit-xl2 at full size, its batch 256 cut
+# to TP_DIT_BATCH in one micro-batch; vdit-paper at full width, 40 layers cut
+# to TP_LAYERS, 128 frames to 32 and the batch 64 to 1: a (8, 16, 16) grid,
+# 2048 + 256 text tokens.
+TP_DIT_BATCH = 4
+TP_VDIT = dict(num_layers=TP_LAYERS, frames=32)
 
 
 def tp_arch(name):
-    """``name`` at full width, ``TP_LAYERS`` layers, ``TP_TOKENS``, float32
-    compute, one micro-batch; the MoE at a capacity that drops no slot
-    (``EP_NO_DROP``), so EP and the one process's dense MoE compute the
-    same function."""
+    """``name`` at full width in float32 compute and one micro-batch: an LM
+    at ``TP_LAYERS`` layers and ``TP_TOKENS`` (the MoE at a capacity that
+    drops no slot, ``EP_NO_DROP``, so EP and the one process's dense MoE
+    compute the same function); dit-xl2 and vdit-paper cut as above."""
     from repro_torch.configs import get_config
 
     arch = get_config(name)
-    m = dataclasses.replace(arch.model, num_layers=TP_LAYERS)
-    if m.moe is not None:
-        m = dataclasses.replace(m, moe=dataclasses.replace(
-            m.moe, capacity_factor=EP_NO_DROP))
-    shape = dataclasses.replace(arch.shape("train_4k"), global_batch=TP_TOKENS[0],
-                                seq_len=TP_TOKENS[1])
+    if arch.family == "lm":
+        m = dataclasses.replace(arch.model, num_layers=TP_LAYERS)
+        if m.moe is not None:
+            m = dataclasses.replace(m, moe=dataclasses.replace(
+                m.moe, capacity_factor=EP_NO_DROP))
+        shape = dataclasses.replace(arch.shape("train_4k"), global_batch=TP_TOKENS[0],
+                                    seq_len=TP_TOKENS[1])
+    else:
+        m = (dataclasses.replace(arch.model, **TP_VDIT) if arch.family == "vdit"
+             else arch.model)
+        shape = dataclasses.replace(arch.shape("train_256"), batch=(
+            1 if arch.family == "vdit" else TP_DIT_BATCH))
     return dataclasses.replace(arch, model=m, shapes=(shape,),
                                train=dataclasses.replace(
                                    arch.train, compute_dtype="float32", grad_accum=1))
@@ -6786,15 +6811,18 @@ def tp_arch(name):
 
 def tp_worker(out, name, rank, port):
     """``chip_smoke.py --tp-worker OUT NAME RANK PORT``: ``TP_STEPS`` AdamW
-    steps of :func:`tp_arch`, drawn on the card from seed 0, through
+    steps of :func:`tp_arch`, drawn on the card from seed 0 (a diffusion
+    model with every leaf random, so no adaLN gate is zero), through
     ``workloads.train_step`` on the card,
     as one process (RANK -1: it writes its final params to OUT.pt) or as
     rank RANK of a gloo group of ``TP_RANKS`` on a rank mesh of (data 1,
     model ``TP_RANKS``) (it holds its pieces against OUT's one-process
     params).  The launch counters set to 0 just before the steps and read
-    just after; the model axis's collectives counted
+    just after, and the adaLN kernel's plain version counted on the card
+    (:func:`plain_guard`); the model axis's collectives counted
     (``distributed.tensor_parallel``); writes OUT.json."""
     import json
+    import math
     from datetime import timedelta
 
     import torch
@@ -6802,6 +6830,7 @@ def tp_worker(out, name, rank, port):
     from repro_torch.data.synthetic import DataSpec
     from repro_torch.distributed import tensor_parallel as tpl
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.adaln import ops as adaln_ops
     from repro_torch.launch import workloads
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.launch.train import make_batch_fn
@@ -6818,10 +6847,11 @@ def tp_worker(out, name, rank, port):
                                 timeout=timedelta(seconds=300))
         mesh = make_rank_mesh(model_axis=TP_RANKS, device="cuda")
     arch = tp_arch(name)
-    shape = arch.shape("train_4k")
+    shape = arch.shapes[0]
     # Drawn on the card from the seed (the one process and every rank draw
     # the same weights; a CPU draw took 15-22 s a process).
-    model = init_model(arch.model, seed=0, device="cuda", dtype=torch.float32)
+    model = init_model(arch.model, seed=0, device="cuda", dtype=torch.float32,
+                       zero_init=arch.family == "lm")
     names = [n for n, _ in model.named_parameters()]
     step = workloads.train_step(arch, shape, model, mesh=mesh)
     state = train_loop.train_state_init(model, arch.train, mesh=mesh)
@@ -6853,7 +6883,8 @@ def tp_worker(out, name, rank, port):
     reset_launch_counts()
     with wrapped(tpl, "all_reduce_", counted("all-reduce")), \
             wrapped(tpl, "all_gather_dim", counted("all-gather")), \
-            wrapped(tpl, "reduce_scatter_dim", counted("reduce-scatter")):
+            wrapped(tpl, "reduce_scatter_dim", counted("reduce-scatter")), \
+            plain_guard(((adaln_ops, "adaln_modulate_ref"),)) as plain:
         for i in range(TP_STEPS):
             batch = batches(DataSpec(seed=0), i)
             torch.cuda.synchronize()
@@ -6881,9 +6912,14 @@ def tp_worker(out, name, rank, port):
                 num += float(torch.sum((p.detach().cpu().double() - want) ** 2))
                 den += float(torch.sum(want ** 2))
         err = (num / den) ** 0.5
+    sh = state.shards
     rec = {"losses": losses, "ms": ms, "peak_gib": peak, "init_s": init_s,
-           "launches": counts, "param_rel": err, "moved": moved,
+           "launches": counts, "plain": plain, "param_rel": err, "moved": moved,
            "params": sum(p.numel() for p in params),
+           # what the rule tables give a rank: each parameter whole, or its
+           # piece on the model axis
+           "pieces": sum(math.prod(s) // (1 if md is None else TP_RANKS)
+                         for s, md in zip(sh.shapes, sh.mdims)) if sh else None,
            "backend": dist.get_backend() if mesh else None,
            "mesh": mesh.shape if mesh else None}
     with open(out + ".json", "w", encoding="utf-8") as f:
@@ -6942,13 +6978,21 @@ def tp_spawn(label, name, ranks):
     return wall, recs
 
 
+# 8m's waves, each a set of runs side by side ((cell, ranks); 0 ranks is the
+# one process): the LMs' one processes (24.88 + 29.38 GiB at their peaks),
+# then one cell's ranks at a time, the diffusion cells' one processes beside
+# gemma3-4b's ranks.  Each process's card memory is its own and the main
+# process keeps its own beside them: one cell's ranks beside the other LM's
+# one process, each rank holding a f64 copy of its pieces on the card for
+# its check, ran out of the card's memory.
+TP_WAVES = ((("gemma3-4b", 0), ("qwen2-moe-a2.7b", 0)),
+            (("gemma3-4b", TP_RANKS), ("dit-xl2", 0), ("vdit-paper", 0)),
+            (("qwen2-moe-a2.7b", TP_RANKS),), (("dit-xl2", TP_RANKS),),
+            (("vdit-paper", TP_RANKS),))
+
+
 def tp_phases_start():
-    """Start 8m on a thread of its own: both cells' one process side by
-    side (24.88 + 29.38 GiB at their peaks), then each cell's
-    ``TP_RANKS`` ranks, one cell at a time (each process's card memory is
-    its own, and the main process keeps its own beside them: one cell's
-    ranks beside the other's one process, each rank holding a f64 copy of
-    its pieces on the card for its check, ran out of the card's memory).
+    """Start 8m on a thread of its own, ``TP_WAVES`` one after another.
     The main thread carries on with checks that time nothing;
     :func:`tp_phases_finish` joins it."""
     import threading
@@ -6964,20 +7008,22 @@ def tp_phases_start():
         res[name if ranks else f"{name} plain"] = tp_spawn(
             f"train {name} {kind}", name, ranks)
 
+    kinds = dict(TP_CELLS)
+
     def run():
         try:
             t0 = time.perf_counter()
-            errors = []
-            plains = [threading.Thread(target=_catching, args=(errors, spawn, name, kind, 0))
-                      for name, kind in TP_CELLS]
-            for th in plains:
-                th.start()
-            for th in plains:
-                th.join()
-            if errors:
-                raise RuntimeError(errors[0])
-            for name, kind in TP_CELLS:
-                spawn(name, kind, TP_RANKS)
+            for wave in TP_WAVES:
+                errors = []
+                runs = [threading.Thread(target=_catching,
+                                         args=(errors, spawn, name, kinds[name], ranks))
+                        for name, ranks in wave]
+                for th in runs:
+                    th.start()
+                for th in runs:
+                    th.join()
+                if errors:
+                    raise RuntimeError(errors[0])
             res["wall"] = time.perf_counter() - t0
         except Exception as e:  # noqa: BLE001 — reported by tp_phases_finish
             res["error"] = repr(e)
@@ -6986,9 +7032,11 @@ def tp_phases_start():
     th.start()
     log(f"dist[train tp/ep]: started: {TP_RANKS} gloo ranks on the card at (data 1, "
         f"model {TP_RANKS}) and one process each, chip_smoke.py --tp-worker: "
-        f"{', '.join(n for n, _ in TP_CELLS)} at full width, {TP_LAYERS} layers, "
-        f"{TP_TOKENS[0]} x {TP_TOKENS[1]} tokens, f32, {TP_STEPS} AdamW steps; the main "
-        f"process holds {held[0]:.2f} GiB allocated, {held[1]:.2f} GiB reserved")
+        f"{', '.join(n for n, _ in TP_CELLS)} at full width (the LMs {TP_LAYERS} layers, "
+        f"{TP_TOKENS[0]} x {TP_TOKENS[1]} tokens; dit-xl2 all 28 layers, {TP_DIT_BATCH} "
+        f"images of 256 tokens; vdit-paper {TP_LAYERS} layers, 2048 + 256 tokens), f32, "
+        f"{TP_STEPS} AdamW steps; the main process holds {held[0]:.2f} GiB allocated, "
+        f"{held[1]:.2f} GiB reserved")
     return th, res
 
 
@@ -7003,14 +7051,19 @@ def tp_phases_finish(started):
     """8m's checks, once its thread is done: for each cell every rank's
     per-step losses within ``TP_REL`` of the one process's, its final
     pieces within ``TP_REL`` of the one process's params (relative L2),
-    no kernel launch anywhere, a gloo group on the (1, TP_RANKS) mesh;
-    each rank's ms a step, peak memory and the model axis's bytes."""
+    the pieces the rule tables give it, a gloo group on the (1, TP_RANKS)
+    mesh; no kernel launch on an LM's path; on the DiT's each rank's adaLN
+    launches the one process's, 2 a block and the final one a forward,
+    and no other kernel's; the adaLN kernel's plain version never called
+    on the card; each rank's ms a step, peak memory and the model axis's
+    bytes.  Returns {cell: the launches of its rank 0}."""
     th, res = started
     th.join()
     if "error" in res:
         raise SystemExit(res["error"])
-    log(f"dist[train tp/ep]: {res['wall']:.1f}s wall for both cells with the "
-        f"processes' start and the models' CPU init")
+    log(f"dist[train tp/ep]: {res['wall']:.1f}s wall for the {len(TP_CELLS)} cells with "
+        f"the processes' start and the models' init")
+    out = {}
     for name, kind in TP_CELLS:
         label = f"train {name} {kind}"
         (pwall, (plain,)), (wall, ranks) = res[f"{name} plain"], res[name]
@@ -7032,7 +7085,8 @@ def tp_phases_finish(started):
             f"not measured (one card cannot host two NCCL ranks)")
         rel = max(abs(a - b) / abs(b) for g in ranks
                   for a, b in zip(g["losses"], plain["losses"]))
-        report(label, {
+        held = ", ".join(f"{g['params'] / plain['params']:.3f}" for g in ranks)
+        checks = {
             f"a gloo group of {TP_RANKS} ranks on a (data 1, model {TP_RANKS}) mesh":
                 all(g["backend"] == "gloo" and g["mesh"] == {"data": 1, "model": TP_RANKS}
                     for g in ranks),
@@ -7040,12 +7094,26 @@ def tp_phases_finish(started):
                 rel <= TP_REL and all(len(g["losses"]) == TP_STEPS for g in ranks),
             f"final params within {TP_REL} of one process": all(
                 g["param_rel"] <= TP_REL for g in ranks),
-            "each rank holds about half the params": all(
-                0.45 <= g["params"] / plain["params"] <= 0.55 for g in ranks),
-            "no kernel of the port launched": not any(
-                v for g in [plain, *ranks] for v in g["launches"].values()),
+            f"each rank holds its pieces by the rule tables ({held} of the params)":
+                all(g["params"] == g["pieces"] < plain["params"] for g in ranks),
             "the model axis moved bytes": all(g["moved"]["calls"] > 0 for g in ranks),
-        }, kind="dist")
+            "the adaLN kernel's plain version never ran on the card": not any(
+                v for g in [plain, *ranks] for v in g["plain"].values()),
+        }
+        arch = tp_arch(name)
+        if arch.family == "lm":
+            checks["each rank holds about half the params"] = all(
+                0.45 <= g["params"] / plain["params"] <= 0.55 for g in ranks)
+        want = {k: 0 for k in plain["launches"]}
+        if arch.family == "dit":
+            want["adaln"] = (2 * arch.model.num_layers + 1) * TP_STEPS
+        checks["no kernel of the port launched" if not any(want.values()) else
+               f"each process launched adaLN {want.get('adaln')} times (2 a block and "
+               f"the final one, a forward) and no other kernel"] = all(
+            g["launches"] == want for g in [plain, *ranks])
+        report(label, checks, kind="dist")
+        out[name] = ranks[0]["launches"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7720,7 +7788,7 @@ def main() -> int:
     patterns.install_artifact(art_path)
     small_reference_check("rainfusion", policy="rainfusion")
     patterns.set_active_artifact(None)
-    tp_phases_finish(tp_started)
+    tp_launches = tp_phases_finish(tp_started)
 
     # 8k. the launch tools (slice 21): the dry run's counts of train[dit-xl2],
     # train[gemma3-4b] at the depth it ran and one serve[dit-xl2] forward,
@@ -7817,6 +7885,9 @@ def main() -> int:
          # Slice 20: its launches in dist[train dit-xl2], the launcher under
          # torchrun at one rank with the state sharded by the rule tables.
          "launches_dist_train": train_out["dist dit-xl2"]["dit-xl2"]["launches"]["adaln"],
+         # Slice 24: a rank's launches in dist[train dit-xl2 tp], 2 ranks on a
+         # model axis of 2, 3 steps (the one process's are checked equal).
+         "launches_dist_tp": tp_launches["dit-xl2"]["adaln"],
          "host_served_ms": a_host_ab[0], "host_function_ms": a_host_ab[1],
          "grad_max_rel_err": adaln_grad_err},
         # f32 at (1, 24, 8192, 128), as its path (the kernel_bench sweep)

@@ -22,9 +22,10 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.distributed.spmd import P
 
-__all__ = ["NULL_CTX", "ShardCtx", "axis_size", "batch_axes",
-           "decode_act_rules", "param_rules", "param_sharding_tree",
-           "seqpar_act_rules", "spec_from_axes", "train_act_rules"]
+__all__ = ["NULL_CTX", "ShardCtx", "attn_seq_fallback", "axis_size",
+           "batch_axes", "decode_act_rules", "param_rules",
+           "param_sharding_tree", "seqpar_act_rules", "spec_from_axes",
+           "train_act_rules"]
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -125,6 +126,20 @@ def train_act_rules(mesh, seq_parallel: bool = False) -> Dict[Any, Any]:
     }
 
 
+def attn_seq_fallback(arch, mesh, rules: Dict[Any, Any]) -> Dict[Any, Any]:
+    """The reference workloads' ``_attn_seq_fallback``: an arch whose head
+    count the ``model`` axis does not divide (vdit-paper's and flux-dev's
+    24 heads on 16) shards attention over the query rows instead
+    (``attn_seq`` on ``model``: logits (B, H, Nq/M, Nk), K and V whole);
+    ``rules`` unchanged otherwise."""
+    heads = getattr(arch.model, "num_heads", 0)
+    if mesh is not None and "model" in mesh.axis_names and heads and \
+            heads % int(mesh.shape["model"]) != 0:
+        rules = dict(rules)
+        rules["attn_seq"] = "model"
+    return rules
+
+
 def decode_act_rules(mesh, long_context: bool = False,
                      replicate_heads: bool = False) -> Dict[Any, Any]:
     bd = batch_axes(mesh)
@@ -186,6 +201,13 @@ class ShardCtx:
     # LM's blocks, embedding, head and cross entropy then compute on the
     # rank's pieces and combine them over the model group.
     tp: Optional[Any] = None
+
+    @property
+    def attn_rows(self) -> bool:
+        """Whether attention splits its query rows over ``model`` (the
+        rules' ``attn_seq``, :func:`attn_seq_fallback`) rather than its
+        heads."""
+        return (self.rules or {}).get("attn_seq") == "model"
 
     def c(self, x, axes: Sequence[Optional[str]]):
         """Constrain activation ``x`` whose dims carry logical ``axes``:

@@ -28,6 +28,16 @@ piece may end mid-head) and computes a layer as a *region*:
   loss) goes through :meth:`TensorParallel.once`, so its gradient enters
   the region on one rank only.
 
+Where the query heads do not divide the group, attention is a *query-row
+region* instead (the reference's ``_attn_seq_fallback``: ``attn_seq`` on
+``model``): its input is whole as above, each rank computes every head
+for its range of query rows (:meth:`TensorParallel.span` of the
+sequence) against the whole K and V, the projection weights are taken
+whole (:meth:`TensorParallel.take`: gathered, their gradients
+reduce-scattered back), and the ranks' output rows are concatenated
+(:meth:`TensorParallel.join`: an all-gather, whose backward pass keeps
+this rank's rows of the gradient, which every rank holds whole).
+
 The activation collectives are exact (no compression).  On a gloo group
 CUDA tensors go through host memory, as ``distributed.spmd`` does.
 """
@@ -182,6 +192,29 @@ class _Split(torch.autograd.Function):
                               ctx.dim), None, None
 
 
+class _Join(torch.autograd.Function):
+    """Forward the ranks' :func:`span` pieces of ``n`` items along ``dim``
+    concatenated (padded to the largest for the all-gather); backward this
+    rank's piece of the gradient, whole and equal on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim, n):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, n
+        most = -(-n // tp.size)
+        pad = list(x.shape)
+        pad[dim] = most - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim) if pad[dim] else x
+        every = all_gather_dim(x, tp.group, tp.size, dim)
+        return torch.cat([every.narrow(dim, j * most, hi - lo) for j, (lo, hi)
+                          in enumerate(span(n, tp.size, j)
+                                       for j in range(tp.size))], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.tp.span(ctx.n)
+        return g.narrow(ctx.dim, lo, hi - lo).contiguous(), None, None, None
+
+
 class _Once(torch.autograd.Function):
     """Forward the identity; backward the gradient on the group's first
     rank and zeros on the others."""
@@ -232,6 +265,12 @@ class TensorParallel:
         """This rank's piece along ``dim`` of ``x``, whole on every rank."""
         return _Split.apply(x, self, dim)
 
+    def join(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """A region's output from this rank's :meth:`span` piece of ``n``
+        items along ``dim``: the ranks' pieces concatenated, whole on every
+        rank; the gradient, whole on every rank, narrowed to the piece."""
+        return _Join.apply(x, self, dim, n)
+
     def once(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (whole and equal on every rank), its gradient kept on the
         group's first rank only."""
@@ -247,6 +286,20 @@ class TensorParallel:
     def span(self, n: int) -> Tuple[int, int]:
         """This rank's range of ``n`` items split over the group."""
         return span(n, self.size, self.index)
+
+    def attention_split(self, n_heads: int, n: int, rows: bool
+                        ) -> Tuple[int, int, int, int]:
+        """This rank's heads [h0, h1) and query rows [r0, r1) of an
+        attention over ``n`` tokens: its run of the heads and every row,
+        or with ``rows`` (the rules' ``attn_seq`` on ``model``) every head
+        and its :meth:`span` of the rows."""
+        if rows:
+            return (0, n_heads) + self.span(n)
+        if n_heads % self.size:
+            raise ValueError(f"{n_heads} heads do not divide a model axis of "
+                             f"{self.size}: the rules' attn_seq fallback "
+                             f"(sharding.attn_seq_fallback) splits query rows")
+        return self.span(n_heads) + (0, n)
 
     # -- regions ---------------------------------------------------------------
 

@@ -49,13 +49,16 @@ depend on the device (which attention plan runs, and whether a kernel
 wrapper launches) take a counted fake tensor as a card's
 (``kernels.on_card``).  The ranks form a (data, model) mesh, data =
 ranks / ``--model-axis``: FSDP on ``embed`` over ``data`` and, on a
-``model`` axis above 1, the LM train step's tensor parallelism
+``model`` axis above 1, the train steps' tensor parallelism
 (``distributed.tensor_parallel``: heads, MLP and vocab on ``model``,
-EP for the MoEs, ``train.seq_parallel``).  ``--ranks 256 --model-axis
-16`` is the reference's own (data 16, model 16) production mesh
+EP for the MoEs, ``train.seq_parallel`` for the LM; the DiT's, vDiT's,
+MMDiT's and ViT's blocks, attention over query rows where the heads do
+not divide the axis).  ``--ranks 256 --model-axis 16`` is the
+reference's own (data 16, model 16) production mesh
 (``make_production_mesh``).  On a ``model`` axis above 1 the serving
-cells and the non-LM train cells are not runnable (ROADMAP §1), and are
-reported with their reason, not costed.  A serving cell on N ranks is
+cells and the UNet's and EfficientNet's train cells are not runnable
+(ROADMAP §1 items 5 and 4b), and are reported with their reason, not
+costed.  A serving cell on N ranks is
 the busiest rank's: ceil(batch / N) rows on whole weights.
 
 Usage:
@@ -329,11 +332,11 @@ def check_runnable(arch: ArchConfig, shape: ShapeSpec, ranks: int,
             f"serving ({shape.kind}) under a model axis above 1 is not "
             f"ported (ROADMAP §1 item 5: decode_act_rules' kv_seq on model, "
             f"decode_replicate_heads, decode_no_fsdp)")
-    if model_axis > 1 and arch.family != "lm":
-        raise NotRunnable(
-            f"the {arch.family} train step under a model axis above 1 is not "
-            f"ported (ROADMAP §1 item 4: heads on model, the reference's "
-            f"_attn_seq_fallback)")
+    if model_axis > 1:
+        from repro_torch.launch.workloads import TP_FAMILIES, model_axis_unported
+
+        if arch.family not in TP_FAMILIES:
+            raise NotRunnable(model_axis_unported(arch.family))
     if shape.kind == "train" and arch.train.seq_parallel and model_axis > 1 \
             and shape.seq_len % model_axis:
         raise NotRunnable(f"train.seq_parallel: {shape.seq_len} tokens do not "
@@ -454,8 +457,8 @@ def main(argv=None):
                          "them); one rank is counted")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="the mesh's model axis (tensor parallelism of the "
-                         "LM train step); 16 with --ranks 256 is the "
-                         "reference's 16 x 16 mesh")
+                         "LM, DiT, vDiT, MMDiT and ViT train steps); 16 "
+                         "with --ranks 256 is the reference's 16 x 16 mesh")
     ap.add_argument("--json", help="append reports to this JSON-lines file")
     ap.add_argument("--no-probe", action="store_true",
                     help="track the per-rank peak only, no FLOPs or bytes")

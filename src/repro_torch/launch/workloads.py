@@ -181,17 +181,21 @@ def _denoise_call(arch: ArchConfig, model, x: torch.Tensor, t: torch.Tensor,
                   cond: dict, step: Optional[int], total: Optional[int],
                   use_ripple: bool = True,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  dstate: Optional[List] = None):
+                  dstate: Optional[List] = None, ctx=None):
     """One denoiser forward: ``cond`` holds ``txt`` for the vdit,
     ``labels`` for the dit, whose sigma channels are dropped (the DDIM
     path uses the noise prediction only), ``txt`` and ``vec`` for the
     mmdit (its velocity for the Euler path) and ``ctx`` for the unet.
     ``dstate`` threads the per-layer decision cache (vdit only); the
-    call then returns ``(out, new_dstate)``."""
+    call then returns ``(out, new_dstate)``.  ``ctx`` (a ``ShardCtx``
+    with a ``tp``: a train step on a model axis) goes to the transformer
+    families."""
     rip = arch.ripple if use_ripple else dataclasses.replace(
         arch.ripple, enabled=False)
     kw = dict(ripple=rip, step=step, total_steps=total,
               compute_dtype=compute_dtype)
+    if ctx is not None and ctx.tp is not None:  # not the unet (train_ctx)
+        kw["ctx"] = ctx
     if dstate is not None and arch.family != "vdit":
         raise ValueError(f"decision-cache state is only threaded through "
                          f"the vdit family, not {arch.family!r}")
@@ -286,18 +290,27 @@ def lm_serve_steps(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
 
 DIFFUSION_FAMILIES = ("dit", "mmdit", "unet", "vdit")
 VISION_FAMILIES = ("vit", "effnet")
+# The families whose train step runs on a model axis above 1.
+TP_FAMILIES = ("dit", "mmdit", "vdit", "vit", "lm")
+
+
+def model_axis_unported(family: str) -> str:
+    """Why ``family``'s train step does not run on a model axis above 1."""
+    return (f"the {family} train step under a model axis above 1 is not "
+            f"ported (ROADMAP §1 item 4b: channel-parallel convolutions, "
+            f"GroupNorm and batch statistics over channel pieces)")
 
 
 def diffusion_loss(arch: ArchConfig, model, batch: dict,
                    noise: torch.Tensor, t: torch.Tensor, *,
-                   compute_dtype: torch.dtype = torch.bfloat16):
+                   compute_dtype: torch.dtype = torch.bfloat16, ctx=None):
     """The loss of the JAX workloads' ``_diffusion_train`` for given
     ``noise`` (shaped like ``batch["latents"]``) and timesteps ``t``:
     DDPM (``t`` int in [0, num_train_steps), ``add_noise``, a noise
     target) or, for the mmdit, rectified flow (``t`` in [0, 1],
     ``interpolate``, a velocity target); one forward with ripple off
-    (the dit's sigma channels dropped) and the float32 MSE.  Returns
-    (loss, {"mse": loss})."""
+    (the dit's sigma channels dropped) and the float32 MSE, under ``ctx``
+    (``_denoise_call``).  Returns (loss, {"mse": loss})."""
     from repro_torch.diffusion.schedule import (DDPMSchedule,
                                                 RectifiedFlowSchedule)
 
@@ -307,12 +320,14 @@ def diffusion_loss(arch: ArchConfig, model, batch: dict,
         xt = rf.interpolate(x0, noise, t)
         target = rf.velocity_target(x0, noise)
         pred = _denoise_call(arch, model, xt, t, batch, None, None,
-                             use_ripple=False, compute_dtype=compute_dtype)
+                             use_ripple=False, compute_dtype=compute_dtype,
+                             ctx=ctx)
     else:
         xt = DDPMSchedule().add_noise(x0, noise, t)
         target = noise
         pred = _denoise_call(arch, model, xt, t.float(), batch, None, None,
-                             use_ripple=False, compute_dtype=compute_dtype)
+                             use_ripple=False, compute_dtype=compute_dtype,
+                             ctx=ctx)
     loss = torch.mean(torch.square(pred.float() - target.float()))
     return loss, {"mse": loss}
 
@@ -338,22 +353,23 @@ def draw_diffusion_noise(arch: ArchConfig, x0: torch.Tensor,
 
 def vision_loss(arch: ArchConfig, model, batch: dict, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False, batch_group=None):
+                remat: bool = False, ctx=None):
     """The loss of the JAX workloads' ``_vision_train``: the float32
     cross-entropy (logsumexp minus the gold logit) averaged over the
-    batch, and the accuracy.  Returns (loss, {"acc": acc}).  An
-    EfficientNet's batch statistics cover the ranks of ``batch_group``
-    (a ViT has none)."""
+    batch, and the accuracy.  Returns (loss, {"acc": acc}).  Under
+    ``ctx`` (a ``ShardCtx``) an EfficientNet's batch statistics cover
+    the ranks of its ``batch_group``, and a ViT computes on the rank's
+    model pieces where it has a ``tp``."""
     from repro_torch.models.efficientnet import effnet_apply
     from repro_torch.models.vit import vit_apply
 
     if arch.family == "vit":
         logits = vit_apply(model, batch["images"], arch.model,
-                           compute_dtype=compute_dtype, remat=remat)
+                           compute_dtype=compute_dtype, remat=remat, ctx=ctx)
     else:
         logits = effnet_apply(model, batch["images"], arch.model,
                               compute_dtype=compute_dtype, remat=remat,
-                              batch_group=batch_group)
+                              batch_group=getattr(ctx, "batch_group", None))
     logits = logits.float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -371,9 +387,12 @@ def train_loss_fn(arch: ArchConfig, ctx=None):
     the LM's next-token loss (``lm_loss``) with ``train.remat`` and
     ``train.remat_policy``.  ``rows`` (a slice) keeps those rows of the
     micro-batch, after the noise and t are drawn for all of it: a rank's
-    piece of a micro-batch draws what the whole one draws there.  ``ctx``
-    (a ``ShardCtx``) goes to ``lm_loss``; its ``batch_group`` also to an
-    EfficientNet's batch statistics."""
+    piece of a micro-batch draws what the whole one draws there (the
+    ranks of a model group keep the same rows: ``make_train_step`` picks
+    them by the batch-group index).  ``ctx`` (a ``ShardCtx``) goes into
+    the models: its ``tp`` (the model axis) to every family but the UNet
+    and EfficientNet, its ``batch_group`` to an EfficientNet's batch
+    statistics."""
     from repro_torch.distributed.sharding import NULL_CTX
 
     ctx = ctx or NULL_CTX
@@ -391,12 +410,11 @@ def train_loss_fn(arch: ArchConfig, ctx=None):
             if rows is not None:
                 noise, t = noise[rows], t[rows]
             return diffusion_loss(arch, model, keep(batch, rows), noise, t,
-                                  compute_dtype=dt)
+                                  compute_dtype=dt, ctx=ctx)
     elif arch.family in VISION_FAMILIES:
         def loss_fn(model, batch, generator, rows=None):
             return vision_loss(arch, model, keep(batch, rows),
-                               compute_dtype=dt, remat=tc.remat,
-                               batch_group=ctx.batch_group)
+                               compute_dtype=dt, remat=tc.remat, ctx=ctx)
     elif arch.family == "lm":
         from repro_torch.models.transformer_lm import lm_loss
 
@@ -440,13 +458,16 @@ def train_step(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
     keep ``grad_accum`` as the reference's do.  The loss's ``ShardCtx``
     carries the rank mesh's batch group (the MoE router's and an
     EfficientNet's batch statistics cover the whole batch) and no
-    dispatch mesh.  On a mesh with a ``model`` axis above 1 (the LM
-    family only) it also carries the rank's tensor parallelism
-    (``RankMesh.tensor_parallel``, with ``train.seq_parallel``): the LM
-    computes on the rank's model pieces and the MoE runs EP over the
-    model group; at a model axis of 1 the experts are not sharded and the
-    MoE runs its dense path."""
-    from repro_torch.distributed.sharding import ShardCtx
+    dispatch mesh.  On a mesh with a ``model`` axis above 1 it also
+    carries the rank's tensor parallelism (``RankMesh.tensor_parallel``)
+    and the rules (``train_act_rules``): the LM computes on the rank's
+    model pieces (with ``train.seq_parallel``) and the MoE runs EP over
+    the model group; the transformer diffusion and vision families
+    (``TP_FAMILIES``) compute their blocks as regions, attention by
+    heads or, where the heads do not divide the axis, by query rows
+    (``attn_seq_fallback``, for the vision family too); the UNet and
+    EfficientNet raise (ROADMAP §1 item 4b).  At a model axis of 1 the
+    experts are not sharded and the MoE runs its dense path."""
     from repro_torch.training.train_loop import make_train_step
 
     if model.cfg != arch.model:
@@ -459,16 +480,32 @@ def train_step(arch: ArchConfig, shape: ShapeSpec, model, mesh=None):
         batch = shape.global_batch if arch.family == "lm" else shape.batch
         tc = dataclasses.replace(tc, grad_accum=_effective_accum(
             tc.grad_accum, batch, mesh))
-    ctx = None
-    if mesh is not None:
-        if mesh.model_size > 1 and arch.family != "lm":
-            raise NotImplementedError(
-                f"the {arch.family} train step under a model axis above 1 is "
-                f"not ported (ROADMAP §1 item 4: heads on model for the "
-                f"diffusion and vision train steps)")
-        ctx = ShardCtx(batch_group=mesh.batch_group(),
-                       tp=mesh.tensor_parallel(tc.seq_parallel))
-    return make_train_step(train_loss_fn(arch, ctx), tc)
+    return make_train_step(train_loss_fn(arch, train_ctx(arch, mesh)), tc)
+
+
+def train_ctx(arch: ArchConfig, mesh=None):
+    """The ``ShardCtx`` a train cell's loss runs under on a rank ``mesh``
+    (None without one; see :func:`train_step`): the rules (but for the
+    LM, ``attn_seq`` on ``model`` where the heads do not divide it, as
+    the reference's ``_diffusion_train`` has it), the batch group, and
+    the rank's tensor parallelism above a model axis of 1, with
+    ``train.seq_parallel`` for the LM only (the reference's diffusion and
+    vision steps take ``train_act_rules(mesh)`` without it)."""
+    from repro_torch.distributed.sharding import (ShardCtx,
+                                                  attn_seq_fallback,
+                                                  train_act_rules)
+
+    if mesh is None:
+        return None
+    if mesh.model_size > 1 and arch.family not in TP_FAMILIES:
+        raise NotImplementedError(model_axis_unported(arch.family))
+    lm = arch.family == "lm"
+    sp = arch.train.seq_parallel and lm
+    rules = train_act_rules(mesh, sp)
+    return ShardCtx(rules=rules if lm else attn_seq_fallback(arch, mesh,
+                                                             rules),
+                    batch_group=mesh.batch_group(),
+                    tp=mesh.tensor_parallel(sp))
 
 
 # --- one cell's step, for the dry run ----------------------------------------

@@ -9,7 +9,10 @@
   (the vDiT; not the DiT), then the precomputed factorized RoPE where
   given, and hands the (B, H, N, hd) operands to
   ``core.dispatch.attention_dispatch``, where an active
-  :class:`RippleConfig` routes Q/K through the reuse pipeline.
+  :class:`RippleConfig` routes Q/K through the reuse pipeline.  In
+  training on a rank mesh with a ``model`` axis (``tp``) with ripple off,
+  it is a tensor-parallel region (:func:`_mha_region`): the rank's heads,
+  or where the heads do not divide the axis its query rows.
 """
 
 from __future__ import annotations
@@ -70,20 +73,35 @@ def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
                   grid_slice: Optional[Tuple[int, int]] = None,
                   backend: Optional[str] = None,
                   encoder_out: Optional[torch.Tensor] = None,
-                  cached_decision=None, return_decision: bool = False):
+                  cached_decision=None, return_decision: bool = False,
+                  tp=None, attn_rows: bool = False):
     """Bidirectional MHA through the dispatch layer. x: (B, N, d).
 
     ``cached_decision`` / ``return_decision`` thread the cross-step
     decision cache through to ``attention_dispatch``; with either set
     the layer returns ``(out, CachedDecision)``.  Self-attention on the
     grid only: with ``encoder_out`` (cross-attention, not ported) they
-    raise, as in the JAX package."""
+    raise, as in the JAX package.
+
+    ``tp`` (a ``distributed.tensor_parallel.TensorParallel``) computes the
+    layer as a region over the model group with ripple off, ``x`` whole
+    on every rank and the whole output returned on every rank: by heads,
+    or with ``attn_rows`` (the rules' ``attn_seq`` on ``model``) by query
+    rows (:func:`_mha_region`)."""
     want_cache = cached_decision is not None or return_decision
     if encoder_out is not None:
         if want_cache:
             raise ValueError("decision caching applies to grid "
                              "self-attention only, not cross-attention")
         raise NotImplementedError("cross-attention is not ported")
+    if tp is not None:
+        if want_cache or ripple.active():
+            raise NotImplementedError(
+                "attention under a model axis runs with ripple off (the "
+                "train steps); serving there is ROADMAP §1 item 5")
+        return _mha_region(p, x, tp, n_heads=n_heads, head_dim=head_dim,
+                           rope_cos=rope_cos, rope_sin=rope_sin, grid=grid,
+                           ripple=ripple, attn_rows=attn_rows)
     dt = x.dtype
     B, N, _ = x.shape
     q = torch.matmul(x, p.wq.to(dt)).reshape(B, N, n_heads, head_dim)
@@ -109,6 +127,54 @@ def mha_attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     out = out.transpose(1, 2).reshape(B, N, n_heads * head_dim)
     out = torch.matmul(out, p.wo.to(dt))
     return (out, new_cache) if want_cache else out
+
+
+def _mha_region(p: Attention, x: torch.Tensor, tp, *, n_heads: int,
+                head_dim: int, rope_cos, rope_sin, grid, ripple: RippleConfig,
+                attn_rows: bool) -> torch.Tensor:
+    """:func:`mha_attention` as a tensor-parallel region over ``tp``'s
+    group, ``x`` whole on every rank (``tp.enter``):
+
+    * by heads: the rank attends with its run of the heads (Q, K and V
+      column-parallel in ``wq`` / ``wk`` / ``wv``, ``wo`` row-parallel on
+      their rows; a piece that ends mid-head is all-gathered for the
+      layer, ``tp.take``), and the ranks' partial outputs are summed
+      (``tp.leave``);
+    * by query rows (``attn_rows``, where the heads do not divide the
+      group): the rank computes every head for its :meth:`span` of the N
+      query rows against the whole K and V, with the weights taken whole,
+      and the ranks' output rows are concatenated (``tp.join``).
+
+    The q/k norm scales, replicated over ``model``, sum their gradients
+    over the group (``tp.copy_to``)."""
+    dt = x.dtype
+    B, N, _ = x.shape
+    inner = n_heads * head_dim
+    x = tp.enter(x)
+    h0, h1, r0, r1 = tp.attention_split(n_heads, N, attn_rows)
+    c0, c1 = h0 * head_dim, h1 * head_dim
+    H = h1 - h0
+
+    def heads(y, rows):
+        return y.reshape(B, rows, H, head_dim)
+
+    q = heads(torch.matmul(x[:, r0:r1], tp.take(p.wq, 1, inner, c0, c1)
+                           .to(dt)), r1 - r0)
+    k = heads(torch.matmul(x, tp.take(p.wk, 1, inner, c0, c1).to(dt)), N)
+    v = heads(torch.matmul(x, tp.take(p.wv, 1, inner, c0, c1).to(dt)), N)
+    if p.q_norm is not None:
+        q = rmsnorm(tp.copy_to(p.q_norm.scale), q)
+        k = rmsnorm(tp.copy_to(p.k_norm.scale), k)
+    if rope_cos is not None:
+        q = apply_rope_precomputed(q, rope_cos[r0:r1], rope_sin[r0:r1])
+        k = apply_rope_precomputed(k, rope_cos, rope_sin)
+    out = attention_dispatch(q.transpose(1, 2).contiguous(),
+                             k.transpose(1, 2).contiguous(),
+                             v.transpose(1, 2).contiguous(), grid=grid,
+                             cfg=ripple)
+    out = out.transpose(1, 2).reshape(B, r1 - r0, H * head_dim)
+    out = torch.matmul(out, tp.take(p.wo, 0, inner, c0, c1).to(dt))
+    return tp.join(out, 1, N) if attn_rows else tp.leave(out)
 
 
 # --- LM attention ------------------------------------------------------------

@@ -168,6 +168,22 @@ def mlp_bias(wi, bi, wo, bo, x: torch.Tensor, act=F.silu):
     return torch.matmul(h, wo.to(dt)) + bo.to(dt)
 
 
+def mlp_bias_partial(wi, bi, wo, bo, x: torch.Tensor, tp, d_ff: int,
+                     act=F.silu):
+    """:func:`mlp_bias` as a tensor-parallel region over ``tp``'s group
+    (``x`` whole on every rank, ``tp.enter``): the rank's range of the
+    ``d_ff`` hidden units, column-parallel in ``wi`` and ``bi`` and
+    row-parallel in ``wo``; the ranks' partial outputs summed
+    (``tp.leave``), then ``bo``, replicated over ``model``, added once."""
+    dt = x.dtype
+    lo, hi = tp.span(d_ff)
+    x = tp.enter(x)
+    h = act(torch.matmul(x, tp.take(wi, 1, d_ff, lo, hi).to(dt))
+            + tp.take(bi, 0, d_ff, lo, hi).to(dt))
+    out = torch.matmul(h, tp.take(wo, 0, d_ff, lo, hi).to(dt))
+    return tp.leave(out) + bo.to(dt)
+
+
 class GatedMLP(nn.Module):
     """Gated MLP without biases (leaves wi_gate, wi_up, wo) and SiLU: the
     vDiT's and the LM family's."""

@@ -10,6 +10,12 @@ once to the working type where the JAX model rounds after the norm and
 after each modulation op (the same values in float32).  The kernel
 trains too: its wrapper is an autograd Function with a closed-form
 backward.
+
+Under a rank mesh's ``model`` axis (``ctx.tp``, training with ripple
+off) each block's attention and MLP, and the timestep MLP, are
+tensor-parallel regions (``distributed.tensor_parallel``); the adaLN
+projections, replicated over ``model``, and their modulations run whole
+on every rank, through the same kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from torch import nn
 from repro_torch.config.base import DiTConfig, RippleConfig
 from repro_torch.kernels.adaln.ops import adaln_modulate
 from repro_torch.models.attention import Attention, mha_attention
-from repro_torch.models.common import (MLP, Linear, param, patch_embed,
+from repro_torch.models.common import (MLP, Linear, gelu_tanh,
+                                       mlp_bias_partial, param, patch_embed,
                                        remat_call, sincos_pos_embed_2d,
                                        sincos_timestep_embed, unpatchify)
 
@@ -60,9 +67,13 @@ class DiT(nn.Module):
         self.final_ada = Linear(d, 2 * d, device, dtype)
         self.final = Linear(d, p * p * out_ch, device, dtype)
 
-    def _conditioning(self, t, labels, dt):
+    def _conditioning(self, t, labels, dt, tp=None):
         temb = sincos_timestep_embed(t, 256).to(dt)
-        c = self.t_mlp2(F.silu(self.t_mlp1(temb)))
+        if tp is None:
+            c = self.t_mlp2(F.silu(self.t_mlp1(temb)))
+        else:
+            c = mlp_bias_partial(self.t_mlp1.w, self.t_mlp1.b, self.t_mlp2.w,
+                                 self.t_mlp2.b, temb, tp, self.cfg.d_model)
         c = c + self.label_embed.to(dt)[labels]
         return F.silu(c)  # (B, d)
 
@@ -70,14 +81,18 @@ class DiT(nn.Module):
                 labels: torch.Tensor, *, ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, ctx=None) -> torch.Tensor:
         """latents (B, H_lat, W_lat, C); t (B,) diffusion time; labels (B,)
         int class ids.  Returns the predicted noise (and sigma channels
         with ``learn_sigma``): (B, H_lat, W_lat, out_ch) in
         ``compute_dtype``.  ``remat`` recomputes each block's activations
         in the backward pass (the reference's ``jax.checkpoint`` of the
-        scan body)."""
+        scan body).  ``ctx`` (a ``ShardCtx``) with a ``tp`` computes on
+        this rank's model pieces (see the module docstring)."""
         cfg = self.cfg
+        tp = ctx.tp if ctx is not None else None
+        rows = ctx is not None and ctx.attn_rows
+        d_ff = int(cfg.d_model * cfg.mlp_ratio)
         dt = compute_dtype
         B, H, W, C = latents.shape
         p = cfg.patch
@@ -87,7 +102,7 @@ class DiT(nn.Module):
         x = patch_embed(self.patch.w, self.patch.b, latents.to(dt), p)
         pos = sincos_pos_embed_2d(h, w, cfg.d_model, device=x.device)
         x = x + pos.to(dt)[None]
-        c = self._conditioning(t, labels, dt)
+        c = self._conditioning(t, labels, dt, tp)
         hd = cfg.d_model // cfg.num_heads
 
         def body(x, blk):
@@ -95,10 +110,15 @@ class DiT(nn.Module):
             h_ = adaln_modulate(x, sh1, sc1)
             attn = mha_attention(
                 blk.attn, h_, n_heads=cfg.num_heads, head_dim=hd, grid=grid,
-                ripple=ripple, step=step, total_steps=total_steps)
+                ripple=ripple, step=step, total_steps=total_steps, tp=tp,
+                attn_rows=rows)
             x = x + g1[:, None] * attn
             h_ = adaln_modulate(x, sh2, sc2)
-            return x + g2[:, None] * blk.mlp(h_)
+            if tp is None:
+                return x + g2[:, None] * blk.mlp(h_)
+            m = blk.mlp
+            return x + g2[:, None] * mlp_bias_partial(
+                m.wi, m.bi, m.wo, m.bo, h_, tp, d_ff, act=gelu_tanh)
 
         for blk in self.blocks:
             x = remat_call(remat, body, x, blk)
@@ -115,10 +135,10 @@ def dit_apply(model: DiT, latents: torch.Tensor, t: torch.Tensor,
               ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
               total_steps: Optional[int] = None,
               compute_dtype: torch.dtype = torch.bfloat16,
-              remat: bool = False) -> torch.Tensor:
+              remat: bool = False, ctx=None) -> torch.Tensor:
     """Functional form mirroring the JAX ``dit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, labels, ripple=ripple, step=step,
                  total_steps=total_steps, compute_dtype=compute_dtype,
-                 remat=remat)
+                 remat=remat, ctx=ctx)

@@ -12,6 +12,20 @@ the joint attention (2-D mode, x/y axes on a (1, h, w) grid); text
 tokens are never snapped (``grid_slice``).  LayerNorm-and-modulate is
 inline, as in the JAX ``mmdit_apply``, so the adaLN kernel is not on
 this path.
+
+Under a rank mesh's ``model`` axis (``ctx.tp``, training with ripple
+off) every block is tensor-parallel (``distributed.tensor_parallel``).
+The rule tables put ``heads`` on a *fused* axis: the double streams'
+``wqkv`` (d, 3d) and the single blocks' ``lin1`` (d, 3d + F), ``lin1_b``
+and ``lin2`` (d + F, d) are split in contiguous pieces, which are
+neither a rank's heads' q / k / v columns nor a clean split between
+attention and MLP.  So a block takes those weights whole (all-gathered,
+their gradients reduce-scattered back) and the rank computes with its
+heads' q, k and v columns (or, where the heads do not divide the axis,
+every head for its query rows of the joint sequence) and, in a single
+block, its range of the MLP's hidden units; the double streams' MLPs are
+plain regions on their ``mlp`` pieces.  The modulations, replicated over
+``model``, run whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,9 +40,9 @@ from repro_torch.config.base import MMDiTConfig, RippleConfig
 from repro_torch.core.dispatch import attention_dispatch
 from repro_torch.models.attention import Scale
 from repro_torch.models.common import (Linear, apply_rope_precomputed,
-                                       gelu_tanh, layernorm, linear, param,
-                                       patch_embed, remat_call, rmsnorm,
-                                       rope_3d_angles,
+                                       gelu_tanh, layernorm, linear,
+                                       mlp_bias_partial, param, patch_embed,
+                                       remat_call, rmsnorm, rope_3d_angles,
                                        sincos_timestep_embed, unpatchify)
 
 _RIPPLE_OFF = RippleConfig()
@@ -106,12 +120,14 @@ def joint_rope(L: int, grid, axes_dim, device):
 
 
 def joint_attention(q, k, v, rope_cos, rope_sin, *, grid, grid_slice,
-                    ripple: RippleConfig, step, total_steps):
+                    ripple: RippleConfig, step, total_steps, rows=None):
     """q/k/v: (B, N, H, hd), q and k already normed; RoPE on q and k, one
     dispatch call on the (B, H, N, hd) views (the fused Δ-check reads q
     and k in place; the ripple kernel takes a contiguous v); returns
-    (B, N, H * hd)."""
-    q = apply_rope_precomputed(q, rope_cos, rope_sin)
+    (B, N, H * hd).  With ``rows`` (r0, r1) q holds only those rows of
+    the sequence (a query-row region), and so does the output."""
+    r0, r1 = rows or (0, q.shape[1])
+    q = apply_rope_precomputed(q, rope_cos[r0:r1], rope_sin[r0:r1])
     k = apply_rope_precomputed(k, rope_cos, rope_sin)
     out = attention_dispatch(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2).contiguous(), grid=grid,
@@ -154,28 +170,113 @@ class MMDiT(nn.Module):
         return (rmsnorm(blk.q_norm.scale, _heads(q, H)),
                 rmsnorm(blk.k_norm.scale, _heads(k, H)), _heads(v, H))
 
-    @staticmethod
-    def _post(blk: Stream, x, attn, mods):
-        dt = x.dtype
+    def _post(self, blk: Stream, x, proj, mods, tp=None):
+        """The stream's residual with its projected attention ``proj``,
+        then its MLP (a region over the ``mlp`` pieces under ``tp``)."""
         g, sh2, sc2, g2 = mods
-        x = x + g[:, None] * torch.matmul(attn, blk.wo.to(dt))
+        x = x + g[:, None] * proj
         h = _modulate(x, sh2, sc2)
-        m = gelu_tanh(linear(blk.mlp_in, blk.mlp_in_b, h))
-        return x + g2[:, None] * linear(blk.mlp_out, blk.mlp_out_b, m)
+        if tp is None:
+            m = gelu_tanh(linear(blk.mlp_in, blk.mlp_in_b, h))
+            return x + g2[:, None] * linear(blk.mlp_out, blk.mlp_out_b, m)
+        ff = int(self.cfg.d_model * self.cfg.mlp_ratio)
+        return x + g2[:, None] * mlp_bias_partial(
+            blk.mlp_in, blk.mlp_in_b, blk.mlp_out, blk.mlp_out_b, h, tp, ff,
+            act=gelu_tanh)
+
+    def _double_tp(self, txt_x, img, ti: Stream, im: Stream, sc, rope,
+                   attn_kw, tp, rows: bool):
+        """A double block under ``tp`` (see the module docstring); the
+        attention's projected output combined over the group once for
+        both streams (summed by heads, joined by rows)."""
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.d_model // cfg.num_heads
+        L, dt = txt_x.shape[1], txt_x.dtype
+        n = L + img.shape[1]
+        h0, h1, r0, r1 = tp.attention_split(cfg.num_heads, n, rows)
+        c0, c1 = h0 * hd, h1 * hd
+        # The joint rows [r0, r1) as text rows and image rows.
+        spans = ((min(r0, L), min(r1, L)), (max(r0, L) - L, max(r1, L) - L))
+        t_sh, t_sc, *t_mods = torch.chunk(ti.mod(sc), 6, dim=-1)
+        i_sh, i_sc, *i_mods = torch.chunk(im.mod(sc), 6, dim=-1)
+        qs, ks, vs = [], [], []
+        for blk, x, (a, b) in ((ti, _modulate(txt_x, t_sh, t_sc), spans[0]),
+                               (im, _modulate(img, i_sh, i_sc), spans[1])):
+            x = tp.enter(x)
+            w = tp.take(blk.wqkv, 1, 3 * d, 0, 3 * d).to(dt)
+            q, k, v = (w[:, o + c0:o + c1] for o in (0, d, 2 * d))
+            qs.append(rmsnorm(tp.copy_to(blk.q_norm.scale),
+                              _heads(torch.matmul(x[:, a:b], q), h1 - h0)))
+            ks.append(rmsnorm(tp.copy_to(blk.k_norm.scale),
+                              _heads(torch.matmul(x, k), h1 - h0)))
+            vs.append(_heads(torch.matmul(x, v), h1 - h0))
+        out = joint_attention(torch.cat(qs, 1), torch.cat(ks, 1),
+                              torch.cat(vs, 1), *rope, rows=(r0, r1),
+                              **attn_kw)
+        t_rows = spans[0][1] - spans[0][0]
+        proj = torch.cat([torch.matmul(part, tp.take(blk.wo, 0, d, c0, c1)
+                                       .to(dt))
+                          for blk, part in ((ti, out[:, :t_rows]),
+                                            (im, out[:, t_rows:]))], 1)
+        proj = tp.join(proj, 1, n) if rows else tp.leave(proj)
+        return (self._post(ti, txt_x, proj[:, :L], t_mods, tp),
+                self._post(im, img, proj[:, L:], i_mods, tp))
+
+    def _single_tp(self, x, blk: Single, sc, rope, attn_kw, tp, rows: bool):
+        """A single block under ``tp`` (see the module docstring): by heads
+        the rank's heads and its range of the MLP's hidden units, the
+        partial outputs summed; by rows its query rows through the whole
+        block, the rows joined."""
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.d_model // cfg.num_heads
+        ff = int(d * cfg.mlp_ratio)
+        dt, n = x.dtype, x.shape[1]
+        h0, h1, r0, r1 = tp.attention_split(cfg.num_heads, n, rows)
+        c0, c1 = h0 * hd, h1 * hd
+        f0, f1 = (0, ff) if rows else tp.span(ff)
+        sh, s_sc, g = torch.chunk(blk.mod(sc), 3, dim=-1)
+        h = tp.enter(_modulate(x, sh, s_sc))
+        w = tp.take(blk.lin1, 1, 3 * d + ff, 0, 3 * d + ff).to(dt)
+        b = tp.take(blk.lin1_b, 0, 3 * d + ff, 0, 3 * d + ff).to(dt)
+
+        def cols(y, o0, o1):
+            return torch.matmul(y, w[:, o0:o1]) + b[o0:o1]
+
+        H = h1 - h0
+        q = rmsnorm(tp.copy_to(blk.q_norm.scale),
+                    _heads(cols(h[:, r0:r1], c0, c1), H))
+        k = rmsnorm(tp.copy_to(blk.k_norm.scale),
+                    _heads(cols(h, d + c0, d + c1), H))
+        v = _heads(cols(h, 2 * d + c0, 2 * d + c1), H)
+        attn = joint_attention(q, k, v, *rope, rows=(r0, r1), **attn_kw)
+        mlp = gelu_tanh(cols(h[:, r0:r1], 3 * d + f0, 3 * d + f1))
+        w2 = tp.take(blk.lin2, 0, d + ff, 0, d + ff).to(dt)
+        out = (torch.matmul(attn, w2[c0:c1])
+               + torch.matmul(mlp, w2[d + f0:d + f1]))
+        out = tp.join(out, 1, n) if rows else tp.leave(out)
+        return x + g[:, None] * (out + blk.lin2_b.to(dt))
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 txt: torch.Tensor, vec: torch.Tensor, *,
                 ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, ctx=None) -> torch.Tensor:
         """latents (B, H_lat, W_lat, C); t (B,) rectified-flow time in [0,
         1]; txt (B, L, txt_dim) text embeddings; vec (B, 768) pooled
         conditioning.  Returns the velocity (B, H_lat, W_lat, C) in
         ``compute_dtype``.  ``remat`` recomputes each double and single
         block's activations in the backward pass (the reference's
-        ``jax.checkpoint`` of both scan bodies)."""
+        ``jax.checkpoint`` of both scan bodies).  ``ctx`` (a
+        ``ShardCtx``) with a ``tp`` computes on this rank's model pieces
+        (see the module docstring)."""
         cfg = self.cfg
+        tp = ctx.tp if ctx is not None else None
+        rows = ctx is not None and ctx.attn_rows
+        if tp is not None and ripple.active():
+            raise NotImplementedError(
+                "attention under a model axis runs with ripple off (the "
+                "train steps); serving there is ROADMAP §1 item 5")
         dt = compute_dtype
         B, Hl, Wl, C = latents.shape
         p = cfg.patch
@@ -195,6 +296,9 @@ class MMDiT(nn.Module):
         rope = joint_rope(L, grid, cfg.axes_dim, latents.device)
 
         def double_body(txt_x, img, ti, im):
+            if tp is not None:
+                return self._double_tp(txt_x, img, ti, im, sc, rope, attn_kw,
+                                       tp, rows)
             t_sh, t_sc, *t_mods = torch.chunk(ti.mod(sc), 6, dim=-1)
             i_sh, i_sc, *i_mods = torch.chunk(im.mod(sc), 6, dim=-1)
             tq, tk, tv = self._qkv(ti, _modulate(txt_x, t_sh, t_sc))
@@ -203,8 +307,10 @@ class MMDiT(nn.Module):
                                   torch.cat([tk, ik], dim=1),
                                   torch.cat([tv, iv], dim=1), *rope,
                                   **attn_kw)
-            return (self._post(ti, txt_x, out[:, :L], t_mods),
-                    self._post(im, img, out[:, L:], i_mods))
+            return (self._post(ti, txt_x, torch.matmul(out[:, :L],
+                                                       ti.wo.to(dt)), t_mods),
+                    self._post(im, img, torch.matmul(out[:, L:],
+                                                     im.wo.to(dt)), i_mods))
 
         for ti, im in zip(self.double_blocks.txt, self.double_blocks.img):
             txt_x, img = remat_call(remat, double_body, txt_x, img, ti, im)
@@ -214,6 +320,8 @@ class MMDiT(nn.Module):
         H = cfg.num_heads
 
         def single_body(x, blk):
+            if tp is not None:
+                return self._single_tp(x, blk, sc, rope, attn_kw, tp, rows)
             sh, s_sc, g = torch.chunk(blk.mod(sc), 3, dim=-1)
             fused = linear(blk.lin1, blk.lin1_b, _modulate(x, sh, s_sc))
             q, k, v = torch.split(fused[..., :3 * d], d, dim=-1)
@@ -237,10 +345,10 @@ def mmdit_apply(model: MMDiT, latents: torch.Tensor, t: torch.Tensor,
                 ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
                 total_steps: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, ctx=None) -> torch.Tensor:
     """Functional form mirroring the JAX ``mmdit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, txt, vec, ripple=ripple, step=step,
                  total_steps=total_steps, compute_dtype=compute_dtype,
-                 remat=remat)
+                 remat=remat, ctx=ctx)

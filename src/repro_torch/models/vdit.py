@@ -6,6 +6,12 @@ into 16/56/56), text tokens joined to the sequence ahead of the grid for
 joint self-attention, adaLN conditioning on the timestep.  TimeRipple
 runs in full 3-D mode: Δ-checks along all three axes under the Eq. 4
 schedule, text tokens kept out of snapping by ``grid_slice``.
+
+Under a rank mesh's ``model`` axis (``ctx.tp``, training with ripple
+off) each block's joint attention (with its qk-norm, over the text and
+video tokens) and gated MLP, and the timestep MLP, are tensor-parallel
+regions (``distributed.tensor_parallel``); the inline adaLN, replicated
+over ``model``, runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from torch import nn
 from repro_torch.config.base import RippleConfig, VDiTConfig
 from repro_torch.models.attention import Attention, mha_attention
 from repro_torch.models.common import (GatedMLP, Linear, layernorm,
+                                       mlp_bias_partial, mlp_partial,
                                        remat_call, rope_3d_angles,
                                        sincos_timestep_embed)
 
@@ -89,7 +96,8 @@ class VDiT(nn.Module):
                 txt: torch.Tensor, *, ripple: RippleConfig = _RIPPLE_OFF,
                 step: Optional[int] = None, total_steps: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                decision_state: Optional[List] = None, remat: bool = False):
+                decision_state: Optional[List] = None, remat: bool = False,
+                ctx=None):
         """latents (B, T, H, W, C); t (B,) diffusion time; txt (B, L, txt_dim)
         precomputed text embeddings.  Returns (B, T, H, W, C) in
         ``compute_dtype``.  ``remat`` recomputes each block's activations
@@ -103,8 +111,14 @@ class VDiT(nn.Module):
         (``launch.workloads.vdit_decision_state`` builds it).  Given one,
         the forward returns ``(out, decision_state)``, the list updated in
         place layer by layer: a layer's old plan is freed as its new one
-        lands, so a refresh step holds one plan a layer, not two."""
+        lands, so a refresh step holds one plan a layer, not two.
+
+        ``ctx`` (a ``ShardCtx``) with a ``tp`` computes on this rank's
+        model pieces (see the module docstring)."""
         cfg = self.cfg
+        tp = ctx.tp if ctx is not None else None
+        rows = ctx is not None and ctx.attn_rows
+        d_ff = int(cfg.d_model * cfg.mlp_ratio)
         dt = compute_dtype
         B, T, H, W, C = latents.shape
         tg, hg, wg = T // cfg.t_patch, H // cfg.patch, W // cfg.patch
@@ -116,7 +130,12 @@ class VDiT(nn.Module):
         img = self.patch(patchify_3d(latents.to(dt), cfg.t_patch, cfg.patch))
         x = torch.cat([self.txt_proj(txt.to(dt)), img], dim=1)
         temb = sincos_timestep_embed(t, 256).to(dt)
-        c = F.silu(self.t_mlp2(F.silu(self.t_mlp1(temb))))
+        if tp is None:
+            c = F.silu(self.t_mlp2(F.silu(self.t_mlp1(temb))))
+        else:
+            c = F.silu(mlp_bias_partial(self.t_mlp1.w, self.t_mlp1.b,
+                                        self.t_mlp2.w, self.t_mlp2.b, temb, tp,
+                                        cfg.d_model))
 
         hd = cfg.d_model // cfg.num_heads
         cos_g, sin_g = rope_3d_angles(grid, cfg.axes_dim, device=dev)
@@ -136,12 +155,17 @@ class VDiT(nn.Module):
                 ripple=ripple, step=step, total_steps=total_steps,
                 rope_cos=rope_cos, rope_sin=rope_sin,
                 grid_slice=(L_txt, n_img), cached_decision=cached,
-                return_decision=threads)
+                return_decision=threads, tp=tp, attn_rows=rows)
             if threads:
                 attn, cached = attn
             x = x + g1[:, None] * attn
             h = layernorm(x) * (1 + sc2[:, None]) + sh2[:, None]
-            x = x + g2[:, None] * blk.mlp(h)
+            if tp is None:
+                x = x + g2[:, None] * blk.mlp(h)
+            else:
+                m = blk.mlp
+                x = x + g2[:, None] * tp.leave(mlp_partial(
+                    m.wi_gate, m.wi_up, m.wo, tp.enter(h), tp, d_ff))
             return (x, cached) if threads else x
 
         for i, blk in enumerate(self.blocks):
@@ -162,10 +186,11 @@ def vdit_apply(model: VDiT, latents: torch.Tensor, t: torch.Tensor,
                ripple: RippleConfig = _RIPPLE_OFF, step: Optional[int] = None,
                total_steps: Optional[int] = None,
                compute_dtype: torch.dtype = torch.bfloat16,
-               decision_state: Optional[List] = None, remat: bool = False):
+               decision_state: Optional[List] = None, remat: bool = False,
+               ctx=None):
     """Functional form mirroring the JAX ``vdit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(latents, t, txt, ripple=ripple, step=step,
                  total_steps=total_steps, compute_dtype=compute_dtype,
-                 decision_state=decision_state, remat=remat)
+                 decision_state=decision_state, remat=remat, ctx=ctx)

@@ -17,7 +17,8 @@ from torch import nn
 
 from repro_torch.config.base import RippleConfig, ViTConfig
 from repro_torch.models.attention import Attention, mha_attention
-from repro_torch.models.common import (MLP, Linear, Norm, layernorm, param,
+from repro_torch.models.common import (MLP, Linear, Norm, gelu_tanh,
+                                       layernorm, mlp_bias_partial, param,
                                        patch_embed, remat_call,
                                        sincos_pos_embed_2d)
 
@@ -53,12 +54,15 @@ class ViT(nn.Module):
     def forward(self, images: torch.Tensor, *,
                 ripple: RippleConfig = _RIPPLE_OFF,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, ctx=None) -> torch.Tensor:
         """images (B, H, W, C) -> logits (B, num_classes) in
         ``compute_dtype``.  ``remat`` recomputes each block's activations
         in the backward pass (the reference's ``jax.checkpoint`` of the
-        scan body)."""
+        scan body).  ``ctx`` (a ``ShardCtx``) with a ``tp`` computes on
+        this rank's model pieces (see the module docstring)."""
         cfg = self.cfg
+        tp = ctx.tp if ctx is not None else None
+        rows = ctx is not None and ctx.attn_rows
         dt = compute_dtype
         B, H, W, _ = images.shape
         h, w = H // cfg.patch, W // cfg.patch
@@ -73,24 +77,36 @@ class ViT(nn.Module):
             x = x + mha_attention(
                 blk.attn, layernorm(x, scale=blk.ln1.scale, bias=blk.ln1.bias),
                 n_heads=cfg.num_heads, head_dim=hd, grid=(1, h, w),
-                ripple=ripple, step=0, total_steps=2, grid_slice=(1, h * w))
-            return x + blk.mlp(layernorm(x, scale=blk.ln2.scale,
-                                         bias=blk.ln2.bias))
+                ripple=ripple, step=0, total_steps=2, grid_slice=(1, h * w),
+                tp=tp, attn_rows=rows)
+            h_ = layernorm(x, scale=blk.ln2.scale, bias=blk.ln2.bias)
+            if tp is None:
+                return x + blk.mlp(h_)
+            m = blk.mlp
+            return x + mlp_bias_partial(m.wi, m.bi, m.wo, m.bo, h_, tp,
+                                        cfg.d_ff, act=gelu_tanh)
 
         for blk in self.blocks:
             x = remat_call(remat, body, x, blk)
         x = layernorm(x, scale=self.ln_f.scale, bias=self.ln_f.bias)
         feat = x[:, 0] if cfg.pool == "cls" else torch.mean(x[:, 1:], dim=1)
-        return self.head(feat)
+        if tp is None:
+            return self.head(feat)
+        n = cfg.num_classes
+        lo, hi = tp.span(n)
+        feat = tp.enter(feat)
+        logits = (torch.matmul(feat, tp.take(self.head.w, 1, n, lo, hi).to(dt))
+                  + tp.take(self.head.b, 0, n, lo, hi).to(dt))
+        return tp.join(logits, 1, n)
 
 
 def vit_apply(model: ViT, images: torch.Tensor,
               cfg: Optional[ViTConfig] = None, *,
               ripple: RippleConfig = _RIPPLE_OFF,
               compute_dtype: torch.dtype = torch.bfloat16,
-              remat: bool = False) -> torch.Tensor:
+              remat: bool = False, ctx=None) -> torch.Tensor:
     """Functional form mirroring the JAX ``vit_apply``."""
     if cfg is not None and cfg != model.cfg:
         raise ValueError("cfg does not match the model's config")
     return model(images, ripple=ripple, compute_dtype=compute_dtype,
-                 remat=remat)
+                 remat=remat, ctx=ctx)

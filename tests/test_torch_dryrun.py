@@ -242,6 +242,29 @@ def test_model_axis_bytes_are_their_formula():
     assert cell.row()["mesh"] == "2x2" and cell.report.chips == 4
 
 
+def test_dit_model_axis_all_reduces_are_their_formula():
+    """The smoke dit-xl2's train step at (data 2, model 2), 4 images of 4
+    x 4 tokens, 2 rows a rank: the timestep MLP's region sums its (2, d)
+    bfloat16 output once (its input takes no gradient), each block's
+    attention and MLP regions their (2 x 16, d) outputs in the forward
+    and their inputs' gradients in the backward; whole heads, MLP columns
+    and rows a rank at model 2, so nothing is gathered over the model
+    group; at model 2 the ring moves 2(M-1)/M = 1 of each; the adaLN
+    kernel 2 a block and the final one."""
+    arch = _cut(get_smoke_config("dit-xl2"), "train_256", batch=4,
+                img_res=64)
+    m = arch.model
+    cell = dryrun.run_cell(arch.name, "train_256", arch=arch, ranks=4,
+                           model_axis=2, verbose=False)
+    rows, tokens = 2, 16
+    want = (rows * m.d_model + m.num_layers * 4 * rows * tokens
+            * m.d_model) * 2
+    got = cell.report.collective_breakdown
+    assert got["model all-reduce"] == want
+    assert "model all-gather" not in got
+    assert cell.kernel_calls == {"adaln": 2 * m.num_layers + 1}
+
+
 def _one_layer_qwen3():
     """qwen3-32b at its published widths, cut to one layer and to one
     train_4k sequence a data rank of the 16 x 16 mesh (one micro-batch):
@@ -280,8 +303,8 @@ def test_qwen3_train_on_the_production_mesh_gives_a_row(tmp_path, capsys):
 @pytest.mark.parametrize("name,shape,why", [
     ("qwen3-32b", "decode_32k", "ROADMAP §1 item 5"),
     ("qwen3-32b", "prefill_32k", "ROADMAP §1 item 5"),
-    ("dit-xl2", "train_256", "ROADMAP §1 item 4"),
-    ("vit-l16", "train_224", "ROADMAP §1 item 4")])
+    ("unet-sd15", "train_256", "ROADMAP §1 item 4b"),
+    ("efficientnet-b7", "cls_224", "ROADMAP §1 item 4b")])
 def test_serving_and_non_lm_train_on_a_model_axis_are_not_runnable(
         name, shape, why):
     arch = get_config(name)
